@@ -1,0 +1,88 @@
+"""From the JAX package's variables to the port's modules.
+
+`from_jax_variables(tree)` takes the flax variable tree of a
+PackedTransformer or DenseTransformer ({'params': ..., 'packing': ...},
+with its arrays mapped to numpy) and returns the port's state dict plus
+its packings.  Module names in the port follow the flax paths, so a
+parameter's key is its flax path joined with dots; flax Dense kernels are
+(in, out) and the port keeps them so (`x @ kernel`).  Packed kernels are
+taken as they are: both packages store (n_active, bk, bn) in the same
+column-major slot order.
+
+Packing leaves are duck-typed through p['fwd'], p['bwd'] and p['shape'],
+so this module needs nothing from the JAX package.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from rigl_tpu_torch.ops.block_sparse_packed import Packing, unpack_dense
+
+
+def _packing_leaf(node):
+  if isinstance(node, Mapping) and set(node.keys()) != {'fwd', 'bwd',
+                                                        'shape'}:
+    return None
+  try:
+    fwd, bwd, shape = node['fwd'], node['bwd'], node['shape']
+  except (KeyError, TypeError, IndexError):
+    return None
+  as_t = lambda lists: tuple(torch.tensor(np.asarray(a, np.int32))
+                             for a in lists)
+  return Packing(as_t(fwd), as_t(bwd), tuple(int(s) for s in shape))
+
+
+def _flatten(node, prefix, out, leaf):
+  for key, value in node.items():
+    path = prefix + (str(key),)
+    converted = leaf(value)
+    if converted is not None:
+      out['.'.join(path)] = converted
+    elif isinstance(value, Mapping):
+      _flatten(value, path, out, leaf)
+    else:
+      raise TypeError(f'unexpected leaf at {"/".join(path)}: {type(value)}')
+  return out
+
+
+def from_jax_variables(tree) -> Tuple[Dict[str, np.ndarray],
+                                      Dict[str, Packing]]:
+  """(state, packings): state maps 'block0.attn.qkv.kernel'-style keys to
+  numpy arrays; packings maps the same packed-kernel keys to Packings."""
+  def array_leaf(value):
+    return None if isinstance(value, Mapping) else np.asarray(value)
+
+  state = _flatten(tree['params'], (), {}, array_leaf)
+  packings = _flatten(tree.get('packing', {}), (), {}, _packing_leaf)
+  return state, packings
+
+
+def load_converted(model: torch.nn.Module, state: Dict[str, np.ndarray],
+                   packings: Dict[str, Packing]) -> torch.nn.Module:
+  """Installs converted packings, then the state (cast to each
+  parameter's dtype and device; every key must match)."""
+  for key, packing in packings.items():
+    model.get_submodule(key.rsplit('.', 1)[0]).set_packing(packing)
+  model.load_state_dict({k: torch.tensor(np.asarray(v))
+                         for k, v in state.items()}, strict=True)
+  return model
+
+
+def dense_twin_state(model) -> Dict[str, torch.Tensor]:
+  """State dict of the DenseTransformer that computes exactly what the
+  PackedTransformer `model` does: each packed kernel unpacked to its
+  dense (in, out) matrix (zeros at inactive blocks), at '<layer>.d.kernel'."""
+  out = {}
+  for key, value in model.state_dict().items():
+    layer = key.rsplit('.', 1)[0]
+    sub = model.get_submodule(layer) if key.endswith('.kernel') else None
+    if sub is not None and hasattr(sub, 'packing'):
+      out[f'{layer}.d.kernel'] = unpack_dense(value, sub.packing, sub.block)
+    else:
+      out[key] = value
+  return out

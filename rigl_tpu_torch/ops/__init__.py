@@ -1,0 +1,40 @@
+"""Ops of the port, and the index of its kernels.
+
+Every Pallas kernel of the JAX package (each function that reaches
+`pl.pallas_call`) and its Hopper counterpart in this package.  Paths on
+the left are under rigl_tpu/ops/pallas/ unless stated.
+
+  #  TPU kernel (file:line, launcher)                      Hopper counterpart
+  1  block_sparse_packed.py:178 _mm_kernel, _mm_call       forward mode:
+                                                           csrc/packed_mm.cu
+                                                           (CUDA C++, sm_90a):
+                                                           packed_mm_fwd_kernel,
+                                                           bound in ops/block_
+                                                           sparse_packed.py
+                                                           packed_matmul_cuda.
+                                                           Transposed (dx) mode:
+                                                           not yet ported
+  2  block_sparse_packed.py:345 _dw_kernel, _dw_call       not yet ported
+  3  block_sparse_packed.py:362 _dw_panel_kernel, _dw_call not yet ported
+  4  block_sparse_conv.py:117 _conv_kernel, _shift_matmul  not yet ported
+  5  block_sparse_conv.py:355 _conv_kernel_v5,             not yet ported
+     _shift_matmul_v5
+  6  block_sparse_conv.py:473 _dw_kernel, _dw_gather       not yet ported
+  7  block_sparse_v4.py:60 _v4_kernel, _v4_matmul          not yet ported
+  8  block_sparse_v6.py:65 _v6_kernel, _v6_call            not yet ported
+  9  block_sparse_v3.py:28 _v3_kernel, _v3_impl            not yet ported
+ 10  block_sparse_v3.py:160 _dw_v2_kernel,                 not yet ported
+     _dw_blocksparse_v2
+ 11  block_sparse_v3.py:261 _dense_kernel,                 not yet ported
+     pallas_dense_matmul
+ 12  block_sparse_v2.py:44 _gather_kernel,                 not yet ported
+     block_sparse_matmul_gather
+ 13  block_sparse.py:40 _fwd_kernel, _matmul_blocksparse   not yet ported
+ 14  block_sparse.py:85 _dw_kernel, _dw_blocksparse        not yet ported
+ 15  models/packed_transformer.py:52 _flash_attention      not yet ported
+     (JAX's shipped pallas.ops.tpu.flash_attention)
+
+Each ported kernel has a plain PyTorch version in the same module, which
+CPU tensors take, and a launch counter that a run reads to show that its
+path went through the kernel.
+"""
