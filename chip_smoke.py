@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of rigl_tpu_torch's serving path on one CUDA card.
+"""Smoke run of rigl_tpu_torch's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,25 +9,48 @@ package.  Phases, each fatal on failure:
   1. device: torch / CUDA versions, the card's name and power limit;
   2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu with nvcc (into the
      git-ignored rigl_tpu_torch/_build/) and prints ptxas' report;
-  3. kernel vs plain: the packed matmul kernel against its plain PyTorch
-     version at the serving model's four layer shapes (s = 0.8, block
-     (512, 512)), at m = 8 (decode) and m = 1024 (prefill) in bf16, plus
-     f32 at one shape; errors, device times of both (torch.profiler), the
-     kernel's call-loop time and the host time to issue one call;
-  4. serving: a 4-layer d_model 2048 / d_ff 8192 / 16-head, vocab 256 bf16
-     PackedTransformer with seeded random occupancy and weights serves a
-     greedy request (batch 8, prompt 128, 128 steps; the kernel launch
-     count must grow by exactly 4 layers x 4 projections x 128 passes)
-     and a left-padded mixed-length sampled
-     request; its logits are held against the plain path (the dense twin
-     holding the unpacked kernels) and against its own full causal
-     forward;
-  5. speed: us/token of the packed model and the dense twin at batch 8
-     and 1, and the device-busy share of a batch-8 request.
+  3. kernels vs plain: each kernel against its plain PyTorch version on
+     the same inputs, with errors, device times of both (CUDA events
+     around calls queued while the device sleeps), the host time to issue
+     one call, the time of the dense torch.matmul
+     that computes the same product on the unpacked matrix, and the bound
+     (the larger of the bytes the product needs over 3.35 TB/s and its
+     FLOPs over the H100's dense peak for the dtype).  Points:
+     a. the forward at the serving model's four layer shapes (s = 0.8,
+        block (512, 512)), m = 8 and 1024 in bf16, plus f32 at one shape;
+     b. forward, dx and packed dw at the training shape K = N = 4096,
+        block (512, 512): s = 0.8 and 0.9 at m = 1024 in bf16 and f32, a
+        ragged m = 1000, and a grid with an empty block-row and an empty
+        block-column;
+  4. autograd on the card: torch.autograd.grad through packed_matmul
+     matches the plain versions and launches dx and dw once each;
+  5. serving, a main path: a 4-layer d_model 2048 / d_ff 8192 / 16-head,
+     vocab 256 bf16 PackedTransformer with seeded random occupancy and
+     weights serves a greedy request (batch 8, prompt 128, 128 steps; the
+     kernel launch count must grow by exactly 4 layers x 4 projections x
+     128 passes) and a left-padded mixed-length sampled request; its
+     logits are held against the plain path (the dense twin holding the
+     unpacked kernels) and against its own full causal forward;
+  6. serving speed: us/token of the packed model and the dense twin at
+     batch 8 and 1, and the device-busy share of a batch-8 request;
+  7. training, a main path: PackedMLPTrainer on the repo's `mlp` model
+     (3 hidden layers of 4096, batch 1024, block (512, 512), s = 0.8, f32,
+     via='kernel') trains 30 steps with mask updates at steps 0, 10 and
+     20 on synthetic MNIST-normalised data; occupancy counts, per-step
+     launches (fwd 3, dx 2, dw 3), falling finite losses, and one step's
+     loss and gradients against the plain path are checked;
+  8. training speed: the packed branch of scripts/bench_blocksparse_mlp.py
+     (bf16 weights, no bias, SGD momentum, loss mean(y^2)): us/step of the
+     dense arm and the packed arm at s = 0.8 and 0.9, each measured twice
+     in mirrored order, their ratio, MFU, each arm's device time and
+     busy share, and a packed step's device time by kernel.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device, or without the
-package beside this script, it exits non-zero and prints no result.
+The line before the last is the JSON record: `kernels` (per kernel: the
+sums over its bf16 points of ms, plain_ms, bound_ms and library_ms, its
+launches on the main paths, and every point), `serving` and `training`.
+The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
+without the package beside this script, it exits non-zero and prints no
+result.
 """
 
 import json
@@ -41,6 +64,11 @@ LAYERS, D_MODEL, D_FF, HEADS, VOCAB = 4, 2048, 8192, 16, 256
 SPARSITY, BLOCK = 0.8, (512, 512)
 BATCH, PROMPT, STEPS = 8, 128, 128
 MAX_LEN = PROMPT + STEPS
+# The repo's `mlp` model (scripts/bench_blocksparse_mlp.py): 3 hidden
+# layers of 4096, batch 1024, block (512, 512), s = 0.8 (0.9 timed too).
+MLP_WIDTH, MLP_DEPTH, MLP_BATCH = 4096, 3, 1024
+MLP_SPARSITIES = (0.8, 0.9)
+TRAIN_STEPS, TIMED_STEPS = 30, 20
 # Kernel vs plain: both sum in f32 and round once, so bf16 outputs differ by
 # at most a few bf16 ulps (2^-8 relative) from the order of the f32 sums;
 # f32 outputs by f32 summation order over K <= 8192 terms.
@@ -48,6 +76,10 @@ TOL = {'bfloat16': 2e-2, 'float32': 1e-4}   # x max(1, max |plain|)
 # Whole-model logits, kernel path vs the plain path, bf16: rounding points
 # differ in every projection of 4 layers; relative to max |logit|.
 LOGIT_RTOL = 5e-2
+# H100 SXM data sheet: HBM rate, dense peak per dtype (bf16 tensor cores;
+# f32 outside them, which is what the f32 kernels use).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 
 
 class SmokeFailure(Exception):
@@ -64,19 +96,26 @@ def log(msg):
 
 
 def device_ms(fn, iters):
-  """Device time of one fn() call: the sum of the kernel times that
-  torch.profiler records over `iters` calls, after a warm-up, / iters."""
+  """Device time of one fn() call, after a warm-up: CUDA events around
+  `iters` back-to-back calls that the host queued while the device slept
+  (torch.cuda._sleep), so the window holds the calls' device work and
+  launch gaps, not the host's time to issue them.  (torch.profiler
+  sessions, used for this at first, stopped recording device time after
+  some tens of sessions on the card.)"""
   import torch
-  from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(iters):
-      fn()
-    torch.cuda.synchronize()
-  total_us = sum(e.self_device_time_total for e in prof.key_averages())
-  check(total_us > 0, 'the profiler recorded no device time')
-  return total_us / 1e3 / iters
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  torch.cuda._sleep(100_000_000)    # ~50 ms: longer than issuing the calls
+  start.record()
+  for _ in range(iters):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  ms = start.elapsed_time(end) / iters
+  check(ms > 0, 'no device time recorded')
+  return ms
 
 
 def time_ms(fn, iters):
@@ -130,8 +169,10 @@ def phase_build():
   log(f'build: {so.relative_to(Path(__file__).resolve().parent)} in '
       f'{time.perf_counter() - t0:.2f} s')
   for line in so.with_suffix('.log').read_text().splitlines():
-    if 'registers' in line or 'spill' in line or 'error' in line:
-      log(f'  ptxas: {line.strip()}')
+    if 'entry function' in line:
+      log(f'  ptxas: {line.split("entry function")[1].strip()[:110]}')
+    elif 'registers' in line or 'spill' in line or 'error' in line:
+      log(f'    {line.strip()}')
 
 
 def layer_shapes():
@@ -139,8 +180,66 @@ def layer_shapes():
           'fc1': (D_MODEL, D_FF), 'fc2': (D_FF, D_MODEL)}
 
 
+def dtype_name(dtype):
+  return str(dtype).split('.')[-1]
+
+
+def bound(op, m, packing, block, dtype):
+  """(ms, 'bytes' | 'operations'): the least time of one call on an H100,
+  the larger of the bytes it must move (the activation columns of
+  non-empty block-rows / -columns and the active weights read once, the
+  output written once) over HBM_BYTES_PER_S and its FLOPs on the active
+  blocks over PEAK_FLOPS."""
+  import torch
+  bk, bn = block
+  nk, nn_ = packing.shape
+  e = torch.empty((), dtype=dtype).element_size()
+  occ = torch.zeros(nk, nn_, dtype=torch.bool)
+  cols, rows = (t[:packing.n_active].long() for t in packing.fwd[:2])
+  occ[rows, cols] = True
+  k_used = int(occ.any(1).sum()) * bk
+  n_used = int(occ.any(0).sum()) * bn
+  w_bytes = packing.n_active * bk * bn * e
+  moved = {'fwd': m * k_used * e + w_bytes + m * nn_ * bn * e,
+           'dx': m * n_used * e + w_bytes + m * nk * bk * e,
+           'dw': m * k_used * e + m * n_used * e + w_bytes}[op]
+  flops = 2.0 * m * packing.n_active * bk * bn
+  t_bytes = moved / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
+  return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def kernel_point(torch, label, counter, run, plain, library, bound_):
+  """Launches `run` once (its counter must move by one), holds its output
+  against `plain` on the same inputs, then times kernel, plain version and
+  the dense `library` call.  Returns (record, kernel output)."""
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  before = getattr(bsp, counter)
+  got = run()
+  torch.cuda.synchronize()
+  check(getattr(bsp, counter) == before + 1, f'{label}: not launched')
+  want = plain()
+  check(bool(torch.isfinite(got).all()), f'{label}: non-finite output')
+  check(got.shape == want.shape and got.dtype == want.dtype,
+        f'{label}: {tuple(got.shape)} {got.dtype} vs plain '
+        f'{tuple(want.shape)} {want.dtype}')
+  err = float((got.float() - want.float()).abs().max())
+  scale = max(1.0, float(want.float().abs().max()))
+  tol = TOL[dtype_name(got.dtype)] * scale
+  rec = dict(max_abs_err=err, max_rel_err=err / scale, tol=tol,
+             ms=device_ms(run, 20), plain_ms=device_ms(plain, 10),
+             library_ms=device_ms(library, 20), host_ms=host_ms(run, 20),
+             bound_ms=bound_[0], bound_by=bound_[1])
+  log(f'{label}: max|err| {err:.3e} (rel {err / scale:.3e}, tol {tol:.3e})'
+      f'  device ms: kernel {rec["ms"]:.4f}, plain {rec["plain_ms"]:.4f}, '
+      f'torch.matmul {rec["library_ms"]:.4f}, bound {bound_[0]:.4f} '
+      f'({bound_[1]})  host {rec["host_ms"]:.4f}')
+  check(err <= tol, f'{label}: error {err} > {tol}')
+  return rec, got
+
+
 def phase_kernel(torch, device):
-  """Kernel vs plain at the slice's shapes; returns per-point records."""
+  """The forward kernel vs plain at the serving model's shapes."""
   from rigl_tpu_torch.layers.packed_dense import random_occupancy
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
   from rigl_tpu_torch.sparsity.distributions import get_n_zeros
@@ -157,37 +256,123 @@ def phase_kernel(torch, device):
     x = torch.randn(m, kdim, generator=gen).to(device, dtype)
     w = (torch.randn(n_act, bk, bn, generator=gen) / kdim ** 0.5).to(
         device, dtype)
-    before = bsp.packed_mm_launches
-    got = bsp.packed_matmul(x, w, packing, BLOCK)
-    torch.cuda.synchronize()
-    check(bsp.packed_mm_launches == before + 1,
-          f'{name} m={m}: the kernel was not launched')
-    want = bsp.packed_matmul_reference(x, w, packing, BLOCK)
-    check(bool(torch.isfinite(got).all()), f'{name} m={m}: non-finite')
-    err = float((got.float() - want.float()).abs().max())
-    scale = max(1.0, float(want.float().abs().max()))
-    tol = TOL[str(dtype).split('.')[-1]] * scale
+    wd = bsp.unpack_dense(w, packing, BLOCK)
+    rec, got = kernel_point(
+        torch, f'fwd {name:3s} m={m:4d} {dtype_name(dtype):8s}',
+        'packed_mm_launches',
+        lambda: bsp.packed_matmul(x, w, packing, BLOCK),
+        lambda: bsp.packed_matmul_reference(x, w, packing, BLOCK),
+        lambda: torch.matmul(x, wd), bound('fwd', m, packing, BLOCK, dtype))
     empty = (packing.column_index('cpu')[0].diff() == 0).nonzero().flatten()
-    zero_cols = all(not bool(got[:, int(j) * bn:(int(j) + 1) * bn].any())
-                    for j in empty)
-    ms = device_ms(lambda: bsp.packed_matmul(x, w, packing, BLOCK), 20)
-    plain_ms = device_ms(
-        lambda: bsp.packed_matmul_reference(x, w, packing, BLOCK), 20)
-    loop_ms = time_ms(lambda: bsp.packed_matmul(x, w, packing, BLOCK), 20)
-    issue_ms = host_ms(lambda: bsp.packed_matmul(x, w, packing, BLOCK), 20)
-    rec = dict(layer=name, m=m, dtype=str(dtype).split('.')[-1], k=kdim,
-               n=ndim, n_active=n_act, empty_columns=len(empty),
-               max_abs_err=err, max_rel_err=err / scale, tol=tol, ms=ms,
-               plain_ms=plain_ms, loop_ms=loop_ms, host_ms=issue_ms)
-    log(f'kernel {name:3s} m={m:4d} {rec["dtype"]:8s} actives {n_act:2d} '
-        f'empty cols {len(empty):2d}  max|err| {err:.3e} (rel '
-        f'{err / scale:.3e}, tol {tol:.3e})  device: kernel {ms:.4f} ms, '
-        f'plain {plain_ms:.4f} ms  call loop {loop_ms:.4f} ms  host '
-        f'{issue_ms:.4f} ms')
-    check(err <= tol, f'{name} m={m} {dtype}: error {err} > {tol}')
-    check(zero_cols, f'{name} m={m}: an empty column is not zero')
+    check(all(not bool(got[:, int(j) * bn:(int(j) + 1) * bn].any())
+              for j in empty), f'{name} m={m}: an empty column is not zero')
+    rec.update(path='serving', layer=name, m=m, dtype=dtype_name(dtype),
+               k=kdim, n=ndim, n_active=n_act, empty_columns=len(empty))
     records.append(rec)
   return records
+
+
+def _mlp_occupancy(torch, gen, sparsity, empty_row_col):
+  """(8, 8) occupancy at `sparsity`; with empty_row_col, block-row 0 and
+  block-column 0 hold no active block."""
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  nb = MLP_WIDTH // BLOCK[0]
+  n_act = nb * nb - get_n_zeros(nb * nb, sparsity)
+  if not empty_row_col:
+    return random_occupancy(gen, nb, nb, n_act), n_act
+  occ = torch.zeros(nb, nb, dtype=torch.int32)
+  occ[1:, 1:] = random_occupancy(gen, nb - 1, nb - 1, n_act)
+  return occ, n_act
+
+
+def phase_train_kernels(torch, device):
+  """Forward, dx and packed dw vs plain at the training shape."""
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  gen = torch.Generator().manual_seed(SEED + 5)
+  bk, bn = BLOCK
+  f32, bf16 = torch.float32, torch.bfloat16
+  points = [(s, MLP_BATCH, dt, False) for s in MLP_SPARSITIES
+            for dt in (bf16, f32)]
+  points += [(SPARSITY, 1000, bf16, False), (SPARSITY, MLP_BATCH, bf16, True)]
+  records = {'fwd': [], 'dx': [], 'dw': []}
+  for sparsity, m, dtype, empty in points:
+    occ, n_act = _mlp_occupancy(torch, gen, sparsity, empty)
+    packing = bsp.make_packing(occ, n_act)
+    x = torch.randn(m, MLP_WIDTH, generator=gen).to(device, dtype)
+    gy = torch.randn(m, MLP_WIDTH, generator=gen).to(device, dtype)
+    w = (torch.randn(n_act, bk, bn, generator=gen) / MLP_WIDTH ** 0.5).to(
+        device, dtype)
+    wd = bsp.unpack_dense(w, packing, BLOCK)
+    tag = (f's={sparsity} m={m:4d} {dtype_name(dtype):8s}'
+           + (' empty row+col' if empty else ''))
+    ops = {
+        'fwd': ('packed_mm_launches',
+                lambda: bsp.packed_matmul(x, w, packing, BLOCK),
+                lambda: bsp.packed_matmul_reference(x, w, packing, BLOCK),
+                lambda: torch.matmul(x, wd)),
+        'dx': ('packed_mm_dx_launches',
+               lambda: bsp.packed_matmul_dx_cuda(gy, w, packing, BLOCK),
+               lambda: bsp.packed_matmul_dx_reference(gy, w, packing, BLOCK),
+               lambda: torch.matmul(gy, wd.T)),
+        'dw': ('packed_dw_launches',
+               lambda: bsp.packed_dw_cuda(x, gy, w, packing, BLOCK),
+               lambda: bsp.packed_dw_reference(x, gy, packing, BLOCK,
+                                               w.dtype),
+               lambda: torch.matmul(x.T, gy)),
+    }
+    for op, (counter, run, plain, library) in ops.items():
+      rec, got = kernel_point(torch, f'{op:3s} {tag}', counter, run, plain,
+                              library, bound(op, m, packing, BLOCK, dtype))
+      if op == 'fwd':
+        empty_cols = (occ.sum(0) == 0).nonzero().flatten().tolist()
+        check(all(not bool(got[:, j * bn:(j + 1) * bn].any())
+                  for j in empty_cols), f'fwd {tag}: empty column not zero')
+      if op == 'dx':
+        empty_rows = (occ.sum(1) == 0).nonzero().flatten().tolist()
+        check(all(not bool(got[:, k * bk:(k + 1) * bk].any())
+                  for k in empty_rows), f'dx {tag}: empty row not zero')
+      rec.update(path='training', sparsity=sparsity, m=m,
+                 dtype=dtype_name(dtype), k=MLP_WIDTH, n=MLP_WIDTH,
+                 n_active=n_act, empty_row_and_column=empty)
+      records[op].append(rec)
+  return records
+
+
+def phase_autograd(torch, device):
+  """torch.autograd.grad through packed_matmul on CUDA tensors (the
+  trainer's f32 shape) vs the plain functions on the same tensors."""
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  gen = torch.Generator().manual_seed(SEED + 6)
+  occ, n_act = _mlp_occupancy(torch, gen, SPARSITY, False)
+  packing = bsp.make_packing(occ, n_act)
+  x = torch.randn(MLP_BATCH, MLP_WIDTH, generator=gen).to(device)
+  w = (torch.randn(n_act, *BLOCK, generator=gen) / MLP_WIDTH ** 0.5).to(
+      device)
+  g = torch.randn(MLP_BATCH, MLP_WIDTH, generator=gen).to(device)
+  x.requires_grad_()
+  w.requires_grad_()
+  before = (bsp.packed_mm_dx_launches, bsp.packed_dw_launches)
+  dx, dw = torch.autograd.grad(bsp.packed_matmul(x, w, packing, BLOCK),
+                               (x, w), g)
+  torch.cuda.synchronize()
+  moved = (bsp.packed_mm_dx_launches - before[0],
+           bsp.packed_dw_launches - before[1])
+  check(moved == (1, 1), f'autograd: dx/dw launches moved by {moved}')
+  errs = {}
+  for name, got, want in (
+      ('dx', dx, bsp.packed_matmul_dx_reference(g, w.detach(), packing,
+                                                BLOCK)),
+      ('dw', dw, bsp.packed_dw_reference(x.detach(), g, packing, BLOCK,
+                                         torch.float32))):
+    scale = max(1.0, float(want.abs().max()))
+    errs[name] = float((got - want).abs().max()) / scale
+    check(errs[name] <= TOL['float32'], f'autograd {name}: rel error '
+          f'{errs[name]} > {TOL["float32"]}')
+  log(f'autograd on the card (f32, m={MLP_BATCH}, K = N = {MLP_WIDTH}, '
+      f's={SPARSITY}): dx rel err {errs["dx"]:.3e}, dw rel err '
+      f'{errs["dw"]:.3e}; dx/dw launches +1 each')
+  return errs
 
 
 def build_models(torch, device):
@@ -307,6 +492,264 @@ def phase_speed(torch, device, packed, dense):
   return rows
 
 
+def _launch_counts():
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  return (bsp.packed_mm_launches, bsp.packed_mm_dx_launches,
+          bsp.packed_dw_launches)
+
+
+def _zero_launch_counts():
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  bsp.packed_mm_launches = bsp.packed_mm_dx_launches = 0
+  bsp.packed_dw_launches = 0
+
+
+def phase_train(torch, device):
+  """The training main path: PackedMLPTrainer at the mlp model's full
+  width, f32, via='kernel'.  Returns (launches (fwd, dx, dw), record)."""
+  import numpy as np
+  from rigl_tpu_torch.data.datasets import normalize, synthetic_arrays
+  from rigl_tpu_torch.train.packed_loop import (PackedMLPConfig,
+                                                PackedMLPTrainer)
+  from rigl_tpu_torch.transforms.packed_training import occupancy_grid
+  tx, ty, vx, vy = synthetic_arrays(10, (MLP_WIDTH,), n_train=8192,
+                                    n_test=1024, seed=SEED)
+  xtr, xte = normalize('mnist', tx), normalize('mnist', vx)
+  cfg = PackedMLPConfig(
+      in_features=MLP_WIDTH, widths=(MLP_WIDTH,) * MLP_DEPTH, num_classes=10,
+      sparsity=SPARSITY, block=BLOCK, via='kernel', batch_size=MLP_BATCH,
+      train_steps=TRAIN_STEPS, maskupdate_begin_step=0,
+      maskupdate_end_step=20, maskupdate_frequency=10, drop_fraction=0.3,
+      drop_fraction_anneal='cosine', seed=SEED)
+  trainer = PackedMLPTrainer(cfg, device=device)
+  trainer.init_state()
+
+  updates, steps = [], []
+  mask_update = trainer.mask_update
+
+  def recorded_update(x, y):
+    before = {n: occupancy_grid(pk).numpy()
+              for n, pk in trainer.packings.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    occ = mask_update(x, y)
+    torch.cuda.synchronize()
+    grown = sum(int(((occ[n] == 1) & (before[n] == 0)).sum()) for n in occ)
+    counts = {n: int(o.sum()) for n, o in occ.items()}
+    updates.append(dict(step=trainer.step, grown=grown, counts=counts,
+                        ms=(time.perf_counter() - t0) * 1e3))
+    check(counts == trainer.n_active, f'update at step {trainer.step}: '
+          f'occupancy {counts} != n_active {trainer.n_active}')
+    return occ
+
+  last = [(0, 0, 0)]
+
+  def progress(m):
+    now = _launch_counts()
+    steps.append(dict(step=m['step'], loss=m['loss'], t=time.perf_counter(),
+                      launches=tuple(a - b for a, b in zip(now, last[0]))))
+    last[0] = now
+
+  trainer.mask_update = recorded_update
+  _zero_launch_counts()
+  t0 = time.perf_counter()
+  result = trainer.train((xtr, ty), eval_xy=(xte, vy), progress_fn=progress,
+                         log_every=1)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _launch_counts()
+  del trainer.mask_update
+
+  losses = [st['loss'] for st in steps]
+  log(f'training: {result["train_steps"]} steps, {result["mask_updates"]} '
+      f'mask updates at steps {[u["step"] for u in updates]} in {wall:.2f} s;'
+      f' launches fwd/dx/dw {launches}; loss {losses[0]:.4f} -> '
+      f'{losses[-1]:.4f}; eval top-1 {result["eval_top_1"]:.4f}')
+  check(result['train_steps'] == TRAIN_STEPS, 'train steps')
+  check([u['step'] for u in updates] == [0, 10, 20],
+        f'mask updates at {[u["step"] for u in updates]}, not [0, 10, 20]')
+  check(sum(u['grown'] for u in updates) > 0, 'no block was grown')
+  bad = [st for st in steps if st['launches'] != (MLP_DEPTH, MLP_DEPTH - 1,
+                                                  MLP_DEPTH)]
+  check(not bad, f'steps whose launches are not fwd 3, dx 2, dw 3: {bad[:3]}')
+  check(all(np.isfinite(losses)), 'non-finite loss')
+  check(losses[-1] < losses[0], f'loss did not fall: {losses}')
+  check(all(n > 0 for n in launches), f'a kernel was not launched: {launches}')
+  after_update = {u['step'] + 1 for u in updates}
+  gaps = [b['t'] - a['t'] for a, b in zip(steps, steps[1:])
+          if b['step'] not in after_update]
+  step_ms = float(np.median(gaps)) * 1e3
+  update_ms = [u['ms'] for u in updates]
+  log(f'  step time (median of {len(gaps)}, host clock, synchronised by the '
+      f'loss read) {step_ms:.3f} ms; update steps {update_ms} ms; blocks '
+      f'grown {[u["grown"] for u in updates]}')
+
+  # One step's loss and gradients: kernel path vs the plain path (the
+  # dense view), from the same state, on the card.
+  rs = np.random.RandomState(SEED + 7)
+  idx = rs.randint(0, len(xtr), size=MLP_BATCH)
+  x = torch.as_tensor(xtr[idx]).to(device)
+  y = torch.as_tensor(ty[idx]).to(device)
+  params = list(trainer.params.values())
+  out = {}
+  for via in ('kernel', 'dense_view'):
+    trainer.via = via
+    loss = trainer._loss(trainer.params, x, y)
+    out[via] = (float(loss.detach()), torch.autograd.grad(loss, params))
+  trainer.via = 'kernel'
+  (lk, gk), (lp, gp) = out['kernel'], out['dense_view']
+  # Each error is relative to its own scale (no floor at 1: the weight
+  # gradients are far below 1, where a floor would make the limit absolute).
+  tiny = torch.finfo(torch.float32).tiny
+  loss_err = abs(lk - lp) / max(abs(lp), tiny)
+  grad_errs = {}
+  for name, a, b in zip(trainer.params, gk, gp):
+    grad_errs[name] = (float((a - b).abs().max())
+                       / max(float(b.abs().max()), tiny))
+  log(f'  one step, kernel vs plain path: loss {lk:.6f} vs {lp:.6f} (rel '
+      f'{loss_err:.3e}); max rel grad err '
+      f'{max(grad_errs.values()):.3e} (tol {TOL["float32"]})')
+  check(loss_err <= TOL['float32'], f'step loss: rel error {loss_err}')
+  for name, err in grad_errs.items():
+    check(err <= TOL['float32'], f'step grad {name}: rel error {err}')
+  record = dict(config=dict(dataclass_fields(cfg)), wall_s=wall,
+                step_ms=step_ms, update_step_ms=update_ms,
+                blocks_grown=[u['grown'] for u in updates],
+                losses=losses, eval_top_1=result['eval_top_1'],
+                launches=dict(zip(('fwd', 'dx', 'dw'), launches)),
+                step_vs_plain=dict(loss_rel_err=loss_err,
+                                   max_grad_rel_err=max(grad_errs.values())))
+  return launches, record
+
+
+def dataclass_fields(obj):
+  import dataclasses
+  return {k: list(v) if isinstance(v, tuple) else v
+          for k, v in dataclasses.asdict(obj).items()}
+
+
+def phase_train_speed(torch, device):
+  """The packed branch of scripts/bench_blocksparse_mlp.py: us/step of the
+  dense arm and the packed arm (bf16 weights, no bias, SGD(1e-4, momentum
+  0.9), loss mean(y^2)), CUDA events over TIMED_STEPS steps after warm-up,
+  each arm twice in mirrored order; MFU and the device-busy share."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  gen = torch.Generator().manual_seed(SEED + 4)
+  bf16 = torch.bfloat16
+  W, B = MLP_WIDTH, MLP_BATCH
+  x = (torch.randn(B, W, generator=gen) * 0.01).to(device, bf16)
+
+  def make_arm(sparsity):
+    if sparsity is None:
+      params = [(torch.randn(W, W, generator=gen) / W ** 0.5).to(device, bf16)
+                for _ in range(MLP_DEPTH)]
+      def layer(h, i):
+        return h @ params[i]
+      flops = (4 + 6 * (MLP_DEPTH - 1)) * B * W * W
+    else:
+      packings, params, flops = [], [], 0
+      for i in range(MLP_DEPTH):
+        occ, n_act = _mlp_occupancy(torch, gen, sparsity, False)
+        packings.append(bsp.make_packing(occ, n_act))
+        params.append((torch.randn(n_act, *BLOCK, generator=gen)
+                       / W ** 0.5).to(device, bf16))
+        flops += (4 if i == 0 else 6) * B * n_act * BLOCK[0] * BLOCK[1]
+      def layer(h, i):
+        return bsp.packed_matmul(h, params[i], packings[i], BLOCK)
+    for p in params:
+      p.requires_grad_()
+    opt = torch.optim.SGD(params, lr=1e-4, momentum=0.9)
+
+    def step():
+      opt.zero_grad(set_to_none=True)
+      h = x
+      for i in range(MLP_DEPTH):
+        h = torch.relu(layer(h, i))
+      loss = (h.float() ** 2).mean()
+      loss.backward()
+      opt.step()
+    for _ in range(3):
+      step()
+    torch.cuda.synchronize()
+    return step, flops
+
+  arms = {'dense': make_arm(None)}
+  for sp in MLP_SPARSITIES:
+    arms[f'packed_s{sp}'] = make_arm(sp)
+  order = list(arms) + list(arms)[::-1]
+  us = {name: [] for name in arms}
+  for name in order:
+    us[name].append(time_ms(arms[name][0], TIMED_STEPS) * 1e3)
+  peak = PEAK_FLOPS['bfloat16']
+  rec = {}
+  for name, (step, flops) in arms.items():
+    mean_us = float(np.mean(us[name]))
+    dev_us = device_ms(step, 10) * 1e3
+    rec[name] = dict(us_per_step=us[name], mfu=flops / (mean_us * 1e-6) / peak,
+                     flops_per_step=flops, device_us_per_step=dev_us,
+                     device_busy_share=dev_us / mean_us)
+    log(f'train speed: {name:12s} us/step {us[name]} (mean {mean_us:.1f}); '
+        f'device time {dev_us:.1f} us/step (busy share '
+        f'{dev_us / mean_us:.3f}); MFU {rec[name]["mfu"]:.4f} of '
+        f'{peak / 1e12:.0f} TFLOP/s bf16 '
+        f'({"dense" if name == "dense" else "active"} FLOPs)')
+  dense_us = float(np.mean(us['dense']))
+  for sp in MLP_SPARSITIES:
+    name = f'packed_s{sp}'
+    rec[name]['dense_over_packed'] = dense_us / float(np.mean(us[name]))
+    log(f'  dense/packed at s={sp}: {rec[name]["dense_over_packed"]:.3f}')
+  # Where a packed step's time goes (torch.profiler, which slows the host
+  # side): device time by kernel, host time by operator.
+  step, _ = arms[f'packed_s{SPARSITY}']
+  n = 5
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(n):
+      step()
+    torch.cuda.synchronize()
+  events = prof.key_averages()
+  by_device = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+  by_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
+  rec['packed_device_ms_by_kernel'] = {
+      e.key[:90]: [e.self_device_time_total / 1e3 / n, e.count / n]
+      for e in by_device}
+  rec['packed_host_ms_by_op'] = {
+      e.key[:90]: [e.self_cpu_time_total / 1e3 / n, e.count / n]
+      for e in by_host}
+  log(f'  packed s={SPARSITY}, profiled: device ms per step by kernel, '
+      'launches per step:')
+  for e in by_device:
+    log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
+        f'{e.count / n:5.1f} x {e.key[:90]}')
+  log('  host (self CPU) ms per step by operator, calls per step:')
+  for e in by_host:
+    log(f'    {e.self_cpu_time_total / 1e3 / n:8.3f} ms '
+        f'{e.count / n:5.1f} x {e.key[:90]}')
+  return rec
+
+
+def _kernel_entry(name, source, replaces, launches, by_path, points):
+  """One kernel's JSON record: sums over its bf16 points; bound_by is the
+  kind of bound that holds the larger share of the summed bound."""
+  bf16 = [p for p in points if p['dtype'] == 'bfloat16']
+  by = {}
+  for p in bf16:
+    by[p['bound_by']] = by.get(p['bound_by'], 0.0) + p['bound_ms']
+  return {'name': name, 'route': 'cuda', 'source': source,
+          'replaces': replaces, 'launches': launches,
+          'launches_by_path': by_path,
+          'max_abs_err': max(p['max_abs_err'] for p in points),
+          'ms': sum(p['ms'] for p in bf16),
+          'plain_ms': sum(p['plain_ms'] for p in bf16),
+          'bound_ms': sum(p['bound_ms'] for p in bf16),
+          'bound_by': max(by, key=by.get),
+          'library_ms': sum(p['library_ms'] for p in bf16),
+          'points': points}
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -322,12 +765,18 @@ def main():
   torch.backends.cudnn.allow_tf32 = False
   device = torch.device('cuda', 0)
   try:
-    phase_device(torch)
+    card = phase_device(torch)
     phase_build()
-    points = phase_kernel(torch, device)
+    serve_points = phase_kernel(torch, device)
+    train_points = phase_train_kernels(torch, device)
+    autograd_errs = phase_autograd(torch, device)
     packed, dense = build_models(torch, device)
-    launches, logit_errs = phase_serve(torch, device, packed, dense)
+    serve_launches, logit_errs = phase_serve(torch, device, packed, dense)
     speed = phase_speed(torch, device, packed, dense)
+    del packed, dense
+    torch.cuda.empty_cache()
+    train_launches, training = phase_train(torch, device)
+    training['speed'] = phase_train_speed(torch, device)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -337,17 +786,22 @@ def main():
     print(f'chip_smoke: FAIL: JAX modules loaded: {check_names}',
           file=sys.stderr)
     return 1
-  bf16 = [p for p in points if p['dtype'] == 'bfloat16']
-  kernels = [{
-      'name': 'packed_mm_fwd_kernel', 'route': 'cuda',
-      'source': 'rigl_tpu_torch/csrc/packed_mm.cu',
-      'replaces': 'rigl_tpu/ops/pallas/block_sparse_packed.py:178',
-      'launches': launches,
-      'max_abs_err': max(p['max_abs_err'] for p in points),
-      'ms': sum(p['ms'] for p in bf16),
-      'plain_ms': sum(p['plain_ms'] for p in bf16),
-      'points': points}]
-  record = {'kernels': kernels, 'serving': dict(speed, **logit_errs)}
+  src = 'rigl_tpu_torch/csrc/packed_mm.cu'
+  tpu = 'rigl_tpu/ops/pallas/block_sparse_packed.py'
+  fwd_by_path = {'serving': serve_launches, 'training': train_launches[0]}
+  kernels = [
+      _kernel_entry('packed_mm_fwd_kernel', src, f'{tpu}:178',
+                    sum(fwd_by_path.values()), fwd_by_path,
+                    serve_points + train_points['fwd']),
+      _kernel_entry('packed_mm_dx_kernel', src, f'{tpu}:178',
+                    train_launches[1], {'training': train_launches[1]},
+                    train_points['dx']),
+      _kernel_entry('packed_dw_kernel', src, f'{tpu}:345',
+                    train_launches[2], {'training': train_launches[2]},
+                    train_points['dw'])]
+  training['autograd_rel_err'] = autograd_errs
+  record = {'card': card, 'kernels': kernels,
+            'serving': dict(speed, **logit_errs), 'training': training}
   print(json.dumps(record), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,13 +1,21 @@
 """rigl_tpu_torch: the PyTorch / CUDA port of rigl_tpu for NVIDIA Hopper.
 
 The JAX package `rigl_tpu` stays the reference; this package mirrors its
-layout (sparsity/, ops/, layers/, models/, serve/) so each module's
-counterpart is found at the same relative path.  It imports torch and
-numpy only, never jax, flax or rigl_tpu.
+layout (sparsity/, ops/, layers/, models/, serve/, transforms/, train/,
+data/, drivers/) so each module's counterpart is found at the same
+relative path.  It imports torch and numpy only, never jax, flax or
+rigl_tpu.  Its entry points put their state on the card unless the caller
+names another device.
 
-Ported so far: the packed-transformer serving path (sparsity counts and
-per-layer maps, the packing index maths, the packed block-sparse matmul
-with its hand-written Hopper kernel, PackedDense, PackedTransformer and
-its dense twin, KV-cache decoding) and a converter from the JAX
-package's variables (convert.py).
+Ported so far:
+  * the packed-transformer serving path: sparsity counts and per-layer
+    maps, the packing index maths, PackedDense, PackedTransformer and its
+    dense twin, KV-cache decoding;
+  * the packed training path: update schedules and the drop/grow kernel,
+    block pooling, packed_matmul's backward (dx and packed dw), drop/grow
+    on packed storage with optimizer-slot carry, PackedMLPTrainer, the
+    MNIST-shaped data loaders and the packed-MLP driver;
+  * the hand-written Hopper kernels of both (csrc/packed_mm.cu: forward,
+    dx and packed dw), and a converter from the JAX package's variables
+    and trainer state (convert.py).
 """

@@ -11,6 +11,10 @@ column-major slot order.
 
 Packing leaves are duck-typed through p['fwd'], p['bwd'] and p['shape'],
 so this module needs nothing from the JAX package.
+
+`packed_mlp_trainer_from_jax(config, state)` builds the port's
+PackedMLPTrainer from a JAX PackedMLPTrainer's state passed as numpy
+arrays (params, occupancy grids, momentum traces, counters).
 """
 
 from __future__ import annotations
@@ -86,3 +90,28 @@ def dense_twin_state(model) -> Dict[str, torch.Tensor]:
     else:
       out[key] = value
   return out
+
+
+def packed_mlp_trainer_from_jax(config, state, device='cuda'):
+  """The port's PackedMLPTrainer holding a JAX PackedMLPTrainer's state.
+
+  `config`: the port's PackedMLPConfig, or a mapping of the JAX config's
+  fields (dataclasses.asdict of it).  `state`: numpy arrays and ints,
+    'params'           {name: array}   every parameter, packed or dense;
+    'occupancy'        {name: (nk, nn)} each packed layer's grid (rebuilt
+                                        as a packing by make_packing);
+    'momentum'         {name: array}   optax's momentum trace per parameter
+                                        (opt_state[0].trace);
+    'step', 'last_update_step', 'batches_seen'.
+  """
+  from rigl_tpu_torch.train.packed_loop import (PackedMLPConfig,
+                                                PackedMLPTrainer)
+  if isinstance(config, Mapping):
+    config = PackedMLPConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in config.items()})
+  trainer = PackedMLPTrainer(config, device=device)
+  trainer.init_state()
+  trainer.load_arrays(state['step'], state['last_update_step'],
+                      state['batches_seen'], state['occupancy'],
+                      state['params'], state['momentum'])
+  return trainer

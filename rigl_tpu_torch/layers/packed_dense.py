@@ -6,7 +6,9 @@ plain attribute of the layer.  The JAX layer keeps an f32 parameter and
 casts it to `dtype` on every call; this one stores it in `dtype`, which
 gives the same numbers for one cast instead of many.
 
-The kernel masks ragged rows itself, so the JAX layer's `_pad_rows` has no
+Gradients flow through packed_matmul's autograd Function: on the card
+its dx and packed-dw kernels, on the CPU their plain versions.  The
+kernels mask ragged rows themselves, so the JAX layer's `_pad_rows` has no
 counterpart.  Tensor parallelism (`tp_shards > 1`, `_tp_kernel_matmul`)
 is not ported yet and raises NotImplementedError.
 """
@@ -50,14 +52,17 @@ class PackedDense(nn.Module):
   count is n_blocks - floor(sparsity * n_blocks).  `sparsity` is a float
   or a SparsityMap resolved by `path` (this layer's module path, e.g.
   ('block0', 'attn', 'qkv')).  Active weights start at the scale of a
-  dense lecun-normal kernel: normal / sqrt(in_features).
+  dense lecun-normal kernel: normal / sqrt(in_features).  The parameters
+  live on `device`, the card unless the caller names another; without a
+  card, torch raises.
   """
 
   def __init__(self, in_features: int, features: int, *, sparsity=0.8,
                block: Tuple[int, int] = (512, 512), bm: int = 512,
                use_bias: bool = True, dtype: torch.dtype = torch.float32,
                tp_shards: int = 1, path: Sequence[str] = (),
-               generator: Optional[torch.Generator] = None, device=None):
+               generator: Optional[torch.Generator] = None,
+               device='cuda'):
     super().__init__()
     if tp_shards > 1:
       raise NotImplementedError('tensor-parallel packed storage '

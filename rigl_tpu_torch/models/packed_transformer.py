@@ -60,7 +60,7 @@ class LayerNorm(nn.Module):
   epsilon 1e-6, f32 scale and bias, result in `dtype`."""
 
   def __init__(self, d: int, dtype: torch.dtype, eps: float = 1e-6,
-               device=None):
+               device='cuda'):
     super().__init__()
     self.dtype, self.eps = dtype, eps
     self.scale = nn.Parameter(torch.ones(d, device=device))
@@ -78,7 +78,7 @@ class Linear(nn.Module):
   """x @ kernel with an (in, out) kernel and no bias (flax nn.Dense)."""
 
   def __init__(self, in_features: int, features: int, dtype: torch.dtype,
-               generator: Optional[torch.Generator] = None, device=None):
+               generator: Optional[torch.Generator] = None, device='cuda'):
     super().__init__()
     gdev = generator.device if generator else None
     kernel = torch.randn((in_features, features), generator=generator,
@@ -93,7 +93,7 @@ class _Dense2D(nn.Module):
   """The dense twin's projection (flax path '<name>/d/kernel')."""
 
   def __init__(self, in_features, features, dtype, generator=None,
-               device=None):
+               device='cuda'):
     super().__init__()
     self.d = Linear(in_features, features, dtype, generator, device)
 
@@ -105,7 +105,7 @@ class Embed(nn.Module):
   """Token embedding (flax nn.Embed): an (vocab, d) table in `dtype`."""
 
   def __init__(self, vocab: int, d: int, dtype: torch.dtype,
-               generator: Optional[torch.Generator] = None, device=None):
+               generator: Optional[torch.Generator] = None, device='cuda'):
     super().__init__()
     gdev = generator.device if generator else None
     table = torch.randn((vocab, d), generator=generator, device=gdev)
@@ -173,7 +173,7 @@ class _Attention(nn.Module):
 class _Block(nn.Module):
 
   def __init__(self, d_model: int, num_heads: int, d_ff: int,
-               make_proj: Callable, dtype: torch.dtype, device=None):
+               make_proj: Callable, dtype: torch.dtype, device='cuda'):
     super().__init__()
     self.ln1 = LayerNorm(d_model, dtype, device=device)
     self.attn = _Attention(d_model, num_heads, make_proj)
@@ -245,7 +245,7 @@ class PackedTransformer(_Stack):
                bm: int = 512, dtype: torch.dtype = torch.float32,
                tp_shards: int = 1, seq_axis: Optional[str] = None,
                fused_attention: bool = False, kv_chunk: int = 0,
-               generator: Optional[torch.Generator] = None, device=None):
+               generator: Optional[torch.Generator] = None, device='cuda'):
     super().__init__()
     _not_ported(fused_attention, seq_axis, kv_chunk, tp_shards)
     self.sparsity, self.block, self.bm = sparsity, tuple(block), bm
@@ -266,7 +266,7 @@ class DenseTransformer(_Stack):
                d_ff: int = 2048, num_heads: int = 8, vocab_size: int = 0,
                dtype: torch.dtype = torch.float32,
                fused_attention: bool = False, kv_chunk: int = 0,
-               generator: Optional[torch.Generator] = None, device=None):
+               generator: Optional[torch.Generator] = None, device='cuda'):
     super().__init__()
     _not_ported(fused_attention, kv_chunk=kv_chunk)
 

@@ -5,17 +5,22 @@ Every Pallas kernel of the JAX package (each function that reaches
 the left are under rigl_tpu/ops/pallas/ unless stated.
 
   #  TPU kernel (file:line, launcher)                      Hopper counterpart
-  1  block_sparse_packed.py:178 _mm_kernel, _mm_call       forward mode:
-                                                           csrc/packed_mm.cu
-                                                           (CUDA C++, sm_90a):
-                                                           packed_mm_fwd_kernel,
-                                                           bound in ops/block_
-                                                           sparse_packed.py
-                                                           packed_matmul_cuda.
-                                                           Transposed (dx) mode:
-                                                           not yet ported
-  2  block_sparse_packed.py:345 _dw_kernel, _dw_call       not yet ported
-  3  block_sparse_packed.py:362 _dw_panel_kernel, _dw_call not yet ported
+  1  block_sparse_packed.py:178 _mm_kernel, _mm_call       csrc/packed_mm.cu
+                                                           (CUDA C++, sm_90a)
+                                                           packed_mm_kernel:
+                                                           forward mode, bound
+                                                           in ops/block_sparse_
+                                                           packed.py as
+                                                           packed_matmul_cuda;
+                                                           transposed (dx)
+                                                           mode, as
+                                                           packed_matmul_dx_cuda
+  2  block_sparse_packed.py:345 _dw_kernel, _dw_call       csrc/packed_mm.cu
+                                                           packed_dw_kernel, as
+                                                           packed_dw_cuda
+  3  block_sparse_packed.py:362 _dw_panel_kernel, _dw_call the same kernel (the
+                                                           panel is an L2
+                                                           matter on Hopper)
   4  block_sparse_conv.py:117 _conv_kernel, _shift_matmul  not yet ported
   5  block_sparse_conv.py:355 _conv_kernel_v5,             not yet ported
      _shift_matmul_v5

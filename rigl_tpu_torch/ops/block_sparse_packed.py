@@ -1,4 +1,4 @@
-"""Packed block-sparse tensors and their matmul, in PyTorch.
+"""Packed block-sparse tensors, their matmul and its gradients, in PyTorch.
 
 Counterpart of rigl_tpu/ops/pallas/block_sparse_packed.py.  A weight
 matrix lives as its active blocks `(n_active, bk, bn)` plus a static
@@ -7,16 +7,17 @@ n_active + nn entries, ACTIVES FIRST in column-major order, then the nn
 dummies (pack_columns_slots).  The index maths is the JAX package's, so a
 Packing here holds the same lists element by element.
 
-`packed_matmul` is the forward product y = x @ W.  On a CPU tensor it runs
-its plain PyTorch version (`packed_matmul_reference`); on a CUDA tensor it
-launches the hand-written Hopper kernel in csrc/packed_mm.cu (which
-replaces the TPU kernel `_mm_kernel`) or raises.  The kernel reads a
-per-column CSR of the actives (`col_ptr`, `rows`) that is built once
-per Packing and device and cached on the Packing.
-
-Not ported yet: `repack_permutation`, the transposed (dx) mode and the
-packed dw (`_dw_call`), which come with training; a CUDA call that needs a
-gradient raises NotImplementedError.
+`packed_matmul` is y = x @ W as a torch.autograd.Function: its backward
+gives dx = gy @ Wᵀ through the bwd packing and dw PACKED, in w's layout.
+Each of the three products has a plain PyTorch version, which CPU tensors
+take (`packed_matmul_reference`, `packed_matmul_dx_reference`,
+`packed_dw_reference`), and a hand-written Hopper kernel in
+csrc/packed_mm.cu, which CUDA tensors launch or raise: the forward and dx
+modes of `packed_mm_kernel` (replacing the TPU kernel `_mm_kernel`) and
+`packed_dw_kernel` (replacing `_dw_kernel` / `_dw_panel_kernel`).  The
+kernels read CSR indices of the actives (`Packing.column_index`,
+`row_index`, `dw_index`), built once per Packing and device and cached on
+the Packing.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ import torch
 
 from rigl_tpu_torch.ops import _build
 
-# Launches of the forward kernel in this process.  The wrapper adds one
-# per launch; nothing else touches it but callers resetting it.
-packed_mm_launches = 0
+# Launches of each kernel in this process.  Each wrapper adds one per
+# launch of its kernel; nothing else touches them but callers resetting them.
+packed_mm_launches = 0        # packed_mm_kernel, forward mode
+packed_mm_dx_launches = 0     # packed_mm_kernel, transposed (dx) mode
+packed_dw_launches = 0        # packed_dw_kernel
 
 
 # ----------------------------------------------------------- packing ------
@@ -90,6 +93,44 @@ class Packing:
                            torch.cumsum(counts, 0)])
       self._cache[key] = (col_ptr.to(device, torch.int32).contiguous(),
                           rows.to(device, torch.int32).contiguous())
+    return self._cache[key]
+
+  def row_index(self, device) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(row_ptr (nk + 1,), cols (n_active,), slots (n_active,)): the CSR of
+    the bwd lists, int32 on `device`.  Block-row k's actives are entries
+    row_ptr[k] .. row_ptr[k + 1] - 1, block-column cols[e] and fwd packed
+    slot slots[e] each.
+    Raises if the bwd lists are not in the actives-first, row-major order
+    that make_packing gives them, or their slots are not a permutation."""
+    device = torch.device(device)
+    key = ('rows', str(device))
+    if key not in self._cache:
+      nk = self.shape[0]
+      n_act = self.n_active
+      krows, cols, slots, valid = (t[:n_act].to('cpu', torch.int64)
+                                   for t in self.bwd)
+      if not (bool((valid == 1).all())
+              and bool((krows[1:] >= krows[:-1]).all())
+              and torch.equal(torch.sort(slots).values, torch.arange(n_act))):
+        raise ValueError('bwd packing is not in make_packing order '
+                         '(actives first, row-major, slots a permutation)')
+      counts = torch.bincount(krows, minlength=nk)
+      row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64),
+                           torch.cumsum(counts, 0)])
+      self._cache[key] = tuple(t.to(device, torch.int32).contiguous()
+                               for t in (row_ptr, cols, slots))
+    return self._cache[key]
+
+  def dw_index(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows (n_active,), cols (n_active,)): packed slot s holds block
+    (rows[s], cols[s]); int32 on `device`, checked as column_index checks."""
+    device = torch.device(device)
+    key = ('dw', str(device))
+    if key not in self._cache:
+      rows = self.column_index(device)[1]
+      cols = self.fwd[0][:self.n_active].to(device, torch.int32).contiguous()
+      self._cache[key] = (rows, cols)
     return self._cache[key]
 
 
@@ -183,6 +224,24 @@ def unpack_dense(packed: torch.Tensor, packing: Packing,
           .reshape(nk * bk, nn_ * bn))
 
 
+def repack_permutation(old_packing: Packing, new_packing: Packing):
+  """int32 (n_active,) gather indices g with new_data = old_data[g] for
+  surviving blocks; blocks new in the mask get -1 (the caller fills their
+  grow-init values).  On the CPU."""
+  nk, nn_ = old_packing.shape
+  if new_packing.n_active == 0:
+    return torch.zeros(0, dtype=torch.int32)
+  oc, orow, oslot, ov = (t.long() for t in old_packing.to('cpu').fwd)
+  grid = torch.full((nk * nn_,), -1, dtype=torch.int64).scatter_reduce(
+      0, orow * nn_ + oc, torch.where(ov == 1, oslot, -1), 'amax',
+      include_self=True)
+  ncols, nrows, nslots, nv = (t.long() for t in new_packing.to('cpu').fwd)
+  src = torch.where(nv == 1, grid[nrows * nn_ + ncols], -1)
+  perm = torch.full((new_packing.n_active,), -1, dtype=torch.int64)
+  perm = perm.scatter_reduce(0, nslots, src, 'amax', include_self=True)
+  return perm.to(torch.int32)
+
+
 # ------------------------------------------------------------- matmul -----
 def packed_matmul_reference(x: torch.Tensor, w_packed: torch.Tensor,
                             packing: Packing, block: Tuple[int, int]):
@@ -192,77 +251,204 @@ def packed_matmul_reference(x: torch.Tensor, w_packed: torch.Tensor,
   return (x.float() @ w.float()).to(x.dtype)
 
 
-@functools.cache
-def _kernel():
-  fn = _build.load('packed_mm').packed_mm_fwd
-  fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-  fn.restype = ctypes.c_int
-  return fn
+def packed_matmul_dx_reference(gy: torch.Tensor, w_packed: torch.Tensor,
+                               packing: Packing, block: Tuple[int, int]):
+  """Plain version of dx: gy @ unpack_dense(w)ᵀ, summed in f32, cast once
+  to gy.dtype (block-rows with no active block give zero columns)."""
+  w = unpack_dense(w_packed, packing, block)
+  return (gy.float() @ w.float().T).to(gy.dtype)
+
+
+def packed_dw_reference(x: torch.Tensor, gy: torch.Tensor, packing: Packing,
+                        block: Tuple[int, int], out_dtype=None):
+  """Plain version of the packed dw: pack_dense(xᵀ @ gy), summed over m in
+  f32, cast once to `out_dtype` (w's dtype; x's when None)."""
+  dw = pack_dense(x.float().T @ gy.float(), packing, block)
+  return dw.to(out_dtype or x.dtype)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def packed_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
-                       packing: Packing, block: Tuple[int, int]):
-  """Launches csrc/packed_mm.cu on the current stream; checks what the
-  kernel takes and raises on anything else."""
-  global packed_mm_launches
+@functools.cache
+def _kernel(name: str):
+  """The C entry point `name` of csrc/packed_mm.cu: pointers, then ints,
+  then the stream; returns the CUDA error code of the launch."""
+  n_ptrs, n_ints = {'packed_mm_fwd': (5, 6), 'packed_mm_dx': (6, 6),
+                    'packed_dw': (5, 7)}[name]
+  fn = getattr(_build.load('packed_mm'), name)
+  fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                 + [ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  return fn
+
+
+def _check_cuda(op: str, acts, w_packed: torch.Tensor, packing: Packing,
+                block: Tuple[int, int]):
+  """What every kernel takes: activations `acts` ((name, tensor, columns)
+  triples) and w on one CUDA device, float32 or bfloat16 of one dtype, 2-D
+  activations of the given widths, w of (n_active, bk, bn), contiguous,
+  16-byte aligned, and a block of whole 16-byte copies.  Raises otherwise."""
   bk, bn = block
-  nk, nn_ = packing.shape
   n_act = packing.n_active
-  if not (x.is_cuda and w_packed.device == x.device):
-    raise ValueError(f'x ({x.device}) and w ({w_packed.device}) must be on '
-                     'one CUDA device')
-  if x.dtype not in _DTYPE_CODE or w_packed.dtype != x.dtype:
-    raise TypeError(f'packed_mm takes float32 or bfloat16 x and w of one '
-                    f'dtype, got {x.dtype} and {w_packed.dtype}')
-  if x.dim() != 2 or x.shape[1] != nk * bk:
-    raise ValueError(f'x must be (m, {nk * bk}), got {tuple(x.shape)}')
+  x = acts[0][1]
+  for name, a, _ in acts:
+    if not (a.is_cuda and w_packed.device == a.device == x.device):
+      raise ValueError(f'{name} ({a.device}) and w ({w_packed.device}) must '
+                       'be on one CUDA device')
+    if a.dtype not in _DTYPE_CODE or w_packed.dtype != a.dtype:
+      raise TypeError(f'{op} takes float32 or bfloat16 {name} and w of one '
+                      f'dtype, got {a.dtype} and {w_packed.dtype}')
+  for name, a, cols in acts:
+    if a.dim() != 2 or a.shape[1] != cols or a.shape[0] != x.shape[0]:
+      raise ValueError(f'{name} must be (m, {cols}), got {tuple(a.shape)}')
   if tuple(w_packed.shape) != (n_act, bk, bn):
     raise ValueError(f'w must be {(n_act, bk, bn)}, got '
                      f'{tuple(w_packed.shape)}')
-  if not (x.is_contiguous() and w_packed.is_contiguous()):
-    raise ValueError('x and w must be contiguous')
+  if not (all(a.is_contiguous() for _, a, _ in acts)
+          and w_packed.is_contiguous()):
+    raise ValueError(f'{op}: operands must be contiguous')
   vec = 16 // x.element_size()       # elements per 16-byte copy
   if bk % vec or bn % vec:
     raise ValueError(f'block {block} must be a multiple of {vec} for '
                      f'{x.dtype}')
-  if x.data_ptr() % 16 or (n_act and w_packed.data_ptr() % 16):
-    raise ValueError('x and w must start on a 16-byte boundary')
-  if torch.is_grad_enabled() and (x.requires_grad or w_packed.requires_grad):
-    raise NotImplementedError('packed_matmul has no CUDA backward yet; '
-                              'serve under torch.inference_mode()')
+  if (any(a.data_ptr() % 16 for _, a, _ in acts)
+      or (n_act and w_packed.data_ptr() % 16)):
+    raise ValueError(f'{op}: operands must start on a 16-byte boundary')
+
+
+def _launch(name: str, *args):
+  err = _kernel(name)(*args)
+  if err:
+    raise RuntimeError(f'{name} launch failed: CUDA error {err}')
+
+
+def packed_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
+                       packing: Packing, block: Tuple[int, int]):
+  """y = x @ W: launches packed_mm_kernel (forward mode) on the current
+  stream; checks what the kernel takes and raises on anything else."""
+  global packed_mm_launches
+  bk, bn = block
+  nk, nn_ = packing.shape
+  _check_cuda('packed_mm', [('x', x, nk * bk)], w_packed, packing, block)
   m = x.shape[0]
   col_ptr, rows = packing.column_index(x.device)
   y = torch.empty((m, nn_ * bn), dtype=x.dtype, device=x.device)
   if m == 0:
     return y
-  stream = torch.cuda.current_stream(x.device).cuda_stream
-  err = _kernel()(x.data_ptr(), w_packed.data_ptr(), col_ptr.data_ptr(),
-                  rows.data_ptr(), y.data_ptr(), m, nk * bk, nn_, bk, bn,
-                  _DTYPE_CODE[x.dtype], stream)
-  if err:
-    raise RuntimeError(f'packed_mm_fwd launch failed: CUDA error {err}')
+  _launch('packed_mm_fwd', x.data_ptr(), w_packed.data_ptr(),
+          col_ptr.data_ptr(), rows.data_ptr(), y.data_ptr(), m, nk * bk, nn_,
+          bk, bn, _DTYPE_CODE[x.dtype],
+          torch.cuda.current_stream(x.device).cuda_stream)
   packed_mm_launches += 1
   return y
+
+
+def packed_matmul_dx_cuda(gy: torch.Tensor, w_packed: torch.Tensor,
+                          packing: Packing, block: Tuple[int, int]):
+  """dx = gy @ Wᵀ: launches packed_mm_kernel (dx mode) through the bwd
+  packing's CSR; checks and raises as packed_matmul_cuda does."""
+  global packed_mm_dx_launches
+  bk, bn = block
+  nk, nn_ = packing.shape
+  _check_cuda('packed_mm_dx', [('gy', gy, nn_ * bn)], w_packed, packing,
+              block)
+  m = gy.shape[0]
+  row_ptr, cols, slots = packing.row_index(gy.device)
+  dx = torch.empty((m, nk * bk), dtype=gy.dtype, device=gy.device)
+  if m == 0:
+    return dx
+  _launch('packed_mm_dx', gy.data_ptr(), w_packed.data_ptr(),
+          row_ptr.data_ptr(), cols.data_ptr(), slots.data_ptr(), dx.data_ptr(),
+          m, nn_ * bn, nk, bk, bn, _DTYPE_CODE[gy.dtype],
+          torch.cuda.current_stream(gy.device).cuda_stream)
+  packed_mm_dx_launches += 1
+  return dx
+
+
+def packed_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w_packed: torch.Tensor,
+                   packing: Packing, block: Tuple[int, int]):
+  """Packed dw (n_active, bk, bn) in w's layout and dtype: launches
+  packed_dw_kernel; checks and raises as packed_matmul_cuda does (x, gy
+  and w of one dtype)."""
+  global packed_dw_launches
+  bk, bn = block
+  nk, nn_ = packing.shape
+  n_act = packing.n_active
+  _check_cuda('packed_dw', [('x', x, nk * bk), ('gy', gy, nn_ * bn)],
+              w_packed, packing, block)
+  m = x.shape[0]
+  rows, cols = packing.dw_index(x.device)
+  if m == 0 or n_act == 0:
+    return torch.zeros_like(w_packed)
+  dw = torch.empty_like(w_packed)
+  _launch('packed_dw', x.data_ptr(), gy.data_ptr(), rows.data_ptr(),
+          cols.data_ptr(), dw.data_ptr(), m, nk * bk, nn_ * bn, n_act, bk, bn,
+          _DTYPE_CODE[x.dtype],
+          torch.cuda.current_stream(x.device).cuda_stream)
+  packed_dw_launches += 1
+  return dw
+
+
+def _on_device(op: str, t: torch.Tensor, plain, kernel):
+  """CPU tensors take the plain version, CUDA tensors the kernel."""
+  if t.device.type == 'cpu':
+    return plain
+  if t.device.type == 'cuda':
+    return kernel
+  raise ValueError(f'{op} runs on cpu or cuda, not {t.device}')
+
+
+class _PackedMatmul(torch.autograd.Function):
+  """y = x @ W; backward: dx through the bwd packing (only if x needs it),
+  dw packed (only if w needs it), each by the plain version on the CPU and
+  the kernel on CUDA."""
+
+  @staticmethod
+  def forward(ctx, x, w_packed, packing, block):
+    ctx.save_for_backward(x, w_packed)
+    ctx.packing, ctx.block = packing, block
+    fn = _on_device('packed_matmul', x, packed_matmul_reference,
+                    packed_matmul_cuda)
+    return fn(x, w_packed, packing, block)
+
+  @staticmethod
+  def backward(ctx, gy):
+    x, w_packed = ctx.saved_tensors
+    packing, block = ctx.packing, ctx.block
+    gy = gy.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      fn = _on_device('packed_matmul dx', gy, packed_matmul_dx_reference,
+                      packed_matmul_dx_cuda)
+      dx = fn(gy, w_packed, packing, block)
+    if ctx.needs_input_grad[1]:
+      def plain(x, gy, w, packing, block):
+        return packed_dw_reference(x, gy, packing, block, w.dtype)
+      fn = _on_device('packed_matmul dw', gy, plain, packed_dw_cuda)
+      dw = fn(x, gy, w_packed, packing, block)
+    return dx, dw, None, None
 
 
 def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, packing: Packing,
                   block: Tuple[int, int] = (512, 512), bm: int = 512,
                   n_out: Optional[int] = None):
-  """y = x @ W where W is the packed block-sparse tensor.
+  """y = x @ W where W is the packed block-sparse tensor, differentiable in
+  x and w: dx through the bwd packing, dw PACKED (same layout as w_packed,
+  ready for the optimizer).
 
-  CPU tensors take the plain version; CUDA tensors the Hopper kernel.
-  `bm` is kept for parity with the JAX signature: the kernel picks its
-  own row tile and masks ragged m, so rows need no padding.
+  CPU tensors take the plain versions; CUDA tensors the Hopper kernels.
+  A call that needs no gradient (grad mode off, as in serving, or neither
+  input requiring one) skips the autograd Function and its host cost.
+  `bm` is kept for parity with the JAX signature: the kernels pick their
+  own row tile and mask ragged m, so rows need no padding.
   """
   del bm
   nn_ = packing.shape[1]
   if n_out is not None and n_out != nn_ * block[1]:
     raise ValueError(f'forward n_out must be nn * bn = {nn_ * block[1]}')
-  if x.device.type == 'cpu':
-    return packed_matmul_reference(x, w_packed, packing, block)
-  if x.device.type == 'cuda':
-    return packed_matmul_cuda(x, w_packed, packing, block)
-  raise ValueError(f'packed_matmul runs on cpu or cuda, not {x.device}')
+  if torch.is_grad_enabled() and (x.requires_grad or w_packed.requires_grad):
+    return _PackedMatmul.apply(x, w_packed, packing, tuple(block))
+  fn = _on_device('packed_matmul', x, packed_matmul_reference,
+                  packed_matmul_cuda)
+  return fn(x, w_packed, packing, tuple(block))

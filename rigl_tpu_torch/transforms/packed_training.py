@@ -1,0 +1,173 @@
+"""Drop/grow sparse training ON packed block storage, in PyTorch.
+
+Counterpart of rigl_tpu/transforms/packed_training.py.  The drop/grow
+kernel (sparsity/update.py:drop_grow_update) runs on the block-pooled
+occupancy grid:
+
+  * drop score  = sum |w| over each block (inactive blocks do not exist in
+    packed storage, so they score zero);
+  * grow score  = block-pooled |dense grads|, computed by the caller at
+    update steps only (rigl_grow_grids);
+  * repack      = permutation gather on the packed axis; grown slots start
+    at zeros (RigL's grow_init default) and their optimizer slots reset.
+
+The active count is invariant under drop/grow, so every packed shape is
+constant across a run.  Where JAX returns new arrays, `packed_rigl_update`
+updates a torch.optim.Optimizer's parameters and state IN PLACE, so the
+optimizer's references stay valid.  The SET / SNFS grids, the nested-tree
+(`flax_*`) functions and the TP / EP variants are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from rigl_tpu_torch.ops.block_mask import pool_to_blocks
+from rigl_tpu_torch.ops.block_sparse_packed import (Packing, make_packing,
+                                                    repack_permutation,
+                                                    unpack_dense)
+from rigl_tpu_torch.sparsity import update as update_lib
+
+
+def occupancy_grid(packing: Packing) -> torch.Tensor:
+  """(nk, nn) int32 occupancy reconstructed from the fwd entry list."""
+  nk, nn_ = packing.shape
+  cols, rows, _, valid = (t.long() for t in packing.to('cpu').fwd)
+  return torch.zeros(nk * nn_, dtype=torch.int64).scatter_reduce(
+      0, rows * nn_ + cols, valid, 'amax', include_self=True
+  ).reshape(nk, nn_).to(torch.int32)
+
+
+def block_drop_scores(packed: torch.Tensor, packing: Packing) -> torch.Tensor:
+  """sum |w| per block scattered onto the (nk, nn) grid (zeros at inactive
+  blocks, so they never win the keep competition); on packed's device."""
+  nk, nn_ = packing.shape
+  cols, rows, slots, valid = (t.long() for t in packing.to(packed.device).fwd)
+  per_slot = packed.to(torch.float32).abs().sum(dim=(1, 2))
+  vals = torch.where(valid == 1, per_slot[slots], 0.0)
+  return torch.zeros(nk * nn_, dtype=torch.float32,
+                     device=packed.device).index_add_(
+                         0, rows * nn_ + cols, vals).reshape(nk, nn_)
+
+
+class PackedUpdateResult(NamedTuple):
+  packed: torch.Tensor       # new packed weights (grown slots zeroed)
+  packing: Packing           # new packing
+  grown: torch.Tensor        # (n_active,) bool, slots that are NEW
+  occupancy: torch.Tensor    # new (nk, nn) int32 grid
+  perm: torch.Tensor         # (n_active,) gather indices, -1 where grown
+
+
+def packed_drop_grow(packed: torch.Tensor, packing: Packing,
+                     grow_scores_grid: torch.Tensor, drop_fraction,
+                     n_active: int) -> PackedUpdateResult:
+  """One drop/grow update on packed storage.
+
+  grow_scores_grid: (nk, nn) block-pooled grow scores (sum |dense grad| per
+  block, pool_to_blocks(..., 'sum')).  n_active: the active-block count,
+  invariant under drop/grow.  The result lies on packed's device; the
+  packing and occupancy on the CPU.
+  """
+  dev = packed.device
+  occ = occupancy_grid(packing).to(dev, torch.float32)
+  bd = block_drop_scores(packed, packing)
+  res = update_lib.drop_grow_update(
+      occ, torch.zeros_like(occ), bd,
+      torch.as_tensor(grow_scores_grid, dtype=torch.float32, device=dev),
+      drop_fraction, grow_tensor=torch.zeros_like(occ))
+  new_occ = res.mask.to(torch.int32).cpu()
+  new_packing = make_packing(new_occ, n_active)
+  perm = repack_permutation(packing, new_packing).long().to(dev)
+  grown = perm < 0
+  new_packed = torch.where(grown[:, None, None], torch.zeros_like(packed),
+                           packed[perm.clamp(min=0)])
+  return PackedUpdateResult(new_packed, new_packing, grown, new_occ, perm)
+
+
+def unpack_params(params: Dict[str, torch.Tensor],
+                  packings: Dict[str, Packing],
+                  block: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+  """{name: packed} -> {name: dense (K, N)} (zeros at inactive blocks), for
+  the dense-view backward of update steps (RigL's grow score is |dense
+  grad|, sparse_optimizers_base.py:328-334)."""
+  return {name: unpack_dense(params[name], packings[name], block)
+          for name in params}
+
+
+def rigl_grow_grids(dense_grads: Dict[str, torch.Tensor],
+                    block: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+  """{name: dense grad} -> {name: (nk, nn) pooled |grad| grow scores}."""
+  return {name: pool_to_blocks(g.to(torch.float32).abs(), block, 'sum')
+          for name, g in dense_grads.items()}
+
+
+def _carry_slots(tree, perm: torch.Tensor, grown: torch.Tensor):
+  """Gathers the survivors of every tensor in `tree` (nested dicts, lists
+  and tuples) whose leading axis is the packed axis into their new slots
+  and zeroes the grown ones; scalars and counters pass through.  Returns a
+  new tree."""
+  if isinstance(tree, dict):
+    return {k: _carry_slots(v, perm, grown) for k, v in tree.items()}
+  if isinstance(tree, (list, tuple)):
+    items = [_carry_slots(v, perm, grown) for v in tree]
+    return type(tree)(*items) if hasattr(tree, '_fields') else type(tree)(
+        items)
+  if not (torch.is_tensor(tree) and tree.dim() >= 1
+          and tree.shape[0] == grown.shape[0]):
+    return tree
+  src = tree[perm.clamp(min=0).to(tree.device, torch.long)]
+  pad = (1,) * (tree.dim() - 1)
+  return torch.where(grown.to(tree.device).reshape((-1,) + pad),
+                     torch.zeros_like(src), src)
+
+
+class PackedRigLResult(NamedTuple):
+  params: dict                 # {name: packed}, the same tensors, updated
+  packings: dict               # {name: Packing}
+  optimizer: torch.optim.Optimizer   # its state carried and reset in place
+  occupancy: dict              # {name: (nk, nn)} new grids
+
+
+def packed_rigl_update(params: Dict[str, torch.Tensor],
+                       packings: Dict[str, Packing],
+                       optimizer: torch.optim.Optimizer,
+                       grow_grids: Dict[str, torch.Tensor], drop_fraction,
+                       n_active: Dict[str, int]) -> PackedRigLResult:
+  """One RigL mask update across a dict of packed layers, in place.
+
+  For each packed layer: drop by packed block |w| sums, grow by the
+  caller's pooled grids (rigl_grow_grids), copy the repacked weights into
+  the parameter (grown blocks zeroed), and in every per-parameter state
+  tensor of `optimizer` whose leading axis is the packed axis
+  (momentum_buffer, exp_avg, exp_avg_sq) gather the survivors and zero the
+  grown slots (sparse_optimizers_base.py:336-343; JAX's `fix` at
+  rigl_tpu/transforms/packed_training.py:153-160).  Entries of `params`
+  without a packing (a dense head) pass through.  State the optimizer has
+  not created yet (torch makes momentum_buffer at the first step) needs no
+  permuting: it equals optax's zero trace.
+  """
+  new_packings, occ = dict(packings), {}
+  for name, param in params.items():
+    if name not in packings:
+      continue
+    out = packed_drop_grow(param.detach(), packings[name], grow_grids[name],
+                           drop_fraction, n_active[name])
+    with torch.no_grad():
+      param.copy_(out.packed)
+      if param in optimizer.state:
+        optimizer.state[param].update(_carry_slots(
+            dict(optimizer.state[param]), out.perm, out.grown))
+    new_packings[name] = out.packing
+    occ[name] = out.occupancy
+  return PackedRigLResult(params, new_packings, optimizer, occ)
+
+
+def permute_opt_state(tree, packing_old: Packing, packing_new: Packing,
+                      grown: torch.Tensor):
+  """Carry optimizer slots through a repack: gather surviving blocks' slots
+  into their new positions, zero the grown ones (see _carry_slots).
+  Returns a new tree."""
+  return _carry_slots(tree, repack_permutation(packing_old, packing_new),
+                      grown)

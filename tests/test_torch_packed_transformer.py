@@ -36,9 +36,10 @@ def _build(kind):
   tokens = rs.randint(0, V, (B, T)).astype(np.int32)
   if kind == 'packed':
     jm, tm = (jpt.PackedTransformer(**KW, **PACKED_KW),
-              tpt.PackedTransformer(**KW, **PACKED_KW))
+              tpt.PackedTransformer(**KW, **PACKED_KW, device='cpu'))
   else:
-    jm, tm = jpt.DenseTransformer(**KW), tpt.DenseTransformer(**KW)
+    jm, tm = (jpt.DenseTransformer(**KW),
+              tpt.DenseTransformer(**KW, device='cpu'))
   variables = jax.jit(jm.init)(jax.random.key(1), jnp.asarray(tokens))
   variables = jax.tree.map(np.asarray, variables)
   convert.load_converted(tm, *convert.from_jax_variables(variables))
@@ -179,7 +180,7 @@ def test_dense_twin_state_computes_the_packed_model(packed):
   """convert.dense_twin_state: the dense twin holding the unpacked
   kernels gives the packed model's logits (the plain path, end to end)."""
   _, _, tm, tokens = packed
-  twin = tpt.DenseTransformer(**KW)
+  twin = tpt.DenseTransformer(**KW, device='cpu')
   twin.load_state_dict(convert.dense_twin_state(tm), strict=True)
   with torch.inference_mode():
     np.testing.assert_allclose(twin(_t(tokens)).numpy(),
@@ -190,7 +191,7 @@ def test_random_init_shapes_and_active_counts():
   gen = torch.Generator().manual_seed(3)
   tm = tpt.PackedTransformer(num_layers=1, d_model=64, d_ff=128,
                              num_heads=2, vocab_size=0, sparsity=0.8,
-                             block=(16, 16), generator=gen)
+                             block=(16, 16), generator=gen, device='cpu')
   qkv = tm.block0.attn.qkv
   assert qkv.packing.shape == (4, 12)
   assert qkv.kernel.shape == (48 - int(np.floor(0.8 * 48)), 16, 16)
@@ -202,10 +203,10 @@ def test_random_init_shapes_and_active_counts():
 
 def test_decode_contract_errors():
   tm = tpt.DenseTransformer(num_layers=1, d_model=32, d_ff=64, num_heads=2,
-                            vocab_size=0)
+                            vocab_size=0, device='cpu')
   with pytest.raises(ValueError, match='vocab'):
     tdec.decode_twin(tm, L)
-  tm = tpt.DenseTransformer(**KW)
+  tm = tpt.DenseTransformer(**KW, device='cpu')
   with pytest.raises(NotImplementedError, match='kv_chunk'):
     tdec.decode_twin(tm, L, kv_chunk=4)
   dm = tdec.decode_twin(tm, L)
@@ -219,7 +220,7 @@ def test_decode_contract_errors():
   for kw in (dict(fused_attention=True), dict(seq_axis='s'),
              dict(kv_chunk=8), dict(tp_shards=2)):
     with pytest.raises(NotImplementedError, match='not ported'):
-      tpt.PackedTransformer(**KW, **PACKED_KW, **kw)
+      tpt.PackedTransformer(**KW, **PACKED_KW, **kw, device='cpu')
 
 
 def test_port_imports_no_jax():
