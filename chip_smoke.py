@@ -7,21 +7,24 @@ Run from the root of a checkout.  It imports nothing of JAX or of the JAX
 package.  Phases, each fatal on failure:
 
   1. device: torch / CUDA versions, the card's name and power limit;
-  2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu with nvcc (into the
-     git-ignored rigl_tpu_torch/_build/) and prints ptxas' report;
-  3. kernels vs plain: each kernel against its plain PyTorch version on
-     the same inputs, with errors, device times of both (CUDA events
-     around calls queued while the device sleeps), the host time to issue
-     one call, the time of the dense torch.matmul
-     that computes the same product on the unpacked matrix, and the bound
-     (the larger of the bytes the product needs over 3.35 TB/s and its
-     FLOPs over the H100's dense peak for the dtype).  Points:
+  2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu and flash_attn.cu
+     with nvcc, one process per source started together (into the
+     git-ignored rigl_tpu_torch/_build/), and prints ptxas' report;
+  3. packed kernels vs plain: each kernel against its plain PyTorch
+     version on the same inputs, with errors, device times of both (CUDA
+     events around calls queued while the device sleeps), the host time to
+     issue one call, the time of the dense torch.matmul that computes the
+     same product on the unpacked matrix, and the bound (the larger of the
+     bytes the product needs over 3.35 TB/s and its FLOPs over the H100's
+     dense peak for the dtype).  Points:
      a. the forward at the serving model's four layer shapes (s = 0.8,
         block (512, 512)), m = 8 and 1024 in bf16, plus f32 at one shape;
-     b. forward, dx and packed dw at the training shape K = N = 4096,
+     b. forward, dx and packed dw at the MLP training shape K = N = 4096,
         block (512, 512): s = 0.8 and 0.9 at m = 1024 in bf16 and f32, a
         ragged m = 1000, and a grid with an empty block-row and an empty
         block-column;
+     c. forward, dx and packed dw at the transformer train step's four
+        layer shapes, m = 2048, bf16;
   4. autograd on the card: torch.autograd.grad through packed_matmul
      matches the plain versions and launches dx and dw once each;
   5. serving, a main path: a 4-layer d_model 2048 / d_ff 8192 / 16-head,
@@ -33,24 +36,45 @@ package.  Phases, each fatal on failure:
      unpacked kernels) and against its own full causal forward;
   6. serving speed: us/token of the packed model and the dense twin at
      batch 8 and 1, and the device-busy share of a batch-8 request;
-  7. training, a main path: PackedMLPTrainer on the repo's `mlp` model
-     (3 hidden layers of 4096, batch 1024, block (512, 512), s = 0.8, f32,
-     via='kernel') trains 30 steps with mask updates at steps 0, 10 and
-     20 on synthetic MNIST-normalised data; occupancy counts, per-step
-     launches (fwd 3, dx 2, dw 3), falling finite losses, and one step's
-     loss and gradients against the plain path are checked;
-  8. training speed: the packed branch of scripts/bench_blocksparse_mlp.py
-     (bf16 weights, no bias, SGD momentum, loss mean(y^2)): us/step of the
-     dense arm and the packed arm at s = 0.8 and 0.9, each measured twice
-     in mirrored order, their ratio, MFU, each arm's device time and
-     busy share, and a packed step's device time by kernel.
+  7. MLP training, a main path: PackedMLPTrainer on the repo's `mlp`
+     model (3 hidden layers of 4096, batch 1024, block (512, 512), s =
+     0.8, f32, via='kernel') trains 30 steps with mask updates at steps 0,
+     10 and 20 on synthetic MNIST-normalised data; occupancy counts,
+     per-step launches (fwd 3, dx 2, dw 3), falling finite losses, and one
+     step's loss and gradients against the plain path are checked;
+  8. MLP training speed: the packed branch of
+     scripts/bench_blocksparse_mlp.py (bf16 weights, no bias, SGD
+     momentum, loss mean(y^2)): us/step of the dense arm and the packed
+     arm at s = 0.8 and 0.9, each measured twice in mirrored order, their
+     ratio, MFU, each arm's device time and busy share, and a packed
+     step's device time by kernel;
+  9. flash kernels vs plain: the causal flash-attention forward, dK/dV and
+     dQ kernels against their plain versions at (B, H, S, hd) = (4, 16,
+     512, 128), a ragged S = 1000 and hd 64 and 32, beside torch's
+     scaled_dot_product_attention (forward; its backward) and the bound;
+ 10. transformer train step, the main path of the flash kernels
+     (scripts/bench_packed_transformer.py: 2 layers of the serving width,
+     seq 512, batch 4, bf16, SGD momentum, loss mean(out^2) on
+     pre-embedded inputs): one fused packed step's launches (fwd 8, dx 8,
+     dw 8, flash fwd / dK-dV / dQ 2 each) and its output and gradients
+     against the plain path; us/step of the dense twin and the packed
+     model, each with the unfused and the fused attention core, in
+     mirrored order, their ratios, MFU by bench.py's formula, device busy
+     shares, and each arm's kernel time per step, in all and by kernel;
+ 11. LM training, a main path: PackedLMTrainer at that width (vocab 64
+     synthetic stream, seq 512, batch 4, bf16, s = 0.8) trains 30 RigL
+     steps with updates at 0, 10 and 20 (counts preserved, grown blocks'
+     weights and Adam slots zero, finite falling loss), then SET and SNFS
+     a few steps with one update each; 16 greedy tokens with kv_chunk 0
+     and 128 (L = 1024) must agree.
 
-The line before the last is the JSON record: `kernels` (per kernel: the
-sums over its bf16 points of ms, plain_ms, bound_ms and library_ms, its
-launches on the main paths, and every point), `serving` and `training`.
-The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
-without the package beside this script, it exits non-zero and prints no
-result.
+Each main path runs with the launch counts set to 0 just before it and
+read just after.  The line before the last is the JSON record: `kernels`
+(per kernel: the sums over its bf16 points of ms, plain_ms, bound_ms and
+library_ms, its launches on the main paths, and every point), `serving`,
+`training`, `train_step` and `lm`.  The last line is {"ok": true,
+"device": {...}}.  Without a CUDA device, or without the package beside
+this script, it exits non-zero and prints no result.
 """
 
 import json
@@ -80,6 +104,23 @@ LOGIT_RTOL = 5e-2
 # f32 outside them, which is what the f32 kernels use).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+LIBRARIES = ('packed_mm', 'flash_attn')
+# Transformer training (scripts/bench_packed_transformer.py): 2 layers of
+# the serving width, seq 512, batch 4, bf16, block (512, 512), s = 0.8.
+TR_LAYERS, TR_SEQ, TR_BATCH = 2, 512, 4
+# Flash kernels vs plain: (B, H, S, hd) of the train step, a ragged S and
+# the other head dims.  Both sides sum in f32; the kernels round P (for
+# P v and Pᵀ do) and dS to bf16 before their products where the plain
+# versions keep f32, so bf16 outputs differ by a few bf16 ulps of the
+# largest value (relative to max |plain|); lse is f32 from f32 sums.
+FLASH_SHAPES = ((4, 16, 512, 128), (4, 16, 1000, 128), (4, 16, 512, 64),
+                (4, 16, 512, 32))
+FLASH_TOL, LSE_TOL = 2e-2, 1e-4
+# One bf16 train step, kernel path vs plain path (dense twin, plain
+# attention): rounding points differ in every product of 2 layers; each
+# error over its own largest plain value.
+STEP_RTOL = 5e-2
+LM_STEPS, LM_VOCAB = 30, 64
 
 
 class SmokeFailure(Exception):
@@ -99,15 +140,21 @@ def device_ms(fn, iters):
   """Device time of one fn() call, after a warm-up: CUDA events around
   `iters` back-to-back calls that the host queued while the device slept
   (torch.cuda._sleep), so the window holds the calls' device work and
-  launch gaps, not the host's time to issue them.  (torch.profiler
+  launch gaps, not the host's time to issue them.  The sleep lasts at
+  least twice the wall time of `iters` synchronised calls (and 50 ms), so
+  the host has queued them all before it ends.  (torch.profiler
   sessions, used for this at first, stopped recording device time after
   some tens of sessions on the card.)"""
   import torch
   fn()
   torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  fn()
+  torch.cuda.synchronize()
+  sleep_s = max(0.05, 2 * iters * (time.perf_counter() - t0))
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
-  torch.cuda._sleep(100_000_000)    # ~50 ms: longer than issuing the calls
+  torch.cuda._sleep(int(sleep_s * 2e9))   # cycles; the clock is <= 2 GHz
   start.record()
   for _ in range(iters):
     fn()
@@ -162,17 +209,24 @@ def phase_device(torch):
 
 
 def phase_build():
+  """Builds every kernel library, one nvcc per source, all started
+  together, and prints ptxas' report of each."""
+  from concurrent.futures import ThreadPoolExecutor
   from rigl_tpu_torch.ops import _build
+  root = Path(__file__).resolve().parent
   t0 = time.perf_counter()
-  so = _build.build('packed_mm')
-  _build.load('packed_mm')
-  log(f'build: {so.relative_to(Path(__file__).resolve().parent)} in '
-      f'{time.perf_counter() - t0:.2f} s')
-  for line in so.with_suffix('.log').read_text().splitlines():
-    if 'entry function' in line:
-      log(f'  ptxas: {line.split("entry function")[1].strip()[:110]}')
-    elif 'registers' in line or 'spill' in line or 'error' in line:
-      log(f'    {line.strip()}')
+  with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+    built = list(pool.map(_build.build, LIBRARIES))
+  for name in LIBRARIES:
+    _build.load(name)
+  log(f'build: {", ".join(str(so.relative_to(root)) for so in built)} in '
+      f'{time.perf_counter() - t0:.2f} s (in parallel)')
+  for so in built:
+    for line in so.with_suffix('.log').read_text().splitlines():
+      if 'entry function' in line:
+        log(f'  ptxas: {line.split("entry function")[1].strip()[:110]}')
+      elif 'registers' in line or 'spill' in line or 'error' in line:
+        log(f'    {line.strip()}')
 
 
 def layer_shapes():
@@ -286,6 +340,26 @@ def _mlp_occupancy(torch, gen, sparsity, empty_row_col):
   return occ, n_act
 
 
+def _product_ops(torch, x, gy, w, packing):
+  """{op: (counter, kernel call, plain call, torch.matmul call)} for the
+  forward, dx and packed dw of one packed layer on the same inputs."""
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  wd = bsp.unpack_dense(w, packing, BLOCK)
+  return {
+      'fwd': ('packed_mm_launches',
+              lambda: bsp.packed_matmul(x, w, packing, BLOCK),
+              lambda: bsp.packed_matmul_reference(x, w, packing, BLOCK),
+              lambda: torch.matmul(x, wd)),
+      'dx': ('packed_mm_dx_launches',
+             lambda: bsp.packed_matmul_dx_cuda(gy, w, packing, BLOCK),
+             lambda: bsp.packed_matmul_dx_reference(gy, w, packing, BLOCK),
+             lambda: torch.matmul(gy, wd.T)),
+      'dw': ('packed_dw_launches',
+             lambda: bsp.packed_dw_cuda(x, gy, w, packing, BLOCK),
+             lambda: bsp.packed_dw_reference(x, gy, packing, BLOCK, w.dtype),
+             lambda: torch.matmul(x.T, gy))}
+
+
 def phase_train_kernels(torch, device):
   """Forward, dx and packed dw vs plain at the training shape."""
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
@@ -303,24 +377,9 @@ def phase_train_kernels(torch, device):
     gy = torch.randn(m, MLP_WIDTH, generator=gen).to(device, dtype)
     w = (torch.randn(n_act, bk, bn, generator=gen) / MLP_WIDTH ** 0.5).to(
         device, dtype)
-    wd = bsp.unpack_dense(w, packing, BLOCK)
     tag = (f's={sparsity} m={m:4d} {dtype_name(dtype):8s}'
            + (' empty row+col' if empty else ''))
-    ops = {
-        'fwd': ('packed_mm_launches',
-                lambda: bsp.packed_matmul(x, w, packing, BLOCK),
-                lambda: bsp.packed_matmul_reference(x, w, packing, BLOCK),
-                lambda: torch.matmul(x, wd)),
-        'dx': ('packed_mm_dx_launches',
-               lambda: bsp.packed_matmul_dx_cuda(gy, w, packing, BLOCK),
-               lambda: bsp.packed_matmul_dx_reference(gy, w, packing, BLOCK),
-               lambda: torch.matmul(gy, wd.T)),
-        'dw': ('packed_dw_launches',
-               lambda: bsp.packed_dw_cuda(x, gy, w, packing, BLOCK),
-               lambda: bsp.packed_dw_reference(x, gy, packing, BLOCK,
-                                               w.dtype),
-               lambda: torch.matmul(x.T, gy)),
-    }
+    ops = _product_ops(torch, x, gy, w, packing)
     for op, (counter, run, plain, library) in ops.items():
       rec, got = kernel_point(torch, f'{op:3s} {tag}', counter, run, plain,
                               library, bound(op, m, packing, BLOCK, dtype))
@@ -335,6 +394,36 @@ def phase_train_kernels(torch, device):
       rec.update(path='training', sparsity=sparsity, m=m,
                  dtype=dtype_name(dtype), k=MLP_WIDTH, n=MLP_WIDTH,
                  n_active=n_act, empty_row_and_column=empty)
+      records[op].append(rec)
+  return records
+
+
+def phase_step_kernels(torch, device):
+  """Forward, dx and packed dw vs plain at the transformer train step's
+  shapes: m = batch x seq = 2048 rows, each layer of a block (s = 0.8,
+  block (512, 512), bf16)."""
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  gen = torch.Generator().manual_seed(SEED + 10)
+  bk, bn = BLOCK
+  m = TR_BATCH * TR_SEQ
+  records = {'fwd': [], 'dx': [], 'dw': []}
+  for name, (kdim, ndim) in layer_shapes().items():
+    nk, nn_ = kdim // bk, ndim // bn
+    n_act = nk * nn_ - get_n_zeros(nk * nn_, SPARSITY)
+    packing = bsp.make_packing(random_occupancy(gen, nk, nn_, n_act), n_act)
+    x = torch.randn(m, kdim, generator=gen).to(device, torch.bfloat16)
+    gy = torch.randn(m, ndim, generator=gen).to(device, torch.bfloat16)
+    w = (torch.randn(n_act, bk, bn, generator=gen) / kdim ** 0.5).to(
+        device, torch.bfloat16)
+    ops = _product_ops(torch, x, gy, w, packing)
+    for op, (counter, run, plain, library) in ops.items():
+      rec, _ = kernel_point(torch, f'{op:3s} {name:3s} m={m} bfloat16',
+                            counter, run, plain, library,
+                            bound(op, m, packing, BLOCK, torch.bfloat16))
+      rec.update(path='train_step', layer=name, m=m, dtype='bfloat16',
+                 k=kdim, n=ndim, n_active=n_act)
       records[op].append(rec)
   return records
 
@@ -405,12 +494,12 @@ def phase_serve(torch, device, packed, dense):
                          dtype=torch.int32).to(device)
   twin = decode_twin(packed, MAX_LEN)
 
-  bsp.packed_mm_launches = 0
+  _zero_counts()
   t0 = time.perf_counter()
   out = generate(twin, prompt, STEPS)
   torch.cuda.synchronize()
   dt = time.perf_counter() - t0
-  launches = bsp.packed_mm_launches
+  launches = _counts()['fwd']
   expect = LAYERS * 4 * STEPS
   log(f'request 1 (greedy, batch {BATCH}, prompt {PROMPT}, {STEPS} steps): '
       f'{dt:.3f} s, packed_mm launches {launches} (expected {expect})')
@@ -492,16 +581,29 @@ def phase_speed(torch, device, packed, dense):
   return rows
 
 
-def _launch_counts():
+def _counts():
+  """{kernel: launches so far}: the wrappers' counters, packed and flash."""
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
-  return (bsp.packed_mm_launches, bsp.packed_mm_dx_launches,
-          bsp.packed_dw_launches)
+  from rigl_tpu_torch.ops import flash_attention as fa
+  return dict(fwd=bsp.packed_mm_launches, dx=bsp.packed_mm_dx_launches,
+              dw=bsp.packed_dw_launches, flash_fwd=fa.flash_fwd_launches,
+              flash_dkv=fa.flash_bwd_dkv_launches,
+              flash_dq=fa.flash_bwd_dq_launches)
 
 
-def _zero_launch_counts():
+def _zero_counts():
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  from rigl_tpu_torch.ops import flash_attention as fa
   bsp.packed_mm_launches = bsp.packed_mm_dx_launches = 0
   bsp.packed_dw_launches = 0
+  fa.flash_fwd_launches = fa.flash_bwd_dkv_launches = 0
+  fa.flash_bwd_dq_launches = 0
+
+
+def _packed_counts():
+  """(fwd, dx, dw) launches so far."""
+  c = _counts()
+  return c['fwd'], c['dx'], c['dw']
 
 
 def phase_train(torch, device):
@@ -545,19 +647,19 @@ def phase_train(torch, device):
   last = [(0, 0, 0)]
 
   def progress(m):
-    now = _launch_counts()
+    now = _packed_counts()
     steps.append(dict(step=m['step'], loss=m['loss'], t=time.perf_counter(),
                       launches=tuple(a - b for a, b in zip(now, last[0]))))
     last[0] = now
 
   trainer.mask_update = recorded_update
-  _zero_launch_counts()
+  _zero_counts()
   t0 = time.perf_counter()
   result = trainer.train((xtr, ty), eval_xy=(xte, vy), progress_fn=progress,
                          log_every=1)
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  launches = _launch_counts()
+  launches = _packed_counts()
   del trainer.mask_update
 
   losses = [st['loss'] for st in steps]
@@ -731,6 +833,400 @@ def phase_train_speed(torch, device):
   return rec
 
 
+def flash_bound(op, b, h, s, hd):
+  """(ms, 'bytes' | 'operations'): the least time of one call on an H100.
+  Bytes: each bf16 (B, H, S, hd) input read once and each output written
+  once, plus the f32 row statistics (lse; D for the backward).  FLOPs: the
+  causal pairs (k <= q) only, 2 hd per pair per product: QKᵀ and PV
+  (forward); QKᵀ, dO Vᵀ, Pᵀ dO and dSᵀ Q (dK/dV); QKᵀ, dO Vᵀ and dS K
+  (dQ)."""
+  t = b * h * s * hd * 2
+  stats = b * h * s * 4
+  moved = {'fwd': 4 * t + stats, 'dkv': 6 * t + 2 * stats,
+           'dq': 5 * t + 2 * stats}[op]
+  products = {'fwd': 2, 'dkv': 4, 'dq': 3}[op]
+  flops = products * 2.0 * hd * b * h * s * (s + 1) / 2
+  t_bytes = moved / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / PEAK_FLOPS['bfloat16'] * 1e3
+  return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _rel(got, want):
+  """max |got - want| over max |want| (no floor: gradients can be small)."""
+  import torch
+  want = want.float()
+  return (float((got.float() - want).abs().max())
+          / max(float(want.abs().max()), torch.finfo(torch.float32).tiny))
+
+
+def phase_flash(torch, device):
+  """The three flash kernels, each launched once and held against its own
+  plain version on the same inputs, then timed beside it and beside
+  torch's scaled_dot_product_attention (forward; its backward, which
+  computes dq, dk and dv in one call, beside dK/dV and dQ)."""
+  import torch.nn.functional as F
+  from rigl_tpu_torch.ops import flash_attention as fa
+  gen = torch.Generator().manual_seed(SEED + 8)
+  records = {'fwd': [], 'dkv': [], 'dq': []}
+  for b, h, s, hd in FLASH_SHAPES:
+    q, k, v, do = (torch.randn(b, h, s, hd, generator=gen).to(device,
+                                                              torch.bfloat16)
+                   for _ in range(4))
+    scale = hd ** -0.5
+    counts = (fa.flash_fwd_launches, fa.flash_bwd_dkv_launches,
+              fa.flash_bwd_dq_launches)
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale)
+    d = fa._rowsum_do_o(do, o)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale)
+    torch.cuda.synchronize()
+    moved = tuple(a - c for a, c in zip(
+        (fa.flash_fwd_launches, fa.flash_bwd_dkv_launches,
+         fa.flash_bwd_dq_launches), counts))
+    tag = f'(B, H, S, hd) = ({b}, {h}, {s}, {hd})'
+    check(moved == (1, 1, 1), f'flash {tag}: launches moved by {moved}')
+    want_o, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, d,
+                                                  scale)
+    want_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, d, scale)
+    lse_err = float((lse - want_lse).abs().max())
+    check(lse_err <= LSE_TOL * max(1.0, float(want_lse.abs().max())),
+          f'flash fwd {tag}: lse error {lse_err}')
+    # SDPA, the library yardstick, timed only: its forward, and its
+    # backward alone on a retained graph.
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                           scale=scale)
+    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale), 20)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        o_lib, (ql, kl, vl), do, retain_graph=True), 20)
+    lib_err = _rel(o_lib.detach(), want_o)
+    ops = {
+        'fwd': (((o, want_o),), lambda: fa.flash_fwd_cuda(q, k, v, scale),
+                lambda: fa.flash_attention_fwd_reference(q, k, v, scale),
+                lib_fwd),
+        'dkv': (((dk, want_dk), (dv, want_dv)),
+                lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale),
+                lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, d,
+                                                   scale), lib_bwd),
+        'dq': (((dq, want_dq),),
+               lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale),
+               lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, d, scale),
+               lib_bwd)}
+    for op, (pairs, run, plain, lib_ms) in ops.items():
+      for got, want in pairs:
+        check(got.dtype == want.dtype == torch.bfloat16
+              and got.shape == want.shape, f'flash {op} {tag}: dtype/shape')
+        check(bool(torch.isfinite(got).all()), f'flash {op} {tag}: '
+              'non-finite output')
+      err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+      rel = max(_rel(g, w) for g, w in pairs)
+      bound_ = flash_bound(op, b, h, s, hd)
+      rec = dict(max_abs_err=err, max_rel_err=rel, tol=FLASH_TOL,
+                 ms=device_ms(run, 20), plain_ms=device_ms(plain, 5),
+                 library_ms=lib_ms, bound_ms=bound_[0], bound_by=bound_[1],
+                 host_ms=host_ms(run, 20), dtype='bfloat16',
+                 shape=[b, h, s, hd], path='train_step')
+      if op == 'fwd':
+        rec.update(lse_abs_err=lse_err, library_rel_err=lib_err)
+      log(f'flash {op:3s} {tag}: max|err| {err:.3e} (rel {rel:.3e}, tol '
+          f'{FLASH_TOL})  device ms: kernel {rec["ms"]:.4f}, plain '
+          f'{rec["plain_ms"]:.4f}, sdpa {"fwd" if op == "fwd" else "bwd"} '
+          f'{lib_ms:.4f}, bound {bound_[0]:.4f} ({bound_[1]})  host '
+          f'{rec["host_ms"]:.4f}')
+      check(rel <= FLASH_TOL, f'flash {op} {tag}: rel error {rel}')
+      records[op].append(rec)
+    log(f'  sdpa fwd+bwd {lib_fwd + lib_bwd:.4f} ms; sdpa vs plain o rel '
+        f'{lib_err:.3e}; lse max|err| {lse_err:.3e}')
+    del ql, kl, vl, o_lib
+  return records
+
+
+def _since(before):
+  return {k: v - before[k] for k, v in _counts().items()}
+
+
+def _grad_errors(torch, packed_model, grads, plain):
+  """{name: error over the largest plain value}: the packed kernels' grads
+  unpacked to dense against the plain dense grads at active blocks."""
+  from rigl_tpu_torch.ops.block_sparse_packed import unpack_dense
+  errs = {}
+  for name, g in grads.items():
+    layer = name.rsplit('.', 1)[0]
+    sub = packed_model.get_submodule(layer)
+    if hasattr(sub, 'packing'):
+      got = unpack_dense(g, sub.packing, sub.block)
+      want = plain[f'{layer}.d.kernel'] * unpack_dense(
+          torch.ones_like(g), sub.packing, sub.block)
+    else:
+      got, want = g, plain[name]
+    check(bool(torch.isfinite(got).all()), f'non-finite grad {name}')
+    errs[name] = _rel(got, want)
+  return errs
+
+
+def phase_train_step(torch, device):
+  """The transformer train step of scripts/bench_packed_transformer.py, the
+  full-width path of the flash kernels: 2 layers of d_model 2048 / d_ff
+  8192 / 16 heads, seq 512, batch 4, bf16, block (512, 512), bm 512,
+  s = 0.8, SGD(1e-4, momentum 0.9), loss mean(out^2) on pre-embedded
+  inputs.  Arms: dense twin and packed, each with the unfused and the
+  fused attention core, timed twice in mirrored order.  Checks one fused
+  packed step's launches, and a loss's value and gradients against the
+  plain path.  Returns (launches of the path, record)."""
+  import numpy as np
+  from torch.func import functional_call
+  from rigl_tpu_torch.layers.packed_dense import PackedDense
+  from rigl_tpu_torch.models.packed_transformer import (DenseTransformer,
+                                                        PackedTransformer)
+  from rigl_tpu_torch.train.packed_lm import dense_twin_params
+  gen = torch.Generator().manual_seed(SEED + 9)
+  kw = dict(num_layers=TR_LAYERS, d_model=D_MODEL, d_ff=D_FF,
+            num_heads=HEADS, vocab_size=0, dtype=torch.bfloat16)
+  x = (torch.randn(TR_BATCH, TR_SEQ, D_MODEL, generator=gen) * 0.02).to(
+      device, torch.bfloat16)
+  _zero_counts()
+  arms = {}
+  for fused in (False, True):
+    tag = 'fused' if fused else 'unfused'
+    arms[f'dense_{tag}'] = DenseTransformer(
+        fused_attention=fused, generator=gen, device=device, **kw)
+    arms[f'packed_{tag}'] = PackedTransformer(
+        sparsity=SPARSITY, block=BLOCK, bm=512, fused_attention=fused,
+        generator=gen, device=device, **kw)
+
+  def make_step(model):
+    opt = torch.optim.SGD(model.parameters(), lr=1e-4, momentum=0.9)
+
+    def step():
+      opt.zero_grad(set_to_none=True)
+      loss = (model(x).float() ** 2).mean()
+      loss.backward()
+      opt.step()
+    for _ in range(3):
+      step()
+    torch.cuda.synchronize()
+    return step
+
+  # One fused packed step's launches, then its loss and every gradient
+  # against the plain path, before any optimizer step moves the weights.
+  # The check's loss is mean(out * r) for a fixed random r: mean(out^2) of
+  # a LayerNorm output is flat in every weight before ln_f (the output's
+  # norm is fixed), so its gradients there are rounding noise.
+  packed = arms['packed_fused']
+  params = dict(packed.named_parameters())
+  r = torch.randn(x.shape, generator=gen).to(device)
+  before = _counts()
+  out = packed(x).float()
+  loss = (out * r).mean()
+  grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+  loss = loss.detach()
+  torch.cuda.synchronize()
+  per_step = _since(before)
+  packings = {f'{n}.kernel': m.packing for n, m in packed.named_modules()
+              if isinstance(m, PackedDense)}
+  views = {n: v.detach().clone().requires_grad_() for n, v in
+           dense_twin_params({n: p.detach() for n, p in params.items()},
+                             packings, BLOCK).items()}
+  twin = DenseTransformer(device='meta', **kw)
+  plain_out = functional_call(twin, views, (x,)).float()
+  plain_loss = (plain_out * r).mean()
+  plain = dict(zip(views, torch.autograd.grad(plain_loss,
+                                              list(views.values()))))
+  plain_loss = plain_loss.detach()
+  out_err = _rel(out.detach(), plain_out.detach())
+  # The loss is a mean of terms of both signs: its error is taken over the
+  # mean |term|, not over the (much smaller) mean.
+  loss_err = (abs(float(loss) - float(plain_loss))
+              / float((plain_out.detach() * r).abs().mean()))
+  grad_errs = _grad_errors(torch, packed, grads, plain)
+  del grads, plain, views, out, plain_out
+  expect = dict(fwd=4 * TR_LAYERS, dw=4 * TR_LAYERS, flash_fwd=TR_LAYERS,
+                flash_dkv=TR_LAYERS, flash_dq=TR_LAYERS)
+  log(f'train step, packed fused: launches per step {per_step} (expected '
+      f'{expect}, dx <= {4 * TR_LAYERS}); output rel err {out_err:.3e}; '
+      f'loss {float(loss):.6e} vs plain {float(plain_loss):.6e} (err over '
+      f'mean |term| {loss_err:.3e}); max rel grad err '
+      f'{max(grad_errs.values()):.3e} (tol {STEP_RTOL})')
+  check(all(per_step[k] == n for k, n in expect.items())
+        and 0 < per_step['dx'] <= 4 * TR_LAYERS,
+        f'fused packed step launches {per_step}')
+  check(out_err <= STEP_RTOL, f'train step output rel error {out_err}')
+  check(loss_err <= STEP_RTOL, f'train step loss error {loss_err}')
+  for name, err in grad_errs.items():
+    check(err <= STEP_RTOL, f'train step grad {name}: rel error {err}')
+
+  steps = {name: make_step(model) for name, model in arms.items()}
+  order = list(steps) + list(steps)[::-1]
+  us = {name: [] for name in steps}
+  for name in order:
+    us[name].append(time_ms(steps[name], TIMED_STEPS) * 1e3)
+  tok = TR_BATCH * TR_SEQ
+  param_fwd = TR_LAYERS * 2.0 * tok * (3 * D_MODEL * D_MODEL
+                                       + D_MODEL * D_MODEL
+                                       + 2 * D_MODEL * D_FF)
+  attn_fwd = TR_LAYERS * 2.0 * 2 * TR_BATCH * TR_SEQ * TR_SEQ * D_MODEL
+  peak = PEAK_FLOPS['bfloat16']
+  # Device time per step two ways: a CUDA-event window over 3 steps queued
+  # behind a sleep (more would overrun the device's queue of pending
+  # launches, and the window would time the host again), and the summed
+  # kernel time of a torch.profiler session of 3 steps (device activity
+  # only), which also gives the top kernels.  The busy share is the
+  # kernel sum over the step time.
+  from torch.profiler import ProfilerActivity, profile
+  rec = {}
+  for name, step in steps.items():
+    flops = 3 * (param_fwd * (1 - SPARSITY if 'packed' in name else 1)
+                 + attn_fwd)
+    mean_us = float(np.mean(us[name]))
+    dev_us = device_ms(step, 3) * 1e3
+    n = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(n):
+        step()
+      torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernel_us = sum(e.self_device_time_total for e in events) / n
+    check(kernel_us > 0, f'{name}: the profiler recorded no device time')
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    rec[name] = dict(us_per_step=us[name], mfu=flops / (mean_us * 1e-6) / peak,
+                     flops_per_step=flops, device_us_per_step=dev_us,
+                     kernel_us_per_step=kernel_us,
+                     device_busy_share=kernel_us / mean_us,
+                     device_ms_by_kernel={
+                         e.key[:90]: [e.self_device_time_total / 1e3 / n,
+                                      e.count / n] for e in top})
+    log(f'train step: {name:14s} us/step {[round(u, 1) for u in us[name]]} '
+        f'(mean {mean_us:.1f}); device window {dev_us:.1f} us/step, kernels '
+        f'{kernel_us:.1f} us/step (busy share {kernel_us / mean_us:.3f}); '
+        f'MFU {rec[name]["mfu"]:.4f} (bench.py formula, '
+        f'{peak / 1e12:.0f} TFLOP/s)')
+    log('  top kernels, device ms and launches per step:')
+    for e in top:
+      log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
+          f'{e.count / n:5.1f} x {e.key[:90]}')
+  for tag in ('unfused', 'fused'):
+    ratio = (float(np.mean(us[f'dense_{tag}']))
+             / float(np.mean(us[f'packed_{tag}'])))
+    rec[f'dense_over_packed_{tag}'] = ratio
+    log(f'  dense/packed ({tag}): {ratio:.3f}')
+  launches = _since({k: 0 for k in _counts()})
+  rec.update(launches_per_packed_fused_step=per_step,
+             step_vs_plain=dict(out_rel_err=out_err, loss_err=loss_err,
+                                max_grad_rel_err=max(grad_errs.values())))
+  del arms, steps
+  torch.cuda.empty_cache()
+  return launches, rec
+
+
+def phase_lm(torch, device):
+  """The LM trainer main path: PackedLMTrainer at the train step's width,
+  vocab 64 (the synthetic stream), seq 512, batch 4, bf16, block (512,
+  512), s = 0.8.  RigL for 30 steps with updates at 0, 10 and 20 (each
+  checked: counts preserved, grown blocks' weights and Adam slots zero);
+  then SET and SNFS a few steps with one update each; then 16 greedy
+  tokens with kv_chunk 0 and 128 (L = 1024), which must agree.  Returns
+  (launches of the RigL run, record)."""
+  import numpy as np
+  from rigl_tpu_torch.drivers.packed_lm import synthetic_stream
+  from rigl_tpu_torch.train.packed_lm import PackedLMConfig, PackedLMTrainer
+  from rigl_tpu_torch.transforms.packed_training import repack_permutation
+  tokens = synthetic_stream(200_000, seed=SEED)
+  base = dict(vocab_size=LM_VOCAB, num_layers=TR_LAYERS, d_model=D_MODEL,
+              d_ff=D_FF, num_heads=HEADS, seq_len=TR_SEQ, sparsity=SPARSITY,
+              block=BLOCK, bm=512, dtype='bfloat16', learning_rate=1e-3,
+              warmup_steps=5, batch_size=TR_BATCH, drop_fraction=0.3,
+              drop_fraction_anneal='cosine', seed=SEED)
+
+  def run(algo, steps, frequency, end):
+    cfg = PackedLMConfig(algo=algo, train_steps=steps,
+                         maskupdate_begin_step=0, maskupdate_end_step=end,
+                         maskupdate_frequency=frequency, **base)
+    tr = PackedLMTrainer(cfg, device=device)
+    tr.init_state()
+    updates, progress = [], []
+    mask_update = tr.mask_update
+
+    def checked_update(x, y):
+      old = tr.packings
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      occ = mask_update(x, y)
+      torch.cuda.synchronize()
+      ms = (time.perf_counter() - t0) * 1e3
+      mu, nu = tr.adam_slots()
+      grown = 0
+      for name, pk in tr.packings.items():
+        check(int(occ[name].sum()) == tr.params[name].shape[0],
+              f'{algo} update: {name} count changed')
+        new = (repack_permutation(old[name], pk) < 0).to(device)
+        grown += int(new.sum())
+        for t in (tr.params[name].detach(), mu[name], nu[name]):
+          check(not bool(t[new].any()), f'{algo} update: grown slot of '
+                f'{name} not zero')
+      updates.append(dict(step=tr.step, ms=ms, grown=grown))
+      return occ
+
+    tr.mask_update = checked_update
+    t0 = time.perf_counter()
+    res = tr.train(tokens, progress_fn=lambda m: progress.append(
+        dict(m, t=time.perf_counter())), log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del tr.mask_update
+    losses = [p['loss'] for p in progress]
+    after = {u['step'] + (1 if algo == 'rigl' else 0) for u in updates}
+    gaps = [b_['t'] - a['t'] for a, b_ in zip(progress, progress[1:])
+            if b_['step'] not in after]
+    rec = dict(algo=algo, steps=res['train_steps'],
+               update_steps=[u['step'] for u in updates],
+               update_ms=[u['ms'] for u in updates],
+               blocks_grown=[u['grown'] for u in updates], losses=losses,
+               step_ms=float(np.median(gaps)) * 1e3 if gaps else None,
+               wall_s=wall)
+    log(f'lm {algo}: {res["train_steps"]} steps in {wall:.2f} s, updates '
+        f'at {rec["update_steps"]} ({[round(m, 1) for m in rec["update_ms"]]}'
+        f' ms, grown {rec["blocks_grown"]}); step {rec["step_ms"]:.2f} ms '
+        f'(median, host clock); loss {losses[0]:.4f} -> {losses[-1]:.4f}')
+    check(all(np.isfinite(losses)), f'{algo}: non-finite loss')
+    return tr, rec
+
+  _zero_counts()
+  tr, rigl = run('rigl', LM_STEPS, 10, 20)
+  launches = _since({k: 0 for k in _counts()})
+  check(rigl['update_steps'] == [0, 10, 20],
+        f'rigl updates at {rigl["update_steps"]}, not [0, 10, 20]')
+  check(sum(rigl['blocks_grown']) > 0, 'rigl grew no block')
+  check(np.mean(rigl['losses'][-5:]) < np.mean(rigl['losses'][:5]),
+        f'rigl loss did not fall: {rigl["losses"]}')
+  check(all(launches[k] > 0 for k in ('fwd', 'dx', 'dw')),
+        f'lm: a packed kernel was not launched: {launches}')
+  log(f'  lm rigl launches {launches}')
+
+  prompt = np.asarray(tokens[:4 * 64], np.int32).reshape(4, 64)
+  out = {}
+  for kv_chunk in (0, 128):
+    t0 = time.perf_counter()
+    out[kv_chunk] = tr.generate(prompt, 16, max_len=1024, kv_chunk=kv_chunk)
+    log(f'  generate 16 greedy tokens, batch 4, L = 1024, kv_chunk '
+        f'{kv_chunk}: {(time.perf_counter() - t0) * 1e3:.1f} ms')
+  check(out[0].shape == (4, 16), f'generate shape {out[0].shape}')
+  check((out[0] == out[128]).all(), 'kv_chunk=128 tokens differ from '
+        f'unchunked: {out[0].tolist()} vs {out[128].tolist()}')
+  del tr
+  others = {}
+  for algo in ('set', 'snfs'):
+    t, others[algo] = run(algo, 6, 5, 5)
+    check(len(others[algo]['update_steps']) == 1,
+          f'{algo} updates at {others[algo]["update_steps"]}')
+    del t
+  torch.cuda.empty_cache()
+  return launches, dict(rigl=rigl, **others,
+                        generated=out[0].tolist(), kv_chunk_equal=True)
+
+
 def _kernel_entry(name, source, replaces, launches, by_path, points):
   """One kernel's JSON record: sums over its bf16 points; bound_by is the
   kind of bound that holds the larger share of the summed bound."""
@@ -756,7 +1252,8 @@ def main():
     print('chip_smoke: FAIL: no CUDA device', file=sys.stderr)
     return 1
   root = Path(__file__).resolve().parent
-  if not (root / 'rigl_tpu_torch' / 'csrc' / 'packed_mm.cu').is_file():
+  if not all((root / 'rigl_tpu_torch' / 'csrc' / f'{name}.cu').is_file()
+             for name in LIBRARIES):
     print('chip_smoke: FAIL: run from a checkout holding rigl_tpu_torch/',
           file=sys.stderr)
     return 1
@@ -769,6 +1266,7 @@ def main():
     phase_build()
     serve_points = phase_kernel(torch, device)
     train_points = phase_train_kernels(torch, device)
+    step_points = phase_step_kernels(torch, device)
     autograd_errs = phase_autograd(torch, device)
     packed, dense = build_models(torch, device)
     serve_launches, logit_errs = phase_serve(torch, device, packed, dense)
@@ -777,6 +1275,10 @@ def main():
     torch.cuda.empty_cache()
     train_launches, training = phase_train(torch, device)
     training['speed'] = phase_train_speed(torch, device)
+    torch.cuda.empty_cache()
+    flash_points = phase_flash(torch, device)
+    step_launches, train_step = phase_train_step(torch, device)
+    lm_launches, lm = phase_lm(torch, device)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -788,20 +1290,39 @@ def main():
     return 1
   src = 'rigl_tpu_torch/csrc/packed_mm.cu'
   tpu = 'rigl_tpu/ops/pallas/block_sparse_packed.py'
-  fwd_by_path = {'serving': serve_launches, 'training': train_launches[0]}
+  packed_paths = {
+      'fwd': {'serving': serve_launches, 'training': train_launches[0]},
+      'dx': {'training': train_launches[1]},
+      'dw': {'training': train_launches[2]}}
+  for op, by_path in packed_paths.items():
+    by_path.update(train_step=step_launches[op], lm=lm_launches[op])
   kernels = [
-      _kernel_entry('packed_mm_fwd_kernel', src, f'{tpu}:178',
-                    sum(fwd_by_path.values()), fwd_by_path,
-                    serve_points + train_points['fwd']),
-      _kernel_entry('packed_mm_dx_kernel', src, f'{tpu}:178',
-                    train_launches[1], {'training': train_launches[1]},
-                    train_points['dx']),
-      _kernel_entry('packed_dw_kernel', src, f'{tpu}:345',
-                    train_launches[2], {'training': train_launches[2]},
-                    train_points['dw'])]
+      _kernel_entry(name, src, f'{tpu}:{line}',
+                    sum(packed_paths[op].values()), packed_paths[op], points)
+      for name, op, line, points in (
+          ('packed_mm_fwd_kernel', 'fwd', 178,
+           serve_points + train_points['fwd'] + step_points['fwd']),
+          ('packed_mm_dx_kernel', 'dx', 178,
+           train_points['dx'] + step_points['dx']),
+          ('packed_dw_kernel', 'dw', 345,
+           train_points['dw'] + step_points['dw']))]
+  flash_tpu = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
+  for name, op, line in (('flash_fwd_kernel', 'fwd', 758),
+                         ('flash_bwd_dkv_kernel', 'dkv', 1121),
+                         ('flash_bwd_dq_kernel', 'dq', 1456)):
+    n = step_launches[f'flash_{op}']
+    entry = _kernel_entry(name, 'rigl_tpu_torch/csrc/flash_attn.cu',
+                          f'{flash_tpu}:{line}', n, {'train_step': n},
+                          flash_points[op])
+    entry['called_from'] = 'rigl_tpu/models/packed_transformer.py:52'
+    if op != 'fwd':
+      entry['library'] = ('scaled_dot_product_attention backward (dq, dk '
+                          'and dv in one call)')
+    kernels.append(entry)
   training['autograd_rel_err'] = autograd_errs
   record = {'card': card, 'kernels': kernels,
-            'serving': dict(speed, **logit_errs), 'training': training}
+            'serving': dict(speed, **logit_errs), 'training': training,
+            'train_step': train_step, 'lm': lm}
   print(json.dumps(record), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

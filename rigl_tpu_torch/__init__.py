@@ -15,7 +15,12 @@ Ported so far:
     block pooling, packed_matmul's backward (dx and packed dw), drop/grow
     on packed storage with optimizer-slot carry, PackedMLPTrainer, the
     MNIST-shaped data loaders and the packed-MLP driver;
-  * the hand-written Hopper kernels of both (csrc/packed_mm.cu: forward,
-    dx and packed dw), and a converter from the JAX package's variables
-    and trainer state (convert.py).
+  * transformer LM training: float32 master weights for bf16 compute,
+    the fused causal attention core, chunked cache attention (kv_chunk),
+    the single-device tree functions of drop/grow (RigL, SET, SNFS),
+    PackedLMTrainer and the packed-LM driver;
+  * the hand-written Hopper kernels of all three (csrc/packed_mm.cu:
+    forward, dx and packed dw; csrc/flash_attn.cu: the flash-attention
+    forward, dK/dV and dQ), and a converter from the JAX package's
+    variables and trainer state (convert.py).
 """

@@ -14,7 +14,9 @@ so this module needs nothing from the JAX package.
 
 `packed_mlp_trainer_from_jax(config, state)` builds the port's
 PackedMLPTrainer from a JAX PackedMLPTrainer's state passed as numpy
-arrays (params, occupancy grids, momentum traces, counters).
+arrays (params, occupancy grids, momentum traces, counters);
+`packed_lm_trainer_from_jax` does the same for PackedLMTrainer (params,
+occupancy grids, Adam's slots and counts, counters, SNFS's EMA grids).
 """
 
 from __future__ import annotations
@@ -80,13 +82,15 @@ def load_converted(model: torch.nn.Module, state: Dict[str, np.ndarray],
 def dense_twin_state(model) -> Dict[str, torch.Tensor]:
   """State dict of the DenseTransformer that computes exactly what the
   PackedTransformer `model` does: each packed kernel unpacked to its
-  dense (in, out) matrix (zeros at inactive blocks), at '<layer>.d.kernel'."""
+  dense (in, out) matrix (zeros at inactive blocks), at '<layer>.d.kernel',
+  in the layer's compute dtype (the twin stores its projections so)."""
   out = {}
   for key, value in model.state_dict().items():
     layer = key.rsplit('.', 1)[0]
     sub = model.get_submodule(layer) if key.endswith('.kernel') else None
     if sub is not None and hasattr(sub, 'packing'):
-      out[f'{layer}.d.kernel'] = unpack_dense(value, sub.packing, sub.block)
+      out[f'{layer}.d.kernel'] = unpack_dense(value, sub.packing,
+                                              sub.block).to(sub.dtype)
     else:
       out[key] = value
   return out
@@ -114,4 +118,38 @@ def packed_mlp_trainer_from_jax(config, state, device='cuda'):
   trainer.load_arrays(state['step'], state['last_update_step'],
                       state['batches_seen'], state['occupancy'],
                       state['params'], state['momentum'])
+  return trainer
+
+
+def packed_lm_trainer_from_jax(config, state, device='cuda'):
+  """The port's PackedLMTrainer holding a JAX PackedLMTrainer's state.
+
+  `config`: the port's PackedLMConfig, or a mapping of the JAX config's
+  fields (dataclasses.asdict of it).  `state`: numpy arrays and ints, keyed
+  by dotted parameter names ('block0.attn.qkv.kernel'),
+    'params'            {name: array}    every parameter, packed or dense;
+    'occupancy'         {name: (nk, nn)} each packed kernel's grid;
+    'mu', 'nu'          {name: array}    Adam's slots (opt_state[0].mu / nu);
+    'count'             int              Adam's count (opt_state[0].count);
+    'schedule_count'    int              the schedule's (opt_state[1].count),
+                                         which JAX advances with Adam's;
+    'step', 'last_update_step', 'batches_seen';
+    'ema'               {name: (nk, nn)} SNFS's EMA grids (algo 'snfs').
+  """
+  from rigl_tpu_torch.train.packed_lm import PackedLMConfig, PackedLMTrainer
+  if isinstance(config, Mapping):
+    config = PackedLMConfig(**{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in config.items()})
+  count = int(state['count'])
+  if int(state.get('schedule_count', count)) != count:
+    raise ValueError(f'Adam count {count} and schedule count '
+                     f'{state["schedule_count"]} differ: the port keeps one')
+  if config.algo == 'snfs' and 'ema' not in state:
+    raise ValueError("algo 'snfs' needs the EMA grids under 'ema'")
+  trainer = PackedLMTrainer(config, device=device)
+  trainer.init_state()
+  trainer.load_arrays(state['step'], state['last_update_step'],
+                      state['batches_seen'], state['occupancy'],
+                      state['params'], state['mu'], state['nu'], count,
+                      state.get('ema'))
   return trainer

@@ -2,9 +2,10 @@
 
 Counterpart of rigl_tpu/layers/packed_dense.py.  The parameter is the
 `(n_active, bk, bn)` packed array; the Packing (the entry lists) is a
-plain attribute of the layer.  The JAX layer keeps an f32 parameter and
-casts it to `dtype` on every call; this one stores it in `dtype`, which
-gives the same numbers for one cast instead of many.
+plain attribute of the layer.  As in JAX, the parameter is float32 (the
+master weights an optimizer updates) and is cast to `dtype` on every call;
+the gradient reaches it through the cast.  A caller that holds the weights
+fixed for many calls (serving) may cache the cast with `cached_casts`.
 
 Gradients flow through packed_matmul's autograd Function: on the card
 its dx and packed-dw kernels, on the CPU their plain versions.  The
@@ -15,6 +16,7 @@ is not ported yet and raises NotImplementedError.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -38,6 +40,40 @@ def random_occupancy(generator: Optional[torch.Generator], nk: int, nn_: int,
   return grid.reshape(nk, nn_)
 
 
+class MasterWeight:
+  """A module whose float32 parameter (named by `weight_name`) is cast to
+  its compute `dtype` on every call, as flax modules with
+  param_dtype=float32 and a compute dtype do.  `cast_cache`, when set by
+  `cached_casts`, stands in for that cast."""
+
+  weight_name = 'kernel'
+  cast_cache: Optional[torch.Tensor] = None
+
+  def compute_weight(self) -> torch.Tensor:
+    if self.cast_cache is not None:
+      return self.cast_cache
+    return getattr(self, self.weight_name).to(self.dtype)
+
+
+@contextlib.contextmanager
+def cached_casts(model: nn.Module):
+  """Within the block, every MasterWeight module of `model` whose
+  parameter is not already in its compute dtype reads one cached cast
+  instead of casting on each call.  The numbers are the same; the
+  parameters must not change inside the block (serving, under
+  inference_mode)."""
+  mods = [m for m in model.modules() if isinstance(m, MasterWeight)]
+  try:
+    for m in mods:
+      w = getattr(m, m.weight_name)
+      if w.dtype != m.dtype:
+        m.cast_cache = w.detach().to(m.dtype)
+    yield model
+  finally:
+    for m in mods:
+      m.cast_cache = None
+
+
 def packed_kernel_matmul(x2d: torch.Tensor, kernel: torch.Tensor,
                          packing: Packing, block: Tuple[int, int],
                          bm: int = 512) -> torch.Tensor:
@@ -45,15 +81,16 @@ def packed_kernel_matmul(x2d: torch.Tensor, kernel: torch.Tensor,
   return packed_matmul(x2d, kernel, packing, block, bm)
 
 
-class PackedDense(nn.Module):
+class PackedDense(MasterWeight, nn.Module):
   """y = x @ W (+ b) with W stored packed at `sparsity`.
 
   in_features % block[0] == 0 and features % block[1] == 0.  The active
   count is n_blocks - floor(sparsity * n_blocks).  `sparsity` is a float
   or a SparsityMap resolved by `path` (this layer's module path, e.g.
   ('block0', 'attn', 'qkv')).  Active weights start at the scale of a
-  dense lecun-normal kernel: normal / sqrt(in_features).  The parameters
-  live on `device`, the card unless the caller names another; without a
+  dense lecun-normal kernel: normal / sqrt(in_features).  The kernel and
+  bias are float32 whatever `dtype` (the compute dtype) is.  They live on
+  `device`, the card unless the caller names another; without a
   card, torch raises.
   """
 
@@ -82,9 +119,9 @@ class PackedDense(nn.Module):
     gdev = generator.device if generator else None
     kernel = torch.randn((n_active, bk, bn), generator=generator, device=gdev)
     self.kernel = nn.Parameter(
-        (kernel / math.sqrt(in_features)).to(device=device, dtype=dtype))
-    self.bias = (nn.Parameter(torch.zeros(features, dtype=dtype,
-                                          device=device))
+        (kernel / math.sqrt(in_features)).to(device=device,
+                                             dtype=torch.float32))
+    self.bias = (nn.Parameter(torch.zeros(features, device=device))
                  if use_bias else None)
 
   def set_packing(self, packing: Packing):
@@ -99,9 +136,9 @@ class PackedDense(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     x2d = x.reshape(-1, self.in_features).to(self.dtype).contiguous()
-    y = packed_kernel_matmul(x2d, self.kernel, self.packing, self.block,
-                             self.bm)
+    y = packed_kernel_matmul(x2d, self.compute_weight(), self.packing,
+                             self.block, self.bm)
     y = y.reshape(*lead, self.features)
     if self.bias is not None:
-      y = y + self.bias
+      y = y + self.bias.to(self.dtype)
     return y

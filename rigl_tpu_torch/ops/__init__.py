@@ -36,8 +36,17 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
      block_sparse_matmul_gather
  13  block_sparse.py:40 _fwd_kernel, _matmul_blocksparse   not yet ported
  14  block_sparse.py:85 _dw_kernel, _dw_blocksparse        not yet ported
- 15  models/packed_transformer.py:52 _flash_attention      not yet ported
-     (JAX's shipped pallas.ops.tpu.flash_attention)
+ 15  models/packed_transformer.py:52 _flash_attention:     csrc/flash_attn.cu
+     JAX's shipped pallas.ops.tpu.flash_attention, three   (CUDA C++, sm_90a),
+     pallas_calls: the forward (_flash_attention_impl),    bound in ops/flash_
+     _flash_attention_bwd_dkv and                          attention.py:
+     _flash_attention_bwd_dq                               flash_fwd_kernel as
+                                                           flash_fwd_cuda,
+                                                           flash_bwd_dkv_kernel
+                                                           as flash_bwd_dkv_
+                                                           cuda, flash_bwd_dq_
+                                                           kernel as flash_bwd_
+                                                           dq_cuda
 
 Each ported kernel has a plain PyTorch version in the same module, which
 CPU tensors take, and a launch counter that a run reads to show that its

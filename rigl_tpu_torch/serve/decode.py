@@ -13,8 +13,11 @@ Variable-length batches: LEFT-pad each row to the common length and pass
 `prompt_lens`; pad positions are masked out of every attention (the
 family has no positional encoding, so a left-shifted row decodes as it
 would alone).  Sampling draws from an explicit torch.Generator (on the
-logits' device) where JAX took a key.  MoE decoding and chunked cache
-attention (`kv_chunk`) are not ported yet.
+logits' device) where JAX took a key.  A request reads each float32
+master weight cast to the compute dtype once (layers/packed_dense.
+cached_casts), not once per step.  `kv_chunk` > 0 (decode_twin) visits
+the cache in kv_chunk pieces and never reads the pieces past the live
+prefix.  MoE decoding is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,23 +27,28 @@ from typing import List, Optional
 
 import torch
 
+from rigl_tpu_torch.layers.packed_dense import cached_casts
+
 _NEG = torch.finfo(torch.float32).min
 
 
 def decode_twin(model, max_decode_len: int, kv_chunk: int = 0):
   """The decode-mode twin of a train-mode PackedTransformer /
   DenseTransformer: a shallow copy that shares every submodule and
-  parameter, with an L-token KV cache."""
+  parameter, with an L-token KV cache.  kv_chunk > 0: chunked cache
+  attention, with per-step KV reads that scale with the live prefix (it
+  must divide L; models/packed_transformer._chunked_cache_attend)."""
   if not getattr(model, 'vocab_size', 0):
     raise ValueError('decoding requires vocab_size > 0 (token inputs)')
-  if kv_chunk:
-    raise NotImplementedError('kv_chunk (chunked cache attention) is not '
-                              'ported yet')
   if max_decode_len < 1:
     raise ValueError('decoding requires max_decode_len >= 1')
+  if kv_chunk < 0 or (kv_chunk and max_decode_len % kv_chunk):
+    raise ValueError(f'kv_chunk={kv_chunk} must divide '
+                     f'max_decode_len={max_decode_len}')
   twin = copy.copy(model)
   twin.decode = True
   twin.max_decode_len = max_decode_len
+  twin.kv_chunk = kv_chunk
   return twin
 
 
@@ -117,7 +125,7 @@ def make_generate_fn(model, steps: int, temperature: float = 0.0,
     if p + steps > model.max_decode_len:
       raise ValueError(f'prompt {p} + steps {steps} exceeds '
                        f'max_decode_len {model.max_decode_len}')
-    with torch.inference_mode():
+    with torch.inference_mode(), cached_casts(model):
       cache = init_cache(model, b)
       if prompt_lens is not None:
         lens = torch.as_tensor(prompt_lens, dtype=torch.int32,

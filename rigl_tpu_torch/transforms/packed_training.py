@@ -14,13 +14,20 @@ occupancy grid:
 The active count is invariant under drop/grow, so every packed shape is
 constant across a run.  Where JAX returns new arrays, `packed_rigl_update`
 updates a torch.optim.Optimizer's parameters and state IN PLACE, so the
-optimizer's references stay valid.  The SET / SNFS grids, the nested-tree
-(`flax_*`) functions and the TP / EP variants are not ported yet.
+optimizer's references stay valid.
+
+The JAX module's nested-tree (`flax_*`) functions work on flax trees keyed
+by path tuples; here they take flat `{name: tensor}` dicts keyed by the
+port's dotted parameter names ('block0.attn.qkv.kernel'), and the
+optimizer is a torch.optim.Optimizer (Adam's exp_avg / exp_avg_sq are
+carried or reset, its step passes through as optax's count does).  They
+are for one device: the TP and EP (tensor- and expert-stacked) variants
+are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -171,3 +178,86 @@ def permute_opt_state(tree, packing_old: Packing, packing_new: Packing,
   Returns a new tree."""
   return _carry_slots(tree, repack_permutation(packing_old, packing_new),
                       grown)
+
+
+# ------------------------------------------------ tree functions (flax_*) --
+def path_key(name: str) -> Tuple[str, ...]:
+  """The flax path tuple of a dotted parameter name: the order in which
+  JAX sorts (and so flattens and enumerates) a tree's leaves."""
+  return tuple(name.split('.'))
+
+
+def _pooled_grids(dense_grads: Dict[str, torch.Tensor],
+                  packings: Dict[str, Packing], block: Tuple[int, int],
+                  absolute: bool) -> Dict[str, torch.Tensor]:
+  """{name: (nk, nn)} block-pooled grids of the dense grads of each packed
+  kernel: pooled |grad| (RigL) or the SIGNED grads (SNFS's EMA input)."""
+  grids = {}
+  for name in packings:
+    g = dense_grads[name].to(torch.float32)
+    grids[name] = pool_to_blocks(g.abs() if absolute else g, block, 'sum')
+  return grids
+
+
+def flax_rigl_grow_grids(dense_grads, packings, block: Tuple[int, int]):
+  """RigL grow grids: block-pooled |dense grad|."""
+  return _pooled_grids(dense_grads, packings, block, absolute=True)
+
+
+def flax_snfs_inst_grids(dense_grads, packings, block: Tuple[int, int]):
+  """SNFS EMA input: block-pooled SIGNED dense grads (abs is applied after
+  the EMA, at scoring time, so sign-oscillating gradients rank low)."""
+  return _pooled_grids(dense_grads, packings, block, absolute=False)
+
+
+def grow_grid_shapes(packings: Dict[str, Packing]) -> Dict[str, tuple]:
+  """{name: (nk, nn)} for each packed kernel: the shapes of its grow grid
+  and of its SNFS EMA state."""
+  return {name: tuple(pk.shape) for name, pk in packings.items()}
+
+
+def flax_set_grow_grids(packings: Dict[str, Packing],
+                        generator: Optional[torch.Generator] = None):
+  """SET grow grids: per-layer uniform [0, 1) scores over the block grid,
+  drawn from `generator` layer by layer in JAX's path order.  JAX folds a
+  key per layer; torch cannot give its bits, so a caller after JAX's exact
+  grids passes them to flax_packed_drop_grow itself."""
+  shapes = grow_grid_shapes(packings)
+  dev = generator.device if generator is not None else None
+  return {name: torch.rand(shapes[name], generator=generator, device=dev,
+                           dtype=torch.float32)
+          for name in sorted(shapes, key=path_key)}
+
+
+def init_snfs_ema_grids(packings: Dict[str, Packing], device=None):
+  """Zero SNFS gradient-EMA state, one (nk, nn) f32 grid per kernel."""
+  return {name: torch.zeros(shape, dtype=torch.float32, device=device)
+          for name, shape in grow_grid_shapes(packings).items()}
+
+
+def snfs_update_ema_grids(ema_grids, inst_grids, momentum: float):
+  """ema <- momentum * ema + (1 - momentum) * inst (the signed pooled
+  grads); advanced at mask-update steps only, as in JAX."""
+  return {name: momentum * ema_grids[name] + (1.0 - momentum)
+          * inst_grids[name] for name in ema_grids}
+
+
+def flax_packed_drop_grow(params: Dict[str, torch.Tensor],
+                          packings: Dict[str, Packing],
+                          optimizer: torch.optim.Optimizer, grow_grids,
+                          drop_fraction) -> PackedRigLResult:
+  """Score-agnostic drop/grow over every packed kernel of `params` (RigL,
+  SET and SNFS differ only in grow_grids); each kernel's active count is
+  its packed leading dim.  Entries without a packing pass through.  In
+  place, as packed_rigl_update."""
+  n_active = {name: int(params[name].shape[0]) for name in packings}
+  return packed_rigl_update(params, packings, optimizer, grow_grids,
+                            drop_fraction, n_active)
+
+
+def flax_packed_rigl_update(params, packings, optimizer, dense_grads,
+                            drop_fraction, block: Tuple[int, int]):
+  """flax_packed_drop_grow with RigL's grow scores (pooled |dense grad|)."""
+  return flax_packed_drop_grow(
+      params, packings, optimizer,
+      flax_rigl_grow_grids(dense_grads, packings, block), drop_fraction)

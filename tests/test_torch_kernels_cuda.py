@@ -1,5 +1,6 @@
-"""The port's hand-written kernels (forward, dx and packed dw) against
-their plain PyTorch versions, on a CUDA card, and the paths that run them.
+"""The port's hand-written kernels (packed forward, dx and packed dw; the
+causal flash-attention forward, dK/dV and dQ) against their plain PyTorch
+versions, on a CUDA card, and the paths that run them.
 
 Every test here needs the card (marker `cuda`) and skips without one.
 The file imports neither jax nor the JAX package, so the card's machine
@@ -15,6 +16,7 @@ from rigl_tpu_torch import convert
 from rigl_tpu_torch.layers.packed_dense import PackedDense, random_occupancy
 from rigl_tpu_torch.models import packed_transformer as tpt
 from rigl_tpu_torch.ops import block_sparse_packed as tbsp
+from rigl_tpu_torch.ops import flash_attention as tfa
 from rigl_tpu_torch.serve import decode as tdec
 
 # (nk, nn, n_active): empty columns, a single active, all actives in one
@@ -227,3 +229,149 @@ def test_serving_on_card_goes_through_the_kernel(cuda_device, dtype, rtol):
   if dtype == torch.float32:
     plain = tdec.generate(tdec.decode_twin(twin, 16), prompt, steps)
     assert torch.equal(out, plain)
+
+
+# ------------------------------------------------------ flash attention ----
+def _qkvo(shape, seed, device):
+  gen = torch.Generator().manual_seed(seed)
+  return [torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+          for _ in range(4)]
+
+
+def _rel_err(got, want):
+  """max |got - want| over max |want| (no floor: gradients can be small)."""
+  want = want.float()
+  return float((got.float() - want).abs().max()) / max(
+      float(want.abs().max()), 1e-30)
+
+
+# bf16 outputs and gradients: the kernels round P (for P v and Pᵀ do) and
+# dS to bf16 before their products, where the plain versions keep f32;
+# each error is relative to the largest plain value.  lse is f32 from f32
+# sums of exact bf16 products, so it differs by summation order only.
+FLASH_TOL, LSE_TOL = 2e-2, 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('b,h,s', [(1, 1, 5), (2, 3, 64), (1, 2, 130),
+                                   (2, 2, 1000), (4, 16, 512)])
+def test_flash_kernels_match_plain(cuda_device, b, h, s, hd):
+  """Forward, dK/dV and dQ kernels at S below, at and across the 64-row
+  tile (ragged S masked in the kernels), each launched once, against the
+  plain versions on the same inputs (the backward fed the kernel's o and
+  lse, so it checks the backward kernels alone)."""
+  q, k, v, do = _qkvo((b, h, s, hd), s * 7 + hd, cuda_device)
+  scale = hd ** -0.5
+  before = (tfa.flash_fwd_launches, tfa.flash_bwd_dkv_launches,
+            tfa.flash_bwd_dq_launches)
+  o, lse = tfa.flash_fwd_cuda(q, k, v, scale)
+  dq, dk, dv = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, scale)
+  torch.cuda.synchronize()
+  assert (tfa.flash_fwd_launches, tfa.flash_bwd_dkv_launches,
+          tfa.flash_bwd_dq_launches) == tuple(n + 1 for n in before)
+  want_o, want_lse = tfa.flash_attention_fwd_reference(q, k, v, scale)
+  assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+  assert _rel_err(o, want_o) <= FLASH_TOL
+  assert float((lse - want_lse).abs().max()) <= LSE_TOL * max(
+      1.0, float(want_lse.abs().max()))
+  want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+  for name, got, ref in zip(('dq', 'dk', 'dv'), (dq, dk, dv), want):
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert torch.isfinite(got).all(), name
+    assert _rel_err(got, ref) <= FLASH_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [32, 64, 128])
+def test_flash_attention_autograd_on_card(cuda_device, hd):
+  """torch.autograd.grad through flash_attention launches the forward once
+  and each backward kernel once, and agrees with autograd through the
+  plain forward."""
+  q, k, v, do = _qkvo((2, 4, 200, hd), hd, cuda_device)
+  q, k, v = (t.requires_grad_() for t in (q, k, v))
+  before = (tfa.flash_fwd_launches, tfa.flash_bwd_dkv_launches,
+            tfa.flash_bwd_dq_launches)
+  o = tfa.flash_attention(q, k, v, hd ** -0.5)
+  grads = torch.autograd.grad(o, (q, k, v), do)
+  torch.cuda.synchronize()
+  assert (tfa.flash_fwd_launches, tfa.flash_bwd_dkv_launches,
+          tfa.flash_bwd_dq_launches) == tuple(n + 1 for n in before)
+  qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+  want_o, _ = tfa.flash_attention_fwd_reference(qf, kf, vf, hd ** -0.5)
+  want = torch.autograd.grad(want_o, (qf, kf, vf), do.float())
+  assert _rel_err(o.detach(), want_o.detach()) <= FLASH_TOL
+  for got, ref in zip(grads, want):
+    assert got.dtype == torch.bfloat16
+    assert _rel_err(got, ref) <= FLASH_TOL
+  with torch.inference_mode():
+    before = tfa.flash_fwd_launches
+    o2 = tfa.flash_attention(q, k, v, hd ** -0.5)
+    assert tfa.flash_fwd_launches == before + 1
+  assert torch.equal(o2, o.detach())
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_what_it_does_not_take(cuda_device):
+  q = torch.randn(1, 2, 16, 64, device=cuda_device)
+  with pytest.raises(NotImplementedError, match='bfloat16'):
+    tfa.flash_attention(q, q, q, 0.125)
+  q48 = torch.randn(1, 2, 16, 48, device=cuda_device, dtype=torch.bfloat16)
+  with pytest.raises(NotImplementedError, match='head dims'):
+    tfa.flash_attention(q48, q48, q48, 0.125)
+  qb = q.bfloat16()
+  with pytest.raises(ValueError, match='one shape'):
+    tfa.flash_fwd_cuda(qb, qb[:, :, :8].contiguous(), qb, 0.125)
+  with pytest.raises(ValueError, match='one CUDA device'):
+    tfa.flash_fwd_cuda(qb, qb.cpu(), qb, 0.125)
+
+
+@pytest.mark.cuda
+def test_lm_trainer_bf16_step_on_card_matches_plain(cuda_device):
+  """One bf16 PackedLMTrainer step on the card: the packed projections
+  launch fwd, dx and dw once each per layer, and the loss and every
+  parameter's gradient agree with the plain path (the dense twin holding
+  the unpacked kernels) on the same state and batch.  bf16 products round
+  at other places in the two paths; each gradient's error is relative to
+  its own largest plain value."""
+  from torch.func import functional_call
+  from rigl_tpu_torch.drivers.packed_lm import synthetic_stream
+  from rigl_tpu_torch.train import packed_lm as tlm
+  cfg = tlm.PackedLMConfig(vocab_size=64, num_layers=2, d_model=256,
+                           d_ff=512, num_heads=2, seq_len=128,
+                           sparsity=0.5, block=(128, 128), bm=128,
+                           dtype='bfloat16', batch_size=2, seed=3)
+  tr = tlm.PackedLMTrainer(cfg, device=cuda_device)
+  tr.init_state()
+  x, y = tr.sample_batch(synthetic_stream(5000, seed=3))
+  params = tr.params
+  assert all(p.dtype == torch.float32 for p in params.values())
+  before = (tbsp.packed_mm_launches, tbsp.packed_mm_dx_launches,
+            tbsp.packed_dw_launches)
+  loss = tlm._lm_loss(tr.model(x), y)
+  grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+  torch.cuda.synchronize()
+  moved = tuple(a - b for a, b in zip(
+      (tbsp.packed_mm_launches, tbsp.packed_mm_dx_launches,
+       tbsp.packed_dw_launches), before))
+  assert moved == (8, 8, 8)
+  views = {n: v.detach().clone().requires_grad_() for n, v in
+           tlm.dense_twin_params({n: p.detach() for n, p in params.items()},
+                                 tr.packings, cfg.block).items()}
+  twin = tpt.DenseTransformer(device=cuda_device, **cfg.model_kwargs())
+  plain_loss = tlm._lm_loss(functional_call(twin, views, (x,)), y)
+  plain = dict(zip(views, torch.autograd.grad(plain_loss,
+                                              list(views.values()))))
+  loss, plain_loss = float(loss.detach()), float(plain_loss.detach())
+  assert abs(loss - plain_loss) <= 2e-2 * abs(plain_loss)
+  packings = tr.packings
+  for name, g in grads.items():
+    if name in packings:
+      got = tbsp.unpack_dense(g, packings[name], cfg.block)
+      want = plain[f'{name.rsplit(".", 1)[0]}.d.kernel']
+      occ = tbsp.unpack_dense(torch.ones_like(g), packings[name], cfg.block)
+      want = want * occ            # the plain dense grad at active blocks
+    else:
+      got, want = g, plain[name]
+    assert torch.isfinite(got).all(), name
+    assert _rel_err(got, want) <= 5e-2, name

@@ -15,6 +15,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -207,8 +208,12 @@ def test_decode_contract_errors():
   with pytest.raises(ValueError, match='vocab'):
     tdec.decode_twin(tm, L)
   tm = tpt.DenseTransformer(**KW, device='cpu')
-  with pytest.raises(NotImplementedError, match='kv_chunk'):
-    tdec.decode_twin(tm, L, kv_chunk=4)
+  with pytest.raises(ValueError, match='must divide'):
+    tdec.decode_twin(tm, L, kv_chunk=3)
+  chunked = tdec.decode_twin(tm, L, kv_chunk=4)     # ported: a working twin
+  assert chunked.kv_chunk == 4 and tm.kv_chunk == 0
+  assert tdec.generate(chunked, torch.zeros(1, 3, dtype=torch.int32),
+                       2).shape == (1, 2)
   dm = tdec.decode_twin(tm, L)
   assert dm.decode and not tm.decode and dm.block0 is tm.block0
   with pytest.raises(ValueError, match='exceeds max_decode_len'):
@@ -217,10 +222,80 @@ def test_decode_contract_errors():
     tdec.make_generate_fn(dm, 0)
   with pytest.raises(ValueError, match='takes a cache'):
     dm(torch.zeros(1, 2, dtype=torch.int32))
-  for kw in (dict(fused_attention=True), dict(seq_axis='s'),
-             dict(kv_chunk=8), dict(tp_shards=2)):
+  for kw in (dict(seq_axis='s'), dict(tp_shards=2)):
     with pytest.raises(NotImplementedError, match='not ported'):
       tpt.PackedTransformer(**KW, **PACKED_KW, **kw, device='cpu')
+  # Ported now: the fused core and kv_chunk build working models.
+  fused = tpt.PackedTransformer(**KW, **PACKED_KW, fused_attention=True,
+                                kv_chunk=8, device='cpu')
+  assert fused.block0.attn.fused and fused.kv_chunk == 8
+  with torch.inference_mode():
+    assert fused(torch.zeros(1, 3, dtype=torch.int32)).shape == (1, 3, V)
+
+
+def test_bf16_training_keeps_f32_master_weights_like_jax():
+  """A bf16 PackedTransformer takes 3 Adam steps in both packages.  As in
+  JAX, the packed kernels, the embedding, the head and the LayerNorms are
+  float32 master weights that the optimizer updates, cast to bf16 on each
+  call; the dense twin's projections alone are stored in bf16.  At lr
+  1e-5 a bf16-stored parameter (about 1e-3 apart from its neighbours at
+  these magnitudes) would not move at all.  The bf16 products round at
+  other places in the two packages, so Adam's near-sign steps of small
+  gradient elements may differ: each parameter's summed |update|
+  difference must stay within 0.2 of JAX's summed |update| (measured:
+  0.09 at most)."""
+  lr = 1e-5
+  rs = np.random.RandomState(1)
+  tokens = rs.randint(0, V, (B, T + 1)).astype(np.int32)
+  x, y = tokens[:, :-1], tokens[:, 1:]
+  jm = jpt.PackedTransformer(**KW, **PACKED_KW, dtype=jnp.bfloat16)
+  variables = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.key(2),
+                                                        jnp.asarray(x)))
+
+  def jloss(params):
+    lg = jm.apply({'params': params, 'packing': variables['packing']},
+                  jnp.asarray(x)).astype(jnp.float32)
+    ll = jax.nn.log_softmax(lg)[jnp.arange(B)[:, None],
+                                jnp.arange(T)[None, :], jnp.asarray(y)]
+    return -jnp.mean(ll)
+
+  tx = optax.adam(lr)
+  params = variables['params']
+  opt_state = tx.init(params)
+  grad_fn = jax.jit(jax.grad(jloss))
+  for _ in range(3):
+    grads = grad_fn(params)
+    updates, opt_state = tx.update(grads, opt_state, params)
+    params = optax.apply_updates(params, updates)
+
+  tm = tpt.PackedTransformer(**KW, **PACKED_KW, dtype=torch.bfloat16,
+                             device='cpu')
+  init, packings = convert.from_jax_variables(variables)
+  convert.load_converted(tm, init, packings)
+  opt = torch.optim.Adam(tm.parameters(), lr=lr, eps=1e-8)
+  for _ in range(3):
+    opt.zero_grad()
+    logp = torch.log_softmax(tm(_t(x)).float(), -1)
+    (-logp.gather(-1, _t(y).long()[..., None]).mean()).backward()
+    opt.step()
+  want, _ = convert.from_jax_variables({'params': params})
+  got = dict(tm.named_parameters())
+  assert set(got) == set(want)
+  for name, p in got.items():
+    assert p.dtype == torch.float32 and want[name].dtype == np.float32, name
+    moved = np.asarray(want[name], np.float64) - init[name]
+    diff = p.detach().numpy().astype(np.float64) - init[name] - moved
+    assert np.abs(moved).sum() > 0, name
+    assert np.abs(diff).sum() <= 0.2 * np.abs(moved).sum(), name
+  twin = tpt.DenseTransformer(**KW, dtype=torch.bfloat16, device='cpu')
+  jtwin = jax.eval_shape(jpt.DenseTransformer(**KW, dtype=jnp.bfloat16).init,
+                         jax.random.key(0), jnp.asarray(x))
+  jdtypes = {k: v.dtype for k, v in convert.from_jax_variables(
+      jax.tree.map(lambda a: np.zeros((), a.dtype), jtwin))[0].items()}
+  for name, p in twin.named_parameters():
+    proj = name.endswith('.d.kernel')
+    assert p.dtype == (torch.bfloat16 if proj else torch.float32), name
+    assert jdtypes[name] == (jnp.bfloat16 if proj else np.float32), name
 
 
 def test_port_imports_no_jax():
@@ -241,4 +316,4 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=120,
                        check=False)
   assert out.returncode == 0, out.stderr
-  assert int(out.stdout.strip()) >= 12
+  assert int(out.stdout.strip()) >= 28
