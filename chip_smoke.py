@@ -7,8 +7,8 @@ Run from the root of a checkout.  It imports nothing of JAX or of the JAX
 package.  Phases, each fatal on failure:
 
   1. device: torch / CUDA versions, the card's name and power limit;
-  2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu and flash_attn.cu
-     with nvcc, one process per source started together (into the
+  2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu, flash_attn.cu and
+     tap_conv.cu with nvcc, one process per source started together (into the
      git-ignored rigl_tpu_torch/_build/), and prints ptxas' report;
   3. packed kernels vs plain: each kernel against its plain PyTorch
      version on the same inputs, with errors, device times of both (CUDA
@@ -66,13 +66,30 @@ package.  Phases, each fatal on failure:
      steps with updates at 0, 10 and 20 (counts preserved, grown blocks'
      weights and Adam slots zero, finite falling loss), then SET and SNFS
      a few steps with one update each; 16 greedy tokens with kv_chunk 0
-     and 128 (L = 1024) must agree.
+     and 128 (L = 1024) must agree;
+ 12. tap kernels vs plain: the tap conv's forward, dx and dw kernels, each
+     against its plain version, at the four WRN-22-2 conv shapes and RN50's
+     four stride-1 3x3 shapes (batch 128, ERK-0.8 densities, block (16,
+     16)) in f32 and bf16, and in f32 at batch 100, a 5x5 kernel and an
+     empty output column; beside cuDNN on the expanded weight (F.conv2d,
+     torch.nn.grad.conv2d_input and conv2d_weight, TF32 off) and the bound;
+ 13. conv-net training, a main path: PackedClassifierTrainer on WRN-22-2
+     with engine='tap' (synthetic CIFAR-10 shapes, standardized, batch
+     128, block (16, 16), ERK s = 0.8, f32, SGD 0.05 nesterov 0.9) trains
+     30 RigL steps with updates at 0, 10 and 20 (counts preserved, grown
+     blocks' weights and momentum zero, finite falling loss, fwd / dx / dw
+     launches 16 each per step), one step's loss and packed gradients
+     against the plain path (the dense twin holding the unpacked kernels),
+     evaluate, then SET and SNFS a few steps with one update each;
+ 14. WRN-22-2 step speed: us/step of the 'tap' engine, the 'xla' engine
+     and the dense twin, each twice in mirrored order, with each arm's
+     device busy share and kernel time per step by kernel.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  The line before the last is the JSON record: `kernels`
 (per kernel: the sums over its bf16 points of ms, plain_ms, bound_ms and
 library_ms, its launches on the main paths, and every point), `serving`,
-`training`, `train_step` and `lm`.  The last line is {"ok": true,
+`training`, `train_step`, `lm` and `wrn`.  The last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or without the package beside
 this script, it exits non-zero and prints no result.
 """
@@ -104,7 +121,7 @@ LOGIT_RTOL = 5e-2
 # f32 outside them, which is what the f32 kernels use).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
-LIBRARIES = ('packed_mm', 'flash_attn')
+LIBRARIES = ('packed_mm', 'flash_attn', 'tap_conv')
 # Transformer training (scripts/bench_packed_transformer.py): 2 layers of
 # the serving width, seq 512, batch 4, bf16, block (512, 512), s = 0.8.
 TR_LAYERS, TR_SEQ, TR_BATCH = 2, 512, 4
@@ -121,6 +138,19 @@ FLASH_TOL, LSE_TOL = 2e-2, 1e-4
 # error over its own largest plain value.
 STEP_RTOL = 5e-2
 LM_STEPS, LM_VOCAB = 30, 64
+# WRN-22-2 on CIFAR-10 shapes, the JAX packed-conv driver's --arch=wrn
+# (rigl_tpu/drivers/packed_conv.py): batch 128, block (16, 16), ERK at
+# s = 0.8, f32, SGD lr 0.05 with nesterov momentum 0.9.  Its 16 stride-1
+# 3x3 convs run the tap kernels; the 2 stride-2 ones the 'xla' engine.
+WRN_DEPTH, WRN_WIDTH, WRN_BATCH, WRN_BLOCK = 22, 2, 128, (16, 16)
+WRN_SPARSITY, WRN_STEPS, WRN_TAP_CONVS = 0.8, 30, 16
+# One f32 step, tap path vs plain path (the dense twin on cuDNN, TF32 off):
+# the same sums in another order through 20 convs and 21 GroupNorms, each
+# error over its own largest plain value.  The largest, at the first
+# group's kernels and GroupNorm biases, measured 6.7e-4 and 1.8e-3 in two
+# runs (cuDNN picks its algorithms per run); a wrong tap or block would be
+# of order 1.
+WRN_STEP_RTOL = 1e-2
 
 
 class SmokeFailure(Exception):
@@ -263,15 +293,18 @@ def bound(op, m, packing, block, dtype):
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def kernel_point(torch, label, counter, run, plain, library, bound_):
-  """Launches `run` once (its counter must move by one), holds its output
+def kernel_point(torch, label, counter, run, plain, library, bound_,
+                 module=None, library_name='torch.matmul', plain_iters=10):
+  """Launches `run` once (its counter, an attribute of `module`, by
+  default ops/block_sparse_packed, must move by one), holds its output
   against `plain` on the same inputs, then times kernel, plain version and
   the dense `library` call.  Returns (record, kernel output)."""
-  from rigl_tpu_torch.ops import block_sparse_packed as bsp
-  before = getattr(bsp, counter)
+  if module is None:
+    from rigl_tpu_torch.ops import block_sparse_packed as module
+  before = getattr(module, counter)
   got = run()
   torch.cuda.synchronize()
-  check(getattr(bsp, counter) == before + 1, f'{label}: not launched')
+  check(getattr(module, counter) == before + 1, f'{label}: not launched')
   want = plain()
   check(bool(torch.isfinite(got).all()), f'{label}: non-finite output')
   check(got.shape == want.shape and got.dtype == want.dtype,
@@ -281,12 +314,12 @@ def kernel_point(torch, label, counter, run, plain, library, bound_):
   scale = max(1.0, float(want.float().abs().max()))
   tol = TOL[dtype_name(got.dtype)] * scale
   rec = dict(max_abs_err=err, max_rel_err=err / scale, tol=tol,
-             ms=device_ms(run, 20), plain_ms=device_ms(plain, 10),
+             ms=device_ms(run, 20), plain_ms=device_ms(plain, plain_iters),
              library_ms=device_ms(library, 20), host_ms=host_ms(run, 20),
              bound_ms=bound_[0], bound_by=bound_[1])
   log(f'{label}: max|err| {err:.3e} (rel {err / scale:.3e}, tol {tol:.3e})'
       f'  device ms: kernel {rec["ms"]:.4f}, plain {rec["plain_ms"]:.4f}, '
-      f'torch.matmul {rec["library_ms"]:.4f}, bound {bound_[0]:.4f} '
+      f'{library_name} {rec["library_ms"]:.4f}, bound {bound_[0]:.4f} '
       f'({bound_[1]})  host {rec["host_ms"]:.4f}')
   check(err <= tol, f'{label}: error {err} > {tol}')
   return rec, got
@@ -582,22 +615,29 @@ def phase_speed(torch, device, packed, dense):
 
 
 def _counts():
-  """{kernel: launches so far}: the wrappers' counters, packed and flash."""
+  """{kernel: launches so far}: the wrappers' counters, packed, flash and
+  tap."""
+  from rigl_tpu_torch.ops import block_sparse_conv as bsc
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
   from rigl_tpu_torch.ops import flash_attention as fa
   return dict(fwd=bsp.packed_mm_launches, dx=bsp.packed_mm_dx_launches,
               dw=bsp.packed_dw_launches, flash_fwd=fa.flash_fwd_launches,
               flash_dkv=fa.flash_bwd_dkv_launches,
-              flash_dq=fa.flash_bwd_dq_launches)
+              flash_dq=fa.flash_bwd_dq_launches,
+              tap_fwd=bsc.tap_conv_fwd_launches,
+              tap_dx=bsc.tap_conv_dx_launches, tap_dw=bsc.tap_dw_launches)
 
 
 def _zero_counts():
+  from rigl_tpu_torch.ops import block_sparse_conv as bsc
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
   from rigl_tpu_torch.ops import flash_attention as fa
   bsp.packed_mm_launches = bsp.packed_mm_dx_launches = 0
   bsp.packed_dw_launches = 0
   fa.flash_fwd_launches = fa.flash_bwd_dkv_launches = 0
   fa.flash_bwd_dq_launches = 0
+  bsc.tap_conv_fwd_launches = bsc.tap_conv_dx_launches = 0
+  bsc.tap_dw_launches = 0
 
 
 def _packed_counts():
@@ -1227,6 +1267,416 @@ def phase_lm(torch, device):
                         generated=out[0].tolist(), kv_chunk_equal=True)
 
 
+def _tap_counts():
+  """(fwd, dx, dw) launches of the tap kernels so far."""
+  c = _counts()
+  return c['tap_fwd'], c['tap_dx'], c['tap_dw']
+
+
+def _wrn_spec():
+  from rigl_tpu_torch.models.packed_convnet import wrn_layer_shapes
+  from rigl_tpu_torch.sparsity.layer_sparsity import spec_for_model
+  return spec_for_model(wrn_layer_shapes(WRN_DEPTH, WRN_WIDTH),
+                        'erdos_renyi_kernel', WRN_SPARSITY)
+
+
+def tap_points(torch):
+  """Phase 12's points: (label, n, hw, cin, cout, k, sparsity, dtype,
+  empty column).  The four WRN-22-2 conv shapes and RN50's four stride-1
+  3x3 shapes at batch 128 and their ERK-0.8 sparsities, in f32 and bf16;
+  then f32 at the JAX driver's batch 100, a 5x5 kernel and an empty
+  output column."""
+  from rigl_tpu_torch.models.packed_convnet import resnet_layer_shapes
+  from rigl_tpu_torch.sparsity.layer_sparsity import (resolve_sparsity,
+                                                      spec_for_model)
+  wspec = _wrn_spec()
+  rspec = spec_for_model(resnet_layer_shapes(50, 1.0, WRN_BLOCK),
+                         'erdos_renyi_kernel', WRN_SPARSITY)
+  shapes = [('wrn g0_b0/conv1', 32, 16, 32, wspec),
+            ('wrn g0_b0/conv2', 32, 32, 32, wspec),
+            ('wrn g1_b1/conv1', 16, 64, 64, wspec),
+            ('wrn g2_b1/conv1', 8, 128, 128, wspec),
+            ('rn50 g0_b1/conv3x3', 56, 64, 64, rspec),
+            ('rn50 g1_b1/conv3x3', 28, 128, 128, rspec),
+            ('rn50 g2_b1/conv3x3', 14, 256, 256, rspec),
+            ('rn50 g3_b1/conv3x3', 7, 512, 512, rspec)]
+  points = []
+  for dtype in (torch.float32, torch.bfloat16):
+    for label, hw, cin, cout, spec in shapes:
+      s = resolve_sparsity(spec, label.split()[1] + '/kernel')
+      points.append((label, WRN_BATCH, hw, cin, cout, 3, s, dtype, False))
+  s = resolve_sparsity(wspec, 'g0_b0/conv2/kernel')
+  points.append(('wrn g0_b0/conv2', 100, 32, 32, 32, 3, s, torch.float32,
+                 False))
+  points.append(('wrn g0_b0/conv2', WRN_BATCH, 32, 32, 32, 3, s,
+                 torch.float32, True))
+  s = resolve_sparsity(wspec, 'g1_b1/conv1/kernel')
+  points.append(('wrn g1_b1/conv1 5x5', WRN_BATCH, 16, 64, 64, 5, s,
+                 torch.float32, False))
+  return points
+
+
+def tap_bound(op, n, hw, index, dtype):
+  """(ms, 'bytes' | 'operations'): the least time of one tap kernel call on
+  an H100.  Bytes: the input's channel blocks that some entry reads, the
+  active weight blocks and the output, each once (dw: x and gy blocks read,
+  the active blocks written).  FLOPs: 2 bk bn per entry and pixel whose
+  tap-shifted read lies inside the image (this run's taps)."""
+  import torch
+  e = torch.empty((), dtype=dtype).element_size()
+  taps, rblks, cblks = (t.long() for t in index.to('cpu').dw[:3])
+  dy = (taps // index.kw - index.kh // 2).abs()
+  dx = (taps % index.kw - index.kw // 2).abs()
+  pixels = int((n * (hw - dy).clamp(min=0) * (hw - dx).clamp(min=0)).sum())
+  flops = 2.0 * pixels * index.bk * index.bn
+  m = n * hw * hw
+  cin_used = int(rblks.unique().numel()) * index.bk
+  cout_used = int(cblks.unique().numel()) * index.bn
+  w_bytes = index.n_entries * index.bk * index.bn * e
+  moved = {'fwd': m * cin_used * e + w_bytes + m * index.cout * e,
+           'dx': m * cout_used * e + w_bytes + m * index.cin * e,
+           'dw': m * (cin_used + cout_used) * e + w_bytes}[op]
+  t_bytes = moved / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
+  return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _tap_occupancy(torch, gen, k, cin, cout, sparsity, empty_column):
+  """(T, cin/bk, cout/bn) occupancy at `sparsity` over the conv's 2D
+  block grid (cin-minor rows, as PackedConv's), with cout-block 0 emptied
+  on request; and its active count."""
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  bk, bn = WRN_BLOCK
+  nk, nn_ = k * k * cin // bk, cout // bn
+  n_act = nk * nn_ - get_n_zeros(nk * nn_, sparsity)
+  occ = random_occupancy(gen, nk, nn_, n_act).reshape(k * k, cin // bk, nn_)
+  if empty_column:
+    occ[:, :, 0] = 0
+  return occ, int(occ.sum())
+
+
+def phase_tap_kernels(torch, device):
+  """The tap kernels (forward, dx, dw), each against its plain version at
+  phase 12's points, beside cuDNN on the expanded weight (F.conv2d;
+  torch.nn.grad.conv2d_input / conv2d_weight; TF32 off)."""
+  import torch.nn.functional as F
+  from torch.nn.grad import conv2d_input, conv2d_weight
+  from rigl_tpu_torch.ops import block_sparse_conv as bsc
+  gen = torch.Generator().manual_seed(SEED + 11)
+  bk, bn = WRN_BLOCK
+  records = {'fwd': [], 'dx': [], 'dw': []}
+  for label, n, hw, cin, cout, k, s, dtype, empty in tap_points(torch):
+    occ, n_act = _tap_occupancy(torch, gen, k, cin, cout, s, empty)
+    packing = dict(zip(('cols', 'rows', 'taps'),
+                       bsc.pack_tap_active(occ, n_act)))
+    index = bsc.tap_index(packing, (k, k, cin, cout), WRN_BLOCK)
+    mask = occ.repeat_interleave(bk, 1).repeat_interleave(bn, 2)
+    w = ((torch.randn(k, k, cin, cout, generator=gen) / (k * k * cin) ** 0.5)
+         * mask.reshape(k, k, cin, cout)).to(device, dtype)
+    x = torch.randn(n, hw, hw, cin, generator=gen).to(device, dtype)
+    gy = torch.randn(n, hw, hw, cout, generator=gen).to(device, dtype)
+    # cuDNN's operands: NCHW views of the NHWC tensors (channels-last
+    # memory) and the expanded weight as OIHW.
+    xc, gyc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    pad = (k // 2, k // 2)
+    ops = {
+        'fwd': ('tap_conv_fwd_launches',
+                lambda: bsc.tap_conv_cuda(x, w, index),
+                lambda: bsc.tap_conv_reference(x, w, index),
+                lambda: F.conv2d(xc, wc, padding=pad), 'F.conv2d'),
+        'dx': ('tap_conv_dx_launches',
+               lambda: bsc.tap_conv_cuda(gy, w, index, 'dx'),
+               lambda: bsc.tap_conv_reference(gy, w, index, 'dx'),
+               lambda: conv2d_input(xc.shape, wc, gyc, padding=pad),
+               'conv2d_input'),
+        'dw': ('tap_dw_launches', lambda: bsc.tap_dw_cuda(x, gy, w, index),
+               lambda: bsc.tap_dw_reference(x, gy, index, dtype),
+               lambda: conv2d_weight(xc, wc.shape, gyc, padding=pad),
+               'conv2d_weight')}
+    tag = (f'{label} {k}x{k} n={n} {hw}x{hw} {cin}->{cout} s={s:.3f} '
+           f'({n_act} blocks) {dtype_name(dtype)}'
+           + (' empty column' if empty else ''))
+    for op, (counter, run, plain, library, lib_name) in ops.items():
+      rec, got = kernel_point(
+          torch, f'tap {op:3s} {tag}', counter, run, plain, library,
+          tap_bound(op, n, hw, index, dtype), module=bsc,
+          library_name=lib_name, plain_iters=3)
+      if op == 'fwd':
+        for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
+          check(not bool(got[..., j * bn:(j + 1) * bn].any()),
+                f'tap fwd {tag}: empty column {j} not zero')
+      rec.update(path='wrn_training', layer=label, n=n, hw=hw, k=k, cin=cin,
+                 cout=cout, sparsity=s, n_active=n_act,
+                 dtype=dtype_name(dtype), empty_column=empty,
+                 library=lib_name)
+      records[op].append(rec)
+    del x, gy, w, xc, gyc, wc
+  torch.cuda.empty_cache()
+  return records
+
+
+def wrn_model(torch, device, engine, seed):
+  from rigl_tpu_torch.models.packed_convnet import PackedWideResNet
+  return PackedWideResNet(depth=WRN_DEPTH, width=WRN_WIDTH, num_classes=10,
+                          sparsity=_wrn_spec(), block=WRN_BLOCK,
+                          engine=engine, generator=torch.Generator().manual_seed(seed),
+                          device=device)
+
+
+def wrn_twin(device='meta'):
+  from rigl_tpu_torch.models.packed_convnet import DenseWideResNetTwin
+  return DenseWideResNetTwin(depth=WRN_DEPTH, width=WRN_WIDTH,
+                             num_classes=10, device=device)
+
+
+def wrn_data():
+  """Synthetic CIFAR-10 shapes, standardized per image (both splits)."""
+  from rigl_tpu_torch.data.datasets import normalize, synthetic_arrays
+  tx, ty, vx, vy = synthetic_arrays(10, (32, 32, 3), n_train=4096,
+                                    n_test=1024, seed=SEED)
+  return (normalize('cifar10', tx), ty), (normalize('cifar10', vx), vy)
+
+
+def phase_wrn(torch, device):
+  """The conv-net main path: PackedClassifierTrainer on WRN-22-2 with the
+  'tap' engine (module docstring, phase 13).  Returns (tap launches of the
+  RigL run, record)."""
+  import numpy as np
+  from torch.func import functional_call
+  from rigl_tpu_torch.train.packed_classifier import (
+      PackedClassifierConfig, PackedClassifierTrainer)
+  from rigl_tpu_torch.train.packed_lm import dense_twin_params
+  from rigl_tpu_torch.transforms.packed_training import repack_permutation
+  train_xy, eval_xy = wrn_data()
+  base = dict(sparsity=WRN_SPARSITY, block=WRN_BLOCK, learning_rate=0.05,
+              momentum=0.9, batch_size=WRN_BATCH, drop_fraction=0.3,
+              drop_fraction_anneal='cosine', seed=SEED,
+              maskupdate_begin_step=0)
+
+  def run(algo, steps, frequency, end):
+    cfg = PackedClassifierConfig(algo=algo, train_steps=steps,
+                                 maskupdate_end_step=end,
+                                 maskupdate_frequency=frequency, **base)
+    tr = PackedClassifierTrainer(wrn_model(torch, device, 'tap', SEED), wrn_twin(),
+                                 cfg, (32, 32, 3))
+    tr.init_state()
+    updates, progress = [], []
+    mask_update = tr.mask_update
+
+    def checked_update(x, y):
+      old = tr.packings
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      occ = mask_update(x, y)
+      torch.cuda.synchronize()
+      ms = (time.perf_counter() - t0) * 1e3
+      mom = tr.momentum()
+      grown = 0
+      for name, pk in tr.packings.items():
+        check(int(occ[name].sum()) == tr.params[name].shape[0],
+              f'wrn {algo} update: {name} count changed')
+        new = (repack_permutation(old[name], pk) < 0).to(device)
+        grown += int(new.sum())
+        for t in (tr.params[name].detach(), mom[name]):
+          check(not bool(t[new].any()), f'wrn {algo} update: grown slot of '
+                f'{name} not zero')
+      updates.append(dict(step=tr.step, ms=ms, grown=grown))
+      return occ
+
+    last = [_tap_counts()]
+
+    def on_step(m):
+      now = _tap_counts()
+      progress.append(dict(m, t=time.perf_counter(), launches=tuple(
+          a - b for a, b in zip(now, last[0]))))
+      last[0] = now
+
+    tr.mask_update = checked_update
+    t0 = time.perf_counter()
+    res = tr.train(train_xy, progress_fn=on_step, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del tr.mask_update
+    losses = [p['loss'] for p in progress]
+    after = {u['step'] + (1 if algo == 'rigl' else 0) for u in updates}
+    gaps = [b['t'] - a['t'] for a, b in zip(progress, progress[1:])
+            if b['step'] not in after]
+    bad = [(p['step'], p['launches']) for p in progress
+           if p['launches'] != (WRN_TAP_CONVS,) * 3]
+    rec = dict(algo=algo, steps=res['train_steps'],
+               batches=res['batches'],
+               update_steps=[u['step'] for u in updates],
+               update_ms=[u['ms'] for u in updates],
+               blocks_grown=[u['grown'] for u in updates], losses=losses,
+               step_ms=float(np.median(gaps)) * 1e3 if gaps else None,
+               wall_s=wall)
+    log(f'wrn {algo}: {res["train_steps"]} steps in {wall:.2f} s, updates '
+        f'at {rec["update_steps"]} ({[round(m, 1) for m in rec["update_ms"]]}'
+        f' ms, grown {rec["blocks_grown"]}); step {rec["step_ms"]:.2f} ms '
+        f'(median, host clock); loss {losses[0]:.4f} -> {losses[-1]:.4f}')
+    check(all(np.isfinite(losses)), f'wrn {algo}: non-finite loss')
+    check(not bad, f'wrn {algo}: steps whose tap launches (fwd, dx, dw) are '
+          f'not {WRN_TAP_CONVS} each: {bad[:3]}')
+    return tr, rec
+
+  _zero_counts()
+  tr, rigl = run('rigl', WRN_STEPS, 10, 20)
+  launches = _tap_counts()
+  check(rigl['update_steps'] == [0, 10, 20],
+        f'wrn rigl updates at {rigl["update_steps"]}, not [0, 10, 20]')
+  check(rigl['batches'] == WRN_STEPS + 3, f'wrn rigl batches '
+        f'{rigl["batches"]} != steps + updates')
+  check(sum(rigl['blocks_grown']) > 0, 'wrn rigl grew no block')
+  check(np.mean(rigl['losses'][-5:]) < np.mean(rigl['losses'][:5]),
+        f'wrn rigl loss did not fall: {rigl["losses"]}')
+  log(f'  wrn rigl tap launches (fwd, dx, dw) {launches}')
+
+  # One step's loss and packed gradients against the plain path: the dense
+  # twin (cuDNN convs, TF32 off) holding the unpacked kernels.
+  rs = np.random.RandomState(SEED + 12)
+  idx = rs.randint(0, len(train_xy[0]), size=WRN_BATCH)
+  x = torch.as_tensor(train_xy[0][idx]).to(device)
+  y = torch.as_tensor(train_xy[1][idx]).to(device)
+  params = tr.params
+  loss = tr._loss(x, y)
+  grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+  loss = loss.detach()
+  views = {n: v.detach().clone().requires_grad_() for n, v in
+           dense_twin_params({n: p.detach() for n, p in params.items()},
+                             tr.packings, WRN_BLOCK).items()}
+  logits = functional_call(wrn_twin(), views, (x,)).float()
+  plain_loss = -torch.log_softmax(logits, -1).gather(
+      1, y.long()[:, None]).mean()
+  plain = dict(zip(views, torch.autograd.grad(plain_loss,
+                                              list(views.values()))))
+  plain_loss = plain_loss.detach()
+  loss_err = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
+  grad_errs = _grad_errors(torch, tr.model, grads, plain)
+  worst = sorted(grad_errs, key=grad_errs.get)[-3:]
+  log(f'  one step, tap path vs plain path: loss {float(loss):.6f} vs '
+      f'{float(plain_loss):.6f} (rel {loss_err:.3e}); max rel grad err '
+      f'{max(grad_errs.values()):.3e} (tol {WRN_STEP_RTOL}); largest at '
+      f'{[(n, float(f"{grad_errs[n]:.3e}")) for n in worst]}')
+  check(loss_err <= WRN_STEP_RTOL, f'wrn step loss: rel error {loss_err}')
+  for name, err in grad_errs.items():
+    check(err <= WRN_STEP_RTOL, f'wrn step grad {name}: rel error {err}')
+  del grads, plain, views
+  t0 = time.perf_counter()
+  top1 = tr.evaluate(*eval_xy)
+  eval_s = time.perf_counter() - t0
+  log(f'  evaluate on {len(eval_xy[0])} images: top-1 {top1:.4f} in '
+      f'{eval_s:.2f} s')
+  check(0.0 <= top1 <= 1.0, f'eval top-1 {top1}')
+  del tr
+  others = {}
+  for algo in ('set', 'snfs'):
+    t, others[algo] = run(algo, 6, 5, 5)
+    check(len(others[algo]['update_steps']) == 1,
+          f'wrn {algo} updates at {others[algo]["update_steps"]}')
+    del t
+  torch.cuda.empty_cache()
+  return launches, dict(rigl=rigl, **others, eval_top_1=top1,
+                        step_vs_plain=dict(
+                            loss_rel_err=loss_err,
+                            max_grad_rel_err=max(grad_errs.values())))
+
+
+def phase_wrn_speed(torch, device):
+  """us/step of WRN-22-2 (f32, batch 128, SGD nesterov 0.9, lr 0.05) with
+  the 'tap' engine, the 'xla' engine (unpack, then cuDNN) and the dense
+  twin, each twice in mirrored order; each arm's device busy share and
+  kernel time per step, in all and by kernel (torch.profiler)."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+  from rigl_tpu_torch import convert
+  train_xy, _ = wrn_data()
+  x = torch.as_tensor(train_xy[0][:WRN_BATCH]).to(device)
+  y = torch.as_tensor(train_xy[1][:WRN_BATCH]).to(device)
+  tap = wrn_model(torch, device, 'tap', SEED + 13)
+  xla = wrn_model(torch, device, 'xla', SEED + 13)
+  dense = wrn_twin(device)
+  dense.load_state_dict(convert.dense_twin_state(tap))
+
+  def make_step(model):
+    opt = torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9,
+                          nesterov=True)
+
+    def step():
+      opt.zero_grad(set_to_none=True)
+      logits = model(x).float()
+      loss = -torch.log_softmax(logits, -1).gather(1, y.long()[:, None]).mean()
+      loss.backward()
+      opt.step()
+    for _ in range(3):
+      step()
+    torch.cuda.synchronize()
+    return step
+
+  steps = {'tap': make_step(tap), 'xla': make_step(xla),
+           'dense': make_step(dense)}
+  order = list(steps) + list(steps)[::-1]
+  us = {name: [] for name in steps}
+  for name in order:
+    us[name].append(time_ms(steps[name], 10) * 1e3)
+  rec = {}
+  for name, step in steps.items():
+    mean_us = float(np.mean(us[name]))
+    n = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(n):
+        step()
+      torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernel_us = sum(e.self_device_time_total for e in events) / n
+    check(kernel_us > 0, f'wrn {name}: the profiler recorded no device time')
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    rec[name] = dict(us_per_step=us[name], kernel_us_per_step=kernel_us,
+                     device_busy_share=kernel_us / mean_us,
+                     device_ms_by_kernel={
+                         e.key[:90]: [e.self_device_time_total / 1e3 / n,
+                                      e.count / n] for e in top})
+    log(f'wrn step: {name:5s} us/step {[round(u, 1) for u in us[name]]} '
+        f'(mean {mean_us:.1f}); kernels {kernel_us:.1f} us/step (busy share '
+        f'{kernel_us / mean_us:.3f})')
+    log('  top kernels, device ms and launches per step:')
+    for e in top:
+      log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
+          f'{e.count / n:5.1f} x {e.key[:90]}')
+  for name in ('tap', 'xla'):
+    rec[f'dense_over_{name}'] = (float(np.mean(us['dense']))
+                                 / float(np.mean(us[name])))
+    log(f'  dense/{name}: {rec[f"dense_over_{name}"]:.3f}')
+  del steps, tap, xla, dense
+  torch.cuda.empty_cache()
+  return rec
+
+
+def _tap_entry(name, source, replaces, launches, points):
+  """One tap kernel's JSON record: ms, plain_ms, bound_ms and library_ms
+  are sums over the main path's points (the four WRN-22-2 shapes at batch
+  128 in f32); bound_by is the kind that holds the larger share of that
+  summed bound; every point is listed."""
+  main = [p for p in points if p['layer'].startswith('wrn')
+          and p['n'] == WRN_BATCH and p['k'] == 3 and p['dtype'] == 'float32'
+          and not p['empty_column']]
+  by = {}
+  for p in main:
+    by[p['bound_by']] = by.get(p['bound_by'], 0.0) + p['bound_ms']
+  return {'name': name, 'route': 'cuda', 'source': source,
+          'replaces': replaces, 'launches': launches,
+          'launches_by_path': {'wrn_training': launches},
+          'max_abs_err': max(p['max_abs_err'] for p in points),
+          'ms': sum(p['ms'] for p in main),
+          'plain_ms': sum(p['plain_ms'] for p in main),
+          'bound_ms': sum(p['bound_ms'] for p in main),
+          'bound_by': max(by, key=by.get),
+          'library_ms': sum(p['library_ms'] for p in main),
+          'points': points}
+
+
 def _kernel_entry(name, source, replaces, launches, by_path, points):
   """One kernel's JSON record: sums over its bf16 points; bound_by is the
   kind of bound that holds the larger share of the summed bound."""
@@ -1279,6 +1729,9 @@ def main():
     flash_points = phase_flash(torch, device)
     step_launches, train_step = phase_train_step(torch, device)
     lm_launches, lm = phase_lm(torch, device)
+    tap_points_ = phase_tap_kernels(torch, device)
+    wrn_launches, wrn = phase_wrn(torch, device)
+    wrn['speed'] = phase_wrn_speed(torch, device)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -1319,10 +1772,21 @@ def main():
       entry['library'] = ('scaled_dot_product_attention backward (dq, dk '
                           'and dv in one call)')
     kernels.append(entry)
+  conv_tpu = 'rigl_tpu/ops/pallas/block_sparse_conv.py'
+  for name, op, line, n in (('tap_conv_fwd_kernel', 'fwd', 117,
+                             wrn_launches[0]),
+                            ('tap_conv_dx_kernel', 'dx', 117,
+                             wrn_launches[1]),
+                            ('tap_dw_kernel', 'dw', 473, wrn_launches[2])):
+    entry = _tap_entry(name, 'rigl_tpu_torch/csrc/tap_conv.cu',
+                       f'{conv_tpu}:{line}', n, tap_points_[op])
+    if op != 'dw':
+      entry['also_replaces'] = f'{conv_tpu}:355 (_conv_kernel_v5, B5)'
+    kernels.append(entry)
   training['autograd_rel_err'] = autograd_errs
   record = {'card': card, 'kernels': kernels,
             'serving': dict(speed, **logit_errs), 'training': training,
-            'train_step': train_step, 'lm': lm}
+            'train_step': train_step, 'lm': lm, 'wrn': wrn}
   print(json.dumps(record), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

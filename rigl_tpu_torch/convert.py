@@ -1,13 +1,15 @@
 """From the JAX package's variables to the port's modules.
 
-`from_jax_variables(tree)` takes the flax variable tree of a
-PackedTransformer or DenseTransformer ({'params': ..., 'packing': ...},
-with its arrays mapped to numpy) and returns the port's state dict plus
-its packings.  Module names in the port follow the flax paths, so a
-parameter's key is its flax path joined with dots; flax Dense kernels are
-(in, out) and the port keeps them so (`x @ kernel`).  Packed kernels are
-taken as they are: both packages store (n_active, bk, bn) in the same
-column-major slot order.
+`from_jax_variables(tree)` takes the flax variable tree of a model of
+models/packed_transformer.py or models/packed_convnet.py ({'params': ...,
+'packing': ...}, with its arrays mapped to numpy) and returns the port's
+state dict plus its packings.  Module names in the port follow the flax
+paths, so a parameter's key is its flax path joined with dots.  The port
+keeps flax's layouts, so no array is transposed: Dense kernels (in, out)
+(`x @ kernel`), conv kernels HWIO (a depthwise kernel (3, 3, 1, C)),
+GroupNorm's and LayerNorm's scale and bias (C,); the conv modules permute
+to torch's OIHW on each call.  Packed kernels are taken as they are: both
+packages store (n_active, bk, bn) in the same column-major slot order.
 
 Packing leaves are duck-typed through p['fwd'], p['bwd'] and p['shape'],
 so this module needs nothing from the JAX package.
@@ -16,7 +18,9 @@ so this module needs nothing from the JAX package.
 PackedMLPTrainer from a JAX PackedMLPTrainer's state passed as numpy
 arrays (params, occupancy grids, momentum traces, counters);
 `packed_lm_trainer_from_jax` does the same for PackedLMTrainer (params,
-occupancy grids, Adam's slots and counts, counters, SNFS's EMA grids).
+occupancy grids, Adam's slots and counts, counters, SNFS's EMA grids), and
+`packed_classifier_trainer_from_jax` for PackedClassifierTrainer (params,
+occupancy grids, momentum traces, counters, SNFS's EMA grids).
 """
 
 from __future__ import annotations
@@ -152,4 +156,35 @@ def packed_lm_trainer_from_jax(config, state, device='cuda'):
                       state['batches_seen'], state['occupancy'],
                       state['params'], state['mu'], state['nu'], count,
                       state.get('ema'))
+  return trainer
+
+
+def packed_classifier_trainer_from_jax(config, state, model, dense_twin,
+                                       input_shape):
+  """The port's PackedClassifierTrainer on (model, dense_twin), holding a
+  JAX PackedClassifierTrainer's state; it runs on the model's device.
+
+  `config`: the port's PackedClassifierConfig, or a mapping of the JAX
+  config's fields (dataclasses.asdict of it).  `state`: numpy arrays and
+  ints, keyed by dotted parameter names ('g0_b0.conv1.kernel'),
+    'params'           {name: array}    every parameter, packed or dense;
+    'occupancy'        {name: (nk, nn)} each packed kernel's grid;
+    'momentum'         {name: array}    optax's nesterov trace per parameter
+                                        (opt_state[0].trace);
+    'step', 'last_update_step', 'batches_seen';
+    'ema'              {name: (nk, nn)} SNFS's EMA grids (algo 'snfs').
+  """
+  from rigl_tpu_torch.train.packed_classifier import (
+      PackedClassifierConfig, PackedClassifierTrainer)
+  if isinstance(config, Mapping):
+    config = PackedClassifierConfig(**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in config.items()})
+  if config.algo == 'snfs' and 'ema' not in state:
+    raise ValueError("algo 'snfs' needs the EMA grids under 'ema'")
+  trainer = PackedClassifierTrainer(model, dense_twin, config, input_shape)
+  trainer.init_state()
+  trainer.load_arrays(state['step'], state['last_update_step'],
+                      state['batches_seen'], state['occupancy'],
+                      state['params'], state['momentum'], state.get('ema'))
   return trainer

@@ -21,10 +21,29 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
   3  block_sparse_packed.py:362 _dw_panel_kernel, _dw_call the same kernel (the
                                                            panel is an L2
                                                            matter on Hopper)
-  4  block_sparse_conv.py:117 _conv_kernel, _shift_matmul  not yet ported
-  5  block_sparse_conv.py:355 _conv_kernel_v5,             not yet ported
-     _shift_matmul_v5
-  6  block_sparse_conv.py:473 _dw_kernel, _dw_gather       not yet ported
+  4  block_sparse_conv.py:117 _conv_kernel, _shift_matmul  csrc/tap_conv.cu
+     (the forward; dx from _tap_bwd with flipped taps and  (CUDA C++, sm_90a)
+     transposed blocks)                                    tap_conv_kernel:
+                                                           forward mode, bound
+                                                           in ops/block_sparse_
+                                                           conv.py as
+                                                           tap_conv_cuda(mode=
+                                                           'fwd'); transposed
+                                                           (dx) mode, as
+                                                           tap_conv_cuda(mode=
+                                                           'dx')
+  5  block_sparse_conv.py:355 _conv_kernel_v5,             the same kernel:
+     _shift_matmul_v5 (RIGL_TAP_ENGINE=v5)                 v5 is another TPU
+                                                           grid for the same
+                                                           sums, so the port
+                                                           has no switch
+  6  block_sparse_conv.py:473 _dw_kernel, _dw_gather       csrc/tap_conv.cu
+                                                           tap_dw_kernel, as
+                                                           tap_dw_cuda; JAX's
+                                                           'dense' dw branch
+                                                           (RIGL_TAP_DW) gives
+                                                           the same numbers
+                                                           and has no switch
   7  block_sparse_v4.py:60 _v4_kernel, _v4_matmul          not yet ported
   8  block_sparse_v6.py:65 _v6_kernel, _v6_call            not yet ported
   9  block_sparse_v3.py:28 _v3_kernel, _v3_impl            not yet ported

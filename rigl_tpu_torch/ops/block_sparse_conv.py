@@ -1,0 +1,460 @@
+"""Block-sparse stride-1 SAME convolution over active tap blocks, in PyTorch.
+
+Counterpart of rigl_tpu/ops/pallas/block_sparse_conv.py.  A KxK conv
+kernel (kh, kw, Cin, Cout) with odd kh, kw is a set of T = kh*kw taps, each
+a (Cin, Cout) matrix cut into (bk, bn) blocks; the conv of NHWC
+activations is the sum, over the active (tap, cin-block, cout-block)
+entries, of the input shifted by the tap times the block.  Reads that
+leave the image are zeros, which is SAME padding.
+
+`pack_tap_active` builds JAX's entry lists from a (T, Cin/bk, Cout/bn)
+occupancy, element for element: column-major actives, one leading dummy
+entry (tap -1) per output column and one closing sentinel.
+`block_sparse_conv_tap(x, w4d, packing, block)` is the JAX entry point as
+a torch.autograd.Function: forward y, dx (the same conv of gy with flipped
+taps and per-tap transposed blocks) and dw on the active blocks only,
+summed in f32 and cast to w's dtype, scattered into a (kh, kw, Cin, Cout)
+tensor of zeros.  `packed_conv_tap(x, kernel, packing, kernel_size, block)`
+is the same conv reading a PackedConv's packed storage `(n_active, bk, bn)`
+directly, with its dw written straight into the packed slots; the tap
+entries come from the layer's 2D Packing (block-row r of the
+(kh*kw*Cin, Cout) view is tap r // (Cin/bk), cin-block r % (Cin/bk)), built
+once per Packing and cached on it.
+
+Both take a TapIndex: every entry's tap, input block and weight offset,
+grouped by output column for the forward and for dx, and listed for dw.
+Each of the three products has a plain PyTorch version that walks the same
+index (one shifted (pixels x bk) @ (bk x bn) product per entry, summed in
+f32; `tap_conv_reference`, `tap_dw_reference`), which CPU tensors take, and
+a hand-written Hopper kernel in csrc/tap_conv.cu, which CUDA tensors launch
+or raise: the forward and dx modes of `tap_conv_kernel` (replacing the TPU
+kernels `_conv_kernel` and `_conv_kernel_v5`) and `tap_dw_kernel`
+(replacing `_dw_kernel`).
+
+Where JAX chooses among TPU grids with environment switches (RIGL_TAP_ENGINE
+for the v5 grid, RIGL_TAP_DW for a dense dw times the mask, RIGL_TAP_BM for
+the row tile), every choice gives the same numbers, so the port has one
+path and no switch.  The kernels take any batch size (JAX's tap kernel
+needs N % 16 == 0 off the CPU, a Mosaic alignment rule).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rigl_tpu_torch.ops import _build
+from rigl_tpu_torch.ops.block_sparse_packed import Packing, _on_device
+
+# Launches of each kernel in this process.  Each wrapper adds one per
+# launch of its kernel; nothing else touches them but callers resetting them.
+tap_conv_fwd_launches = 0     # tap_conv_kernel, forward mode
+tap_conv_dx_launches = 0      # tap_conv_kernel, transposed (dx) mode
+tap_dw_launches = 0           # tap_dw_kernel
+
+
+# ----------------------------------------------------------- packing ------
+def pack_tap_active(occ3: torch.Tensor, n_active: int):
+  """(T, K/bk, N/bn) occupancy -> int32 (cols, rows, taps), each of length
+  n_active + nn + 1: the actives column-major by cout-block, one leading
+  dummy (tap -1, row 0) per column, then a sentinel (-1, 0, -1).  JAX's
+  lists, element for element."""
+  t_dim, nk, nn_ = occ3.shape
+  i64 = torch.int64
+  flat_cm = torch.as_tensor(occ3).to(i64).permute(2, 0, 1).reshape(-1)
+  order = torch.argsort(-flat_cm, stable=True)[:n_active]
+  cols = order // (t_dim * nk)
+  rem = order % (t_dim * nk)
+  taps, rows = rem // nk, rem % nk
+  cols = torch.cat([torch.arange(nn_, dtype=i64), cols])
+  rows = torch.cat([torch.zeros(nn_, dtype=i64), rows])
+  taps = torch.cat([torch.full((nn_,), -1, dtype=i64), taps])
+  order2 = torch.argsort(cols, stable=True)
+  end = torch.tensor([-1])
+  cols = torch.cat([cols[order2], end])
+  rows = torch.cat([rows[order2], torch.zeros(1, dtype=i64)])
+  taps = torch.cat([taps[order2], end])
+  return tuple(t.to(torch.int32) for t in (cols, rows, taps))
+
+
+def _occupancy3(cols, rows, taps, t_dim: int, nk: int, nn_: int):
+  """The (T, K/bk, N/bn) int32 occupancy of a pack_tap_active packing
+  (dummy and sentinel entries, tap -1, are ignored)."""
+  occ = torch.zeros((t_dim, nk, nn_), dtype=torch.int32)
+  taps = torch.as_tensor(taps).long()
+  keep = taps >= 0
+  occ[taps[keep], torch.as_tensor(rows).long()[keep],
+      torch.as_tensor(cols).long()[keep]] = 1
+  return occ
+
+
+def tap_batch_ok(n: int) -> bool:
+  """Whether a batch of n images can run the tap kernels: always, since
+  they take any batch (JAX's TPU kernel needs n % 16 == 0)."""
+  del n
+  return True
+
+
+def default_tap_bm() -> int:
+  """The JAX tap kernel's default row tile (2048).  Kept for signatures:
+  the Hopper kernels pick their own tiles, and no tile changes a result."""
+  return 2048
+
+
+# ------------------------------------------------------------- index ------
+class TapLists(NamedTuple):
+  """One conv mode's entries grouped by output block-column (a CSR):
+  column g sums entries ptr[g] .. ptr[g+1]-1, each reading input block
+  kblks[e] at the shift of tap taps[e] and the weight block at element
+  offset woffs[e] of w (rows w_ld apart).  int32."""
+  ptr: torch.Tensor
+  taps: torch.Tensor
+  kblks: torch.Tensor
+  woffs: torch.Tensor
+
+
+class TapDwEntries(NamedTuple):
+  """The active entries for dw: tap, cin-block, cout-block and the element
+  offset of the entry's block in w (and in dw, which has w's layout)."""
+  taps: torch.Tensor
+  rblks: torch.Tensor
+  cblks: torch.Tensor
+  woffs: torch.Tensor
+
+
+class TapIndex:
+  """Everything the three tap kernels read for one occupancy and one weight
+  layout: `fwd` (columns = cout-blocks), `dx` (columns = cin-blocks, taps
+  flipped, blocks read transposed) and `dw`; the conv's geometry; and w's
+  shape and row stride.  `dense_w`: w is (kh, kw, Cin, Cout), so dw starts
+  as zeros; otherwise w is packed (n_active, bk, bn) and every element of
+  dw is some entry's.  Lists live on the CPU; `to(device)` copies are
+  cached, so an index is treated as immutable."""
+
+  def __init__(self, taps, rblks, cblks, woffs, *, kernel_size, cin, cout,
+               block, w_shape, w_ld, dense_w):
+    self.kh, self.kw = kernel_size
+    self.cin, self.cout = cin, cout
+    self.bk, self.bn = block
+    self.w_shape, self.w_ld, self.dense_w = tuple(w_shape), w_ld, dense_w
+    t_dim, nkc, nnc = self.kh * self.kw, cin // self.bk, cout // self.bn
+    t, r, j, off = (torch.as_tensor(a, dtype=torch.int64)
+                    for a in (taps, rblks, cblks, woffs))
+    i32 = lambda a: a.to(torch.int32).contiguous()   # noqa: E731
+
+    def grouped(col, key, tap, kblk, n_cols):
+      order = torch.argsort(col * (t_dim * max(nkc, nnc)) + key, stable=True)
+      ptr = torch.zeros(n_cols + 1, dtype=torch.int64)
+      ptr[1:] = torch.cumsum(torch.bincount(col, minlength=n_cols), 0)
+      return TapLists(i32(ptr), i32(tap[order]), i32(kblk[order]),
+                      i32(off[order]))
+
+    # Forward: by cout-block, then (tap, cin-block), JAX's column-major
+    # order.  dx: by cin-block, the flipped tap reading cout-block j.
+    self.fwd = grouped(j, t * nkc + r, t, r, nnc)
+    self.dx = grouped(r, (t_dim - 1 - t) * nnc + j, t_dim - 1 - t, j, nkc)
+    self.dw = TapDwEntries(i32(t), i32(r), i32(j), i32(off))
+    self._cache: Dict[str, 'TapIndex'] = {}
+
+  @property
+  def n_entries(self) -> int:
+    return int(self.dw.taps.shape[0])
+
+  def to(self, device) -> 'TapIndex':
+    device = torch.device(device)
+    if self.fwd.ptr.device == device:
+      return self
+    key = str(device)
+    if key not in self._cache:
+      new = object.__new__(TapIndex)
+      new.__dict__.update(self.__dict__)
+      new.fwd = TapLists(*(a.to(device) for a in self.fwd))
+      new.dx = TapLists(*(a.to(device) for a in self.dx))
+      new.dw = TapDwEntries(*(a.to(device) for a in self.dw))
+      new._cache = {}
+      self._cache[key] = new
+    return self._cache[key]
+
+
+def _check_geometry(kernel_size, cin, cout, block):
+  kh, kw = kernel_size
+  bk, bn = block
+  if cin % bk or cout % bn:
+    raise ValueError(f'channels ({cin},{cout}) must divide block {block}')
+  if (kh, kw) != (1, 1) and (kh % 2 == 0 or kw % 2 == 0):
+    raise ValueError(
+        f'tap conv requires odd spatial kernel dims, got ({kh},{kw}): the '
+        'symmetric ph=k//2 padding differs from SAME semantics for even k')
+
+
+def tap_index(packing, w_shape, block: Tuple[int, int]) -> TapIndex:
+  """The TapIndex of a pack_tap_active packing ({'cols','rows','taps'})
+  over a dense (kh, kw, Cin, Cout) kernel."""
+  kh, kw, cin, cout = (int(s) for s in w_shape)
+  _check_geometry((kh, kw), cin, cout, block)
+  bk, bn = block
+  cols, rows, taps = (torch.as_tensor(packing[k]).cpu().long()
+                      for k in ('cols', 'rows', 'taps'))
+  keep = taps >= 0
+  t, r, j = taps[keep], rows[keep], cols[keep]
+  woffs = t * cin * cout + r * bk * cout + j * bn
+  return TapIndex(t, r, j, woffs, kernel_size=(kh, kw), cin=cin, cout=cout,
+                  block=block, w_shape=w_shape, w_ld=cout, dense_w=True)
+
+
+def packed_tap_index(packing: Packing, kernel_size: Tuple[int, int],
+                     cin: int, block: Tuple[int, int]) -> TapIndex:
+  """The TapIndex of a PackedConv's 2D Packing over the (kh*kw*Cin, Cout)
+  view, reading the packed (n_active, bk, bn) storage; cached on the
+  Packing."""
+  key = ('tap', tuple(kernel_size), cin, tuple(block))
+  if key not in packing._cache:
+    kh, kw = kernel_size
+    bk, bn = block
+    nk2, nn_ = packing.shape
+    _check_geometry((kh, kw), cin, nn_ * bn, block)
+    nkc = cin // bk
+    if nk2 != kh * kw * nkc:
+      raise ValueError(f'packing grid {packing.shape} is not a '
+                       f'({kh}x{kw}x{cin}, {nn_ * bn}) conv at block {block}')
+    n_act = packing.n_active
+    col_ptr, rows2d = (a.cpu().long() for a in packing.column_index('cpu'))
+    cols = torch.repeat_interleave(torch.arange(nn_), col_ptr.diff())
+    slots = torch.arange(n_act)
+    packing._cache[key] = TapIndex(
+        rows2d // nkc, rows2d % nkc, cols, slots * bk * bn,
+        kernel_size=(kh, kw), cin=cin, cout=nn_ * bn, block=block,
+        w_shape=(n_act, bk, bn), w_ld=bn, dense_w=False)
+  return packing._cache[key]
+
+
+# ------------------------------------------------------- plain versions ---
+def _block(flat: torch.Tensor, off: int, rows: int, cols: int, ld: int):
+  """The (rows x cols) block at element `off` of the flat tensor, rows `ld`
+  apart: a view."""
+  return flat[off:off + (rows - 1) * ld + cols].as_strided((rows, cols),
+                                                           (ld, 1))
+
+
+def _padded(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+  """x (N, H, W, C) in f32, zero-padded by kh//2 rows and kw//2 columns on
+  each side: tap t's shifted input is the slice at (t // kw, t % kw)."""
+  return F.pad(x.float(), (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+
+
+def tap_conv_reference(x: torch.Tensor, w: torch.Tensor, index: TapIndex,
+                       mode: str = 'fwd') -> torch.Tensor:
+  """Plain version of the tap conv ('fwd': y from x; 'dx': dx from gy):
+  for each output column, the f32 sum over its entries of the shifted
+  input block times the weight block (transposed for dx); one cast to
+  x.dtype.  Columns without entries are zeros."""
+  cpu = index.to('cpu')
+  ptr, taps, kblks, woffs = (a.tolist()
+                             for a in (cpu.fwd if mode == 'fwd' else cpu.dx))
+  bk, bn = (index.bk, index.bn) if mode == 'fwd' else (index.bn, index.bk)
+  n, h, wd, _ = x.shape
+  kw = index.kw
+  xp = _padded(x, index.kh, kw)
+  n_cols = len(ptr) - 1
+  y = torch.zeros((n, h, wd, n_cols * bn), dtype=torch.float32,
+                  device=x.device)
+  wf = w.detach().float().reshape(-1)
+  for g in range(n_cols):
+    for e in range(ptr[g], ptr[g + 1]):
+      dy, dx = divmod(taps[e], kw)
+      xs = xp[:, dy:dy + h, dx:dx + wd, kblks[e] * bk:(kblks[e] + 1) * bk]
+      wb = (_block(wf, woffs[e], bn, bk, index.w_ld).T if mode == 'dx'
+            else _block(wf, woffs[e], bk, bn, index.w_ld))
+      y[..., g * bn:(g + 1) * bn] += xs @ wb
+  return y.to(x.dtype)
+
+
+def tap_dw_reference(x: torch.Tensor, gy: torch.Tensor, index: TapIndex,
+                     out_dtype=None) -> torch.Tensor:
+  """Plain version of dw: for each active entry, the f32 sum over all
+  pixels of the shifted input block (transposed) times gy's block, written
+  at the entry's offset of a tensor of w's shape (zeros elsewhere); one
+  cast to `out_dtype` (x's when None)."""
+  bk, bn, kw = index.bk, index.bn, index.kw
+  n, h, wd, _ = x.shape
+  xp = _padded(x, index.kh, kw)
+  g2 = gy.float().reshape(-1, gy.shape[-1])
+  out = torch.zeros(index.w_shape, dtype=torch.float32, device=x.device)
+  flat = out.reshape(-1)
+  for t, r, j, off in zip(*(a.tolist() for a in index.to('cpu').dw)):
+    dy, dx = divmod(t, kw)
+    xs = xp[:, dy:dy + h, dx:dx + wd, r * bk:(r + 1) * bk].reshape(-1, bk)
+    _block(flat, off, bk, bn, index.w_ld).copy_(
+        xs.T @ g2[:, j * bn:(j + 1) * bn])
+  return out.to(out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------- kernels --
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _kernel(name: str):
+  """The C entry point `name` of csrc/tap_conv.cu: pointers, then ints,
+  then the stream; returns the CUDA error code of the launch."""
+  n_ptrs, n_ints = {'tap_conv_fwd': (7, 11), 'tap_conv_dx': (7, 11),
+                    'tap_dw': (7, 12)}[name]
+  fn = getattr(_build.load('tap_conv'), name)
+  fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                 + [ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  return fn
+
+
+def _launch(name: str, *args):
+  err = _kernel(name)(*args)
+  if err:
+    raise RuntimeError(f'{name} launch failed: CUDA error {err}')
+
+
+def _check_cuda(op: str, acts, w: torch.Tensor, index: TapIndex):
+  """What every kernel takes: NHWC activations `acts` ((name, tensor,
+  channels) triples) and w on one CUDA device, float32 or bfloat16 of one
+  dtype, contiguous, 16-byte aligned, w of the index's shape, blocks of
+  whole 16-byte copies, and sizes that fit int32 offsets.  Raises
+  otherwise."""
+  x = acts[0][1]
+  for name, a, chans in acts:
+    if not (a.is_cuda and w.device == a.device == x.device):
+      raise ValueError(f'{name} ({a.device}) and w ({w.device}) must be on '
+                       'one CUDA device')
+    if a.dtype not in _DTYPE_CODE or w.dtype != a.dtype:
+      raise TypeError(f'{op} takes float32 or bfloat16 {name} and w of one '
+                      f'dtype, got {a.dtype} and {w.dtype}')
+    if a.dim() != 4 or a.shape[-1] != chans or a.shape[:3] != x.shape[:3]:
+      raise ValueError(f'{name} must be NHWC with {chans} channels, got '
+                       f'{tuple(a.shape)}')
+    if not a.is_contiguous() or a.data_ptr() % 16:
+      raise ValueError(f'{op}: {name} must be contiguous and 16-byte aligned')
+    if a.numel() >= 2 ** 31:
+      raise ValueError(f'{op}: {name} has too many elements for the kernel')
+  if tuple(w.shape) != index.w_shape:
+    raise ValueError(f'w must be {index.w_shape}, got {tuple(w.shape)}')
+  if not w.is_contiguous() or (w.numel() and w.data_ptr() % 16):
+    raise ValueError(f'{op}: w must be contiguous and 16-byte aligned')
+  vec = 16 // x.element_size()       # elements per 16-byte copy
+  if index.bk % vec or index.bn % vec:
+    raise ValueError(f'block {(index.bk, index.bn)} must be a multiple of '
+                     f'{vec} for {x.dtype}')
+
+
+def tap_conv_cuda(x: torch.Tensor, w: torch.Tensor, index: TapIndex,
+                  mode: str = 'fwd') -> torch.Tensor:
+  """The tap conv on the card ('fwd': y from x; 'dx': dx from gy):
+  launches tap_conv_kernel in that mode on the current stream; checks what
+  the kernel takes and raises on anything else."""
+  global tap_conv_fwd_launches, tap_conv_dx_launches
+  fwd = mode == 'fwd'
+  cx, cy = (index.cin, index.cout) if fwd else (index.cout, index.cin)
+  bk, bn = (index.bk, index.bn) if fwd else (index.bn, index.bk)
+  _check_cuda(f'tap_conv_{mode}', [('x' if fwd else 'gy', x, cx)], w, index)
+  n, h, wd, _ = x.shape
+  y = torch.empty((n, h, wd, cy), dtype=x.dtype, device=x.device)
+  if y.numel() == 0:
+    return y
+  dev = index.to(x.device)
+  lists = dev.fwd if fwd else dev.dx
+  _launch('tap_conv_fwd' if fwd else 'tap_conv_dx', x.data_ptr(),
+          w.data_ptr(), *(a.data_ptr() for a in lists), y.data_ptr(),
+          n * h * wd, h, wd, cx, cy // bn, index.kh, index.kw, bk, bn,
+          index.w_ld, _DTYPE_CODE[x.dtype],
+          torch.cuda.current_stream(x.device).cuda_stream)
+  if fwd:
+    tap_conv_fwd_launches += 1
+  else:
+    tap_conv_dx_launches += 1
+  return y
+
+
+def tap_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
+                index: TapIndex) -> torch.Tensor:
+  """dw in w's layout and dtype: launches tap_dw_kernel over the active
+  entries (a dense w's other elements are zeros); checks and raises as
+  tap_conv_cuda does (x, gy and w of one dtype)."""
+  global tap_dw_launches
+  _check_cuda('tap_dw', [('x', x, index.cin), ('gy', gy, index.cout)], w,
+              index)
+  n, h, wd, _ = x.shape
+  dw = (torch.zeros_like(w) if index.dense_w else torch.empty_like(w))
+  if index.n_entries == 0 or x.numel() == 0:
+    return dw.zero_()
+  dev = index.to(x.device)
+  _launch('tap_dw', x.data_ptr(), gy.data_ptr(),
+          *(a.data_ptr() for a in dev.dw), dw.data_ptr(), n * h * wd, h, wd,
+          index.cin, index.cout, index.n_entries, index.kh, index.kw,
+          index.bk, index.bn, index.w_ld, _DTYPE_CODE[x.dtype],
+          torch.cuda.current_stream(x.device).cuda_stream)
+  tap_dw_launches += 1
+  return dw
+
+
+# --------------------------------------------------------------- autograd --
+def _conv(x, w, index, mode='fwd'):
+  fn = _on_device(f'tap conv {mode}', x, tap_conv_reference, tap_conv_cuda)
+  return fn(x, w, index, mode)
+
+
+class _TapConv(torch.autograd.Function):
+  """y = the tap conv of x; backward: dx through the flipped, transposed
+  entries (only if x needs it) and dw on the active entries in w's layout
+  (only if w needs it), each by the plain version on the CPU and the
+  kernel on CUDA."""
+
+  @staticmethod
+  def forward(ctx, x, w, index):
+    ctx.save_for_backward(x, w)
+    ctx.index = index
+    return _conv(x, w, index)
+
+  @staticmethod
+  def backward(ctx, gy):
+    x, w = ctx.saved_tensors
+    index = ctx.index
+    gy = gy.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      dx = _conv(gy, w, index, 'dx')
+    if ctx.needs_input_grad[1]:
+      def plain(x, gy, w, index):
+        return tap_dw_reference(x, gy, index, w.dtype)
+      dw = _on_device('tap conv dw', gy, plain, tap_dw_cuda)(x, gy, w, index)
+    return dx, dw, None
+
+
+def tap_conv(x: torch.Tensor, w: torch.Tensor, index: TapIndex):
+  """The tap conv of NHWC x with w as `index` describes it, differentiable
+  in x and w.  A call that needs no gradient skips the autograd Function."""
+  x = x.contiguous()
+  if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    return _TapConv.apply(x, w, index)
+  return _conv(x, w, index)
+
+
+def block_sparse_conv_tap(x: torch.Tensor, w4d: torch.Tensor, packing,
+                          block: Tuple[int, int] = (128, 128),
+                          bm: Optional[int] = None):
+  """Stride-1 SAME NHWC conv through the tap-block-skipping kernels.
+
+  x: (N, H, W, Cin); w4d: (kh, kw, Cin, Cout), odd kh / kw (or 1x1);
+  packing: {'cols','rows','taps'} from pack_tap_active.  dw is (kh, kw,
+  Cin, Cout), zeros outside the active blocks.  `bm` is kept for the JAX
+  signature: the kernels pick their own tiles."""
+  del bm
+  return tap_conv(x, w4d, tap_index(packing, w4d.shape, tuple(block)))
+
+
+def packed_conv_tap(x: torch.Tensor, kernel: torch.Tensor, packing: Packing,
+                    kernel_size: Tuple[int, int], block: Tuple[int, int]):
+  """The same conv with the kernel in packed (n_active, bk, bn) storage
+  over the (kh*kw*Cin, Cout) view of `packing`; dw comes back packed."""
+  return tap_conv(x, kernel, packed_tap_index(packing, tuple(kernel_size),
+                                              x.shape[-1], tuple(block)))

@@ -1,6 +1,7 @@
 """The port's hand-written kernels (packed forward, dx and packed dw; the
-causal flash-attention forward, dK/dV and dQ) against their plain PyTorch
-versions, on a CUDA card, and the paths that run them.
+causal flash-attention forward, dK/dV and dQ; the tap conv's forward, dx
+and dw) against their plain PyTorch versions, on a CUDA card, and the
+paths that run them.
 
 Every test here needs the card (marker `cuda`) and skips without one.
 The file imports neither jax nor the JAX package, so the card's machine
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from rigl_tpu_torch import convert
+from rigl_tpu_torch.layers.packed_conv import PackedConv
 from rigl_tpu_torch.layers.packed_dense import PackedDense, random_occupancy
+from rigl_tpu_torch.ops import block_sparse_conv as tbsc
 from rigl_tpu_torch.models import packed_transformer as tpt
 from rigl_tpu_torch.ops import block_sparse_packed as tbsp
 from rigl_tpu_torch.ops import flash_attention as tfa
@@ -28,7 +31,10 @@ GRIDS = [(4, 6, 5), (3, 4, 1), (5, 1, 3), (2, 3, 6), (4, 12, 10)]
 def cuda_device():
   if not torch.cuda.is_available():
     pytest.skip('needs a CUDA device: the packed_mm kernels have no CPU mode')
+  # f32 references run in full f32: cuBLAS and cuDNN (the 'xla' conv
+  # engine) would otherwise use TF32.
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
   return torch.device('cuda')
 
 
@@ -375,3 +381,146 @@ def test_lm_trainer_bf16_step_on_card_matches_plain(cuda_device):
       got, want = g, plain[name]
     assert torch.isfinite(got).all(), name
     assert _rel_err(got, want) <= 5e-2, name
+
+
+# --------------------------------------------------------------- tap conv --
+# Kernel vs plain: both sum in f32 and round once, so they differ by the
+# order of the f32 sums (f32) plus a bf16 ulp (bf16), relative to
+# max(1, max |plain|).
+TAP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _tap_case(ksize, cin, cout, block, seed, empty=True):
+  """A tap packing over a (kh, kw, cin, cout) kernel at density 0.4 with
+  (when `empty`) cout-block 0 and tap 0 empty."""
+  kh, kw = ksize
+  t_dim, nk, nn_ = kh * kw, cin // block[0], cout // block[1]
+  gen = torch.Generator().manual_seed(seed)
+  occ = (torch.rand(t_dim, nk, nn_, generator=gen) < 0.4).to(torch.int32)
+  if empty and nn_ > 1:
+    occ[:, :, 0] = 0
+  if empty and t_dim > 1:
+    occ[0] = 0
+  cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+  return {'cols': cols, 'rows': rows, 'taps': taps}, occ
+
+
+def _tap_counts():
+  return (tbsc.tap_conv_fwd_launches, tbsc.tap_conv_dx_launches,
+          tbsc.tap_dw_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('block', [(16, 16), (16, 32), (32, 16), (8, 8)])
+@pytest.mark.parametrize('cin,cout', [(32, 32), (64, 32), (32, 96)])
+@pytest.mark.parametrize('n,h,w', [(1, 5, 7), (3, 8, 8), (16, 4, 4)])
+@pytest.mark.parametrize('ksize', [(3, 3), (5, 5), (1, 1), (3, 5)])
+def test_tap_kernels_match_plain(cuda_device, ksize, n, h, w, cin, cout,
+                                 block, dtype):
+  """Forward, dx and dw, each launched once, against their plain versions
+  on the same index, at ragged batches and images smaller than a tile,
+  with an empty cout-block (zero output columns) and an empty tap."""
+  packing, occ = _tap_case(ksize, cin, cout, block, n * 31 + cin + h)
+  gen = torch.Generator().manual_seed(n + cin)
+  x = torch.randn(n, h, w, cin, generator=gen).to(cuda_device, dtype)
+  gy = torch.randn(n, h, w, cout, generator=gen).to(cuda_device, dtype)
+  w4 = (torch.randn(*ksize, cin, cout, generator=gen) / 8).to(cuda_device,
+                                                               dtype)
+  index = tbsc.tap_index(packing, w4.shape, block)
+  before = _tap_counts()
+  got = (tbsc.tap_conv_cuda(x, w4, index), tbsc.tap_conv_cuda(gy, w4, index,
+                                                              'dx'),
+         tbsc.tap_dw_cuda(x, gy, w4, index))
+  torch.cuda.synchronize()
+  # dw of a packing with no active entry is zeros without a launch.
+  assert _tap_counts() == (before[0] + 1, before[1] + 1,
+                           before[2] + (index.n_entries > 0))
+  want = (tbsc.tap_conv_reference(x, w4, index),
+          tbsc.tap_conv_reference(gy, w4, index, 'dx'),
+          tbsc.tap_dw_reference(x, gy, index, dtype))
+  for name, g, r in zip(('fwd', 'dx', 'dw'), got, want):
+    assert g.shape == r.shape and g.dtype == dtype, name
+    scale = max(1.0, float(r.float().abs().max()))
+    err = float((g.float() - r.float()).abs().max())
+    assert err <= TAP_TOL[dtype] * scale, (name, err)
+  for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
+    assert not got[0][..., j * block[1]:(j + 1) * block[1]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_tap_conv_autograd_on_card(cuda_device, dtype):
+  """torch.autograd.grad through block_sparse_conv_tap (dense kernel, dense
+  dw zero outside the active blocks) and packed_conv_tap (packed storage,
+  packed dw) launches each kernel once and agrees with the plain
+  versions; a call that needs no gradient skips the Function."""
+  block = (16, 16)
+  packing, occ = _tap_case((3, 3), 32, 48, block, 7)
+  gen = torch.Generator().manual_seed(1)
+  x = torch.randn(5, 6, 6, 32, generator=gen).to(cuda_device, dtype)
+  g = torch.randn(5, 6, 6, 48, generator=gen).to(cuda_device, dtype)
+  w4 = torch.randn(3, 3, 32, 48, generator=gen).to(cuda_device, dtype)
+  xr, wr = x.clone().requires_grad_(), w4.clone().requires_grad_()
+  before = _tap_counts()
+  y = tbsc.block_sparse_conv_tap(xr, wr, packing, block)
+  dx, dw = torch.autograd.grad(y, (xr, wr), g)
+  torch.cuda.synchronize()
+  assert _tap_counts() == tuple(c + 1 for c in before)
+  index = tbsc.tap_index(packing, w4.shape, block)
+  mask = torch.zeros(3, 3, 32, 48, device=cuda_device, dtype=dtype)
+  for t, r, j in occ.nonzero().tolist():
+    mask[t // 3, t % 3, r * 16:(r + 1) * 16, j * 16:(j + 1) * 16] = 1
+  assert not (dw * (1 - mask)).any()
+  for got, want in ((y.detach(), tbsc.tap_conv_reference(x, w4, index)),
+                    (dx, tbsc.tap_conv_reference(g, w4, index, 'dx')),
+                    (dw, tbsc.tap_dw_reference(x, g, index, dtype))):
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= (
+        TAP_TOL[dtype] * scale)
+  conv = PackedConv(32, 48, (3, 3), sparsity=0.6, block=block, dtype=dtype,
+                    engine='tap', generator=gen, device=cuda_device)
+  xr = x.clone().requires_grad_()
+  before = _tap_counts()
+  y = conv(xr)
+  dx, dk = torch.autograd.grad(y, (xr, conv.kernel), g)
+  torch.cuda.synchronize()
+  assert _tap_counts() == tuple(c + 1 for c in before)
+  assert dk.shape == conv.kernel.shape and dk.dtype == torch.float32
+  ref = PackedConv(32, 48, (3, 3), sparsity=0.6, block=block, dtype=dtype,
+                   engine='xla', generator=gen, device=cuda_device)
+  ref.set_packing(conv.packing)
+  with torch.no_grad():
+    ref.kernel.copy_(conv.kernel)
+  xr = x.clone().requires_grad_()
+  y_ref = ref(xr)
+  dx_ref, dk_ref = torch.autograd.grad(y_ref, (xr, ref.kernel), g)
+  for got, want in ((y, y_ref), (dx, dx_ref), (dk, dk_ref)):
+    assert _rel_err(got.detach(), want.detach()) <= TAP_TOL[dtype]
+  with torch.no_grad():
+    before = _tap_counts()
+    conv(x)
+    assert _tap_counts() == (before[0] + 1, before[1], before[2])
+
+
+@pytest.mark.cuda
+def test_tap_kernels_raise_on_what_they_do_not_take(cuda_device):
+  """No silent plain path on the card: a block the 16-byte copies cannot
+  tile, a dtype the kernels lack, mixed devices and wrong widths raise."""
+  packing, _ = _tap_case((3, 3), 12, 12, (6, 6), 0, empty=False)
+  x = torch.randn(2, 4, 4, 12, device=cuda_device)
+  w4 = torch.randn(3, 3, 12, 12, device=cuda_device)
+  with pytest.raises(ValueError, match='multiple of 4'):
+    tbsc.block_sparse_conv_tap(x, w4, packing, (6, 6))
+  packing, _ = _tap_case((3, 3), 16, 16, (16, 16), 0, empty=False)
+  x = torch.randn(2, 4, 4, 16, device=cuda_device)
+  w4 = torch.randn(3, 3, 16, 16, device=cuda_device)
+  with pytest.raises(TypeError):
+    tbsc.block_sparse_conv_tap(x.half(), w4.half(), packing, (16, 16))
+  with pytest.raises(ValueError, match='one CUDA device'):
+    tbsc.block_sparse_conv_tap(x, w4.cpu(), packing, (16, 16))
+  index = tbsc.tap_index(packing, w4.shape, (16, 16))
+  with pytest.raises(ValueError, match='channels'):
+    tbsc.tap_conv_cuda(x[..., :8].contiguous(), w4, index)
+  with pytest.raises(ValueError, match='even'):
+    tbsc.tap_index(packing, (2, 2, 16, 16), (16, 16))

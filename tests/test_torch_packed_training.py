@@ -505,9 +505,15 @@ def test_datasets_match_jax():
     np.testing.assert_array_equal(t.images, j.images)
     np.testing.assert_array_equal(t.labels, j.labels)
   assert tinfo == jinfo
-  for name in ('cifar10', 'imagenet'):
-    with pytest.raises(NotImplementedError, match='not ported'):
-      tdata.create_dataset(name, 16)
+  # CIFAR-10 is ported: raw uint8 training images and standardized eval
+  # images, as JAX's arrays hold them.
+  ttr, tte, tinfo = tdata.create_dataset('cifar10', 16, n_synthetic=64)
+  jtr, jte, jinfo = jdata.create_dataset('cifar10', 16, n_synthetic=64)
+  np.testing.assert_array_equal(ttr.images, jtr.images)
+  np.testing.assert_allclose(tte.images, jte.images, rtol=1e-6, atol=1e-6)
+  assert tinfo == jinfo
+  with pytest.raises(NotImplementedError, match='not ported'):
+    tdata.create_dataset('imagenet', 16)
 
 
 def test_driver_trains_resumes_and_refuses_other_methods(tmp_path, capsys):
