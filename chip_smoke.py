@@ -83,18 +83,46 @@ package.  Phases, each fatal on failure:
      evaluate, then SET and SNFS a few steps with one update each;
  14. WRN-22-2 step speed: us/step of the 'tap' engine, the 'xla' engine
      and the dense twin, each twice in mirrored order, with each arm's
-     device busy share and kernel time per step by kernel.
+     device busy share and kernel time per step by kernel;
+ 15. dense-storage kernels vs plain: packed_mm_kernel's dense forward and
+     dx modes from the flat packing (v4, B7) and from per-column index
+     lists (v3, B8), and packed_dw_kernel's dense mode (the gathered dw,
+     B9), each against its plain version (one torch.matmul per active
+     block) at ResNet-50's 29 eligible 1x1 shapes (batch 128, 224 px,
+     ERK-0.8 occupancies at block (128, 128), bf16) and at one shape in
+     f32, beside torch.matmul on the masked dense W and the bound;
+ 16. dense-masked ResNet-50 training, a main path: the train step of
+     bench.py's resnet50 arm with BENCH_BLOCK=128,128 (constants RN50_*)
+     with its 29 eligible 1x1 convs routed 'matmul', 12 RigL steps with
+     updates at steps 0, 5 and 10 (exactly 29 forward and 29 dx launches
+     of the v4 form per iteration, every block layer at its static count
+     after each update, finite loss, the schedule followed); one step's
+     loss and gradients against the plain path (dense-times-mask on
+     cuDNN) from the same state; masks after 3 iterations equal to those
+     of dense-times-mask execution from the same initial state;
+ 17. the occupancy route, the paths of B8 and B9: GradualPruning steps of
+     the same model (no static counts: its 1x1s hold occupancies, 29
+     forward and 29 dx launches of the v3 form per step), BlockSparseDense
+     forward and backward at the 3 x 4096 'layer' width (batch 1024, block
+     (512, 512), s = 0.8) against masked dense matmuls, and one 'auto'
+     call where the traffic model picks the gathered dw (B9);
+ 18. ResNet-50 step speed: us/step of RigL with 'matmul' routing, RigL
+     with the default routing (1x1s on the tap kernels), RigL with
+     dense-times-mask execution and the dense algorithm, each twice in
+     mirrored order, with each arm's device busy share and kernel time per
+     step by kernel.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  The line before the last is the JSON record: `kernels`
 (per kernel: the sums over its bf16 points of ms, plain_ms, bound_ms and
 library_ms, its launches on the main paths, and every point), `serving`,
-`training`, `train_step`, `lm` and `wrn`.  The last line is {"ok": true,
+`training`, `train_step`, `lm`, `wrn` and `rn50`.  The last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or without the package beside
 this script, it exits non-zero and prints no result.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -151,6 +179,18 @@ WRN_SPARSITY, WRN_STEPS, WRN_TAP_CONVS = 0.8, 30, 16
 # runs (cuDNN picks its algorithms per run); a wrong tap or block would be
 # of order 1.
 WRN_STEP_RTOL = 1e-2
+# The dense-masked ResNet-50 step, bench.py's resnet50 arm with
+# BENCH_BLOCK=128,128: 1000 classes, batch 128 of 224 x 224 x 3, bf16
+# compute over f32 parameters and BatchNorm statistics, RigL at ERK 0.8
+# with the first conv unmasked, SGD 0.1 nesterov 0.9, weight decay 1e-4,
+# label smoothing 0.1, pre-masked storage; the mask-update frequency cut
+# from 100 to 5 so that 12 steps hold updates at steps 0, 5 and 10.  Its
+# 29 1x1 convs that block (128, 128) divides run 'matmul' (B7).
+RN50_BLOCK, RN50_BATCH, RN50_IMAGE, RN50_SPARSITY = (128, 128), 128, 224, 0.8
+RN50_1X1, RN50_FREQ, RN50_STEPS, RN50_PRUNE_STEPS = 29, 5, 12, 3
+RN50_TIMED = 5
+# BlockSparseDense at scripts/bench_blocksparse_mlp.py's 'layer' width.
+MLP_BSD_BLOCK = (512, 512)
 
 
 class SmokeFailure(Exception):
@@ -619,13 +659,18 @@ def _counts():
   tap."""
   from rigl_tpu_torch.ops import block_sparse_conv as bsc
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  from rigl_tpu_torch.ops import block_sparse_v4 as v4
   from rigl_tpu_torch.ops import flash_attention as fa
   return dict(fwd=bsp.packed_mm_launches, dx=bsp.packed_mm_dx_launches,
               dw=bsp.packed_dw_launches, flash_fwd=fa.flash_fwd_launches,
               flash_dkv=fa.flash_bwd_dkv_launches,
               flash_dq=fa.flash_bwd_dq_launches,
               tap_fwd=bsc.tap_conv_fwd_launches,
-              tap_dx=bsc.tap_conv_dx_launches, tap_dw=bsc.tap_dw_launches)
+              tap_dx=bsc.tap_conv_dx_launches, tap_dw=bsc.tap_dw_launches,
+              v4_fwd=v4.v4_fwd_launches, v4_dx=v4.v4_dx_launches,
+              v3_fwd=v3.v3_fwd_launches, v3_dx=v3.v3_dx_launches,
+              dw_gather=v3.dw_gather_launches)
 
 
 def _zero_counts():
@@ -638,6 +683,10 @@ def _zero_counts():
   fa.flash_bwd_dq_launches = 0
   bsc.tap_conv_fwd_launches = bsc.tap_conv_dx_launches = 0
   bsc.tap_dw_launches = 0
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  from rigl_tpu_torch.ops import block_sparse_v4 as v4
+  v4.v4_fwd_launches = v4.v4_dx_launches = 0
+  v3.v3_fwd_launches = v3.v3_dx_launches = v3.dw_gather_launches = 0
 
 
 def _packed_counts():
@@ -1654,6 +1703,527 @@ def phase_wrn_speed(torch, device):
   return rec
 
 
+# ------------------------------------------ dense-masked ResNet-50 (15-18) --
+def rn50_1x1_shapes():
+  """(path, m, cin, cout) of ResNet-50's 1x1 convs that block RN50_BLOCK
+  divides, at batch RN50_BATCH and RN50_IMAGE px: rows are the conv's
+  output pixels (the stride of a projection subsamples its input)."""
+  from rigl_tpu_torch.models.resnet import DEPTHS
+  bk, bn = RN50_BLOCK
+  hw = RN50_IMAGE // 4
+  cin = 64
+  out = []
+  for g, n_blocks in enumerate(DEPTHS[50][1]):
+    f = 64 * 2 ** g
+    for i in range(n_blocks):
+      name = f'group{g + 1}_block{i}'
+      stride = 2 if (g > 0 and i == 0) else 1
+      hw_out = hw // stride
+      convs = [('conv1', hw, cin, f), ('conv3', hw_out, f, 4 * f)]
+      if i == 0:
+        convs.append(('proj', hw_out, cin, 4 * f))
+      for conv, side, ci, co in convs:
+        if ci % bk == 0 and co % bn == 0:
+          out.append((f'{name}/{conv}/conv/kernel', RN50_BATCH * side * side,
+                      ci, co))
+      hw, cin = hw_out, 4 * f
+  return out
+
+
+def _rn50_mask_rule(path, leaf):
+  """bench.py's rule: the first conv is not masked at all."""
+  from rigl_tpu_torch.sparsity.masks import default_mask_rule
+  return not path.startswith('initial_conv') and default_mask_rule(path,
+                                                                   leaf)
+
+
+def _rn50_sparsities():
+  """{path: ERK sparsity} of ResNet-50's masked layers at RN50_SPARSITY."""
+  from rigl_tpu_torch.models.resnet import ResNet
+  from rigl_tpu_torch.sparsity import masks as masks_lib
+  from rigl_tpu_torch.sparsity.distributions import get_sparsities
+  model = ResNet(50, num_classes=1000, device='meta')
+  shapes = masks_lib.mask_shapes(masks_lib.param_dict(model),
+                                 _rn50_mask_rule)
+  return get_sparsities(shapes, 'erdos_renyi_kernel', RN50_SPARSITY)
+
+
+def dense_bound(op, m, occ, block, dtype):
+  """(ms, 'bytes' | 'operations'): the least time of one dense-storage
+  call on an H100: the activation columns of non-empty block-rows /
+  -columns, the active W blocks and the output (dw: the whole (K, N)
+  gradient) each once over HBM_BYTES_PER_S, or its FLOPs on the active
+  blocks over PEAK_FLOPS, whichever is larger."""
+  import torch
+  bk, bn = block
+  nk, nn_ = occ.shape
+  e = torch.empty((), dtype=dtype).element_size()
+  occ = occ.cpu().bool()
+  n_act = int(occ.sum())
+  k_used = int(occ.any(1).sum()) * bk
+  n_used = int(occ.any(0).sum()) * bn
+  w_bytes = n_act * bk * bn * e
+  moved = {'fwd': m * k_used * e + w_bytes + m * nn_ * bn * e,
+           'dx': m * n_used * e + w_bytes + m * nk * bk * e,
+           'dw': m * k_used * e + m * n_used * e + nk * bk * nn_ * bn * e}[op]
+  flops = 2.0 * m * n_act * bk * bn
+  t_bytes = moved / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
+  return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _cpu_lists(lists):
+  return type(lists)(*(None if t is None else t.cpu() for t in lists))
+
+
+def phase_dense_kernels(torch, device):
+  """Phase 15: the dense-storage modes against their plain versions at
+  ResNet-50's 29 eligible 1x1 shapes (batch 128, 224 px, ERK-0.8
+  occupancies at block (128, 128), bf16), the forward and dx from the
+  flat packing (v4, B7) and from the occupancy (v3, B8) and the gathered
+  dw (B9); then f32 at one shape; beside torch.matmul on the masked dense
+  W (xᵀ @ gy for dw) and the bound."""
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  from rigl_tpu_torch.ops import block_sparse_v4 as v4
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  gen = torch.Generator().manual_seed(SEED + 15)
+  bk, bn = RN50_BLOCK
+  sparsities = _rn50_sparsities()
+  shapes = rn50_1x1_shapes()
+  check(len(shapes) == RN50_1X1, f'{len(shapes)} eligible 1x1 convs, not '
+        f'{RN50_1X1}')
+  points = [(p, m, ci, co, torch.bfloat16) for p, m, ci, co in shapes]
+  points.append(shapes[-1][:4] + (torch.float32,))
+  records = {k: [] for k in ('v4_fwd', 'v4_dx', 'v3_fwd', 'v3_dx', 'dw')}
+  for path, m, cin, cout, dtype in points:
+    nk, nn_ = cin // bk, cout // bn
+    s = sparsities[path]
+    n_act = nk * nn_ - get_n_zeros(nk * nn_, s)
+    occ = random_occupancy(gen, nk, nn_, n_act).to(device)
+    mask = occ.repeat_interleave(bk, 0).repeat_interleave(bn, 1)
+    w = (torch.randn(cin, cout, generator=gen) / cin ** 0.5).to(device)
+    w = (w * mask).to(dtype)
+    x = torch.randn(m, cin, generator=gen).to(device, dtype)
+    gy = torch.randn(m, cout, generator=gen).to(device, dtype)
+    cols, rows = v4.pack_flat_active(occ, n_act)
+    shape = (cin, cout)
+    lists = {'v4_fwd': v4.flat_lists(cols, rows, RN50_BLOCK, shape),
+             'v4_dx': v4.flat_lists(cols, rows, RN50_BLOCK, shape, 'dx'),
+             'v3_fwd': v3.occupancy_lists(occ, RN50_BLOCK, cout),
+             'v3_dx': v3.occupancy_lists(occ, RN50_BLOCK, cout, 'dx')}
+    entries = v4.flat_dw_entries(cols, rows)
+    entries_cpu = _cpu_lists(entries)
+    tag = (f'{path} m={m} {cin}->{cout} s={s:.3f} ({n_act} blocks) '
+           f'{dtype_name(dtype)}')
+    for key, lst in lists.items():
+      form, op = key.split('_')
+      mod, kern = (v4, v4.v4_matmul_cuda) if form == 'v4' else (
+          v3, v3.v3_matmul_cuda)
+      a = x if op == 'fwd' else gy
+      lst_cpu = _cpu_lists(lst)
+      rec, got = kernel_point(
+          torch, f'{key:6s} {tag}', f'{form}_{op}_launches',
+          lambda a=a, lst=lst, kern=kern, op=op: kern(a, w, lst, RN50_BLOCK,
+                                                     op),
+          lambda a=a, lst=lst_cpu, op=op: v3.dense_mm_reference(
+              a, w, lst, RN50_BLOCK, op),
+          (lambda: x @ w) if op == 'fwd' else (lambda: gy @ w.T),
+          dense_bound(op, m, occ, RN50_BLOCK, dtype), module=mod,
+          plain_iters=3)
+      if op == 'fwd':
+        for j in (occ.sum(0) == 0).nonzero().flatten().tolist():
+          check(not bool(got[:, j * bn:(j + 1) * bn].any()),
+                f'{key} {tag}: empty column {j} not zero')
+      rec.update(path=path, m=m, cin=cin, cout=cout, sparsity=s,
+                 n_active=n_act, dtype=dtype_name(dtype))
+      records[key].append(rec)
+    rec, _ = kernel_point(
+        torch, f'dw     {tag}', 'dw_gather_launches',
+        lambda: v3.dense_dw_cuda(x, gy, w, entries, RN50_BLOCK),
+        lambda: v3.dense_dw_reference(x, gy, entries_cpu, RN50_BLOCK, dtype),
+        lambda: x.T @ gy, dense_bound('dw', m, occ, RN50_BLOCK, dtype),
+        module=v3, library_name='xᵀ @ gy', plain_iters=3)
+    rec.update(path=path, m=m, cin=cin, cout=cout, sparsity=s,
+               n_active=n_act, dtype=dtype_name(dtype))
+    records['dw'].append(rec)
+    del x, gy, w
+  torch.cuda.empty_cache()
+  return records
+
+
+def rn50_model(torch, device, block, seed):
+  from rigl_tpu_torch.models.resnet import ResNet
+  return ResNet(50, num_classes=1000, dtype=torch.bfloat16, block=block,
+                generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def rn50_setup(torch, device, algo, block, routing, execute=True,
+               seed=SEED + 16):
+  """(model, st, state, hot step, update step) of bench.py's resnet50
+  arm: ERK 0.8 without the first conv, SGD 0.1 nesterov 0.9, weight decay
+  1e-4, label smoothing 0.1, pre-masked storage for RigL; the schedule's
+  frequency cut to RN50_FREQ.  `block`: the masks' block granularity,
+  executed on the block kernels unless `execute` is False
+  (dense-times-mask execution of block-granular masks)."""
+  import functools
+  from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
+  from rigl_tpu_torch.train import steps
+  from rigl_tpu_torch.transforms import algorithms
+  from rigl_tpu_torch.transforms.sparse_training import SparseTraining
+  model = rn50_model(torch, device, block if execute else None, seed)
+  sched = UpdateSchedule(begin_step=0, end_step=25000, frequency=RN50_FREQ,
+                         drop_fraction=0.3, drop_fraction_anneal='cosine')
+  if algo == 'rigl':
+    alg = algorithms.RigL(schedule=sched)
+  elif algo == 'prune':
+    alg = algorithms.GradualPruning(schedule=UpdateSchedule(
+        begin_step=0, end_step=10, frequency=2))
+  else:
+    alg = algorithms.DENSE
+  st = SparseTraining(
+      functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9,
+                        nesterov=True), alg,
+      distribution='erdos_renyi_kernel', default_sparsity=RN50_SPARSITY,
+      block=block if alg.name != 'none' else None, block_routing=routing,
+      mask_rule=_rn50_mask_rule, premask_params=(algo == 'rigl'))
+  state = steps.init_train_state(SEED, model, st)
+
+  def make(hint):
+    return steps.make_train_step(model, st, weight_decay=1e-4,
+                                 label_smoothing=0.1,
+                                 block=block if execute else None,
+                                 update_hint=hint)
+  if alg.name == 'none':
+    return model, st, state, make(None), None
+  return model, st, state, make(False), make(True)
+
+
+def rn50_batches(torch, device, n):
+  """bench.py's synthetic data: N(0, 1) images, uniform labels."""
+  gen = torch.Generator(device=device).manual_seed(SEED + 17)
+  return [{'image': torch.randn(RN50_BATCH, RN50_IMAGE, RN50_IMAGE, 3,
+                                generator=gen, device=device),
+           'label': torch.randint(0, 1000, (RN50_BATCH,), generator=gen,
+                                  device=device)} for _ in range(n)]
+
+
+def _rn50_counts_ok(st, state):
+  """Every block layer's active count equals static_block_counts()."""
+  from rigl_tpu_torch.ops import block_mask as bm_lib
+  counts = st.static_block_counts()
+  for p, want in counts.items():
+    m = state.sparse.masks[p]
+    pool = (bm_lib.pool_to_tap_blocks if bm_lib.is_tap_layer(
+        tuple(m.shape), st.block) else bm_lib.pool_to_blocks)
+    got = int((pool(m, st.block, 'max') > 0).sum())
+    check(got == want, f'rn50: {p} holds {got} active blocks, not {want}')
+  return len(counts)
+
+
+def _rn50_step_vs_plain(torch, model, st, state, batch, routing):
+  """One step's loss and per-tensor gradients through the kernels (the
+  'matmul' route) against the plain path (dense-times-mask execution on
+  cuDNN), from the same state, statistics frozen; the gradients of masked
+  tensors compared on their active entries."""
+  from rigl_tpu_torch.models.common import frozen_batch_stats
+  from rigl_tpu_torch.train import steps
+  loss_fn = steps.make_loss_fn(model, 1e-4, 0.1)
+  entries = {p: state.sparse.block_packs[p] for p in routing}
+  out = {}
+  with frozen_batch_stats(model):
+    for name, e in (('kernel', entries), ('plain', None)):
+      loss, _ = loss_fn(state.params, batch, e)
+      grads = torch.autograd.grad(loss, list(state.params.values()))
+      out[name] = (float(loss.detach()), dict(zip(state.params, grads)))
+  loss_err = abs(out['kernel'][0] - out['plain'][0]) / abs(out['plain'][0])
+  errs = {}
+  for p, g in out['kernel'][1].items():
+    want = out['plain'][1][p]
+    m = state.sparse.masks.get(p)
+    if m is not None:
+      g, want = g * m, want * m
+    check(bool(torch.isfinite(g).all()), f'rn50: non-finite grad {p}')
+    errs[p] = _rel(g, want)
+  return out['kernel'][0], out['plain'][0], loss_err, errs
+
+
+def phase_rn50(torch, device):
+  """Phase 16, the main path of B7: RN50_STEPS RigL steps of the
+  dense-masked ResNet-50 train step with every eligible 1x1 conv routed
+  'matmul' (module docstring).  Returns (launches, record)."""
+  import numpy as np
+  shapes = rn50_1x1_shapes()
+  routing = {p: 'matmul' for p, *_ in shapes}
+  model, st, state, hot, upd = rn50_setup(torch, device, 'rigl', RN50_BLOCK,
+                                          routing)
+  batches = rn50_batches(torch, device, 3)
+  packs = state.sparse.block_packs
+  check(all(set(packs[p]) == {'cols', 'rows'} for p in routing),
+        'rn50: the routed 1x1s do not hold flat packings')
+  loss_k, loss_p, loss_err, errs = _rn50_step_vs_plain(
+      torch, model, st, state, batches[0], routing)
+  worst = sorted(errs, key=errs.get)[-3:]
+  log(f'rn50 one step, kernel path vs plain path: loss {loss_k:.6f} vs '
+      f'{loss_p:.6f} (rel {loss_err:.3e}); max rel grad err '
+      f'{max(errs.values()):.3e} (tol {STEP_RTOL}); largest at '
+      f'{[(n, float(f"{errs[n]:.3e}")) for n in worst]}')
+  check(loss_err <= STEP_RTOL, f'rn50 step loss: rel error {loss_err}')
+  for p, err in errs.items():
+    check(err <= STEP_RTOL, f'rn50 step grad {p}: rel error {err}')
+
+  n_updates = RN50_STEPS // RN50_FREQ + 1
+  hints = st.predict_update_iters(RN50_STEPS + n_updates)
+  progress, masks_at_3 = [], None
+  torch.cuda.synchronize()
+  _zero_counts()
+  last = _counts()
+  t0 = time.perf_counter()
+  for i, hint in enumerate(hints):
+    state, m = (upd if hint else hot)(state, batches[i % len(batches)])
+    now = _counts()
+    launches = (now['v4_fwd'] - last['v4_fwd'], now['v4_dx'] - last['v4_dx'])
+    last = now
+    progress.append(dict(step=m['step'], updated=m['mask_updated'],
+                         hint_ok=m.get('update_hint_ok', True),
+                         loss=float(m['loss']), launches=launches,
+                         t=time.perf_counter()))
+    if m['mask_updated']:
+      _rn50_counts_ok(st, state)
+    if i == 2:
+      masks_at_3 = {p: t.clone() for p, t in state.sparse.masks.items()}
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _counts()
+  n_layers = _rn50_counts_ok(st, state)
+  losses = [p['loss'] for p in progress]
+  upd_steps = [p['step'] for p in progress if p['updated']]
+  bad = [(i, p['launches']) for i, p in enumerate(progress)
+         if p['launches'] != (RN50_1X1, RN50_1X1)]
+  gaps = [b['t'] - a['t'] for a, b in zip(progress, progress[1:])
+          if not b['updated']]
+  log(f'rn50 rigl: {len(progress)} iterations to step {state.step} in '
+      f'{wall:.2f} s, updates at steps {upd_steps}; step '
+      f'{float(np.median(gaps)) * 1e3:.1f} ms (median, host clock); loss '
+      f'{losses[0]:.4f} -> {losses[-1]:.4f}; v4 launches (fwd, dx) '
+      f'{launches["v4_fwd"]}, {launches["v4_dx"]}; {n_layers} block layers '
+      'at their static counts')
+  check(all(p['hint_ok'] for p in progress), 'rn50: a hint missed')
+  check(state.step == RN50_STEPS, f'rn50 ended at step {state.step}')
+  check(upd_steps == list(range(0, RN50_STEPS, RN50_FREQ)),
+        f'rn50 updates at {upd_steps}')
+  check(all(np.isfinite(losses)), f'rn50: non-finite loss {losses}')
+  check(not bad, f'rn50: iterations whose v4 launches (fwd, dx) are not '
+        f'{RN50_1X1} each: {bad[:3]}')
+  del model, st, state, hot, upd
+  torch.cuda.empty_cache()
+
+  # The same 3 iterations (the step-0 update, two steps) with
+  # dense-times-mask execution from the same initial state.
+  model, st, state, hot, upd = rn50_setup(torch, device, 'rigl', RN50_BLOCK,
+                                          routing, execute=False)
+  for i, hint in enumerate(st.predict_update_iters(3)):
+    state, _ = (upd if hint else hot)(state, batches[i])
+  differ = [p for p, t in state.sparse.masks.items()
+            if not torch.equal(t, masks_at_3[p])]
+  log(f'  masks after 3 iterations, block vs dense-times-mask execution: '
+      f'{len(state.sparse.masks) - len(differ)} of '
+      f'{len(state.sparse.masks)} equal')
+  check(not differ, f'rn50: masks differ from dense-times-mask at {differ}')
+  del model, st, state, hot, upd, batches
+  torch.cuda.empty_cache()
+  return launches, dict(
+      iterations=len(progress), steps=RN50_STEPS, update_steps=upd_steps,
+      losses=losses, step_ms=float(np.median(gaps)) * 1e3, wall_s=wall,
+      launches_per_iteration=[p['launches'] for p in progress],
+      step_vs_plain=dict(loss_rel_err=loss_err,
+                         max_grad_rel_err=max(errs.values())))
+
+
+def phase_rn50_occupancy(torch, device):
+  """Phase 17, the paths of B8 and B9: a few GradualPruning steps of the
+  same model (no static counts, so its 1x1s hold occupancies: the v3
+  route), BlockSparseDense forward and backward at
+  scripts/bench_blocksparse_mlp.py's 'layer' width (3 x 4096, batch 1024,
+  block (512, 512), s = 0.8: dense dw), and one 'auto' call where the
+  traffic model picks the gathered dw (K = N = 1024, block (512, 512)).
+  Returns ({path: launches}, record)."""
+  from rigl_tpu_torch.layers.block_sparse_dense import BlockSparseDense
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  routing = {p: 'matmul' for p, *_ in rn50_1x1_shapes()}
+  model, st, state, hot, upd = rn50_setup(torch, device, 'prune', RN50_BLOCK,
+                                          routing)
+  check(not st.static_block_counts(), 'prune has static counts')
+  check(all(not isinstance(state.sparse.block_packs[p], dict)
+            for p in routing), 'rn50 prune: 1x1s do not hold occupancies')
+  batches = rn50_batches(torch, device, 1)
+  hints = st.predict_update_iters(RN50_PRUNE_STEPS)
+  _zero_counts()
+  per_step, losses = [], []
+  for hint in hints:
+    before = _counts()
+    state, m = (upd if hint else hot)(state, batches[0])
+    now = _counts()
+    per_step.append((now['v3_fwd'] - before['v3_fwd'],
+                     now['v3_dx'] - before['v3_dx']))
+    losses.append(float(m['loss']))
+  torch.cuda.synchronize()
+  occ_launches = _counts()
+  log(f'rn50 prune (occupancy route): {len(hints)} steps, updates at '
+      f'{[i for i, h in enumerate(hints) if h]}, loss {losses}; v3 launches '
+      f'(fwd, dx) per step {per_step}')
+  check(all(ps == (RN50_1X1, RN50_1X1) for ps in per_step),
+        f'rn50 prune: v3 launches per step {per_step}')
+  check(all(math.isfinite(v) for v in losses), 'rn50 prune: loss')
+  del model, st, state, hot, upd, batches
+  torch.cuda.empty_cache()
+
+  # BlockSparseDense at the bench's 'layer' width: B8 with a dense dw.
+  gen = torch.Generator().manual_seed(SEED + 18)
+  bk, bn = MLP_BSD_BLOCK
+  nb = MLP_WIDTH // bk
+  layers = [BlockSparseDense(MLP_WIDTH, MLP_WIDTH, block=MLP_BSD_BLOCK,
+                             use_bias=False, dtype=torch.bfloat16,
+                             generator=gen, device=device)
+            for _ in range(MLP_DEPTH)]
+  for layer in layers:
+    occ = random_occupancy(gen, nb, nb, nb * nb - get_n_zeros(nb * nb, 0.8))
+    layer.mask.copy_(occ.repeat_interleave(bk, 0).repeat_interleave(
+        bn, 1).to(device))
+  x = torch.randn(MLP_BATCH, MLP_WIDTH, generator=gen).to(device,
+                                                          torch.bfloat16)
+  _zero_counts()
+  h = x
+  for layer in layers:
+    h = torch.relu(layer(h))
+  loss = h.float().square().mean()
+  grads = torch.autograd.grad(loss, [l.kernel for l in layers])
+  loss = loss.detach()
+  torch.cuda.synchronize()
+  bsd_launches = _counts()
+  # The plain path: the same layers as masked dense matmuls.
+  hp = x
+  for layer in layers:
+    hp = torch.relu(hp @ (layer.kernel * layer.mask).to(torch.bfloat16))
+  plain_loss = hp.float().square().mean()
+  plain_grads = torch.autograd.grad(plain_loss, [l.kernel for l in layers])
+  plain_loss = float(plain_loss.detach())
+  bsd_errs = [_rel(g * l.mask, pg * l.mask)
+              for g, pg, l in zip(grads, plain_grads, layers)]
+  bsd_loss_err = abs(float(loss) - plain_loss) / abs(plain_loss)
+  log(f'BlockSparseDense 3 x {MLP_WIDTH}, batch {MLP_BATCH}, block '
+      f'{MLP_BSD_BLOCK} bf16: loss rel err {bsd_loss_err:.3e}, grad rel errs '
+      f'{[float(f"{e:.3e}") for e in bsd_errs]} (tol {STEP_RTOL}); v3 '
+      f'launches (fwd, dx) {bsd_launches["v3_fwd"]}, '
+      f'{bsd_launches["v3_dx"]}; dw mode '
+      f'{v3.dw_mode_for((MLP_WIDTH, MLP_WIDTH), MLP_BSD_BLOCK, "auto")}')
+  check(bsd_launches['v3_fwd'] == MLP_DEPTH
+        and bsd_launches['v3_dx'] == MLP_DEPTH - 1
+        and bsd_launches['dw_gather'] == 0,
+        f'BlockSparseDense launches {bsd_launches}')
+  check(bsd_loss_err <= STEP_RTOL and max(bsd_errs) <= STEP_RTOL,
+        'BlockSparseDense: kernel path and plain path disagree')
+  del layers, x, h, hp, grads, plain_grads
+  torch.cuda.empty_cache()
+
+  # One 'auto' call the traffic model sends to the gathered dw (B9).
+  k = n = 1024
+  block = (512, 512)
+  check(v3.dw_mode_for((k, n), block, 'auto') == 'gather',
+        'auto does not pick gather at K = N = 1024, block 512')
+  occ = torch.tensor([[1, 0], [1, 1]], dtype=torch.int32, device=device)
+  xa = torch.randn(MLP_BATCH, k, generator=gen).to(device,
+                                                   torch.bfloat16)
+  wa = (torch.randn(k, n, generator=gen) / k ** 0.5).to(
+      device, torch.bfloat16).requires_grad_()
+  _zero_counts()
+  ya = v3.block_sparse_matmul_v3(xa, wa, occ, block, dw_mode='auto')
+  (dwa,) = torch.autograd.grad(ya.float().sum(), [wa])
+  torch.cuda.synchronize()
+  auto_launches = _counts()
+  want = v3.masked_dense_dw(xa, torch.ones_like(ya), occ, block,
+                            torch.bfloat16)
+  auto_err = _rel(dwa, want)
+  log(f"'auto' dw at K = N = {k}, block {block}: gathered dw launches "
+      f"{auto_launches['dw_gather']}, rel err vs the dense dw {auto_err:.3e}")
+  check(auto_launches['dw_gather'] == 1, 'auto: B9 not launched')
+  check(auto_err <= TOL['bfloat16'], f'auto dw: rel error {auto_err}')
+  torch.cuda.empty_cache()
+  return (dict(rn50_occupancy=occ_launches, block_sparse_dense=bsd_launches,
+               auto_gather=auto_launches),
+          dict(prune_losses=losses, prune_launches_per_step=per_step,
+               bsd_loss_rel_err=bsd_loss_err, bsd_grad_rel_errs=bsd_errs,
+               auto_dw_rel_err=auto_err))
+
+
+def phase_rn50_speed(torch, device):
+  """Phase 18: us/step of the ResNet-50 step (batch 128, 224 px, bf16) in
+  four arms, each twice in mirrored order: RigL with 'matmul' routing
+  (B7), RigL with the default routing (the 1x1s on the tap kernels), RigL
+  with dense-times-mask execution, and the dense algorithm; each arm's
+  device busy share and kernel time per step by kernel."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+  routing = {p: 'matmul' for p, *_ in rn50_1x1_shapes()}
+  arms = {'rigl_matmul': ('rigl', RN50_BLOCK, routing),
+          'rigl_tap': ('rigl', RN50_BLOCK, None),
+          'rigl_masked': ('rigl', None, None),
+          'dense': ('dense', None, None)}
+  batch = rn50_batches(torch, device, 1)[0]
+  steps_ = {}
+  for name, (algo, block, rt) in arms.items():
+    model, st, state, hot, upd = rn50_setup(torch, device, algo, block, rt)
+    holder = {'state': state}
+    if upd is not None:   # the step-0 update first, then the hot loop
+      holder['state'], _ = upd(holder['state'], batch)
+
+    def step(hot=hot, holder=holder):
+      holder['state'], _ = hot(holder['state'], batch)
+    for _ in range(2):
+      step()
+    torch.cuda.synchronize()
+    steps_[name] = (step, model)
+  order = list(steps_) + list(steps_)[::-1]
+  us = {name: [] for name in steps_}
+  for name in order:
+    us[name].append(time_ms(steps_[name][0], RN50_TIMED) * 1e3)
+  rec = {}
+  for name, (step, _) in steps_.items():
+    mean_us = float(np.mean(us[name]))
+    n = 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(n):
+        step()
+      torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernel_us = sum(e.self_device_time_total for e in events) / n
+    check(kernel_us > 0, f'rn50 {name}: the profiler recorded no device '
+          'time')
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    rec[name] = dict(us_per_step=us[name], kernel_us_per_step=kernel_us,
+                     device_busy_share=kernel_us / mean_us,
+                     device_ms_by_kernel={
+                         e.key[:90]: [e.self_device_time_total / 1e3 / n,
+                                      e.count / n] for e in top})
+    log(f'rn50 step: {name:11s} us/step {[round(u, 1) for u in us[name]]} '
+        f'(mean {mean_us:.1f}); kernels {kernel_us:.1f} us/step (busy share '
+        f'{kernel_us / mean_us:.3f})')
+    log('  top kernels, device ms and launches per step:')
+    for e in top:
+      log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
+          f'{e.count / n:5.1f} x {e.key[:90]}')
+  for name in ('rigl_matmul', 'rigl_tap', 'rigl_masked'):
+    rec[f'dense_over_{name}'] = (float(np.mean(us['dense']))
+                                 / float(np.mean(us[name])))
+    log(f'  dense/{name}: {rec[f"dense_over_{name}"]:.3f}')
+  del steps_
+  torch.cuda.empty_cache()
+  return rec
+
+
 def _tap_entry(name, source, replaces, launches, points):
   """One tap kernel's JSON record: ms, plain_ms, bound_ms and library_ms
   are sums over the main path's points (the four WRN-22-2 shapes at batch
@@ -1732,6 +2302,10 @@ def main():
     tap_points_ = phase_tap_kernels(torch, device)
     wrn_launches, wrn = phase_wrn(torch, device)
     wrn['speed'] = phase_wrn_speed(torch, device)
+    dense_points = phase_dense_kernels(torch, device)
+    rn50_launches, rn50 = phase_rn50(torch, device)
+    occ_launches, rn50['occupancy'] = phase_rn50_occupancy(torch, device)
+    rn50['speed'] = phase_rn50_speed(torch, device)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -1783,10 +2357,29 @@ def main():
     if op != 'dw':
       entry['also_replaces'] = f'{conv_tpu}:355 (_conv_kernel_v5, B5)'
     kernels.append(entry)
+  v4_tpu = 'rigl_tpu/ops/pallas/block_sparse_v4.py:60 (_v4_kernel, B7)'
+  v3_tpu = 'rigl_tpu/ops/pallas/block_sparse_v3.py:28 (_v3_kernel, B8)'
+  occ_paths = dict(occ_launches, rn50_matmul=rn50_launches)
+  for name, key, counter, replaces in (
+      ('dense_mm_fwd_kernel (flat form)', 'v4_fwd', 'v4_fwd', v4_tpu),
+      ('dense_mm_dx_kernel (flat form)', 'v4_dx', 'v4_dx', v4_tpu),
+      ('dense_mm_fwd_kernel (index-list form)', 'v3_fwd', 'v3_fwd', v3_tpu),
+      ('dense_mm_dx_kernel (index-list form)', 'v3_dx', 'v3_dx', v3_tpu),
+      ('dense_dw_kernel', 'dw', 'dw_gather',
+       'rigl_tpu/ops/pallas/block_sparse_v3.py:160 (_dw_v2_kernel, B9)')):
+    by_path = {path: c[counter] for path, c in occ_paths.items()
+               if c[counter]}
+    entry = _kernel_entry(name, src, replaces, sum(by_path.values()),
+                          by_path, dense_points[key])
+    entry['kernel'] = ('packed_mm_kernel, dense storage' if key != 'dw'
+                       else 'packed_dw_kernel, dense storage')
+    entry['library'] = 'torch.matmul on the masked dense W' if key != 'dw' \
+        else 'torch.matmul xᵀ @ gy'
+    kernels.append(entry)
   training['autograd_rel_err'] = autograd_errs
   record = {'card': card, 'kernels': kernels,
             'serving': dict(speed, **logit_errs), 'training': training,
-            'train_step': train_step, 'lm': lm, 'wrn': wrn}
+            'train_step': train_step, 'lm': lm, 'wrn': wrn, 'rn50': rn50}
   print(json.dumps(record), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -22,5 +22,13 @@ Ported so far:
   * the hand-written Hopper kernels of all three (csrc/packed_mm.cu:
     forward, dx and packed dw; csrc/flash_attn.cu: the flash-attention
     forward, dK/dV and dQ), and a converter from the JAX package's
-    variables and trainer state (convert.py).
+    variables and trainer state (convert.py);
+  * packed conv-net training on the tap kernels (csrc/tap_conv.cu);
+  * dense-masked training, the JAX package's headline path: mask dicts
+    (sparsity/masks.py), the nine algorithms and SparseTraining
+    (transforms/), the train and eval steps (train/steps.py), ResNet
+    (models/resnet.py, models/common.py), BlockSparseDense, and block
+    execution of eligible layers on the dense storage modes of
+    csrc/packed_mm.cu (ops/block_sparse_v3.py, block_sparse_v4.py,
+    conv.py).
 """

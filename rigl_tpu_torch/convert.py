@@ -21,6 +21,11 @@ arrays (params, occupancy grids, momentum traces, counters);
 occupancy grids, Adam's slots and counts, counters, SNFS's EMA grids), and
 `packed_classifier_trainer_from_jax` for PackedClassifierTrainer (params,
 occupancy grids, momentum traces, counters, SNFS's EMA grids).
+
+`train_state_from_jax(model, st, state)` turns a JAX dense-masked
+TrainState (rigl_tpu/train/train_state.py: params, batch_stats, the optax
+momentum trace and the SparseState with its block_packs, as numpy) into
+the port's, so both packages can run from one state.
 """
 
 from __future__ import annotations
@@ -188,3 +193,86 @@ def packed_classifier_trainer_from_jax(config, state, model, dense_twin,
                       state['batches_seen'], state['occupancy'],
                       state['params'], state['momentum'], state.get('ema'))
   return trainer
+
+
+def _paths(tree) -> Dict[str, np.ndarray]:
+  """A nested mapping of arrays -> {'a/b/kernel': array}; a top-level
+  'params' wrapper is dropped, as JAX's path_str drops it."""
+  if set(tree) == {'params'}:
+    tree = tree['params']
+  flat = _flatten(tree, (), {}, lambda v: None if isinstance(v, Mapping)
+                  else np.asarray(v))
+  return {k.replace('.', '/'): v for k, v in flat.items()}
+
+
+def _pack_entry(entry, device):
+  from rigl_tpu_torch.ops.block_sparse_v4 import FlatPacking
+  if isinstance(entry, Mapping):
+    # Tap packings stay on the host, where their kernel index is built.
+    dev = 'cpu' if 'taps' in entry else device
+    out = {k: torch.from_numpy(np.array(v, np.int32)).to(dev)
+           for k, v in entry.items()}
+    return FlatPacking(**out) if set(out) == {'cols', 'rows'} else out
+  return torch.from_numpy(np.array(entry, np.int32)).to(device)
+
+
+def train_state_from_jax(model: torch.nn.Module, st, state):
+  """The port's dense-masked TrainState (train/train_state.py) for `model`
+  under `st` (transforms/sparse_training.py), holding a JAX TrainState's
+  values; on the model's device.
+
+  `state`: numpy arrays and ints (jax.tree.map(np.asarray, ...)),
+    'params'          the flax params tree ({'params': ...} or its inside);
+    'batch_stats'     the batch_stats tree ({} without BatchNorm);
+    'momentum'        optax's momentum trace, a tree like 'params'
+                      (opt_state[0].trace), or None before any step;
+    'masks'           {path: array};
+    'step', 'last_update_step', 'is_snipped';
+    'ema_grads', 'initial_weights'   {path: array} or None;
+    'block_packs'     {path: occupancy | {'cols', 'rows'[, 'taps']}} or
+                      None.
+  The parameters and statistics are copied into the model's tensors;
+  st.init builds the optimizer and the per-layer sparsities (its random
+  masks are replaced by `state`'s)."""
+  from rigl_tpu_torch.sparsity import masks as masks_lib
+  from rigl_tpu_torch.train.train_state import TrainState
+  device = next(model.parameters()).device
+  params = masks_lib.param_dict(model)
+  stats = {masks_lib.path_str(n): b for n, b in model.named_buffers()}
+  src = _paths(state['params'])
+  src_stats = _paths(state.get('batch_stats') or {})
+  if set(src) != set(params) or set(src_stats) != set(stats):
+    raise ValueError(
+        f'JAX paths do not match the model: params '
+        f'{sorted(set(src) ^ set(params))[:6]}, batch_stats '
+        f'{sorted(set(src_stats) ^ set(stats))[:6]}')
+  with torch.no_grad():
+    for p, t in params.items():
+      t.copy_(torch.from_numpy(np.array(src[p])))
+    for p, t in stats.items():
+      t.copy_(torch.from_numpy(np.array(src_stats[p])))
+  optimizer, sstate = st.init(0, params)
+  if state.get('momentum') is not None:
+    trace = _paths(state['momentum'])
+    for p, t in params.items():
+      optimizer.state[t]['momentum_buffer'] = torch.from_numpy(
+          np.array(trace[p])).to(device, t.dtype)
+
+  def dev_dict(d, dtype=None):
+    if d is None:
+      return None
+    return {p: torch.from_numpy(np.array(v)).to(device, dtype)
+            for p, v in d.items()}
+
+  packs = state.get('block_packs')
+  sstate = sstate.replace(
+      masks=dev_dict(state['masks'], st.mask_dtype),
+      step=int(state['step']),
+      last_update_step=int(state['last_update_step']),
+      is_snipped=bool(state['is_snipped']),
+      ema_grads=dev_dict(state.get('ema_grads'), torch.float32),
+      initial_weights=dev_dict(state.get('initial_weights'), torch.float32),
+      block_packs=(None if packs is None else
+                   {p: _pack_entry(e, device) for p, e in packs.items()}))
+  return TrainState(params=params, batch_stats=stats, optimizer=optimizer,
+                    sparse=sstate)

@@ -48,6 +48,22 @@
 // plays that part (a 1 MB bf16 panel at m = 1024), since the thread blocks
 // of neighbouring slots -- the same column's actives -- run together.
 //
+// Dense storage.  The same two kernels also read W in place as the (K, N)
+// matrix of a dense-masked layer, only at its active blocks (`dense_mm_fwd`,
+// `dense_mm_dx`, `dense_dw`): a block is found by its element offset
+// woffs[e] and rows N apart, instead of by its packed slot and rows bn
+// apart; dx reads those blocks transposed, as it reads packed ones, so no
+// Wᵀ is built; dw writes each active block into a zeroed (K, N) output.
+// These replace the TPU kernels of rigl_tpu/ops/pallas/: `_v4_kernel`
+// (block_sparse_v4.py, B7: the flat column-major packing), `_v3_kernel`
+// (block_sparse_v3.py, B8: per-column index lists) -- the same sums from
+// two index forms, turned here into one list of entries per output
+// block-column, [beg[g], end[g]) -- and `_dw_v2_kernel` (block_sparse_v3.py,
+// B9), whose grid over all blocks with an active flag is the flags array.
+// At ResNet-50's 1x1 shapes (m = 6272 .. 100352 rows, 128 .. 2048
+// channels, block 128 x 128, ERK densities) chip_smoke.py computes each
+// call's bound from its bytes and its FLOPs on the active blocks.
+//
 // Ragged m, and bn / bk smaller than a tile, are masked in the kernels (the
 // copies zero-fill), so the TPU path's row padding and its dw ValueError on
 // an m no bm divides have no counterpart; the wrappers guarantee 16-byte
@@ -198,17 +214,21 @@ __device__ __forceinline__ void load_tile(T* dst, int sld, const T* src,
 }
 
 // y (m, ngroups * out_w) for the forward / dx (m, ngroups * out_w) for dx.
-// Output block-column g walks actives [ptr[g], ptr[g + 1]); active a reads
-// x's segment seg_idx[a] (width `seg`: bk forward, bn dx) and w[slot], with
-// slot = a for the forward and slots[a] for dx.  w blocks are (bk, bn)
-// row-major.  `x_ld` / `y_ld` are the row strides of x and y.
+// Output block-column g walks actives [beg[g], end[g]); active a reads x's
+// segment seg_idx[a] (width `seg`: bk forward, bn dx) and one (bk, bn)
+// weight block, row-major with rows `w_ld` apart.  Packed storage (woffs
+// null, w_ld = bn): the block is w[slot], slot = a for the forward and
+// slots[a] for dx.  Dense storage (W (K, N) itself, w_ld = N): the block
+// starts at element woffs[a] of w.  `x_ld` / `y_ld` are the row strides of
+// x and y.
 template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
 __global__ void __launch_bounds__(kThreads)
     packed_mm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const int* __restrict__ ptr,
+                     const int* __restrict__ beg, const int* __restrict__ end,
                      const int* __restrict__ seg_idx,
-                     const int* __restrict__ slots, T* __restrict__ y, int m,
-                     int x_ld, int y_ld, int bk, int bn) {
+                     const int* __restrict__ slots,
+                     const int* __restrict__ woffs, T* __restrict__ y, int m,
+                     int x_ld, int y_ld, int bk, int bn, int w_ld) {
   using L = MmRing<T, BM, BN, BK, STAGES, kTransW>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int seg = kTransW ? bn : bk;      // contraction length per active
@@ -219,9 +239,9 @@ __global__ void __launch_bounds__(kThreads)
   const int tiles_per_col = (out_w + BN - 1) / BN;
   const int g = blockIdx.y / tiles_per_col;
   const int n0 = (blockIdx.y % tiles_per_col) * BN;   // offset in the column
-  const int a_begin = ptr[g];
+  const int a_begin = beg[g];
   const int k_chunks = (seg + BK - 1) / BK;
-  const int total = (ptr[g + 1] - a_begin) * k_chunks;
+  const int total = (end[g] - a_begin) * k_chunks;
 
   auto a_tile = [&](int s) {
     return reinterpret_cast<T*>(smem + s * L::kStageBytes);
@@ -234,20 +254,21 @@ __global__ void __launch_bounds__(kThreads)
   auto load = [&](int it, int s) {
     const int a = a_begin + it / k_chunks;
     const int k0 = (it % k_chunks) * BK;
-    const int slot = kTransW ? slots[a] : a;
     load_tile<T, BM, BK>(
         a_tile(s), L::kAld,
         x + static_cast<size_t>(m0) * x_ld +
             static_cast<size_t>(seg_idx[a]) * seg + k0,
         x_ld, m - m0, seg - k0, x);
-    const T* wa = w + static_cast<size_t>(slot) * bk * bn;
+    const T* wa =
+        w + (woffs ? static_cast<size_t>(woffs[a])
+                   : static_cast<size_t>(kTransW ? slots[a] : a) * bk * bn);
     if constexpr (kTransW)   // rows: output index n0.., columns: chunk k0..
       load_tile<T, BN, BK>(b_tile(s), L::kBld,
-                           wa + static_cast<size_t>(n0) * bn + k0, bn,
+                           wa + static_cast<size_t>(n0) * w_ld + k0, w_ld,
                            bk - n0, bn - k0, w);
     else                     // rows: chunk k0.., columns: output index n0..
       load_tile<T, BK, BN>(b_tile(s), L::kBld,
-                           wa + static_cast<size_t>(k0) * bn + n0, bn,
+                           wa + static_cast<size_t>(k0) * w_ld + n0, w_ld,
                            bk - k0, bn - n0, w);
   };
 
@@ -318,19 +339,24 @@ __global__ void __launch_bounds__(kThreads)
             y_ld, m - m0, out_w - n0);
 }
 
-// dw (n_active, bk, bn): thread block (s, tile) computes the (BM x BN) tile
-// at (r0, c0) of dw[s] = x[:, rows[s]*bk + r0 ..]ᵀ @ gy[:, cols[s]*bn + c0
-// ..] over all m; x is (m, K), gy is (m, N).
+// dw of entry s: thread block (s, tile) computes the (BM x BN) tile at
+// (r0, c0) of x[:, rows[s]*bk + r0 ..]ᵀ @ gy[:, cols[s]*bn + c0 ..] over
+// all m; x is (m, K), gy is (m, N).  Packed storage (dense = 0): the block
+// is dw[s] of (n_active, bk, bn).  Dense storage (dense = 1): it is block
+// (rows[s], cols[s]) of a (K, N) dw, and an entry with flags[s] == 0
+// (flags non-null) writes nothing.
 template <typename T, int BM, int BN, int BK, int STAGES>
 __global__ void __launch_bounds__(kThreads)
     packed_dw_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                      const int* __restrict__ rows,
-                     const int* __restrict__ cols, T* __restrict__ dw, int m,
-                     int K, int N, int bk, int bn) {
+                     const int* __restrict__ cols,
+                     const int* __restrict__ flags, T* __restrict__ dw, int m,
+                     int K, int N, int bk, int bn, int dense) {
   using L = DwRing<T, BM, BN, BK, STAGES>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int s = blockIdx.x;
+  if (flags && flags[s] == 0) return;   // uniform: before any barrier
   const int tiles_n = (bn + BN - 1) / BN;
   const int r0 = (blockIdx.y / tiles_n) * BM;
   const int c0 = (blockIdx.y % tiles_n) * BN;
@@ -409,10 +435,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait<0>();
   __syncthreads();
-  acc.store(smem,
-            dw + static_cast<size_t>(s) * bk * bn +
-                static_cast<size_t>(r0) * bn + c0,
-            bn, bk - r0, bn - c0);
+  const int out_ld = dense ? N : bn;
+  T* out = dense ? dw + static_cast<size_t>(rows[s]) * bk * N +
+                       static_cast<size_t>(cols[s]) * bn
+                 : dw + static_cast<size_t>(s) * bk * bn;
+  acc.store(smem, out + static_cast<size_t>(r0) * out_ld + c0, out_ld,
+            bk - r0, bn - c0);
 }
 
 // Above 48 KB, dynamic shared memory must be allowed per kernel and device:
@@ -434,9 +462,10 @@ cudaError_t allow_smem(Kernel kernel, int smem,
 }
 
 template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
-cudaError_t launch_mm(const void* x, const void* w, const int* ptr,
-                      const int* seg_idx, const int* slots, void* y, int m,
-                      int x_ld, int ngroups, int out_w, int bk, int bn,
+cudaError_t launch_mm(const void* x, const void* w, const int* beg,
+                      const int* end, const int* seg_idx, const int* slots,
+                      const int* woffs, void* y, int m, int x_ld, int ngroups,
+                      int out_w, int bk, int bn, int w_ld,
                       cudaStream_t stream) {
   constexpr int smem = MmRing<T, BM, BN, BK, STAGES, kTransW>::kSmemBytes;
   auto kernel = packed_mm_kernel<T, BM, BN, BK, STAGES, kTransW>;
@@ -445,20 +474,21 @@ cudaError_t launch_mm(const void* x, const void* w, const int* ptr,
   if (err != cudaSuccess) return err;
   dim3 grid((m + BM - 1) / BM, ngroups * ((out_w + BN - 1) / BN));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), ptr, seg_idx, slots,
-      static_cast<T*>(y), m, x_ld, ngroups * out_w, bk, bn);
+      static_cast<const T*>(x), static_cast<const T*>(w), beg, end, seg_idx,
+      slots, woffs, static_cast<T*>(y), m, x_ld, ngroups * out_w, bk, bn,
+      w_ld);
   return cudaGetLastError();
 }
 
 template <bool kTransW>
-int dispatch_mm(const void* x, const void* w, const void* ptr,
-                const void* seg_idx, const void* slots, void* y, int m,
-                int x_ld, int ngroups, int bk, int bn, int dtype,
-                void* stream) {
+int dispatch_mm(const void* x, const void* w, const int* b, const int* e,
+                const void* seg_idx, const void* slots, const void* woffs,
+                void* y, int m, int x_ld, int ngroups, int bk, int bn,
+                int w_ld, int dtype, void* stream) {
   if (m <= 0 || ngroups <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int* p = static_cast<const int*>(ptr);
   const int* si = static_cast<const int*>(seg_idx);
   const int* sl = static_cast<const int*>(slots);
+  const int* wo = static_cast<const int*>(woffs);
   const int out_w = kTransW ? bk : bn;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool small = m <= 32;   // one m-tile: narrow tiles, long steps
@@ -466,22 +496,27 @@ int dispatch_mm(const void* x, const void* w, const void* ptr,
   if (dtype == 1) {
     using B = __nv_bfloat16;
     err = small ? launch_mm<B, 32, 32, 256, 3, kTransW>(
-                      x, w, p, si, sl, y, m, x_ld, ngroups, out_w, bk, bn, st)
+                      x, w, b, e, si, sl, wo, y, m, x_ld, ngroups, out_w, bk,
+                      bn, w_ld, st)
                 : launch_mm<B, 64, 64, 32, 3, kTransW>(
-                      x, w, p, si, sl, y, m, x_ld, ngroups, out_w, bk, bn, st);
+                      x, w, b, e, si, sl, wo, y, m, x_ld, ngroups, out_w, bk,
+                      bn, w_ld, st);
   } else if (dtype == 0) {
     err = small ? launch_mm<float, 32, 32, 128, 3, kTransW>(
-                      x, w, p, si, sl, y, m, x_ld, ngroups, out_w, bk, bn, st)
+                      x, w, b, e, si, sl, wo, y, m, x_ld, ngroups, out_w, bk,
+                      bn, w_ld, st)
                 : launch_mm<float, 64, 64, 16, 3, kTransW>(
-                      x, w, p, si, sl, y, m, x_ld, ngroups, out_w, bk, bn, st);
+                      x, w, b, e, si, sl, wo, y, m, x_ld, ngroups, out_w, bk,
+                      bn, w_ld, st);
   }
   return static_cast<int>(err);
 }
 
 template <typename T, int BM, int BN, int BK, int STAGES>
 cudaError_t launch_dw(const void* x, const void* gy, const int* rows,
-                      const int* cols, void* dw, int m, int K, int N,
-                      int n_act, int bk, int bn, cudaStream_t stream) {
+                      const int* cols, const int* flags, void* dw, int m,
+                      int K, int N, int n_act, int bk, int bn, int dense,
+                      cudaStream_t stream) {
   constexpr int smem = DwRing<T, BM, BN, BK, STAGES>::kSmemBytes;
   auto kernel = packed_dw_kernel<T, BM, BN, BK, STAGES>;
   static std::atomic<uint64_t> allowed{0};
@@ -489,9 +524,28 @@ cudaError_t launch_dw(const void* x, const void* gy, const int* rows,
   if (err != cudaSuccess) return err;
   dim3 grid(n_act, ((bk + BM - 1) / BM) * ((bn + BN - 1) / BN));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gy), rows, cols,
-      static_cast<T*>(dw), m, K, N, bk, bn);
+      static_cast<const T*>(x), static_cast<const T*>(gy), rows, cols, flags,
+      static_cast<T*>(dw), m, K, N, bk, bn, dense);
   return cudaGetLastError();
+}
+
+int dispatch_dw(const void* x, const void* gy, const void* rows,
+                const void* cols, const void* flags, void* dw, int m, int K,
+                int N, int n_ent, int bk, int bn, int dense, int dtype,
+                void* stream) {
+  if (m <= 0 || n_ent <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int* r = static_cast<const int*>(rows);
+  const int* c = static_cast<const int*>(cols);
+  const int* f = static_cast<const int*>(flags);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 1)
+    err = launch_dw<__nv_bfloat16, 64, 64, 32, 3>(x, gy, r, c, f, dw, m, K, N,
+                                                  n_ent, bk, bn, dense, st);
+  else if (dtype == 0)
+    err = launch_dw<float, 64, 64, 16, 3>(x, gy, r, c, f, dw, m, K, N, n_ent,
+                                          bk, bn, dense, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -505,8 +559,9 @@ cudaError_t launch_dw(const void* x, const void* gy, const int* rows,
 extern "C" int packed_mm_fwd(const void* x, const void* w, const void* col_ptr,
                              const void* rows, void* y, int m, int K, int nn,
                              int bk, int bn, int dtype, void* stream) {
-  return dispatch_mm<false>(x, w, col_ptr, rows, nullptr, y, m, K, nn, bk, bn,
-                            dtype, stream);
+  const int* p = static_cast<const int*>(col_ptr);
+  return dispatch_mm<false>(x, w, p, p + 1, rows, nullptr, nullptr, y, m, K,
+                            nn, bk, bn, bn, dtype, stream);
 }
 
 // dx (m, nk*bk) = gy (m, nn*bn) @ Wᵀ; block-row k's actives are entries
@@ -516,8 +571,9 @@ extern "C" int packed_mm_dx(const void* gy, const void* w,
                             const void* row_ptr, const void* cols,
                             const void* slots, void* dx, int m, int N, int nk,
                             int bk, int bn, int dtype, void* stream) {
-  return dispatch_mm<true>(gy, w, row_ptr, cols, slots, dx, m, N, nk, bk, bn,
-                           dtype, stream);
+  const int* p = static_cast<const int*>(row_ptr);
+  return dispatch_mm<true>(gy, w, p, p + 1, cols, slots, nullptr, dx, m, N,
+                           nk, bk, bn, bn, dtype, stream);
 }
 
 // dw (n_act, bk, bn): slot s is block (rows[s], cols[s]); x is (m, K), gy
@@ -525,16 +581,45 @@ extern "C" int packed_mm_dx(const void* gy, const void* w,
 extern "C" int packed_dw(const void* x, const void* gy, const void* rows,
                          const void* cols, void* dw, int m, int K, int N,
                          int n_act, int bk, int bn, int dtype, void* stream) {
-  if (m <= 0 || n_act <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int* r = static_cast<const int*>(rows);
-  const int* c = static_cast<const int*>(cols);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1)
-    err = launch_dw<__nv_bfloat16, 64, 64, 32, 3>(x, gy, r, c, dw, m, K, N,
-                                                  n_act, bk, bn, st);
-  else if (dtype == 0)
-    err = launch_dw<float, 64, 64, 16, 3>(x, gy, r, c, dw, m, K, N, n_act, bk,
-                                          bn, st);
-  return static_cast<int>(err);
+  return dispatch_dw(x, gy, rows, cols, nullptr, dw, m, K, N, n_act, bk, bn,
+                     0, dtype, stream);
+}
+
+// Dense storage: W is the (K, N) matrix itself, row-major, and only its
+// active (bk, bn) blocks are read.
+//
+// y (m, nn*bn) = x (m, K) @ W over the actives: output block-column j sums
+// entries beg[j] .. end[j]-1, each reading x's block-column rows[e] and the
+// W block at element woffs[e] (rows N apart).
+extern "C" int dense_mm_fwd(const void* x, const void* w, const void* beg,
+                            const void* end, const void* rows,
+                            const void* woffs, void* y, int m, int K, int nn,
+                            int bk, int bn, int N, int dtype, void* stream) {
+  return dispatch_mm<false>(x, w, static_cast<const int*>(beg),
+                            static_cast<const int*>(end), rows, nullptr,
+                            woffs, y, m, K, nn, bk, bn, N, dtype, stream);
+}
+
+// dx (m, nk*bk) = gy (m, N) @ Wᵀ over the actives: output block-column k
+// sums entries beg[k] .. end[k]-1, each reading gy's block-column cols[e]
+// and the W block at element woffs[e] (rows N apart), transposed in the
+// kernel (no Wᵀ is built).
+extern "C" int dense_mm_dx(const void* gy, const void* w, const void* beg,
+                           const void* end, const void* cols,
+                           const void* woffs, void* dx, int m, int N, int nk,
+                           int bk, int bn, int dtype, void* stream) {
+  return dispatch_mm<true>(gy, w, static_cast<const int*>(beg),
+                           static_cast<const int*>(end), cols, nullptr, woffs,
+                           dx, m, N, nk, bk, bn, N, dtype, stream);
+}
+
+// dw (K, N) += the active blocks of xᵀ @ gy: entry s is block (rows[s],
+// cols[s]) and writes it, unless flags is non-null and flags[s] == 0.  The
+// caller zeroes dw; f32 sums over m, one cast to the output type.
+extern "C" int dense_dw(const void* x, const void* gy, const void* rows,
+                        const void* cols, const void* flags, void* dw, int m,
+                        int K, int N, int n_ent, int bk, int bn, int dtype,
+                        void* stream) {
+  return dispatch_dw(x, gy, rows, cols, flags, dw, m, K, N, n_ent, bk, bn, 1,
+                     dtype, stream);
 }

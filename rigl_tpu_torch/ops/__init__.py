@@ -44,17 +44,40 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            (RIGL_TAP_DW) gives
                                                            the same numbers
                                                            and has no switch
-  7  block_sparse_v4.py:60 _v4_kernel, _v4_matmul          not yet ported
-  8  block_sparse_v6.py:65 _v6_kernel, _v6_call            not yet ported
-  9  block_sparse_v3.py:28 _v3_kernel, _v3_impl            not yet ported
- 10  block_sparse_v3.py:160 _dw_v2_kernel,                 not yet ported
-     _dw_blocksparse_v2
- 11  block_sparse_v3.py:261 _dense_kernel,                 not yet ported
-     pallas_dense_matmul
- 12  block_sparse_v2.py:44 _gather_kernel,                 not yet ported
-     block_sparse_matmul_gather
- 13  block_sparse.py:40 _fwd_kernel, _matmul_blocksparse   not yet ported
- 14  block_sparse.py:85 _dw_kernel, _dw_blocksparse        not yet ported
+  7  block_sparse_v4.py:60 _v4_kernel, _v4_matmul          csrc/packed_mm.cu
+     (forward; dx from _v4_bwd with the transposed         packed_mm_kernel in
+     packing)                                              its dense storage
+                                                           mode (W read in
+                                                           place from (K, N)
+                                                           at per-entry
+                                                           offsets), bound in
+                                                           ops/block_sparse_
+                                                           v4.py as
+                                                           v4_matmul_cuda
+                                                           (forward and dx)
+  8  block_sparse_v6.py:65 _v6_kernel, _v6_call            not yet ported (the
+                                                           history slice)
+  9  block_sparse_v3.py:28 _v3_kernel, _v3_impl            the same kernel and
+                                                           mode: the sums of
+                                                           row 7 from per-
+                                                           column index lists,
+                                                           bound in ops/block_
+                                                           sparse_v3.py as
+                                                           v3_matmul_cuda
+ 10  block_sparse_v3.py:160 _dw_v2_kernel,                 csrc/packed_mm.cu
+     _dw_blocksparse_v2                                    packed_dw_kernel in
+                                                           its dense mode,
+                                                           bound in ops/block_
+                                                           sparse_v3.py as
+                                                           dense_dw_cuda
+ 11  block_sparse_v3.py:261 _dense_kernel,                 not yet ported (the
+     pallas_dense_matmul                                   history slice)
+ 12  block_sparse_v2.py:44 _gather_kernel,                 not yet ported (the
+     block_sparse_matmul_gather                            history slice)
+ 13  block_sparse.py:40 _fwd_kernel, _matmul_blocksparse   not yet ported (the
+                                                           history slice)
+ 14  block_sparse.py:85 _dw_kernel, _dw_blocksparse        not yet ported (the
+                                                           history slice)
  15  models/packed_transformer.py:52 _flash_attention:     csrc/flash_attn.cu
      JAX's shipped pallas.ops.tpu.flash_attention, three   (CUDA C++, sm_90a),
      pallas_calls: the forward (_flash_attention_impl),    bound in ops/flash_

@@ -524,3 +524,152 @@ def test_tap_kernels_raise_on_what_they_do_not_take(cuda_device):
     tbsc.tap_conv_cuda(x[..., :8].contiguous(), w4, index)
   with pytest.raises(ValueError, match='even'):
     tbsc.tap_index(packing, (2, 2, 16, 16), (16, 16))
+
+
+# ------------------------------------------- dense-storage modes (B7-B9) --
+def _dense_case(nk, nn_, block, m, dtype, device, seed, kind):
+  """An occupancy with an empty block-row and column ('edges'), none
+  ('none') or neither, and x, W (K, N), gy on the card."""
+  from rigl_tpu_torch.ops import block_sparse_v4 as tv4
+  gen = torch.Generator().manual_seed(seed)
+  occ = (torch.rand(nk, nn_, generator=gen) < 0.5).to(torch.int32)
+  occ[0, 0] = 1
+  if kind == 'edges':
+    occ[nk - 1, :] = 0
+    occ[:, nn_ - 1] = 0
+    occ[0, 0] = 1
+  elif kind == 'none':
+    occ[:] = 0
+  bk, bn = block
+  x = torch.randn(m, nk * bk, generator=gen).to(device, dtype)
+  w = torch.randn(nk * bk, nn_ * bn, generator=gen).to(device, dtype)
+  gy = torch.randn(m, nn_ * bn, generator=gen).to(device, dtype)
+  occ = occ.to(device)
+  cols, rows = tv4.pack_flat_active(occ, int(occ.sum()))
+  return occ, cols, rows, x, w, gy
+
+
+def _rel(got, want):
+  scale = max(1.0, float(want.float().abs().max()))
+  return float((got.float() - want.float()).abs().max()) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize('block', [(128, 128), (16, 32), (64, 16)])
+@pytest.mark.parametrize('m', [1, 7, 33, 200])
+@pytest.mark.parametrize('kind', ['random', 'edges', 'none'])
+def test_dense_modes_match_plain(cuda_device, kind, m, block, dtype, tol):
+  """packed_mm_kernel's dense forward and dx and packed_dw_kernel's dense
+  dw, from the flat packing (v4) and from the occupancy (v3), against
+  their plain versions (one torch.matmul per active block, f32 sums, one
+  rounding): ragged m, an empty block-row and column, no active block.
+  Tolerances relative to max(1, max |plain|), as for the packed modes."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  from rigl_tpu_torch.ops import block_sparse_v4 as tv4
+  occ, cols, rows, x, w, gy = _dense_case(5, 4, block, m, dtype,
+                                          cuda_device, m, kind)
+  shape = tuple(w.shape)
+  forms = {
+      'v4': (tv4.flat_lists(cols, rows, block, shape),
+             tv4.flat_lists(cols, rows, block, shape, 'dx'),
+             tv4.flat_dw_entries(cols, rows), tv4.v4_matmul_cuda, tv4,
+             ('v4_fwd_launches', 'v4_dx_launches')),
+      'v3': (tv3.occupancy_lists(occ, block, shape[1]),
+             tv3.occupancy_lists(occ, block, shape[1], 'dx'),
+             tv3.occupancy_dw_entries(occ), tv3.v3_matmul_cuda, tv3,
+             ('v3_fwd_launches', 'v3_dx_launches'))}
+  for name, (fl, dl, ent, kern, mod, counters) in forms.items():
+    before = [getattr(mod, c) for c in counters] + [tv3.dw_gather_launches]
+    y = kern(x, w, fl, block)
+    dx = kern(gy, w, dl, block, 'dx')
+    dw = tv3.dense_dw_cuda(x, gy, w, ent, block)
+    torch.cuda.synchronize()
+    after = [getattr(mod, c) for c in counters] + [tv3.dw_gather_launches]
+    # The flat form lists only active blocks: with none, dw launches
+    # nothing and is all zeros.
+    n_dw = int(ent.rows.numel() > 0)
+    assert after == [before[0] + 1, before[1] + 1, before[2] + n_dw], name
+    want = (tv3.dense_mm_reference(x, w, fl, block),
+            tv3.dense_mm_reference(gy, w, dl, block, 'dx'),
+            tv3.dense_dw_reference(x, gy, ent, block, dtype))
+    for got, ref in zip((y, dx, dw), want):
+      assert got.shape == ref.shape and got.dtype == dtype, name
+      assert _rel(got, ref) <= tol, (name, _rel(got, ref))
+    occ_c = occ.cpu()
+    for j in (occ_c.sum(0) == 0).nonzero().flatten().tolist():
+      assert not y[:, j * block[1]:(j + 1) * block[1]].any(), name
+    for k in (occ_c.sum(1) == 0).nonzero().flatten().tolist():
+      assert not dx[:, k * block[0]:(k + 1) * block[0]].any(), name
+    mask = occ_c.repeat_interleave(block[0], 0).repeat_interleave(block[1], 1)
+    assert not dw.cpu()[mask == 0].any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize('dw_mode', ['dense', 'gather'])
+def test_dense_block_matmul_autograd_on_card(cuda_device, dw_mode, dtype,
+                                             tol):
+  """block_sparse_matmul_v4 / _v3 and block_sparse_conv1x1 on CUDA tensors:
+  the forward, dx and (gather) dw kernels each launch once and give the
+  plain versions' outputs and gradients."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  from rigl_tpu_torch.ops import block_sparse_v4 as tv4
+  from rigl_tpu_torch.ops import conv as tconv
+  block = (32, 32)
+  occ, cols, rows, x, w, gy = _dense_case(4, 6, block, 96, dtype,
+                                          cuda_device, 3, 'edges')
+
+  def grads(fn, device):
+    xx = x.to(device).clone().requires_grad_()
+    ww = w.to(device).clone().requires_grad_()
+    y = fn(xx, ww, device)
+    return (y.detach(),) + torch.autograd.grad(y, (xx, ww), gy.to(device))
+
+  fns = {
+      'v4': lambda a, b, d: tv4.block_sparse_matmul_v4(
+          a, b, cols.to(d), rows.to(d), block, dw_mode=dw_mode),
+      'v3': lambda a, b, d: tv3.block_sparse_matmul_v3(
+          a, b, occ.to(d), block, dw_mode=dw_mode),
+      'conv1x1 v4': lambda a, b, d: tconv.block_sparse_conv1x1(
+          a.reshape(2, 6, 8, -1), b, {'cols': cols.to(d),
+                                      'rows': rows.to(d)},
+          1, block).reshape(96, -1)}
+  for name, fn in fns.items():
+    before = (tv4.v4_fwd_launches, tv4.v4_dx_launches, tv3.v3_fwd_launches,
+              tv3.v3_dx_launches, tv3.dw_gather_launches)
+    got = grads(fn, cuda_device)
+    torch.cuda.synchronize()
+    after = (tv4.v4_fwd_launches, tv4.v4_dx_launches, tv3.v3_fwd_launches,
+             tv3.v3_dx_launches, tv3.dw_gather_launches)
+    moved = [a - b for a, b in zip(after, before)]
+    gather = int(dw_mode == 'gather' and name != 'conv1x1 v4')
+    want_moved = ([1, 1, 0, 0, gather] if name != 'v3'
+                  else [0, 0, 1, 1, gather])
+    assert moved == want_moved, (name, moved)
+    want = [t.to(cuda_device) for t in grads(fn, 'cpu')]
+    for g, r in zip(got, want):
+      assert _rel(g, r) <= tol, (name, _rel(g, r))
+
+
+@pytest.mark.cuda
+def test_dense_modes_raise_on_what_they_do_not_take(cuda_device):
+  """No silent plain path on the card: mixed devices, a dtype the kernels
+  lack, a block the 16-byte copies cannot tile, index lists off the
+  card."""
+  from rigl_tpu_torch.ops import block_sparse_v4 as tv4
+  occ, cols, rows, x, w, gy = _dense_case(2, 2, (16, 16), 8, torch.float32,
+                                          cuda_device, 0, 'random')
+  with pytest.raises(ValueError, match='one CUDA device'):
+    tv4.block_sparse_matmul_v4(x, w.cpu(), cols, rows, (16, 16))
+  with pytest.raises(TypeError):
+    tv4.block_sparse_matmul_v4(x.half(), w.half(), cols, rows, (16, 16))
+  lists = tv4.flat_lists(cols, rows, (16, 16), tuple(w.shape))
+  with pytest.raises(ValueError, match='int32'):
+    tv4.v4_matmul_cuda(x, w, lists._replace(seg=lists.seg.cpu()), (16, 16))
+  occ2, cols2, rows2, x2, w2, _ = _dense_case(2, 2, (6, 6), 8, torch.float32,
+                                              cuda_device, 0, 'random')
+  with pytest.raises(ValueError, match='multiple of 4'):
+    tv4.block_sparse_matmul_v4(x2, w2, cols2, rows2, (6, 6))

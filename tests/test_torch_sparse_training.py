@@ -1,0 +1,260 @@
+"""The port's SparseTraining (rigl_tpu_torch/transforms/sparse_training.py)
+step by step against the JAX package's, on the CPU.
+
+A two-layer parameter dict (two masked kernels and an unmasked bias), the
+same initial values, masks and per-step gradients go through both
+packages' `step` for every algorithm, with the update hints of
+`predict_update_iters`; JAX's drop noise and SET grow draws go into the
+port through its seams.  Masks and step accounting must be equal at every
+step; weights and momentum slots within 1e-6 of each tensor's largest
+value plus 1e-7 (torch.optim.SGD and optax round p + (-lr) * buf and the
+nesterov sum at their own points).  Also: the hints themselves, the
+static block counts, premask_params' rejections, and the eval step.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from rigl_tpu.sparsity.schedules import UpdateSchedule as JSchedule
+from rigl_tpu.transforms import algorithms as jalgorithms
+from rigl_tpu.transforms.sparse_training import SparseState as JState
+from rigl_tpu.transforms.sparse_training import SparseTraining as JST
+from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
+from rigl_tpu_torch.transforms import algorithms
+from rigl_tpu_torch.transforms.sparse_training import (SparseState,
+                                                       SparseTraining)
+
+SHAPES = {'a/kernel': (12, 16), 'b/kernel': (16, 8)}
+RTOL, ATOL = 1e-6, 1e-7
+ALGOS = ['rigl', 'rigl_inverted', 'set', 'static', 'momentum', 'snip', 'dnw',
+         'prune', 'scratch', 'none']
+
+
+def _kwargs(name):
+  sched = dict(begin_step=0, end_step=20, frequency=3, drop_fraction=0.5,
+               drop_fraction_anneal='cosine')
+  if name in ('none', 'scratch', 'snip', 'dnw'):
+    return {}, None
+  kw = {'rigl': {'initial_acc_scale': 0.5}, 'momentum': {'momentum': 0.8},
+        'prune': {'initial_sparsity': 0.2}}.get(name, {})
+  return kw, sched
+
+
+def _pair(name, nesterov=True, block=None, premask=False):
+  kw, sched = _kwargs(name)
+  jalgo = jalgorithms.get_algorithm(
+      name, schedule=None if sched is None else JSchedule(**sched), **kw)
+  talgo = algorithms.get_algorithm(
+      name, schedule=None if sched is None else UpdateSchedule(**sched), **kw)
+  jst = JST(optax.sgd(0.1, momentum=0.9, nesterov=nesterov), jalgo,
+            distribution='uniform', default_sparsity=0.5, block=block,
+            premask_params=premask)
+  tst = SparseTraining(
+      functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9,
+                        nesterov=nesterov), talgo,
+      distribution='uniform', default_sparsity=0.5, block=block,
+      premask_params=premask)
+  return jst, tst
+
+
+def _tree(flat):
+  out = {}
+  for p, v in flat.items():
+    layer, leaf = p.split('/')
+    out.setdefault(layer, {})[leaf] = v
+  return out
+
+
+@pytest.mark.parametrize('name', ALGOS)
+def test_step_matches_jax_step_by_step(name):
+  rs = np.random.RandomState(ALGOS.index(name))
+  jst, tst = _pair(name)
+  params = {p: rs.randn(*s).astype(np.float32) for p, s in SHAPES.items()}
+  params['a/bias'] = rs.randn(16).astype(np.float32)
+  jparams = _tree({p: jnp.asarray(v) for p, v in params.items()})
+  _, jstate = jst.init(jax.random.key(0), jparams)
+  jopt = jst.tx.init(jparams)
+  tparams = {p: torch.tensor(v) for p, v in params.items()}
+  topt, tstate = tst.init(0, tparams)
+  masks = {p: torch.tensor(np.asarray(m)) for p, m in jstate.masks.items()}
+  tstate = tstate.replace(
+      masks=masks,
+      ema_grads=(None if jstate.ema_grads is None else
+                 {p: torch.zeros(SHAPES[p]) for p in SHAPES}))
+  assert tst.sparsities == pytest.approx(jst.sparsities)
+
+  class Seams:
+    """JAX's draws for this step, handed to the port."""
+    step = 0
+
+  def drop_noise(step, layer_idx, path, mask, w):
+    return torch.tensor(np.asarray(jst._drop_noise(
+        jnp.int32(step), layer_idx, path, jnp.asarray(mask.numpy()), None)))
+
+  def grow_score(algo, path, mask, weights, dense_grad, ema_grad, gen):
+    if algo.name == 'set':
+      i = list(SHAPES).index(path)
+      return torch.tensor(np.asarray(jst._grow_score(
+          algo, path, jnp.asarray(mask.numpy()), None, None, None,
+          jst._layer_key(jnp.int32(Seams.step), i, 1))))
+    return SparseTraining._grow_score(tst, algo, path, mask, weights,
+                                      dense_grad, ema_grad, gen)
+
+  tst._drop_noise = drop_noise
+  tst._grow_score = grow_score
+  hints = tst.predict_update_iters(10)
+  assert hints == jst.predict_update_iters(10)
+  assert any(hints) or name in ('none', 'scratch')
+  for t, hint in enumerate(hints):
+    grads = {p: rs.randn(*v.shape).astype(np.float32)
+             for p, v in params.items()}
+    Seams.step = tstate.step + (0 if tst.algo.skip_apply_on_update else 1)
+    jparams, jopt, jstate, jm = jst.step(
+        jparams, jopt, jstate, _tree({p: jnp.asarray(g)
+                                      for p, g in grads.items()}),
+        update_hint=hint)
+    tparams, topt, tstate, tm = tst.step(
+        tparams, topt, tstate, {p: torch.tensor(g)
+                                for p, g in grads.items()},
+        update_hint=hint)
+    assert bool(jm['mask_updated']) == tm['mask_updated'], (name, t)
+    assert tm.get('update_hint_ok', True), (name, t)
+    assert tstate.step == int(jstate.step), (name, t)
+    assert tstate.last_update_step == int(jstate.last_update_step)
+    assert tstate.is_snipped == bool(jstate.is_snipped)
+    for p, m in jstate.masks.items():
+      np.testing.assert_array_equal(tstate.masks[p].numpy(), np.asarray(m),
+                                    f'{name} step {t} mask {p}')
+    flat_w = {f'{l}/{k}': v for l, d in jparams.items() for k, v in d.items()}
+    trace = jopt[0].trace
+    flat_m = {f'{l}/{k}': v for l, d in trace.items() for k, v in d.items()}
+    for p, w in tparams.items():
+      want = np.asarray(flat_w[p])
+      tol = RTOL * float(np.abs(want).max()) + ATOL
+      np.testing.assert_allclose(w.numpy(), want, rtol=0, atol=tol,
+                                 err_msg=f'{name} step {t} weights {p}')
+      slot = topt.state[w].get('momentum_buffer')
+      slot = np.zeros_like(want) if slot is None else slot.numpy()
+      want = np.asarray(flat_m[p])
+      tol = RTOL * float(np.abs(want).max()) + ATOL
+      np.testing.assert_allclose(slot, want, rtol=0, atol=tol,
+                                 err_msg=f'{name} step {t} momentum {p}')
+
+
+@pytest.mark.parametrize('name', ALGOS)
+def test_static_block_counts_and_packs_equal_jax(name):
+  """Block-granular masks at block (4, 8): the same static counts and, for
+  the same masks, the same pack forms and lists."""
+  jst, tst = _pair(name, block=(4, 8))
+  params = {p: np.zeros(s, np.float32) for p, s in SHAPES.items()}
+  _, jstate = jst.init(jax.random.key(1), _tree(
+      {p: jnp.asarray(v) for p, v in params.items()}))
+  tst.init(0, {p: torch.tensor(v) for p, v in params.items()})
+  assert tst.static_block_counts() == jst.static_block_counts()
+  masks = {p: torch.tensor(np.asarray(m)) for p, m in jstate.masks.items()}
+  tpacks = tst._compute_packs(masks) or {}
+  jpacks = jstate.block_packs or {}
+  assert set(tpacks) == set(jpacks)
+  for p, e in jpacks.items():
+    if isinstance(e, dict):
+      assert set(tpacks[p]) == set(e)
+      for k in e:
+        np.testing.assert_array_equal(tpacks[p][k].numpy(), np.asarray(e[k]))
+    else:
+      np.testing.assert_array_equal(tpacks[p].numpy(), np.asarray(e))
+
+
+def test_premask_rejections_and_mask_generator():
+  for name in ('prune', 'dnw', 'snip'):
+    with pytest.raises(ValueError, match='premask_params'):
+      SparseTraining(None, algorithms.get_algorithm(name),
+                     premask_params=True)
+  with pytest.raises(ValueError, match='random_normal'):
+    SparseTraining(None, algorithms.SET(grow_init='random_normal'),
+                   premask_params=True)
+  with pytest.raises(NotImplementedError, match='Slice 6'):
+    SparseTraining(None, algorithms.SET(), mask_generator='per_neuron')
+
+
+def test_eval_step_matches_jax():
+  """make_eval_step's loss, top-1 and top-5 on masked parameters equal
+  JAX's for the same head."""
+  import flax.linen as fnn
+  from rigl_tpu.train import steps as jsteps
+  from rigl_tpu_torch.train import steps
+  from rigl_tpu_torch.train.train_state import TrainState
+  rs = np.random.RandomState(5)
+  kernel = rs.randn(6, 10).astype(np.float32)
+  bias = rs.randn(10).astype(np.float32)
+  mask = (rs.rand(6, 10) > 0.5).astype(np.float32)
+  x = rs.randn(7, 6).astype(np.float32)
+  y = rs.randint(0, 10, 7).astype(np.int32)
+
+  class JHead(fnn.Module):
+    @fnn.compact
+    def __call__(self, x, train=False):
+      return fnn.Dense(10, name='head')(x)
+
+  class THead(torch.nn.Module):
+    def __init__(self):
+      super().__init__()
+      self.head = torch.nn.Module()
+      self.head.kernel = torch.nn.Parameter(torch.tensor(kernel))
+      self.head.bias = torch.nn.Parameter(torch.tensor(bias))
+
+    def forward(self, x, train=False):
+      return x @ self.head.kernel + self.head.bias
+
+  jstate = type('S', (), {})()
+  jstate.params = {'params': {'head': {'kernel': jnp.asarray(kernel),
+                                       'bias': jnp.asarray(bias)}}}
+  jstate.sparse = JState(masks={'head/kernel': jnp.asarray(mask)},
+                         step=jnp.int32(0), last_update_step=jnp.int32(0),
+                         is_snipped=jnp.bool_(False))
+  jstate.batch_stats = {}
+  want = jsteps.make_eval_step(JHead(), has_batch_stats=False)(
+      jstate, {'image': jnp.asarray(x), 'label': jnp.asarray(y)})
+  model = THead()
+  params = {'head/kernel': model.head.kernel, 'head/bias': model.head.bias}
+  state = TrainState(params=params, batch_stats={}, optimizer=None,
+                     sparse=SparseState(masks={'head/kernel':
+                                               torch.tensor(mask)},
+                                        step=0, last_update_step=0,
+                                        is_snipped=False))
+  got = steps.make_eval_step(model, has_batch_stats=False)(
+      state, {'image': torch.tensor(x), 'label': torch.tensor(y)})
+  for k in ('loss', 'top_1', 'top_5', 'count'):
+    np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6,
+                               err_msg=k)
+
+
+def test_make_mask_dict_and_readouts_equal_jax():
+  """make_mask_dict from the JAX key's integers gives JAX's masks exactly
+  (the same numpy shuffles), and the sparsity readouts agree."""
+  from rigl_tpu.sparsity import masks as jmasks
+  from rigl_tpu_torch.sparsity import masks as tmasks
+  rs = np.random.RandomState(9)
+  flat = {'a/kernel': rs.randn(12, 16), 'b/kernel': rs.randn(3, 3, 4, 8),
+          'a/bias': rs.randn(16)}
+  key = jax.random.key(4)
+  want = jmasks.make_mask_dict(key, _tree({p: jnp.asarray(v, jnp.float32)
+                                           for p, v in flat.items()}),
+                               default_sparsity=0.7)
+  got = tmasks.make_mask_dict(np.asarray(jax.random.key_data(key)),
+                              {p: torch.tensor(v) for p, v in flat.items()},
+                              default_sparsity=0.7)
+  assert list(got) == list(want)
+  for p, m in want.items():
+    np.testing.assert_array_equal(got[p].numpy(), np.asarray(m), p)
+  np.testing.assert_allclose(float(tmasks.calculate_sparsity(got)),
+                             float(jmasks.calculate_sparsity(want)),
+                             rtol=1e-6)
+  jl = jmasks.per_layer_sparsity(want)
+  for p, v in tmasks.per_layer_sparsity(got).items():
+    np.testing.assert_allclose(float(v), float(jl[p]), rtol=1e-6)
