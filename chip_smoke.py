@@ -52,6 +52,7 @@ package.  Phases, each fatal on failure:
      dQ kernels against their plain versions at (B, H, S, hd) = (4, 16,
      512, 128), a ragged S = 1000 and hd 64 and 32, beside torch's
      scaled_dot_product_attention (forward; its backward) and the bound;
+     in bf16 here, and their f32 variants after phase 20;
  10. transformer train step, the main path of the flash kernels
      (scripts/bench_packed_transformer.py: 2 layers of the serving width,
      seq 512, batch 4, bf16, SGD momentum, loss mean(out^2) on
@@ -110,15 +111,39 @@ package.  Phases, each fatal on failure:
      with the default routing (1x1s on the tap kernels), RigL with
      dense-times-mask execution and the dense algorithm, each twice in
      mirrored order, with each arm's device busy share and kernel time per
-     step by kernel.
+     step by kernel;
+ 19. history kernels vs plain, at scripts/bench_mlp_arms.py's shape (M, K,
+     N) = (1024, 4096, 4096), bf16 at densities 1.0, 0.2, 0.1 and f32 at
+     0.2: B11's forward (block_sparse_matmul_gather), B10's forward, dx
+     and forward + backward (block_sparse_matmul_v6), B9'
+     (pallas_dense_matmul, density 1.0) and B12's forward, dx and dw
+     (block_sparse_matmul, block (128, 128)), beside torch.matmul on the
+     masked dense W and the bound; B10's empty output column exactly zero
+     in a reused NaN-filled buffer; then the arms path, each entry called
+     once per point;
+ 20. the v6 and B12 MLP steps, the main paths of B10 and B12
+     (scripts/bench_blocksparse_mlp.py, MLP_ENGINE=v6: 3 x 4096, batch
+     1024, block (512, 512), s = 0.8, bf16 premasked weights, SGD
+     momentum, loss mean(y^2)): one step's launches (v6: 3 forward, 2 dx,
+     no gathered dw; B12: 3, 2, 3) and loss and gradients against the
+     plain path, 10 steps with momentum and weights exactly zero at
+     inactive blocks; us/step of the v6, B12, packed and dense arms in
+     mirrored order with busy shares and kernel time by kernel; then
+     phase 9 in f32;
+ 21. the f32 transformer train step, the main path of the f32 flash
+     kernels: phase 10's model in float32, fused against unfused (output,
+     loss and gradients within 1e-3), 2 launches of each f32 flash kernel
+     per fused step, us/step of both in mirrored order.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  The line before the last is the JSON record: `kernels`
-(per kernel: the sums over its bf16 points of ms, plain_ms, bound_ms and
-library_ms, its launches on the main paths, and every point), `serving`,
-`training`, `train_step`, `lm`, `wrn` and `rn50`.  The last line is {"ok": true,
-"device": {...}}.  Without a CUDA device, or without the package beside
-this script, it exits non-zero and prints no result.
+(per kernel: the sums over its bf16 points, f32 for the f32 flash
+kernels, of ms, plain_ms, bound_ms and library_ms, its launches on the
+main paths, and every point), `serving`, `training`, `train_step`, `lm`,
+`wrn`, `rn50`, `history`, `f32_train_step` and the script's wall time.
+The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
+or without the package beside this script, it exits non-zero and prints
+no result.
 """
 
 import json
@@ -191,6 +216,18 @@ RN50_1X1, RN50_FREQ, RN50_STEPS, RN50_PRUNE_STEPS = 29, 5, 12, 3
 RN50_TIMED = 5
 # BlockSparseDense at scripts/bench_blocksparse_mlp.py's 'layer' width.
 MLP_BSD_BLOCK = (512, 512)
+# The history entries at scripts/bench_mlp_arms.py's shape (bf16 at three
+# densities, f32 at 0.2), B12 at its own default block; the v6 and B12 MLP
+# steps run V6_STEPS steps after their one-step check.
+ARMS_M, ARMS_K, ARMS_N, ARMS_BM = 1024, 4096, 4096, 512
+ARMS_DENSITIES = (1.0, 0.2, 0.1)
+V1_BLOCK, V6_STEPS = (128, 128), 10
+# f32 flash kernels vs plain: both sum in f32 (the kernels on the CUDA
+# cores, no TF32), so outputs differ by summation order: 1e-4 of each
+# output's largest value.  The f32 transformer step, fused vs unfused: the
+# same sums in another order through 2 layers and their LayerNorms, each
+# error over its own largest value.
+FLASH_F32_TOL, F32_STEP_RTOL = 1e-4, 1e-3
 
 
 class SmokeFailure(Exception):
@@ -263,6 +300,40 @@ def host_ms(fn, iters):
   dt = time.perf_counter() - t0
   torch.cuda.synchronize()
   return dt * 1e3 / iters
+
+
+def profiled_kernel_time(torch, step, n):
+  """{'kernel_us_per_step', 'device_ms_by_kernel'}: the device time of n
+  step() calls under torch.profiler (device activity only), per step, in
+  all and for the 8 largest kernels, which it logs.  torch.profiler can
+  stop recording device time within a process (on the card, after as few
+  as 5 profiling runs or as many as some tens): a run that records none
+  is tried once more, then both values are None, not measured."""
+  from torch.profiler import ProfilerActivity, profile
+  for _ in range(2):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(n):
+        step()
+      torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernel_us = sum(e.self_device_time_total for e in events) / n
+    if kernel_us > 0:
+      top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+      log('  top kernels, device ms and launches per step:')
+      for e in top:
+        log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
+            f'{e.count / n:5.1f} x {e.key[:90]}')
+      return dict(kernel_us_per_step=kernel_us, device_ms_by_kernel={
+          e.key[:90]: [e.self_device_time_total / 1e3 / n, e.count / n]
+          for e in top})
+  log('  torch.profiler recorded no device time: kernel time not measured')
+  return dict(kernel_us_per_step=None, device_ms_by_kernel=None)
+
+
+def _share(part, whole):
+  """part / whole, or None where part was not measured."""
+  return None if part is None else part / whole
 
 
 def phase_device(torch):
@@ -655,38 +726,56 @@ def phase_speed(torch, device, packed, dense):
 
 
 def _counts():
-  """{kernel: launches so far}: the wrappers' counters, packed, flash and
-  tap."""
+  """{kernel: launches so far}: the wrappers' counters, packed, flash (bf16
+  and f32), tap, dense-storage and history entries."""
+  from rigl_tpu_torch.ops import block_sparse as v1
   from rigl_tpu_torch.ops import block_sparse_conv as bsc
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  from rigl_tpu_torch.ops import block_sparse_v2 as v2
   from rigl_tpu_torch.ops import block_sparse_v3 as v3
   from rigl_tpu_torch.ops import block_sparse_v4 as v4
+  from rigl_tpu_torch.ops import block_sparse_v6 as v6
   from rigl_tpu_torch.ops import flash_attention as fa
   return dict(fwd=bsp.packed_mm_launches, dx=bsp.packed_mm_dx_launches,
               dw=bsp.packed_dw_launches, flash_fwd=fa.flash_fwd_launches,
               flash_dkv=fa.flash_bwd_dkv_launches,
               flash_dq=fa.flash_bwd_dq_launches,
+              flash_fwd_f32=fa.flash_fwd_f32_launches,
+              flash_dkv_f32=fa.flash_bwd_dkv_f32_launches,
+              flash_dq_f32=fa.flash_bwd_dq_f32_launches,
               tap_fwd=bsc.tap_conv_fwd_launches,
               tap_dx=bsc.tap_conv_dx_launches, tap_dw=bsc.tap_dw_launches,
               v4_fwd=v4.v4_fwd_launches, v4_dx=v4.v4_dx_launches,
               v3_fwd=v3.v3_fwd_launches, v3_dx=v3.v3_dx_launches,
-              dw_gather=v3.dw_gather_launches)
+              dw_gather=v3.dw_gather_launches, gather=v2.gather_launches,
+              control=v3.dense_control_launches, v6_fwd=v6.v6_fwd_launches,
+              v6_dx=v6.v6_dx_launches, v1_fwd=v1.v1_fwd_launches,
+              v1_dx=v1.v1_dx_launches, v1_dw=v1.v1_dw_launches)
 
 
 def _zero_counts():
+  """Sets every launch counter of the package to 0."""
+  from rigl_tpu_torch.ops import block_sparse as v1
   from rigl_tpu_torch.ops import block_sparse_conv as bsc
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  from rigl_tpu_torch.ops import block_sparse_v2 as v2
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  from rigl_tpu_torch.ops import block_sparse_v4 as v4
+  from rigl_tpu_torch.ops import block_sparse_v6 as v6
   from rigl_tpu_torch.ops import flash_attention as fa
   bsp.packed_mm_launches = bsp.packed_mm_dx_launches = 0
   bsp.packed_dw_launches = 0
   fa.flash_fwd_launches = fa.flash_bwd_dkv_launches = 0
   fa.flash_bwd_dq_launches = 0
+  fa.flash_fwd_f32_launches = fa.flash_bwd_dkv_f32_launches = 0
+  fa.flash_bwd_dq_f32_launches = 0
   bsc.tap_conv_fwd_launches = bsc.tap_conv_dx_launches = 0
   bsc.tap_dw_launches = 0
-  from rigl_tpu_torch.ops import block_sparse_v3 as v3
-  from rigl_tpu_torch.ops import block_sparse_v4 as v4
   v4.v4_fwd_launches = v4.v4_dx_launches = 0
   v3.v3_fwd_launches = v3.v3_dx_launches = v3.dw_gather_launches = 0
+  v3.dense_control_launches = v2.gather_launches = 0
+  v6.v6_fwd_launches = v6.v6_dx_launches = 0
+  v1.v1_fwd_launches = v1.v1_dx_launches = v1.v1_dw_launches = 0
 
 
 def _packed_counts():
@@ -922,21 +1011,21 @@ def phase_train_speed(torch, device):
   return rec
 
 
-def flash_bound(op, b, h, s, hd):
+def flash_bound(op, b, h, s, hd, dtype='bfloat16'):
   """(ms, 'bytes' | 'operations'): the least time of one call on an H100.
-  Bytes: each bf16 (B, H, S, hd) input read once and each output written
-  once, plus the f32 row statistics (lse; D for the backward).  FLOPs: the
-  causal pairs (k <= q) only, 2 hd per pair per product: QKᵀ and PV
-  (forward); QKᵀ, dO Vᵀ, Pᵀ dO and dSᵀ Q (dK/dV); QKᵀ, dO Vᵀ and dS K
-  (dQ)."""
-  t = b * h * s * hd * 2
+  Bytes: each (B, H, S, hd) input of `dtype` read once and each output
+  written once, plus the f32 row statistics (lse; D for the backward).
+  FLOPs: the causal pairs (k <= q) only, 2 hd per pair per product: QKᵀ
+  and PV (forward); QKᵀ, dO Vᵀ, Pᵀ dO and dSᵀ Q (dK/dV); QKᵀ, dO Vᵀ and
+  dS K (dQ); over the dtype's peak."""
+  t = b * h * s * hd * (2 if dtype == 'bfloat16' else 4)
   stats = b * h * s * 4
   moved = {'fwd': 4 * t + stats, 'dkv': 6 * t + 2 * stats,
            'dq': 5 * t + 2 * stats}[op]
   products = {'fwd': 2, 'dkv': 4, 'dq': 3}[op]
   flops = products * 2.0 * hd * b * h * s * (s + 1) / 2
   t_bytes = moved / HBM_BYTES_PER_S * 1e3
-  t_ops = flops / PEAK_FLOPS['bfloat16'] * 1e3
+  t_ops = flops / PEAK_FLOPS[dtype] * 1e3
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -948,31 +1037,37 @@ def _rel(got, want):
           / max(float(want.abs().max()), torch.finfo(torch.float32).tiny))
 
 
-def phase_flash(torch, device):
-  """The three flash kernels, each launched once and held against its own
-  plain version on the same inputs, then timed beside it and beside
-  torch's scaled_dot_product_attention (forward; its backward, which
-  computes dq, dk and dv in one call, beside dK/dV and dQ)."""
+def _flash_counts(dtype):
+  """(fwd, dK/dV, dQ) launches so far of the flash kernels for `dtype`."""
+  c = _counts()
+  suffix = '_f32' if dtype == 'float32' else ''
+  return tuple(c[f'flash_{op}{suffix}'] for op in ('fwd', 'dkv', 'dq'))
+
+
+def phase_flash(torch, device, dtype):
+  """The three flash kernels for `dtype` (bf16 or their f32 variants),
+  each launched once and held against its own plain version on the same
+  inputs, then timed beside it and beside torch's
+  scaled_dot_product_attention (forward; its backward, which computes dq,
+  dk and dv in one call, beside dK/dV and dQ)."""
   import torch.nn.functional as F
   from rigl_tpu_torch.ops import flash_attention as fa
+  name = dtype_name(dtype)
+  tol = FLASH_TOL if name == 'bfloat16' else FLASH_F32_TOL
   gen = torch.Generator().manual_seed(SEED + 8)
   records = {'fwd': [], 'dkv': [], 'dq': []}
   for b, h, s, hd in FLASH_SHAPES:
-    q, k, v, do = (torch.randn(b, h, s, hd, generator=gen).to(device,
-                                                              torch.bfloat16)
+    q, k, v, do = (torch.randn(b, h, s, hd, generator=gen).to(device, dtype)
                    for _ in range(4))
     scale = hd ** -0.5
-    counts = (fa.flash_fwd_launches, fa.flash_bwd_dkv_launches,
-              fa.flash_bwd_dq_launches)
+    counts = _flash_counts(name)
     o, lse = fa.flash_fwd_cuda(q, k, v, scale)
     d = fa._rowsum_do_o(do, o)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale)
     torch.cuda.synchronize()
-    moved = tuple(a - c for a, c in zip(
-        (fa.flash_fwd_launches, fa.flash_bwd_dkv_launches,
-         fa.flash_bwd_dq_launches), counts))
-    tag = f'(B, H, S, hd) = ({b}, {h}, {s}, {hd})'
+    moved = tuple(a - c for a, c in zip(_flash_counts(name), counts))
+    tag = f'{name} (B, H, S, hd) = ({b}, {h}, {s}, {hd})'
     check(moved == (1, 1, 1), f'flash {tag}: launches moved by {moved}')
     want_o, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
     want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, d,
@@ -1005,26 +1100,26 @@ def phase_flash(torch, device):
                lib_bwd)}
     for op, (pairs, run, plain, lib_ms) in ops.items():
       for got, want in pairs:
-        check(got.dtype == want.dtype == torch.bfloat16
+        check(got.dtype == want.dtype == dtype
               and got.shape == want.shape, f'flash {op} {tag}: dtype/shape')
         check(bool(torch.isfinite(got).all()), f'flash {op} {tag}: '
               'non-finite output')
       err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
       rel = max(_rel(g, w) for g, w in pairs)
-      bound_ = flash_bound(op, b, h, s, hd)
-      rec = dict(max_abs_err=err, max_rel_err=rel, tol=FLASH_TOL,
+      bound_ = flash_bound(op, b, h, s, hd, name)
+      rec = dict(max_abs_err=err, max_rel_err=rel, tol=tol,
                  ms=device_ms(run, 20), plain_ms=device_ms(plain, 5),
                  library_ms=lib_ms, bound_ms=bound_[0], bound_by=bound_[1],
-                 host_ms=host_ms(run, 20), dtype='bfloat16',
+                 host_ms=host_ms(run, 20), dtype=name,
                  shape=[b, h, s, hd], path='train_step')
       if op == 'fwd':
         rec.update(lse_abs_err=lse_err, library_rel_err=lib_err)
       log(f'flash {op:3s} {tag}: max|err| {err:.3e} (rel {rel:.3e}, tol '
-          f'{FLASH_TOL})  device ms: kernel {rec["ms"]:.4f}, plain '
+          f'{tol})  device ms: kernel {rec["ms"]:.4f}, plain '
           f'{rec["plain_ms"]:.4f}, sdpa {"fwd" if op == "fwd" else "bwd"} '
           f'{lib_ms:.4f}, bound {bound_[0]:.4f} ({bound_[1]})  host '
           f'{rec["host_ms"]:.4f}')
-      check(rel <= FLASH_TOL, f'flash {op} {tag}: rel error {rel}')
+      check(rel <= tol, f'flash {op} {tag}: rel error {rel}')
       records[op].append(rec)
     log(f'  sdpa fwd+bwd {lib_fwd + lib_bwd:.4f} ms; sdpa vs plain o rel '
         f'{lib_err:.3e}; lse max|err| {lse_err:.3e}')
@@ -1163,39 +1258,22 @@ def phase_train_step(torch, device):
   # kernel time of a torch.profiler session of 3 steps (device activity
   # only), which also gives the top kernels.  The busy share is the
   # kernel sum over the step time.
-  from torch.profiler import ProfilerActivity, profile
   rec = {}
   for name, step in steps.items():
     flops = 3 * (param_fwd * (1 - SPARSITY if 'packed' in name else 1)
                  + attn_fwd)
     mean_us = float(np.mean(us[name]))
     dev_us = device_ms(step, 3) * 1e3
-    n = 3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-      for _ in range(n):
-        step()
-      torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernel_us = sum(e.self_device_time_total for e in events) / n
-    check(kernel_us > 0, f'{name}: the profiler recorded no device time')
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    prof = profiled_kernel_time(torch, step, 3)
+    busy = _share(prof['kernel_us_per_step'], mean_us)
     rec[name] = dict(us_per_step=us[name], mfu=flops / (mean_us * 1e-6) / peak,
                      flops_per_step=flops, device_us_per_step=dev_us,
-                     kernel_us_per_step=kernel_us,
-                     device_busy_share=kernel_us / mean_us,
-                     device_ms_by_kernel={
-                         e.key[:90]: [e.self_device_time_total / 1e3 / n,
-                                      e.count / n] for e in top})
+                     device_busy_share=busy, **prof)
     log(f'train step: {name:14s} us/step {[round(u, 1) for u in us[name]]} '
         f'(mean {mean_us:.1f}); device window {dev_us:.1f} us/step, kernels '
-        f'{kernel_us:.1f} us/step (busy share {kernel_us / mean_us:.3f}); '
+        f'{prof["kernel_us_per_step"]} us/step (busy share {busy}); '
         f'MFU {rec[name]["mfu"]:.4f} (bench.py formula, '
         f'{peak / 1e12:.0f} TFLOP/s)')
-    log('  top kernels, device ms and launches per step:')
-    for e in top:
-      log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
-          f'{e.count / n:5.1f} x {e.key[:90]}')
   for tag in ('unfused', 'fused'):
     ratio = (float(np.mean(us[f'dense_{tag}']))
              / float(np.mean(us[f'packed_{tag}'])))
@@ -1638,7 +1716,6 @@ def phase_wrn_speed(torch, device):
   twin, each twice in mirrored order; each arm's device busy share and
   kernel time per step, in all and by kernel (torch.profiler)."""
   import numpy as np
-  from torch.profiler import ProfilerActivity, profile
   from rigl_tpu_torch import convert
   train_xy, _ = wrn_data()
   x = torch.as_tensor(train_xy[0][:WRN_BATCH]).to(device)
@@ -1672,28 +1749,12 @@ def phase_wrn_speed(torch, device):
   rec = {}
   for name, step in steps.items():
     mean_us = float(np.mean(us[name]))
-    n = 3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-      for _ in range(n):
-        step()
-      torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernel_us = sum(e.self_device_time_total for e in events) / n
-    check(kernel_us > 0, f'wrn {name}: the profiler recorded no device time')
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    rec[name] = dict(us_per_step=us[name], kernel_us_per_step=kernel_us,
-                     device_busy_share=kernel_us / mean_us,
-                     device_ms_by_kernel={
-                         e.key[:90]: [e.self_device_time_total / 1e3 / n,
-                                      e.count / n] for e in top})
+    prof = profiled_kernel_time(torch, step, 3)
+    busy = _share(prof['kernel_us_per_step'], mean_us)
+    rec[name] = dict(us_per_step=us[name], device_busy_share=busy, **prof)
     log(f'wrn step: {name:5s} us/step {[round(u, 1) for u in us[name]]} '
-        f'(mean {mean_us:.1f}); kernels {kernel_us:.1f} us/step (busy share '
-        f'{kernel_us / mean_us:.3f})')
-    log('  top kernels, device ms and launches per step:')
-    for e in top:
-      log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
-          f'{e.count / n:5.1f} x {e.key[:90]}')
+        f'(mean {mean_us:.1f}); kernels {prof["kernel_us_per_step"]} us/step '
+        f'(busy share {busy})')
   for name in ('tap', 'xla'):
     rec[f'dense_over_{name}'] = (float(np.mean(us['dense']))
                                  / float(np.mean(us[name])))
@@ -2165,7 +2226,6 @@ def phase_rn50_speed(torch, device):
   with dense-times-mask execution, and the dense algorithm; each arm's
   device busy share and kernel time per step by kernel."""
   import numpy as np
-  from torch.profiler import ProfilerActivity, profile
   routing = {p: 'matmul' for p, *_ in rn50_1x1_shapes()}
   arms = {'rigl_matmul': ('rigl', RN50_BLOCK, routing),
           'rigl_tap': ('rigl', RN50_BLOCK, None),
@@ -2192,29 +2252,12 @@ def phase_rn50_speed(torch, device):
   rec = {}
   for name, (step, _) in steps_.items():
     mean_us = float(np.mean(us[name]))
-    n = 2
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-      for _ in range(n):
-        step()
-      torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernel_us = sum(e.self_device_time_total for e in events) / n
-    check(kernel_us > 0, f'rn50 {name}: the profiler recorded no device '
-          'time')
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    rec[name] = dict(us_per_step=us[name], kernel_us_per_step=kernel_us,
-                     device_busy_share=kernel_us / mean_us,
-                     device_ms_by_kernel={
-                         e.key[:90]: [e.self_device_time_total / 1e3 / n,
-                                      e.count / n] for e in top})
+    prof = profiled_kernel_time(torch, step, 2)
+    busy = _share(prof['kernel_us_per_step'], mean_us)
+    rec[name] = dict(us_per_step=us[name], device_busy_share=busy, **prof)
     log(f'rn50 step: {name:11s} us/step {[round(u, 1) for u in us[name]]} '
-        f'(mean {mean_us:.1f}); kernels {kernel_us:.1f} us/step (busy share '
-        f'{kernel_us / mean_us:.3f})')
-    log('  top kernels, device ms and launches per step:')
-    for e in top:
-      log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
-          f'{e.count / n:5.1f} x {e.key[:90]}')
+        f'(mean {mean_us:.1f}); kernels {prof["kernel_us_per_step"]} us/step '
+        f'(busy share {busy})')
   for name in ('rigl_matmul', 'rigl_tap', 'rigl_masked'):
     rec[f'dense_over_{name}'] = (float(np.mean(us['dense']))
                                  / float(np.mean(us[name])))
@@ -2222,6 +2265,472 @@ def phase_rn50_speed(torch, device):
   del steps_
   torch.cuda.empty_cache()
   return rec
+
+
+def _density_occupancy(torch, gen, nk, nn_, density, empty_column=False):
+  """(nk, nn) int32 occupancy with round(density * nk * nn) actives (the
+  sparsity library's count); with empty_column, block-column 0 holds
+  none."""
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  n_act = nk * nn_ - get_n_zeros(nk * nn_, 1.0 - density)
+  if not empty_column:
+    return random_occupancy(gen, nk, nn_, n_act)
+  occ = torch.zeros(nk, nn_, dtype=torch.int32)
+  occ[:, 1:] = random_occupancy(gen, nk, nn_ - 1, min(n_act, nk * (nn_ - 1)))
+  return occ
+
+
+def _expand(occ, block):
+  return occ.repeat_interleave(block[0], 0).repeat_interleave(block[1], 1)
+
+
+def phase_history_kernels(torch, device):
+  """Phase 19: the history entries at scripts/bench_mlp_arms.py's shape,
+  (M, K, N) = (1024, 4096, 4096), against their plain versions (one
+  torch.matmul per active block, f32 sums, one rounding) beside
+  torch.matmul on the masked dense W (xᵀ @ gy for dw) and the bound:
+  bf16 at densities 1.0, 0.2 and 0.1, f32 at 0.2.  Points: B11's forward
+  (block (512, 512), bm 512), B10's forward, dx, and forward + backward
+  through autograd (dw the masked xᵀ @ gy), B9' (density 1.0, tiles
+  (512, 512, 512)), and B12's forward, dx and dw at block (128, 128).
+  Then B10 with an empty output column, into a NaN-filled buffer the
+  caching allocator hands back, must give exact zeros there; and the
+  arms path: each entry called once per point, as the arms script calls
+  it, with the counts set to 0 before.  Returns (records, launches)."""
+  from rigl_tpu_torch.ops import block_sparse as v1
+  from rigl_tpu_torch.ops import block_sparse_v2 as v2
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  from rigl_tpu_torch.ops import block_sparse_v6 as v6
+  gen = torch.Generator().manual_seed(SEED + 19)
+  m, kdim, n = ARMS_M, ARMS_K, ARMS_N
+  points = [(d, torch.bfloat16) for d in ARMS_DENSITIES]
+  points.append((0.2, torch.float32))
+  records = {k: [] for k in ('gather', 'v6_fwd', 'v6_dx', 'v6_fwd_bwd',
+                             'control', 'v1_fwd', 'v1_dx', 'v1_dw')}
+  calls = []
+  for density, dtype in points:
+    x = torch.randn(m, kdim, generator=gen).to(device, dtype)
+    gy = torch.randn(m, n, generator=gen).to(device, dtype)
+    w = (torch.randn(kdim, n, generator=gen) / kdim ** 0.5).to(device, dtype)
+    occ = _density_occupancy(torch, gen, kdim // BLOCK[0], n // BLOCK[1],
+                             density).to(device)
+    occ1 = _density_occupancy(torch, gen, kdim // V1_BLOCK[0],
+                              n // V1_BLOCK[1], density).to(device)
+    wm = w * _expand(occ, BLOCK).to(dtype)
+    wm1 = w * _expand(occ1, V1_BLOCK).to(dtype)
+    n_act = int(occ.sum())
+    packing = v6.make_packing(occ, n_act)
+    fwd = _cpu_lists(v3.occupancy_lists(occ, BLOCK, n))
+    fwd6 = _cpu_lists(v6.entry_lists(*packing['fwd'], BLOCK, n,
+                                     n // BLOCK[1]))
+    dx6 = v6.entry_lists(*packing['bwd'], BLOCK, n, kdim // BLOCK[0], 'dx')
+    fwd1 = v3.occupancy_lists(occ1, V1_BLOCK, n)
+    dx1 = v3.occupancy_lists(occ1, V1_BLOCK, n, 'dx')
+    ent1 = v3.occupancy_dw_entries(occ1)
+    tag = f'd={density} {dtype_name(dtype):8s}'
+    b512 = {op: dense_bound(op, m, occ, BLOCK, dtype)
+            for op in ('fwd', 'dx', 'dw')}
+    b128 = {op: dense_bound(op, m, occ1, V1_BLOCK, dtype)
+            for op in ('fwd', 'dx', 'dw')}
+    ops = {
+        'gather': (v2, 'gather_launches',
+                   lambda: v2.block_sparse_matmul_gather(x, wm, occ, BLOCK,
+                                                         ARMS_BM),
+                   lambda: v3.dense_mm_reference(x, wm, fwd, BLOCK),
+                   lambda: x @ wm, b512['fwd']),
+        'v6_fwd': (v6, 'v6_fwd_launches',
+                   lambda: v6.block_sparse_matmul_v6(x, wm, packing, BLOCK,
+                                                     ARMS_BM),
+                   lambda: v3.dense_mm_reference(x, wm, fwd6, BLOCK),
+                   lambda: x @ wm, b512['fwd']),
+        'v6_dx': (v6, 'v6_dx_launches',
+                  lambda: v6.v6_matmul_cuda(gy, wm, dx6, BLOCK, 'dx'),
+                  lambda: v3.dense_mm_reference(gy, wm, _cpu_lists(dx6),
+                                                BLOCK, 'dx'),
+                  lambda: gy @ wm.T, b512['dx']),
+        'v1_fwd': (v1, 'v1_fwd_launches',
+                   lambda: v1.block_sparse_matmul(x, wm1, occ1, V1_BLOCK),
+                   lambda: v3.dense_mm_reference(x, wm1, _cpu_lists(fwd1),
+                                                 V1_BLOCK),
+                   lambda: x @ wm1, b128['fwd']),
+        'v1_dx': (v1, 'v1_dx_launches',
+                  lambda: v1.v1_matmul_cuda(gy, wm1, dx1, V1_BLOCK, 'dx'),
+                  lambda: v3.dense_mm_reference(gy, wm1, _cpu_lists(dx1),
+                                                V1_BLOCK, 'dx'),
+                  lambda: gy @ wm1.T, b128['dx']),
+        'v1_dw': (v1, 'v1_dw_launches',
+                  lambda: v1.v1_dw_cuda(x, gy, wm1, ent1, V1_BLOCK),
+                  lambda: v3.dense_dw_reference(x, gy, _cpu_lists(ent1),
+                                                V1_BLOCK, dtype),
+                  lambda: x.T @ gy, b128['dw'])}
+    if density == 1.0:
+      ones = _cpu_lists(v3.occupancy_lists(torch.ones_like(occ), BLOCK, n))
+      ops['control'] = (v3, 'dense_control_launches',
+                        lambda: v3.pallas_dense_matmul(
+                            x, w, (ARMS_BM,) + BLOCK),
+                        lambda: v3.dense_mm_reference(x, w, ones, BLOCK),
+                        lambda: x @ w, b512['fwd'])
+    for key, (mod, counter, run, plain, library, bound_) in ops.items():
+      rec, _ = kernel_point(
+          torch, f'{key:7s} {tag}', counter, run, plain, library, bound_,
+          module=mod, plain_iters=3,
+          library_name='xᵀ @ gy' if key == 'v1_dw' else 'torch.matmul')
+      rec.update(density=density, dtype=dtype_name(dtype), m=m, k=kdim, n=n,
+                 block=list(V1_BLOCK if key.startswith('v1') else BLOCK))
+      records[key].append(rec)
+      calls.append(run)
+    records['v6_fwd_bwd'].append(_v6_fwd_bwd_point(
+        torch, tag, x, gy, wm, occ, packing, (fwd6, _cpu_lists(dx6)), b512,
+        dtype))
+  _v6_empty_column_check(torch, device, gen)
+  _zero_counts()
+  for run in calls:
+    run()
+  torch.cuda.synchronize()
+  launches = {k: v for k, v in _counts().items() if v}
+  log(f'history arms path: launches {launches}')
+  check(launches == {'gather': len(points), 'v6_fwd': len(points),
+                     'v6_dx': len(points), 'control': 1,
+                     'v1_fwd': len(points), 'v1_dx': len(points),
+                     'v1_dw': len(points)}, f'arms path launches {launches}')
+  torch.cuda.empty_cache()
+  return records, launches
+
+
+def _v6_fwd_bwd_point(torch, tag, x, gy, wm, occ, packing, lists, b512,
+                      dtype):
+  """B10 forward + backward through autograd (as bench_mlp_arms' v6grad):
+  y, dx and dw against the plain versions, timed beside autograd through
+  torch.matmul on the masked W; the bound is the sum of the three
+  products' bounds."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  from rigl_tpu_torch.ops import block_sparse_v6 as v6
+  xr, wr = x.detach().requires_grad_(), wm.detach().requires_grad_()
+  fwd, dxl = lists
+
+  def run():
+    y = v6.block_sparse_matmul_v6(xr, wr, packing, BLOCK, 512)
+    return (y,) + torch.autograd.grad(y, (xr, wr), gy)
+
+  def plain():
+    return (v3.dense_mm_reference(x, wm, fwd, BLOCK),
+            v3.dense_mm_reference(gy, wm, dxl, BLOCK, 'dx'),
+            v3.masked_dense_dw(x, gy, occ, BLOCK, wm.dtype))
+
+  def library():
+    y = xr @ wr
+    return torch.autograd.grad(y, (xr, wr), gy)
+
+  before = _counts()
+  got = run()
+  torch.cuda.synchronize()
+  moved = {k: v - before[k] for k, v in _counts().items()
+           if v != before[k]}
+  check(moved == {'v6_fwd': 1, 'v6_dx': 1}, f'v6 fwd+bwd {tag}: {moved}')
+  want = plain()
+  errs = [float((g.float() - r.float()).abs().max()) for g, r in
+          zip(got, want)]
+  rels = [e / max(1.0, float(r.float().abs().max()))
+          for e, r in zip(errs, want)]
+  tol = TOL[dtype_name(dtype)]
+  bound_ms = sum(b512[op][0] for op in ('fwd', 'dx', 'dw'))
+  rec = dict(max_abs_err=max(errs), max_rel_err=max(rels), tol=tol,
+             ms=device_ms(run, 20), plain_ms=device_ms(plain, 3),
+             library_ms=device_ms(library, 20), bound_ms=bound_ms,
+             bound_by=max(('fwd', 'dx', 'dw'), key=lambda o: b512[o][0]),
+             dtype=dtype_name(dtype))
+  rec['bound_by'] = b512[rec['bound_by']][1]
+  log(f'v6 fwd+bwd {tag}: max rel err {max(rels):.3e} (tol {tol})  device '
+      f'ms: kernel path {rec["ms"]:.4f}, plain {rec["plain_ms"]:.4f}, '
+      f'torch.matmul fwd+bwd {rec["library_ms"]:.4f}, bound '
+      f'{bound_ms:.4f}')
+  check(max(rels) <= tol, f'v6 fwd+bwd {tag}: rel error {max(rels)}')
+  return rec
+
+
+def _v6_empty_column_check(torch, device, gen):
+  """B10 at the arms shape with block-column 0 empty: the kernel writes
+  exact zeros there into torch.empty's memory, just handed back by the
+  caching allocator from a NaN-filled buffer of the output's size."""
+  from rigl_tpu_torch.ops import block_sparse_v6 as v6
+  occ = _density_occupancy(torch, gen, ARMS_K // BLOCK[0],
+                           ARMS_N // BLOCK[1], 0.2, True).to(device)
+  x = torch.randn(ARMS_M, ARMS_K, generator=gen).to(device, torch.bfloat16)
+  w = (torch.randn(ARMS_K, ARMS_N, generator=gen) / ARMS_K ** 0.5).to(
+      device, torch.bfloat16) * _expand(occ, BLOCK).to(torch.bfloat16)
+  packing = v6.make_packing(occ, int(occ.sum()))
+  torch.cuda.synchronize()
+  nan = torch.full((ARMS_M, ARMS_N), float('nan'), dtype=torch.bfloat16,
+                   device=device)
+  ptr = nan.data_ptr()
+  del nan
+  y = v6.block_sparse_matmul_v6(x, w, packing, BLOCK, 512)
+  torch.cuda.synchronize()
+  reused = y.data_ptr() == ptr
+  zero = not bool(y[:, :BLOCK[1]].any())
+  log(f'v6 empty output column: exact zeros {zero} (output in the freed '
+      f'NaN buffer: {reused}); other columns finite '
+      f'{bool(torch.isfinite(y).all())}')
+  check(zero and bool(torch.isfinite(y).all()),
+        'v6: the empty output column is not exactly zero')
+
+
+def _mlp_block_arm(torch, device, kind, gen, x):
+  """The 3 x 4096 MLP step of scripts/bench_blocksparse_mlp.py on premasked
+  bf16 weights at s = 0.8 (block (512, 512)) through `kind`: 'v6'
+  (block_sparse_matmul_v6, MLP_ENGINE=v6) or 'v1' (block_sparse_matmul,
+  B12); SGD(1e-4, momentum 0.9), loss mean(y.float()^2).  Returns
+  (step, params, occupancies, optimizer, layer function)."""
+  from rigl_tpu_torch.ops import block_sparse as v1
+  from rigl_tpu_torch.ops import block_sparse_v6 as v6
+  bf16 = torch.bfloat16
+  occs, params, packings = [], [], []
+  for _ in range(MLP_DEPTH):
+    occ, n_act = _mlp_occupancy(torch, gen, SPARSITY, False)
+    occ = occ.to(device)
+    occs.append(occ)
+    packings.append(v6.make_packing(occ, n_act))
+    w = torch.randn(MLP_WIDTH, MLP_WIDTH, generator=gen) / MLP_WIDTH ** 0.5
+    params.append((w.to(device) * _expand(occ, BLOCK)).to(bf16)
+                  .requires_grad_())
+
+  def layer(h, i, w):
+    if kind == 'v6':
+      return v6.block_sparse_matmul_v6(h, w, packings[i], BLOCK, 512)
+    return v1.block_sparse_matmul(h, w, occs[i], BLOCK, 512)
+
+  opt = torch.optim.SGD(params, lr=1e-4, momentum=0.9)
+
+  def step():
+    opt.zero_grad(set_to_none=True)
+    h = x
+    for i, w in enumerate(params):
+      h = torch.relu(layer(h, i, w))
+    (h.float() ** 2).mean().backward()
+    opt.step()
+  return step, params, occs, opt, layer
+
+
+def phase_block_mlp(torch, device):
+  """Phase 20, the main path of B10 and B12: the MLP_ENGINE=v6 train step
+  of scripts/bench_blocksparse_mlp.py at full width (3 x 4096, batch 1024,
+  block (512, 512), s = 0.8, bf16 premasked weights), and the same step
+  through block_sparse_matmul (B12) at that block.  For each: one step's
+  loss and gradients against the plain path (torch.matmul on the masked
+  W, the gradient masked) before any update, with its launches (v6: 3
+  forward, 2 dx, no gathered dw; B12: 3, 2 and 3 dw); then 10 SGD steps
+  with the counts set to 0 before and read after, momentum and weights
+  exactly zero at inactive blocks after them.  Then us/step of the v6
+  arm, the B12 arm, the packed arm (B1/B2, phase 8's) and the dense twin
+  in mirrored pairs, with each arm's device busy share and kernel time
+  per step by kernel.  Returns (launches by arm, record)."""
+  import numpy as np
+  gen = torch.Generator().manual_seed(SEED + 20)
+  bf16 = torch.bfloat16
+  x = torch.randn(MLP_BATCH, MLP_WIDTH, generator=gen).to(device, bf16)
+  rec, launches, arms = {}, {}, {}
+  expect = {'v6': {'v6_fwd': MLP_DEPTH, 'v6_dx': MLP_DEPTH - 1},
+            'v1': {'v1_fwd': MLP_DEPTH, 'v1_dx': MLP_DEPTH - 1,
+                   'v1_dw': MLP_DEPTH}}
+  for kind in ('v6', 'v1'):
+    step, params, occs, opt, layer = _mlp_block_arm(torch, device, kind,
+                                                    gen, x)
+    masks = [_expand(o, BLOCK).to(bf16) for o in occs]
+    before = _counts()
+    h = x
+    for i, w in enumerate(params):
+      h = torch.relu(layer(h, i, w))
+    loss = (h.float() ** 2).mean()
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _counts().items()
+             if v != before[k]}
+    views = [p.detach().clone().requires_grad_() for p in params]
+    h = x
+    for w, mk in zip(views, masks):
+      h = torch.relu(h @ (w * mk))
+    plain_loss = (h.float() ** 2).mean()
+    plain = torch.autograd.grad(plain_loss, views)
+    loss_err = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
+    grad_errs = [_rel(g, p * mk) for g, p, mk in zip(grads, plain, masks)]
+    zero_dw = all(not bool(g[mk == 0].any()) for g, mk in zip(grads, masks))
+    log(f'{kind} MLP step: launches {moved} (expected {expect[kind]}); loss '
+        f'{float(loss):.6e} vs plain {float(plain_loss):.6e} (rel '
+        f'{loss_err:.3e}); grad rel errs {[f"{e:.3e}" for e in grad_errs]} '
+        f'(tol {STEP_RTOL}); dw zero at inactive blocks {zero_dw}')
+    check(moved == expect[kind], f'{kind} MLP step launches {moved}')
+    check(loss_err <= STEP_RTOL, f'{kind} MLP step loss error {loss_err}')
+    check(max(grad_errs) <= STEP_RTOL, f'{kind} MLP step grads {grad_errs}')
+    check(zero_dw, f'{kind} MLP step: dw not zero at inactive blocks')
+    del grads, plain, views
+    _zero_counts()
+    for _ in range(V6_STEPS):
+      step()
+    torch.cuda.synchronize()
+    launches[kind] = {k: v for k, v in _counts().items() if v}
+    want = {k: v * V6_STEPS for k, v in expect[kind].items()}
+    bufs = [opt.state[p]['momentum_buffer'] for p in params]
+    invariant = all(not bool(b[mk == 0].any()) and not bool(p[mk == 0].any())
+                    for b, p, mk in zip(bufs, params, masks))
+    finite = all(bool(torch.isfinite(p).all()) for p in params)
+    log(f'{kind} MLP: {V6_STEPS} steps, launches {launches[kind]} (expected '
+        f'{want}); momentum and weights exactly zero at inactive blocks '
+        f'{invariant}; finite {finite}')
+    check(launches[kind] == want, f'{kind} MLP launches {launches[kind]}')
+    check(invariant and finite, f'{kind} MLP: premask invariant broken')
+    rec[kind] = dict(step_vs_plain=dict(loss_rel_err=loss_err,
+                                        max_grad_rel_err=max(grad_errs)),
+                     launches_per_step=moved)
+    arms[f'{kind}_s{SPARSITY}'] = step
+  arms.update(_mlp_packed_and_dense_arms(torch, device, gen, x))
+  for step in arms.values():
+    for _ in range(3):
+      step()
+  torch.cuda.synchronize()
+  order = list(arms) + list(arms)[::-1]
+  us = {name: [] for name in arms}
+  for name in order:
+    us[name].append(time_ms(arms[name], TIMED_STEPS) * 1e3)
+  for name, step in arms.items():
+    mean_us = float(np.mean(us[name]))
+    dev_us = device_ms(step, 10) * 1e3
+    prof = profiled_kernel_time(torch, step, 3)
+    rec.setdefault(name, {}).update(
+        us_per_step=us[name], device_us_per_step=dev_us,
+        device_busy_share=dev_us / mean_us, **prof)
+    log(f'block MLP speed: {name:10s} us/step '
+        f'{[round(u, 1) for u in us[name]]} (mean {mean_us:.1f}); device '
+        f'window {dev_us:.1f} us/step (busy share {dev_us / mean_us:.3f}); '
+        f'kernels {prof["kernel_us_per_step"]} us/step')
+  dense_us = float(np.mean(us['dense']))
+  for name in arms:
+    if name != 'dense':
+      rec[name]['dense_over_arm'] = dense_us / float(np.mean(us[name]))
+      log(f'  dense/{name}: {rec[name]["dense_over_arm"]:.3f}')
+  del arms
+  torch.cuda.empty_cache()
+  return launches, rec
+
+
+def _mlp_packed_and_dense_arms(torch, device, gen, x):
+  """Phase 8's packed arm (B1/B2 on packed storage, s = 0.8) and the dense
+  twin, for the mirrored timing beside the dense-storage arms."""
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  bf16 = torch.bfloat16
+  W = MLP_WIDTH
+  arms = {}
+  for name in ('packed', 'dense'):
+    if name == 'dense':
+      params = [(torch.randn(W, W, generator=gen) / W ** 0.5).to(device, bf16)
+                for _ in range(MLP_DEPTH)]
+      layer = lambda h, i, params=params: h @ params[i]
+    else:
+      packings, params = [], []
+      for _ in range(MLP_DEPTH):
+        occ, n_act = _mlp_occupancy(torch, gen, SPARSITY, False)
+        packings.append(bsp.make_packing(occ, n_act))
+        params.append((torch.randn(n_act, *BLOCK, generator=gen)
+                       / W ** 0.5).to(device, bf16))
+      layer = lambda h, i, params=params, packings=packings: (
+          bsp.packed_matmul(h, params[i], packings[i], BLOCK))
+    for p in params:
+      p.requires_grad_()
+    opt = torch.optim.SGD(params, lr=1e-4, momentum=0.9)
+
+    def step(layer=layer, opt=opt):
+      opt.zero_grad(set_to_none=True)
+      h = x
+      for i in range(MLP_DEPTH):
+        h = torch.relu(layer(h, i))
+      (h.float() ** 2).mean().backward()
+      opt.step()
+    arms[name if name == 'dense' else f'packed_s{SPARSITY}'] = step
+  return arms
+
+
+def phase_f32_train_step(torch, device):
+  """Phase 21, the main path of the f32 flash kernels: the transformer
+  train step of phase 10 (2 layers of d_model 2048 / d_ff 8192 / 16
+  heads, seq 512, batch 4, block (512, 512), s = 0.8, SGD(1e-4, momentum
+  0.9)) in float32, fused (flash_attention) and unfused from the same
+  seed: output, loss and every gradient of one step within F32_STEP_RTOL
+  of each tensor's largest value; then one fused SGD step with the counts
+  set to 0 before and read after (2 launches of each f32 flash kernel);
+  then us/step of both in mirrored pairs.  Returns (launches, record)."""
+  import numpy as np
+  from rigl_tpu_torch.models.packed_transformer import PackedTransformer
+  f32 = torch.float32
+  gen = torch.Generator().manual_seed(SEED + 21)
+  x = (torch.randn(TR_BATCH, TR_SEQ, D_MODEL, generator=gen) * 0.02).to(
+      device, f32)
+  r = torch.randn(x.shape, generator=gen).to(device)
+  models = {fused: PackedTransformer(
+      num_layers=TR_LAYERS, d_model=D_MODEL, d_ff=D_FF, num_heads=HEADS,
+      vocab_size=0, dtype=f32, sparsity=SPARSITY, block=BLOCK, bm=512,
+      fused_attention=fused, device=device,
+      generator=torch.Generator().manual_seed(SEED + 22))
+      for fused in (False, True)}
+  outs = {}
+  for fused, model in models.items():
+    params = list(model.parameters())
+    out = model(x)
+    loss = (out * r).mean()
+    outs[fused] = (out.detach(), loss.detach(),
+                   torch.autograd.grad(loss, params))
+  (o0, l0, g0), (o1, l1, g1) = outs[False], outs[True]
+  out_err = _rel(o1, o0)
+  loss_err = abs(float(l1) - float(l0)) / float((o0 * r).abs().mean())
+  grad_err = max(_rel(a, b) for a, b in zip(g1, g0))
+  log(f'f32 train step, fused vs unfused: output rel err {out_err:.3e}, '
+      f'loss {float(l1):.6e} vs {float(l0):.6e} (err over mean |term| '
+      f'{loss_err:.3e}), max grad rel err {grad_err:.3e} (tol '
+      f'{F32_STEP_RTOL})')
+  check(max(out_err, loss_err, grad_err) <= F32_STEP_RTOL,
+        f'f32 fused step vs unfused: {out_err} {loss_err} {grad_err}')
+  del outs, g0, g1
+
+  def make_step(model):
+    opt = torch.optim.SGD(model.parameters(), lr=1e-4, momentum=0.9)
+
+    def step():
+      opt.zero_grad(set_to_none=True)
+      (model(x).float() ** 2).mean().backward()
+      opt.step()
+    return step
+  steps = {('fused' if f else 'unfused'): make_step(m)
+           for f, m in models.items()}
+  _zero_counts()
+  steps['fused']()
+  torch.cuda.synchronize()
+  launches = {k: v for k, v in _counts().items() if k.startswith('flash')}
+  log(f'f32 fused step: flash launches {launches} (expected {TR_LAYERS} '
+      'of each f32 kernel, none of the bf16 ones)')
+  check(launches == dict(flash_fwd=0, flash_dkv=0, flash_dq=0,
+                         flash_fwd_f32=TR_LAYERS, flash_dkv_f32=TR_LAYERS,
+                         flash_dq_f32=TR_LAYERS),
+        f'f32 fused step flash launches {launches}')
+  for step in steps.values():
+    for _ in range(2):
+      step()
+  torch.cuda.synchronize()
+  order = list(steps) + list(steps)[::-1]
+  us = {name: [] for name in steps}
+  for name in order:
+    us[name].append(time_ms(steps[name], 5) * 1e3)
+  rec = dict(step_vs_unfused=dict(out_rel_err=out_err, loss_err=loss_err,
+                                  max_grad_rel_err=grad_err),
+             launches_per_fused_step=launches)
+  for name in steps:
+    rec[f'{name}_us_per_step'] = us[name]
+    log(f'f32 train step {name:7s}: us/step {[round(u, 1) for u in us[name]]}'
+        f' (mean {float(np.mean(us[name])):.1f})')
+  rec['unfused_over_fused'] = (float(np.mean(us['unfused']))
+                               / float(np.mean(us['fused'])))
+  log(f'  unfused/fused: {rec["unfused_over_fused"]:.3f}')
+  del models, steps
+  torch.cuda.empty_cache()
+  return launches, rec
 
 
 def _tap_entry(name, source, replaces, launches, points):
@@ -2247,10 +2756,11 @@ def _tap_entry(name, source, replaces, launches, points):
           'points': points}
 
 
-def _kernel_entry(name, source, replaces, launches, by_path, points):
-  """One kernel's JSON record: sums over its bf16 points; bound_by is the
-  kind of bound that holds the larger share of the summed bound."""
-  bf16 = [p for p in points if p['dtype'] == 'bfloat16']
+def _kernel_entry(name, source, replaces, launches, by_path, points,
+                  dtype='bfloat16'):
+  """One kernel's JSON record: sums over its points of `dtype`; bound_by
+  is the kind of bound that holds the larger share of the summed bound."""
+  bf16 = [p for p in points if p['dtype'] == dtype]
   by = {}
   for p in bf16:
     by[p['bound_by']] = by.get(p['bound_by'], 0.0) + p['bound_ms']
@@ -2264,6 +2774,9 @@ def _kernel_entry(name, source, replaces, launches, by_path, points):
           'bound_by': max(by, key=by.get),
           'library_ms': sum(p['library_ms'] for p in bf16),
           'points': points}
+
+
+T0 = time.perf_counter()
 
 
 def main():
@@ -2296,7 +2809,7 @@ def main():
     train_launches, training = phase_train(torch, device)
     training['speed'] = phase_train_speed(torch, device)
     torch.cuda.empty_cache()
-    flash_points = phase_flash(torch, device)
+    flash_points = phase_flash(torch, device, torch.bfloat16)
     step_launches, train_step = phase_train_step(torch, device)
     lm_launches, lm = phase_lm(torch, device)
     tap_points_ = phase_tap_kernels(torch, device)
@@ -2306,6 +2819,10 @@ def main():
     rn50_launches, rn50 = phase_rn50(torch, device)
     occ_launches, rn50['occupancy'] = phase_rn50_occupancy(torch, device)
     rn50['speed'] = phase_rn50_speed(torch, device)
+    history_points, arms_launches = phase_history_kernels(torch, device)
+    mlp_launches, block_mlp = phase_block_mlp(torch, device)
+    flash_f32_points = phase_flash(torch, device, torch.float32)
+    f32_launches, f32_step = phase_f32_train_step(torch, device)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -2376,10 +2893,66 @@ def main():
     entry['library'] = 'torch.matmul on the masked dense W' if key != 'dw' \
         else 'torch.matmul xᵀ @ gy'
     kernels.append(entry)
+  pallas = 'rigl_tpu/ops/pallas'
+  v6_paths = {op: {'v6_mlp': mlp_launches['v6'].get(f'v6_{op}', 0),
+                   'arms': arms_launches.get(f'v6_{op}', 0)}
+              for op in ('fwd', 'dx')}
+  v1_paths = {op: {'v1_mlp': mlp_launches['v1'][f'v1_{op}'],
+                   'arms': arms_launches[f'v1_{op}']}
+              for op in ('fwd', 'dx', 'dw')}
+  for name, key, replaces, kernel, by_path in (
+      ('dense_mm_fwd_kernel (gather form, B11)', 'gather',
+       f'{pallas}/block_sparse_v2.py:44 (_gather_kernel)',
+       'packed_mm_kernel, dense storage', {'arms': arms_launches['gather']}),
+      ("dense_mm_fwd_kernel (dense control, B9')", 'control',
+       f'{pallas}/block_sparse_v3.py:261 (_dense_kernel)',
+       'packed_mm_kernel, dense storage, all blocks active',
+       {'arms': arms_launches['control']}),
+      ('dense_mm_fwd_kernel (v6 form, B10)', 'v6_fwd',
+       f'{pallas}/block_sparse_v6.py:65 (_v6_kernel)',
+       'packed_mm_kernel, dense storage', v6_paths['fwd']),
+      ('dense_mm_dx_kernel (v6 form, B10)', 'v6_dx',
+       f'{pallas}/block_sparse_v6.py:65 (_v6_kernel, transposed packing)',
+       'packed_mm_kernel, dense storage, dx mode', v6_paths['dx']),
+      ('dense_mm_fwd_kernel (v1 form, B12)', 'v1_fwd',
+       f'{pallas}/block_sparse.py:40 (_fwd_kernel)',
+       'packed_mm_kernel, dense storage', v1_paths['fwd']),
+      ('dense_mm_dx_kernel (v1 form, B12)', 'v1_dx',
+       f'{pallas}/block_sparse.py:40 (_fwd_kernel on w.T)',
+       'packed_mm_kernel, dense storage, dx mode', v1_paths['dx']),
+      ('dense_dw_kernel (v1 form, B12)', 'v1_dw',
+       f'{pallas}/block_sparse.py:85 (_dw_kernel)',
+       'packed_dw_kernel, dense storage', v1_paths['dw'])):
+    entry = _kernel_entry(name, src, replaces, sum(by_path.values()),
+                          by_path, history_points[key])
+    entry['kernel'] = kernel
+    entry['library'] = ('torch.matmul xᵀ @ gy' if key == 'v1_dw' else
+                        'torch.matmul on the masked dense W')
+    kernels.append(entry)
+  for name, op, line, counter in (
+      ('flash_fwd_f32_kernel', 'fwd', 758, 'flash_fwd_f32'),
+      ('flash_bwd_dkv_f32_kernel', 'dkv', 1121, 'flash_dkv_f32'),
+      ('flash_bwd_dq_f32_kernel', 'dq', 1456, 'flash_dq_f32')):
+    n = f32_launches[counter]
+    entry = _kernel_entry(name, 'rigl_tpu_torch/csrc/flash_attn.cu',
+                          f'{flash_tpu}:{line} (float32)', n,
+                          {'f32_train_step': n}, flash_f32_points[op],
+                          dtype='float32')
+    entry['called_from'] = 'rigl_tpu/models/packed_transformer.py:52'
+    if op != 'fwd':
+      entry['library'] = ('scaled_dot_product_attention backward (dq, dk '
+                          'and dv in one call)')
+    kernels.append(entry)
   training['autograd_rel_err'] = autograd_errs
   record = {'card': card, 'kernels': kernels,
             'serving': dict(speed, **logit_errs), 'training': training,
-            'train_step': train_step, 'lm': lm, 'wrn': wrn, 'rn50': rn50}
+            'train_step': train_step, 'lm': lm, 'wrn': wrn, 'rn50': rn50,
+            'history': dict(v6_fwd_bwd=history_points['v6_fwd_bwd'],
+                            arms_launches=arms_launches,
+                            mlp_launches=mlp_launches, block_mlp=block_mlp),
+            'f32_train_step': f32_step,
+            'wall_s': time.perf_counter() - T0}
+  log(f'chip_smoke wall time: {record["wall_s"]:.1f} s')
   print(json.dumps(record), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

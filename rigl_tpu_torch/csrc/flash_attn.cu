@@ -1,5 +1,7 @@
-// Causal flash attention, forward and backward, for q, k, v of (B, H, S, hd)
-// bf16, contiguous, hd in {32, 64, 128}: three tiled tensor-core kernels.
+// Causal flash attention, forward and backward, for q, k, v of (B, H, S, hd),
+// contiguous, hd in {32, 64, 128}: three tiled tensor-core kernels for
+// bf16, and f32 variants of the three on the CUDA cores (section "f32"
+// below, behind the entry points with an `_f32` suffix).
 //
 //   flash_fwd_kernel      behind `flash_fwd`:
 //       o = softmax(scale * q kᵀ + causal mask) v, and the f32 row statistic
@@ -28,11 +30,14 @@
 // the other side's 64-row tiles through a 2-deep cp.async ring in shared
 // memory, visiting only the tiles on or below the diagonal (causal skip).
 // Nothing carries across thread blocks, so there are no atomics: dk/dv and
-// dq are two kernels, as in JAX, and each output tile is written once.
+// dq are two kernels, as in JAX, and each output tile is written once.  In
+// f32 the same work runs at 67 TFLOP/s on the CUDA cores and moves twice
+// the bytes, so the operations bound it (64-128 us at that shape, against
+// 20-30 us of bytes).
 //
-// Products use WMMA (bf16 in, f32 accumulate).  WMMA's accumulator layout
-// is opaque, so the logits go through shared memory in f32 for the masked
-// softmax, and the forward's output accumulator lives in registers, one
+// bf16 products use WMMA (bf16 in, f32 accumulate).  WMMA's accumulator
+// layout is opaque, so the logits go through shared memory in f32 for the
+// masked softmax, and the forward's output accumulator lives in registers, one
 // (row, half-row) per thread, where the online-softmax rescale is a scalar
 // multiply.  A ragged S (not a multiple of 64) is zero-filled in the copies
 // and masked by position, so JAX's 128-multiple requirement (MIN_BLOCK_SIZE)
@@ -73,14 +78,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows r0 .. r0 + kTile - 1 of a (S x HD) row-major matrix into shared
+// Rows r0 .. r0 + kRows - 1 of a (S x HD) row-major matrix into shared
 // memory with row stride `ld`, as 16-byte cp.asyncs; rows >= S zero-filled.
-template <int HD, int NT>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
+template <int HD, int NT, int kRows = kTile, typename T>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
                                           int r0, int S) {
-  constexpr int kPerRow = HD / 8;      // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kTile * kPerRow; c += NT) {
-    const int r = c / kPerRow, cc = (c % kPerRow) * 8;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = HD / kVec;   // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kRows * kPerRow; c += NT) {
+    const int r = c / kPerRow, cc = (c % kPerRow) * kVec;
     const bool ok = r0 + r < S;
     cp_async16(dst + r * ld + cc,
                ok ? src + static_cast<size_t>(r0 + r) * HD + cc : src, ok);
@@ -577,6 +583,380 @@ __global__ void __launch_bounds__(kBwdThreads)
   write_rows<HD, NT>(dq + base, stage, L::kOld, q0, S);
 }
 
+// ---------------------------------------------------------------- f32 ----
+// The three kernels for f32 q, k, v: the same maths with every product and
+// P and dS in f32 (nothing rounds to bf16), on the CUDA cores (FFMA) rather
+// than on tensor cores, so the sums are full f32 as torch's f32 matmuls
+// are; single-pass TF32 keeps 10 mantissa bits and would miss 1e-4.  A
+// thread block of 128 threads owns one 32-row tile (kF32Tile) and streams
+// the other side's 32-row tiles through a 2-deep cp.async ring; at hd 128
+// the f32 tiles are twice the bf16 bytes, and 32-row tiles keep the
+// backward's resident pair, its ring and P / dS within 111 KB.  Thread t
+// holds rows (t / 16) + 8 i, i < 4, and columns (t % 16) + 16 j of each
+// (32 x 32) logit tile and (32 x HD) output tile in registers, so the
+// logits never go through shared memory: a row's max and sum are
+// shuffles across the 16 lanes that hold it.  P (forward, dK/dV) and dS
+// are staged in shared memory for the products that contract over them.
+constexpr int kF32Tile = 32;
+constexpr int kF32Threads = 128;
+
+template <int HD>
+struct F32Plan {
+  static constexpr int kLd = HD + 4;          // floats; 16-byte row starts
+  static constexpr int kTileBytes = kF32Tile * kLd * 4;
+  static constexpr int kPld = kF32Tile + 4;   // (32 x 32) P / dS tiles
+  static constexpr int kPBytes = kF32Tile * kPld * 4;
+  // Two resident tiles, a ring of two stages of two tiles, P and dS.
+  static constexpr int kBytes = 6 * kTileBytes + 2 * kPBytes;
+  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
+  static_assert(kBytes <= 227 * 1024, "shared memory per block");
+};
+
+// c[i][j] = sum_d a[row_i][d] * b[col_j][d] over HD, rows (t / 16) + 8 i of
+// `a` and rows (t % 16) + 16 j of `b`, both f32 row-major with stride ld:
+// the (32 x 32) tile of a bᵀ this thread holds.
+template <int HD>
+__device__ __forceinline__ void f32_abt(const float* a, const float* b,
+                                        int ld, float (&c)[4][2]) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i][0] = c[i][1] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 av[4], bv[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + (tr + 8 * i) * ld + d);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + (tc + 16 * j) * ld + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        c[i][j] += av[i].x * bv[j].x + av[i].y * bv[j].y +
+                   av[i].z * bv[j].z + av[i].w * bv[j].w;
+  }
+}
+
+// acc[i][c] += sum_k p(row_i, k) * b[k][(t % 16) + 16 c] over the 32 rows
+// of b (row stride ld), with p(r, k) = ps[r * pld + k] (kTrans: ps[k * pld
+// + r], a transposed read of the staged tile), rows r = (t / 16) + 8 i.
+template <int HD, bool kTrans>
+__device__ __forceinline__ void f32_pb(const float* ps, int pld,
+                                       const float* b, int ld,
+                                       float (&acc)[4][HD / 16]) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+#pragma unroll 4
+  for (int k = 0; k < kF32Tile; ++k) {
+    float pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pv[i] = kTrans ? ps[k * pld + tr + 8 * i] : ps[(tr + 8 * i) * pld + k];
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) {
+      const float bv = b[k * ld + tc + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][c] += pv[i] * bv;
+    }
+  }
+}
+
+// Max and sum over the 16 lanes that hold one row.
+__device__ __forceinline__ float row_max16(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Writes this thread's rows of a (32 x HD) f32 accumulator, times mul[i],
+// to rows r0 .. of a (S x HD) matrix, rows >= S dropped.
+template <int HD>
+__device__ __forceinline__ void f32_write(float* dst,
+                                          const float (&acc)[4][HD / 16],
+                                          const float (&mul)[4], int r0,
+                                          int S) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + tr + 8 * i;
+    if (r < S)
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c)
+        dst[static_cast<size_t>(r) * HD + tc + 16 * c] = acc[i][c] * mul[i];
+  }
+}
+
+// Forward: one block per (32-row q tile, b * h); q resident, (k, v) tiles
+// on or below the diagonal through the ring; online softmax in registers.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, float scale) {
+  using L = F32Plan<HD>;
+  constexpr int NT = kF32Threads, T = kF32Tile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ps = reinterpret_cast<float*>(smem + 6 * L::kTileBytes);
+  auto k_tile = [&](int st) {
+    return reinterpret_cast<float*>(smem + (2 + 2 * st) * L::kTileBytes);
+  };
+  auto v_tile = [&](int st) {
+    return reinterpret_cast<float*>(smem + (3 + 2 * st) * L::kTileBytes);
+  };
+  const int qt = blockIdx.x, q0 = qt * T;
+  const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const int n_kt = qt + 1;
+
+  load_rows<HD, NT, T>(qs, L::kLd, q + base, q0, S);
+  load_rows<HD, NT, T>(k_tile(0), L::kLd, k + base, 0, S);
+  load_rows<HD, NT, T>(v_tile(0), L::kLd, v + base, 0, S);
+  cp_async_commit();
+
+  float m_run[4], l_run[4], acc[4][HD / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = kMasked;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
+  }
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_kt) {
+      load_rows<HD, NT, T>(k_tile(st ^ 1), L::kLd, k + base, (j + 1) * T, S);
+      load_rows<HD, NT, T>(v_tile(st ^ 1), L::kLd, v + base, (j + 1) * T, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[4][2];
+    f32_abt<HD>(qs, k_tile(st), L::kLd, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + tr + 8 * i;
+      bool ok[2];
+      float mx = kMasked;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int kpos = j * T + tc + 16 * jj;
+        ok[jj] = kpos <= qpos && kpos < S;
+        s[i][jj] *= scale;
+        if (ok[jj]) mx = fmaxf(mx, s[i][jj]);
+      }
+      const float m_new = fmaxf(m_run[i], row_max16(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float p = ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
+        sum += p;
+        ps[(tr + 8 * i) * L::kPld + tc + 16 * jj] = p;
+      }
+      const float corr = expf(m_run[i] - m_new);
+      l_run[i] = l_run[i] * corr + row_sum16(sum);
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();   // P complete
+    f32_pb<HD, false>(ps, L::kPld, v_tile(st), L::kLd, acc);
+    __syncthreads();   // stage st and P free again
+  }
+
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    inv[i] = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
+    const int qpos = q0 + tr + 8 * i;
+    if (tc == 0 && qpos < S)
+      lse[static_cast<size_t>(blockIdx.y) * S + qpos] =
+          m_run[i] + logf(l_run[i]);
+  }
+  f32_write<HD>(o + base, acc, inv, q0, S);
+}
+
+// This thread's P and dS of one (q tile at q0, k tile at k0) pair from the
+// logits s = q kᵀ and dp = do vᵀ it holds: P = exp(scale s - lse) on or
+// below the diagonal and on rows < S (0 elsewhere), dS = P (dp - D) scale;
+// both f32, staged at ps / dss (row stride pld) when non-null.
+__device__ __forceinline__ void f32_p_and_ds(const float (&s)[4][2],
+                                             const float (&dp)[4][2],
+                                             const float (&lse_r)[4],
+                                             const float (&d_r)[4], int q0,
+                                             int k0, int S, float scale,
+                                             float* ps, float* dss, int pld) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + tr + 8 * i;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int kpos = k0 + tc + 16 * jj;
+      const bool ok = kpos <= qpos && qpos < S;
+      const float p = ok ? expf(s[i][jj] * scale - lse_r[i]) : 0.f;
+      const int at = (tr + 8 * i) * pld + tc + 16 * jj;
+      if (ps) ps[at] = p;
+      dss[at] = p * (dp[i][jj] - d_r[i]) * scale;
+    }
+  }
+}
+
+// This thread's rows of a row statistic (lse or D) of the tile at r0.
+__device__ __forceinline__ void f32_rows(const float* stat, int r0, int S,
+                                         float (&out)[4]) {
+  const int tr = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + tr + 8 * i;
+    out[i] = r < S ? stat[r] : 0.f;
+  }
+}
+
+// dK/dV: one block per (32-row k tile, b * h); k and v resident, the (q,
+// do) tiles at or below the diagonal through the ring.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dsum,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int S, float scale) {
+  using L = F32Plan<HD>;
+  constexpr int NT = kF32Threads, T = kF32Tile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = reinterpret_cast<float*>(smem + L::kTileBytes);
+  float* ps = reinterpret_cast<float*>(smem + 6 * L::kTileBytes);
+  float* dss = ps + T * L::kPld;
+  auto q_tile = [&](int st) {
+    return reinterpret_cast<float*>(smem + (2 + 2 * st) * L::kTileBytes);
+  };
+  auto do_tile = [&](int st) {
+    return reinterpret_cast<float*>(smem + (3 + 2 * st) * L::kTileBytes);
+  };
+  const int kt = blockIdx.x, k0 = kt * T;
+  const size_t bh = blockIdx.y, base = bh * S * HD;
+  const int n_qt = (S + T - 1) / T;
+
+  load_rows<HD, NT, T>(ks, L::kLd, k + base, k0, S);
+  load_rows<HD, NT, T>(vs, L::kLd, v + base, k0, S);
+  load_rows<HD, NT, T>(q_tile(0), L::kLd, q + base, k0, S);
+  load_rows<HD, NT, T>(do_tile(0), L::kLd, dout + base, k0, S);
+  cp_async_commit();
+
+  float acc_dk[4][HD / 16], acc_dv[4][HD / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
+
+  for (int it = kt; it < n_qt; ++it) {
+    const int st = (it - kt) & 1, q0 = it * T;
+    if (it + 1 < n_qt) {
+      load_rows<HD, NT, T>(q_tile(st ^ 1), L::kLd, q + base, q0 + T, S);
+      load_rows<HD, NT, T>(do_tile(st ^ 1), L::kLd, dout + base, q0 + T, S);
+    }
+    cp_async_commit();
+    float lse_r[4], d_r[4];
+    f32_rows(lse + bh * S, q0, S, lse_r);
+    f32_rows(dsum + bh * S, q0, S, d_r);
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[4][2], dp[4][2];   // (q rows x k columns)
+    f32_abt<HD>(q_tile(st), ks, L::kLd, s);
+    f32_abt<HD>(do_tile(st), vs, L::kLd, dp);
+    f32_p_and_ds(s, dp, lse_r, d_r, q0, k0, S, scale, ps, dss, L::kPld);
+    __syncthreads();
+    // dv += Pᵀ do and dk += dSᵀ q (k rows x HD).
+    f32_pb<HD, true>(ps, L::kPld, do_tile(st), L::kLd, acc_dv);
+    f32_pb<HD, true>(dss, L::kPld, q_tile(st), L::kLd, acc_dk);
+    __syncthreads();
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  f32_write<HD>(dk + base, acc_dk, one, k0, S);
+  f32_write<HD>(dv + base, acc_dv, one, k0, S);
+}
+
+// dQ: one block per (32-row q tile, b * h); q and do resident, the (k, v)
+// tiles at or below the diagonal through the ring.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dsum,
+                            float* __restrict__ dq, int S, float scale) {
+  using L = F32Plan<HD>;
+  constexpr int NT = kF32Threads, T = kF32Tile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = reinterpret_cast<float*>(smem + L::kTileBytes);
+  float* dss = reinterpret_cast<float*>(smem + 6 * L::kTileBytes);
+  auto k_tile = [&](int st) {
+    return reinterpret_cast<float*>(smem + (2 + 2 * st) * L::kTileBytes);
+  };
+  auto v_tile = [&](int st) {
+    return reinterpret_cast<float*>(smem + (3 + 2 * st) * L::kTileBytes);
+  };
+  const int qt = blockIdx.x, q0 = qt * T;
+  const size_t bh = blockIdx.y, base = bh * S * HD;
+  const int n_kt = qt + 1;
+  float lse_r[4], d_r[4];
+  f32_rows(lse + bh * S, q0, S, lse_r);
+  f32_rows(dsum + bh * S, q0, S, d_r);
+
+  load_rows<HD, NT, T>(qs, L::kLd, q + base, q0, S);
+  load_rows<HD, NT, T>(dos, L::kLd, dout + base, q0, S);
+  load_rows<HD, NT, T>(k_tile(0), L::kLd, k + base, 0, S);
+  load_rows<HD, NT, T>(v_tile(0), L::kLd, v + base, 0, S);
+  cp_async_commit();
+
+  float acc[4][HD / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_kt) {
+      load_rows<HD, NT, T>(k_tile(st ^ 1), L::kLd, k + base, (j + 1) * T, S);
+      load_rows<HD, NT, T>(v_tile(st ^ 1), L::kLd, v + base, (j + 1) * T, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[4][2], dp[4][2];
+    f32_abt<HD>(qs, k_tile(st), L::kLd, s);
+    f32_abt<HD>(dos, v_tile(st), L::kLd, dp);
+    f32_p_and_ds(s, dp, lse_r, d_r, q0, j * T, S, scale, nullptr, dss,
+                 L::kPld);
+    __syncthreads();
+    f32_pb<HD, false>(dss, L::kPld, k_tile(st), L::kLd, acc);   // dq += dS k
+    __syncthreads();
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  f32_write<HD>(dq + base, acc, one, q0, S);
+}
+
 // Above 48 KB, dynamic shared memory must be allowed per kernel and device:
 // once for each (instantiation, device), not on every launch.
 template <typename Kernel>
@@ -650,6 +1030,61 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
+                           void* o, void* lse, int bh, int S, float scale,
+                           cudaStream_t stream) {
+  constexpr int smem = F32Plan<HD>::kBytes;
+  auto kernel = flash_fwd_f32_kernel<HD>;
+  static std::atomic<uint64_t> allowed{0};
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kF32Tile - 1) / kF32Tile, bh);
+  kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* dsum, void* dk, void* dv, int bh,
+                           int S, float scale, cudaStream_t stream) {
+  constexpr int smem = F32Plan<HD>::kBytes;
+  auto kernel = flash_bwd_dkv_f32_kernel<HD>;
+  static std::atomic<uint64_t> allowed{0};
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kF32Tile - 1) / kF32Tile, bh);
+  kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<float*>(dk), static_cast<float*>(dv), S, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* dsum, void* dq, int bh, int S,
+                          float scale, cudaStream_t stream) {
+  constexpr int smem = F32Plan<HD>::kBytes;
+  auto kernel = flash_bwd_dq_f32_kernel<HD>;
+  static std::atomic<uint64_t> allowed{0};
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kF32Tile - 1) / kF32Tile, bh);
+  kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<float*>(dq), S, scale);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int bh, int S) {
   return bh <= 0 || bh > 65535 || S <= 0;
 }
@@ -703,5 +1138,56 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     err = launch_dq<64>(q, k, v, dout, lse, dsum, dq, bh, S, scale, st);
   if (hd == 128)
     err = launch_dq<128>(q, k, v, dout, lse, dsum, dq, bh, S, scale, st);
+  return static_cast<int>(err);
+}
+
+// The same three entry points for f32 q, k, v, o, dk, dv, dq (the f32
+// kernels); lse and dsum as above.
+
+extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int bh, int S, int hd,
+                             float scale, void* stream) {
+  if (bad_shape(bh, S)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (hd == 32) err = launch_fwd_f32<32>(q, k, v, o, lse, bh, S, scale, st);
+  if (hd == 64) err = launch_fwd_f32<64>(q, k, v, o, lse, bh, S, scale, st);
+  if (hd == 128) err = launch_fwd_f32<128>(q, k, v, o, lse, bh, S, scale, st);
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* dsum, void* dk, void* dv,
+                                 int bh, int S, int hd, float scale,
+                                 void* stream) {
+  if (bad_shape(bh, S)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (hd == 32)
+    err = launch_dkv_f32<32>(q, k, v, dout, lse, dsum, dk, dv, bh, S, scale,
+                             st);
+  if (hd == 64)
+    err = launch_dkv_f32<64>(q, k, v, dout, lse, dsum, dk, dv, bh, S, scale,
+                             st);
+  if (hd == 128)
+    err = launch_dkv_f32<128>(q, k, v, dout, lse, dsum, dk, dv, bh, S, scale,
+                              st);
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* dsum, void* dq, int bh, int S,
+                                int hd, float scale, void* stream) {
+  if (bad_shape(bh, S)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (hd == 32)
+    err = launch_dq_f32<32>(q, k, v, dout, lse, dsum, dq, bh, S, scale, st);
+  if (hd == 64)
+    err = launch_dq_f32<64>(q, k, v, dout, lse, dsum, dq, bh, S, scale, st);
+  if (hd == 128)
+    err = launch_dq_f32<128>(q, k, v, dout, lse, dsum, dq, bh, S, scale, st);
   return static_cast<int>(err);
 }

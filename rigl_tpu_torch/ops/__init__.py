@@ -55,8 +55,17 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            v4.py as
                                                            v4_matmul_cuda
                                                            (forward and dx)
-  8  block_sparse_v6.py:65 _v6_kernel, _v6_call            not yet ported (the
-                                                           history slice)
+  8  block_sparse_v6.py:65 _v6_kernel, _v6_call            the same kernel and
+     (forward; dx from _v6_bwd over the transposed         mode: the sums of
+     packing; dw is an XLA product, no kernel; no bias     row 7 from pack_
+     or activation epilogue, whatever pallas/__init__.py   columns' entries
+     says)                                                 (their valid ones
+                                                           as a CSR), bound in
+                                                           ops/block_sparse_
+                                                           v6.py as
+                                                           v6_matmul_cuda
+                                                           (forward and dx);
+                                                           no epilogue either
   9  block_sparse_v3.py:28 _v3_kernel, _v3_impl            the same kernel and
                                                            mode: the sums of
                                                            row 7 from per-
@@ -70,14 +79,34 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            bound in ops/block_
                                                            sparse_v3.py as
                                                            dense_dw_cuda
- 11  block_sparse_v3.py:261 _dense_kernel,                 not yet ported (the
-     pallas_dense_matmul                                   history slice)
- 12  block_sparse_v2.py:44 _gather_kernel,                 not yet ported (the
-     block_sparse_matmul_gather                            history slice)
- 13  block_sparse.py:40 _fwd_kernel, _matmul_blocksparse   not yet ported (the
-                                                           history slice)
- 14  block_sparse.py:85 _dw_kernel, _dw_blocksparse        not yet ported (the
-                                                           history slice)
+ 11  block_sparse_v3.py:261 _dense_kernel,                 the same kernel and
+     pallas_dense_matmul (the dense control)               mode over an all-
+                                                           active occupancy,
+                                                           bound in ops/block_
+                                                           sparse_v3.py as
+                                                           dense_control_cuda
+ 12  block_sparse_v2.py:44 _gather_kernel,                 the same kernel and
+     block_sparse_matmul_gather (forward only)             mode from pack_
+                                                           block_indices'
+                                                           lists, bound in
+                                                           ops/block_sparse_
+                                                           v2.py as
+                                                           gather_matmul_cuda
+ 13  block_sparse.py:40 _fwd_kernel, _matmul_blocksparse   the same kernel and
+     (forward; dx the same kernel on w.T)                  mode from the
+                                                           occupancy (dx reads
+                                                           W transposed in
+                                                           place), bound in
+                                                           ops/block_sparse.py
+                                                           as v1_matmul_cuda
+ 14  block_sparse.py:85 _dw_kernel, _dw_blocksparse        packed_dw_kernel in
+                                                           its dense mode over
+                                                           every block with
+                                                           its occupancy flag
+                                                           (row 10's kernel),
+                                                           bound in ops/block_
+                                                           sparse.py as
+                                                           v1_dw_cuda
  15  models/packed_transformer.py:52 _flash_attention:     csrc/flash_attn.cu
      JAX's shipped pallas.ops.tpu.flash_attention, three   (CUDA C++, sm_90a),
      pallas_calls: the forward (_flash_attention_impl),    bound in ops/flash_
@@ -88,9 +117,16 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            as flash_bwd_dkv_
                                                            cuda, flash_bwd_dq_
                                                            kernel as flash_bwd_
-                                                           dq_cuda
+                                                           dq_cuda; bf16 and
+                                                           f32 (f32 variants
+                                                           of the three:
+                                                           flash_*_f32_kernel)
 
-Each ported kernel has a plain PyTorch version in the same module, which
-CPU tensors take, and a launch counter that a run reads to show that its
-path went through the kernel.
+Every kernel is ported.  Each has a plain PyTorch version in the same
+module, which CPU tensors take, and a launch counter per entry that a run
+reads to show that its path went through the kernel.  The names that
+rigl_tpu/ops/pallas/__init__.py exports import from the modules at the
+same relative paths here: block_sparse.block_sparse_matmul,
+block_sparse_v2.block_sparse_matmul_gather and pack_block_indices,
+block_sparse_v3.block_sparse_matmul_v3 and pallas_dense_matmul.
 """

@@ -1,8 +1,9 @@
 """Block-sparse matmul over DENSE weight storage from per-column index
 lists, and the gathered dw, in PyTorch.
 
-Counterpart of rigl_tpu/ops/pallas/block_sparse_v3.py (with
-`pack_block_indices` of block_sparse_v2.py).  The weight is the full (K, N)
+Counterpart of rigl_tpu/ops/pallas/block_sparse_v3.py, with
+`pack_block_indices` imported from block_sparse_v2.py as there.  The
+weight is the full (K, N)
 matrix of a dense-masked layer; a (K/bk, N/bn) occupancy says which of its
 (bk, bn) blocks take part:
 
@@ -22,6 +23,9 @@ j*nk .. j*nk + counts[j] - 1 of the flattened index table), so nothing on
 the hot path waits for the device; block_sparse_v4.py builds them from its
 flat packing.
 
+`pallas_dense_matmul` (the dense tiled control, replacing `_dense_kernel`)
+runs the forward mode over an all-active occupancy.
+
 Each product has a plain PyTorch version that walks the same entries with
 one torch.matmul per active block, summed in f32 and cast once
 (`dense_mm_reference`, `dense_dw_reference`), which CPU tensors take; CUDA
@@ -39,6 +43,7 @@ import torch
 
 from rigl_tpu_torch.ops import _build
 from rigl_tpu_torch.ops.block_sparse_packed import _DTYPE_CODE, _on_device
+from rigl_tpu_torch.ops.block_sparse_v2 import pack_block_indices
 
 # Launches of each kernel mode through this module's wrappers.  Each
 # wrapper adds one per launch; nothing else touches them but callers
@@ -46,19 +51,11 @@ from rigl_tpu_torch.ops.block_sparse_packed import _DTYPE_CODE, _on_device
 v3_fwd_launches = 0     # packed_mm_kernel, dense forward, index-list form
 v3_dx_launches = 0      # packed_mm_kernel, dense dx, index-list form
 dw_gather_launches = 0  # packed_dw_kernel, dense mode (B9)
+dense_control_launches = 0  # packed_mm_kernel, dense forward, all active (B9')
 
 # Density assumed by the 'auto' dw traffic model (JAX's _AUTO_DENSITY): the
 # choice must be static, as the mask evolves.
 _AUTO_DENSITY = 0.3
-
-
-def pack_block_indices(block_mask: torch.Tensor):
-  """(K/bk, N/bn) mask -> (counts (N/bn,), idx (N/bn, K/bk)), int32, with
-  each column's active k-blocks first, ascending (a stable sort)."""
-  m = torch.as_tensor(block_mask).to(torch.int32)
-  counts = m.sum(0).to(torch.int32)
-  order = torch.argsort(-m, dim=0, stable=True)
-  return counts, order.T.to(torch.int32).contiguous()
 
 
 def dw_mode_for(shape: Tuple[int, int], block: Tuple[int, int],
@@ -262,26 +259,34 @@ def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor, lists: DenseLists,
   return y
 
 
-def dense_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
-                  entries: DwEntries, block: Tuple[int, int]):
+def dense_dw_launch(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
+                    entries: DwEntries, block: Tuple[int, int]):
   """The gathered dw (K, N) in w's dtype, zeros outside the written
-  blocks: launches packed_dw_kernel in its dense mode, counted in
-  dw_gather_launches.  Checks and raises as dense_mm_cuda does."""
-  global dw_gather_launches
+  blocks: launches packed_dw_kernel in its dense mode on the current
+  stream.  Counts nothing: callers count their own launches.  Checks and
+  raises as dense_mm_cuda does.  Returns (dw, launched)."""
   bk, bn = block
   kdim, n = w.shape
   _check_cuda('dense_dw', [('x', x, kdim), ('gy', gy, n)], w, block, entries)
   dw = torch.zeros_like(w)
   n_ent = entries.rows.shape[0]
   if x.shape[0] == 0 or n_ent == 0:
-    return dw
+    return dw, False
   flags = entries.flags
   _launch('dense_dw', x.data_ptr(), gy.data_ptr(), entries.rows.data_ptr(),
           entries.cols.data_ptr(), 0 if flags is None else flags.data_ptr(),
           dw.data_ptr(), x.shape[0], kdim, n, n_ent, bk, bn,
           _DTYPE_CODE[x.dtype],
           torch.cuda.current_stream(x.device).cuda_stream)
-  dw_gather_launches += 1
+  return dw, True
+
+
+def dense_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
+                  entries: DwEntries, block: Tuple[int, int]):
+  """dense_dw_launch counted in dw_gather_launches."""
+  global dw_gather_launches
+  dw, launched = dense_dw_launch(x, gy, w, entries, block)
+  dw_gather_launches += launched
   return dw
 
 
@@ -316,13 +321,13 @@ def matmul_lists(x, w, lists, block, mode, kernel):
   return fn(x, w, lists, block, mode)
 
 
-def gather_dw(x, gy, w, entries, block):
-  """The gathered dw (B9): the plain version on the CPU, the kernel on
-  CUDA."""
+def gather_dw(x, gy, w, entries, block, kernel=dense_dw_cuda):
+  """The gathered dw (B9): the plain version on the CPU, `kernel` (a
+  counting wrapper of dense_dw_launch) on CUDA."""
   def plain(x, gy, w, entries, block):
     return dense_dw_reference(x, gy, entries, block, w.dtype)
-  return _on_device('gathered dw', x, plain, dense_dw_cuda)(x, gy, w,
-                                                              entries, block)
+  return _on_device('gathered dw', x, plain, kernel)(x, gy, w, entries,
+                                                       block)
 
 
 def masked_dense_dw(x: torch.Tensor, gy: torch.Tensor, occ: torch.Tensor,
@@ -410,3 +415,69 @@ def _dw_blocksparse_v2(x: torch.Tensor, g: torch.Tensor,
                        device=x.device)
   return gather_dw(x.contiguous(), g.contiguous(), w_like,
                    occupancy_dw_entries(occ), tuple(block))
+
+
+# --------------------------------------------------------------- control --
+def dense_control_cuda(x: torch.Tensor, w: torch.Tensor, lists: DenseLists,
+                       block: Tuple[int, int], mode: str = 'fwd'):
+  """dense_mm_cuda counted in dense_control_launches."""
+  global dense_control_launches
+  y = dense_mm_cuda(x, w, lists, block, mode)
+  dense_control_launches += bool(x.shape[0])
+  return y
+
+
+class ForwardOnly(torch.autograd.Function):
+  """y = fn(*args) for an entry whose JAX counterpart has no VJP: the
+  backward raises, where a plain call would have given no gradient path
+  at all."""
+
+  @staticmethod
+  def forward(ctx, name, fn, *args):
+    ctx.name = name
+    return fn(*args)
+
+  @staticmethod
+  def backward(ctx, gy):
+    raise NotImplementedError(
+        f'{ctx.name} is forward only: its JAX counterpart has no VJP')
+
+
+def forward_only(name, fn, *args):
+  """fn(*args), through ForwardOnly when a tensor argument needs a
+  gradient."""
+  if torch.is_grad_enabled() and any(
+      torch.is_tensor(a) and a.requires_grad for a in args):
+    return ForwardOnly.apply(name, fn, *args)
+  return fn(*args)
+
+
+@functools.cache
+def _all_active_lists(nk: int, nn_: int, block: Tuple[int, int], n: int,
+                      device: torch.device) -> DenseLists:
+  """The entry lists of an all-active (nk, nn) occupancy, built once per
+  shape and device: the control times the kernel, not the lists."""
+  occ = torch.ones(nk, nn_, dtype=torch.int32, device=device)
+  return occupancy_lists(occ, block, n)
+
+
+def pallas_dense_matmul(x: torch.Tensor, w: torch.Tensor,
+                        tiles: Tuple[int, int, int] = (512, 512, 512),
+                        interpret: Optional[bool] = None):
+  """y = x @ w, the plain tiled kernel-overhead control (B9'), in x's
+  dtype with f32 sums: packed_mm_kernel's dense forward over an
+  all-active occupancy of (bk, bn) = tiles[1:] blocks.  Forward only, as
+  JAX's.  JAX leaves the output's tail unwritten where a tile does not
+  divide its dimension; here that raises ValueError.  `bm` (tiles[0])
+  only has to divide m, and `interpret` is kept for the JAX signature."""
+  del interpret
+  bm, bk, bn = tiles
+  _check_shapes(x, w, (bk, bn))
+  if x.shape[0] % bm:
+    raise ValueError(f'shapes ({x.shape[0]},{w.shape[0]},{w.shape[1]}) must '
+                     f'divide tiles {tuple(tiles)}')
+  lists = _all_active_lists(w.shape[0] // bk, w.shape[1] // bn, (bk, bn),
+                            w.shape[1], x.device)
+  return forward_only('pallas_dense_matmul', matmul_lists, x.contiguous(),
+                      w.contiguous(), lists, (bk, bn), 'fwd',
+                      dense_control_cuda)

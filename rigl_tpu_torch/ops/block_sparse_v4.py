@@ -54,15 +54,14 @@ def pack_flat_active(block_mask: torch.Tensor, n_active: int):
   return cols, rows
 
 
-class FlatPacking(dict):
-  """A pack_flat_active packing as the {'cols', 'rows'} entry of a layer
-  (JAX's form), which also keeps what the 1x1 conv derives from it on each
-  call (its kernels' entry lists, its occupancy): a packing is replaced,
+class Packing(dict):
+  """A packing in JAX's dict form that also keeps what the kernels derive
+  from it on each call (entry lists, an occupancy): a packing is replaced,
   never changed in place, when the mask changes, so they are derived once
   per mask update instead of once per call."""
 
-  def __init__(self, cols: torch.Tensor, rows: torch.Tensor):
-    super().__init__(cols=cols, rows=rows)
+  def __init__(self, **entries):
+    super().__init__(**entries)
     self._derived = {}
 
   def derived(self, key, make):
@@ -70,6 +69,14 @@ class FlatPacking(dict):
     if key not in self._derived:
       self._derived[key] = make()
     return self._derived[key]
+
+
+class FlatPacking(Packing):
+  """A pack_flat_active packing as the {'cols', 'rows'} entry of a layer
+  (JAX's form), which the 1x1 conv's lists and occupancy are kept on."""
+
+  def __init__(self, cols: torch.Tensor, rows: torch.Tensor):
+    super().__init__(cols=cols, rows=rows)
 
 
 def _occupancy(cols: torch.Tensor, rows: torch.Tensor, nk: int, nn_: int):

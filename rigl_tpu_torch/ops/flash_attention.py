@@ -20,9 +20,10 @@ kernels of csrc/flash_attn.cu or raise:
 
 D = rowsum(do * o) in f32 stays a plain torch op between the forward and
 the backward kernels, as JAX computes it outside its kernels.  The kernels
-take bf16 and head dims 32, 64 and 128; any other CUDA input raises
-NotImplementedError.  S need not be a multiple of the tile: the kernels
-mask ragged rows.
+take bf16 (tensor cores) and f32 (f32 variants of the three, full f32 on
+the CUDA cores, `flash_*_f32_kernel`), and head dims 32, 64 and 128; any
+other CUDA input raises NotImplementedError.  S need not be a multiple of
+the tile: the kernels mask ragged rows.
 """
 
 from __future__ import annotations
@@ -37,9 +38,12 @@ from rigl_tpu_torch.ops import _build
 
 # Launches of each kernel in this process.  Each wrapper adds one per
 # launch of its kernel; nothing else touches them but callers resetting them.
-flash_fwd_launches = 0        # flash_fwd_kernel
-flash_bwd_dkv_launches = 0    # flash_bwd_dkv_kernel
-flash_bwd_dq_launches = 0     # flash_bwd_dq_kernel
+flash_fwd_launches = 0        # flash_fwd_kernel (bf16)
+flash_bwd_dkv_launches = 0    # flash_bwd_dkv_kernel (bf16)
+flash_bwd_dq_launches = 0     # flash_bwd_dq_kernel (bf16)
+flash_fwd_f32_launches = 0        # flash_fwd_f32_kernel
+flash_bwd_dkv_f32_launches = 0    # flash_bwd_dkv_f32_kernel
+flash_bwd_dq_f32_launches = 0     # flash_bwd_dq_f32_kernel
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -105,9 +109,11 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, scale: float):
 # -------------------------------------------------------------- kernels ----
 @functools.cache
 def _kernel(name: str):
-  """The C entry point `name` of csrc/flash_attn.cu: pointers, the ints
-  (b*h, S, hd), the scale, then the stream; returns the CUDA error code."""
-  n_ptrs = {'flash_fwd': 5, 'flash_bwd_dkv': 8, 'flash_bwd_dq': 7}[name]
+  """The C entry point `name` of csrc/flash_attn.cu (an `_f32` suffix for
+  the f32 kernels): pointers, the ints (b*h, S, hd), the scale, then the
+  stream; returns the CUDA error code."""
+  n_ptrs = {'flash_fwd': 5, 'flash_bwd_dkv': 8,
+            'flash_bwd_dq': 7}[name.removesuffix('_f32')]
   fn = getattr(_build.load('flash_attn'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
                  + [ctypes.c_float, ctypes.c_void_p])
@@ -115,16 +121,21 @@ def _kernel(name: str):
   return fn
 
 
+DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check_cuda(op: str, *tensors: torch.Tensor):
-  """What the kernels take: bf16 (B, H, S, hd) tensors of one shape on one
-  CUDA device, hd in HEAD_DIMS, contiguous and 16-byte aligned."""
+  """What the kernels take: (B, H, S, hd) tensors of one shape and one
+  dtype in DTYPES on one CUDA device, hd in HEAD_DIMS, contiguous and
+  16-byte aligned."""
   x = tensors[0]
   for t in tensors:
     if not (t.is_cuda and t.device == x.device):
       raise ValueError(f'{op}: operands must be on one CUDA device')
-    if t.dtype != torch.bfloat16:
-      raise NotImplementedError(f'{op} on the card takes bfloat16, not '
-                                f'{t.dtype}')
+    if t.dtype not in DTYPES or t.dtype != x.dtype:
+      raise NotImplementedError(f'{op} on the card takes bfloat16 or '
+                                f'float32 operands of one dtype, not '
+                                f'{t.dtype} with {x.dtype}')
     if t.dim() != 4 or t.shape != x.shape:
       raise ValueError(f'{op}: operands must be (B, H, S, hd) of one shape, '
                        f'got {tuple(t.shape)} and {tuple(x.shape)}')
@@ -152,16 +163,27 @@ def _dims(x: torch.Tensor):
   return b * h, s, hd
 
 
+def _suffix(x: torch.Tensor) -> str:
+  """'' for the bf16 kernels, '_f32' for their f32 variants: the suffix of
+  a kernel's C entry point and of its launch counter."""
+  return '' if x.dtype == torch.bfloat16 else '_f32'
+
+
+def _count(name: str, x: torch.Tensor):
+  """Adds one to the launch counter of `name`'s kernel for x's dtype."""
+  globals()[f'{name}{_suffix(x)}_launches'] += 1
+
+
 def flash_fwd_cuda(q, k, v, scale: float):
-  """(o, lse): launches flash_fwd_kernel on the current stream."""
-  global flash_fwd_launches
+  """(o, lse): launches flash_fwd_kernel (bf16) or flash_fwd_f32_kernel
+  on the current stream."""
   _check_cuda('flash_fwd', q, k, v)
   o = torch.empty_like(q)
   lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-  _launch('flash_fwd', q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          lse.data_ptr(), *_dims(q), scale,
+  _launch(f'flash_fwd{_suffix(q)}', q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          o.data_ptr(), lse.data_ptr(), *_dims(q), scale,
           torch.cuda.current_stream(q.device).cuda_stream)
-  flash_fwd_launches += 1
+  _count('flash_fwd', q)
   return o, lse
 
 
@@ -174,29 +196,30 @@ def _check_stats(op: str, q, *stats):
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale: float):
-  """(dk, dv): launches flash_bwd_dkv_kernel; d = rowsum(do * o) in f32."""
-  global flash_bwd_dkv_launches
+  """(dk, dv): launches flash_bwd_dkv_kernel (bf16) or its f32 variant;
+  d = rowsum(do * o) in f32."""
   _check_cuda('flash_bwd_dkv', q, k, v, do)
   _check_stats('flash_bwd_dkv', q, lse, d)
   dk, dv = torch.empty_like(k), torch.empty_like(v)
-  _launch('flash_bwd_dkv', q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse.data_ptr(), d.data_ptr(), dk.data_ptr(),
-          dv.data_ptr(), *_dims(q), scale,
+  _launch(f'flash_bwd_dkv{_suffix(q)}', q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), do.data_ptr(), lse.data_ptr(), d.data_ptr(),
+          dk.data_ptr(), dv.data_ptr(), *_dims(q), scale,
           torch.cuda.current_stream(q.device).cuda_stream)
-  flash_bwd_dkv_launches += 1
+  _count('flash_bwd_dkv', q)
   return dk, dv
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, d, scale: float):
-  """dq: launches flash_bwd_dq_kernel; d = rowsum(do * o) in f32."""
-  global flash_bwd_dq_launches
+  """dq: launches flash_bwd_dq_kernel (bf16) or its f32 variant; d =
+  rowsum(do * o) in f32."""
   _check_cuda('flash_bwd_dq', q, k, v, do)
   _check_stats('flash_bwd_dq', q, lse, d)
   dq = torch.empty_like(q)
-  _launch('flash_bwd_dq', q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse.data_ptr(), d.data_ptr(), dq.data_ptr(),
-          *_dims(q), scale, torch.cuda.current_stream(q.device).cuda_stream)
-  flash_bwd_dq_launches += 1
+  _launch(f'flash_bwd_dq{_suffix(q)}', q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), do.data_ptr(), lse.data_ptr(), d.data_ptr(),
+          dq.data_ptr(), *_dims(q), scale,
+          torch.cuda.current_stream(q.device).cuda_stream)
+  _count('flash_bwd_dq', q)
   return dq
 
 

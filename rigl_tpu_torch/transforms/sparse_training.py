@@ -22,9 +22,10 @@ What changes in PyTorch:
     metrics['update_hint_ok'] reports whether it matched the schedule.
   * optax's `tree_map_params` reset of grown connections' slots is a
     `torch.where` on every parameter-shaped tensor of the optimizer's
-    state for that parameter (SGD's momentum_buffer, which this module
-    creates as zeros where torch has not yet: optax's trace starts at
-    zeros, and torch's first step would otherwise overwrite the reset).
+    state for that parameter.  Where torch has no state yet, this module
+    first creates what torch's first step would (SGD's momentum_buffer,
+    Adam's step and moments): optax's slots start at zeros from `init`,
+    and torch's first step would otherwise overwrite the reset.
   * random draws (drop-score noise, SET's grow scores, random grow inits,
     initial masks) come from torch generators seeded by (seed, step,
     layer, tag); JAX's keys give other numbers.  `_drop_noise` and
@@ -71,6 +72,29 @@ class SparseState:
 
   def replace(self, **changes) -> 'SparseState':
     return dataclasses.replace(self, **changes)
+
+
+def _adam_state(t: torch.Tensor, group: Mapping[str, Any]) -> Dict[str, Any]:
+  """The state torch.optim.Adam's first step creates for `t`
+  (Adam._init_group): `step` a float32 scalar (float64 under a float64
+  default dtype) on the CPU, or on t's device when `capturable` or
+  `fused`; zero moments, and the amsgrad maximum when `amsgrad`."""
+  fused = group.get('fused')
+  if fused or group.get('capturable'):
+    step = torch.zeros((), dtype=torch.float32 if fused else _scalar_dtype(),
+                       device=t.device)
+  else:
+    step = torch.tensor(0.0, dtype=_scalar_dtype(), device='cpu')
+  state = {'step': step, 'exp_avg': torch.zeros_like(t),
+           'exp_avg_sq': torch.zeros_like(t)}
+  if group.get('amsgrad'):
+    state['max_exp_avg_sq'] = torch.zeros_like(t)
+  return state
+
+
+def _scalar_dtype():
+  return (torch.float64 if torch.get_default_dtype() == torch.float64
+          else torch.float32)
 
 
 def _seed(*ints) -> int:
@@ -315,7 +339,10 @@ class SparseTraining:
   def _reset_slots(self, optimizer: torch.optim.Optimizer, params: Params,
                    conn: MaskDict, vals: MaskDict):
     """Every parameter-shaped optimizer slot of a masked parameter takes
-    `vals` where `conn` (optax's tree_map_params reset)."""
+    `vals` where `conn` (optax's tree_map_params reset).  Slots that optax
+    holds from `init` but torch creates at the first step are created here
+    first, as that step would: SGD's momentum buffer, Adam's state.  SGD
+    without momentum has no slot, in either package, and is left alone."""
     for path, c in conn.items():
       t = params[path]
       state = optimizer.state[t]
@@ -324,7 +351,10 @@ class SparseTraining:
                      if any(q is t for q in g['params']))
         if isinstance(optimizer, torch.optim.SGD) and group['momentum']:
           state['momentum_buffer'] = torch.zeros_like(t)
-        elif self.algo.initial_acc_scale:
+        elif isinstance(optimizer, torch.optim.Adam):
+          state.update(_adam_state(t, group))
+        elif self.algo.initial_acc_scale and not isinstance(
+            optimizer, torch.optim.SGD):
           raise NotImplementedError(
               'initial_acc_scale needs the optimizer state of '
               f'{type(optimizer).__name__} before its first step')

@@ -1,7 +1,8 @@
-"""The port's hand-written kernels (packed forward, dx and packed dw; the
-causal flash-attention forward, dK/dV and dQ; the tap conv's forward, dx
-and dw) against their plain PyTorch versions, on a CUDA card, and the
-paths that run them.
+"""The port's hand-written kernels (packed forward, dx and packed dw, and
+their dense storage modes under the v3 / v4 entries and the history
+entries B9'-B12; the causal flash-attention forward, dK/dV and dQ in bf16
+and f32; the tap conv's forward, dx and dw) against their plain PyTorch
+versions, on a CUDA card, and the paths that run them.
 
 Every test here needs the card (marker `cuda`) and skips without one.
 The file imports neither jax nor the JAX package, so the card's machine
@@ -319,9 +320,18 @@ def test_flash_attention_autograd_on_card(cuda_device, hd):
 
 @pytest.mark.cuda
 def test_flash_attention_raises_on_what_it_does_not_take(cuda_device):
+  """float32 runs its own kernel; float16 and mixed dtypes raise, as do
+  head dims, shapes and devices the kernels do not take."""
   q = torch.randn(1, 2, 16, 64, device=cuda_device)
-  with pytest.raises(NotImplementedError, match='bfloat16'):
-    tfa.flash_attention(q, q, q, 0.125)
+  before = tfa.flash_fwd_f32_launches, tfa.flash_fwd_launches
+  o = tfa.flash_attention(q, q, q, 0.125)
+  assert o.dtype == torch.float32
+  assert (tfa.flash_fwd_f32_launches, tfa.flash_fwd_launches) == (
+      before[0] + 1, before[1])
+  with pytest.raises(NotImplementedError, match='bfloat16 or float32'):
+    tfa.flash_attention(q.half(), q.half(), q.half(), 0.125)
+  with pytest.raises(NotImplementedError, match='one dtype'):
+    tfa.flash_fwd_cuda(q, q.bfloat16(), q, 0.125)
   q48 = torch.randn(1, 2, 16, 48, device=cuda_device, dtype=torch.bfloat16)
   with pytest.raises(NotImplementedError, match='head dims'):
     tfa.flash_attention(q48, q48, q48, 0.125)
@@ -673,3 +683,187 @@ def test_dense_modes_raise_on_what_they_do_not_take(cuda_device):
                                               cuda_device, 0, 'random')
   with pytest.raises(ValueError, match='multiple of 4'):
     tv4.block_sparse_matmul_v4(x2, w2, cols2, rows2, (6, 6))
+
+
+# ------------------------------------------------------ flash in f32 ----
+# f32 kernels: every product and P and dS in f32 on the CUDA cores, as the
+# plain versions; outputs differ by f32 summation order over S and hd
+# terms, relative to the largest plain value.
+FLASH_F32_TOL = 1e-4
+
+
+def _f32_counts():
+  return (tfa.flash_fwd_f32_launches, tfa.flash_bwd_dkv_f32_launches,
+          tfa.flash_bwd_dq_f32_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('b,h,s', [(1, 1, 5), (2, 3, 64), (1, 2, 130),
+                                   (2, 2, 1000), (4, 16, 512)])
+def test_flash_f32_kernels_match_plain(cuda_device, b, h, s, hd):
+  """The f32 forward, dK/dV and dQ kernels at S below, at and across the
+  32-row tile, each launched once, against the plain versions (the
+  backward fed the kernel's o and lse)."""
+  gen = torch.Generator().manual_seed(s * 5 + hd)
+  q, k, v, do = (torch.randn(b, h, s, hd, generator=gen).to(cuda_device)
+                 for _ in range(4))
+  scale = hd ** -0.5
+  before = _f32_counts()
+  o, lse = tfa.flash_fwd_cuda(q, k, v, scale)
+  dq, dk, dv = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, scale)
+  torch.cuda.synchronize()
+  assert _f32_counts() == tuple(n + 1 for n in before)
+  want_o, want_lse = tfa.flash_attention_fwd_reference(q, k, v, scale)
+  assert o.dtype == torch.float32
+  assert _rel_err(o, want_o) <= FLASH_F32_TOL
+  assert float((lse - want_lse).abs().max()) <= LSE_TOL * max(
+      1.0, float(want_lse.abs().max()))
+  want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+  for name, got, ref in zip(('dq', 'dk', 'dv'), (dq, dk, dv), want):
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.isfinite(got).all(), name
+    assert _rel_err(got, ref) <= FLASH_F32_TOL, (name, _rel_err(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [32, 64, 128])
+def test_flash_attention_f32_autograd_on_card(cuda_device, hd):
+  """torch.autograd.grad through flash_attention in f32 launches the f32
+  kernels once each and agrees with autograd through the plain forward."""
+  gen = torch.Generator().manual_seed(hd)
+  q, k, v, do = (torch.randn(2, 4, 200, hd, generator=gen).to(cuda_device)
+                 for _ in range(4))
+  q, k, v = (t.requires_grad_() for t in (q, k, v))
+  before = _f32_counts()
+  o = tfa.flash_attention(q, k, v, hd ** -0.5)
+  grads = torch.autograd.grad(o, (q, k, v), do)
+  torch.cuda.synchronize()
+  assert _f32_counts() == tuple(n + 1 for n in before)
+  want_o, _ = tfa.flash_attention_fwd_reference(q, k, v, hd ** -0.5)
+  want = torch.autograd.grad(want_o, (q, k, v), do)
+  assert _rel_err(o.detach(), want_o.detach()) <= FLASH_F32_TOL
+  for got, ref in zip(grads, want):
+    assert _rel_err(got, ref) <= FLASH_F32_TOL
+
+
+# ------------------------------------ history entries (B9', B10-B12) ----
+def _history_counts():
+  from rigl_tpu_torch.ops import block_sparse as tv1
+  from rigl_tpu_torch.ops import block_sparse_v2 as tv2
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  from rigl_tpu_torch.ops import block_sparse_v6 as tv6
+  return dict(v1_fwd=tv1.v1_fwd_launches, v1_dx=tv1.v1_dx_launches,
+              v1_dw=tv1.v1_dw_launches, v6_fwd=tv6.v6_fwd_launches,
+              v6_dx=tv6.v6_dx_launches, gather=tv2.gather_launches,
+              control=tv3.dense_control_launches,
+              dw_gather=tv3.dw_gather_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize('block', [(32, 64), (64, 32)])
+@pytest.mark.parametrize('m', [1, 33, 200])
+@pytest.mark.parametrize('kind', ['random', 'edges'])
+def test_history_entries_match_plain(cuda_device, kind, m, block, dtype,
+                                     tol):
+  """block_sparse_matmul (B12: forward, dx, dw), block_sparse_matmul_v6
+  (B10: forward and dx; dw a matmul), block_sparse_matmul_gather (B11)
+  and pallas_dense_matmul (B9') on CUDA tensors: each launches its
+  kernel once per product, under its own counter, and gives the plain
+  versions' outputs and gradients (the same calls on CPU tensors), at a
+  ragged m, bk != bn, and an empty block-row and block-column ('edges')
+  that come out exactly zero."""
+  from rigl_tpu_torch.ops import block_sparse as tv1
+  from rigl_tpu_torch.ops import block_sparse_v2 as tv2
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  from rigl_tpu_torch.ops import block_sparse_v6 as tv6
+  occ, _, _, x, w, gy = _dense_case(4, 6, block, m, dtype, cuda_device,
+                                    m + block[0], kind)
+  bk, bn = block
+  mask = occ.repeat_interleave(bk, 0).repeat_interleave(bn, 1).to(dtype)
+  w = w * mask
+  n_act = int(occ.sum())
+  packings = {d: tv6.make_packing(occ.to(d), n_act)
+              for d in (cuda_device, 'cpu')}
+
+  def grads(fn, device):
+    xx = x.to(device).clone().requires_grad_()
+    ww = w.to(device).clone().requires_grad_()
+    y = fn(xx, ww, device)
+    return (y.detach(),) + torch.autograd.grad(y, (xx, ww), gy.to(device))
+
+  fns = {
+      'v1': (lambda a, b, d: tv1.block_sparse_matmul(a, b, occ.to(d), block),
+             dict(v1_fwd=1, v1_dx=1, v1_dw=1)),
+      'v6': (lambda a, b, d: tv6.block_sparse_matmul_v6(a, b, packings[d],
+                                                        block),
+             dict(v6_fwd=1, v6_dx=1))}
+  for name, (fn, want_moved) in fns.items():
+    before = _history_counts()
+    got = grads(fn, cuda_device)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _history_counts().items() if
+             v != before[k]}
+    assert moved == want_moved, (name, moved)
+    want = [t.to(cuda_device) for t in grads(fn, 'cpu')]
+    for what, g, r in zip(('y', 'dx', 'dw'), got, want):
+      assert g.dtype == dtype and g.shape == r.shape, (name, what)
+      assert _rel(g, r) <= tol, (name, what, _rel(g, r))
+    y, dx, dw = got
+    occ_c = occ.cpu()
+    for j in (occ_c.sum(0) == 0).nonzero().flatten().tolist():
+      assert not y[:, j * bn:(j + 1) * bn].any(), name
+    for k in (occ_c.sum(1) == 0).nonzero().flatten().tolist():
+      assert not dx[:, k * bk:(k + 1) * bk].any(), name
+    assert not dw[mask == 0].any(), name
+  forward = {
+      'gather': lambda a, b, d: tv2.block_sparse_matmul_gather(
+          a, b, occ.to(d), block, 1),
+      'control': lambda a, b, d: tv3.pallas_dense_matmul(a, b, (1,) + block)}
+  for name, fn in forward.items():
+    before = _history_counts()
+    y = fn(x, w, cuda_device)
+    torch.cuda.synchronize()
+    assert _history_counts()[name] == before[name] + 1, name
+    want = fn(x.cpu(), w.cpu(), 'cpu').to(cuda_device)
+    assert y.dtype == dtype and _rel(y, want) <= tol, (name, _rel(y, want))
+
+
+@pytest.mark.cuda
+def test_v6_empty_column_is_zero_in_a_reused_nan_buffer(cuda_device):
+  """An output column with no active block comes out exactly zero from
+  torch.empty's memory, where the caching allocator has just taken back
+  a NaN-filled buffer of the output's size."""
+  from rigl_tpu_torch.ops import block_sparse_v6 as tv6
+  occ, _, _, x, w, _ = _dense_case(4, 6, (32, 32), 64, torch.bfloat16,
+                                   cuda_device, 5, 'edges')
+  packing = tv6.make_packing(occ, int(occ.sum()))
+  nan = torch.full((64, 6 * 32), float('nan'), dtype=torch.bfloat16,
+                   device=cuda_device)
+  del nan
+  y = tv6.block_sparse_matmul_v6(x, w, packing, (32, 32))
+  torch.cuda.synchronize()
+  assert torch.isfinite(y).all()
+  assert not y[:, 5 * 32:].any()
+
+
+@pytest.mark.cuda
+def test_history_entries_raise_on_what_they_do_not_take(cuda_device):
+  """No silent plain path on the card: B11 and B9' refuse shapes that do
+  not divide their tiles and a backward; float16 raises."""
+  from rigl_tpu_torch.ops import block_sparse as tv1
+  from rigl_tpu_torch.ops import block_sparse_v2 as tv2
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  occ, _, _, x, w, _ = _dense_case(2, 2, (32, 32), 24, torch.float32,
+                                   cuda_device, 0, 'random')
+  with pytest.raises(ValueError, match='must divide tiles'):
+    tv2.block_sparse_matmul_gather(x, w, occ, (32, 32), 16)
+  with pytest.raises(ValueError, match='divide'):
+    tv3.pallas_dense_matmul(x, w, (16, 32, 32))
+  xg = x.clone().requires_grad_()
+  with pytest.raises(NotImplementedError, match='no VJP'):
+    tv2.block_sparse_matmul_gather(xg, w, occ, (32, 32), 8).sum().backward()
+  with pytest.raises(TypeError):
+    tv1.block_sparse_matmul(x.half(), w.half(), occ, (32, 32))

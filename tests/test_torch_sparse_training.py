@@ -46,20 +46,26 @@ def _kwargs(name):
   return kw, sched
 
 
-def _pair(name, nesterov=True, block=None, premask=False):
-  kw, sched = _kwargs(name)
+def _pair(name, nesterov=True, block=None, premask=False, opt=None,
+          sched=None):
+  """JAX's and the port's SparseTraining for algorithm `name`; by default
+  over SGD with nesterov momentum, or over `opt` = (optax, torch.optim)
+  transformations, with `sched` replacing the algorithm's schedule."""
+  kw, default_sched = _kwargs(name)
+  sched = sched or default_sched
+  jtx, ttx = opt or (
+      optax.sgd(0.1, momentum=0.9, nesterov=nesterov),
+      functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9,
+                        nesterov=nesterov))
   jalgo = jalgorithms.get_algorithm(
       name, schedule=None if sched is None else JSchedule(**sched), **kw)
   talgo = algorithms.get_algorithm(
       name, schedule=None if sched is None else UpdateSchedule(**sched), **kw)
-  jst = JST(optax.sgd(0.1, momentum=0.9, nesterov=nesterov), jalgo,
-            distribution='uniform', default_sparsity=0.5, block=block,
-            premask_params=premask)
-  tst = SparseTraining(
-      functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9,
-                        nesterov=nesterov), talgo,
-      distribution='uniform', default_sparsity=0.5, block=block,
-      premask_params=premask)
+  jst = JST(jtx, jalgo, distribution='uniform', default_sparsity=0.5,
+            block=block, premask_params=premask)
+  tst = SparseTraining(ttx, talgo, distribution='uniform',
+                       default_sparsity=0.5, block=block,
+                       premask_params=premask)
   return jst, tst
 
 
@@ -71,10 +77,12 @@ def _tree(flat):
   return out
 
 
-@pytest.mark.parametrize('name', ALGOS)
-def test_step_matches_jax_step_by_step(name):
-  rs = np.random.RandomState(ALGOS.index(name))
-  jst, tst = _pair(name)
+def _run_step_by_step(name, jst, tst, rs, n_iters, slots):
+  """Runs both packages' `step` for n_iters iterations from the same
+  parameters, masks and gradients, JAX's draws handed to the port, and
+  holds masks and step accounting equal and weights and optimizer slots
+  within RTOL of each tensor's largest finite value plus ATOL (NaNs equal
+  in place).  `slots(jopt, path)` -> {torch state key: JAX slot}."""
   params = {p: rs.randn(*s).astype(np.float32) for p, s in SHAPES.items()}
   params['a/bias'] = rs.randn(16).astype(np.float32)
   jparams = _tree({p: jnp.asarray(v) for p, v in params.items()})
@@ -106,11 +114,15 @@ def test_step_matches_jax_step_by_step(name):
     return SparseTraining._grow_score(tst, algo, path, mask, weights,
                                       dense_grad, ema_grad, gen)
 
+  def close(got, want, msg):
+    tol = RTOL * float(np.nanmax(np.abs(want), initial=0.0)) + ATOL
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol, equal_nan=True,
+                               err_msg=msg)
+
   tst._drop_noise = drop_noise
   tst._grow_score = grow_score
-  hints = tst.predict_update_iters(10)
-  assert hints == jst.predict_update_iters(10)
-  assert any(hints) or name in ('none', 'scratch')
+  hints = tst.predict_update_iters(n_iters)
+  assert hints == jst.predict_update_iters(n_iters)
   for t, hint in enumerate(hints):
     grads = {p: rs.randn(*v.shape).astype(np.float32)
              for p, v in params.items()}
@@ -132,19 +144,57 @@ def test_step_matches_jax_step_by_step(name):
       np.testing.assert_array_equal(tstate.masks[p].numpy(), np.asarray(m),
                                     f'{name} step {t} mask {p}')
     flat_w = {f'{l}/{k}': v for l, d in jparams.items() for k, v in d.items()}
-    trace = jopt[0].trace
-    flat_m = {f'{l}/{k}': v for l, d in trace.items() for k, v in d.items()}
     for p, w in tparams.items():
-      want = np.asarray(flat_w[p])
-      tol = RTOL * float(np.abs(want).max()) + ATOL
-      np.testing.assert_allclose(w.numpy(), want, rtol=0, atol=tol,
-                                 err_msg=f'{name} step {t} weights {p}')
-      slot = topt.state[w].get('momentum_buffer')
-      slot = np.zeros_like(want) if slot is None else slot.numpy()
-      want = np.asarray(flat_m[p])
-      tol = RTOL * float(np.abs(want).max()) + ATOL
-      np.testing.assert_allclose(slot, want, rtol=0, atol=tol,
-                                 err_msg=f'{name} step {t} momentum {p}')
+      close(w.numpy(), np.asarray(flat_w[p]), f'{name} step {t} weights {p}')
+      state = topt.state[w]
+      want_slots = slots(jopt, p)
+      assert not {k for k, v in state.items() if torch.is_tensor(v)
+                  and v.shape == w.shape} - set(want_slots), (name, t, p)
+      for key, want in want_slots.items():
+        slot = state.get(key)
+        want = np.asarray(want)
+        close(np.zeros_like(want) if slot is None else slot.numpy(), want,
+              f'{name} step {t} {key} {p}')
+  return hints
+
+
+def _flat(tree):
+  return {f'{l}/{k}': v for l, d in tree.items() for k, v in d.items()}
+
+
+@pytest.mark.parametrize('name', ALGOS)
+def test_step_matches_jax_step_by_step(name):
+  rs = np.random.RandomState(ALGOS.index(name))
+  jst, tst = _pair(name)
+  hints = _run_step_by_step(
+      name, jst, tst, rs, 10,
+      lambda jopt, p: {'momentum_buffer': _flat(jopt[0].trace)[p]})
+  assert any(hints) or name in ('none', 'scratch')
+
+
+@pytest.mark.parametrize('opt', ['sgd', 'adam'])
+def test_initial_acc_scale_matches_jax_step_by_step(opt):
+  """RigL with initial_acc_scale = 0.5 over SGD without momentum (no
+  slot in either package: the reset does nothing) and over Adam, whose
+  state torch creates only at its first step: the update at step 0 comes
+  first, so the port creates that state as torch would and resets it as
+  optax resets mu and nu.  nu takes g * 0.5, negative where g is, so the
+  next step's sqrt gives NaN in both packages at such weights; the NaNs
+  must match in place, and the masks stay equal at the update at step 3
+  that ranks them."""
+  if opt == 'sgd':
+    pair = (optax.sgd(0.1), functools.partial(torch.optim.SGD, lr=0.1))
+    slots = lambda jopt, p: {}
+  else:
+    pair = (optax.adam(1e-3), functools.partial(torch.optim.Adam, lr=1e-3))
+    slots = lambda jopt, p: {'exp_avg': _flat(jopt[0].mu)[p],
+                             'exp_avg_sq': _flat(jopt[0].nu)[p]}
+  jst, tst = _pair('rigl', opt=pair,
+                   sched=dict(begin_step=0, end_step=4, frequency=3,
+                              drop_fraction=0.5))
+  hints = _run_step_by_step(f'rigl/{opt}', jst, tst,
+                            np.random.RandomState(11), 6, slots)
+  assert [t for t, h in enumerate(hints) if h] == [0, 4], hints
 
 
 @pytest.mark.parametrize('name', ALGOS)
