@@ -135,8 +135,10 @@ package.  Phases, each fatal on failure:
      loss and gradients within 1e-3), 2 launches of each f32 flash kernel
      per fused step, us/step of both in mirrored order.
 
-Each main path runs with the launch counts set to 0 just before it and
-read just after.  The line before the last is the JSON record: `kernels`
+Every dw point (phases 3, 12, 15 and 19) also logs how its kernel split
+the reduction (ops/dw_split.py): S slices, the grid and the workspace's
+bytes.  Each main path runs with the launch counts set to 0 just before
+it and read just after.  The line before the last is the JSON record: `kernels`
 (per kernel: the sums over its bf16 points, f32 for the f32 flash
 kernels, of ms, plain_ms, bound_ms and library_ms, its launches on the
 main paths, and every point), `serving`, `training`, `train_step`, `lm`,
@@ -436,6 +438,20 @@ def kernel_point(torch, label, counter, run, plain, library, bound_,
   return rec, got
 
 
+def dw_split(label, plan):
+  """Logs a dw point's split of its reduction (ops/dw_split.py: S slices,
+  the first kernel's grid, the f32 workspace) and returns it for the
+  point's record."""
+  log(f'  {label}: S = {plan.slices} ({plan.slice_rows} rows a slice), '
+      f'grid {plan.grid}, workspace {plan.workspace_bytes} bytes')
+  return dict(slices=plan.slices, slice_rows=plan.slice_rows,
+              grid=list(plan.grid), workspace_bytes=plan.workspace_bytes)
+
+
+def sm_count(torch):
+  return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def phase_kernel(torch, device):
   """The forward kernel vs plain at the serving model's shapes."""
   from rigl_tpu_torch.layers.packed_dense import random_occupancy
@@ -538,6 +554,9 @@ def phase_train_kernels(torch, device):
       rec.update(path='training', sparsity=sparsity, m=m,
                  dtype=dtype_name(dtype), k=MLP_WIDTH, n=MLP_WIDTH,
                  n_active=n_act, empty_row_and_column=empty)
+      if op == 'dw':
+        rec['split'] = dw_split(f'dw  {tag}', bsp.dw_plan(
+            m, n_act, BLOCK, dtype, sm_count(torch)))
       records[op].append(rec)
   return records
 
@@ -568,6 +587,9 @@ def phase_step_kernels(torch, device):
                             bound(op, m, packing, BLOCK, torch.bfloat16))
       rec.update(path='train_step', layer=name, m=m, dtype='bfloat16',
                  k=kdim, n=ndim, n_active=n_act)
+      if op == 'dw':
+        rec['split'] = dw_split(f'dw  {name:3s} m={m}', bsp.dw_plan(
+            m, n_act, BLOCK, torch.bfloat16, sm_count(torch)))
       records[op].append(rec)
   return records
 
@@ -1538,6 +1560,9 @@ def phase_tap_kernels(torch, device):
                  cout=cout, sparsity=s, n_active=n_act,
                  dtype=dtype_name(dtype), empty_column=empty,
                  library=lib_name)
+      if op == 'dw':
+        rec['split'] = dw_split(f'tap dw  {tag}', bsc.tap_dw_plan(
+            index, n * hw * hw, dtype, sm_count(torch)))
       records[op].append(rec)
     del x, gy, w, xc, gyc, wc
   torch.cuda.empty_cache()
@@ -1845,6 +1870,7 @@ def phase_dense_kernels(torch, device):
   dw (B9); then f32 at one shape; beside torch.matmul on the masked dense
   W (xᵀ @ gy for dw) and the bound."""
   from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
   from rigl_tpu_torch.ops import block_sparse_v3 as v3
   from rigl_tpu_torch.ops import block_sparse_v4 as v4
   from rigl_tpu_torch.sparsity.distributions import get_n_zeros
@@ -1906,7 +1932,10 @@ def phase_dense_kernels(torch, device):
         lambda: x.T @ gy, dense_bound('dw', m, occ, RN50_BLOCK, dtype),
         module=v3, library_name='xᵀ @ gy', plain_iters=3)
     rec.update(path=path, m=m, cin=cin, cout=cout, sparsity=s,
-               n_active=n_act, dtype=dtype_name(dtype))
+               n_active=n_act, dtype=dtype_name(dtype),
+               split=dw_split(f'dw     {tag}', bsp.dw_plan(
+                   m, int(entries.rows.numel()), RN50_BLOCK, dtype,
+                   sm_count(torch))))
     records['dw'].append(rec)
     del x, gy, w
   torch.cuda.empty_cache()
@@ -2299,6 +2328,7 @@ def phase_history_kernels(torch, device):
   arms path: each entry called once per point, as the arms script calls
   it, with the counts set to 0 before.  Returns (records, launches)."""
   from rigl_tpu_torch.ops import block_sparse as v1
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
   from rigl_tpu_torch.ops import block_sparse_v2 as v2
   from rigl_tpu_torch.ops import block_sparse_v3 as v3
   from rigl_tpu_torch.ops import block_sparse_v6 as v6
@@ -2378,6 +2408,9 @@ def phase_history_kernels(torch, device):
           library_name='xᵀ @ gy' if key == 'v1_dw' else 'torch.matmul')
       rec.update(density=density, dtype=dtype_name(dtype), m=m, k=kdim, n=n,
                  block=list(V1_BLOCK if key.startswith('v1') else BLOCK))
+      if key == 'v1_dw':
+        rec['split'] = dw_split(f'v1_dw   {tag}', bsp.dw_plan(
+            m, int(ent1.rows.numel()), V1_BLOCK, dtype, sm_count(torch)))
       records[key].append(rec)
       calls.append(run)
     records['v6_fwd_bwd'].append(_v6_fwd_bwd_point(
@@ -2776,6 +2809,25 @@ def _kernel_entry(name, source, replaces, launches, by_path, points,
           'points': points}
 
 
+# The dw kernels' design, named in their JSON entries.
+DW_DESIGN = ('bf16: packed_dw_wgmma_kernel, 128 x 128 tiles, wgmma '
+             'm64n128k16 by two consumer warpgroups on a 4-deep ring of '
+             '64-row x and gy tiles that one producer warp fills by TMA; '
+             'f32: packed_dw_ffma_kernel, 64 x 64 tiles on FMA; the m-sum '
+             'split into slices where the tiles leave SMs idle')
+DW_REDUCTION = ('packed_dw_reduce_kernel: adds the slices\' f32 partials '
+                'in slice order, one cast (only where S > 1)')
+TAP_DW_DESIGN = ('entries grouped by (input block, output block), up to 9 '
+                 'taps in bf16 and 4 in f32 (2, at 4 thread blocks an SM, '
+                 'where the pairs hold 2.5 taps or fewer on average), from '
+                 'one gy tile and one shift-widened x tile per chunk, '
+                 'out-of-image pixels masked per tap; bf16 mma.sync '
+                 'm16n8k16 fed by ldmatrix, f32 FMA; the pixel sum split '
+                 'into slices where the groups leave SMs idle; a 1x1 '
+                 "kernel's dw on the packed dw kernels")
+TAP_DW_REDUCTION = ('tap_dw_reduce_kernel: adds the slices\' f32 partials '
+                    'in slice order, one cast (only where S > 1)')
+
 T0 = time.perf_counter()
 
 
@@ -2850,6 +2902,7 @@ def main():
            train_points['dx'] + step_points['dx']),
           ('packed_dw_kernel', 'dw', 345,
            train_points['dw'] + step_points['dw']))]
+  kernels[-1].update(design=DW_DESIGN, reduction=DW_REDUCTION)
   flash_tpu = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
   for name, op, line in (('flash_fwd_kernel', 'fwd', 758),
                          ('flash_bwd_dkv_kernel', 'dkv', 1121),
@@ -2873,6 +2926,8 @@ def main():
                        f'{conv_tpu}:{line}', n, tap_points_[op])
     if op != 'dw':
       entry['also_replaces'] = f'{conv_tpu}:355 (_conv_kernel_v5, B5)'
+    else:
+      entry.update(design=TAP_DW_DESIGN, reduction=TAP_DW_REDUCTION)
     kernels.append(entry)
   v4_tpu = 'rigl_tpu/ops/pallas/block_sparse_v4.py:60 (_v4_kernel, B7)'
   v3_tpu = 'rigl_tpu/ops/pallas/block_sparse_v3.py:28 (_v3_kernel, B8)'
@@ -2892,6 +2947,8 @@ def main():
                        else 'packed_dw_kernel, dense storage')
     entry['library'] = 'torch.matmul on the masked dense W' if key != 'dw' \
         else 'torch.matmul xᵀ @ gy'
+    if key == 'dw':
+      entry.update(design=DW_DESIGN, reduction=DW_REDUCTION)
     kernels.append(entry)
   pallas = 'rigl_tpu/ops/pallas'
   v6_paths = {op: {'v6_mlp': mlp_launches['v6'].get(f'v6_{op}', 0),
@@ -2928,6 +2985,8 @@ def main():
     entry['kernel'] = kernel
     entry['library'] = ('torch.matmul xᵀ @ gy' if key == 'v1_dw' else
                         'torch.matmul on the masked dense W')
+    if key == 'v1_dw':
+      entry.update(design=DW_DESIGN, reduction=DW_REDUCTION)
     kernels.append(entry)
   for name, op, line, counter in (
       ('flash_fwd_f32_kernel', 'fwd', 758, 'flash_fwd_f32'),

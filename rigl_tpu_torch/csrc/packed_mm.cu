@@ -1,11 +1,13 @@
 // Packed block-sparse matmul and its gradients, with W stored as its active
-// (bk, bn) blocks, packed (n_active, bk, bn) in column-major order.  Two
-// tiled tensor-core kernels, each for any m, in bf16 or f32:
+// (bk, bn) blocks, packed (n_active, bk, bn) in column-major order.  Tiled
+// kernels for any m, in bf16 or f32:
 //
 //   packed_mm_kernel<..., kTransW>  behind `packed_mm_fwd` (kTransW = false):
 //       y = x @ W;  and behind `packed_mm_dx` (kTransW = true): dx = gy @ Wᵀ.
-//   packed_dw_kernel                behind `packed_dw`:
-//       dw[s] = x[:, rows[s]*bk : +bk]ᵀ @ gy[:, cols[s]*bn : +bn].
+//   the dw kernels                  behind `packed_dw`:
+//       dw[s] = x[:, rows[s]*bk : +bk]ᵀ @ gy[:, cols[s]*bn : +bn]:
+//       packed_dw_wgmma_kernel (bf16) or packed_dw_ffma_kernel (f32), and
+//       packed_dw_reduce_kernel where the m-sum is split.
 //
 // Replaces the TPU kernels of rigl_tpu/ops/pallas/block_sparse_packed.py:
 // `_mm_kernel` (launched by `_mm_call`, transpose_w=False for the forward,
@@ -18,10 +20,10 @@
 // What bounds them on an H100: at decode (m = 8 rows) each weight byte feeds
 // about 8 multiply-adds, far below the ~295 flop/byte where bf16 tensor
 // cores become the limit, so decode is weight-bandwidth-bound; at training
-// and prefill sizes (m = 1024) all three products are compute-bound.  Each
-// kernel streams its two operand tiles through a 3-deep cp.async ring in
-// shared memory while the tensor cores (WMMA, bf16 in, f32 accumulate;
-// scalar FMA for f32) work on the tile that arrived.
+// and prefill sizes (m = 1024) all three products are compute-bound.  The
+// dw of a few large blocks over many rows (ResNet-50's 1x1 convs: 2-19
+// blocks of 128 x 128 over 6272-401408 rows) is bound by the bytes of x
+// and gy, and only if the m-sum is spread over the whole card.
 //
 // packed_mm_kernel.  One thread block per (m-tile, subtile of one output
 // block-column), which walks that column's actives from a CSR -- for the
@@ -29,26 +31,50 @@
 // list (row_ptr, cols, slots) of the bwd packing -- and, inside each
 // active, the contraction in chunks of BK, accumulating in registers; then
 // writes its tile once.  Nothing carries across thread blocks, so no
-// atomics and no second pass.  For dx the W tile is needed transposed: the
-// (output-subtile x contraction-chunk) region of w[slot] is copied row-major
-// into shared memory and read by WMMA as a col_major matrix_b, so no
-// transpose is ever materialised.  At m <= 32 (one m-tile) it takes 32 x 32
-// tiles and contraction steps of 256 (128 in f32): few, long steps, because
-// at decode each thread block's serial chain of steps, not the loads,
-// bounds it (PERF.md, section 6).  At m > 32 the tiles are 64 x 64 x 32
-// (64 x 64 x 16 in f32).
+// atomics and no second pass.  Operand tiles stream through a 3-deep
+// cp.async ring while the tensor cores (WMMA, bf16 in, f32 accumulate;
+// scalar FMA for f32) work on the tile that arrived.  For dx the W tile is
+// needed transposed: the (output-subtile x contraction-chunk) region of
+// w[slot] is copied row-major into shared memory and read by WMMA as a
+// col_major matrix_b, so no transpose is ever materialised.  At m <= 32
+// (one m-tile) it takes 32 x 32 tiles and contraction steps of 256 (128
+// in f32): few, long steps, because at decode each thread block's serial
+// chain of steps, not the loads, bounds it (PERF.md, section 6).  At m >
+// 32 the tiles are 64 x 64 x 32 (64 x 64 x 16 in f32).
 //
-// packed_dw_kernel.  One thread block per (active s, 64-row tile of bk,
-// 64-column tile of bn): 13 x 64 = 832 blocks at the training shape (s =
-// 0.8, K = N = 4096, block 512).  It walks m in chunks of 32 (16 in f32)
-// through the ring: A = the x chunk, stored (m-chunk x bk-tile) row-major
-// and read as a col_major matrix_a (xᵀ without a copy), B = the gy chunk,
-// row_major.  The TPU's panel variant keeps a block-column's (m, bn) gy
-// panel resident in VMEM across that column's actives; here the 50 MB L2
-// plays that part (a 1 MB bf16 panel at m = 1024), since the thread blocks
-// of neighbouring slots -- the same column's actives -- run together.
+// The dw kernels: one thread block per (entry s, output tile, slice of m).
+// The m-sum is split into S slices of whole chunks when the tiles alone
+// leave SMs idle (ops/dw_split.py: tiles x S fills about two waves of the
+// SMs; S = 1 when the tiles fill the card, as the MLP's 208 tiles do, or
+// m is under two chunks).  With S > 1 each thread block writes its f32
+// partial tile to a workspace the wrapper allocates, (S, entries, tiles,
+// tile), and packed_dw_reduce_kernel adds the S partials in slice order
+// and casts once into the output: no atomics, so repeated calls give the
+// same bits.  With S = 1 the tile is cast and stored directly.
 //
-// Dense storage.  The same two kernels also read W in place as the (K, N)
+// packed_dw_wgmma_kernel (bf16).  Output tiles of 128 x 128: a whole block
+// at ResNet-50's block of 128, 16 tiles of a 512 block.  One producer warp
+// fills a 4-deep ring of (64-row m-chunk x 128) x and gy tiles by TMA, two
+// 64-column boxes each, through tensor maps over x (m, K) and gy (m, N),
+// with 128-byte swizzle and an mbarrier per stage for arrival and one for
+// release.  Two consumer warpgroups, 64 rows of the tile each, run wgmma
+// m64n128k16 (bf16 in, f32 in registers) on the stage that arrived.  Both
+// operands sit in shared memory with m, the contraction, outermost, so A =
+// xᵀ and B = gy are the transposed ("MN-major") layouts wgmma accepts for
+// 16-bit types and nothing is transposed in memory.  A block narrower than
+// 128, or one 128 does not divide, still takes the 128-wide boxes: they
+// read neighbouring columns (zeros past the matrix's edge, and past m),
+// whose products land only in rows / columns the store masks.  Halves of a
+// box wholly outside the block are not loaded.  The tensor-map encoder
+// comes from cudaGetDriverEntryPoint, so the library links nothing beyond
+// the CUDA runtime.
+//
+// packed_dw_ffma_kernel (f32).  64 x 64 tiles, scalar FMA with no TF32
+// (the f32 checks hold it to summation order), m in chunks of 16 through a
+// 3-deep cp.async ring: A = the x chunk, (m-chunk x bk-tile) row-major,
+// B = the gy chunk.  It takes the same split.
+//
+// Dense storage.  The same kernels also read W in place as the (K, N)
 // matrix of a dense-masked layer, only at its active blocks (`dense_mm_fwd`,
 // `dense_mm_dx`, `dense_dw`): a block is found by its element offset
 // woffs[e] and rows N apart, instead of by its packed slot and rows bn
@@ -58,9 +84,10 @@
 // (block_sparse_v4.py, B7: the flat column-major packing), `_v3_kernel`
 // (block_sparse_v3.py, B8: per-column index lists) -- the same sums from
 // two index forms, turned here into one list of entries per output
-// block-column, [beg[g], end[g]) -- and `_dw_v2_kernel` (block_sparse_v3.py,
-// B9), whose grid over all blocks with an active flag is the flags array.
-// At ResNet-50's 1x1 shapes (m = 6272 .. 100352 rows, 128 .. 2048
+// block-column, [beg[g], end[g]) -- `_dw_v2_kernel` (block_sparse_v3.py,
+// B9), whose grid over all blocks with an active flag is the flags array,
+// and `_dw_kernel` (block_sparse.py, B12), the same flags over every block.
+// At ResNet-50's 1x1 shapes (m = 6272 .. 401408 rows, 128 .. 2048
 // channels, block 128 x 128, ERK densities) chip_smoke.py computes each
 // call's bound from its bytes and its FLOPs on the active blocks.
 //
@@ -69,13 +96,15 @@
 // an m no bm divides have no counterpart; the wrappers guarantee 16-byte
 // aligned rows.  The TPU kernels' x-feed variants, dummy entries and VMEM
 // bm clamps are Mosaic machinery with no counterpart here.  Not yet here:
-// wgmma / TMA, and split-m for dw.
+// wgmma / TMA for packed_mm_kernel.
 
+#include <cuda.h>   // CUtensorMap and its enums; nothing of libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 #include <type_traits>
 
@@ -163,8 +192,10 @@ struct Acc {
   }
 
   // Call after the ring is idle and every thread has passed a barrier: the
-  // bf16 path stages its fragments through the ring's shared memory.
-  __device__ __forceinline__ void store(unsigned char* smem, T* out, int ld,
+  // bf16 path stages its fragments through the ring's shared memory.  The
+  // f32 path may store into an f32 workspace (O = float) of any T.
+  template <typename O>
+  __device__ __forceinline__ void store(unsigned char* smem, O* out, int ld,
                                         int row_lim, int col_lim) {
     const int tid = threadIdx.x;
     if constexpr (kBf16) {
@@ -191,7 +222,7 @@ struct Acc {
         const int idx = tid + i * kThreads;
         const int r = idx / BN, c = idx % BN;
         if (r < row_lim && c < col_lim)
-          out[static_cast<size_t>(r) * ld + c] = static_cast<T>(scalar[i]);
+          out[static_cast<size_t>(r) * ld + c] = static_cast<O>(scalar[i]);
       }
     }
   }
@@ -339,20 +370,46 @@ __global__ void __launch_bounds__(kThreads)
             y_ld, m - m0, out_w - n0);
 }
 
-// dw of entry s: thread block (s, tile) computes the (BM x BN) tile at
-// (r0, c0) of x[:, rows[s]*bk + r0 ..]ᵀ @ gy[:, cols[s]*bn + c0 ..] over
-// all m; x is (m, K), gy is (m, N).  Packed storage (dense = 0): the block
-// is dw[s] of (n_active, bk, bn).  Dense storage (dense = 1): it is block
-// (rows[s], cols[s]) of a (K, N) dw, and an entry with flags[s] == 0
-// (flags non-null) writes nothing.
-template <typename T, int BM, int BN, int BK, int STAGES>
+// The output block of entry s and its row stride: dw[s] of (n_active, bk,
+// bn) in packed storage (dense = 0); block (rows[s], cols[s]) of a (K, N)
+// dw in dense storage (dense = 1).
+template <typename T>
+__device__ __forceinline__ T* dw_block(T* dw, const int* rows,
+                                       const int* cols, int s, int N, int bk,
+                                       int bn, int dense, int& ld) {
+  ld = dense ? N : bn;
+  return dense ? dw + static_cast<size_t>(rows[s]) * bk * N +
+                     static_cast<size_t>(cols[s]) * bn
+               : dw + static_cast<size_t>(s) * bk * bn;
+}
+
+// The partial tile of thread block (s, tile, slice) in the workspace
+// (slices, entries, tiles, TM x TN), f32.
+__device__ __forceinline__ float* dw_partial(float* ws, int tile_elems) {
+  return ws + ((static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) *
+                   gridDim.y +
+               blockIdx.y) *
+                  tile_elems;
+}
+
+// ---- packed_dw_ffma_kernel (f32) ------------------------------------------
+// Thread block (s, tile, slice) computes the (BM x BN) tile at (r0, c0) of
+// x[:, rows[s]*bk + r0 ..]ᵀ @ gy[:, cols[s]*bn + c0 ..] over the slice's
+// rows [z * slice_rows, min(m, (z + 1) * slice_rows)); x is (m, K), gy is
+// (m, N).  With ws null (one slice) it writes the block of dw_block; with
+// ws it writes the f32 partial tile.  An entry with flags[s] == 0 (flags
+// non-null) writes nothing.
+template <int BM, int BN, int BK, int STAGES>
 __global__ void __launch_bounds__(kThreads)
-    packed_dw_kernel(const T* __restrict__ x, const T* __restrict__ gy,
-                     const int* __restrict__ rows,
-                     const int* __restrict__ cols,
-                     const int* __restrict__ flags, T* __restrict__ dw, int m,
-                     int K, int N, int bk, int bn, int dense) {
-  using L = DwRing<T, BM, BN, BK, STAGES>;
+    packed_dw_ffma_kernel(const float* __restrict__ x,
+                          const float* __restrict__ gy,
+                          const int* __restrict__ rows,
+                          const int* __restrict__ cols,
+                          const int* __restrict__ flags,
+                          float* __restrict__ dw, float* __restrict__ ws,
+                          int m, int K, int N, int bk, int bn, int dense,
+                          int slice_rows) {
+  using L = DwRing<float, BM, BN, BK, STAGES>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int s = blockIdx.x;
@@ -360,30 +417,31 @@ __global__ void __launch_bounds__(kThreads)
   const int tiles_n = (bn + BN - 1) / BN;
   const int r0 = (blockIdx.y / tiles_n) * BM;
   const int c0 = (blockIdx.y % tiles_n) * BN;
-  const T* xa = x + static_cast<size_t>(rows[s]) * bk + r0;
-  const T* ga = gy + static_cast<size_t>(cols[s]) * bn + c0;
-  const int total = (m + BK - 1) / BK;
+  const int m_begin = blockIdx.z * slice_rows;
+  const int m_end = min(m, m_begin + slice_rows);
+  const float* xa = x + static_cast<size_t>(rows[s]) * bk + r0;
+  const float* ga = gy + static_cast<size_t>(cols[s]) * bn + c0;
+  const int total = (m_end - m_begin + BK - 1) / BK;
 
   auto a_tile = [&](int st) {
-    return reinterpret_cast<T*>(smem + st * L::kStageBytes);
+    return reinterpret_cast<float*>(smem + st * L::kStageBytes);
   };
   auto b_tile = [&](int st) {
-    return reinterpret_cast<T*>(smem + st * L::kStageBytes + L::kABytes);
+    return reinterpret_cast<float*>(smem + st * L::kStageBytes + L::kABytes);
   };
   auto load = [&](int it, int st) {
-    const int mm0 = it * BK;
-    load_tile<T, BK, BM>(a_tile(st), L::kAld,
-                         xa + static_cast<size_t>(mm0) * K, K, m - mm0,
-                         bk - r0, x);
-    load_tile<T, BK, BN>(b_tile(st), L::kBld,
-                         ga + static_cast<size_t>(mm0) * N, N, m - mm0,
-                         bn - c0, gy);
+    const int mm0 = m_begin + it * BK;
+    load_tile<float, BK, BM>(a_tile(st), L::kAld,
+                             xa + static_cast<size_t>(mm0) * K, K,
+                             m_end - mm0, bk - r0, x);
+    load_tile<float, BK, BN>(b_tile(st), L::kBld,
+                             ga + static_cast<size_t>(mm0) * N, N,
+                             m_end - mm0, bn - c0, gy);
   };
 
-  using A = Acc<T, BM, BN>;
+  using A = Acc<float, BM, BN>;
   A acc;
   acc.zero();
-  const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
@@ -396,51 +454,307 @@ __global__ void __launch_bounds__(kThreads)
     const int next = it + STAGES - 1;
     if (next < total) load(next, next % STAGES);
     cp_async_commit();
-    const T* xs = a_tile(it % STAGES);
-    const T* gs = b_tile(it % STAGES);
-    if constexpr (A::kBf16) {
-      using namespace nvcuda;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> af[A::FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf[A::FN];
-#pragma unroll
-        for (int i = 0; i < A::FM; ++i)
-          wmma::load_matrix_sync(
-              af[i], xs + kk * L::kAld + wr * (BM / 2) + i * 16, L::kAld);
-#pragma unroll
-        for (int j = 0; j < A::FN; ++j)
-          wmma::load_matrix_sync(
-              bf[j], gs + kk * L::kBld + wc * (BN / 2) + j * 16, L::kBld);
-#pragma unroll
-        for (int i = 0; i < A::FM; ++i)
-#pragma unroll
-          for (int j = 0; j < A::FN; ++j)
-            wmma::mma_sync(acc.frag[i][j], af[i], bf[j], acc.frag[i][j]);
-      }
-    } else {
+    const float* xs = a_tile(it % STAGES);
+    const float* gs = b_tile(it % STAGES);
 #pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
+    for (int k = 0; k < BK; ++k) {
 #pragma unroll
-        for (int i = 0; i < A::kPer; ++i) {
-          const int idx = tid + i * kThreads;
-          const int r = idx / BN, c = idx % BN;
-          acc.scalar[i] += static_cast<float>(xs[k * L::kAld + r]) *
-                           static_cast<float>(gs[k * L::kBld + c]);
-        }
+      for (int i = 0; i < A::kPer; ++i) {
+        const int idx = tid + i * kThreads;
+        const int r = idx / BN, c = idx % BN;
+        acc.scalar[i] += xs[k * L::kAld + r] * gs[k * L::kBld + c];
       }
     }
   }
   cp_async_wait<0>();
   __syncthreads();
-  const int out_ld = dense ? N : bn;
-  T* out = dense ? dw + static_cast<size_t>(rows[s]) * bk * N +
-                       static_cast<size_t>(cols[s]) * bn
-                 : dw + static_cast<size_t>(s) * bk * bn;
-  acc.store(smem, out + static_cast<size_t>(r0) * out_ld + c0, out_ld,
-            bk - r0, bn - c0);
+  if (ws) {
+    acc.store(smem, dw_partial(ws, BM * BN), BN, BM, BN);
+  } else {
+    int ld;
+    float* out = dw_block(dw, rows, cols, s, N, bk, bn, dense, ld);
+    acc.store(smem, out + static_cast<size_t>(r0) * ld + c0, ld, bk - r0,
+              bn - c0);
+  }
+}
+
+// ---- packed_dw_wgmma_kernel (bf16) ----------------------------------------
+constexpr int kWgTile = 128;      // output tile: 128 x 128
+constexpr int kWgChunk = 64;      // m rows per ring stage
+constexpr int kWgStages = 4;      // ring depth
+constexpr int kWgBox = 64;        // columns per TMA box: 128 bytes, the swizzle
+constexpr int kWgBoxBytes = kWgChunk * kWgBox * 2;   // 8 KB
+constexpr int kWgStageBytes = 4 * kWgBoxBytes;       // x, gy: two boxes each
+constexpr int kWgConsumers = 256;                    // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 32;        // + the producer warp
+constexpr int kWgSmem = 1024 + kWgStages * kWgStageBytes + 2 * kWgStages * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` of the barrier has completed.
+// A wait that never ends (a fault in the pipeline) traps, which the next
+// synchronisation reports, rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 30)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the (kWgChunk x kWgBox) box of `map` at (column c, row r) into
+// shared memory at `dst`, completing `bar`'s transaction bytes.  Rows and
+// columns outside the tensor are filled with zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c, int r, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of an MN-major operand with 128-byte
+// swizzle: 64-element rows of 128 bytes, consecutive in the contraction;
+// `lbo` the bytes between 64-element column blocks, 1024 between groups of
+// 8 contraction rows.  `addr` is 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d (64 x 128, f32, the warpgroup's registers) += A (64 x 16) @ B (16 x
+// 128), bf16, both read MN-major from shared memory (transposed: the two
+// trailing 1s).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Thread block (s, tile, slice): the (128 x 128) tile at (r0, c0) of entry
+// s's block, over the slice's rows, as packed_dw_ffma_kernel computes it;
+// x and gy are read through the tensor maps tx (m, K) and tg (m, N).
+// Threads 0-255 are two consumer warpgroups (rows 64 wg .. 64 wg + 63 of
+// the tile), 256-287 the producer warp, of which one thread issues TMA.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    packed_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tg,
+                           const int* __restrict__ rows,
+                           const int* __restrict__ cols,
+                           const int* __restrict__ flags,
+                           __nv_bfloat16* __restrict__ dw,
+                           float* __restrict__ ws, int m, int N, int bk,
+                           int bn, int dense, int slice_rows) {
+  extern __shared__ unsigned char wg_smem[];
+  const int s = blockIdx.x;
+  if (flags && flags[s] == 0) return;   // uniform: before any barrier
+  const int tiles_n = (bn + kWgTile - 1) / kWgTile;
+  const int r0 = (blockIdx.y / tiles_n) * kWgTile;
+  const int c0 = (blockIdx.y % tiles_n) * kWgTile;
+  const int m_begin = blockIdx.z * slice_rows;
+  const int total = (min(m, m_begin + slice_rows) - m_begin + kWgChunk - 1) /
+                    kWgChunk;
+  const int tid = threadIdx.x;
+
+  // Stage st: x boxes at base + st * kWgStageBytes (+ kWgBoxBytes for the
+  // second 64 columns), gy boxes after them; then the barriers: full[st]
+  // (TMA arrival) and empty[st] (released by every consumer thread).
+  const uint32_t base = (smem_u32(wg_smem) + 1023) & ~1023u;
+  const uint32_t full = base + kWgStages * kWgStageBytes;
+  const uint32_t empty = full + 8 * kWgStages;
+  if (tid == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kWgConsumers) {   // the producer warp
+    if (tid == kWgConsumers) {
+      const int xc = rows[s] * bk + r0, gc = cols[s] * bn + c0;
+      const bool x_hi = bk - r0 > kWgBox, g_hi = bn - c0 > kWgBox;
+      const int bytes = (2 + x_hi + g_hi) * kWgBoxBytes;
+      for (int it = 0; it < total; ++it) {
+        const int st = it % kWgStages;
+        if (it >= kWgStages)   // the consumers released round it/kWgStages-1
+          mbar_wait(empty + 8 * st, ((it / kWgStages) - 1) & 1);
+        const uint32_t bar = full + 8 * st;
+        const uint32_t dst = base + st * kWgStageBytes;
+        const int mm = m_begin + it * kWgChunk;
+        mbar_expect_tx(bar, bytes);
+        tma_load(dst, &tx, xc, mm, bar);
+        if (x_hi) tma_load(dst + kWgBoxBytes, &tx, xc + kWgBox, mm, bar);
+        tma_load(dst + 2 * kWgBoxBytes, &tg, gc, mm, bar);
+        if (g_hi) tma_load(dst + 3 * kWgBoxBytes, &tg, gc + kWgBox, mm, bar);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;   // this warpgroup's 64 rows of the tile
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // One stage's products stay in flight while the next stage's are
+  // issued; a stage is released once its products have completed.
+  for (int it = 0; it < total; ++it) {
+    const int st = it % kWgStages;
+    mbar_wait(full + 8 * st, (it / kWgStages) & 1);
+    const uint32_t xs = base + st * kWgStageBytes + wg * kWgBoxBytes;
+    const uint32_t gs = base + st * kWgStageBytes + 2 * kWgBoxBytes;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < kWgChunk / 16; ++k)   // 16 rows of 128 bytes a step
+      wgmma_m64n128k16(acc, wgmma_desc(xs + k * 2048, kWgBoxBytes),
+                       wgmma_desc(gs + k * 2048, kWgBoxBytes));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % kWgStages));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+
+  // acc[4j + 2h + v] is row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane
+  // % 4) + v of the warpgroup's 64 x 128 result.
+  const int lane = tid % 32;
+  const int row = 64 * wg + 16 * ((tid / 32) % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+  if (ws) {
+    float* out = dw_partial(ws, kWgTile * kWgTile);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(out + (row + 8 * h) * kWgTile + 8 * j +
+                                   col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  } else {
+    int ld;
+    __nv_bfloat16* out = dw_block(dw, rows, cols, s, N, bk, bn, dense, ld);
+    out += static_cast<size_t>(r0) * ld + c0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h, c = 8 * j + col;
+        // bn - c0 is a multiple of 8: both columns of a pair are in or out.
+        if (r < bk - r0 && c < bn - c0)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(r) * ld + c) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// ---- packed_dw_reduce_kernel ----------------------------------------------
+// The (tm x tn) f32 partials of every (entry s, tile) in the `slices`
+// slices, ws[z][s][tile], added in slice order and cast once into entry s's
+// block (dw_block), masked to the block; nothing for flags[s] == 0.  One
+// thread a group of 4 columns, grid-strided over all entries and tiles.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    packed_dw_reduce_kernel(const float* __restrict__ ws,
+                            const int* __restrict__ rows,
+                            const int* __restrict__ cols,
+                            const int* __restrict__ flags,
+                            T* __restrict__ dw, int slices, int n_ent,
+                            int tiles, int tm, int tn, int N, int bk, int bn,
+                            int dense) {
+  const int per_tile = tm * tn / 4;
+  const size_t total = static_cast<size_t>(n_ent) * tiles * per_tile;
+  const size_t slice_stride = total * 4;
+  const int tiles_n = (bn + tn - 1) / tn;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int q = static_cast<int>(i % per_tile);
+    const int t = static_cast<int>((i / per_tile) % tiles);
+    const int s = static_cast<int>(i / (static_cast<size_t>(per_tile) * tiles));
+    if (flags && flags[s] == 0) continue;
+    const int r = (t / tiles_n) * tm + q / (tn / 4);
+    const int c = (t % tiles_n) * tn + 4 * (q % (tn / 4));
+    // bn is a multiple of 4: a group of 4 columns is in the block or out.
+    if (r >= bk || c >= bn) continue;
+    float4 v = *reinterpret_cast<const float4*>(ws + 4 * i);
+    for (int z = 1; z < slices; ++z) {
+      const float4 p =
+          *reinterpret_cast<const float4*>(ws + z * slice_stride + 4 * i);
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    int ld;
+    T* o = dw_block(dw, rows, cols, s, N, bk, bn, dense, ld) +
+           static_cast<size_t>(r) * ld + c;
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(o) = packed;
+    }
+  }
 }
 
 // Above 48 KB, dynamic shared memory must be allowed per kernel and device:
@@ -512,39 +826,134 @@ int dispatch_mm(const void* x, const void* w, const int* b, const int* e,
   return static_cast<int>(err);
 }
 
-template <typename T, int BM, int BN, int BK, int STAGES>
-cudaError_t launch_dw(const void* x, const void* gy, const int* rows,
-                      const int* cols, const int* flags, void* dw, int m,
-                      int K, int N, int n_act, int bk, int bn, int dense,
-                      cudaStream_t stream) {
-  constexpr int smem = DwRing<T, BM, BN, BK, STAGES>::kSmemBytes;
-  auto kernel = packed_dw_kernel<T, BM, BN, BK, STAGES>;
-  static std::atomic<uint64_t> allowed{0};
-  cudaError_t err = allow_smem(kernel, smem, allowed);
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
+// link against libcuda); null where the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major (rows, cols) bf16 matrix for the dw
+// kernel's boxes: (kWgChunk rows x kWgBox columns), 128-byte swizzle,
+// zeros outside the matrix.
+cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows,
+                     int cols) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {kWgBox, kWgChunk};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Arguments common to every dw launch.
+struct DwArgs {
+  const void* x;
+  const void* gy;
+  const int* rows;
+  const int* cols;
+  const int* flags;   // null: every entry writes
+  void* dw;
+  float* ws;          // the (slices, entries, tiles, tile) f32 workspace
+  int m, K, N, n_ent, bk, bn, dense, slices, slice_rows;
+  cudaStream_t stream;
+};
+
+// With more than one slice, the second pass: packed_dw_reduce_kernel over
+// every output group of 4 columns, at most 8 thread blocks an SM.
+template <typename T>
+cudaError_t launch_reduce(const DwArgs& a, int tiles, int tm, int tn) {
+  if (a.slices == 1) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  dim3 grid(n_act, ((bk + BM - 1) / BM) * ((bn + BN - 1) / BN));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gy), rows, cols, flags,
-      static_cast<T*>(dw), m, K, N, bk, bn, dense);
+  const long long groups = static_cast<long long>(a.n_ent) * tiles * tm *
+                           tn / 4;
+  const int blocks =
+      static_cast<int>(std::min<long long>((groups + 255) / 256, 8LL * sms));
+  packed_dw_reduce_kernel<T><<<blocks, 256, 0, a.stream>>>(
+      a.ws, a.rows, a.cols, a.flags, static_cast<T*>(a.dw), a.slices,
+      a.n_ent, tiles, tm, tn, a.N, a.bk, a.bn, a.dense);
   return cudaGetLastError();
 }
 
-int dispatch_dw(const void* x, const void* gy, const void* rows,
-                const void* cols, const void* flags, void* dw, int m, int K,
-                int N, int n_ent, int bk, int bn, int dense, int dtype,
-                void* stream) {
-  if (m <= 0 || n_ent <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int* r = static_cast<const int*>(rows);
-  const int* c = static_cast<const int*>(cols);
-  const int* f = static_cast<const int*>(flags);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+cudaError_t launch_dw_bf16(const DwArgs& a) {
+  CUtensorMap tx, tg;
+  cudaError_t err = bf16_map(&tx, a.x, a.m, a.K);
+  if (err != cudaSuccess) return err;
+  err = bf16_map(&tg, a.gy, a.m, a.N);
+  if (err != cudaSuccess) return err;
+  static std::atomic<uint64_t> allowed{0};
+  err = allow_smem(packed_dw_wgmma_kernel, kWgSmem, allowed);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((a.bk + kWgTile - 1) / kWgTile) *
+                    ((a.bn + kWgTile - 1) / kWgTile);
+  packed_dw_wgmma_kernel<<<dim3(a.n_ent, tiles, a.slices), kWgThreads,
+                           kWgSmem, a.stream>>>(
+      tx, tg, a.rows, a.cols, a.flags, static_cast<__nv_bfloat16*>(a.dw),
+      a.slices > 1 ? a.ws : nullptr, a.m, a.N, a.bk, a.bn, a.dense,
+      a.slice_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<__nv_bfloat16>(a, tiles, kWgTile, kWgTile);
+}
+
+template <int BM, int BN, int BK, int STAGES>
+cudaError_t launch_dw_f32(const DwArgs& a) {
+  constexpr int smem = DwRing<float, BM, BN, BK, STAGES>::kSmemBytes;
+  auto kernel = packed_dw_ffma_kernel<BM, BN, BK, STAGES>;
+  static std::atomic<uint64_t> allowed{0};
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((a.bk + BM - 1) / BM) * ((a.bn + BN - 1) / BN);
+  kernel<<<dim3(a.n_ent, tiles, a.slices), kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.gy),
+      a.rows, a.cols, a.flags, static_cast<float*>(a.dw),
+      a.slices > 1 ? a.ws : nullptr, a.m, a.K, a.N, a.bk, a.bn, a.dense,
+      a.slice_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<float>(a, tiles, BM, BN);
+}
+
+int dispatch_dw(const DwArgs& a, int dtype) {
+  if (a.m <= 0 || a.n_ent <= 0 || a.slices <= 0 || a.slice_rows <= 0 ||
+      (a.slices > 1 && !a.ws))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1)
-    err = launch_dw<__nv_bfloat16, 64, 64, 32, 3>(x, gy, r, c, f, dw, m, K, N,
-                                                  n_ent, bk, bn, dense, st);
+    err = launch_dw_bf16(a);
   else if (dtype == 0)
-    err = launch_dw<float, 64, 64, 16, 3>(x, gy, r, c, f, dw, m, K, N, n_ent,
-                                          bk, bn, dense, st);
+    err = launch_dw_f32<64, 64, 16, 3>(a);
   return static_cast<int>(err);
 }
 
@@ -577,12 +986,20 @@ extern "C" int packed_mm_dx(const void* gy, const void* w,
 }
 
 // dw (n_act, bk, bn): slot s is block (rows[s], cols[s]); x is (m, K), gy
-// (m, N); f32 sums over m, one cast to the output type.
+// (m, N); f32 sums over m, one cast to the output type.  The m-sum runs in
+// `slices` slices of `slice_rows` rows (the last may be shorter); with
+// slices > 1, `ws` is an f32 workspace of slices * n_act * tiles * tile
+// elements (ops/block_sparse_packed.py, dw_plan) and a second kernel adds
+// the partials in slice order.
 extern "C" int packed_dw(const void* x, const void* gy, const void* rows,
-                         const void* cols, void* dw, int m, int K, int N,
-                         int n_act, int bk, int bn, int dtype, void* stream) {
-  return dispatch_dw(x, gy, rows, cols, nullptr, dw, m, K, N, n_act, bk, bn,
-                     0, dtype, stream);
+                         const void* cols, void* dw, void* ws, int m, int K,
+                         int N, int n_act, int bk, int bn, int slices,
+                         int slice_rows, int dtype, void* stream) {
+  return dispatch_dw({x, gy, static_cast<const int*>(rows),
+                      static_cast<const int*>(cols), nullptr, dw,
+                      static_cast<float*>(ws), m, K, N, n_act, bk, bn, 0,
+                      slices, slice_rows, static_cast<cudaStream_t>(stream)},
+                     dtype);
 }
 
 // Dense storage: W is the (K, N) matrix itself, row-major, and only its
@@ -615,11 +1032,17 @@ extern "C" int dense_mm_dx(const void* gy, const void* w, const void* beg,
 
 // dw (K, N) += the active blocks of xᵀ @ gy: entry s is block (rows[s],
 // cols[s]) and writes it, unless flags is non-null and flags[s] == 0.  The
-// caller zeroes dw; f32 sums over m, one cast to the output type.
+// caller zeroes dw; f32 sums over m, one cast to the output type; slices
+// and ws as for packed_dw.
 extern "C" int dense_dw(const void* x, const void* gy, const void* rows,
-                        const void* cols, const void* flags, void* dw, int m,
-                        int K, int N, int n_ent, int bk, int bn, int dtype,
+                        const void* cols, const void* flags, void* dw,
+                        void* ws, int m, int K, int N, int n_ent, int bk,
+                        int bn, int slices, int slice_rows, int dtype,
                         void* stream) {
-  return dispatch_dw(x, gy, rows, cols, flags, dw, m, K, N, n_ent, bk, bn, 1,
-                     dtype, stream);
+  return dispatch_dw({x, gy, static_cast<const int*>(rows),
+                      static_cast<const int*>(cols),
+                      static_cast<const int*>(flags), dw,
+                      static_cast<float*>(ws), m, K, N, n_ent, bk, bn, 1,
+                      slices, slice_rows, static_cast<cudaStream_t>(stream)},
+                     dtype);
 }

@@ -16,8 +16,16 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            mode, as
                                                            packed_matmul_dx_cuda
   2  block_sparse_packed.py:345 _dw_kernel, _dw_call       csrc/packed_mm.cu
-                                                           packed_dw_kernel, as
-                                                           packed_dw_cuda
+                                                           the dw kernels:
+                                                           packed_dw_wgmma_
+                                                           kernel (bf16),
+                                                           packed_dw_ffma_
+                                                           kernel (f32), and
+                                                           packed_dw_reduce_
+                                                           kernel where the
+                                                           m-sum is split
+                                                           (ops/dw_split.py),
+                                                           as packed_dw_cuda
   3  block_sparse_packed.py:362 _dw_panel_kernel, _dw_call the same kernel (the
                                                            panel is an L2
                                                            matter on Hopper)
@@ -38,8 +46,12 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            sums, so the port
                                                            has no switch
   6  block_sparse_conv.py:473 _dw_kernel, _dw_gather       csrc/tap_conv.cu
-                                                           tap_dw_kernel, as
-                                                           tap_dw_cuda; JAX's
+                                                           tap_dw_kernel over
+                                                           tap groups, and
+                                                           tap_dw_reduce_
+                                                           kernel where the
+                                                           pixel sum is split,
+                                                           as tap_dw_cuda; JAX's
                                                            'dense' dw branch
                                                            (RIGL_TAP_DW) gives
                                                            the same numbers
@@ -74,8 +86,9 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            sparse_v3.py as
                                                            v3_matmul_cuda
  10  block_sparse_v3.py:160 _dw_v2_kernel,                 csrc/packed_mm.cu
-     _dw_blocksparse_v2                                    packed_dw_kernel in
-                                                           its dense mode,
+     _dw_blocksparse_v2                                    the dw kernels of
+                                                           row 2 in their
+                                                           dense mode,
                                                            bound in ops/block_
                                                            sparse_v3.py as
                                                            dense_dw_cuda
@@ -99,8 +112,9 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            place), bound in
                                                            ops/block_sparse.py
                                                            as v1_matmul_cuda
- 14  block_sparse.py:85 _dw_kernel, _dw_blocksparse        packed_dw_kernel in
-                                                           its dense mode over
+ 14  block_sparse.py:85 _dw_kernel, _dw_blocksparse        the dw kernels of
+                                                           row 2 in their
+                                                           dense mode over
                                                            every block with
                                                            its occupancy flag
                                                            (row 10's kernel),

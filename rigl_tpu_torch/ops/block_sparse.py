@@ -13,12 +13,14 @@ inactive blocks.  Here forward and dx run on `packed_mm_kernel` of
 csrc/packed_mm.cu in its dense storage mode over the occupancy's entry
 lists (block_sparse_v3.occupancy_lists), which visit only the active
 blocks; dx reads W transposed in place where JAX builds w.T.  dw runs on
-`packed_dw_kernel` in its dense mode over every block of the grid with
-its occupancy as the flag (block_sparse_v3.occupancy_dw_entries), into a
-zeroed (K, N).  JAX pads the rows to `bm`; the kernels mask ragged rows,
-so nothing is padded and the real rows' outputs are the same.  CPU
-tensors take the plain versions (block_sparse_v3.dense_mm_reference and
-dense_dw_reference); CUDA tensors launch the kernels or raise.
+the dw kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel`
+in f32, their m-sum split as block_sparse_packed.dw_plan says) in their
+dense mode over every block of the grid with its occupancy as the flag
+(block_sparse_v3.occupancy_dw_entries), into a zeroed (K, N).  JAX pads
+the rows to `bm`; the kernels mask ragged rows, so nothing is padded and
+the real rows' outputs are the same.  CPU tensors take the plain
+versions (block_sparse_v3.dense_mm_reference and dense_dw_reference);
+CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from rigl_tpu_torch.ops.block_mask import expand_from_blocks
 # resetting them.
 v1_fwd_launches = 0   # packed_mm_kernel, dense forward
 v1_dx_launches = 0    # packed_mm_kernel, dense dx
-v1_dw_launches = 0    # packed_dw_kernel, dense mode
+v1_dw_launches = 0    # the dw kernels, dense mode
 
 
 def v1_matmul_cuda(x, w, lists, block, mode='fwd'):

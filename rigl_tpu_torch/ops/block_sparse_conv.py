@@ -22,14 +22,19 @@ entries come from the layer's 2D Packing (block-row r of the
 once per Packing and cached on it.
 
 Both take a TapIndex: every entry's tap, input block and weight offset,
-grouped by output column for the forward and for dx, and listed for dw.
+grouped by output column for the forward and for dx, listed for dw, and
+for the dw kernel grouped by (input block, output block), at most
+`tap_dw_taps` taps a group (`TapDwGroups`).
 Each of the three products has a plain PyTorch version that walks the same
 index (one shifted (pixels x bk) @ (bk x bn) product per entry, summed in
 f32; `tap_conv_reference`, `tap_dw_reference`), which CPU tensors take, and
 a hand-written Hopper kernel in csrc/tap_conv.cu, which CUDA tensors launch
 or raise: the forward and dx modes of `tap_conv_kernel` (replacing the TPU
 kernels `_conv_kernel` and `_conv_kernel_v5`) and `tap_dw_kernel`
-(replacing `_dw_kernel`).
+(replacing `_dw_kernel`), whose pixel sum `tap_dw_plan` splits over thread
+blocks, the partials added in slice order by `tap_dw_reduce_kernel`.  A
+1x1 kernel has no tap shifts, so its dw is the block dw of
+csrc/packed_mm.cu (`block_sparse_packed.dw_launch`).
 
 Where JAX chooses among TPU grids with environment switches (RIGL_TAP_ENGINE
 for the v5 grid, RIGL_TAP_DW for a dense dw times the mask, RIGL_TAP_BM for
@@ -47,14 +52,25 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from rigl_tpu_torch.ops import _build
-from rigl_tpu_torch.ops.block_sparse_packed import Packing, _on_device
+from rigl_tpu_torch.ops import _build, dw_split
+from rigl_tpu_torch.ops.block_sparse_packed import (DwPlan, Packing,
+                                                    _on_device, dw_launch,
+                                                    dw_workspace)
 
 # Launches of each kernel in this process.  Each wrapper adds one per
 # launch of its kernel; nothing else touches them but callers resetting them.
 tap_conv_fwd_launches = 0     # tap_conv_kernel, forward mode
 tap_conv_dx_launches = 0      # tap_conv_kernel, transposed (dx) mode
-tap_dw_launches = 0           # tap_dw_kernel
+tap_dw_launches = 0           # tap_dw_kernel (one per call of the entry)
+
+# tap_dw_kernel's tiling (csrc/tap_conv.cu): DT x DT output tiles, chunks
+# of DP pixels, at most TAP_GROUP_TAPS[dtype] taps a group (kDenseTaps)
+# at 2 thread blocks an SM, or TAP_SPARSE_TAPS (kSparseTaps) at 4 for an
+# index whose active (input block, output block) pairs hold at most
+# TAP_SPARSE_MEAN taps on average, where groups share little.
+TAP_DW_TILE, TAP_DW_CHUNK = 16, 256
+TAP_GROUP_TAPS = {torch.bfloat16: 9, torch.float32: 4}
+TAP_SPARSE_TAPS, TAP_SPARSE_MEAN = 2, 2.5
 
 
 # ----------------------------------------------------------- packing ------
@@ -126,14 +142,50 @@ class TapDwEntries(NamedTuple):
   woffs: torch.Tensor
 
 
+class TapDwGroups(NamedTuple):
+  """The dw entries grouped by (input block, output block): group g holds
+  entries ptr[g] .. ptr[g+1]-1, at most some max_taps, all of cin-block
+  rblks[g] and cout-block cblks[g]; entry e is tap taps[e] with its block
+  at element offset woffs[e] of dw.  Groups run by (rblk, cblk), taps
+  ascending within a pair; a pair with more taps than a group holds takes
+  consecutive groups.  int32."""
+  ptr: torch.Tensor
+  rblks: torch.Tensor
+  cblks: torch.Tensor
+  taps: torch.Tensor
+  woffs: torch.Tensor
+
+
+def tap_dw_groups(taps, rblks, cblks, woffs, t_dim: int, nnc: int,
+                  max_taps: int) -> TapDwGroups:
+  """TapDwGroups of the active entries (tap, cin-block, cout-block, dw
+  offset), given T = t_dim taps and nnc cout-blocks, at most max_taps
+  taps a group."""
+  t, r, j, off = (torch.as_tensor(a, dtype=torch.int64)
+                  for a in (taps, rblks, cblks, woffs))
+  order = torch.argsort((r * nnc + j) * t_dim + t, stable=True)
+  t, r, j, off = t[order], r[order], j[order], off[order]
+  pos = torch.arange(t.numel())
+  pair = r * nnc + j
+  new_pair = torch.ones(t.numel(), dtype=torch.bool)
+  new_pair[1:] = pair[1:] != pair[:-1]
+  run_start = torch.cummax(torch.where(new_pair, pos, 0), 0).values
+  starts = new_pair | ((pos - run_start) % max_taps == 0)
+  ptr = torch.cat([pos[starts], torch.tensor([t.numel()])])
+  i32 = lambda a: a.to(torch.int32).contiguous()   # noqa: E731
+  return TapDwGroups(i32(ptr), i32(r[starts]), i32(j[starts]), i32(t),
+                     i32(off))
+
+
 class TapIndex:
   """Everything the three tap kernels read for one occupancy and one weight
   layout: `fwd` (columns = cout-blocks), `dx` (columns = cin-blocks, taps
   flipped, blocks read transposed) and `dw`; the conv's geometry; and w's
   shape and row stride.  `dense_w`: w is (kh, kw, Cin, Cout), so dw starts
   as zeros; otherwise w is packed (n_active, bk, bn) and every element of
-  dw is some entry's.  Lists live on the CPU; `to(device)` copies are
-  cached, so an index is treated as immutable."""
+  dw is some entry's.  Lists live on the CPU; `to(device)` copies and the
+  dw kernel's tap groups (`dw_groups`) are built on first use and cached,
+  so an index is treated as immutable."""
 
   def __init__(self, taps, rblks, cblks, woffs, *, kernel_size, cin, cout,
                block, w_shape, w_ld, dense_w):
@@ -163,6 +215,28 @@ class TapIndex:
   @property
   def n_entries(self) -> int:
     return int(self.dw.taps.shape[0])
+
+  @property
+  def taps_per_pair(self) -> float:
+    """The mean number of active taps of an active (cin-block, cout-block)
+    pair (0 for an index with no entry)."""
+    if 'taps_per_pair' not in self._cache:
+      pairs = (self.dw.rblks.long() * (self.cout // self.bn)
+               + self.dw.cblks.long()).unique().numel()
+      self._cache['taps_per_pair'] = self.n_entries / max(1, pairs)
+    return self._cache['taps_per_pair']
+
+  def dw_groups(self, max_taps: int, device='cpu') -> TapDwGroups:
+    """The dw entries in groups of at most max_taps taps (tap_dw_groups),
+    on `device`; built once per (max_taps, device)."""
+    device = torch.device(device)
+    key = ('groups', max_taps, str(device))
+    if key not in self._cache:
+      groups = tap_dw_groups(*(a.cpu() for a in self.dw),
+                             self.kh * self.kw, self.cout // self.bn,
+                             max_taps)
+      self._cache[key] = TapDwGroups(*(a.to(device) for a in groups))
+    return self._cache[key]
 
   def to(self, device) -> 'TapIndex':
     device = torch.device(device)
@@ -302,7 +376,7 @@ def _kernel(name: str):
   """The C entry point `name` of csrc/tap_conv.cu: pointers, then ints,
   then the stream; returns the CUDA error code of the launch."""
   n_ptrs, n_ints = {'tap_conv_fwd': (7, 11), 'tap_conv_dx': (7, 11),
-                    'tap_dw': (7, 12)}[name]
+                    'tap_dw': (9, 15)}[name]
   fn = getattr(_build.load('tap_conv'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                  + [ctypes.c_void_p])
@@ -375,10 +449,42 @@ def tap_conv_cuda(x: torch.Tensor, w: torch.Tensor, index: TapIndex,
   return y
 
 
+def tap_dw_taps(index: TapIndex, dtype) -> int:
+  """The group size tap_dw_kernel takes for `index` in `dtype`:
+  TAP_SPARSE_TAPS where its pairs hold at most TAP_SPARSE_MEAN taps on
+  average, else TAP_GROUP_TAPS[dtype]."""
+  if index.taps_per_pair <= TAP_SPARSE_MEAN:
+    return TAP_SPARSE_TAPS
+  return TAP_GROUP_TAPS[dtype]
+
+
+def tap_dw_plan(index: TapIndex, pixels: int, dtype,
+                sm_count: int) -> DwPlan:
+  """How tap_dw_kernel splits the pixel sum of `index`'s dw in `dtype` over
+  `pixels` = N*H*W pixels on a card of sm_count SMs: slices, pixels per
+  slice, the grid (groups, tiles per group, slices) and the f32
+  workspace's bytes (0 with one slice).  A partial tile holds the group's
+  tap_dw_taps taps; a chunk reads DP rows of x's and of gy's 16
+  channels."""
+  taps = tap_dw_taps(index, dtype)
+  n_groups = int(index.dw_groups(taps).rblks.shape[0])
+  tiles = -(-index.bk // TAP_DW_TILE) * -(-index.bn // TAP_DW_TILE)
+  part = taps * TAP_DW_TILE * TAP_DW_TILE * 4
+  chunk_bytes = TAP_DW_CHUNK * 2 * TAP_DW_TILE * dtype.itemsize
+  per_sm = 4 if taps == TAP_SPARSE_TAPS else 2   # the kernel's launch bounds
+  slices = dw_split.split_plan(n_groups * tiles, pixels, TAP_DW_CHUNK,
+                               per_sm * sm_count, part / chunk_bytes)
+  return DwPlan(slices, dw_split.slice_rows(pixels, TAP_DW_CHUNK, slices),
+                (n_groups, tiles, slices),
+                0 if slices == 1 else slices * n_groups * tiles * part)
+
+
 def tap_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
                 index: TapIndex) -> torch.Tensor:
-  """dw in w's layout and dtype: launches tap_dw_kernel over the active
-  entries (a dense w's other elements are zeros); checks and raises as
+  """dw in w's layout and dtype: launches tap_dw_kernel over the index's
+  tap groups, split as tap_dw_plan says, and tap_dw_reduce_kernel where
+  it splits; a 1x1 kernel's dw runs the block dw of packed_mm.cu instead.
+  A dense w's other elements are zeros.  Checks and raises as
   tap_conv_cuda does (x, gy and w of one dtype)."""
   global tap_dw_launches
   _check_cuda('tap_dw', [('x', x, index.cin), ('gy', gy, index.cout)], w,
@@ -387,11 +493,25 @@ def tap_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
   dw = (torch.zeros_like(w) if index.dense_w else torch.empty_like(w))
   if index.n_entries == 0 or x.numel() == 0:
     return dw.zero_()
-  dev = index.to(x.device)
+  if index.kh == index.kw == 1:
+    # No tap shifts: entry e's block is x[:, r-block]ᵀ @ gy[:, j-block] over
+    # the pixels, the block dw of csrc/packed_mm.cu's dw kernels (wgmma on
+    # 128 x 128 tiles in bf16), in packed storage (slot e, as
+    # packed_tap_index lists the entries) or dense (w's (cin, cout) view).
+    ent = index.to(x.device).dw
+    dw_launch(x.view(-1, index.cin), gy.view(-1, index.cout), ent.rblks,
+              ent.cblks, None, dw, (index.bk, index.bn), index.dense_w)
+    tap_dw_launches += 1
+    return dw
+  taps = tap_dw_taps(index, x.dtype)
+  groups = index.dw_groups(taps, x.device)
+  plan = tap_dw_plan(index, n * h * wd, x.dtype, dw_split.sm_count(x.device))
+  buf, ws = dw_workspace(plan, x.device)   # buf lives through the launch
   _launch('tap_dw', x.data_ptr(), gy.data_ptr(),
-          *(a.data_ptr() for a in dev.dw), dw.data_ptr(), n * h * wd, h, wd,
-          index.cin, index.cout, index.n_entries, index.kh, index.kw,
-          index.bk, index.bn, index.w_ld, _DTYPE_CODE[x.dtype],
+          *(a.data_ptr() for a in groups), dw.data_ptr(), ws,
+          n * h * wd, h, wd, index.cin, index.cout, plan.grid[0], index.kh,
+          index.kw, index.bk, index.bn, index.w_ld, taps, plan.slices,
+          plan.slice_rows, _DTYPE_CODE[x.dtype],
           torch.cuda.current_stream(x.device).cuda_stream)
   tap_dw_launches += 1
   return dw

@@ -14,27 +14,29 @@ take (`packed_matmul_reference`, `packed_matmul_dx_reference`,
 `packed_dw_reference`), and a hand-written Hopper kernel in
 csrc/packed_mm.cu, which CUDA tensors launch or raise: the forward and dx
 modes of `packed_mm_kernel` (replacing the TPU kernel `_mm_kernel`) and
-`packed_dw_kernel` (replacing `_dw_kernel` / `_dw_panel_kernel`).  The
-kernels read CSR indices of the actives (`Packing.column_index`,
-`row_index`, `dw_index`), built once per Packing and device and cached on
-the Packing.
+the dw kernels (replacing `_dw_kernel` / `_dw_panel_kernel`:
+`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel` in f32, each
+with its m-sum split over thread blocks by `dw_plan` and the partials
+added in slice order by `packed_dw_reduce_kernel`).  The kernels read CSR
+indices of the actives (`Packing.column_index`, `row_index`, `dw_index`),
+built once per Packing and device and cached on the Packing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from rigl_tpu_torch.ops import _build
+from rigl_tpu_torch.ops import _build, dw_split
 
 # Launches of each kernel in this process.  Each wrapper adds one per
 # launch of its kernel; nothing else touches them but callers resetting them.
 packed_mm_launches = 0        # packed_mm_kernel, forward mode
 packed_mm_dx_launches = 0     # packed_mm_kernel, transposed (dx) mode
-packed_dw_launches = 0        # packed_dw_kernel
+packed_dw_launches = 0        # the dw kernels (one per call of the entry)
 
 
 # ----------------------------------------------------------- packing ------
@@ -269,13 +271,56 @@ def packed_dw_reference(x: torch.Tensor, gy: torch.Tensor, packing: Packing,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# The dw kernels' (tile rows, tile columns, m chunk, thread blocks an SM):
+# bf16 runs packed_dw_wgmma_kernel (132 KB of shared memory a block), f32
+# packed_dw_ffma_kernel (168 registers of 128 threads) (csrc/packed_mm.cu).
+_DW_TILING = {torch.bfloat16: (128, 128, 64, 1),
+              torch.float32: (64, 64, 16, 3)}
+
+
+class DwPlan(NamedTuple):
+  """How one dw call splits its m-sum (ops/dw_split.py): `slices` slices
+  of `slice_rows` rows, the first kernel's grid (entries, tiles per entry,
+  slices) and the bytes of its f32 workspace (0 with one slice: no
+  workspace and no reduction kernel)."""
+  slices: int
+  slice_rows: int
+  grid: Tuple[int, int, int]
+  workspace_bytes: int
+
+
+def dw_plan(m: int, n_entries: int, block: Tuple[int, int], dtype,
+            sm_count: int) -> DwPlan:
+  """The plan of the packed and dense dw kernels for m rows, n_entries
+  blocks of `block` in `dtype`, on a card of sm_count SMs."""
+  tm, tn, chunk, per_sm = _DW_TILING[dtype]
+  tiles = -(-block[0] // tm) * -(-block[1] // tn)
+  # A partial tile's bytes over a chunk's: tm tn f32 over chunk (tm + tn).
+  partial = tm * tn * 4 / (chunk * (tm + tn) * dtype.itemsize)
+  slices = dw_split.split_plan(n_entries * tiles, m, chunk, per_sm * sm_count,
+                               partial)
+  return DwPlan(slices, dw_split.slice_rows(m, chunk, slices),
+                (n_entries, tiles, slices),
+                0 if slices == 1 else slices * n_entries * tiles * tm * tn * 4)
+
+
+def dw_workspace(plan: DwPlan, device) -> Tuple[Optional[torch.Tensor], int]:
+  """(the f32 workspace of a plan, its address): (None, 0) when the plan
+  needs none.  Kernels run on the current stream, so the caching
+  allocator reuses the memory only for work queued after them."""
+  if not plan.workspace_bytes:
+    return None, 0
+  ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                   device=device)
+  return ws, ws.data_ptr()
+
 
 @functools.cache
 def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu: pointers, then ints,
   then the stream; returns the CUDA error code of the launch."""
   n_ptrs, n_ints = {'packed_mm_fwd': (5, 6), 'packed_mm_dx': (6, 6),
-                    'packed_dw': (5, 7)}[name]
+                    'packed_dw': (6, 9), 'dense_dw': (7, 9)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                  + [ctypes.c_void_p])
@@ -366,10 +411,35 @@ def packed_matmul_dx_cuda(gy: torch.Tensor, w_packed: torch.Tensor,
   return dx
 
 
+def dw_launch(x: torch.Tensor, gy: torch.Tensor, rows: torch.Tensor,
+              cols: torch.Tensor, flags: Optional[torch.Tensor],
+              dw: torch.Tensor, block: Tuple[int, int], dense: bool):
+  """Launches the dw kernels into `dw` on the current stream, split as
+  dw_plan says: entry s is block (rows[s], cols[s]) of xᵀ @ gy, x (m, K)
+  and gy (m, N); packed storage (dense False) writes dw[s] of (n_entries,
+  bk, bn), dense storage block (rows[s], cols[s]) of a (K, N) dw, skipping
+  the entries with flags[s] == 0 where flags is given.  The caller has
+  checked the operands (one CUDA device and dtype, contiguous, 16-byte
+  aligned, int32 indices there) and counts the call."""
+  m, kdim = x.shape
+  bk, bn = block
+  n_ent = int(rows.shape[0])
+  plan = dw_plan(m, n_ent, block, x.dtype, dw_split.sm_count(x.device))
+  buf, ws = dw_workspace(plan, x.device)   # buf lives through the launch
+  ptrs = [x.data_ptr(), gy.data_ptr(), rows.data_ptr(), cols.data_ptr()]
+  if dense:
+    ptrs.append(0 if flags is None else flags.data_ptr())
+  _launch('dense_dw' if dense else 'packed_dw', *ptrs, dw.data_ptr(), ws, m,
+          kdim, gy.shape[1], n_ent, bk, bn, plan.slices, plan.slice_rows,
+          _DTYPE_CODE[x.dtype],
+          torch.cuda.current_stream(x.device).cuda_stream)
+
+
 def packed_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w_packed: torch.Tensor,
                    packing: Packing, block: Tuple[int, int]):
-  """Packed dw (n_active, bk, bn) in w's layout and dtype: launches
-  packed_dw_kernel; checks and raises as packed_matmul_cuda does (x, gy
+  """Packed dw (n_active, bk, bn) in w's layout and dtype: launches the dw
+  kernel of the dtype, split as dw_plan says, and the reduction kernel
+  where it splits; checks and raises as packed_matmul_cuda does (x, gy
   and w of one dtype)."""
   global packed_dw_launches
   bk, bn = block
@@ -382,10 +452,7 @@ def packed_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w_packed: torch.Tensor,
   if m == 0 or n_act == 0:
     return torch.zeros_like(w_packed)
   dw = torch.empty_like(w_packed)
-  _launch('packed_dw', x.data_ptr(), gy.data_ptr(), rows.data_ptr(),
-          cols.data_ptr(), dw.data_ptr(), m, nk * bk, nn_ * bn, n_act, bk, bn,
-          _DTYPE_CODE[x.dtype],
-          torch.cuda.current_stream(x.device).cuda_stream)
+  dw_launch(x, gy, rows, cols, None, dw, block, False)
   packed_dw_launches += 1
   return dw
 

@@ -15,7 +15,8 @@ matrix of a dense-masked layer; a (K/bk, N/bn) occupancy says which of its
 
 Both products run on `packed_mm_kernel` of csrc/packed_mm.cu in its dense
 storage mode (replacing the TPU kernel `_v3_kernel`), and the gathered dw
-on `packed_dw_kernel` in its dense mode (replacing `_dw_v2_kernel`).  A
+on the dw kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel`
+in f32) in their dense mode (replacing `_dw_v2_kernel`).  A
 kernel reads DenseLists: for every output block-column, a run of entries,
 each an input block-column and the element offset of its W block.  Here
 the runs come from `pack_block_indices` (column j's entries are
@@ -42,7 +43,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from rigl_tpu_torch.ops import _build
-from rigl_tpu_torch.ops.block_sparse_packed import _DTYPE_CODE, _on_device
+from rigl_tpu_torch.ops.block_sparse_packed import (_DTYPE_CODE, _on_device,
+                                                    dw_launch)
 from rigl_tpu_torch.ops.block_sparse_v2 import pack_block_indices
 
 # Launches of each kernel mode through this module's wrappers.  Each
@@ -50,7 +52,7 @@ from rigl_tpu_torch.ops.block_sparse_v2 import pack_block_indices
 # resetting them.
 v3_fwd_launches = 0     # packed_mm_kernel, dense forward, index-list form
 v3_dx_launches = 0      # packed_mm_kernel, dense dx, index-list form
-dw_gather_launches = 0  # packed_dw_kernel, dense mode (B9)
+dw_gather_launches = 0  # the dw kernels, dense mode (B9)
 dense_control_launches = 0  # packed_mm_kernel, dense forward, all active (B9')
 
 # Density assumed by the 'auto' dw traffic model (JAX's _AUTO_DENSITY): the
@@ -178,8 +180,7 @@ def dense_dw_reference(x: torch.Tensor, gy: torch.Tensor, entries: DwEntries,
 def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu's dense modes: pointers,
   then ints, then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'dense_mm_fwd': (7, 7), 'dense_mm_dx': (7, 6),
-                    'dense_dw': (6, 7)}[name]
+  n_ptrs, n_ints = {'dense_mm_fwd': (7, 7), 'dense_mm_dx': (7, 6)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                  + [ctypes.c_void_p])
@@ -262,22 +263,18 @@ def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor, lists: DenseLists,
 def dense_dw_launch(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
                     entries: DwEntries, block: Tuple[int, int]):
   """The gathered dw (K, N) in w's dtype, zeros outside the written
-  blocks: launches packed_dw_kernel in its dense mode on the current
-  stream.  Counts nothing: callers count their own launches.  Checks and
-  raises as dense_mm_cuda does.  Returns (dw, launched)."""
-  bk, bn = block
+  blocks: launches the dw kernel of the dtype in its dense mode on the
+  current stream, split as block_sparse_packed.dw_plan says.  Counts
+  nothing: callers count their own launches.  Checks and raises as
+  dense_mm_cuda does.  Returns (dw, launched)."""
   kdim, n = w.shape
   _check_cuda('dense_dw', [('x', x, kdim), ('gy', gy, n)], w, block, entries)
   dw = torch.zeros_like(w)
   n_ent = entries.rows.shape[0]
   if x.shape[0] == 0 or n_ent == 0:
     return dw, False
-  flags = entries.flags
-  _launch('dense_dw', x.data_ptr(), gy.data_ptr(), entries.rows.data_ptr(),
-          entries.cols.data_ptr(), 0 if flags is None else flags.data_ptr(),
-          dw.data_ptr(), x.shape[0], kdim, n, n_ent, bk, bn,
-          _DTYPE_CODE[x.dtype],
-          torch.cuda.current_stream(x.device).cuda_stream)
+  dw_launch(x, gy, entries.rows, entries.cols, entries.flags, dw, block,
+            True)
   return dw, True
 
 

@@ -20,6 +20,7 @@ from rigl_tpu_torch.layers.packed_dense import PackedDense, random_occupancy
 from rigl_tpu_torch.ops import block_sparse_conv as tbsc
 from rigl_tpu_torch.models import packed_transformer as tpt
 from rigl_tpu_torch.ops import block_sparse_packed as tbsp
+from rigl_tpu_torch.ops import dw_split
 from rigl_tpu_torch.ops import flash_attention as tfa
 from rigl_tpu_torch.serve import decode as tdec
 
@@ -867,3 +868,269 @@ def test_history_entries_raise_on_what_they_do_not_take(cuda_device):
     tv2.block_sparse_matmul_gather(xg, w, occ, (32, 32), 8).sum().backward()
   with pytest.raises(TypeError):
     tv1.block_sparse_matmul(x.half(), w.half(), occ, (32, 32))
+
+
+# ------------------------------------ the dw kernels' split of the m-sum --
+# The split (ops/dw_split.py) adds the same f32 products in another order,
+# so S = 1 and S > 1 agree to the order of f32 sums (1e-5 of the largest
+# value) in f32, and in bf16 to one rounding of nearly equal sums (2^-7 of
+# the largest value).  The same call twice gives the same bits: the
+# partials are added in slice order, with no atomics.
+SPLIT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+PLANNER = dw_split.split_plan
+
+
+def _plan_slices(monkeypatch, slices):
+  """Every dw plan from here on takes `slices` slices (within
+  dw_split.fit) in place of the planned count; None, the planner's."""
+  monkeypatch.setattr(dw_split, 'split_plan', PLANNER if slices is None else
+                      lambda tiles, length, chunk, *_: dw_split.fit(
+                          length, chunk, slices))
+
+
+def _split_agree(a, b, dtype):
+  return _rel(a, b) <= SPLIT_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize('block', [(128, 128), (64, 32), (32, 64), (16, 8),
+                                   (192, 64), (256, 128)])
+@pytest.mark.parametrize('m', [1, 50, 64, 200, 1000, 4099])
+def test_packed_dw_split_matches_unsplit_and_plain(cuda_device, monkeypatch,
+                                                   m, block, dtype, tol):
+  """The packed dw at its planned split, at S = 1 and at S = 3 (or as
+  many slices as m has chunks): each within the kernel tolerance of the
+  plain version, the split and unsplit results within SPLIT_TOL, and each
+  call bit-identical to a second one.  m below one chunk, ragged m,
+  blocks narrower than a 128 tile, bk != bn, and blocks 128 does not
+  divide."""
+  grid = (3, 2, 4)
+  packing = _packing(grid, m)
+  gen = torch.Generator().manual_seed(m + block[0])
+  x = torch.randn(m, grid[0] * block[0], generator=gen).to(cuda_device,
+                                                          dtype)
+  gy = torch.randn(m, grid[1] * block[1], generator=gen).to(cuda_device,
+                                                           dtype)
+  w = torch.zeros(grid[2], *block, device=cuda_device, dtype=dtype)
+  want = tbsp.packed_dw_reference(x, gy, packing, block, dtype)
+  got = {}
+  for slices in (None, 1, 3):
+    _plan_slices(monkeypatch, slices)
+    before = tbsp.packed_dw_launches
+    a = tbsp.packed_dw_cuda(x, gy, w, packing, block)
+    b = tbsp.packed_dw_cuda(x, gy, w, packing, block)
+    torch.cuda.synchronize()
+    assert tbsp.packed_dw_launches == before + 2
+    assert torch.equal(a, b), slices
+    assert a.dtype == dtype and _rel(a, want) <= tol, (slices, _rel(a, want))
+    got[slices] = a
+  assert _split_agree(got[1], got[3], dtype), _rel(got[1], got[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize('block', [(128, 128), (64, 32), (32, 64)])
+@pytest.mark.parametrize('m', [7, 300, 2049])
+def test_dense_dw_split_keeps_flagged_off_blocks_zero(cuda_device,
+                                                      monkeypatch, m, block,
+                                                      dtype, tol):
+  """The dense-storage dw over every block with its occupancy flag (B12's
+  entries) and over the active blocks alone (B9's), at S = 1 and S = 4:
+  flagged-off and inactive blocks stay exactly zero, active ones match
+  the plain version, split and unsplit agree, calls repeat bit for bit."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  occ, _, _, x, w, gy = _dense_case(4, 3, block, m, dtype, cuda_device,
+                                    m + 3, 'edges')
+  mask = occ.cpu().repeat_interleave(block[0], 0).repeat_interleave(
+      block[1], 1).to(cuda_device)
+  nz = occ.cpu().nonzero()
+  for entries in (tv3.occupancy_dw_entries(occ),
+                  tv3.DwEntries(nz[:, 0].to(cuda_device, torch.int32),
+                                nz[:, 1].to(cuda_device, torch.int32), None)):
+    want = tv3.dense_dw_reference(x, gy, entries, block, dtype)
+    got = {}
+    for slices in (1, 4):
+      _plan_slices(monkeypatch, slices)
+      a, launched = tv3.dense_dw_launch(x, gy, w, entries, block)
+      b, _ = tv3.dense_dw_launch(x, gy, w, entries, block)
+      torch.cuda.synchronize()
+      assert launched and torch.equal(a, b)
+      assert not a[mask == 0].any()
+      assert _rel(a, want) <= tol, (slices, _rel(a, want))
+      got[slices] = a
+    assert _split_agree(got[1], got[4], dtype)
+
+
+@pytest.mark.cuda
+def test_dense_dw_split_at_the_largest_rn50_shape(cuda_device, monkeypatch):
+  """ResNet-50's largest 1x1 dw call, group2_block0/conv1 (401408 rows,
+  256 -> 128, block (128, 128), both blocks active), in bf16: the planned
+  split against the plain version and against S = 1, and bit-identical
+  on repeat."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  gen = torch.Generator(device=cuda_device).manual_seed(0)
+  m, block = 401408, (128, 128)
+  x = torch.randn(m, 256, generator=gen, device=cuda_device).to(
+      torch.bfloat16)
+  gy = torch.randn(m, 128, generator=gen, device=cuda_device).to(
+      torch.bfloat16)
+  w = torch.zeros(256, 128, device=cuda_device, dtype=torch.bfloat16)
+  entries = tv3.DwEntries(
+      torch.tensor([0, 1], dtype=torch.int32, device=cuda_device),
+      torch.tensor([0, 0], dtype=torch.int32, device=cuda_device), None)
+  plan = tbsp.dw_plan(m, 2, block, torch.bfloat16,
+                      torch.cuda.get_device_properties(
+                          cuda_device).multi_processor_count)
+  assert plan.slices > 1
+  a, _ = tv3.dense_dw_launch(x, gy, w, entries, block)
+  b, _ = tv3.dense_dw_launch(x, gy, w, entries, block)
+  _plan_slices(monkeypatch, 1)
+  one, _ = tv3.dense_dw_launch(x, gy, w, entries, block)
+  torch.cuda.synchronize()
+  assert torch.equal(a, b)
+  want = tv3.dense_dw_reference(x, gy, entries, block, torch.bfloat16)
+  assert _rel(a, want) <= 2e-2
+  assert _split_agree(a, one, torch.bfloat16)
+
+
+def _tap_groups_case(ksize, cin, cout, seed):
+  """A tap packing, block (16, 16), whose first (cin-block, cout-block)
+  pair holds every tap (groups of 9, and 25 taps in 9 + 9 + 7 at 5x5),
+  whose second pair holds one tap, and whose last cout-block is empty."""
+  kh, kw = ksize
+  t_dim, nk, nn_ = kh * kw, cin // 16, cout // 16
+  gen = torch.Generator().manual_seed(seed)
+  occ = (torch.rand(t_dim, nk, nn_, generator=gen) < 0.4).to(torch.int32)
+  occ[:, 0, 0] = 1
+  occ[:, min(1, nk - 1), 1] = 0
+  occ[t_dim // 2, min(1, nk - 1), 1] = 1
+  occ[:, :, nn_ - 1] = 0
+  cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+  return {'cols': cols, 'rows': rows, 'taps': taps}, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,h,w', [(5, 9, 11), (3, 16, 16), (2, 32, 32)])
+@pytest.mark.parametrize('ksize', [(3, 3), (5, 5), (1, 1)])
+def test_tap_dw_groups_and_split_match_plain(cuda_device, monkeypatch, ksize,
+                                             n, h, w, dtype):
+  """tap_dw_kernel over groups of 9 taps (4 in f32) and of 1, a 5x5
+  kernel, an empty output column and batches that are not multiples of
+  16 (a 1x1 kernel takes the block dw of packed_mm.cu), at its planned
+  split, at S = 1 and at S = 3 (or as many slices as the pixels have
+  chunks): each within the kernel tolerance of the plain version, split
+  and unsplit within SPLIT_TOL, each call bit-identical to a second."""
+  packing, occ = _tap_groups_case(ksize, 32, 48, n + h)
+  gen = torch.Generator().manual_seed(h * w)
+  x = torch.randn(n, h, w, 32, generator=gen).to(cuda_device, dtype)
+  gy = torch.randn(n, h, w, 48, generator=gen).to(cuda_device, dtype)
+  w4 = torch.zeros(*ksize, 32, 48, device=cuda_device, dtype=dtype)
+  index = tbsc.tap_index(packing, w4.shape, (16, 16))
+  max_taps = tbsc.tap_dw_taps(index, dtype)
+  sizes = index.dw_groups(max_taps).ptr.diff().tolist()
+  assert 1 in sizes and (ksize == (1, 1) or max_taps in sizes)
+  want = tbsc.tap_dw_reference(x, gy, index, dtype)
+  got = {}
+  for slices in (None, 1, 3):
+    _plan_slices(monkeypatch, slices)
+    before = tbsc.tap_dw_launches
+    a = tbsc.tap_dw_cuda(x, gy, w4, index)
+    b = tbsc.tap_dw_cuda(x, gy, w4, index)
+    torch.cuda.synchronize()
+    assert tbsc.tap_dw_launches == before + 2
+    assert torch.equal(a, b), slices
+    assert _rel(a, want) <= TAP_TOL[dtype], (slices, _rel(a, want))
+    assert not a[..., 32:].any()            # the empty cout-block
+    got[slices] = a
+  assert _split_agree(got[1], got[3], dtype), _rel(got[1], got[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,h,w', [(5, 9, 11), (2, 32, 32)])
+@pytest.mark.parametrize('ksize', [(3, 3), (5, 5)])
+def test_tap_dw_sparse_groups_match_plain(cuda_device, monkeypatch, ksize, n,
+                                          h, w, dtype):
+  """An index of about one tap a pair takes groups of TAP_SPARSE_TAPS
+  taps (the kernel's 4-blocks-an-SM variant): at its planned split, S =
+  1 and S = 3, within the kernel tolerance of the plain version, split
+  and unsplit within SPLIT_TOL, each call bit-identical to a second, an
+  empty output column exactly zero."""
+  kh, kw = ksize
+  gen = torch.Generator().manual_seed(h + kh)
+  occ = (torch.rand(kh * kw, 4, 4, generator=gen)
+         < 0.9 / (kh * kw)).to(torch.int32)
+  occ[kh * kw // 2, 0, 0] = occ[0, 0, 0] = 1     # a pair of two taps
+  occ[:, :, 3] = 0                               # an empty cout-block
+  cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+  index = tbsc.tap_index({'cols': cols, 'rows': rows, 'taps': taps},
+                         (kh, kw, 64, 64), (16, 16))
+  assert tbsc.tap_dw_taps(index, dtype) == tbsc.TAP_SPARSE_TAPS
+  x = torch.randn(n, h, w, 64, generator=gen).to(cuda_device, dtype)
+  gy = torch.randn(n, h, w, 64, generator=gen).to(cuda_device, dtype)
+  w4 = torch.zeros(kh, kw, 64, 64, device=cuda_device, dtype=dtype)
+  want = tbsc.tap_dw_reference(x, gy, index, dtype)
+  got = {}
+  for slices in (None, 1, 3):
+    _plan_slices(monkeypatch, slices)
+    a = tbsc.tap_dw_cuda(x, gy, w4, index)
+    b = tbsc.tap_dw_cuda(x, gy, w4, index)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), slices
+    assert _rel(a, want) <= TAP_TOL[dtype], (slices, _rel(a, want))
+    assert not a[..., 48:].any()
+    got[slices] = a
+  assert _split_agree(got[1], got[3], dtype), _rel(got[1], got[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('block', [(16, 16), (64, 32), (128, 128)])
+def test_tap_dw_of_a_packed_1x1_kernel_matches_plain(cuda_device, dtype,
+                                                     block):
+  """A 1x1 kernel in packed storage: its dw runs on packed_mm.cu's block
+  dw kernels, slot e for entry e of the index, and matches the plain
+  version; the packed dw has no element outside an entry."""
+  gen = torch.Generator().manual_seed(block[0])
+  cin, cout = 2 * block[0], 3 * block[1]
+  occ = (torch.rand(2, 3, generator=gen) < 0.6).to(torch.int32)
+  occ[0, 0] = 1
+  packing = tbsp.make_packing(occ, int(occ.sum()))
+  index = tbsc.packed_tap_index(packing, (1, 1), cin, block)
+  x = torch.randn(3, 5, 7, cin, generator=gen).to(cuda_device, dtype)
+  gy = torch.randn(3, 5, 7, cout, generator=gen).to(cuda_device, dtype)
+  w = torch.zeros(index.w_shape, device=cuda_device, dtype=dtype)
+  before = tbsc.tap_dw_launches
+  got = tbsc.tap_dw_cuda(x, gy, w, index)
+  torch.cuda.synchronize()
+  assert tbsc.tap_dw_launches == before + 1
+  want = tbsc.tap_dw_reference(x, gy, index, dtype)
+  assert got.shape == want.shape and _rel(got, want) <= TAP_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_tap_dw_packed_storage_split_matches_plain(cuda_device, monkeypatch):
+  """The packed-storage tap dw (every element of dw is some entry's) at
+  the WRN-22-2 first-group shape, batch 128 of 32 x 32, 32 -> 32, in bf16
+  and f32, planned split against the plain version and S = 1."""
+  gen = torch.Generator().manual_seed(2)
+  for dtype in (torch.bfloat16, torch.float32):
+    conv = PackedConv(32, 32, (3, 3), sparsity=0.4, block=(16, 16),
+                      dtype=dtype, engine='tap', generator=gen,
+                      device=cuda_device)
+    index = tbsc.packed_tap_index(conv.packing, (3, 3), 32, (16, 16))
+    x = torch.randn(128, 32, 32, 32, generator=gen).to(cuda_device, dtype)
+    gy = torch.randn(128, 32, 32, 32, generator=gen).to(cuda_device, dtype)
+    w = torch.zeros(index.w_shape, device=cuda_device, dtype=dtype)
+    a = tbsc.tap_dw_cuda(x, gy, w, index)
+    _plan_slices(monkeypatch, 1)
+    one = tbsc.tap_dw_cuda(x, gy, w, index)
+    _plan_slices(monkeypatch, None)
+    torch.cuda.synchronize()
+    want = tbsc.tap_dw_reference(x, gy, index, dtype)
+    assert _rel(a, want) <= TAP_TOL[dtype]
+    assert _split_agree(a, one, dtype)
