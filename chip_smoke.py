@@ -25,6 +25,11 @@ package.  Phases, each fatal on failure:
         block-column;
      c. forward, dx and packed dw at the transformer train step's four
         layer shapes, m = 2048, bf16;
+     d. forward and dx with a contraction per active (96) that 64 does not
+        divide, m = 1024: the tiled branch.
+     Each forward / dx point prints the branch it takes
+     (ops/block_sparse_packed.py mm_branch: decode at m <= 32, wgmma in
+     bf16, ffma in f32, tiled for a contraction 64 does not divide);
   4. autograd on the card: torch.autograd.grad through packed_matmul
      matches the plain versions and launches dx and dw once each;
   5. serving, a main path: a 4-layer d_model 2048 / d_ff 8192 / 16-head,
@@ -85,13 +90,14 @@ package.  Phases, each fatal on failure:
  14. WRN-22-2 step speed: us/step of the 'tap' engine, the 'xla' engine
      and the dense twin, each twice in mirrored order, with each arm's
      device busy share and kernel time per step by kernel;
- 15. dense-storage kernels vs plain: packed_mm_kernel's dense forward and
-     dx modes from the flat packing (v4, B7) and from per-column index
-     lists (v3, B8), and packed_dw_kernel's dense mode (the gathered dw,
-     B9), each against its plain version (one torch.matmul per active
-     block) at ResNet-50's 29 eligible 1x1 shapes (batch 128, 224 px,
-     ERK-0.8 occupancies at block (128, 128), bf16) and at one shape in
-     f32, beside torch.matmul on the masked dense W and the bound;
+ 15. dense-storage kernels vs plain: the forward / dx kernels' dense
+     modes (each point printing its branch) from the flat packing (v4,
+     B7) and from per-column index lists (v3, B8), and packed_dw_kernel's
+     dense mode (the gathered dw, B9), each against its plain version (one
+     torch.matmul per active block) at ResNet-50's 29 eligible 1x1 shapes
+     (batch 128, 224 px, ERK-0.8 occupancies at block (128, 128), bf16)
+     and at one shape in f32, beside torch.matmul on the masked dense W
+     and the bound;
  16. dense-masked ResNet-50 training, a main path: the train step of
      bench.py's resnet50 arm with BENCH_BLOCK=128,128 (constants RN50_*)
      with its 29 eligible 1x1 convs routed 'matmul', 12 RigL steps with
@@ -118,7 +124,11 @@ package.  Phases, each fatal on failure:
      and forward + backward (block_sparse_matmul_v6), B9'
      (pallas_dense_matmul, density 1.0) and B12's forward, dx and dw
      (block_sparse_matmul, block (128, 128)), beside torch.matmul on the
-     masked dense W and the bound; B10's empty output column exactly zero
+     masked dense W and the bound, each forward / dx point printing its
+     branch; B11's and B12's forward, which build their entry lists from
+     the mask on every call, also timed as the list building alone and
+     the kernel alone (the point's ms; the entry's is entry_ms); B10's
+     empty output column exactly zero
      in a reused NaN-filled buffer; then the arms path, each entry called
      once per point;
  20. the v6 and B12 MLP steps, the main paths of B10 and B12
@@ -407,11 +417,15 @@ def bound(op, m, packing, block, dtype):
 
 
 def kernel_point(torch, label, counter, run, plain, library, bound_,
-                 module=None, library_name='torch.matmul', plain_iters=10):
+                 module=None, library_name='torch.matmul', plain_iters=10,
+                 branch=None):
   """Launches `run` once (its counter, an attribute of `module`, by
   default ops/block_sparse_packed, must move by one), holds its output
   against `plain` on the same inputs, then times kernel, plain version and
-  the dense `library` call.  Returns (record, kernel output)."""
+  the dense `library` call.  `branch`, where given, is the forward / dx
+  branch the call takes (ops/block_sparse_packed.py mm_branch, which the
+  wrappers pass to the kernel), logged and recorded.  Returns
+  (record, kernel output)."""
   if module is None:
     from rigl_tpu_torch.ops import block_sparse_packed as module
   before = getattr(module, counter)
@@ -430,7 +444,10 @@ def kernel_point(torch, label, counter, run, plain, library, bound_,
              ms=device_ms(run, 20), plain_ms=device_ms(plain, plain_iters),
              library_ms=device_ms(library, 20), host_ms=host_ms(run, 20),
              bound_ms=bound_[0], bound_by=bound_[1])
-  log(f'{label}: max|err| {err:.3e} (rel {err / scale:.3e}, tol {tol:.3e})'
+  if branch:
+    rec['branch'] = branch
+  log(f'{label}{f" [{branch}]" if branch else ""}: max|err| {err:.3e} (rel '
+      f'{err / scale:.3e}, tol {tol:.3e})'
       f'  device ms: kernel {rec["ms"]:.4f}, plain {rec["plain_ms"]:.4f}, '
       f'{library_name} {rec["library_ms"]:.4f}, bound {bound_[0]:.4f} '
       f'({bound_[1]})  host {rec["host_ms"]:.4f}')
@@ -476,7 +493,8 @@ def phase_kernel(torch, device):
         'packed_mm_launches',
         lambda: bsp.packed_matmul(x, w, packing, BLOCK),
         lambda: bsp.packed_matmul_reference(x, w, packing, BLOCK),
-        lambda: torch.matmul(x, wd), bound('fwd', m, packing, BLOCK, dtype))
+        lambda: torch.matmul(x, wd), bound('fwd', m, packing, BLOCK, dtype),
+        branch=bsp.mm_branch(m, bk, dtype))
     empty = (packing.column_index('cpu')[0].diff() == 0).nonzero().flatten()
     check(all(not bool(got[:, int(j) * bn:(int(j) + 1) * bn].any())
               for j in empty), f'{name} m={m}: an empty column is not zero')
@@ -541,8 +559,11 @@ def phase_train_kernels(torch, device):
            + (' empty row+col' if empty else ''))
     ops = _product_ops(torch, x, gy, w, packing)
     for op, (counter, run, plain, library) in ops.items():
-      rec, got = kernel_point(torch, f'{op:3s} {tag}', counter, run, plain,
-                              library, bound(op, m, packing, BLOCK, dtype))
+      rec, got = kernel_point(
+          torch, f'{op:3s} {tag}', counter, run, plain, library,
+          bound(op, m, packing, BLOCK, dtype),
+          branch=None if op == 'dw' else bsp.mm_branch(
+              m, bk if op == 'fwd' else bn, dtype))
       if op == 'fwd':
         empty_cols = (occ.sum(0) == 0).nonzero().flatten().tolist()
         check(all(not bool(got[:, j * bn:(j + 1) * bn].any())
@@ -582,15 +603,57 @@ def phase_step_kernels(torch, device):
         device, torch.bfloat16)
     ops = _product_ops(torch, x, gy, w, packing)
     for op, (counter, run, plain, library) in ops.items():
-      rec, _ = kernel_point(torch, f'{op:3s} {name:3s} m={m} bfloat16',
-                            counter, run, plain, library,
-                            bound(op, m, packing, BLOCK, torch.bfloat16))
+      rec, _ = kernel_point(
+          torch, f'{op:3s} {name:3s} m={m} bfloat16', counter, run, plain,
+          library, bound(op, m, packing, BLOCK, torch.bfloat16),
+          branch=None if op == 'dw' else bsp.mm_branch(
+              m, bk if op == 'fwd' else bn, torch.bfloat16))
       rec.update(path='train_step', layer=name, m=m, dtype='bfloat16',
                  k=kdim, n=ndim, n_active=n_act)
       if op == 'dw':
         rec['split'] = dw_split(f'dw  {name:3s} m={m}', bsp.dw_plan(
             m, n_act, BLOCK, torch.bfloat16, sm_count(torch)))
       records[op].append(rec)
+  return records
+
+
+def phase_tiled_branch(torch, device):
+  """Forward and dx vs plain where the contraction per active (96) is not
+  a multiple of 64: the tiled branch (packed_mm_kernel, 64 x 64 x 32),
+  which the wgmma branch's 64-deep boxes cannot take; m = 1024, K = N =
+  3072, block (96, 96), s = 0.8, bf16."""
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  gen = torch.Generator().manual_seed(SEED + 7)
+  block, width, m, dtype = (96, 96), 3072, MLP_BATCH, torch.bfloat16
+  nb = width // block[0]
+  n_act = nb * nb - get_n_zeros(nb * nb, SPARSITY)
+  packing = bsp.make_packing(random_occupancy(gen, nb, nb, n_act), n_act)
+  x = torch.randn(m, width, generator=gen).to(device, dtype)
+  gy = torch.randn(m, width, generator=gen).to(device, dtype)
+  w = (torch.randn(n_act, *block, generator=gen) / width ** 0.5).to(
+      device, dtype)
+  wd = bsp.unpack_dense(w, packing, block)
+  ops = {'fwd': ('packed_mm_launches',
+                 lambda: bsp.packed_matmul(x, w, packing, block),
+                 lambda: bsp.packed_matmul_reference(x, w, packing, block),
+                 lambda: torch.matmul(x, wd)),
+         'dx': ('packed_mm_dx_launches',
+                lambda: bsp.packed_matmul_dx_cuda(gy, w, packing, block),
+                lambda: bsp.packed_matmul_dx_reference(gy, w, packing,
+                                                       block),
+                lambda: torch.matmul(gy, wd.T))}
+  records = {}
+  for op, (counter, run, plain, library) in ops.items():
+    branch = bsp.mm_branch(m, block[0], dtype)
+    check(branch == 'tiled', f'block {block}: branch {branch}, not tiled')
+    rec, _ = kernel_point(torch, f'{op:3s} block {block} m={m} bfloat16',
+                          counter, run, plain, library,
+                          bound(op, m, packing, block, dtype), branch=branch)
+    rec.update(path='tiled_branch', sparsity=SPARSITY, m=m, dtype='bfloat16',
+               k=width, n=width, n_active=n_act, block=list(block))
+    records[op] = [rec]
   return records
 
 
@@ -1917,7 +1980,8 @@ def phase_dense_kernels(torch, device):
               a, w, lst, RN50_BLOCK, op),
           (lambda: x @ w) if op == 'fwd' else (lambda: gy @ w.T),
           dense_bound(op, m, occ, RN50_BLOCK, dtype), module=mod,
-          plain_iters=3)
+          plain_iters=3,
+          branch=bsp.mm_branch(m, bk if op == 'fwd' else bn, dtype))
       if op == 'fwd':
         for j in (occ.sum(0) == 0).nonzero().flatten().tolist():
           check(not bool(got[:, j * bn:(j + 1) * bn].any()),
@@ -2402,12 +2466,21 @@ def phase_history_kernels(torch, device):
                         lambda: v3.dense_mm_reference(x, w, ones, BLOCK),
                         lambda: x @ w, b512['fwd'])
     for key, (mod, counter, run, plain, library, bound_) in ops.items():
+      block = V1_BLOCK if key.startswith('v1') else BLOCK
       rec, _ = kernel_point(
           torch, f'{key:7s} {tag}', counter, run, plain, library, bound_,
           module=mod, plain_iters=3,
-          library_name='xᵀ @ gy' if key == 'v1_dw' else 'torch.matmul')
+          library_name='xᵀ @ gy' if key == 'v1_dw' else 'torch.matmul',
+          branch=None if key == 'v1_dw' else bsp.mm_branch(
+              m, block[1] if key.endswith('dx') else block[0], dtype))
       rec.update(density=density, dtype=dtype_name(dtype), m=m, k=kdim, n=n,
-                 block=list(V1_BLOCK if key.startswith('v1') else BLOCK))
+                 block=list(block))
+      if key in ('gather', 'v1_fwd'):
+        rec.update(_entry_split(torch, f'{key:7s} {tag}', rec, x,
+                                wm if key == 'gather' else wm1,
+                                occ if key == 'gather' else occ1, block,
+                                v2.gather_matmul_cuda if key == 'gather'
+                                else v1.v1_matmul_cuda))
       if key == 'v1_dw':
         rec['split'] = dw_split(f'v1_dw   {tag}', bsp.dw_plan(
             m, int(ent1.rows.numel()), V1_BLOCK, dtype, sm_count(torch)))
@@ -2429,6 +2502,28 @@ def phase_history_kernels(torch, device):
                      'v1_dw': len(points)}, f'arms path launches {launches}')
   torch.cuda.empty_cache()
   return records, launches
+
+
+def _entry_split(torch, label, rec, x, w, occ, block, kernel):
+  """B11's and B12's forward entries build their entry lists from the
+  mask on every call, as JAX reduces it per call: the device time of that
+  list building alone (the entry's own steps: the occupancy as int32,
+  occupancy_lists) and of the kernel alone on lists built once (its
+  counting wrapper).  Returns {'ms': the kernel's, 'lists_ms',
+  'entry_ms': the whole entry's (the point's ms)}."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  n = w.shape[1]
+
+  def lists():
+    return v3.occupancy_lists((occ.to(torch.int32) != 0).to(torch.int32),
+                              block, n)
+
+  built = lists()
+  out = dict(entry_ms=rec['ms'], lists_ms=device_ms(lists, 20),
+             ms=device_ms(lambda: kernel(x, w, built, block), 20))
+  log(f'  {label}: kernel {out["ms"]:.4f} ms + list building '
+      f'{out["lists_ms"]:.4f} ms (entry {out["entry_ms"]:.4f} ms)')
+  return out
 
 
 def _v6_fwd_bwd_point(torch, tag, x, gy, wm, occ, packing, lists, b512,
@@ -2809,6 +2904,18 @@ def _kernel_entry(name, source, replaces, launches, by_path, points,
           'points': points}
 
 
+# The forward / dx kernels' design, named in their JSON entries; each
+# point names its branch.
+MM_DESIGN = ('branches by mm_branch (ops/block_sparse_packed.py): wgmma '
+             '(bf16, m > 32, 64 | contraction): packed_mm_wgmma_kernel, '
+             '128 x 128 tiles, two thread blocks an SM, wgmma m64n128k16 by '
+             'two consumer warpgroups on a 3-deep ring of (128 x 64 x, W '
+             'block) boxes that one producer warp fills by TMA, W through a '
+             '4-D map so boxes stop at the block, epilogue staged in shared '
+             'memory; ffma (f32, m > 32): packed_mm_ffma_kernel, 64 x 128 '
+             'tiles, 8 x 8 register micro-tiles on FMA; decode (m <= 32) '
+             'and tiled (bf16, 64 does not divide the contraction): '
+             'packed_mm_kernel, WMMA / FMA on a cp.async ring')
 # The dw kernels' design, named in their JSON entries.
 DW_DESIGN = ('bf16: packed_dw_wgmma_kernel, 128 x 128 tiles, wgmma '
              'm64n128k16 by two consumer warpgroups on a 4-deep ring of '
@@ -2852,6 +2959,7 @@ def main():
     serve_points = phase_kernel(torch, device)
     train_points = phase_train_kernels(torch, device)
     step_points = phase_step_kernels(torch, device)
+    tiled_points = phase_tiled_branch(torch, device)
     autograd_errs = phase_autograd(torch, device)
     packed, dense = build_models(torch, device)
     serve_launches, logit_errs = phase_serve(torch, device, packed, dense)
@@ -2897,12 +3005,15 @@ def main():
                     sum(packed_paths[op].values()), packed_paths[op], points)
       for name, op, line, points in (
           ('packed_mm_fwd_kernel', 'fwd', 178,
-           serve_points + train_points['fwd'] + step_points['fwd']),
+           serve_points + train_points['fwd'] + step_points['fwd']
+           + tiled_points['fwd']),
           ('packed_mm_dx_kernel', 'dx', 178,
-           train_points['dx'] + step_points['dx']),
+           train_points['dx'] + step_points['dx'] + tiled_points['dx']),
           ('packed_dw_kernel', 'dw', 345,
            train_points['dw'] + step_points['dw']))]
   kernels[-1].update(design=DW_DESIGN, reduction=DW_REDUCTION)
+  for entry in kernels[:2]:
+    entry['design'] = MM_DESIGN
   flash_tpu = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
   for name, op, line in (('flash_fwd_kernel', 'fwd', 758),
                          ('flash_bwd_dkv_kernel', 'dkv', 1121),
@@ -2943,8 +3054,10 @@ def main():
                if c[counter]}
     entry = _kernel_entry(name, src, replaces, sum(by_path.values()),
                           by_path, dense_points[key])
-    entry['kernel'] = ('packed_mm_kernel, dense storage' if key != 'dw'
+    entry['kernel'] = ('the mm kernels, dense storage' if key != 'dw'
                        else 'packed_dw_kernel, dense storage')
+    if key != 'dw':
+      entry['design'] = MM_DESIGN
     entry['library'] = 'torch.matmul on the masked dense W' if key != 'dw' \
         else 'torch.matmul xᵀ @ gy'
     if key == 'dw':
@@ -2960,23 +3073,23 @@ def main():
   for name, key, replaces, kernel, by_path in (
       ('dense_mm_fwd_kernel (gather form, B11)', 'gather',
        f'{pallas}/block_sparse_v2.py:44 (_gather_kernel)',
-       'packed_mm_kernel, dense storage', {'arms': arms_launches['gather']}),
+       'the mm kernels, dense storage', {'arms': arms_launches['gather']}),
       ("dense_mm_fwd_kernel (dense control, B9')", 'control',
        f'{pallas}/block_sparse_v3.py:261 (_dense_kernel)',
-       'packed_mm_kernel, dense storage, all blocks active',
+       'the mm kernels, dense storage, all blocks active',
        {'arms': arms_launches['control']}),
       ('dense_mm_fwd_kernel (v6 form, B10)', 'v6_fwd',
        f'{pallas}/block_sparse_v6.py:65 (_v6_kernel)',
-       'packed_mm_kernel, dense storage', v6_paths['fwd']),
+       'the mm kernels, dense storage', v6_paths['fwd']),
       ('dense_mm_dx_kernel (v6 form, B10)', 'v6_dx',
        f'{pallas}/block_sparse_v6.py:65 (_v6_kernel, transposed packing)',
-       'packed_mm_kernel, dense storage, dx mode', v6_paths['dx']),
+       'the mm kernels, dense storage, dx mode', v6_paths['dx']),
       ('dense_mm_fwd_kernel (v1 form, B12)', 'v1_fwd',
        f'{pallas}/block_sparse.py:40 (_fwd_kernel)',
-       'packed_mm_kernel, dense storage', v1_paths['fwd']),
+       'the mm kernels, dense storage', v1_paths['fwd']),
       ('dense_mm_dx_kernel (v1 form, B12)', 'v1_dx',
        f'{pallas}/block_sparse.py:40 (_fwd_kernel on w.T)',
-       'packed_mm_kernel, dense storage, dx mode', v1_paths['dx']),
+       'the mm kernels, dense storage, dx mode', v1_paths['dx']),
       ('dense_dw_kernel (v1 form, B12)', 'v1_dw',
        f'{pallas}/block_sparse.py:85 (_dw_kernel)',
        'packed_dw_kernel, dense storage', v1_paths['dw'])):
@@ -2985,6 +3098,8 @@ def main():
     entry['kernel'] = kernel
     entry['library'] = ('torch.matmul xᵀ @ gy' if key == 'v1_dw' else
                         'torch.matmul on the masked dense W')
+    if key != 'v1_dw':
+      entry['design'] = MM_DESIGN
     if key == 'v1_dw':
       entry.update(design=DW_DESIGN, reduction=DW_REDUCTION)
     kernels.append(entry)

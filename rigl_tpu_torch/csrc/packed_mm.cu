@@ -2,8 +2,11 @@
 // (bk, bn) blocks, packed (n_active, bk, bn) in column-major order.  Tiled
 // kernels for any m, in bf16 or f32:
 //
-//   packed_mm_kernel<..., kTransW>  behind `packed_mm_fwd` (kTransW = false):
-//       y = x @ W;  and behind `packed_mm_dx` (kTransW = true): dx = gy @ Wᵀ.
+//   the mm kernels, kTransW = false behind `packed_mm_fwd`: y = x @ W;
+//       kTransW = true behind `packed_mm_dx`: dx = gy @ Wᵀ.  Four branches
+//       (dispatch_mm): packed_mm_wgmma_kernel (bf16), packed_mm_ffma_kernel
+//       (f32), and packed_mm_kernel at m <= 32 and for a bf16 contraction
+//       that 64 does not divide.
 //   the dw kernels                  behind `packed_dw`:
 //       dw[s] = x[:, rows[s]*bk : +bk]ᵀ @ gy[:, cols[s]*bn : +bn]:
 //       packed_dw_wgmma_kernel (bf16) or packed_dw_ffma_kernel (f32), and
@@ -21,27 +24,63 @@
 // about 8 multiply-adds, far below the ~295 flop/byte where bf16 tensor
 // cores become the limit, so decode is weight-bandwidth-bound; at training
 // and prefill sizes (m = 1024) all three products are compute-bound.  The
-// dw of a few large blocks over many rows (ResNet-50's 1x1 convs: 2-19
-// blocks of 128 x 128 over 6272-401408 rows) is bound by the bytes of x
-// and gy, and only if the m-sum is spread over the whole card.
+// products of a few large blocks over many rows (ResNet-50's 1x1 convs: 2-19
+// blocks of 128 x 128 over 6272-401408 rows) are bound by the bytes of x,
+// gy and y.
 //
-// packed_mm_kernel.  One thread block per (m-tile, subtile of one output
-// block-column), which walks that column's actives from a CSR -- for the
-// forward the per-column list (col_ptr, rows), for dx the per-block-row
-// list (row_ptr, cols, slots) of the bwd packing -- and, inside each
-// active, the contraction in chunks of BK, accumulating in registers; then
-// writes its tile once.  Nothing carries across thread blocks, so no
-// atomics and no second pass.  Operand tiles stream through a 3-deep
-// cp.async ring while the tensor cores (WMMA, bf16 in, f32 accumulate;
-// scalar FMA for f32) work on the tile that arrived.  For dx the W tile is
-// needed transposed: the (output-subtile x contraction-chunk) region of
-// w[slot] is copied row-major into shared memory and read by WMMA as a
-// col_major matrix_b, so no transpose is ever materialised.  At m <= 32
-// (one m-tile) it takes 32 x 32 tiles and contraction steps of 256 (128
-// in f32): few, long steps, because at decode each thread block's serial
-// chain of steps, not the loads, bounds it (PERF.md, section 6).  At m >
-// 32 the tiles are 64 x 64 x 32 (64 x 64 x 16 in f32).
+// The mm kernels.  One thread block per (subtile of one output
+// block-column, m-tile), column subtiles fastest, so the thread blocks in
+// flight share their x rows in L2.  Each walks that column's actives from a
+// CSR -- for the forward the per-column list (col_ptr, rows), for dx the
+// per-block-row list (row_ptr, cols, slots) of the bwd packing -- and,
+// inside each active, the contraction in chunks, accumulating in registers;
+// then writes its tile once.  Nothing carries across thread blocks, so no
+// atomics, no second pass, and the same bits on every call.  The caller
+// names the branch by the rule of ops/block_sparse_packed.py `mm_branch`;
+// dispatch_mm refuses a branch that cannot take the call:
 //
+//   wgmma (bf16, m > 32, 64 divides the contraction per active, `seg` =
+//     bk forward, bn dx): packed_mm_wgmma_kernel.  128 x 128 output tiles,
+//     two thread blocks an SM.  One producer warp fills a 3-deep ring by
+//     TMA; each stage is one (active, 64-deep chunk): a 128 x 64 box of x
+//     at (column seg_idx[a] * seg + k0, row m0), K-major with 128-byte
+//     swizzle, and the W block's part, through a 4-D tensor map over W
+//     viewed as (block-row, row, block-column, column) -- packed storage is
+//     (n_active, bk, 1, bn) -- so that a box never reads past its block:
+//     rows and columns outside it come in as zeros.  Forward: two 64 x 64
+//     boxes (rows k0.., columns n0.. and n0 + 64..), B in MN-major layout;
+//     dx: one 128 x 64 box (rows n0.., columns k0..), B in K-major layout,
+//     so Wᵀ is never built.  Two consumer warpgroups, 64 rows each, run
+//     wgmma m64n128k16 with f32 in registers, one stage's products in
+//     flight while the next are issued; the epilogue casts the fragments
+//     to bf16 into shared memory (the ring's, once both warpgroups are
+//     done) and stores whole 16-byte groups, masked to rows < m and columns
+//     < the block's width.  Rows of x past m come in as zeros.  Two thread
+//     blocks an SM, each a 3-deep ring (6 stages in flight an SM), so one
+//     block's epilogue and first loads overlap the other's products.
+//   ffma (f32, m > 32): packed_mm_ffma_kernel, on the CUDA cores with no
+//     TF32.  64 x 128 tiles on 128 threads, four thread blocks an SM, 8 x 8
+//     outputs a thread from register micro-tiles: the x chunk (transposed)
+//     and the W chunk go through registers into a double-buffered 8-deep
+//     shared tile, and each k reads 8 values of each into registers for 64
+//     fmaf.  The uneven per-column active counts of a sparse layer make
+//     the longest columns' thread blocks the critical path: 64-row tiles
+//     spread each column over twice as many of them.  Each output is
+//     one fmaf chain over the actives in list order and k ascending, the
+//     order of packed_mm_kernel, so the two give the same bits.
+//   decode (m <= 32, either dtype) and tiled (bf16, m > 32, a contraction
+//     that 64 does not divide): packed_mm_kernel, WMMA (bf16) or scalar FMA
+//     (f32) on tiles that stream through a 3-deep cp.async ring, with a
+//     barrier a step.  For dx the (output-subtile x contraction-chunk)
+//     region of the W block is copied row-major and read by WMMA as a
+//     col_major matrix_b.  At m <= 32 (one m-tile) the tiles are 32 x 32
+//     with contraction steps of 256 (128 in f32): few, long steps, because
+//     at decode each thread block's serial chain of steps, not the loads,
+//     bounds it (PERF.md, section 6).  The tiled branch takes 64 x 64 x 32
+//     tiles, masked to the segment: a 64-deep box of x would read x's
+//     neighbouring segment, whose products with the zero-filled rows past
+//     the W block vanish only while that segment is finite.
+
 // The dw kernels: one thread block per (entry s, output tile, slice of m).
 // The m-sum is split into S slices of whole chunks when the tiles alone
 // leave SMs idle (ops/dw_split.py: tiles x S fills about two waves of the
@@ -78,8 +117,10 @@
 // matrix of a dense-masked layer, only at its active blocks (`dense_mm_fwd`,
 // `dense_mm_dx`, `dense_dw`): a block is found by its element offset
 // woffs[e] and rows N apart, instead of by its packed slot and rows bn
-// apart; dx reads those blocks transposed, as it reads packed ones, so no
-// Wᵀ is built; dw writes each active block into a zeroed (K, N) output.
+// apart (packed_mm_wgmma_kernel turns woffs[e] into the block's
+// (block-row, block-column) of its tensor map); dx reads those blocks
+// transposed, as it reads packed ones, so no Wᵀ is built; dw writes each
+// active block into a zeroed (K, N) output.
 // These replace the TPU kernels of rigl_tpu/ops/pallas/: `_v4_kernel`
 // (block_sparse_v4.py, B7: the flat column-major packing), `_v3_kernel`
 // (block_sparse_v3.py, B8: per-column index lists) -- the same sums from
@@ -94,9 +135,10 @@
 // Ragged m, and bn / bk smaller than a tile, are masked in the kernels (the
 // copies zero-fill), so the TPU path's row padding and its dw ValueError on
 // an m no bm divides have no counterpart; the wrappers guarantee 16-byte
-// aligned rows.  The TPU kernels' x-feed variants, dummy entries and VMEM
-// bm clamps are Mosaic machinery with no counterpart here.  Not yet here:
-// wgmma / TMA for packed_mm_kernel.
+// aligned rows (the TMA branches check the 16-byte alignment of every base
+// and row stride, and refuse the call otherwise).  The TPU kernels' x-feed
+// variants, dummy entries and VMEM bm clamps are Mosaic machinery with no
+// counterpart here.
 
 #include <cuda.h>   // CUtensorMap and its enums; nothing of libcuda is linked
 #include <cuda_bf16.h>
@@ -528,9 +570,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
-// TMA: the (kWgChunk x kWgBox) box of `map` at (column c, row r) into
-// shared memory at `dst`, completing `bar`'s transaction bytes.  Rows and
-// columns outside the tensor are filled with zeros.
+// TMA: the box of the 2-D `map` at (column c, row r) into shared memory at
+// `dst`, completing `bar`'s transaction bytes.  Rows and columns outside
+// the tensor are filled with zeros.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          int c, int r, uint32_t bar) {
   asm volatile(
@@ -540,10 +582,27 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor of an MN-major operand with 128-byte
-// swizzle: 64-element rows of 128 bytes, consecutive in the contraction;
-// `lbo` the bytes between 64-element column blocks, 1024 between groups of
-// 8 contraction rows.  `addr` is 1024-byte aligned, so the base offset is 0.
+// The same for a 4-D map, coordinates innermost first; each coordinate is
+// bounded by its own dimension, so a box never reads into a neighbour.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of an operand tile with 128-byte swizzle,
+// stored as rows of 64 elements (128 bytes), 1024 bytes between groups of 8
+// rows.  MN-major (rows consecutive in the contraction): `lbo` the bytes
+// between 64-element column blocks.  K-major (rows consecutive in M or N,
+// the contraction along the row): `lbo` unused (16), and a step of 16 in the
+// contraction is 32 bytes added to `addr` inside the swizzle atom.  The
+// tile starts 1024-byte aligned, so the base offset is 0.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
@@ -552,8 +611,9 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo) {
 }
 
 // d (64 x 128, f32, the warpgroup's registers) += A (64 x 16) @ B (16 x
-// 128), bf16, both read MN-major from shared memory (transposed: the two
-// trailing 1s).
+// 128), bf16, from shared memory: kTransA / kTransB = 1 reads the operand
+// MN-major (transposed), 0 K-major.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -567,7 +627,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -584,7 +644,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
 // Thread block (s, tile, slice): the (128 x 128) tile at (r0, c0) of entry
@@ -663,8 +723,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int k = 0; k < kWgChunk / 16; ++k)   // 16 rows of 128 bytes a step
-      wgmma_m64n128k16(acc, wgmma_desc(xs + k * 2048, kWgBoxBytes),
-                       wgmma_desc(gs + k * 2048, kWgBoxBytes));
+      wgmma_m64n128k16<1, 1>(acc, wgmma_desc(xs + k * 2048, kWgBoxBytes),
+                             wgmma_desc(gs + k * 2048, kWgBoxBytes));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % kWgStages));
@@ -701,6 +761,314 @@ __global__ void __launch_bounds__(kWgThreads, 1)
               __floats2bfloat162_rn(acc[4 * j + 2 * h],
                                     acc[4 * j + 2 * h + 1]);
       }
+  }
+}
+
+// ---- packed_mm_wgmma_kernel (bf16) ----------------------------------------
+constexpr int kMmTile = 128;      // output tile: 128 rows x 128 columns
+constexpr int kMmChunk = 64;      // contraction per ring stage
+constexpr int kMmStages = 3;      // ring depth; two thread blocks an SM
+constexpr int kMmXBytes = kMmTile * kMmChunk * 2;   // 16 KB: 128 x 64 x
+constexpr int kMmStageBytes = 2 * kMmXBytes;        // + 16 KB of W
+constexpr int kMmSmem = 1024 + kMmStages * kMmStageBytes + 2 * kMmStages * 8;
+// The epilogue's staging row: 128 bf16 + 16 bytes, so that a warp's
+// fragment stores (8 rows x 4 pairs) fall on 32 distinct banks.
+constexpr int kMmStageLd = kMmTile + 8;
+static_assert(2 * 64 * kMmStageLd * 2 <= kMmStages * kMmStageBytes,
+              "the staging tiles fit in the ring");
+
+// Thread block (column subtile, m-tile): the (128 x 128) tile at (m0, n0)
+// of output block-column g, the f32 sum over g's actives [beg[g], end[g])
+// of x's segment seg_idx[a] (tensor map tx over x (m, x_ld), boxes of 128
+// rows x 64) times the W block of a (tensor map tw over W as (block-row,
+// row, block-column, column); boxes 64 x 64 forward, 128 x 64 dx).  The
+// block of a is (slot, 0) in packed storage (woffs null; slot = a forward,
+// slots[a] dx) and (woffs[a] / (bk w_ld), woffs[a] % w_ld / bn) in dense
+// storage.  Threads 0-255 are two consumer warpgroups (rows 64 wg .. 64 wg
+// + 63 of the tile), 256-287 the producer warp, of which one thread issues
+// TMA.
+template <bool kTransW>
+__global__ void __launch_bounds__(kWgThreads, 2)
+    packed_mm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw,
+                           const int* __restrict__ beg,
+                           const int* __restrict__ end,
+                           const int* __restrict__ seg_idx,
+                           const int* __restrict__ slots,
+                           const int* __restrict__ woffs,
+                           __nv_bfloat16* __restrict__ y, int m, int y_ld,
+                           int bk, int bn, int w_ld) {
+  extern __shared__ unsigned char mm_smem[];
+  const int seg = kTransW ? bn : bk;      // contraction per active
+  const int out_w = kTransW ? bk : bn;    // width of an output block-column
+  const int tiles_per_col = (out_w + kMmTile - 1) / kMmTile;
+  const int g = blockIdx.x / tiles_per_col;
+  const int n0 = (blockIdx.x % tiles_per_col) * kMmTile;
+  const int m0 = blockIdx.y * kMmTile;
+  const int a_begin = beg[g];
+  const int chunks = seg / kMmChunk;
+  const int total = (end[g] - a_begin) * chunks;
+  const int tid = threadIdx.x;
+
+  // Stage st: the x box at base + st * kMmStageBytes, the W box(es) after
+  // it; then the barriers full[st] (TMA arrival) and empty[st] (released
+  // by every consumer thread).
+  const uint32_t base = (smem_u32(mm_smem) + 1023) & ~1023u;
+  const uint32_t full = base + kMmStages * kMmStageBytes;
+  const uint32_t empty = full + 8 * kMmStages;
+  if (tid == 0) {
+    for (int st = 0; st < kMmStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kWgConsumers) {   // the producer warp
+    if (tid == kWgConsumers) {
+      // Forward: W columns n0 + 64 .. are loaded only where the block has
+      // any; the stale half of the stage feeds only masked columns.
+      const bool w_hi = !kTransW && out_w - n0 > kWgBox;
+      const int bytes = kMmXBytes + (kTransW ? kMmXBytes
+                                             : (1 + w_hi) * kWgBoxBytes);
+      for (int it = 0; it < total; ++it) {
+        const int st = it % kMmStages;
+        if (it >= kMmStages)   // the consumers released round it/S - 1
+          mbar_wait(empty + 8 * st, ((it / kMmStages) - 1) & 1);
+        const int a = a_begin + it / chunks;
+        const int k0 = (it % chunks) * kMmChunk;
+        int br, bc;            // the W block: (block-row, block-column)
+        if (woffs) {
+          const int o = woffs[a];
+          br = o / (bk * w_ld);
+          bc = (o % w_ld) / bn;
+        } else {
+          br = kTransW ? slots[a] : a;
+          bc = 0;
+        }
+        const uint32_t bar = full + 8 * st;
+        const uint32_t dst = base + st * kMmStageBytes;
+        mbar_expect_tx(bar, bytes);
+        tma_load(dst, &tx, seg_idx[a] * seg + k0, m0, bar);
+        if (kTransW) {   // rows n0 .. n0 + 127 of the block, columns k0 ..
+          tma_load_4d(dst + kMmXBytes, &tw, k0, bc, n0, br, bar);
+        } else {         // rows k0 .. k0 + 63, columns n0 .. (and n0 + 64 ..)
+          tma_load_4d(dst + kMmXBytes, &tw, n0, bc, k0, br, bar);
+          if (w_hi)
+            tma_load_4d(dst + kMmXBytes + kWgBoxBytes, &tw, n0 + kWgBox, bc,
+                        k0, br, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;   // this warpgroup's 64 rows of the tile
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int it = 0; it < total; ++it) {
+    const int st = it % kMmStages;
+    mbar_wait(full + 8 * st, (it / kMmStages) & 1);
+    // A: this warpgroup's 64 rows of the x box (8 KB); B: the W box(es).
+    const uint32_t xs = base + st * kMmStageBytes + wg * kWgBoxBytes;
+    const uint32_t ws = base + st * kMmStageBytes + kMmXBytes;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < kMmChunk / 16; ++k) {
+      const uint64_t da = wgmma_desc(xs + 32 * k, 16);
+      if constexpr (kTransW)   // B = Wᵀ: the W box's rows are B's columns
+        wgmma_m64n128k16<0, 0>(acc, da, wgmma_desc(ws + 32 * k, 16));
+      else                     // B = W: 16 rows of 128 bytes a step
+        wgmma_m64n128k16<0, 1>(acc, da,
+                               wgmma_desc(ws + 2048 * k, kWgBoxBytes));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % kMmStages));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+
+  // The epilogue goes through shared memory, so that each warp stores
+  // whole 256-byte row segments: every consumer has finished its products
+  // (named barrier 1) before the ring's memory becomes the staging tiles,
+  // one (64 x kMmStageLd) bf16 tile a warpgroup (barriers 2 and 3).
+  // acc[4j + 2h + v] is row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane
+  // % 4) + v of the warpgroup's 64 x 128 result.
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumers) : "memory");
+  const int lane = tid % 32;
+  const int row = 16 * ((tid / 32) % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(
+                             mm_smem + (base - smem_u32(mm_smem))) +
+                         wg * 64 * kMmStageLd;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(stage + (row + 8 * h) * kMmStageLd +
+                                         8 * j + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+  // 16 bytes a thread, masked to rows < m and columns < the block's width
+  // (out_w - n0 is a multiple of 8: a group of 8 columns is in or out).
+  __nv_bfloat16* out = y + static_cast<size_t>(m0 + 64 * wg) * y_ld +
+                       static_cast<size_t>(g) * out_w + n0;
+  const int rows = m - m0 - 64 * wg, cols = out_w - n0;
+#pragma unroll
+  for (int q = 0; q < 64 * kMmTile / 8 / 128; ++q) {
+    const int i = tid % 128 + 128 * q;
+    const int r = i / (kMmTile / 8), c = 8 * (i % (kMmTile / 8));
+    if (r < rows && c < cols)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * y_ld + c) =
+          *reinterpret_cast<const uint4*>(stage + r * kMmStageLd + c);
+  }
+}
+
+// ---- packed_mm_ffma_kernel (f32) ------------------------------------------
+constexpr int kFfRows = 64;       // output tile: 64 rows x 128 columns
+constexpr int kFfCols = 128;
+constexpr int kFfChunk = 8;       // contraction per shared-memory stage
+constexpr int kFfThreads = 128;   // 8 x 16, 8 x 8 outputs each
+// Row strides of the shared tiles: the transposing stores of a warp's two
+// column halves land 16 banks apart.
+constexpr int kFfXLd = kFfRows + 4;
+constexpr int kFfWLd = kFfCols + 4;
+
+// Thread block (column subtile, m-tile): the (64 x 128) tile at (m0, n0)
+// of output block-column g, the sums of packed_mm_wgmma_kernel, from x (m,
+// x_ld) and W read at its packed slot (woffs null) or at element woffs[a]
+// (rows w_ld apart).  Thread (ty, tx) owns rows 4 ty + i and 32 + 4 ty + i,
+// columns 4 tx + j and 64 + 4 tx + j (i, j < 4).  Each step the threads
+// fetch the next 8-deep chunk -- x (64 x 8: one float4 a thread) and W (8
+// x 128 forward; 128 x 8 of the block's rows for dx: two each) -- into
+// registers, and store it k-major into the free half of the shared tiles
+// while the other half feeds 8 x 64 fmaf a thread.  Zeros fill what lies
+// past m, seg or the block's width (seg and out_w are multiples of 4).
+template <bool kTransW>
+__global__ void __launch_bounds__(kFfThreads, 4)
+    packed_mm_ffma_kernel(const float* __restrict__ x,
+                          const float* __restrict__ w,
+                          const int* __restrict__ beg,
+                          const int* __restrict__ end,
+                          const int* __restrict__ seg_idx,
+                          const int* __restrict__ slots,
+                          const int* __restrict__ woffs,
+                          float* __restrict__ y, int m, int x_ld, int y_ld,
+                          int bk, int bn, int w_ld) {
+  __shared__ __align__(16) float xs[2][kFfChunk][kFfXLd];   // [k][row]
+  __shared__ __align__(16) float ws[2][kFfChunk][kFfWLd];   // [k][column]
+  const int seg = kTransW ? bn : bk;
+  const int out_w = kTransW ? bk : bn;
+  const int tiles_per_col = (out_w + kFfCols - 1) / kFfCols;
+  const int g = blockIdx.x / tiles_per_col;
+  const int n0 = (blockIdx.x % tiles_per_col) * kFfCols;
+  const int m0 = blockIdx.y * kFfRows;
+  const int a_begin = beg[g];
+  const int chunks = (seg + kFfChunk - 1) / kFfChunk;
+  const int total = (end[g] - a_begin) * chunks;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  // This thread's float4s of a chunk: x at (row xr, columns xc ..); W at
+  // (rows wr and wr + kWStep, columns wc ..) of the block -- k-rows
+  // forward, n-rows for dx.
+  const int xr = tid / 2, xc = 4 * (tid % 2);
+  const int wr = kTransW ? tid / 2 : tid / 32;
+  const int wc = kTransW ? 4 * (tid % 2) : 4 * (tid % 32);
+  constexpr int kWStep = kTransW ? 64 : 4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 rx = zero, rw[2] = {zero, zero};
+
+  auto fetch = [&](int it) {
+    const int a = a_begin + it / chunks;
+    const int k0 = (it % chunks) * kFfChunk;
+    const float* wa =
+        w + (woffs ? static_cast<size_t>(woffs[a])
+                   : static_cast<size_t>(kTransW ? slots[a] : a) * bk * bn);
+    rx = m0 + xr < m && k0 + xc < seg
+             ? __ldg(reinterpret_cast<const float4*>(
+                   x + static_cast<size_t>(m0 + xr) * x_ld +
+                   static_cast<size_t>(seg_idx[a]) * seg + k0 + xc))
+             : zero;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + h * kWStep;
+      const bool ok = kTransW ? n0 + r < out_w && k0 + wc < seg
+                              : k0 + r < seg && n0 + wc < out_w;
+      const float* wp = kTransW ? wa + static_cast<size_t>(n0 + r) * w_ld +
+                                      k0 + wc
+                                : wa + static_cast<size_t>(k0 + r) * w_ld +
+                                      n0 + wc;
+      rw[h] = ok ? __ldg(reinterpret_cast<const float4*>(wp)) : zero;
+    }
+  };
+  auto stash = [&](int buf) {
+    xs[buf][xc][xr] = rx.x;
+    xs[buf][xc + 1][xr] = rx.y;
+    xs[buf][xc + 2][xr] = rx.z;
+    xs[buf][xc + 3][xr] = rx.w;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + h * kWStep;
+      if constexpr (kTransW) {
+        ws[buf][wc][r] = rw[h].x;
+        ws[buf][wc + 1][r] = rw[h].y;
+        ws[buf][wc + 2][r] = rw[h].z;
+        ws[buf][wc + 3][r] = rw[h].w;
+      } else {
+        *reinterpret_cast<float4*>(&ws[buf][r][wc]) = rw[h];
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if (total > 0) {
+    fetch(0);
+    stash(0);
+  }
+  __syncthreads();
+  for (int it = 0; it < total; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < total) fetch(it + 1);   // in flight during the products
+#pragma unroll
+    for (int k = 0; k < kFfChunk; ++k) {
+      float a[8], b[8];
+      *reinterpret_cast<float4*>(a) =
+          *reinterpret_cast<const float4*>(&xs[buf][k][4 * ty]);
+      *reinterpret_cast<float4*>(a + 4) =
+          *reinterpret_cast<const float4*>(&xs[buf][k][32 + 4 * ty]);
+      *reinterpret_cast<float4*>(b) =
+          *reinterpret_cast<const float4*>(&ws[buf][k][4 * tx]);
+      *reinterpret_cast<float4*>(b + 4) =
+          *reinterpret_cast<const float4*>(&ws[buf][k][64 + 4 * tx]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (it + 1 < total) stash(buf ^ 1);   // its last readers passed the
+    __syncthreads();                      // previous step's barrier
+  }
+
+  float* out = y + static_cast<size_t>(m0) * y_ld +
+               static_cast<size_t>(g) * out_w + n0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = (i < 4 ? 0 : 32) + 4 * ty + i % 4;
+    if (r >= m - m0) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 64 * h + 4 * tx;
+      if (c < out_w - n0)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(r) * y_ld + c) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+    }
   }
 }
 
@@ -757,75 +1125,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Above 48 KB, dynamic shared memory must be allowed per kernel and device:
-// once for each (instantiation, device), not on every launch.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem,
-                       std::atomic<uint64_t>& allowed) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = uint64_t{1} << (dev & 63);
-  if (!(allowed.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    allowed.fetch_or(bit, std::memory_order_release);
-  }
-  return cudaSuccess;
-}
-
-template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
-cudaError_t launch_mm(const void* x, const void* w, const int* beg,
-                      const int* end, const int* seg_idx, const int* slots,
-                      const int* woffs, void* y, int m, int x_ld, int ngroups,
-                      int out_w, int bk, int bn, int w_ld,
-                      cudaStream_t stream) {
-  constexpr int smem = MmRing<T, BM, BN, BK, STAGES, kTransW>::kSmemBytes;
-  auto kernel = packed_mm_kernel<T, BM, BN, BK, STAGES, kTransW>;
-  static std::atomic<uint64_t> allowed{0};   // bit d: done on device d
-  cudaError_t err = allow_smem(kernel, smem, allowed);
-  if (err != cudaSuccess) return err;
-  dim3 grid((m + BM - 1) / BM, ngroups * ((out_w + BN - 1) / BN));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), beg, end, seg_idx,
-      slots, woffs, static_cast<T*>(y), m, x_ld, ngroups * out_w, bk, bn,
-      w_ld);
-  return cudaGetLastError();
-}
-
-template <bool kTransW>
-int dispatch_mm(const void* x, const void* w, const int* b, const int* e,
-                const void* seg_idx, const void* slots, const void* woffs,
-                void* y, int m, int x_ld, int ngroups, int bk, int bn,
-                int w_ld, int dtype, void* stream) {
-  if (m <= 0 || ngroups <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int* si = static_cast<const int*>(seg_idx);
-  const int* sl = static_cast<const int*>(slots);
-  const int* wo = static_cast<const int*>(woffs);
-  const int out_w = kTransW ? bk : bn;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool small = m <= 32;   // one m-tile: narrow tiles, long steps
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1) {
-    using B = __nv_bfloat16;
-    err = small ? launch_mm<B, 32, 32, 256, 3, kTransW>(
-                      x, w, b, e, si, sl, wo, y, m, x_ld, ngroups, out_w, bk,
-                      bn, w_ld, st)
-                : launch_mm<B, 64, 64, 32, 3, kTransW>(
-                      x, w, b, e, si, sl, wo, y, m, x_ld, ngroups, out_w, bk,
-                      bn, w_ld, st);
-  } else if (dtype == 0) {
-    err = small ? launch_mm<float, 32, 32, 128, 3, kTransW>(
-                      x, w, b, e, si, sl, wo, y, m, x_ld, ngroups, out_w, bk,
-                      bn, w_ld, st)
-                : launch_mm<float, 64, 64, 16, 3, kTransW>(
-                      x, w, b, e, si, sl, wo, y, m, x_ld, ngroups, out_w, bk,
-                      bn, w_ld, st);
-  }
-  return static_cast<int>(err);
-}
-
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
 // link against libcuda); null where the driver lacks it.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -853,24 +1152,194 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The tensor map of a row-major (rows, cols) bf16 matrix for the dw
-// kernel's boxes: (kWgChunk rows x kWgBox columns), 128-byte swizzle,
-// zeros outside the matrix.
-cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows,
-                     int cols) {
+// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
+// dims 1..), boxes of kWgBox elements innermost, 128-byte swizzle, zeros
+// outside the tensor.  TMA takes a 16-byte-aligned base and strides:
+// anything else is refused here.
+cudaError_t bf16_map_nd(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {kWgBox, kWgChunk};
-  const cuuint32_t elem[2] = {1, 1};
+  if (reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorInvalidValue;
+  for (int i = 0; i < rank - 1; ++i)
+    if (strides[i] % 16) return cudaErrorInvalidValue;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major (rows, cols) bf16 matrix, boxes of
+// box_rows rows x kWgBox columns.
+cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
+                     int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {kWgBox, static_cast<cuuint32_t>(box_rows)};
+  return bf16_map_nd(map, base, 2, dims, strides, box);
+}
+
+// Arguments common to every mm launch.  W's block (r, c) starts at element
+// (r bk) w_ld + c bn and holds bk rows of bn; W has w_rows rows (n_active bk
+// in packed storage, where w_ld = bn; K in dense storage, where w_ld = N).
+struct MmArgs {
+  const void* x;
+  const void* w;
+  const int* beg;
+  const int* end;
+  const int* seg_idx;
+  const int* slots;   // dx in packed storage: the packed slot of each entry
+  const int* woffs;   // dense storage: each entry's W block offset
+  void* y;
+  int m, x_ld, ngroups, bk, bn, w_ld, w_rows;
+  cudaStream_t stream;
+};
+
+// Above 48 KB, dynamic shared memory must be allowed per kernel and device:
+// once for each (instantiation, device), not on every launch.  `carveout`
+// (percent of the unified L1 / shared memory) is set with it where given.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem,
+                       std::atomic<uint64_t>& allowed, int carveout = -1) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = uint64_t{1} << (dev & 63);
+  if (!(allowed.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess && carveout >= 0)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
+// packed_mm_kernel (the decode and tiled branches): grid (m-tiles, column
+// subtiles).
+template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
+cudaError_t launch_mm(const MmArgs& a) {
+  constexpr int smem = MmRing<T, BM, BN, BK, STAGES, kTransW>::kSmemBytes;
+  auto kernel = packed_mm_kernel<T, BM, BN, BK, STAGES, kTransW>;
+  static std::atomic<uint64_t> allowed{0};   // bit d: done on device d
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int out_w = kTransW ? a.bk : a.bn;
+  dim3 grid((a.m + BM - 1) / BM, a.ngroups * ((out_w + BN - 1) / BN));
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.w), a.beg, a.end,
+      a.seg_idx, a.slots, a.woffs, static_cast<T*>(a.y), a.m, a.x_ld,
+      a.ngroups * out_w, a.bk, a.bn, a.w_ld);
+  return cudaGetLastError();
+}
+
+// The column-subtile-major grid of the wgmma and ffma branches: (column
+// subtiles, m-tiles) of (rows x cols) tiles, at most 65535 m-tiles.
+cudaError_t tile_grid(const MmArgs& a, int out_w, int rows, int cols,
+                      dim3* grid) {
+  const int m_tiles = (a.m + rows - 1) / rows;
+  if (m_tiles > 65535) return cudaErrorInvalidValue;
+  *grid = dim3(a.ngroups * ((out_w + cols - 1) / cols), m_tiles);
+  return cudaSuccess;
+}
+
+template <bool kTransW>
+cudaError_t launch_mm_wgmma(const MmArgs& a) {
+  const int seg = kTransW ? a.bn : a.bk;
+  const int out_w = kTransW ? a.bk : a.bn;
+  if (seg % kMmChunk || a.bk % 8 || a.bn % 8 || a.w_ld % a.bn ||
+      a.w_rows % a.bk)
+    return cudaErrorInvalidValue;
+  dim3 grid;
+  cudaError_t err = tile_grid(a, out_w, kMmTile, kMmTile, &grid);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tx, tw{};
+  err = bf16_map(&tx, a.x, a.m, a.x_ld, kMmTile);
+  if (err != cudaSuccess) return err;
+  // W as (block-row, row, block-column, column); with no block (an empty
+  // packing) no column has an active, nothing is loaded, and tw stays
+  // unencoded.
+  if (a.w_rows > 0) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.bn),
+                                static_cast<cuuint64_t>(a.w_ld / a.bn),
+                                static_cast<cuuint64_t>(a.bk),
+                                static_cast<cuuint64_t>(a.w_rows / a.bk)};
+    const cuuint64_t ld = static_cast<cuuint64_t>(a.w_ld) * 2;
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(a.bn) * 2, ld,
+                                   ld * a.bk};
+    const cuuint32_t box[4] = {kWgBox, 1, kTransW ? kMmTile : kMmChunk, 1};
+    err = bf16_map_nd(&tw, a.w, 4, dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = packed_mm_wgmma_kernel<kTransW>;
+  static std::atomic<uint64_t> allowed{0};
+  err = allow_smem(kernel, kMmSmem, allowed,
+                   cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWgThreads, kMmSmem, a.stream>>>(
+      tx, tw, a.beg, a.end, a.seg_idx, a.slots, a.woffs,
+      static_cast<__nv_bfloat16*>(a.y), a.m, a.ngroups * out_w, a.bk, a.bn,
+      a.w_ld);
+  return cudaGetLastError();
+}
+
+template <bool kTransW>
+cudaError_t launch_mm_ffma(const MmArgs& a) {
+  const int out_w = kTransW ? a.bk : a.bn;
+  dim3 grid;
+  const cudaError_t err = tile_grid(a, out_w, kFfRows, kFfCols, &grid);
+  if (err != cudaSuccess) return err;
+  packed_mm_ffma_kernel<kTransW><<<grid, kFfThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w), a.beg,
+      a.end, a.seg_idx, a.slots, a.woffs, static_cast<float*>(a.y), a.m,
+      a.x_ld, a.ngroups * out_w, a.bk, a.bn, a.w_ld);
+  return cudaGetLastError();
+}
+
+// The branches, in the order of ops/block_sparse_packed.py MM_BRANCHES.
+// The caller names one by the rule of mm_branch there:
+//   decode: m <= 32, either dtype -- packed_mm_kernel, 32 x 32 tiles,
+//           contraction steps of 256 (128 in f32);
+//   tiled:  bf16, m > 32, a contraction per active (bk forward, bn dx)
+//           that 64 does not divide -- packed_mm_kernel, 64 x 64 x 32;
+//   wgmma:  bf16, m > 32, 64 divides the contraction --
+//           packed_mm_wgmma_kernel;
+//   ffma:   f32, m > 32 -- packed_mm_ffma_kernel.
+// A branch that cannot take the call (another dtype, a contraction the
+// wgmma boxes do not divide, unaligned operands, more than 65535 m-tiles)
+// is refused with cudaErrorInvalidValue; no other branch is tried.
+enum MmBranch { kMmDecode = 0, kMmTiled = 1, kMmWgmma = 2, kMmFfma = 3 };
+
+template <bool kTransW>
+int dispatch_mm(const MmArgs& a, int branch, int dtype) {
+  if (a.m <= 0 || a.ngroups <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  using B = __nv_bfloat16;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (branch) {
+    case kMmDecode:   // one m-tile at decode: narrow tiles, long steps
+      if (dtype == 1)
+        err = launch_mm<B, 32, 32, 256, 3, kTransW>(a);
+      else if (dtype == 0)
+        err = launch_mm<float, 32, 32, 128, 3, kTransW>(a);
+      break;
+    case kMmTiled:
+      if (dtype == 1) err = launch_mm<B, 64, 64, 32, 3, kTransW>(a);
+      break;
+    case kMmWgmma:
+      if (dtype == 1) err = launch_mm_wgmma<kTransW>(a);
+      break;
+    case kMmFfma:
+      if (dtype == 0) err = launch_mm_ffma<kTransW>(a);
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 // Arguments common to every dw launch.
@@ -908,9 +1377,9 @@ cudaError_t launch_reduce(const DwArgs& a, int tiles, int tm, int tn) {
 
 cudaError_t launch_dw_bf16(const DwArgs& a) {
   CUtensorMap tx, tg;
-  cudaError_t err = bf16_map(&tx, a.x, a.m, a.K);
+  cudaError_t err = bf16_map(&tx, a.x, a.m, a.K, kWgChunk);
   if (err != cudaSuccess) return err;
-  err = bf16_map(&tg, a.gy, a.m, a.N);
+  err = bf16_map(&tg, a.gy, a.m, a.N, kWgChunk);
   if (err != cudaSuccess) return err;
   static std::atomic<uint64_t> allowed{0};
   err = allow_smem(packed_dw_wgmma_kernel, kWgSmem, allowed);
@@ -960,17 +1429,21 @@ int dispatch_dw(const DwArgs& a, int dtype) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Each entry point launches its kernel
-// once and returns cudaGetLastError() after the launch (0 = launched).  All
-// run on `stream` and allocate nothing.
+// once and returns cudaGetLastError() after the launch (0 = launched), or
+// the error that refused it.  All run on `stream` and allocate nothing.
 
-// y (m, nn*bn) = x (m, nk*bk) @ W; column j's actives are packed slots
-// col_ptr[j] .. col_ptr[j+1]-1, block-row rows[a] each.
+// y (m, nn*bn) = x (m, nk*bk) @ W (n_act, bk, bn); column j's actives are
+// packed slots col_ptr[j] .. col_ptr[j+1]-1, block-row rows[a] each.
+// `branch`: dispatch_mm's MmBranch, named by the caller.
 extern "C" int packed_mm_fwd(const void* x, const void* w, const void* col_ptr,
                              const void* rows, void* y, int m, int K, int nn,
-                             int bk, int bn, int dtype, void* stream) {
+                             int bk, int bn, int n_act, int branch, int dtype,
+                             void* stream) {
   const int* p = static_cast<const int*>(col_ptr);
-  return dispatch_mm<false>(x, w, p, p + 1, rows, nullptr, nullptr, y, m, K,
-                            nn, bk, bn, bn, dtype, stream);
+  return dispatch_mm<false>({x, w, p, p + 1, static_cast<const int*>(rows),
+                             nullptr, nullptr, y, m, K, nn, bk, bn, bn,
+                             n_act * bk, static_cast<cudaStream_t>(stream)},
+                            branch, dtype);
 }
 
 // dx (m, nk*bk) = gy (m, nn*bn) @ Wᵀ; block-row k's actives are entries
@@ -979,10 +1452,14 @@ extern "C" int packed_mm_fwd(const void* x, const void* w, const void* col_ptr,
 extern "C" int packed_mm_dx(const void* gy, const void* w,
                             const void* row_ptr, const void* cols,
                             const void* slots, void* dx, int m, int N, int nk,
-                            int bk, int bn, int dtype, void* stream) {
+                            int bk, int bn, int n_act, int branch, int dtype,
+                            void* stream) {
   const int* p = static_cast<const int*>(row_ptr);
-  return dispatch_mm<true>(gy, w, p, p + 1, cols, slots, nullptr, dx, m, N,
-                           nk, bk, bn, bn, dtype, stream);
+  return dispatch_mm<true>({gy, w, p, p + 1, static_cast<const int*>(cols),
+                            static_cast<const int*>(slots), nullptr, dx, m, N,
+                            nk, bk, bn, bn, n_act * bk,
+                            static_cast<cudaStream_t>(stream)},
+                           branch, dtype);
 }
 
 // dw (n_act, bk, bn): slot s is block (rows[s], cols[s]); x is (m, K), gy
@@ -1011,10 +1488,14 @@ extern "C" int packed_dw(const void* x, const void* gy, const void* rows,
 extern "C" int dense_mm_fwd(const void* x, const void* w, const void* beg,
                             const void* end, const void* rows,
                             const void* woffs, void* y, int m, int K, int nn,
-                            int bk, int bn, int N, int dtype, void* stream) {
-  return dispatch_mm<false>(x, w, static_cast<const int*>(beg),
-                            static_cast<const int*>(end), rows, nullptr,
-                            woffs, y, m, K, nn, bk, bn, N, dtype, stream);
+                            int bk, int bn, int N, int branch, int dtype,
+                            void* stream) {
+  return dispatch_mm<false>(
+      {x, w, static_cast<const int*>(beg), static_cast<const int*>(end),
+       static_cast<const int*>(rows), nullptr,
+       static_cast<const int*>(woffs), y, m, K, nn, bk, bn, N, K,
+       static_cast<cudaStream_t>(stream)},
+      branch, dtype);
 }
 
 // dx (m, nk*bk) = gy (m, N) @ Wᵀ over the actives: output block-column k
@@ -1024,10 +1505,14 @@ extern "C" int dense_mm_fwd(const void* x, const void* w, const void* beg,
 extern "C" int dense_mm_dx(const void* gy, const void* w, const void* beg,
                            const void* end, const void* cols,
                            const void* woffs, void* dx, int m, int N, int nk,
-                           int bk, int bn, int dtype, void* stream) {
-  return dispatch_mm<true>(gy, w, static_cast<const int*>(beg),
-                           static_cast<const int*>(end), cols, nullptr, woffs,
-                           dx, m, N, nk, bk, bn, N, dtype, stream);
+                           int bk, int bn, int branch, int dtype,
+                           void* stream) {
+  return dispatch_mm<true>(
+      {gy, w, static_cast<const int*>(beg), static_cast<const int*>(end),
+       static_cast<const int*>(cols), nullptr,
+       static_cast<const int*>(woffs), dx, m, N, nk, bk, bn, N, nk * bk,
+       static_cast<cudaStream_t>(stream)},
+      branch, dtype);
 }
 
 // dw (K, N) += the active blocks of xᵀ @ gy: entry s is block (rows[s],

@@ -7,7 +7,15 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
   #  TPU kernel (file:line, launcher)                      Hopper counterpart
   1  block_sparse_packed.py:178 _mm_kernel, _mm_call       csrc/packed_mm.cu
                                                            (CUDA C++, sm_90a)
-                                                           packed_mm_kernel:
+                                                           the mm kernels
+                                                           (mm_branch: packed_
+                                                           mm_wgmma_kernel in
+                                                           bf16, packed_mm_
+                                                           ffma_kernel in f32,
+                                                           packed_mm_kernel at
+                                                           m <= 32 and for a
+                                                           bf16 contraction 64
+                                                           does not divide):
                                                            forward mode, bound
                                                            in ops/block_sparse_
                                                            packed.py as
@@ -57,8 +65,8 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            the same numbers
                                                            and has no switch
   7  block_sparse_v4.py:60 _v4_kernel, _v4_matmul          csrc/packed_mm.cu
-     (forward; dx from _v4_bwd with the transposed         packed_mm_kernel in
-     packing)                                              its dense storage
+     (forward; dx from _v4_bwd with the transposed         the mm kernels in
+     packing)                                              their dense storage
                                                            mode (W read in
                                                            place from (K, N)
                                                            at per-entry

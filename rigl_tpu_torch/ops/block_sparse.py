@@ -9,8 +9,8 @@ y = x @ (expanded(block_mask) * w) as one torch.autograd.Function,
            zeros elsewhere, in w's dtype
 
 The TPU kernels walk a dense (M/bm, N/bn, K/bk) grid and skip the dot at
-inactive blocks.  Here forward and dx run on `packed_mm_kernel` of
-csrc/packed_mm.cu in its dense storage mode over the occupancy's entry
+inactive blocks.  Here forward and dx run on the mm kernels of
+csrc/packed_mm.cu in their dense storage mode over the occupancy's entry
 lists (block_sparse_v3.occupancy_lists), which visit only the active
 blocks; dx reads W transposed in place where JAX builds w.T.  dw runs on
 the dw kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel`
@@ -35,8 +35,8 @@ from rigl_tpu_torch.ops.block_mask import expand_from_blocks
 # Launches of each kernel mode through this module's entry (B12).  Each
 # wrapper adds one per launch; nothing else touches them but callers
 # resetting them.
-v1_fwd_launches = 0   # packed_mm_kernel, dense forward
-v1_dx_launches = 0    # packed_mm_kernel, dense dx
+v1_fwd_launches = 0   # the mm kernels, dense forward
+v1_dx_launches = 0    # the mm kernels, dense dx
 v1_dw_launches = 0    # the dw kernels, dense mode
 
 

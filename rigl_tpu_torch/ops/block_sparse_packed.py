@@ -13,8 +13,10 @@ Each of the three products has a plain PyTorch version, which CPU tensors
 take (`packed_matmul_reference`, `packed_matmul_dx_reference`,
 `packed_dw_reference`), and a hand-written Hopper kernel in
 csrc/packed_mm.cu, which CUDA tensors launch or raise: the forward and dx
-modes of `packed_mm_kernel` (replacing the TPU kernel `_mm_kernel`) and
-the dw kernels (replacing `_dw_kernel` / `_dw_panel_kernel`:
+modes of the mm kernels (replacing the TPU kernel `_mm_kernel`; the branch
+by `mm_branch`: `packed_mm_wgmma_kernel` in bf16, `packed_mm_ffma_kernel`
+in f32, `packed_mm_kernel` at decode and for a bf16 contraction that 64
+does not divide) and the dw kernels (replacing `_dw_kernel` / `_dw_panel_kernel`:
 `packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel` in f32, each
 with its m-sum split over thread blocks by `dw_plan` and the partials
 added in slice order by `packed_dw_reduce_kernel`).  The kernels read CSR
@@ -34,8 +36,8 @@ from rigl_tpu_torch.ops import _build, dw_split
 
 # Launches of each kernel in this process.  Each wrapper adds one per
 # launch of its kernel; nothing else touches them but callers resetting them.
-packed_mm_launches = 0        # packed_mm_kernel, forward mode
-packed_mm_dx_launches = 0     # packed_mm_kernel, transposed (dx) mode
+packed_mm_launches = 0        # the mm kernels, forward mode
+packed_mm_dx_launches = 0     # the mm kernels, transposed (dx) mode
 packed_dw_launches = 0        # the dw kernels (one per call of the entry)
 
 
@@ -271,6 +273,30 @@ def packed_dw_reference(x: torch.Tensor, gy: torch.Tensor, packing: Packing,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# The mm kernels' branches (csrc/packed_mm.cu dispatch_mm, by their codes:
+# the position here), chosen by `mm_branch`.
+MM_BRANCHES = ('decode', 'tiled', 'wgmma', 'ffma')
+# The rows up to which the decode branch runs (one m-tile of 32), and the
+# contraction chunk of the wgmma branch's TMA boxes.
+MM_DECODE_ROWS, MM_WGMMA_CHUNK = 32, 64
+
+
+def mm_branch(m: int, seg: int, dtype) -> str:
+  """The branch of the forward / dx kernels for m rows and a contraction
+  of `seg` per active (bk forward, bn dx) in `dtype`:
+  'decode' at m <= 32 (packed_mm_kernel's 32 x 32 tiles: at serving's m =
+  8 one thread block's chain of steps, weight-bandwidth-bound); above it
+  'ffma' for float32 (packed_mm_ffma_kernel); for bfloat16 'wgmma'
+  (packed_mm_wgmma_kernel) where 64 divides seg, else 'tiled'
+  (packed_mm_kernel, 64 x 64 x 32): a 64-deep box of x would read x's
+  neighbouring segment, whose products with the zeros past the W block
+  vanish only while that segment is finite."""
+  if m <= MM_DECODE_ROWS:
+    return 'decode'
+  if dtype == torch.float32:
+    return 'ffma'
+  return 'wgmma' if seg % MM_WGMMA_CHUNK == 0 else 'tiled'
+
 # The dw kernels' (tile rows, tile columns, m chunk, thread blocks an SM):
 # bf16 runs packed_dw_wgmma_kernel (132 KB of shared memory a block), f32
 # packed_dw_ffma_kernel (168 registers of 128 threads) (csrc/packed_mm.cu).
@@ -319,7 +345,7 @@ def dw_workspace(plan: DwPlan, device) -> Tuple[Optional[torch.Tensor], int]:
 def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu: pointers, then ints,
   then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'packed_mm_fwd': (5, 6), 'packed_mm_dx': (6, 6),
+  n_ptrs, n_ints = {'packed_mm_fwd': (5, 8), 'packed_mm_dx': (6, 8),
                     'packed_dw': (6, 9), 'dense_dw': (7, 9)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
@@ -370,8 +396,9 @@ def _launch(name: str, *args):
 
 def packed_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
                        packing: Packing, block: Tuple[int, int]):
-  """y = x @ W: launches packed_mm_kernel (forward mode) on the current
-  stream; checks what the kernel takes and raises on anything else."""
+  """y = x @ W: launches the mm kernel of mm_branch (forward mode) on the
+  current stream; checks what the kernel takes and raises on anything
+  else."""
   global packed_mm_launches
   bk, bn = block
   nk, nn_ = packing.shape
@@ -383,7 +410,8 @@ def packed_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     return y
   _launch('packed_mm_fwd', x.data_ptr(), w_packed.data_ptr(),
           col_ptr.data_ptr(), rows.data_ptr(), y.data_ptr(), m, nk * bk, nn_,
-          bk, bn, _DTYPE_CODE[x.dtype],
+          bk, bn, packing.n_active,
+          MM_BRANCHES.index(mm_branch(m, bk, x.dtype)), _DTYPE_CODE[x.dtype],
           torch.cuda.current_stream(x.device).cuda_stream)
   packed_mm_launches += 1
   return y
@@ -391,8 +419,8 @@ def packed_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
 
 def packed_matmul_dx_cuda(gy: torch.Tensor, w_packed: torch.Tensor,
                           packing: Packing, block: Tuple[int, int]):
-  """dx = gy @ Wᵀ: launches packed_mm_kernel (dx mode) through the bwd
-  packing's CSR; checks and raises as packed_matmul_cuda does."""
+  """dx = gy @ Wᵀ: launches the mm kernel of mm_branch (dx mode) through
+  the bwd packing's CSR; checks and raises as packed_matmul_cuda does."""
   global packed_mm_dx_launches
   bk, bn = block
   nk, nn_ = packing.shape
@@ -405,7 +433,9 @@ def packed_matmul_dx_cuda(gy: torch.Tensor, w_packed: torch.Tensor,
     return dx
   _launch('packed_mm_dx', gy.data_ptr(), w_packed.data_ptr(),
           row_ptr.data_ptr(), cols.data_ptr(), slots.data_ptr(), dx.data_ptr(),
-          m, nn_ * bn, nk, bk, bn, _DTYPE_CODE[gy.dtype],
+          m, nn_ * bn, nk, bk, bn, packing.n_active,
+          MM_BRANCHES.index(mm_branch(m, bn, gy.dtype)),
+          _DTYPE_CODE[gy.dtype],
           torch.cuda.current_stream(gy.device).cuda_stream)
   packed_mm_dx_launches += 1
   return dx

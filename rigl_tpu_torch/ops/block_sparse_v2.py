@@ -9,10 +9,10 @@ which block_sparse_v3.py imports from here, as JAX's v3 does).
 forward only, as JAX's (its entry has no VJP: a backward through it
 raises NotImplementedError).  The TPU kernel `_gather_kernel` walks
 count[j] active k-blocks per output tile with double-buffered manual DMA;
-here the same sums run on `packed_mm_kernel` of csrc/packed_mm.cu in its
+here the same sums run on the mm kernels of csrc/packed_mm.cu in their
 dense storage mode over those lists (block_sparse_v3.occupancy_lists),
-whose cp.async ring copies only the active blocks' x and W tiles, so
-inactive blocks cost no traffic either.  CPU tensors take the plain
+which load only the active blocks' x and W tiles, so inactive blocks
+cost no traffic either.  CPU tensors take the plain
 version (block_sparse_v3.dense_mm_reference); CUDA tensors launch the
 kernel or raise.
 """
@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-# Launches of packed_mm_kernel's dense forward through this module's entry
+# Launches of the mm kernels' dense forward through this module's entry
 # (B11).  Its wrapper adds one per launch; nothing else touches it but
 # callers resetting it.
 gather_launches = 0

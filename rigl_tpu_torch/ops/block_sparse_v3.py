@@ -13,8 +13,8 @@ matrix of a dense-masked layer; a (K/bk, N/bn) occupancy says which of its
                                            'dense' (one product, summed in
                                            f32, times the expanded mask)
 
-Both products run on `packed_mm_kernel` of csrc/packed_mm.cu in its dense
-storage mode (replacing the TPU kernel `_v3_kernel`), and the gathered dw
+Both products run on the mm kernels of csrc/packed_mm.cu (the branch by
+block_sparse_packed.mm_branch) in their dense storage mode (replacing the TPU kernel `_v3_kernel`), and the gathered dw
 on the dw kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel`
 in f32) in their dense mode (replacing `_dw_v2_kernel`).  A
 kernel reads DenseLists: for every output block-column, a run of entries,
@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from rigl_tpu_torch.ops import _build
+from rigl_tpu_torch.ops import block_sparse_packed as bsp
 from rigl_tpu_torch.ops.block_sparse_packed import (_DTYPE_CODE, _on_device,
                                                     dw_launch)
 from rigl_tpu_torch.ops.block_sparse_v2 import pack_block_indices
@@ -50,10 +51,10 @@ from rigl_tpu_torch.ops.block_sparse_v2 import pack_block_indices
 # Launches of each kernel mode through this module's wrappers.  Each
 # wrapper adds one per launch; nothing else touches them but callers
 # resetting them.
-v3_fwd_launches = 0     # packed_mm_kernel, dense forward, index-list form
-v3_dx_launches = 0      # packed_mm_kernel, dense dx, index-list form
+v3_fwd_launches = 0     # the mm kernels, dense forward, index-list form
+v3_dx_launches = 0      # the mm kernels, dense dx, index-list form
 dw_gather_launches = 0  # the dw kernels, dense mode (B9)
-dense_control_launches = 0  # packed_mm_kernel, dense forward, all active (B9')
+dense_control_launches = 0  # the mm kernels, dense forward, all active (B9')
 
 # Density assumed by the 'auto' dw traffic model (JAX's _AUTO_DENSITY): the
 # choice must be static, as the mask evolves.
@@ -180,7 +181,7 @@ def dense_dw_reference(x: torch.Tensor, gy: torch.Tensor, entries: DwEntries,
 def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu's dense modes: pointers,
   then ints, then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'dense_mm_fwd': (7, 7), 'dense_mm_dx': (7, 6)}[name]
+  n_ptrs, n_ints = {'dense_mm_fwd': (7, 8), 'dense_mm_dx': (7, 7)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                  + [ctypes.c_void_p])
@@ -234,10 +235,11 @@ def _check_cuda(op: str, acts, w: torch.Tensor, block: Tuple[int, int],
 
 def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor, lists: DenseLists,
                   block: Tuple[int, int], mode: str = 'fwd'):
-  """Launches packed_mm_kernel in its dense storage mode on the current
-  stream: the forward (y = x @ W over the entries) or dx (gy @ Wᵀ, W read
-  transposed in place).  Counts nothing: callers count their own
-  launches.  Checks what the kernel takes and raises on anything else."""
+  """Launches the mm kernel of block_sparse_packed.mm_branch in its dense
+  storage mode on the current stream: the forward (y = x @ W over the
+  entries) or dx (gy @ Wᵀ, W read transposed in place).  Counts nothing:
+  callers count their own launches.  Checks what the kernel takes and
+  raises on anything else."""
   bk, bn = block
   kdim, n = w.shape
   width = n if mode == 'dx' else kdim
@@ -251,11 +253,13 @@ def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor, lists: DenseLists,
   ptrs = (x.data_ptr(), w.data_ptr(), lists.beg.data_ptr(),
           lists.end.data_ptr(), lists.seg.data_ptr(), lists.woffs.data_ptr(),
           y.data_ptr())
+  branch = bsp.MM_BRANCHES.index(
+      bsp.mm_branch(m, bn if mode == 'dx' else bk, x.dtype))
   if mode == 'dx':
-    _launch('dense_mm_dx', *ptrs, m, n, groups, bk, bn, _DTYPE_CODE[x.dtype],
-            stream)
+    _launch('dense_mm_dx', *ptrs, m, n, groups, bk, bn, branch,
+            _DTYPE_CODE[x.dtype], stream)
   else:
-    _launch('dense_mm_fwd', *ptrs, m, kdim, groups, bk, bn, n,
+    _launch('dense_mm_fwd', *ptrs, m, kdim, groups, bk, bn, n, branch,
             _DTYPE_CODE[x.dtype], stream)
   return y
 
@@ -462,7 +466,7 @@ def pallas_dense_matmul(x: torch.Tensor, w: torch.Tensor,
                         tiles: Tuple[int, int, int] = (512, 512, 512),
                         interpret: Optional[bool] = None):
   """y = x @ w, the plain tiled kernel-overhead control (B9'), in x's
-  dtype with f32 sums: packed_mm_kernel's dense forward over an
+  dtype with f32 sums: the mm kernels' dense forward over an
   all-active occupancy of (bk, bn) = tiles[1:] blocks.  Forward only, as
   JAX's.  JAX leaves the output's tail unwritten where a tile does not
   divide its dimension; here that raises ValueError.  `bm` (tiles[0])

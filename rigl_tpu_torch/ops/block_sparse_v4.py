@@ -10,8 +10,8 @@ as a torch.autograd.Function: dx = gy @ (mask * w)ᵀ reads the same W
 blocks transposed, and dw is 'dense' (the product, summed in f32, times
 the expanded occupancy) or 'gather' (the active blocks only), as in v3.
 
-Forward and dx run on `packed_mm_kernel` of csrc/packed_mm.cu in its dense
-storage mode (replacing the TPU kernel `_v4_kernel`: the same sums as v3's
+Forward and dx run on the mm kernels of csrc/packed_mm.cu (the branch by
+block_sparse_packed.mm_branch) in their dense storage mode (replacing the TPU kernel `_v4_kernel`: the same sums as v3's
 `_v3_kernel`, from the flat index form); the gathered dw on the dw
 kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel` in f32)
 in their dense mode over the n_active packed blocks.  The
@@ -33,8 +33,8 @@ from rigl_tpu_torch.ops import block_sparse_v3 as v3
 from rigl_tpu_torch.ops.block_sparse_v3 import DenseLists, DwEntries
 
 # Launches of each kernel mode through this module's wrappers.
-v4_fwd_launches = 0   # packed_mm_kernel, dense forward, flat-packing form
-v4_dx_launches = 0    # packed_mm_kernel, dense dx, flat-packing form
+v4_fwd_launches = 0   # the mm kernels, dense forward, flat-packing form
+v4_dx_launches = 0    # the mm kernels, dense dx, flat-packing form
 
 
 def pack_flat_active(block_mask: torch.Tensor, n_active: int):

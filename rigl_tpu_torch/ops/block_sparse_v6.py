@@ -9,7 +9,7 @@ the entry count n_active + N/bn stays static through drop/grow;
 transpose}.  `block_sparse_matmul_v6(x, w, packing)` is y = x @ (mask *
 w) as a torch.autograd.Function:
 
-  forward  runs on `packed_mm_kernel` of csrc/packed_mm.cu in its dense
+  forward  runs on the mm kernels of csrc/packed_mm.cu in their dense
            storage mode (replacing the TPU kernel `_v6_kernel`), over a
            CSR of packing['fwd']'s valid entries;
   dx       the same kernel's dense dx mode over packing['bwd'] (cols are
@@ -41,8 +41,8 @@ from rigl_tpu_torch.ops.block_sparse_v4 import Packing
 # Launches of each kernel mode through this module's entry (B10).  Each
 # wrapper adds one per launch; nothing else touches them but callers
 # resetting them.
-v6_fwd_launches = 0   # packed_mm_kernel, dense forward
-v6_dx_launches = 0    # packed_mm_kernel, dense dx
+v6_fwd_launches = 0   # the mm kernels, dense forward
+v6_dx_launches = 0    # the mm kernels, dense dx
 
 
 def pack_columns(block_mask: torch.Tensor, n_active: int):

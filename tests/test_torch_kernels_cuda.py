@@ -1134,3 +1134,203 @@ def test_tap_dw_packed_storage_split_matches_plain(cuda_device, monkeypatch):
     want = tbsc.tap_dw_reference(x, gy, index, dtype)
     assert _rel(a, want) <= TAP_TOL[dtype]
     assert _split_agree(a, one, dtype)
+
+
+# ----------------------------- the forward / dx kernels' branches --------
+# block_sparse_packed.mm_branch names the branch of each forward / dx call
+# (csrc/packed_mm.cu dispatch_mm): decode at m <= 32, ffma in f32, wgmma in
+# bf16 where 64 divides the contraction per active, tiled otherwise.
+MM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _mm_forms(occ, block, w, device):
+  """{form: (fwd call, dx call, plain fwd, plain dx)} of one occupancy
+  over the dense W (K, N): packed storage (w's active blocks, packed) and
+  the dense list forms v4, v3, v6 and B12, each through its own wrapper."""
+  from rigl_tpu_torch.ops import block_sparse as tv1
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  from rigl_tpu_torch.ops import block_sparse_v4 as tv4
+  from rigl_tpu_torch.ops import block_sparse_v6 as tv6
+  nk, nn_ = occ.shape
+  n = w.shape[1]
+  n_act = int(occ.sum())
+  occ_c = occ.cpu()
+  packing = tbsp.make_packing(occ_c, n_act)
+  wp = tbsp.pack_dense(w, packing, block).contiguous()
+  cols, rows = tv4.pack_flat_active(occ, n_act)
+  p6 = tv6.make_packing(occ, n_act)
+  lists = {
+      'v4': (tv4.v4_matmul_cuda,
+             tv4.flat_lists(cols, rows, block, tuple(w.shape)),
+             tv4.flat_lists(cols, rows, block, tuple(w.shape), 'dx')),
+      'v3': (tv3.v3_matmul_cuda, tv3.occupancy_lists(occ, block, n),
+             tv3.occupancy_lists(occ, block, n, 'dx')),
+      'v6': (tv6.v6_matmul_cuda,
+             tv6.entry_lists(*p6['fwd'], block, n, nn_),
+             tv6.entry_lists(*p6['bwd'], block, n, nk, 'dx')),
+      'v1': (tv1.v1_matmul_cuda, tv3.occupancy_lists(occ, block, n),
+             tv3.occupancy_lists(occ, block, n, 'dx'))}
+  cpu = lambda ls: type(ls)(*(t.cpu() for t in ls))  # noqa: E731
+  forms = {'packed': (
+      lambda x: tbsp.packed_matmul_cuda(x, wp, packing, block),
+      lambda gy: tbsp.packed_matmul_dx_cuda(gy, wp, packing, block),
+      lambda x: tbsp.packed_matmul_reference(x, wp, packing, block),
+      lambda gy: tbsp.packed_matmul_dx_reference(gy, wp, packing, block))}
+  for name, (kern, fl, dl) in lists.items():
+    forms[name] = (
+        lambda x, kern=kern, fl=fl: kern(x, w, fl, block),
+        lambda gy, kern=kern, dl=dl: kern(gy, w, dl, block, 'dx'),
+        lambda x, fl=cpu(fl): tv3.dense_mm_reference(x, w, fl, block),
+        lambda gy, dl=cpu(dl): tv3.dense_mm_reference(gy, w, dl, block,
+                                                      'dx'))
+  return forms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('block', [(128, 128), (64, 192), (192, 64)])
+@pytest.mark.parametrize('m', [33, 64, 1000, 1024])
+def test_mm_branches_match_plain(cuda_device, m, block, dtype):
+  """The wgmma (bf16) and ffma (f32) branches, forward and dx, in packed
+  storage and through the v4, v3, v6 and B12 lists: ragged m, bn = 64, an
+  out_w (192) that 128 does not divide, an empty block-row and column
+  (exactly zero); against the plain versions, relative to max(1,
+  max |plain|)."""
+  bk, bn = block
+  occ, _, _, x, w, gy = _dense_case(3, 4, block, m, dtype, cuda_device,
+                                    m + bk, 'edges')
+  want_branch = 'wgmma' if dtype == torch.bfloat16 else 'ffma'
+  assert tbsp.mm_branch(m, bk, dtype) == want_branch
+  assert tbsp.mm_branch(m, bn, dtype) == want_branch
+  occ_c = occ.cpu()
+  for name, (fwd, dx, pfwd, pdx) in _mm_forms(occ, block, w,
+                                              cuda_device).items():
+    y, g = fwd(x), dx(gy)
+    torch.cuda.synchronize()
+    for got, want in ((y, pfwd(x)), (g, pdx(gy))):
+      assert got.shape == want.shape and got.dtype == dtype, name
+      assert _rel(got, want) <= MM_TOL[dtype], (name, _rel(got, want))
+    for j in (occ_c.sum(0) == 0).nonzero().flatten().tolist():
+      assert not y[:, j * bn:(j + 1) * bn].any(), name
+    for k in (occ_c.sum(1) == 0).nonzero().flatten().tolist():
+      assert not g[:, k * bk:(k + 1) * bk].any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('block', [(96, 96), (32, 64), (64, 32)])
+def test_mm_ragged_contraction_takes_the_tiled_branch(cuda_device,
+                                                     monkeypatch, block):
+  """A bf16 contraction per active that 64 does not divide takes the
+  tiled branch (packed_mm_kernel) and matches the plain versions; the
+  wgmma branch, named for it, is refused (a 64-deep box of x would read
+  its neighbouring segment): the wrapper raises, nothing falls back."""
+  bk, bn = block
+  m = 1000
+  occ, _, _, x, w, gy = _dense_case(3, 4, block, m, torch.bfloat16,
+                                    cuda_device, bk, 'edges')
+  for seg in (bk, bn):
+    assert tbsp.mm_branch(m, seg, torch.bfloat16) == (
+        'wgmma' if seg % 64 == 0 else 'tiled')
+  for name, (fwd, dx, pfwd, pdx) in _mm_forms(occ, block, w,
+                                              cuda_device).items():
+    assert _rel(fwd(x), pfwd(x)) <= 2e-2, name
+    assert _rel(dx(gy), pdx(gy)) <= 2e-2, name
+  monkeypatch.setattr(tbsp, 'mm_branch', lambda *a: 'wgmma')
+  for name, (fwd, dx, _, _) in _mm_forms(occ, block, w,
+                                         cuda_device).items():
+    call, a = (fwd, x) if bk % 64 else (dx, gy)
+    with pytest.raises(RuntimeError, match='launch failed'):
+      call(a)
+
+
+@pytest.mark.cuda
+def test_mm_branch_of_another_dtype_is_refused(cuda_device, monkeypatch):
+  """A branch named for another dtype (wgmma or tiled for f32, ffma for
+  bf16) is refused, not run."""
+  occ, _, _, x, w, _ = _dense_case(2, 2, (64, 64), 64, torch.float32,
+                                   cuda_device, 0, 'edges')
+  for branch, dtype in (('wgmma', torch.float32), ('tiled', torch.float32),
+                        ('ffma', torch.bfloat16)):
+    fwd = _mm_forms(occ, (64, 64), w.to(dtype), cuda_device)['v3'][0]
+    monkeypatch.setattr(tbsp, 'mm_branch', lambda *a, b=branch: b)
+    with pytest.raises(RuntimeError, match='launch failed'):
+      fwd(x.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_mm_empty_column_is_zero_in_a_reused_nan_buffer(cuda_device, dtype):
+  """wgmma and ffma: an output column with no active block comes out
+  exactly zero from torch.empty's memory, where the caching allocator has
+  just taken back a NaN-filled buffer of the output's size; packed and
+  dense storage."""
+  occ, _, _, x, w, gy = _dense_case(4, 6, (64, 64), 1024, dtype,
+                                    cuda_device, 5, 'edges')
+  for name, (fwd, dx, _, _) in _mm_forms(occ, (64, 64), w,
+                                         cuda_device).items():
+    for call, a, width in ((fwd, x, 6 * 64), (dx, gy, 4 * 64)):
+      nan = torch.full((1024, width), float('nan'), dtype=dtype,
+                       device=cuda_device)
+      del nan
+      got = call(a)
+      torch.cuda.synchronize()
+      assert torch.isfinite(got).all(), name
+      assert not got[:, width - 64:].any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_mm_repeated_calls_are_bitwise_equal(cuda_device, dtype):
+  """The same call twice gives the same bits: each output tile is one
+  thread block's, summed in a fixed order, with no atomics."""
+  occ, _, _, x, w, gy = _dense_case(4, 4, (128, 128), 1000, dtype,
+                                    cuda_device, 9, 'edges')
+  for name, (fwd, dx, _, _) in _mm_forms(occ, (128, 128), w,
+                                         cuda_device).items():
+    assert torch.equal(fwd(x), fwd(x)), name
+    assert torch.equal(dx(gy), dx(gy)), name
+
+
+@pytest.mark.cuda
+def test_mm_ffma_is_bitwise_equal_to_the_tiled_f32_kernel(cuda_device,
+                                                         monkeypatch):
+  """f32 at the MLP training shape (m = 1024, 4096 x 4096, block (512,
+  512), s = 0.8): packed_mm_ffma_kernel gives the same bits as
+  packed_mm_kernel's f32 instance (the decode branch, forced: the same
+  kernel as the one that took m > 32 before the ffma branch, with
+  contraction steps of 128 instead of 16), forward and dx, packed and
+  dense: each output is one fmaf chain over the actives in list order and
+  k ascending in both."""
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  gen = torch.Generator().manual_seed(4)
+  nb, block = 8, (512, 512)
+  n_act = nb * nb - get_n_zeros(nb * nb, 0.8)
+  occ = random_occupancy(gen, nb, nb, n_act).to(cuda_device)
+  w = (torch.randn(4096, 4096, generator=gen) / 64).to(cuda_device)
+  x = torch.randn(1024, 4096, generator=gen).to(cuda_device)
+  gy = torch.randn(1024, 4096, generator=gen).to(cuda_device)
+  forms = _mm_forms(occ, block, w, cuda_device)
+  assert tbsp.mm_branch(1024, 512, torch.float32) == 'ffma'
+  new = {name: (f[0](x), f[1](gy)) for name, f in forms.items()
+         if name in ('packed', 'v3')}
+  monkeypatch.setattr(tbsp, 'mm_branch', lambda *a: 'decode')
+  old = {name: (forms[name][0](x), forms[name][1](gy)) for name in new}
+  for name in new:
+    assert torch.equal(new[name][0], old[name][0]), name
+    assert torch.equal(new[name][1], old[name][1]), name
+
+
+@pytest.mark.cuda
+def test_mm_unaligned_operand_is_refused(cuda_device):
+  """An x that does not start on a 16-byte boundary is refused by the
+  wrapper, before any branch (TMA takes 16-byte-aligned bases and row
+  strides)."""
+  occ, _, _, x, w, _ = _dense_case(2, 2, (64, 64), 64, torch.bfloat16,
+                                   cuda_device, 1, 'edges')
+  flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda_device)
+  shifted = flat[4:4 + x.numel()].view_as(x)
+  shifted.copy_(x)
+  for name, (fwd, _, _, _) in _mm_forms(occ, (64, 64), w,
+                                        cuda_device).items():
+    with pytest.raises(ValueError, match='16-byte'):
+      fwd(shifted)
