@@ -57,7 +57,8 @@ package.  Phases, each fatal on failure:
      dQ kernels against their plain versions at (B, H, S, hd) = (4, 16,
      512, 128), a ragged S = 1000 and hd 64 and 32, beside torch's
      scaled_dot_product_attention (forward; its backward) and the bound;
-     in bf16 here, and their f32 variants after phase 20;
+     in bf16 here, where a second launch of the forward and of dK/dV must
+     give the same bits, and their f32 variants after phase 20;
  10. transformer train step, the main path of the flash kernels
      (scripts/bench_packed_transformer.py: 2 layers of the serving width,
      seq 512, batch 4, bf16, SGD momentum, loss mean(out^2) on
@@ -1161,6 +1162,15 @@ def phase_flash(torch, device, dtype):
     lse_err = float((lse - want_lse).abs().max())
     check(lse_err <= LSE_TOL * max(1.0, float(want_lse.abs().max())),
           f'flash fwd {tag}: lse error {lse_err}')
+    if name == 'bfloat16':
+      # The wgmma forward and dK/dV write each output once, their sums in
+      # a fixed order: a second launch gives the same bits.
+      o2, lse2 = fa.flash_fwd_cuda(q, k, v, scale)
+      dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
+      check(all(bool(torch.equal(a, b)) for a, b in
+                ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2))),
+            f'flash {tag}: a second launch gave other bits')
+      del o2, lse2, dk2, dv2
     # SDPA, the library yardstick, timed only: its forward, and its
     # backward alone on a retained graph.
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -2934,6 +2944,24 @@ TAP_DW_DESIGN = ('entries grouped by (input block, output block), up to 9 '
                  "kernel's dw on the packed dw kernels")
 TAP_DW_REDUCTION = ('tap_dw_reduce_kernel: adds the slices\' f32 partials '
                     'in slice order, one cast (only where S > 1)')
+# The bf16 flash kernels' designs, named in their JSON entries.
+FLASH_DESIGN = {
+    'fwd': ('wgmma on a TMA ring: a block of two warpgroups per (128-row q '
+            'tile, b*h), heaviest tiles first; S = Q Kt by wgmma m64n128 '
+            'from shared memory, the online softmax on the accumulator '
+            'fragments (quad shuffles), P rounded to bf16 in registers as '
+            'the A operand of O += P V (wgmma RS, V MN-major); (K, V) tiles '
+            'of 128 rows through a 2-3-deep ring that warp 0 fills; epilogue '
+            'staged in shared memory'),
+    'dkv': ('wgmma on a TMA ring: a block of two warpgroups per (128-row k '
+            'tile, b*h), K and V resident, heaviest tiles first; per 64-row '
+            '(Q, dO) tile from the diagonal, St = K Qt and dPt = V dOt by '
+            'wgmma m64n64, Pt and dSt on the fragments, rounded to bf16 as '
+            'the A operands of dV += Pt dO and dK += dSt Q (wgmma RS); a '
+            '3-deep ring that warp 0 fills, lse and D by cp.async'),
+    'dq': ('WMMA on a 2-deep cp.async ring, 64-row tiles, logits staged '
+           'in shared memory in f32'),
+}
 
 T0 = time.perf_counter()
 
@@ -3015,14 +3043,15 @@ def main():
   for entry in kernels[:2]:
     entry['design'] = MM_DESIGN
   flash_tpu = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
-  for name, op, line in (('flash_fwd_kernel', 'fwd', 758),
-                         ('flash_bwd_dkv_kernel', 'dkv', 1121),
+  for name, op, line in (('flash_fwd_wgmma_kernel', 'fwd', 758),
+                         ('flash_bwd_dkv_wgmma_kernel', 'dkv', 1121),
                          ('flash_bwd_dq_kernel', 'dq', 1456)):
     n = step_launches[f'flash_{op}']
     entry = _kernel_entry(name, 'rigl_tpu_torch/csrc/flash_attn.cu',
                           f'{flash_tpu}:{line}', n, {'train_step': n},
                           flash_points[op])
     entry['called_from'] = 'rigl_tpu/models/packed_transformer.py:52'
+    entry['design'] = FLASH_DESIGN[op]
     if op != 'fwd':
       entry['library'] = ('scaled_dot_product_attention backward (dq, dk '
                           'and dv in one call)')

@@ -1,13 +1,13 @@
 // Causal flash attention, forward and backward, for q, k, v of (B, H, S, hd),
-// contiguous, hd in {32, 64, 128}: three tiled tensor-core kernels for
-// bf16, and f32 variants of the three on the CUDA cores (section "f32"
-// below, behind the entry points with an `_f32` suffix).
+// contiguous, hd in {32, 64, 128}: three tensor-core kernels for bf16, and
+// f32 variants of the three on the CUDA cores (section "f32" below, behind
+// the entry points with an `_f32` suffix).
 //
-//   flash_fwd_kernel      behind `flash_fwd`:
+//   flash_fwd_wgmma_kernel      behind `flash_fwd`:
 //       o = softmax(scale * q kᵀ + causal mask) v, and the f32 row statistic
 //       lse = m + log(l) (row max m, row sum l of exp(logit - m)).
-//   flash_bwd_dkv_kernel  behind `flash_bwd_dkv`:  dk, dv.
-//   flash_bwd_dq_kernel   behind `flash_bwd_dq`:   dq.
+//   flash_bwd_dkv_wgmma_kernel  behind `flash_bwd_dkv`:  dk, dv.
+//   flash_bwd_dq_kernel         behind `flash_bwd_dq`:   dq.
 //
 // Replace the three pallas_calls of JAX's shipped TPU kernel
 // (jax/experimental/pallas/ops/tpu/flash_attention.py), which
@@ -18,31 +18,35 @@
 // rigl_tpu_torch/ops/flash_attention.py's autograd Function.  Same maths:
 // P = exp(scale * q kᵀ - lse) is recomputed from the saved statistic, D =
 // rowsum(do * o) comes from the caller (JAX computes it outside its kernels
-// too), dS = P * (do vᵀ - D) * scale is rounded to the input type before
-// its two products, as JAX's kernels round it, and every product sums in f32.
+// too), P (for P v and Pᵀ do) and dS = P * (do vᵀ - D) * scale are rounded
+// to the input type before their products, as JAX's kernels round them,
+// and every product sums in f32.
 //
 // What bounds them on an H100: at the bench shape (B, H, S, hd) = (4, 16,
 // 512, 128) each kernel moves 34-50 MB and does 4-9 GFLOP of causal work,
 // so the bytes (10-15 us at 3.35 TB/s) bound it, not the tensor cores (4-9
-// us at 989 TFLOP/s).  The design keeps the (S, S) logits out of device
-// memory: a thread block owns one 64-row tile of q (forward, dq) or of k
-// (dk/dv), keeps its operand tiles and its f32 sums on chip, and streams
-// the other side's 64-row tiles through a 2-deep cp.async ring in shared
-// memory, visiting only the tiles on or below the diagonal (causal skip).
-// Nothing carries across thread blocks, so there are no atomics: dk/dv and
-// dq are two kernels, as in JAX, and each output tile is written once.  In
-// f32 the same work runs at 67 TFLOP/s on the CUDA cores and moves twice
-// the bytes, so the operations bound it (64-128 us at that shape, against
-// 20-30 us of bytes).
+// us at 989 TFLOP/s).  Every design keeps the (S, S) logits out of device
+// memory: a thread block owns one tile of q (forward, dq) or of k (dk/dv),
+// keeps its operand tiles and its f32 sums on chip, and streams the other
+// side's tiles through a ring in shared memory, visiting only the tiles on
+// or below the diagonal (causal skip).  Nothing carries across thread
+// blocks, so there are no atomics: dk/dv and dq are two kernels, as in
+// JAX, each output tile is written once, and a call's bits do not change
+// from run to run.  In f32 the same work runs at 67 TFLOP/s on the CUDA
+// cores and moves twice the bytes, so the operations bound it (64-128 us
+// at that shape, against 20-30 us of bytes).
 //
-// bf16 products use WMMA (bf16 in, f32 accumulate).  WMMA's accumulator
-// layout is opaque, so the logits go through shared memory in f32 for the
-// masked softmax, and the forward's output accumulator lives in registers, one
-// (row, half-row) per thread, where the online-softmax rescale is a scalar
-// multiply.  A ragged S (not a multiple of 64) is zero-filled in the copies
-// and masked by position, so JAX's 128-multiple requirement (MIN_BLOCK_SIZE)
-// has no counterpart.  Not yet here: wgmma / TMA, and warp-level softmax on
-// mma.sync fragments without the shared-memory round trip.
+// The bf16 forward and dK/dV are Hopper designs (section "bf16 forward,
+// dK/dV"): wgmma fed by a TMA ring with mbarriers in blocks of two
+// warpgroups, and the logits never leave registers: the
+// accumulator's fragments take the masked softmax in place and, rounded to
+// bf16, are the register A operand of the next wgmma.  The bf16 dQ is the
+// first design: WMMA (bf16 in, f32 accumulate) on a 2-deep cp.async ring,
+// 64-row tiles, the logits staged in shared memory in f32 for the masked
+// softmax, since WMMA's accumulator layout is opaque.  A ragged S (not a
+// multiple of the tile) is zero-filled in the copies and masked by
+// position, so JAX's 128-multiple requirement (MIN_BLOCK_SIZE) has no
+// counterpart.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,10 +54,13 @@
 #include <stdint.h>
 
 #include <atomic>
-#include <type_traits>
+#include <cmath>
+
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 using Frag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
                                     float>;
@@ -67,6 +74,22 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   int src_bytes = pred ? 16 : 0;   // 0: write 16 zero bytes, read nothing
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(src_bytes));
+}
+
+// 4 bytes by cp.async (zeros where !pred); the stage's statistics.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+// An arrival on the mbarrier at `bar` once this thread's cp.asyncs so far
+// have landed (counted against the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -97,24 +120,19 @@ __device__ __forceinline__ void zero(Frag& f) {
   nvcuda::wmma::fill_fragment(f, 0.f);
 }
 
-// acc (FM x FN 16x16 tiles) += A @ B over DEPTH, A row-major (or, with
-// kATrans, Aᵀ read from a row-major matrix: `a` then points at its column
-// offset), B row-major.  Pointers are at the warp's tile origin.
-template <int FM, int FN, int DEPTH, bool kATrans>
+// acc (FM x FN 16x16 tiles) += A @ B over DEPTH, A and B row-major.
+// Pointers are at the warp's tile origin.
+template <int FM, int FN, int DEPTH>
 __device__ __forceinline__ void mma_ab(Frag (&acc)[FM][FN], const bf16* a,
                                        int lda, const bf16* b, int ldb) {
   using namespace nvcuda;
-  using ALayout = std::conditional_t<kATrans, wmma::col_major,
-                                     wmma::row_major>;
 #pragma unroll
   for (int kk = 0; kk < DEPTH; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa[FM];
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
     wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
 #pragma unroll
     for (int i = 0; i < FM; ++i)
-      wmma::load_matrix_sync(
-          fa[i], kATrans ? a + kk * lda + i * 16 : a + i * 16 * lda + kk,
-          lda);
+      wmma::load_matrix_sync(fa[i], a + i * 16 * lda + kk, lda);
 #pragma unroll
     for (int j = 0; j < FN; ++j)
       wmma::load_matrix_sync(fb[j], b + kk * ldb + j * 16, ldb);
@@ -164,16 +182,13 @@ __device__ __forceinline__ void mma_abt_store(const bf16* a, int lda,
 
 template <int FM, int FN>
 __device__ __forceinline__ void store_acc(Frag (&acc)[FM][FN], float* c,
-                                          int ldc, float mul) {
+                                          int ldc) {
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) {
-#pragma unroll
-      for (int t = 0; t < acc[i][j].num_elements; ++t) acc[i][j].x[t] *= mul;
+    for (int j = 0; j < FN; ++j)
       nvcuda::wmma::store_matrix_sync(c + i * 16 * ldc + j * 16, acc[i][j],
                                       ldc, nvcuda::wmma::mem_row_major);
-    }
 }
 
 // Writes the rows r0 .. of a (kTile x HD) f32 tile staged in shared memory
@@ -205,155 +220,511 @@ struct Plan {
   static_assert(HD % 32 == 0 && HD <= 128, "head dim");
 };
 
-// ------------------------------------------------------------ forward ----
-// One thread block (4 warps) per (64-row q tile, b * h).  Thread t owns
-// row t / 2 of the tile and half t % 2 of its columns for the softmax and
-// the output accumulator.
+// ------------------------------------------------- bf16 forward, dK/dV ----
+// wgmma kernels on a TMA ring.  A thread block is two warpgroups, 64 rows
+// of the block's 128-row tile each; warp 0 also drives the ring: it fills
+// the first stages at the start and refills a stage once both warpgroups
+// have released it (an mbarrier per stage for arrival, one for release),
+// lane 0 issuing the TMA copies.  No producer warpgroup: with a third, a
+// block has 12 warps, three on each of the SM's four register partitions,
+// which caps the entry budget at 168 registers a thread; setmaxnreg lets
+// the consumers allocate 240, but ptxas budgets wgmma's pipelining by the
+// entry count and serialises the products (warning C7512) where the
+// consumers need more than 168, as both kernels do at hd 128.  Two
+// warpgroups start with 255.  q, k, v and do are read through 3-D tensor
+// maps (hd, S, b*h) in boxes of 64 columns (128 bytes, the swizzle's span)
+// x R rows: a tile of R rows is kDp / 64 such boxes, each R rows of 128
+// bytes.  TMA fills rows past S, and at hd 32 columns 32 .. 63, with
+// zeros, so a tile is always 64-column-aligned and full; the position mask
+// keeps those rows out of every sum, and the epilogue drops them.
+constexpr int kWgThreads = 256;    // two warpgroups
+constexpr int kBlockRows = 128;    // q rows (forward) or k rows (dK/dV)
+constexpr int kFwdKv = 128;        // k / v rows of a forward ring stage
+constexpr int kDkvQ = 64;          // q / do rows of a dK/dV ring stage
+constexpr float kLog2e = 1.4426950408889634f;
+
+static_assert(kFwdKv == kBlockRows, "the forward masks its last tile only");
+
+__device__ __forceinline__ float fast_exp2(float x) {   // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += A @ B, A of the fragment registers a, B by descriptor (MN-major
+// where kTransB), at N = 128 or 64.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 128)
+    wgmma_m64n128k16_rs<kTransB>(d, a, db);
+  else
+    wgmma_m64n64k16_rs<kTransB>(d, a, db);
+}
+
+// d = A @ Bᵀ over DP columns: A (64 rows from shared-memory address a) and
+// B (N rows from b), K-major, in 64-column boxes of RA and RB rows.
+template <int N, int DP, int RA, int RB>
+__device__ __forceinline__ void wgmma_abt(float (&d)[N / 2], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t at = (kk / 4) * RA * 128 + (kk % 4) * 32;
+    const uint32_t bt = (kk / 4) * RB * 128 + (kk % 4) * 32;
+    if constexpr (N == 128)
+      wgmma_m64n128k16<0, 0>(d, wgmma_desc(a + at, 16),
+                             wgmma_desc(b + bt, 16), kk > 0);
+    else
+      wgmma_m64n64k16<0, 0>(d, wgmma_desc(a + at, 16),
+                            wgmma_desc(b + bt, 16), kk > 0);
+  }
+}
+
+// Shared memory of the forward, in bytes from a 1024-aligned base: Q
+// (128 rows), a ring of (K, V) stages (128 rows each), the barriers.
 template <int HD>
-struct FwdPlan : Plan<HD> {
-  using P = Plan<HD>;
-  static constexpr int kThreads = 128;
-  static constexpr int kQ = 0;
-  static constexpr int kRing = P::kTileBytes;   // stage s: K, then V
-  static constexpr int kScratch = kRing + 4 * P::kTileBytes;
-  static constexpr int kScratchBytes =
-      P::kSBytes > P::kOBytes ? P::kSBytes : P::kOBytes;
-  static constexpr int kPs = kScratch + kScratchBytes;
-  static constexpr int kBytes = kPs + P::kPBytes;
+struct FwdPlan {
+  static constexpr int kDp = HD < 64 ? 64 : HD;      // columns on chip
+  static constexpr int kQBytes = kBlockRows * kDp * 2;
+  static constexpr int kKvBytes = kFwdKv * kDp * 2;    // one of K, V
+  static constexpr int kStages = kDp == 128 ? 2 : 3;
+  static constexpr int kRing = kQBytes;
+  static constexpr int kBars = kRing + kStages * 2 * kKvBytes;
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 1) * 8;
+  // The epilogue's staging row: 16 bytes of pad put a warp's fragment
+  // stores (8 rows x 4 pairs) on 32 distinct banks.
+  static constexpr int kStageLd = kDp + 8;
+  static_assert(2 * 64 * kStageLd * 2 <= kBars, "staging fits");
   static_assert(kBytes <= 227 * 1024, "shared memory per block");
 };
 
+// The (K, V) tile j of head bh into ring stage j % kStages, completing the
+// stage's full barrier (issued by one thread).
 template <int HD>
-__global__ void __launch_bounds__(128)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int S, float scale) {
+__device__ __forceinline__ void fwd_load_kv(const CUtensorMap* tk,
+                                            const CUtensorMap* tv,
+                                            uint32_t base, uint32_t full,
+                                            int j, int bh) {
   using L = FwdPlan<HD>;
-  constexpr int NT = L::kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::kQ);
-  float* ss = reinterpret_cast<float*>(smem + L::kScratch);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L::kPs);
-  auto k_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + L::kRing + st * 2 * L::kTileBytes);
-  };
-  auto v_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + L::kRing + st * 2 * L::kTileBytes +
-                                   L::kTileBytes);
-  };
-
-  const int qt = blockIdx.x;
-  const int q0 = qt * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
-  const bf16* qg = q + base;
-  const bf16* kg = k + base;
-  const bf16* vg = v + base;
-  const int tid = threadIdx.x, warp = tid / 32, wr = warp / 2, wc = warp % 2;
-  const int r = tid >> 1, h = tid & 1;        // this thread's row and half
-  const int qrow = q0 + r;
-  const int n_kt = qt + 1;                    // k tiles on or below the diag
-
-  load_rows<HD, NT>(qs, L::kLd, qg, q0, S);
-  load_rows<HD, NT>(k_tile(0), L::kLd, kg, 0, S);
-  load_rows<HD, NT>(v_tile(0), L::kLd, vg, 0, S);
-  cp_async_commit();
-
-  float m_run = kMasked, l_run = 0.f;
-  float acc[HD / 2];
+  const int st = j % L::kStages;
+  const uint32_t bar = full + 8 * st;
+  const uint32_t ks = base + L::kRing + st * 2 * L::kKvBytes;
+  mbar_expect_tx(bar, 2 * L::kKvBytes);
 #pragma unroll
-  for (int c = 0; c < HD / 2; ++c) acc[c] = 0.f;
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_kt) {
-      load_rows<HD, NT>(k_tile(st ^ 1), L::kLd, kg, (j + 1) * kTile, S);
-      load_rows<HD, NT>(v_tile(st ^ 1), L::kLd, vg, (j + 1) * kTile, S);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();     // tile j (and q) have landed for this thread
-    __syncthreads();        // ... and for every thread
-
-    // S = q kᵀ: warp (wr, wc) computes the 32 x 32 tile at (32 wr, 32 wc).
-    mma_abt_store<2, 2, HD>(qs + wr * 32 * L::kLd, L::kLd,
-                            k_tile(st) + wc * 32 * L::kLd, L::kLd,
-                            ss + wr * 32 * L::kSld + wc * 32, L::kSld);
-    __syncthreads();
-
-    // Online softmax of row r, columns 32 h .. 32 h + 31 (two passes over
-    // the staged logits: the row max, then the exponentials).
-    const int k0 = j * kTile;
-    const float* srow = ss + r * L::kSld + h * 32;
-    float mx = kMasked;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int kpos = k0 + h * 32 + c;
-      if (kpos <= qrow && kpos < S) mx = fmaxf(mx, srow[c] * scale);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
-    bf16* prow = ps + r * L::kPld + h * 32;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int kpos = k0 + h * 32 + c;
-      const float p = (kpos <= qrow && kpos < S)
-                          ? __expf(srow[c] * scale - m_new) : 0.f;
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float corr = __expf(m_run - m_new);
-    l_run = l_run * corr + sum;
-    m_run = m_new;
-    __syncthreads();        // P complete; the logits' scratch is free
-
-    // PV = P v: warp (wr, wc) computes rows 32 wr.., columns HD/2 wc..,
-    // staged in f32 over the logits' scratch.
-    {
-      Frag pv[2][HD / 32];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < HD / 32; ++jj) zero(pv[i][jj]);
-      mma_ab<2, HD / 32, kTile, false>(pv, ps + wr * 32 * L::kPld, L::kPld,
-                                       v_tile(st) + wc * (HD / 2), L::kLd);
-      store_acc<2, HD / 32>(pv, ss + wr * 32 * L::kOld + wc * (HD / 2),
-                            L::kOld, 1.f);
-    }
-    __syncthreads();
-    const float* pvrow = ss + r * L::kOld + h * (HD / 2);
-#pragma unroll
-    for (int c = 0; c < HD / 2; ++c) acc[c] = acc[c] * corr + pvrow[c];
-    __syncthreads();        // stage st and the scratch are free again
+  for (int b = 0; b < L::kDp / 64; ++b) {
+    tma_load_3d(ks + b * kFwdKv * 128, tk, 64 * b, j * kFwdKv, bh, bar);
+    tma_load_3d(ks + L::kKvBytes + b * kFwdKv * 128, tv, 64 * b,
+                j * kFwdKv, bh, bar);
   }
-
-  // o = acc / l, staged in f32 and written coalesced; lse = m + log l.
-  const float inv = l_run > 0.f ? 1.f / l_run : 0.f;
-  float* orow = ss + r * L::kOld + h * (HD / 2);
-#pragma unroll
-  for (int c = 0; c < HD / 2; ++c) orow[c] = acc[c] * inv;
-  if (h == 0 && qrow < S)
-    lse[static_cast<size_t>(blockIdx.y) * S + qrow] = m_run + logf(l_run);
-  __syncthreads();
-  write_rows<HD, NT>(o + base, ss, L::kOld, q0, S);
 }
 
-// ----------------------------------------------------------- backward ----
-// Both backward kernels: 8 warps, laid out 4 x 2 over a 64 x 64 logit tile
-// (16 x 32 each) and over a 64 x HD output tile (16 x HD/2 each).  The
-// elementwise pass gives thread t row t / 4 and columns 16 (t % 4) .. + 15.
+// Thread block (b*h, tile): the 128 q rows at q0 of head bh, the q tiles
+// in reverse order of blockIdx.y so that the longest rows of the causal
+// triangle start first.  Consumer warpgroup wg owns rows q0 + 64 wg ..;
+// per (K, V) stage it computes S = Q Kᵀ (m64n128, both operands K-major in
+// shared memory), the online softmax on the accumulator fragments (a
+// row's values lie in one quad: max by two shuffles, the sum l kept per
+// thread and added across the quad once at the end), and O += P V with P
+// rounded to bf16 in registers as wgmma's A operand and V MN-major.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           int S, float scale_log2) {
+  using L = FwdPlan<HD>;
+  constexpr int DP = L::kDp;
+  extern __shared__ unsigned char fwd_smem[];
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * kBlockRows;
+  const int n_kv = qt + 1;    // the k tiles on or below the diagonal
+  const int tid = threadIdx.x;
+
+  // Q, then the ring's first stages; full[st] (TMA arrival), empty[st]
+  // (released by every thread) and Q's barrier after the ring.
+  const uint32_t base = (smem_u32(fwd_smem) + 1023) & ~1023u;
+  const uint32_t full = base + L::kBars;
+  const uint32_t empty = full + 8 * L::kStages;
+  const uint32_t qbar = empty + 8 * L::kStages;
+  if (tid == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kWgThreads);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+    mbar_expect_tx(qbar, L::kQBytes);
+#pragma unroll
+    for (int b = 0; b < DP / 64; ++b)
+      tma_load_3d(base + b * kBlockRows * 128, &tq, 64 * b, q0, bh, qbar);
+    for (int j = 0; j < n_kv && j < L::kStages; ++j)
+      fwd_load_kv<HD>(&tk, &tv, base, full, j, bh);
+  }
+  __syncthreads();
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int row = q0 + 64 * wg + 16 * warp + lane / 4;   // and row + 8
+  const int col = 2 * (lane % 4);   // of each 8-column group
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const uint32_t qs = base + wg * 64 * 128;   // this warpgroup's Q rows
+  mbar_wait(qbar, 0);
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % L::kStages;
+    mbar_wait(full + 8 * st, (j / L::kStages) & 1);
+    const uint32_t ks = base + L::kRing + st * 2 * L::kKvBytes;
+    const uint32_t vs = ks + L::kKvBytes;
+
+    float s[kFwdKv / 2];
+    wgmma_fence();
+    wgmma_abt<kFwdKv, DP, kBlockRows, kFwdKv>(s, qs, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // Online softmax in log2 units, row h of this thread's two.  Only the
+    // diagonal tile (the last) holds k > q; every row has k = q0 there.
+    const bool diag = j == n_kv - 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m_run[h];
+#pragma unroll
+      for (int c = 0; c < kFwdKv / 8; ++c)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          float x = s[4 * c + 2 * h + v] * scale_log2;
+          if (diag && j * kFwdKv + 8 * c + col + v > row + 8 * h)
+            x = -INFINITY;
+          s[4 * c + 2 * h + v] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float corr = fast_exp2(m_run[h] - mx);
+      m_run[h] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kFwdKv / 8; ++c)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const float p = fast_exp2(s[4 * c + 2 * h + v] - mx);
+          s[4 * c + 2 * h + v] = p;
+          sum += p;
+        }
+      l_run[h] = l_run[h] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c) {
+        acc[4 * c + 2 * h] *= corr;
+        acc[4 * c + 2 * h + 1] *= corr;
+      }
+    }
+
+    // O += P V: P (64 x 128) rounded to bf16 in registers, V (128 x DP)
+    // MN-major in its 64-column boxes, 16 rows (2048 bytes) a k-step.
+    uint32_t p[kFwdKv / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kFwdKv / 16; ++kk) bf16_a_fragment(s, kk, p[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFwdKv / 16; ++kk)
+      wgmma_rs<DP, 1>(acc, p[kk], wgmma_desc(vs + kk * 2048, kFwdKv * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * st);
+    if (tid < 32 && j + L::kStages < n_kv) {   // warp 0 refills the stage
+      mbar_wait(empty + 8 * st, (j / L::kStages) & 1);
+      if (tid == 0)
+        fwd_load_kv<HD>(&tk, &tv, base, full, j + L::kStages, bh);
+      __syncwarp();
+    }
+  }
+
+  // o = acc / l (l summed across the quad), staged per warpgroup once both
+  // are done with Q and the ring, then stored 16 bytes a thread, rows < S
+  // and columns < HD; lse = (m + log2 l) ln 2.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+    if (lane % 4 == 0 && row + 8 * h < S)
+      lse[static_cast<size_t>(bh) * S + row + 8 * h] =
+          (m_run[h] + log2f(l_run[h])) * (1.f / kLog2e);
+  }
+  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
+  __syncthreads();
+  bf16* stage = reinterpret_cast<bf16*>(fwd_smem +
+                                        (base - smem_u32(fwd_smem))) +
+                wg * 64 * L::kStageLd;
+  const int r = 16 * warp + lane / 4;
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(stage + (r + 8 * h) * L::kStageLd +
+                                   8 * c + col) =
+          pack_bf16(acc[4 * c + 2 * h] * inv[h],
+                    acc[4 * c + 2 * h + 1] * inv[h]);
+  bar_sync(2 + wg, 128);
+  const int w0 = q0 + 64 * wg;
+  bf16* out = o + (static_cast<size_t>(bh) * S + w0) * HD;
+  for (int i = tid % 128; i < 64 * HD / 8; i += 128) {
+    const int rr = i / (HD / 8), cc = 8 * (i % (HD / 8));
+    if (w0 + rr < S)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(rr) * HD + cc) =
+          *reinterpret_cast<const uint4*>(stage + rr * L::kStageLd + cc);
+  }
+}
+
+// Shared memory of dK/dV, in bytes from a 1024-aligned base: K and V
+// (128 rows each, resident), a ring of (Q, dO) stages (64 rows each), the
+// stages' lse and D slices (64 f32 each), the barriers.  A stage is full
+// once its TMA bytes have landed and each lane of warp 0 has written its
+// share of the slices.
+template <int HD>
+struct DkvPlan {
+  static constexpr int kDp = HD < 64 ? 64 : HD;
+  static constexpr int kKBytes = kBlockRows * kDp * 2;   // one of K, V
+  static constexpr int kQBytes = kDkvQ * kDp * 2;        // one of Q, dO
+  static constexpr int kStages = 3;
+  static constexpr int kRing = 2 * kKBytes;
+  static constexpr int kStats = kRing + kStages * 2 * kQBytes;
+  static constexpr int kStatBytes = kDkvQ * 4;
+  static constexpr int kBars = kStats + kStages * 2 * kStatBytes;
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 1) * 8;
+  static constexpr int kStageLd = kDp + 8;
+  static_assert(2 * 2 * 64 * kStageLd * 2 <= kStats, "staging fits");
+  static_assert(kBytes <= 227 * 1024, "shared memory per block");
+};
+
+// The (Q, dO) tile i of head bh into ring stage st with its rows' lse and
+// D, by warp 0: lane 0 issues the TMA copies, every lane copies its share
+// of the statistics by cp.async (zeros past S; TMA would need a
+// 16-byte-aligned start, which b*h*S + q0 is not for every S), and the
+// stage's full barrier counts each lane's arrival once its copies land, so
+// that the warp does not wait for them.
+template <int HD>
+__device__ __forceinline__ void dkv_load_q(const CUtensorMap* tq,
+                                           const CUtensorMap* tdo,
+                                           const float* lse_g,
+                                           const float* d_g,
+                                           float* stat_base, uint32_t base,
+                                           uint32_t full, int st, int i,
+                                           int bh, int S, int lane) {
+  using L = DkvPlan<HD>;
+  const uint32_t bar = full + 8 * st;
+  if (lane == 0) {
+    const uint32_t qs = base + L::kRing + st * 2 * L::kQBytes;
+    mbar_expect_tx(bar, 2 * L::kQBytes);
+#pragma unroll
+    for (int b = 0; b < L::kDp / 64; ++b) {
+      tma_load_3d(qs + b * kDkvQ * 128, tq, 64 * b, i * kDkvQ, bh, bar);
+      tma_load_3d(qs + L::kQBytes + b * kDkvQ * 128, tdo, 64 * b,
+                  i * kDkvQ, bh, bar);
+    }
+  }
+  float* lse_s = stat_base + st * 2 * kDkvQ;
+  for (int r = lane; r < kDkvQ; r += 32) {
+    const int q = i * kDkvQ + r;
+    const bool ok = q < S;
+    cp_async4(lse_s + r, ok ? lse_g + q : lse_g, ok);
+    cp_async4(lse_s + kDkvQ + r, ok ? d_g + q : d_g, ok);
+  }
+  cp_async_mbar_arrive(bar);
+}
+
+// Thread block (b*h, k tile): dK and dV of the 128 k rows at k0 of head
+// bh, heaviest (lowest) k tiles first.  Consumer warpgroup wg owns k rows
+// k0 + 64 wg ..; per (Q, dO) stage, from the diagonal down, it computes
+// Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (m64n64, K-major operands in shared memory),
+// Pᵀ = 2^(scale log2e Sᵀ - log2e lse) and dSᵀ = Pᵀ (dPᵀ - D) scale on the
+// fragments, then dV += Pᵀ dO and dK += dSᵀ Q with Pᵀ and dSᵀ rounded to
+// bf16 in registers as wgmma's A operand, dO and Q MN-major.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+        const float* __restrict__ dsum, bf16* __restrict__ dk,
+        bf16* __restrict__ dv, int S, float scale) {
+  using L = DkvPlan<HD>;
+  constexpr int DP = L::kDp;
+  extern __shared__ unsigned char dkv_smem[];
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockRows;
+  const int first = k0 / kDkvQ;                 // the q tile at the diagonal
+  const int n_q = (S + kDkvQ - 1) / kDkvQ;
+  const int tid = threadIdx.x;
+  const float* lse_g = lse + static_cast<size_t>(bh) * S;
+  const float* d_g = dsum + static_cast<size_t>(bh) * S;
+
+  // K and V, then the ring's first stages; full[st] (TMA arrival and warp
+  // 0's statistics), empty[st] (released by every thread) and K and V's
+  // barrier after the statistics.
+  const uint32_t base = (smem_u32(dkv_smem) + 1023) & ~1023u;
+  const uint32_t full = base + L::kBars;
+  const uint32_t empty = full + 8 * L::kStages;
+  const uint32_t kvbar = empty + 8 * L::kStages;
+  float* stat_base = reinterpret_cast<float*>(
+      dkv_smem + (base - smem_u32(dkv_smem)) + L::kStats);
+  if (tid == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(full + 8 * st, 1 + 32);
+      mbar_init(empty + 8 * st, kWgThreads);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+    mbar_expect_tx(kvbar, 2 * L::kKBytes);
+#pragma unroll
+    for (int b = 0; b < DP / 64; ++b) {
+      tma_load_3d(base + b * kBlockRows * 128, &tk, 64 * b, k0, bh, kvbar);
+      tma_load_3d(base + L::kKBytes + b * kBlockRows * 128, &tv, 64 * b, k0,
+                  bh, kvbar);
+    }
+  }
+  __syncthreads();
+  if (tid < 32)
+    for (int i = first; i < n_q && i < first + L::kStages; ++i)
+      dkv_load_q<HD>(&tq, &tdo, lse_g, d_g, stat_base, base, full,
+                     i - first, i, bh, S, tid);
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int w0 = k0 + 64 * wg;                          // this warpgroup's
+  const int row = w0 + 16 * warp + lane / 4;            // k rows: row, + 8
+  const int col = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  float acc_dk[DP / 2], acc_dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  const uint32_t ks = base + wg * 64 * 128;
+  const uint32_t vs = ks + L::kKBytes;
+  mbar_wait(kvbar, 0);
+
+  for (int i = first; i < n_q; ++i) {
+    const int it = i - first, st = it % L::kStages;
+    mbar_wait(full + 8 * st, (it / L::kStages) & 1);
+    const uint32_t qs = base + L::kRing + st * 2 * L::kQBytes;
+    const uint32_t dos = qs + L::kQBytes;
+
+    float s[kDkvQ / 2], dp[kDkvQ / 2];   // Sᵀ, dPᵀ: k rows x q columns
+    wgmma_fence();
+    wgmma_abt<kDkvQ, DP, kBlockRows, kDkvQ>(s, ks, qs);
+    wgmma_abt<kDkvQ, DP, kBlockRows, kDkvQ>(dp, vs, dos);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // Pᵀ and dSᵀ in place of Sᵀ and dPᵀ.  Only tiles that cross this
+    // warpgroup's diagonal or S are masked: k > q, or q >= S.
+    const float* lse_s = stat_base + st * 2 * kDkvQ;
+    const float* d_s = lse_s + kDkvQ;
+    const int q0 = i * kDkvQ;
+    const bool masked = q0 < w0 + 64 || q0 + kDkvQ > S;
+#pragma unroll
+    for (int c = 0; c < kDkvQ / 8; ++c) {
+      const float2 lse2 =
+          *reinterpret_cast<const float2*>(lse_s + 8 * c + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(d_s + 8 * c + col);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const float l2 = (v ? lse2.y : lse2.x) * kLog2e;
+        const float dd = v ? d2.y : d2.x;
+        const int qpos = q0 + 8 * c + col + v;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int x = 4 * c + 2 * h + v;
+          float p = fast_exp2(s[x] * scale_log2 - l2);
+          if (masked && (row + 8 * h > qpos || qpos >= S)) p = 0.f;
+          s[x] = p;
+          dp[x] = p * (dp[x] - dd) * scale;
+        }
+      }
+    }
+
+    // dV += Pᵀ dO and dK += dSᵀ Q, contracting over the 64 q rows: dO and
+    // Q MN-major in their 64-column boxes, 16 rows (2048 bytes) a k-step.
+    uint32_t pa[kDkvQ / 16][4], da[kDkvQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kDkvQ / 16; ++kk) {
+      bf16_a_fragment(s, kk, pa[kk]);
+      bf16_a_fragment(dp, kk, da[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDkvQ / 16; ++kk)
+      wgmma_rs<DP, 1>(acc_dv, pa[kk],
+                      wgmma_desc(dos + kk * 2048, kDkvQ * 128));
+#pragma unroll
+    for (int kk = 0; kk < kDkvQ / 16; ++kk)
+      wgmma_rs<DP, 1>(acc_dk, da[kk],
+                      wgmma_desc(qs + kk * 2048, kDkvQ * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dk);
+    fence_regs(acc_dv);
+    mbar_arrive(empty + 8 * st);
+    if (tid < 32 && i + L::kStages < n_q) {   // warp 0 refills the stage
+      mbar_wait(empty + 8 * st, (it / L::kStages) & 1);
+      dkv_load_q<HD>(&tq, &tdo, lse_g, d_g, stat_base, base, full, st,
+                     i + L::kStages, bh, S, tid);
+    }
+  }
+
+  // dK and dV staged per warpgroup once both are done with K, V and the
+  // ring, then stored 16 bytes a thread, rows < S and columns < HD.
+  __syncthreads();
+  bf16* dk_stage = reinterpret_cast<bf16*>(dkv_smem +
+                                           (base - smem_u32(dkv_smem))) +
+                   wg * 2 * 64 * L::kStageLd;
+  bf16* dv_stage = dk_stage + 64 * L::kStageLd;
+  const int r = 16 * warp + lane / 4;
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = (r + 8 * h) * L::kStageLd + 8 * c + col;
+      *reinterpret_cast<uint32_t*>(dk_stage + at) =
+          pack_bf16(acc_dk[4 * c + 2 * h], acc_dk[4 * c + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv_stage + at) =
+          pack_bf16(acc_dv[4 * c + 2 * h], acc_dv[4 * c + 2 * h + 1]);
+    }
+  bar_sync(2 + wg, 128);
+  const size_t out0 = (static_cast<size_t>(bh) * S + w0) * HD;
+  for (int i = tid % 128; i < 64 * HD / 8; i += 128) {
+    const int rr = i / (HD / 8), cc = 8 * (i % (HD / 8));
+    if (w0 + rr < S) {
+      const size_t at = out0 + static_cast<size_t>(rr) * HD + cc;
+      *reinterpret_cast<uint4*>(dk + at) =
+          *reinterpret_cast<const uint4*>(dk_stage + rr * L::kStageLd + cc);
+      *reinterpret_cast<uint4*>(dv + at) =
+          *reinterpret_cast<const uint4*>(dv_stage + rr * L::kStageLd + cc);
+    }
+  }
+}
+
+// ------------------------------------------------------------ bf16 dq ----
+// 8 warps, laid out 4 x 2 over a 64 x 64 logit tile (16 x 32 each) and
+// over a 64 x HD output tile (16 x HD/2 each).  The elementwise pass gives
+// thread t row t / 4 and columns 16 (t % 4) .. + 15.
 constexpr int kBwdThreads = 256;
 
-// P and dS of one (q tile, k tile) pair, from the staged logits `ss` and
-// dP = do vᵀ `dps`: P = exp(scale * s - lse) on or below the diagonal (0
-// elsewhere and on rows >= S), dS = P * (dP - D) * scale.  Writes dS (and,
-// with kWriteP, P) as bf16 with row stride pld.
-template <bool kWriteP>
-__device__ __forceinline__ void p_and_ds(const float* ss, const float* dps,
-                                         int sld, bf16* ps, bf16* dss,
-                                         int pld, int q0, int k0, int S,
-                                         float lse_r, float d_r,
-                                         float scale) {
+// dS of one (q tile, k tile) pair, from the staged logits `ss` and dP = do
+// vᵀ `dps`: P = exp(scale * s - lse) on or below the diagonal (0 elsewhere
+// and on rows >= S), dS = P * (dP - D) * scale, written as bf16 with row
+// stride pld.
+__device__ __forceinline__ void ds_tile(const float* ss, const float* dps,
+                                        int sld, bf16* dss, int pld, int q0,
+                                        int k0, int S, float lse_r,
+                                        float d_r, float scale) {
   const int r = threadIdx.x >> 2, c0 = (threadIdx.x & 3) * 16;
   const int qpos = q0 + r;
 #pragma unroll
@@ -361,127 +732,8 @@ __device__ __forceinline__ void p_and_ds(const float* ss, const float* dps,
     const int kpos = k0 + c;
     const bool ok = kpos <= qpos && qpos < S;
     const float p = ok ? __expf(ss[r * sld + c] * scale - lse_r) : 0.f;
-    const float ds = p * (dps[r * sld + c] - d_r) * scale;
-    if constexpr (kWriteP) ps[r * pld + c] = __float2bfloat16(p);
-    dss[r * pld + c] = __float2bfloat16(ds);
+    dss[r * pld + c] = __float2bfloat16(p * (dps[r * sld + c] - d_r) * scale);
   }
-}
-
-// dk/dv: one thread block per (64-row k tile, b * h), k and v resident; the
-// q tiles at or below the diagonal stream through a 2-deep ring of (q, do).
-template <int HD>
-struct DkvPlan : Plan<HD> {
-  using P = Plan<HD>;
-  static constexpr int kK = 0;
-  static constexpr int kV = P::kTileBytes;
-  static constexpr int kRing = 2 * P::kTileBytes;   // stage s: q, then do
-  static constexpr int kS = kRing + 4 * P::kTileBytes;
-  static constexpr int kDp = kS + P::kSBytes;
-  static constexpr int kPs = kDp + P::kSBytes;
-  static constexpr int kDs = kPs + P::kPBytes;
-  static constexpr int kBytes = kDs + P::kPBytes;
-  static_assert(2 * P::kOBytes <= 4 * P::kTileBytes, "output staging");
-  static_assert(kBytes <= 227 * 1024, "shared memory per block");
-};
-
-template <int HD>
-__global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dsum,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                         float scale) {
-  using L = DkvPlan<HD>;
-  constexpr int NT = kBwdThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::kV);
-  float* ss = reinterpret_cast<float*>(smem + L::kS);
-  float* dps = reinterpret_cast<float*>(smem + L::kDp);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L::kPs);
-  bf16* dss = reinterpret_cast<bf16*>(smem + L::kDs);
-  auto q_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + L::kRing + st * 2 * L::kTileBytes);
-  };
-  auto do_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + L::kRing + st * 2 * L::kTileBytes +
-                                   L::kTileBytes);
-  };
-
-  const int kt = blockIdx.x;
-  const int k0 = kt * kTile;
-  const size_t bh = blockIdx.y;
-  const size_t base = bh * S * HD;
-  const bf16* qg = q + base;
-  const bf16* dog = dout + base;
-  const float* lse_g = lse + bh * S;
-  const float* d_g = dsum + bh * S;
-  const int warp = threadIdx.x / 32, wr = warp / 2, wc = warp % 2;
-  const int r = threadIdx.x >> 2;             // elementwise row
-  const int n_qt = (S + kTile - 1) / kTile;
-
-  load_rows<HD, NT>(ks, L::kLd, k + base, k0, S);
-  load_rows<HD, NT>(vs, L::kLd, v + base, k0, S);
-  load_rows<HD, NT>(q_tile(0), L::kLd, qg, k0, S);   // first q tile = kt
-  load_rows<HD, NT>(do_tile(0), L::kLd, dog, k0, S);
-  cp_async_commit();
-
-  Frag acc_dk[1][HD / 32], acc_dv[1][HD / 32];
-#pragma unroll
-  for (int jj = 0; jj < HD / 32; ++jj) {
-    zero(acc_dk[0][jj]);
-    zero(acc_dv[0][jj]);
-  }
-
-  for (int i = kt; i < n_qt; ++i) {
-    const int st = (i - kt) & 1;
-    const int q0 = i * kTile;
-    if (i + 1 < n_qt) {
-      load_rows<HD, NT>(q_tile(st ^ 1), L::kLd, qg, q0 + kTile, S);
-      load_rows<HD, NT>(do_tile(st ^ 1), L::kLd, dog, q0 + kTile, S);
-    }
-    cp_async_commit();
-    const float lse_r = q0 + r < S ? lse_g[q0 + r] : 0.f;
-    const float d_r = q0 + r < S ? d_g[q0 + r] : 0.f;
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // s = q kᵀ and dP = do vᵀ (q rows x k columns), f32 in shared memory.
-    mma_abt_store<1, 2, HD>(q_tile(st) + wr * 16 * L::kLd, L::kLd,
-                            ks + wc * 32 * L::kLd, L::kLd,
-                            ss + wr * 16 * L::kSld + wc * 32, L::kSld);
-    mma_abt_store<1, 2, HD>(do_tile(st) + wr * 16 * L::kLd, L::kLd,
-                            vs + wc * 32 * L::kLd, L::kLd,
-                            dps + wr * 16 * L::kSld + wc * 32, L::kSld);
-    __syncthreads();
-    p_and_ds<true>(ss, dps, L::kSld, ps, dss, L::kPld, q0, k0, S, lse_r, d_r,
-                   scale);
-    __syncthreads();
-
-    // dv += Pᵀ do and dk += dSᵀ q (k rows x HD): Pᵀ and dSᵀ are read as
-    // col_major fragments of the row-major (q x k) tiles, not transposed.
-    mma_ab<1, HD / 32, kTile, true>(acc_dv, ps + wr * 16, L::kPld,
-                                    do_tile(st) + wc * (HD / 2), L::kLd);
-    mma_ab<1, HD / 32, kTile, true>(acc_dk, dss + wr * 16, L::kPld,
-                                    q_tile(st) + wc * (HD / 2), L::kLd);
-    __syncthreads();        // stage st and the tiles are free again
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Stage both (k rows x HD) f32 tiles over the ring, then write them.
-  float* dk_stage = reinterpret_cast<float*>(smem + L::kRing);
-  float* dv_stage = dk_stage + kTile * L::kOld;
-  store_acc<1, HD / 32>(acc_dk, dk_stage + wr * 16 * L::kOld + wc * (HD / 2),
-                        L::kOld, 1.f);
-  store_acc<1, HD / 32>(acc_dv, dv_stage + wr * 16 * L::kOld + wc * (HD / 2),
-                        L::kOld, 1.f);
-  __syncthreads();
-  write_rows<HD, NT>(dk + base, dk_stage, L::kOld, k0, S);
-  write_rows<HD, NT>(dv + base, dv_stage, L::kOld, k0, S);
 }
 
 // dq: one thread block per (64-row q tile, b * h), q and do resident; the k
@@ -564,13 +816,13 @@ __global__ void __launch_bounds__(kBwdThreads)
                             v_tile(st) + wc * 32 * L::kLd, L::kLd,
                             dps + wr * 16 * L::kSld + wc * 32, L::kSld);
     __syncthreads();
-    p_and_ds<false>(ss, dps, L::kSld, nullptr, dss, L::kPld, q0, j * kTile,
-                    S, lse_r, d_r, scale);
+    ds_tile(ss, dps, L::kSld, dss, L::kPld, q0, j * kTile, S, lse_r, d_r,
+            scale);
     __syncthreads();
 
     // dq += dS k (q rows x HD).
-    mma_ab<1, HD / 32, kTile, false>(acc, dss + wr * 16 * L::kPld, L::kPld,
-                                     k_tile(st) + wc * (HD / 2), L::kLd);
+    mma_ab<1, HD / 32, kTile>(acc, dss + wr * 16 * L::kPld, L::kPld,
+                              k_tile(st) + wc * (HD / 2), L::kLd);
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -578,7 +830,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 
   float* stage = reinterpret_cast<float*>(smem + L::kRing);
   store_acc<1, HD / 32>(acc, stage + wr * 16 * L::kOld + wc * (HD / 2),
-                        L::kOld, 1.f);
+                        L::kOld);
   __syncthreads();
   write_rows<HD, NT>(dq + base, stage, L::kOld, q0, S);
 }
@@ -975,20 +1227,45 @@ cudaError_t allow_smem(Kernel kernel, int smem,
   return cudaSuccess;
 }
 
+// The 3-D tensor map of a (b*h, S, HD) bf16 tensor: boxes of 64 columns x
+// `rows` rows of one head.
+cudaError_t head_map(CUtensorMap* map, const void* base, int bh, int S,
+                     int hd, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(S) * hd * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return bf16_map_nd(map, base, 3, dims, strides, box);
+}
+
+// The wgmma kernels' grid: (b*h, 128-row tiles), at most 65535 tiles.
+bool wgmma_grid(int bh, int S, dim3* grid) {
+  const int tiles = (S + kBlockRows - 1) / kBlockRows;
+  *grid = dim3(bh, tiles);
+  return tiles <= 65535;
+}
+
 template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int S, float scale,
                        cudaStream_t stream) {
-  constexpr int smem = FwdPlan<HD>::kBytes;
-  auto kernel = flash_fwd_kernel<HD>;
-  static std::atomic<uint64_t> allowed{0};
-  cudaError_t err = allow_smem(kernel, smem, allowed);
+  dim3 grid;
+  if (!wgmma_grid(bh, S, &grid)) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = head_map(&tq, q, bh, S, HD, kBlockRows);
+  if (err == cudaSuccess) err = head_map(&tk, k, bh, S, HD, kFwdKv);
+  if (err == cudaSuccess) err = head_map(&tv, v, bh, S, HD, kFwdKv);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kTile - 1) / kTile, bh);
-  kernel<<<grid, FwdPlan<HD>::kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), S, scale);
+  constexpr int smem = FwdPlan<HD>::kBytes;
+  auto kernel = flash_fwd_wgmma_kernel<HD>;
+  static std::atomic<uint64_t> allowed{0};
+  err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), S,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -997,17 +1274,23 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dsum,
                        void* dk, void* dv, int bh, int S, float scale,
                        cudaStream_t stream) {
-  constexpr int smem = DkvPlan<HD>::kBytes;
-  auto kernel = flash_bwd_dkv_kernel<HD>;
-  static std::atomic<uint64_t> allowed{0};
-  cudaError_t err = allow_smem(kernel, smem, allowed);
+  dim3 grid;
+  if (!wgmma_grid(bh, S, &grid)) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = head_map(&tq, q, bh, S, HD, kDkvQ);
+  if (err == cudaSuccess) err = head_map(&tdo, dout, bh, S, HD, kDkvQ);
+  if (err == cudaSuccess) err = head_map(&tk, k, bh, S, HD, kBlockRows);
+  if (err == cudaSuccess) err = head_map(&tv, v, bh, S, HD, kBlockRows);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kTile - 1) / kTile, bh);
-  kernel<<<grid, kBwdThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, scale);
+  constexpr int smem = DkvPlan<HD>::kBytes;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<HD>;
+  static std::atomic<uint64_t> allowed{0};
+  err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, scale);
   return cudaGetLastError();
 }
 

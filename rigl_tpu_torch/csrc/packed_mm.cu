@@ -140,7 +140,6 @@
 // variants, dummy entries and VMEM bm clamps are Mosaic machinery with no
 // counterpart here.
 
-#include <cuda.h>   // CUtensorMap and its enums; nothing of libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -150,7 +149,11 @@
 #include <atomic>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 128;   // 4 warps, laid out 2 x 2 over the tile
 
@@ -531,122 +534,6 @@ constexpr int kWgConsumers = 256;                    // two warpgroups
 constexpr int kWgThreads = kWgConsumers + 32;        // + the producer warp
 constexpr int kWgSmem = 1024 + kWgStages * kWgStageBytes + 2 * kWgStages * 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spins until the phase of parity `parity` of the barrier has completed.
-// A wait that never ends (a fault in the pipeline) traps, which the next
-// synchronisation reports, rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 30)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA: the box of the 2-D `map` at (column c, row r) into shared memory at
-// `dst`, completing `bar`'s transaction bytes.  Rows and columns outside
-// the tensor are filled with zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c, int r, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
-      : "memory");
-}
-
-// The same for a 4-D map, coordinates innermost first; each coordinate is
-// bounded by its own dimension, so a box never reads into a neighbour.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of an operand tile with 128-byte swizzle,
-// stored as rows of 64 elements (128 bytes), 1024 bytes between groups of 8
-// rows.  MN-major (rows consecutive in the contraction): `lbo` the bytes
-// between 64-element column blocks.  K-major (rows consecutive in M or N,
-// the contraction along the row): `lbo` unused (16), and a step of 16 in the
-// contraction is 32 bytes added to `addr` inside the swizzle atom.  The
-// tile starts 1024-byte aligned, so the base offset is 0.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// d (64 x 128, f32, the warpgroup's registers) += A (64 x 16) @ B (16 x
-// 128), bf16, from shared memory: kTransA / kTransB = 1 reads the operand
-// MN-major (transposed), 0 K-major.
-template <int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
-}
-
 // Thread block (s, tile, slice): the (128 x 128) tile at (r0, c0) of entry
 // s's block, over the slice's rows, as packed_dw_ffma_kernel computes it;
 // x and gy are read through the tensor maps tx (m, K) and tg (m, N).
@@ -683,7 +570,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(full + 8 * st, 1);
       mbar_init(empty + 8 * st, kWgConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -720,16 +607,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     mbar_wait(full + 8 * st, (it / kWgStages) & 1);
     const uint32_t xs = base + st * kWgStageBytes + wg * kWgBoxBytes;
     const uint32_t gs = base + st * kWgStageBytes + 2 * kWgBoxBytes;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kWgChunk / 16; ++k)   // 16 rows of 128 bytes a step
       wgmma_m64n128k16<1, 1>(acc, wgmma_desc(xs + k * 2048, kWgBoxBytes),
                              wgmma_desc(gs + k * 2048, kWgBoxBytes));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_commit();
+    wgmma_wait<1>();
     if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % kWgStages));
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
 
   // acc[4j + 2h + v] is row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane
   // % 4) + v of the warpgroup's 64 x 128 result.
@@ -821,7 +708,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
       mbar_init(full + 8 * st, 1);
       mbar_init(empty + 8 * st, kWgConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -874,7 +761,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     // A: this warpgroup's 64 rows of the x box (8 KB); B: the W box(es).
     const uint32_t xs = base + st * kMmStageBytes + wg * kWgBoxBytes;
     const uint32_t ws = base + st * kMmStageBytes + kMmXBytes;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kMmChunk / 16; ++k) {
       const uint64_t da = wgmma_desc(xs + 32 * k, 16);
@@ -884,11 +771,11 @@ __global__ void __launch_bounds__(kWgThreads, 2)
         wgmma_m64n128k16<0, 1>(acc, da,
                                wgmma_desc(ws + 2048 * k, kWgBoxBytes));
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_commit();
+    wgmma_wait<1>();
     if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % kMmStages));
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
 
   // The epilogue goes through shared memory, so that each warp stores
   // whole 256-byte row segments: every consumer has finished its products
@@ -896,7 +783,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   // one (64 x kMmStageLd) bf16 tile a warpgroup (barriers 2 and 3).
   // acc[4j + 2h + v] is row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane
   // % 4) + v of the warpgroup's 64 x 128 result.
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumers) : "memory");
+  bar_sync(1, kWgConsumers);
   const int lane = tid % 32;
   const int row = 16 * ((tid / 32) % 4) + lane / 4;
   const int col = 2 * (lane % 4);
@@ -910,7 +797,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
       *reinterpret_cast<__nv_bfloat162*>(stage + (row + 8 * h) * kMmStageLd +
                                          8 * j + col) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+  bar_sync(2 + wg, 128);
   // 16 bytes a thread, masked to rows < m and columns < the block's width
   // (out_w - n0 is a multiple of 8: a group of 8 columns is in or out).
   __nv_bfloat16* out = y + static_cast<size_t>(m0 + 64 * wg) * y_ld +
@@ -1123,54 +1010,6 @@ __global__ void __launch_bounds__(256)
       *reinterpret_cast<uint2*>(o) = packed;
     }
   }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
-// link against libcuda); null where the driver lacks it.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
-// dims 1..), boxes of kWgBox elements innermost, 128-byte swizzle, zeros
-// outside the tensor.  TMA takes a 16-byte-aligned base and strides:
-// anything else is refused here.
-cudaError_t bf16_map_nd(CUtensorMap* map, const void* base, int rank,
-                        const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (!encode) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorInvalidValue;
-  for (int i = 0; i < rank - 1; ++i)
-    if (strides[i] % 16) return cudaErrorInvalidValue;
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The tensor map of a row-major (rows, cols) bf16 matrix, boxes of

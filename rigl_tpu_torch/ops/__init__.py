@@ -133,10 +133,11 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
      JAX's shipped pallas.ops.tpu.flash_attention, three   (CUDA C++, sm_90a),
      pallas_calls: the forward (_flash_attention_impl),    bound in ops/flash_
      _flash_attention_bwd_dkv and                          attention.py:
-     _flash_attention_bwd_dq                               flash_fwd_kernel as
-                                                           flash_fwd_cuda,
-                                                           flash_bwd_dkv_kernel
-                                                           as flash_bwd_dkv_
+     _flash_attention_bwd_dq                               flash_fwd_wgmma_
+                                                           kernel as flash_
+                                                           fwd_cuda, flash_bwd_
+                                                           dkv_wgmma_kernel as
+                                                           flash_bwd_dkv_
                                                            cuda, flash_bwd_dq_
                                                            kernel as flash_bwd_
                                                            dq_cuda; bf16 and

@@ -3,10 +3,11 @@
 Each source `rigl_tpu_torch/csrc/<name>.cu` has a plain C interface and
 is compiled, at its first use in a process, into
 `rigl_tpu_torch/_build/lib<name>_<hash>.so` (a directory git ignores).
-The hash covers the source and the flags, so an edited source rebuilds
-and an unchanged one loads the library already built.  nvcc's output,
-including `-Xptxas -v`'s register and spill report, is kept beside the
-library as `<same name>.log`.
+The hash (`digest`) covers the source, every header beside it
+(`csrc/*.cuh`, which the sources include) and the flags, so an edited
+source or header rebuilds and an unchanged one loads the library
+already built.  nvcc's output, including `-Xptxas -v`'s register and
+spill report, is kept beside the library as `<same name>.log`.
 
 Nothing here runs at import time: a machine without nvcc or a GPU can
 import every module of the package.
@@ -44,12 +45,21 @@ def _nvcc() -> str:
   raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH')
 
 
+def digest(name: str, csrc: Path | None = None) -> str:
+  """16 hex digits of sha256 over csrc/<name>.cu, then each csrc/*.cuh by
+  name (its name and bytes), then the flags; csrc is CSRC by default."""
+  csrc = CSRC if csrc is None else csrc
+  h = hashlib.sha256((csrc / f'{name}.cu').read_bytes())
+  for header in sorted(csrc.glob('*.cuh')):
+    h.update(header.name.encode() + b'\0' + header.read_bytes())
+  h.update(' '.join(NVCC_FLAGS).encode())
+  return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-  """Compiles csrc/<name>.cu unless the library for its hash exists."""
+  """Compiles csrc/<name>.cu unless the library for its digest exists."""
   src = CSRC / f'{name}.cu'
-  digest = hashlib.sha256(src.read_bytes()
-                          + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  so = BUILD_DIR / f'lib{name}_{digest}.so'
+  so = BUILD_DIR / f'lib{name}_{digest(name)}.so'
   if so.exists():
     return so
   BUILD_DIR.mkdir(parents=True, exist_ok=True)

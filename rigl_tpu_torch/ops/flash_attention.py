@@ -12,11 +12,15 @@ take the plain versions (`flash_attention_fwd_reference`,
 and `flash_bwd_dq_reference`); CUDA tensors launch the three hand-written
 kernels of csrc/flash_attn.cu or raise:
 
-  flash_fwd_kernel       replaces the forward pallas_call of
-                         `_flash_attention_impl`; also saves the f32 row
-                         statistic lse = m + log(l) (JAX keeps l and m);
-  flash_bwd_dkv_kernel   replaces `_flash_attention_bwd_dkv`;
-  flash_bwd_dq_kernel    replaces `_flash_attention_bwd_dq`.
+  flash_fwd_wgmma_kernel      replaces the forward pallas_call of
+                              `_flash_attention_impl`; also saves the f32
+                              row statistic lse = m + log(l) (JAX keeps l
+                              and m);
+  flash_bwd_dkv_wgmma_kernel  replaces `_flash_attention_bwd_dkv`;
+  flash_bwd_dq_kernel         replaces `_flash_attention_bwd_dq`.
+
+In bf16 the forward and dK/dV run wgmma on a TMA ring (the logits stay in
+registers), dQ WMMA on a cp.async ring.
 
 D = rowsum(do * o) in f32 stays a plain torch op between the forward and
 the backward kernels, as JAX computes it outside its kernels.  The kernels
@@ -38,8 +42,8 @@ from rigl_tpu_torch.ops import _build
 
 # Launches of each kernel in this process.  Each wrapper adds one per
 # launch of its kernel; nothing else touches them but callers resetting them.
-flash_fwd_launches = 0        # flash_fwd_kernel (bf16)
-flash_bwd_dkv_launches = 0    # flash_bwd_dkv_kernel (bf16)
+flash_fwd_launches = 0        # flash_fwd_wgmma_kernel (bf16)
+flash_bwd_dkv_launches = 0    # flash_bwd_dkv_wgmma_kernel (bf16)
 flash_bwd_dq_launches = 0     # flash_bwd_dq_kernel (bf16)
 flash_fwd_f32_launches = 0        # flash_fwd_f32_kernel
 flash_bwd_dkv_f32_launches = 0    # flash_bwd_dkv_f32_kernel
@@ -76,8 +80,9 @@ def _p_and_ds(q, k, v, do, lse, d, scale: float):
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, d, scale: float):
-  """(dk, dv), flash_bwd_dkv_kernel's plain version: dv = Pᵀ do and dk =
-  dSᵀ q in f32, each cast once to its input's dtype; d = rowsum(do o)."""
+  """(dk, dv), flash_bwd_dkv_wgmma_kernel's plain version: dv = Pᵀ do and
+  dk = dSᵀ q in f32, each cast once to its input's dtype; d = rowsum(do
+  o)."""
   p, ds = _p_and_ds(q, k, v, do, lse, d, scale)
   dv = torch.matmul(p.transpose(-1, -2), do.float())
   dk = torch.matmul(ds.transpose(-1, -2), q.float())
@@ -175,8 +180,8 @@ def _count(name: str, x: torch.Tensor):
 
 
 def flash_fwd_cuda(q, k, v, scale: float):
-  """(o, lse): launches flash_fwd_kernel (bf16) or flash_fwd_f32_kernel
-  on the current stream."""
+  """(o, lse): launches flash_fwd_wgmma_kernel (bf16) or
+  flash_fwd_f32_kernel on the current stream."""
   _check_cuda('flash_fwd', q, k, v)
   o = torch.empty_like(q)
   lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
@@ -196,8 +201,8 @@ def _check_stats(op: str, q, *stats):
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale: float):
-  """(dk, dv): launches flash_bwd_dkv_kernel (bf16) or its f32 variant;
-  d = rowsum(do * o) in f32."""
+  """(dk, dv): launches flash_bwd_dkv_wgmma_kernel (bf16) or
+  flash_bwd_dkv_f32_kernel; d = rowsum(do * o) in f32."""
   _check_cuda('flash_bwd_dkv', q, k, v, do)
   _check_stats('flash_bwd_dkv', q, lse, d)
   dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -260,15 +260,21 @@ def _rel_err(got, want):
 FLASH_TOL, LSE_TOL = 2e-2, 1e-4
 
 
+# (B, H, S): S below, at and across the 64-row tiles (dQ; the dK/dV ring)
+# and the 128-row tiles (forward; dK/dV blocks), b * h from 1 to 64.
+FLASH_EDGES = [(1, 1, 1), (1, 1, 5), (2, 3, 64), (1, 1, 127), (1, 2, 128),
+               (2, 1, 129), (1, 2, 130), (3, 1, 255), (1, 4, 256),
+               (4, 16, 512), (2, 2, 1000)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('hd', [32, 64, 128])
-@pytest.mark.parametrize('b,h,s', [(1, 1, 5), (2, 3, 64), (1, 2, 130),
-                                   (2, 2, 1000), (4, 16, 512)])
+@pytest.mark.parametrize('b,h,s', FLASH_EDGES)
 def test_flash_kernels_match_plain(cuda_device, b, h, s, hd):
-  """Forward, dK/dV and dQ kernels at S below, at and across the 64-row
-  tile (ragged S masked in the kernels), each launched once, against the
-  plain versions on the same inputs (the backward fed the kernel's o and
-  lse, so it checks the backward kernels alone)."""
+  """Forward, dK/dV and dQ kernels at S below, at and across their tiles
+  (ragged S masked in the kernels), each launched once, against the plain
+  versions on the same inputs (the backward fed the kernel's o and lse,
+  so it checks the backward kernels alone)."""
   q, k, v, do = _qkvo((b, h, s, hd), s * 7 + hd, cuda_device)
   scale = hd ** -0.5
   before = (tfa.flash_fwd_launches, tfa.flash_bwd_dkv_launches,
@@ -287,7 +293,31 @@ def test_flash_kernels_match_plain(cuda_device, b, h, s, hd):
   for name, got, ref in zip(('dq', 'dk', 'dv'), (dq, dk, dv), want):
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
     assert torch.isfinite(got).all(), name
-    assert _rel_err(got, ref) <= FLASH_TOL, name
+    if s == 1 and name != 'dv':
+      # One key: P = 1 and dS = P (dP - D) scale is 0 up to the rounding of
+      # dP and D, so dq and dk are rounding noise, held against dv's scale.
+      assert float(got.float().abs().max()) <= FLASH_TOL * float(
+          want[2].float().abs().max()), name
+    else:
+      assert _rel_err(got, ref) <= FLASH_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,h,s,hd', [(4, 16, 512, 128), (2, 2, 1000, 64),
+                                      (1, 3, 129, 32)])
+def test_flash_wgmma_kernels_are_deterministic(cuda_device, b, h, s, hd):
+  """Two launches of the bf16 forward and of dK/dV on the same inputs give
+  the same bits: each output is one thread block's, its sums in a fixed
+  order, with no atomics."""
+  q, k, v, do = _qkvo((b, h, s, hd), s + hd, cuda_device)
+  scale = hd ** -0.5
+  o, lse = tfa.flash_fwd_cuda(q, k, v, scale)
+  o2, lse2 = tfa.flash_fwd_cuda(q, k, v, scale)
+  assert torch.equal(o, o2) and torch.equal(lse, lse2)
+  d = tfa._rowsum_do_o(do, o)
+  dk, dv = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
+  dk2, dv2 = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
+  assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 @pytest.mark.cuda
