@@ -80,6 +80,15 @@ package.  Phases, each fatal on failure:
      16)) in f32 and bf16, and in f32 at batch 100, a 5x5 kernel and an
      empty output column; beside cuDNN on the expanded weight (F.conv2d,
      torch.nn.grad.conv2d_input and conv2d_weight, TF32 off) and the bound;
+     then the RN50 default route's points (bf16, block (128, 128), batch
+     128, ERK 0.8): the forward, dx and dw at the 29 eligible 1x1 shapes,
+     forward and dx each beside B7 (dense_mm_cuda on the same lists,
+     bitwise equal), all beside cuBLAS, with their sums, and at the six
+     3x3 shapes the step runs with block_conv3x3, beside cuDNN.  Each
+     forward / dx point
+     prints its branch (ops/block_sparse_conv.py tap_branch: mm for a
+     1x1, wgmma for bf16 KxK at blocks of 16s, fma for f32, wmma for bf16
+     at blocks of 8s);
  13. conv-net training, a main path: PackedClassifierTrainer on WRN-22-2
      with engine='tap' (synthetic CIFAR-10 shapes, standardized, batch
      128, block (16, 16), ERK s = 0.8, f32, SGD 0.05 nesterov 0.9) trains
@@ -115,10 +124,14 @@ package.  Phases, each fatal on failure:
      (512, 512), s = 0.8) against masked dense matmuls, and one 'auto'
      call where the traffic model picks the gathered dw (B9);
  18. ResNet-50 step speed: us/step of RigL with 'matmul' routing, RigL
-     with the default routing (1x1s on the tap kernels), RigL with
-     dense-times-mask execution and the dense algorithm, each twice in
-     mirrored order, with each arm's device busy share and kernel time per
-     step by kernel;
+     with the default routing (1x1s on the tap kernels), the same with
+     block_conv3x3 (the 13 3x3 convs that block (128, 128) divides on the
+     tap kernels too), RigL with dense-times-mask execution and the dense
+     algorithm, each twice in mirrored order, with each arm's device busy
+     share and kernel time per step by kernel; the two tap arms, main
+     paths, first checked: one forward, dx and dw tap entry call per
+     executed conv in one hot step (29 each; 42), and one step's loss and
+     gradients against the plain path (STEP_RTOL);
  19. history kernels vs plain, at scripts/bench_mlp_arms.py's shape (M, K,
      N) = (1024, 4096, 4096), bf16 at densities 1.0, 0.2, 0.1 and f32 at
      0.2: B11's forward (block_sparse_matmul_gather), B10's forward, dx
@@ -1620,11 +1633,15 @@ def phase_tap_kernels(torch, device):
     tag = (f'{label} {k}x{k} n={n} {hw}x{hw} {cin}->{cout} s={s:.3f} '
            f'({n_act} blocks) {dtype_name(dtype)}'
            + (' empty column' if empty else ''))
+    branch = bsc.tap_branch(k, k, bk, bn, dtype)
     for op, (counter, run, plain, library, lib_name) in ops.items():
       rec, got = kernel_point(
           torch, f'tap {op:3s} {tag}', counter, run, plain, library,
           tap_bound(op, n, hw, index, dtype), module=bsc,
-          library_name=lib_name, plain_iters=3)
+          library_name=lib_name, plain_iters=3,
+          branch=branch if op != 'dw' else None)
+      if branch == 'wgmma' and op != 'dw':
+        rec['gcols'] = _tap_gcols(torch, index, op, n * hw * hw)
       if op == 'fwd':
         for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
           check(not bool(got[..., j * bn:(j + 1) * bn].any()),
@@ -1639,6 +1656,136 @@ def phase_tap_kernels(torch, device):
       records[op].append(rec)
     del x, gy, w, xc, gyc, wc
   torch.cuda.empty_cache()
+  return records
+
+
+def _tap_gcols(torch, index, op, pixels):
+  """The group width (output block-columns a thread block) a wgmma call
+  took (ops/block_sparse_conv.py tap_wgmma_gcols), logged."""
+  from rigl_tpu_torch.ops import block_sparse_conv as bsc
+  gcols = bsc.tap_wgmma_gcols(index, op, pixels, sm_count(torch))
+  log(f'  wgmma groups of {gcols} block-column(s)')
+  return gcols
+
+
+def rn50_3x3_tap_shapes():
+  """(path, hw, channels) of the six 3x3 convs of ResNet-50 that the tap
+  route runs at block RN50_BLOCK with block_conv3x3 (bench.py's
+  BENCH_BLOCK_CONV3X3=1): the stride-2 ones as their stride-1 conv on the
+  fixed-padded input (models/common.py), one entry per shape."""
+  return [('group2_block0/conv2/conv/kernel', 58, 128),
+          ('group2_block1/conv2/conv/kernel', 28, 128),
+          ('group3_block0/conv2/conv/kernel', 30, 256),
+          ('group3_block1/conv2/conv/kernel', 14, 256),
+          ('group4_block0/conv2/conv/kernel', 16, 512),
+          ('group4_block1/conv2/conv/kernel', 7, 512)]
+
+
+def phase_tap_route(torch, device):
+  """Phase 12, the RN50 route's points: the tap conv's forward, dx and dw
+  in bf16 at block RN50_BLOCK, batch RN50_BATCH, ERK-0.8 occupancies, each
+  against its plain version: the 29 eligible 1x1 shapes (forward / dx on
+  the 'mm' branch, beside B7, dense_mm_cuda on the same lists; dw on the
+  packed dw kernels) beside cuBLAS on the masked W, with their sums; and
+  the six 3x3 shapes the step runs with block_conv3x3 (the 'wgmma'
+  branch; dw on tap_dw_kernel) beside cuDNN on the expanded weight.
+  Returns {'fwd': [...], 'dx': [...], 'dw': [...], 'sums': {...}}."""
+  import torch.nn.functional as F
+  from torch.nn.grad import conv2d_input, conv2d_weight
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.ops import block_sparse_conv as bsc
+  from rigl_tpu_torch.ops import block_sparse_v3 as v3
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  gen = torch.Generator().manual_seed(SEED + 12)
+  bk, bn = RN50_BLOCK
+  dtype = torch.bfloat16
+  sparsities = _rn50_sparsities()
+  points = [(path, 1, int(round((m // RN50_BATCH) ** 0.5)), cin, cout)
+            for path, m, cin, cout in rn50_1x1_shapes()]
+  points += [(path, 3, hw, c, c) for path, hw, c in rn50_3x3_tap_shapes()]
+  records = {'fwd': [], 'dx': [], 'dw': []}
+  for path, k, hw, cin, cout in points:
+    nk, nn_ = k * k * cin // bk, cout // bn
+    s = sparsities[path]
+    n_act = nk * nn_ - get_n_zeros(nk * nn_, s)
+    occ = random_occupancy(gen, nk, nn_, n_act).reshape(k * k, cin // bk,
+                                                        nn_)
+    index = bsc.tap_index(bsc.TapPack(*bsc.pack_tap_active(occ, n_act)),
+                          (k, k, cin, cout), RN50_BLOCK)
+    mask = occ.repeat_interleave(bk, 1).repeat_interleave(bn, 2)
+    w = ((torch.randn(k, k, cin, cout, generator=gen) / (k * k * cin) ** 0.5)
+         * mask.reshape(k, k, cin, cout)).to(device, dtype)
+    x = torch.randn(RN50_BATCH, hw, hw, cin, generator=gen).to(device, dtype)
+    gy = torch.randn(RN50_BATCH, hw, hw, cout, generator=gen).to(device,
+                                                                  dtype)
+    branch = bsc.tap_branch(k, k, bk, bn, dtype)
+    tag = (f'{path} {k}x{k} n={RN50_BATCH} {hw}x{hw} {cin}->{cout} '
+           f's={s:.3f} ({n_act} blocks) bfloat16')
+    if k == 1:
+      x2, gy2, w2 = x.view(-1, cin), gy.view(-1, cout), w.view(cin, cout)
+      libs = {'fwd': (lambda: x2 @ w2, 'x @ W (cuBLAS, masked W)'),
+              'dx': (lambda: gy2 @ w2.T, 'gy @ Wᵀ (cuBLAS, masked W)'),
+              'dw': (lambda: x2.T @ gy2, 'xᵀ @ gy (cuBLAS, dense)')}
+    else:
+      xc, gyc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+      wc = w.permute(3, 2, 0, 1).contiguous(
+          memory_format=torch.channels_last)
+      libs = {'fwd': (lambda: F.conv2d(xc, wc, padding=1), 'F.conv2d'),
+              'dx': (lambda: conv2d_input(xc.shape, wc, gyc, padding=1),
+                     'conv2d_input'),
+              'dw': (lambda: conv2d_weight(xc, wc.shape, gyc, padding=1),
+                     'conv2d_weight')}
+    ops = {op: (f'tap_conv_{op}_launches',
+                lambda a=a, op=op: bsc.tap_conv_cuda(a, w, index, op),
+                lambda a=a, op=op: bsc.tap_conv_reference(a, w, index, op))
+           for op, a in (('fwd', x), ('dx', gy))}
+    ops['dw'] = ('tap_dw_launches', lambda: bsc.tap_dw_cuda(x, gy, w, index),
+                 lambda: bsc.tap_dw_reference(x, gy, index, dtype))
+    for op, (counter, run, plain) in ops.items():
+      rec, got = kernel_point(
+          torch, f'tap {op:3s} {tag}', counter, run, plain, libs[op][0],
+          tap_bound(op, RN50_BATCH, hw, index, dtype), module=bsc,
+          library_name=libs[op][1], plain_iters=2,
+          branch=branch if op != 'dw' else None)
+      if op == 'dw':
+        if k != 1:
+          rec['split'] = dw_split(f'tap dw  {tag}', bsc.tap_dw_plan(
+              index, RN50_BATCH * hw * hw, dtype, sm_count(torch)))
+      elif branch == 'wgmma':
+        rec['gcols'] = _tap_gcols(torch, index, op, RN50_BATCH * hw * hw)
+      if k == 1 and op != 'dw':
+        lists = index.mm_lists(op, device)
+        a2 = (x if op == 'fwd' else gy).view(-1, cin if op == 'fwd'
+                                             else cout)
+        b7 = lambda a2=a2, lists=lists, op=op: v3.dense_mm_cuda(  # noqa: E731
+            a2, w2, lists, RN50_BLOCK, op)
+        check(torch.equal(b7().view(got.shape), got),
+              f'tap {op} {tag}: not bitwise B7\'s product')
+        rec['b7_ms'] = device_ms(b7, 20)
+        log(f'  B7 (dense_mm_cuda, the same lists) {rec["b7_ms"]:.4f} ms')
+      if op == 'fwd':
+        for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
+          check(not bool(got[..., j * bn:(j + 1) * bn].any()),
+                f'tap fwd {tag}: empty column {j} not zero')
+      rec.update(path='rn50_tap_route', layer=path, n=RN50_BATCH, hw=hw, k=k,
+                 cin=cin, cout=cout, sparsity=s, n_active=n_act,
+                 dtype='bfloat16', empty_column=False,
+                 library=libs[op][1])
+      records[op].append(rec)
+    del x, gy, w
+  torch.cuda.empty_cache()
+  sums = {}
+  for op in ('fwd', 'dx', 'dw'):
+    for k in (1, 3):
+      pts = [r for r in records[op] if r['k'] == k]
+      keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms') + (
+          ('b7_ms',) if k == 1 and op != 'dw' else ())
+      sums[f'{op}_{k}x{k}'] = {key: sum(r[key] for r in pts) for key in keys}
+      sums[f'{op}_{k}x{k}']['points'] = len(pts)
+      log(f'rn50 tap route {op} {k}x{k}, {len(pts)} shapes, sums (ms): '
+          + ', '.join(f'{key} {v:.4f}' for key, v in
+                      sums[f'{op}_{k}x{k}'].items() if key != 'points'))
+  records['sums'] = sums
   return records
 
 
@@ -2023,13 +2170,15 @@ def rn50_model(torch, device, block, seed):
 
 
 def rn50_setup(torch, device, algo, block, routing, execute=True,
-               seed=SEED + 16):
+               seed=SEED + 16, conv3x3=False):
   """(model, st, state, hot step, update step) of bench.py's resnet50
   arm: ERK 0.8 without the first conv, SGD 0.1 nesterov 0.9, weight decay
   1e-4, label smoothing 0.1, pre-masked storage for RigL; the schedule's
   frequency cut to RN50_FREQ.  `block`: the masks' block granularity,
   executed on the block kernels unless `execute` is False
-  (dense-times-mask execution of block-granular masks)."""
+  (dense-times-mask execution of block-granular masks); `conv3x3`: the
+  spatial convs that block divides on the tap kernels too (bench.py's
+  BENCH_BLOCK_CONV3X3=1)."""
   import functools
   from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
   from rigl_tpu_torch.train import steps
@@ -2057,6 +2206,7 @@ def rn50_setup(torch, device, algo, block, routing, execute=True,
     return steps.make_train_step(model, st, weight_decay=1e-4,
                                  label_smoothing=0.1,
                                  block=block if execute else None,
+                                 block_conv3x3=conv3x3,
                                  update_hint=hint)
   if alg.name == 'none':
     return model, st, state, make(None), None
@@ -2087,9 +2237,11 @@ def _rn50_counts_ok(st, state):
 
 def _rn50_step_vs_plain(torch, model, st, state, batch, routing):
   """One step's loss and per-tensor gradients through the kernels (the
-  'matmul' route) against the plain path (dense-times-mask execution on
-  cuDNN), from the same state, statistics frozen; the gradients of masked
-  tensors compared on their active entries."""
+  block packs of the paths in `routing`: the 'matmul' route's flat
+  packings or the tap route's TapPacks) against the plain path
+  (dense-times-mask execution on cuDNN), from the same state, statistics
+  frozen; the gradients of masked tensors compared on their active
+  entries."""
   from rigl_tpu_torch.models.common import frozen_batch_stats
   from rigl_tpu_torch.train import steps
   loss_fn = steps.make_loss_fn(model, 1e-4, 0.1)
@@ -2324,26 +2476,43 @@ def phase_rn50_occupancy(torch, device):
 
 def phase_rn50_speed(torch, device):
   """Phase 18: us/step of the ResNet-50 step (batch 128, 224 px, bf16) in
-  four arms, each twice in mirrored order: RigL with 'matmul' routing
-  (B7), RigL with the default routing (the 1x1s on the tap kernels), RigL
+  five arms, each twice in mirrored order: RigL with 'matmul' routing
+  (B7), RigL with the default routing (the 1x1s on the tap kernels'
+  'mm' branch), the same with block_conv3x3 (also the 13 3x3 convs that
+  block (128, 128) divides, on the tap kernels' 'wgmma' branch), RigL
   with dense-times-mask execution, and the dense algorithm; each arm's
-  device busy share and kernel time per step by kernel."""
+  device busy share and kernel time per step by kernel.  The two tap
+  arms are first checked as main paths: one hot step with the launch
+  counts set to 0 makes one forward, dx and dw tap entry call per
+  executed conv (29 each; 42 with the 3x3s; the 1x1s' dw on
+  packed_mm.cu's dw kernels), and one step's loss and gradients agree
+  with the plain path within STEP_RTOL.  Returns ({arm: that step's
+  launches}, record)."""
   import numpy as np
   routing = {p: 'matmul' for p, *_ in rn50_1x1_shapes()}
-  arms = {'rigl_matmul': ('rigl', RN50_BLOCK, routing),
-          'rigl_tap': ('rigl', RN50_BLOCK, None),
-          'rigl_masked': ('rigl', None, None),
-          'dense': ('dense', None, None)}
+  arms = {'rigl_matmul': ('rigl', RN50_BLOCK, routing, False),
+          'rigl_tap': ('rigl', RN50_BLOCK, None, False),
+          'rigl_tap3x3': ('rigl', RN50_BLOCK, None, True),
+          'rigl_masked': ('rigl', None, None, False),
+          'dense': ('dense', None, None, False)}
   batch = rn50_batches(torch, device, 1)[0]
-  steps_ = {}
-  for name, (algo, block, rt) in arms.items():
-    model, st, state, hot, upd = rn50_setup(torch, device, algo, block, rt)
+  steps_, tap_launches, tap_checks = {}, {}, {}
+  for name, (algo, block, rt, conv3x3) in arms.items():
+    model, st, state, hot, upd = rn50_setup(torch, device, algo, block, rt,
+                                            conv3x3=conv3x3)
     holder = {'state': state}
     if upd is not None:   # the step-0 update first, then the hot loop
       holder['state'], _ = upd(holder['state'], batch)
 
     def step(hot=hot, holder=holder):
       holder['state'], _ = hot(holder['state'], batch)
+    if name.startswith('rigl_tap'):
+      from rigl_tpu_torch.ops import block_mask as bm_lib
+      paths = bm_lib.block_executable_layers(state.sparse.masks, RN50_BLOCK,
+                                             conv3x3=conv3x3)
+      tap_launches[name], tap_checks[name] = _rn50_tap_route_check(
+          torch, model, st, holder, step, batch,
+          [p for p in paths if p in holder['state'].sparse.block_packs])
     for _ in range(2):
       step()
     torch.cuda.synchronize()
@@ -2361,13 +2530,56 @@ def phase_rn50_speed(torch, device):
     log(f'rn50 step: {name:11s} us/step {[round(u, 1) for u in us[name]]} '
         f'(mean {mean_us:.1f}); kernels {prof["kernel_us_per_step"]} us/step '
         f'(busy share {busy})')
-  for name in ('rigl_matmul', 'rigl_tap', 'rigl_masked'):
+  for name in ('rigl_matmul', 'rigl_tap', 'rigl_tap3x3', 'rigl_masked'):
     rec[f'dense_over_{name}'] = (float(np.mean(us['dense']))
                                  / float(np.mean(us[name])))
     log(f'  dense/{name}: {rec[f"dense_over_{name}"]:.3f}')
+  for name, check_ in tap_checks.items():
+    rec[name]['check'] = check_
   del steps_
   torch.cuda.empty_cache()
-  return rec
+  return tap_launches, rec
+
+
+def _rn50_tap_route_check(torch, model, st, holder, step, batch, paths):
+  """A tap-route arm as a main path (phase_rn50_speed): the launches of
+  one hot step, counted from 0 (one forward, dx and dw tap call for each
+  of the executed convs `paths`), and one step's loss and gradients
+  against the plain path.  Returns (launches, record)."""
+  packs = holder['state'].sparse.block_packs
+  check(all(set(packs[p]) == {'cols', 'rows', 'taps'} for p in paths),
+        'rn50 tap route: an executed conv does not hold a tap pack')
+  n_convs = len(paths)
+  n_3x3 = sum(tuple(holder['state'].sparse.masks[p].shape[:2]) != (1, 1)
+              for p in paths)
+  check(n_convs - n_3x3 == RN50_1X1,
+        f'rn50 tap route: {n_convs - n_3x3} 1x1 convs, not {RN50_1X1}')
+  torch.cuda.synchronize()
+  _zero_counts()
+  step()
+  torch.cuda.synchronize()
+  launches = _counts()
+  got = (launches['tap_fwd'], launches['tap_dx'], launches['tap_dw'])
+  log(f'rn50 tap route ({n_convs - n_3x3} 1x1 and {n_3x3} 3x3 convs), '
+      f'one step: tap fwd / dx / dw entry calls {got}; v4 fwd / dx '
+      f'{launches["v4_fwd"]} / {launches["v4_dx"]}')
+  check(got == (n_convs,) * 3,
+        f'rn50 tap route: tap launches {got}, not {(n_convs,) * 3}')
+  check(launches['v4_fwd'] == launches['v4_dx'] == 0,
+        'rn50 tap route: the v4 form ran')
+  loss_k, loss_p, loss_err, errs = _rn50_step_vs_plain(
+      torch, model, st, holder['state'], batch, paths)
+  worst = sorted(errs, key=errs.get)[-3:]
+  log(f'rn50 tap route one step, kernel path vs plain path: loss '
+      f'{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3e}); max rel grad '
+      f'err {max(errs.values()):.3e} (tol {STEP_RTOL}); largest at '
+      f'{[(n, float(f"{errs[n]:.3e}")) for n in worst]}')
+  check(loss_err <= STEP_RTOL, f'rn50 tap step loss: rel error {loss_err}')
+  for p, err in errs.items():
+    check(err <= STEP_RTOL, f'rn50 tap step grad {p}: rel error {err}')
+  return launches, dict(launches_per_step=list(got), convs_3x3=n_3x3,
+                        loss_rel_err=loss_err,
+                        max_grad_rel_err=max(errs.values()))
 
 
 def _density_occupancy(torch, gen, nk, nn_, density, empty_column=False):
@@ -2871,11 +3083,12 @@ def phase_f32_train_step(torch, device):
   return launches, rec
 
 
-def _tap_entry(name, source, replaces, launches, points):
+def _tap_entry(name, source, replaces, by_path, points):
   """One tap kernel's JSON record: ms, plain_ms, bound_ms and library_ms
-  are sums over the main path's points (the four WRN-22-2 shapes at batch
-  128 in f32); bound_by is the kind that holds the larger share of that
-  summed bound; every point is listed."""
+  are sums over the WRN main path's points (the four WRN-22-2 shapes at
+  batch 128 in f32); bound_by is the kind that holds the larger share of
+  that summed bound; launches are the main paths' (`by_path`); every
+  point is listed."""
   main = [p for p in points if p['layer'].startswith('wrn')
           and p['n'] == WRN_BATCH and p['k'] == 3 and p['dtype'] == 'float32'
           and not p['empty_column']]
@@ -2883,8 +3096,8 @@ def _tap_entry(name, source, replaces, launches, points):
   for p in main:
     by[p['bound_by']] = by.get(p['bound_by'], 0.0) + p['bound_ms']
   return {'name': name, 'route': 'cuda', 'source': source,
-          'replaces': replaces, 'launches': launches,
-          'launches_by_path': {'wrn_training': launches},
+          'replaces': replaces, 'launches': sum(by_path.values()),
+          'launches_by_path': by_path,
           'max_abs_err': max(p['max_abs_err'] for p in points),
           'ms': sum(p['ms'] for p in main),
           'plain_ms': sum(p['plain_ms'] for p in main),
@@ -2934,6 +3147,32 @@ DW_DESIGN = ('bf16: packed_dw_wgmma_kernel, 128 x 128 tiles, wgmma '
              'split into slices where the tiles leave SMs idle')
 DW_REDUCTION = ('packed_dw_reduce_kernel: adds the slices\' f32 partials '
                 'in slice order, one cast (only where S > 1)')
+# The tap conv's forward / dx: the kernel of each branch of tap_branch
+# (ops/block_sparse_conv.py) and the design of the new one.
+TAP_BRANCH_KERNELS = {
+    'mm': ('1x1: csrc/packed_mm.cu forward / dx kernels over the index\'s '
+           'lists, the branch mm_branch names (bf16 m > 32: '
+           'packed_mm_wgmma_kernel)'),
+    'wgmma': 'bf16 KxK, blocks of 16s: tap_conv_wgmma_kernel',
+    'fma': 'f32 KxK: tap_conv_kernel<float> (unchanged, bit-identical)',
+    'wmma': 'bf16 KxK, blocks of 8s: tap_conv_kernel<bf16>'}
+TAP_DESIGN = ('tap_conv_wgmma_kernel: implicit GEMM on wgmma; one block of '
+              'two warpgroups per (128 pixels, output tile of up to 128 '
+              'channels), heaviest first; a tile covers one block-column, '
+              'or a group of them where blocks are 64 wide or less and the '
+              'union of their entries cuts the x copies by a quarter with a '
+              'block still for every SM (tap_wgmma_gcols), each x tile '
+              'multiplied 16 columns a wgmma into the columns that hold its '
+              'entry only; the tile width named by the caller '
+              '(tap_wgmma_tile); entries as '
+              '16-channel k-steps, 4 a ring stage (several entries a stage '
+              'at blocks of 16 / 32); every thread copies its part of the '
+              '128 x 64 shifted x tile (a warp on whole 128-byte rows) and '
+              'the 64 x N W piece by zero-filling cp.async into the swizzled '
+              'layouts wgmma reads (W MN-major forward, K-major dx, read in '
+              'place); a stage completes on its mbarrier; 3 stages (4 at N = '
+              '64), 2-4 blocks an SM; epilogue staged in shared memory, '
+              '16-byte stores')
 TAP_DW_DESIGN = ('entries grouped by (input block, output block), up to 9 '
                  'taps in bf16 and 4 in f32 (2, at 4 thread blocks an SM, '
                  'where the pairs hold 2.5 taps or fewer on average), from '
@@ -3001,12 +3240,13 @@ def main():
     step_launches, train_step = phase_train_step(torch, device)
     lm_launches, lm = phase_lm(torch, device)
     tap_points_ = phase_tap_kernels(torch, device)
+    tap_route = phase_tap_route(torch, device)
     wrn_launches, wrn = phase_wrn(torch, device)
     wrn['speed'] = phase_wrn_speed(torch, device)
     dense_points = phase_dense_kernels(torch, device)
     rn50_launches, rn50 = phase_rn50(torch, device)
     occ_launches, rn50['occupancy'] = phase_rn50_occupancy(torch, device)
-    rn50['speed'] = phase_rn50_speed(torch, device)
+    rn50_tap_launches, rn50['speed'] = phase_rn50_speed(torch, device)
     history_points, arms_launches = phase_history_kernels(torch, device)
     mlp_launches, block_mlp = phase_block_mlp(torch, device)
     flash_f32_points = phase_flash(torch, device, torch.float32)
@@ -3057,17 +3297,29 @@ def main():
                           'and dv in one call)')
     kernels.append(entry)
   conv_tpu = 'rigl_tpu/ops/pallas/block_sparse_conv.py'
-  for name, op, line, n in (('tap_conv_fwd_kernel', 'fwd', 117,
-                             wrn_launches[0]),
-                            ('tap_conv_dx_kernel', 'dx', 117,
-                             wrn_launches[1]),
-                            ('tap_dw_kernel', 'dw', 473, wrn_launches[2])):
+  for i, (name, op, line) in enumerate((
+      ('tap_conv_fwd: tap_conv_wgmma_kernel, tap_conv_kernel, packed_mm 1x1',
+       'fwd', 117),
+      ('tap_conv_dx: tap_conv_wgmma_kernel, tap_conv_kernel, packed_mm 1x1',
+       'dx', 117),
+      ('tap_dw_kernel', 'dw', 473))):
+    by_path = {'wrn_training': wrn_launches[i],
+               'rn50_tap': rn50_tap_launches['rigl_tap'][f'tap_{op}'],
+               'rn50_tap3x3': rn50_tap_launches['rigl_tap3x3'][f'tap_{op}']}
     entry = _tap_entry(name, 'rigl_tpu_torch/csrc/tap_conv.cu',
-                       f'{conv_tpu}:{line}', n, tap_points_[op])
+                       f'{conv_tpu}:{line}', by_path,
+                       tap_points_[op] + tap_route.get(op, []))
     if op != 'dw':
       entry['also_replaces'] = f'{conv_tpu}:355 (_conv_kernel_v5, B5)'
+      entry.update(design=TAP_DESIGN, branches=TAP_BRANCH_KERNELS,
+                   branch_by_path={'wrn_training': 'fma', 'rn50_tap': 'mm',
+                                   'rn50_tap3x3': 'mm (1x1), wgmma (3x3)'},
+                   rn50_route={k: v for k, v in tap_route['sums'].items()
+                               if k.startswith(op)})
     else:
-      entry.update(design=TAP_DW_DESIGN, reduction=TAP_DW_REDUCTION)
+      entry.update(design=TAP_DW_DESIGN, reduction=TAP_DW_REDUCTION,
+                   rn50_route={k: v for k, v in tap_route['sums'].items()
+                               if k.startswith(op)})
     kernels.append(entry)
   v4_tpu = 'rigl_tpu/ops/pallas/block_sparse_v4.py:60 (_v4_kernel, B7)'
   v3_tpu = 'rigl_tpu/ops/pallas/block_sparse_v3.py:28 (_v3_kernel, B8)'

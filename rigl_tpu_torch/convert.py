@@ -206,12 +206,15 @@ def _paths(tree) -> Dict[str, np.ndarray]:
 
 
 def _pack_entry(entry, device):
+  from rigl_tpu_torch.ops.block_sparse_conv import TapPack
   from rigl_tpu_torch.ops.block_sparse_v4 import FlatPacking
   if isinstance(entry, Mapping):
     # Tap packings stay on the host, where their kernel index is built.
     dev = 'cpu' if 'taps' in entry else device
     out = {k: torch.from_numpy(np.array(v, np.int32)).to(dev)
            for k, v in entry.items()}
+    if 'taps' in out:
+      return TapPack(**out)
     return FlatPacking(**out) if set(out) == {'cols', 'rows'} else out
   return torch.from_numpy(np.array(entry, np.int32)).to(device)
 

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks that the port's kernels share: shared
 // memory addresses, mbarriers, TMA copies and the tensor maps they read,
 // wgmma operand descriptors, fences and the products themselves, and named
-// barriers.  Included by packed_mm.cu and
-// flash_attn.cu; each of those is built into a library of its own, and
-// everything here is inline.
+// barriers.  Included by packed_mm.cu, flash_attn.cu and tap_conv.cu; each
+// of those is built into a library of its own, and everything here is
+// inline.
 //
 // wgmma's fragment layout, used by every kernel that reads an accumulator:
 // in an m64nNk16 product the warpgroup's 128 threads hold D (64 x N, f32)
@@ -117,6 +117,26 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// The same for a tile with 32-byte swizzle, MN-major: 8-row groups of 32
+// bytes (16 bf16 of M or N a row, chunk c of row r at c ^ ((r / 4) % 2)),
+// 256 bytes apart; `lbo` the bytes between 16-element column blocks.  The
+// tile starts 256-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t wgmma_desc_sw32(uint32_t addr,
+                                                    uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) |
+         (static_cast<uint64_t>(3) << 62);
+}
+
+// Orders this thread's completed writes to shared memory by ordinary
+// instructions or cp.async (the generic proxy) before later reads by the
+// async proxy (wgmma, TMA stores), its own and, after a barrier, other
+// threads'.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Before the first wgmma that reads registers or shared memory written by
 // ordinary instructions; commit closes a group of issued products; wait
 // returns once at most N groups are in flight.
@@ -227,6 +247,76 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
+// d (64 x N, f32) += A (64 x 16) @ B (16 x N), bf16, both from shared
+// memory, for the narrow N of small blocks (48, 32, 16); kTransA / kTransB
+// as above.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x N) += A @ B with both operands in shared memory, for N = 16, 32,
+// 48, 64 or 128: the SS product of that width.
+template <int N, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 128,
+                "no SS product of this width");
+  if constexpr (N == 128)
+    wgmma_m64n128k16<kTransA, kTransB>(d, da, db);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16<kTransA, kTransB>(d, da, db);
+  else if constexpr (N == 48)
+    wgmma_m64n48k16<kTransA, kTransB>(d, da, db);
+  else if constexpr (N == 32)
+    wgmma_m64n32k16<kTransA, kTransB>(d, da, db);
+  else
+    wgmma_m64n16k16<kTransA, kTransB>(d, da, db);
+}
+
 // d (64 x 128, f32) += A (64 x 16) @ B (16 x 128), bf16: A from registers
 // (a[0..3], the fragment layout of an m64nNk16 accumulator's 16 columns:
 // see bf16_a_fragment), B from shared memory, kTransB as above.
@@ -291,6 +381,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(kTransB));
+}
+
+// d (64 x 16, f32) += A (64 x 16) @ B (16 x 16), bf16, A from registers
+// as above, issued only where `on` is nonzero (the same value in every
+// thread of the warpgroup): a guard predicate, not a branch.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16_rs_if(float (&d)[8],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     unsigned on) {
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.b32 p, %13, 0;\n"
+      "setp.ne.b32 q, %15, 0;\n"
+      "@q wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kTransB), "r"(on));
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (no

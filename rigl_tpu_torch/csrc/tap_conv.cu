@@ -1,15 +1,15 @@
 // Block-sparse stride-1 SAME convolution of NHWC activations over the active
 // (tap, input-block, output-block) entries of a KxK kernel, and its weight
-// gradient on those entries only.  Two kernels, each in bf16 or f32:
+// gradient on those entries only:
 //
-//   tap_conv_kernel<T, false>  behind `tap_conv_fwd`:
+//   forward, behind `tap_conv_fwd`:
 //       y[p, j-block] = sum over column j's entries (t, r) of
 //                       x[p + shift(t), r-block] @ W[t][r-block, j-block];
-//   tap_conv_kernel<T, true>   behind `tap_conv_dx`: the same sum with the
-//       taps flipped (t' = T-1-t), gy as input and each W block read
-//       transposed: dx[q, r-block] = sum gy[q + shift(t'), j] @ W[t][r, j]ᵀ;
-//   tap_dw_kernel<T, STAGES>   behind `tap_dw` (with tap_dw_reduce_kernel
-//       where the pixel sum is split):
+//   dx, behind `tap_conv_dx`: the same sum with the taps flipped (t' =
+//       T-1-t), gy as input and each W block read transposed:
+//       dx[q, r-block] = sum gy[q + shift(t'), j] @ W[t][r, j]ᵀ;
+//   dw, behind `tap_dw`: tap_dw_kernel<T, STAGES, TAPS> (with
+//       tap_dw_reduce_kernel where the pixel sum is split):
 //       dW[t][r-block, j-block] = sum over all pixels p of
 //                                 x[p + shift(t), r-block]ᵀ gy[p, j-block],
 //       for the active entries only.
@@ -29,24 +29,59 @@
 // The TPU kernel stages x into a zero-padded, batch-minor copy so that every
 // tap shift is a constant row offset Mosaic can prove aligned, and walks a
 // grid of (row tile, entry) steps.  None of that carries over.  Here the
-// activations stay NHWC and unpadded: a thread block owns a tile of BM output
-// pixels x BN output channels of one block-column, keeps each pixel's (h, w)
-// in shared memory, and for every entry of its column copies the shifted
-// (BM x BK) input tile with 16-byte cp.asyncs that zero-fill the pixels whose
-// shifted position leaves the image (implicit GEMM).  The copies run through a
-// 3-deep ring while the previous tile is multiplied: WMMA 16x16x16 (bf16 in,
-// f32 accumulate) or scalar FMA (f32, no TF32).  Each tile is written once, so
-// there are no atomics and no second pass, and any batch size works (the TPU
-// kernel's N % 16 rule is a Mosaic alignment matter).
+// activations stay NHWC and unpadded, and each kernel copies the shifted
+// input tiles itself with 16-byte cp.asyncs that zero-fill the pixels whose
+// shifted position leaves the image (implicit GEMM).  Each output tile is
+// written once, so there are no atomics and no second pass, and any batch
+// size works (the TPU kernel's N % 16 rule is a Mosaic alignment matter).
 //
-// What bounds them on an H100: at the WRN-22-2 / RN50 shapes (batch 128,
-// block 16 x 16, ERK densities) an entry's product is (BM x 16) @ (16 x 16),
-// 16 multiply-adds per input element read, so the forward and dx stream the
-// activations once per (entry's column subtile) through L2; the f32 paths are
-// bounded by the CUDA cores' FMA rate, the bf16 ones by the loads.  dW has
-// few outputs (a layer's active 16 x 16 blocks) and one long sum each, so
-// it is bound by how many SMs the sum is spread over and, then, by the
-// bytes of x and gy it reads.
+// The forward and dx run the branch that ops/block_sparse_conv.py
+// `tap_branch` names (dispatch_conv refuses a branch that cannot take the
+// call):
+//   mm (a 1x1 kernel, either dtype): no shifts, so the conv is a block-
+//     sparse matmul over the pixels; the wrapper runs packed_mm.cu's forward
+//     / dx kernels on the index's lists and this library is not called.
+//   wgmma (bf16, KxK, bk and bn multiples of 16): tap_conv_wgmma_kernel<N,
+//     kTrans, kGroups>.  One thread block of two warpgroups per (128 output
+//     pixels, output tile of N <= 128 channels; the caller names N,
+//     ops/block_sparse_conv.py tap_wgmma_tile), heaviest first.  A tile
+//     covers one output block-column (several tiles where it is wider than
+//     128), or, where blocks are at most 64 wide and it pays
+//     (tap_wgmma_gcols), a group of block-columns (kGroups): the group walks
+//     the union of its columns' (tap, input block) entries, each shifted x
+//     tile copied once for all of them and multiplied, 16 columns a wgmma
+//     (A from registers), into the columns that hold the entry only.  The entries are a stream
+//     of 16-channel k-steps; each ring stage holds 4 of them: a 128 x 64
+//     shifted x tile (several entries, each at its own shift, where blocks
+//     are 16 or 32 wide) and the matching 64 x N piece of W, copied by every
+//     thread with zero-filling cp.asyncs into the swizzled layouts wgmma
+//     reads (x K-major with 128-byte swizzle, a warp's copies on whole
+//     128-byte rows; W MN-major in the forward, with 128-byte swizzle at N
+//     >= 64 without groups and 32-byte otherwise; W K-major in dx, the
+//     stored block read transposed in place).  A stage
+//     completes on its mbarrier once every thread's copies have landed (and
+//     are fenced to the async proxy); each warpgroup then runs wgmma
+//     m64nNk16 on its 64 rows, f32 in registers, while the stage freed by
+//     the previous products takes the next copies.  The epilogue is staged
+//     in the ring and stored in 16-byte pieces, masked to real pixels and
+//     the tile's channels.
+//   fma (f32, KxK): tap_conv_kernel<float, kTrans>, BM = 128 pixels x BN =
+//     16 channels a thread block (one per 16-channel subtile of a column),
+//     a 3-deep cp.async ring of 16-channel chunks, a 4 x 4 FMA micro-tile
+//     a thread, no TF32.
+//   wmma (bf16, KxK, a block of 8s that 16 does not divide):
+//     tap_conv_kernel<bf16, kTrans>, the same tiles on WMMA 16x16x16.
+//
+// What bounds them on an H100: a bf16 call is bound by bytes: x is read
+// from L2 once per entry of each output tile (its shifted copy for that
+// tap), and y written once, against a bound that reads x once; at blocks
+// of 16 an entry is a (128 x 16) @ (16 x N) product, so the copies of x,
+// about 2.4 TB/s from L2 at RN50's block-16 shapes, bound it, which the
+// column groups cut where entries overlap.  The f32 branch is bound by
+// the CUDA cores' FMA rate.  dW has few
+// outputs (a layer's active blocks) and one long sum each, so it is bound
+// by how many SMs the sum is spread over and, then, by the bytes of x and
+// gy it reads.
 //
 // tap_dw_kernel.  The entries are grouped by (input block, output block),
 // at most 9 taps a group in bf16, 4 in f32, 2 where an index holds about
@@ -85,7 +120,11 @@
 #include <atomic>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 128;    // conv: 4 warps
 constexpr int kStages = 3;       // conv: cp.async ring depth
@@ -109,6 +148,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The same with the shared-memory destination as its address.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* gmem,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(pred ? 16 : 0));
 }
 
 template <int N>
@@ -344,6 +390,321 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- tap_conv_wgmma_kernel (bf16, KxK, blocks of 16s) -----------------------
+// Four 8 x 8 b16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8: with rows 0-15 of a 16 x 16 tile at lanes
+// 0-15 (columns 0-7) and 16-31 (columns 8-15), the mma / wgmma A fragment.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+constexpr int kWgRows = 128;            // output pixels per thread block
+constexpr int kWgK = 64;                // contraction per ring stage
+constexpr int kWgSteps = kWgK / 16;     // k-steps of 16 a stage
+constexpr int kWgThreads = 256;         // two warpgroups; all load, all multiply
+constexpr int kWgABytes = kWgRows * kWgK * 2;   // 16 KB: 128 rows of 128 bytes
+
+// Shared-memory plan of tap_conv_wgmma_kernel at an output tile N channels
+// wide: a ring of kStages stages, each the 128 x 64 shifted x tile (A,
+// K-major, 128-byte swizzle) and the 64 x N piece of W (B); then one
+// mbarrier a stage; then a stage's column masks (8 bytes, a byte a warp;
+// column groups only).  Three stages, four at N = 64: two thread blocks an SM at N >= 64,
+// three or four below, whose thread blocks have less work.
+template <int N>
+struct WgPlan {
+  static constexpr int kStages = N == 64 ? 4 : 3;
+  static constexpr int kBBytes = kWgK * N * 2;
+  static constexpr int kStageBytes = kWgABytes + kBBytes;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 16 * kStages;
+  // The epilogue's bf16 staging row: N + 8 values, so that a warp's
+  // fragment stores (8 rows x 4 pairs) fall on 32 distinct banks.
+  static constexpr int kStageLd = N + 8;
+  static_assert(kStageBytes % 1024 == 0, "stages start 1024-byte aligned");
+  static_assert(kWgRows * kStageLd * 2 <= kStages * kStageBytes,
+                "the staging tile fits in the ring");
+  static_assert(2 * kSmem <= 227 * 1024, "two thread blocks an SM");
+};
+
+// Thread block (tile, m-tile): output pixels m0 .. m0 + 127 and channels
+// n0 .. n0 + N - 1 of the output block-columns of group G = order[blockIdx.x
+// / tiles] (columns G gcols .. G gcols + gcols - 1, see ops/block_sparse_
+// conv.py TapGroupLists): the f32 sum over G's entries u in [ptr[G],
+// ptr[G+1]) of x[p + shift(taps[u]), kblks[u]-block] @ the W block of
+// each column c of the group at w + woffs[u gcols + c] (seg x out_w, rows
+// w_ld apart; with kTrans the stored out_w x seg block read transposed;
+// zeros where woffs is -1).  The entries are walked as a stream of
+// k-steps of 16 channels (entry u, channels k0 .. k0 + 15); a stage holds
+// 4 of them, so that with blocks of 16 or 32 a stage carries 4 or 2
+// entries, each at its own shift.  Every thread copies its part of a
+// stage with 16-byte cp.asyncs that zero-fill what lies outside: the x
+// chunks of pixels whose shifted position leaves the image (SAME padding)
+// or lies past M, W's columns past the group or of a column without the
+// entry, and the k-steps past the group's last entry.
+//   A group of several columns (kGroups) copies each shifted x tile once
+// for all of them and multiplies it, 16 columns a wgmma (m64n16k16, x
+// from registers: ldmatrix once a stage), only into the columns that hold
+// the k-step's entry; the others' products are predicated off.  The
+// stage's column masks come with its copies: each warp ORs the columns
+// whose W its lanes copied (bit c for column c of the group) into a byte,
+// two warps a k-step.  So each column sums its own entries only, and a
+// non-finite value in an input block that a column does not read stays
+// out of it, as in the plain version.
+//   A (x): row r = pixel m0 + r, 128 bytes; chunk c at c ^ (r % 8).
+//   B forward (W block rows = contraction, MN-major): N >= 64 and one
+//     column a tile, 64-column blocks of 64 rows x 128 bytes, 8 KB apart,
+//     chunk c of row k at c ^ (k % 8); else 16-column blocks of 64 rows x
+//     32 bytes, 2 KB apart, chunk c of row k at c ^ ((k / 4) % 2).
+//   B dx (the stored block's rows = output channels, K-major): row n, 128
+//     bytes, chunk c at c ^ (n % 8), as A.
+template <int N, bool kTrans, bool kGroups>
+__global__ void __launch_bounds__(kWgThreads, 2)
+    tap_conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ w,
+                          const int* __restrict__ ptr,
+                          const int* __restrict__ taps,
+                          const int* __restrict__ kblks,
+                          const int* __restrict__ woffs,
+                          const int* __restrict__ order,
+                          __nv_bfloat16* __restrict__ y, int M, int H, int W,
+                          int cx, int cy, int kh, int kw, int seg, int out_w,
+                          int w_ld, int gcols) {
+  using L = WgPlan<N>;
+  constexpr int S = L::kStages;
+  constexpr bool kSw128 = N >= 64 && !kGroups;   // forward W's layout
+  extern __shared__ unsigned char wg_smem[];
+  const int tid = threadIdx.x;
+  const int tiles = (gcols * out_w + N - 1) / N;
+  const int g = order[blockIdx.x / tiles];
+  const int n0 = (blockIdx.x % tiles) * N;
+  const int m0 = blockIdx.y * kWgRows;
+  const int g0 = g * gcols * out_w;                     // the group's channels
+  const int width = min(gcols * out_w, cy - g0);       // g0 .. g0 + width
+  const int e_begin = ptr[g];
+  const int spe = seg / 16;                         // k-steps an entry
+  const int ksteps = (ptr[g + 1] - e_begin) * spe;
+  const int total = (ksteps + kWgSteps - 1) / kWgSteps;   // stages
+
+  const uint32_t base = (smem_u32(wg_smem) + 1023) & ~1023u;
+  const uint32_t full = base + S * L::kStageBytes;
+  unsigned char* const masks = wg_smem + (full + 8 * S - smem_u32(wg_smem));
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(full + 8 * s, kWgThreads);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // What a thread copies, the same in every stage: chunk xc of pixel rows
+  // xr + 32 j (j < 4) of the x tile -- k-step xc / 2 of the stage, so that
+  // a warp's copies cover 4 whole 128-byte rows -- and chunks z = zl + 64 j
+  // of k-step zi of the W piece (2N chunks a k-step; consecutive threads
+  // on consecutive chunks of a row).  Each walks its k-step's (entry,
+  // k-step of the entry) with a cursor that advances 4 k-steps a stage,
+  // so no division runs per stage.  A row past M gets a row no shift
+  // brings back inside.
+  const int xc = tid % 8, xr = tid / 8;
+  int ph[4], pw[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int p = m0 + xr + 32 * j;
+    ph[j] = p < M ? (p / W) % H : -(1 << 20);
+    pw[j] = p < M ? p % W : 0;
+  }
+  const uint32_t x_dst = xr * 128 + ((xc ^ (xr & 7)) << 4);
+  constexpr int kWz = (2 * N + 63) / 64;   // W chunks a thread, at most
+  const int zi = tid / 64, zl = tid % 64;
+  int wcol[kWz], wrel[kWz];   // the chunk's column of the group (-1: none)
+  uint32_t wdst[kWz];         // and element offset in the column's block
+#pragma unroll
+  for (int j = 0; j < kWz; ++j) {
+    const int z = zl + 64 * j;
+    int krem, n;              // row of the k-step, channel of the tile
+    if constexpr (kTrans) {
+      n = z / 2;
+      krem = 8 * (z % 2);
+      wdst[j] = n * 128 + (((2 * zi + z % 2) ^ (n & 7)) << 4);
+    } else {
+      krem = z / (N / 8);
+      const int cc = z % (N / 8), kr = 16 * zi + krem;
+      n = 8 * cc;
+      wdst[j] = kSw128 ? (cc / 8) * 8192 + kr * 128 +
+                              (((cc % 8) ^ (kr & 7)) << 4)
+                        : (cc / 2) * 2048 + kr * 32 +
+                              (((cc % 2) ^ ((kr >> 2) & 1)) << 4);
+    }
+    const int q = n0 + n;     // the group's channel
+    const bool in = z < 2 * N && q < width;
+    wcol[j] = in ? q / out_w : -1;
+    wrel[j] = kTrans ? (q % out_w) * w_ld + krem : krem * w_ld + q % out_w;
+  }
+  // Cursors: entry e and k-step k of the entry for k-step 4 it + i.
+  const int q4 = kWgSteps / spe, r4 = kWgSteps % spe;
+  int xe = e_begin + (xc / 2) / spe, xk = (xc / 2) % spe;
+  int we = e_begin + zi / spe, wk = zi % spe;
+  const int e_end = ptr[g + 1];
+
+  // Stage s <- the next stage's k-steps (called for stages 0, 1, 2, ...).
+  auto load = [&](int s) {
+    const uint32_t a = base + s * L::kStageBytes;
+    const uint32_t b = a + kWgABytes;
+    int dy = -(1 << 20), dx = 0;   // past the last entry: zeros
+    const __nv_bfloat16* col = x;
+    if (xe < e_end) {
+      const int tap = taps[xe];
+      dy = tap / kw - kh / 2;
+      dx = tap % kw - kw / 2;
+      col = x + kblks[xe] * seg + xk * 16 + (xc % 2) * 8;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = xr + 32 * j;
+      const bool ok =
+          static_cast<unsigned>(ph[j] + dy) < static_cast<unsigned>(H) &&
+          static_cast<unsigned>(pw[j] + dx) < static_cast<unsigned>(W);
+      const __nv_bfloat16* src =
+          ok ? col + static_cast<size_t>(m0 + r + dy * W + dx) * cx : x;
+      cp_async16(a + x_dst + 4096 * j, src, ok);
+    }
+    const size_t k_off = static_cast<size_t>(16 * wk) * (kTrans ? 1 : w_ld);
+    unsigned bits = 0;   // the group columns whose W this thread copies
+#pragma unroll
+    for (int j = 0; j < kWz; ++j) {
+      if (zl + 64 * j >= 2 * N) break;
+      const int off = wcol[j] >= 0 && we < e_end
+                          ? woffs[we * gcols + wcol[j]]
+                          : -1;
+      const bool ok = off >= 0;
+      cp_async16(b + wdst[j], ok ? w + off + wrel[j] + k_off : w, ok);
+      if (kGroups && ok) bits |= 1u << wcol[j];
+    }
+    if constexpr (kGroups) {
+      // The columns that hold k-step zi's entry: warps 2 zi and 2 zi + 1
+      // copy its W, a byte each.
+      bits = __reduce_or_sync(0xffffffffu, bits);
+      if (tid % 32 == 0)
+        masks[8 * s + tid / 32] = static_cast<unsigned char>(bits);
+    }
+    xk += r4;
+    xe += q4 + (xk >= spe);
+    xk -= xk >= spe ? spe : 0;
+    wk += r4;
+    we += q4 + (wk >= spe);
+    wk -= wk >= spe ? spe : 0;
+  };
+
+  const int wg = tid / 128;   // this warpgroup's 64 rows of the tile
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  // kGroups: the mask bit of the group column that 16-column slice i of
+  // the tile lies in (0 past the group); and where this lane's ldmatrix
+  // reads the x tile: row 64 wg + 16 (warp % 4) + lane % 16, the k-step's
+  // chunk (lane / 16) of 8 channels, swizzled as the copies wrote it.
+  unsigned slice_bit[N / 16];
+#pragma unroll
+  for (int i = 0; i < N / 16; ++i)
+    slice_bit[i] = n0 + 16 * i < width ? 1u << ((n0 + 16 * i) / out_w) : 0u;
+  const int a_row = 64 * wg + 16 * ((tid / 32) % 4) + tid % 16;
+  const int a_half = (tid % 32) / 16;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < total; ++it) {
+    const int s = it % S;
+    // This thread's copies into stage s have landed; made visible to the
+    // async proxy that wgmma reads through, they complete its share of the
+    // stage's barrier, whose phase completes once every thread's have.
+    cp_async_wait<S - 2>();
+    fence_proxy_async();
+    mbar_arrive(full + 8 * s);
+    mbar_wait(full + 8 * s, (it / S) & 1);
+    // The stage's column masks.
+    const unsigned long long mask =
+        kGroups ? *reinterpret_cast<const unsigned long long*>(masks + 8 * s)
+                : 0ull;
+    // Every thread has passed iteration it - 1, products included: its
+    // stage takes the loads of it + S - 1 while these products run.
+    const int next = it + S - 1;
+    if (next < total) load(next % S);
+    cp_async_commit();
+    const uint32_t a = base + s * L::kStageBytes;   // x tile: 128 rows
+    const uint32_t b = a + kWgABytes;
+    // kGroups: the x tile's fragments in registers, read once for the
+    // group's products (wgmma reads them until the wait below).
+    uint32_t frag[kGroups ? kWgSteps : 1][4];
+    if constexpr (kGroups) {
+#pragma unroll
+      for (int k = 0; k < kWgSteps; ++k)
+        ldmatrix_x4(frag[k], a + a_row * 128 +
+                                 (((2 * k + a_half) ^ (a_row & 7)) << 4));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kWgSteps; ++k) {
+      if constexpr (kGroups) {
+        // 16 columns a product, into the columns that hold the entry.
+#pragma unroll
+        for (int i = 0; i < N / 16; ++i) {
+          const uint64_t db =
+              kTrans ? wgmma_desc(b + 2048 * i + 32 * k, 16)
+                     : wgmma_desc_sw32(b + 2048 * i + 512 * k, 2048);
+          wgmma_m64n16k16_rs_if<kTrans ? 0 : 1>(
+              *reinterpret_cast<float(*)[8]>(acc + 8 * i), frag[k], db,
+              static_cast<unsigned>((mask >> (16 * k)) |
+                                    (mask >> (16 * k + 8))) &
+                  slice_bit[i]);
+        }
+      } else {
+        const uint64_t da =
+            wgmma_desc(a + wg * (kWgABytes / 2) + 32 * k, 16);
+        uint64_t db;
+        if constexpr (kTrans)
+          db = wgmma_desc(b + 32 * k, 16);
+        else if constexpr (kSw128)
+          db = wgmma_desc(b + 2048 * k, 8192);
+        else
+          db = wgmma_desc_sw32(b + 512 * k, 2048);
+        wgmma_ss<N, 0, kTrans ? 0 : 1>(acc, da, db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is idle: it becomes the staging tile
+
+  // acc[4j + 2h + v] is row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane
+  // % 4) + v of the warpgroup's 64 x N result; cast once to bf16.
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(
+      wg_smem + (base - smem_u32(wg_smem)));
+  const int lane = tid % 32;
+  const int row = 64 * wg + 16 * ((tid / 32) % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(stage + (row + 8 * h) * L::kStageLd +
+                                         8 * j + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  __syncthreads();
+  // 16 bytes a thread, masked to real pixels (rows < M) and the group's
+  // channels (width - n0 is a multiple of 16: 8 channels are in or out).
+  const int rows = M - m0, cols = width - n0;
+  __nv_bfloat16* out = y + static_cast<size_t>(m0) * cy + g0 + n0;
+  for (int i = tid; i < kWgRows * N / 8; i += kWgThreads) {
+    const int rr = i / (N / 8), c = 8 * (i % (N / 8));
+    if (rr < rows && c < cols)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(rr) * cy + c) =
+          *reinterpret_cast<const uint4*>(stage + rr * L::kStageLd + c);
+  }
+}
+
 // Shared-memory plan of the dw kernel (dynamic), per stage of its ring:
 // the chunk's per-pixel tap masks, its (DP pixels x DT channels) gy tile,
 // and its x tile of DP + 2 * halo pixel rows (the chunk widened by the
@@ -373,10 +734,6 @@ struct DwPlan {
   static_assert(DP == 32 * kWarps, "a warp takes 32 pixels of a chunk");
   static_assert(DP == kDwThreads, "a thread masks one pixel of a chunk");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Four 8x8 b16 matrices, each transposed on the way: lanes 8i .. 8i+7 give
 // the row addresses of matrix i, whose fragment lands in r[i].
@@ -672,49 +1029,130 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// Arguments common to every forward / dx launch, in the kernel's terms: the
+// input x (M, cx) and the output y (M, cy = ncols * out_w); each entry's
+// contraction is `seg` channels (bk forward, bn dx) and its weight block
+// (seg x out_w, or with kTrans the stored out_w x seg) has rows w_ld apart.
+struct ConvArgs {
+  const void* x;
+  const void* w;
+  const int* ptr;
+  const int* taps;
+  const int* kblks;
+  const int* woffs;
+  const int* order;   // wgmma: the column groups, longest first
+  void* y;
+  int M, H, W, cx, cy, ncols, kh, kw, seg, out_w, w_ld;
+  int gcols;          // wgmma: the output block-columns a group holds
+  int tile;           // wgmma: the output tile's channels (its N)
+  cudaStream_t stream;
+};
+
 template <typename T, bool kTrans>
-cudaError_t launch_conv(const void* x, const void* w, const void* ptr,
-                        const void* taps, const void* kblks,
-                        const void* woffs, void* y, int M, int H, int W,
-                        int cx, int cy, int ncols, int kh, int kw, int bk,
-                        int bn, int w_ld, cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM, ncols * ((bn + BN - 1) / BN));
-  tap_conv_kernel<T, kTrans><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const int*>(ptr), static_cast<const int*>(taps),
-      static_cast<const int*>(kblks), static_cast<const int*>(woffs),
-      static_cast<T*>(y), M, H, W, cx, cy, kh, kw, bk, bn, w_ld);
+cudaError_t launch_conv(const ConvArgs& a) {
+  dim3 grid((a.M + BM - 1) / BM, a.ncols * ((a.out_w + BN - 1) / BN));
+  tap_conv_kernel<T, kTrans><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.w), a.ptr, a.taps,
+      a.kblks, a.woffs, static_cast<T*>(a.y), a.M, a.H, a.W, a.cx, a.cy,
+      a.kh, a.kw, a.seg, a.out_w, a.w_ld);
   return cudaGetLastError();
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem,
+                       std::atomic<uint64_t>& allowed, int carveout = -1);
+
+template <int N, bool kTrans, bool kGroups>
+cudaError_t launch_conv_wgmma(const ConvArgs& a) {
+  const int m_tiles = (a.M + kWgRows - 1) / kWgRows;
+  if (m_tiles > 65535 || !a.order) return cudaErrorInvalidValue;
+  auto kernel = tap_conv_wgmma_kernel<N, kTrans, kGroups>;
+  static std::atomic<uint64_t> allowed{0};   // bit d: done on device d
+  cudaError_t err = allow_smem(kernel, WgPlan<N>::kSmem, allowed,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int groups = (a.ncols + a.gcols - 1) / a.gcols;
+  const dim3 grid(groups * ((a.gcols * a.out_w + N - 1) / N), m_tiles);
+  kernel<<<grid, kWgThreads, WgPlan<N>::kSmem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x),
+      static_cast<const __nv_bfloat16*>(a.w), a.ptr, a.taps, a.kblks,
+      a.woffs, a.order, static_cast<__nv_bfloat16*>(a.y), a.M, a.H, a.W,
+      a.cx, a.cy, a.kh, a.kw, a.seg, a.out_w, a.w_ld, a.gcols);
+  return cudaGetLastError();
+}
+
+// The instance of output tile N: column groups (gcols > 1) or not.
+template <int N, bool kTrans>
+cudaError_t launch_tile(const ConvArgs& a) {
+  if constexpr (N == 16) {
+    return launch_conv_wgmma<16, kTrans, false>(a);   // no room for a group
+  } else {
+    return a.gcols > 1 ? launch_conv_wgmma<N, kTrans, true>(a)
+                       : launch_conv_wgmma<N, kTrans, false>(a);
+  }
+}
+
+// The wgmma branch at the output tile the caller names (ops/block_sparse_
+// conv.py tap_wgmma_tile; the tiles are the cases below); blocks (seg and
+// out_w) must be multiples of 16, and a group of several columns, at most
+// 8 (a byte of mask bits), must fit in one tile.
 template <bool kTrans>
-int dispatch_conv(const void* x, const void* w, const void* ptr,
-                  const void* taps, const void* kblks, const void* woffs,
-                  void* y, int M, int H, int W, int cx, int cy, int ncols,
-                  int kh, int kw, int bk, int bn, int w_ld, int dtype,
-                  void* stream) {
-  if (M <= 0 || ncols <= 0 || H <= 0 || W <= 0)
+cudaError_t launch_wgmma(const ConvArgs& a) {
+  if (a.seg % 16 || a.out_w % 16 || a.seg <= 0 || a.out_w <= 0 ||
+      a.gcols <= 0 || a.gcols > 8 ||
+      (a.gcols > 1 && a.gcols * a.out_w > a.tile))
+    return cudaErrorInvalidValue;
+  switch (a.tile) {
+    case 16: return launch_tile<16, kTrans>(a);
+    case 32: return launch_tile<32, kTrans>(a);
+    case 48: return launch_tile<48, kTrans>(a);
+    case 64: return launch_tile<64, kTrans>(a);
+    case 128: return launch_tile<128, kTrans>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The branches, in the order of ops/block_sparse_conv.py TAP_BRANCHES.  The
+// caller names one by the rule of tap_branch there:
+//   mm:    a 1x1 kernel -- not here: the wrapper runs packed_mm.cu's
+//          forward / dx kernels, so this library refuses it;
+//   wgmma: bf16, KxK, blocks of 16s -- tap_conv_wgmma_kernel;
+//   fma:   f32, KxK -- tap_conv_kernel<float>;
+//   wmma:  bf16, KxK, a block of 8s that 16 does not divide --
+//          tap_conv_kernel<bf16>.
+// A branch that cannot take the call (another dtype, blocks the wgmma
+// tiles do not divide, more than 65535 m-tiles) is refused with
+// cudaErrorInvalidValue; no other branch is tried.
+enum TapBranch { kTapMm = 0, kTapWgmma = 1, kTapFma = 2, kTapWmma = 3 };
+
+template <bool kTrans>
+int dispatch_conv(const ConvArgs& a, int branch, int dtype) {
+  if (a.M <= 0 || a.ncols <= 0 || a.H <= 0 || a.W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1)
-    err = launch_conv<__nv_bfloat16, kTrans>(x, w, ptr, taps, kblks, woffs,
-                                             y, M, H, W, cx, cy, ncols, kh, kw,
-                                             bk, bn, w_ld, st);
-  else if (dtype == 0)
-    err = launch_conv<float, kTrans>(x, w, ptr, taps, kblks, woffs, y, M, H,
-                                     W, cx, cy, ncols, kh, kw, bk, bn, w_ld,
-                                     st);
+  switch (branch) {
+    case kTapWgmma:
+      if (dtype == 1) err = launch_wgmma<kTrans>(a);
+      break;
+    case kTapFma:
+      if (dtype == 0) err = launch_conv<float, kTrans>(a);
+      break;
+    case kTapWmma:
+      if (dtype == 1) err = launch_conv<__nv_bfloat16, kTrans>(a);
+      break;
+  }
   return static_cast<int>(err);
 }
 
 // Above 48 KB, dynamic shared memory must be allowed per kernel and device:
-// once for each (instantiation, device), not on every launch.  The dw
-// kernel's need depends on the image width (its halo), so it is allowed up
-// to kDwMaxSmem once and each launch checks its own size against that.
+// once for each (instantiation, device), not on every launch; `carveout`
+// (percent of the unified L1 / shared memory) is set with it where given.
+// The dw kernel's need depends on the image width (its halo), so it is
+// allowed up to kDwMaxSmem once and each launch checks its own size
+// against that.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem,
-                       std::atomic<uint64_t>& allowed) {
+                       std::atomic<uint64_t>& allowed, int carveout) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -722,6 +1160,9 @@ cudaError_t allow_smem(Kernel kernel, int smem,
   if (!(allowed.load(std::memory_order_acquire) & bit)) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess && carveout >= 0)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
     if (err != cudaSuccess) return err;
     allowed.fetch_or(bit, std::memory_order_release);
   }
@@ -823,26 +1264,40 @@ cudaError_t launch_dw_taps(int max_taps, const void* x, const void* gy,
 // y (M, ncols*bn) = the tap conv of x (M, cx): output block-column g sums
 // entries ptr[g] .. ptr[g+1]-1 (tap taps[e], input block kblks[e] of width
 // bk, weight block at w + woffs[e], (bk x bn) with rows w_ld apart).
+// `branch`: dispatch_conv's TapBranch, named by the caller.  The wgmma
+// branch reads the lists of the output block-columns in groups of gcols
+// (ops/block_sparse_conv.py TapGroupLists: ptr over the groups, woffs
+// gcols a entry, -1 where a column lacks it) and `order`, the groups
+// longest first, in output tiles of `tile` channels; the others the column
+// lists (gcols 1; order and tile unused).
 extern "C" int tap_conv_fwd(const void* x, const void* w, const void* ptr,
                             const void* taps, const void* kblks,
-                            const void* woffs, void* y, int M, int H, int W,
-                            int cx, int ncols, int kh, int kw, int bk, int bn,
-                            int w_ld, int dtype, void* stream) {
-  return dispatch_conv<false>(x, w, ptr, taps, kblks, woffs, y, M, H, W, cx,
-                              ncols * bn, ncols, kh, kw, bk, bn, w_ld, dtype,
-                              stream);
+                            const void* woffs, const void* order, void* y,
+                            int M, int H, int W, int cx, int ncols, int kh,
+                            int kw, int bk, int bn, int w_ld, int gcols,
+                            int tile, int branch, int dtype, void* stream) {
+  return dispatch_conv<false>(
+      {x, w, static_cast<const int*>(ptr), static_cast<const int*>(taps),
+       static_cast<const int*>(kblks), static_cast<const int*>(woffs),
+       static_cast<const int*>(order), y, M, H, W, cx, ncols * bn, ncols, kh,
+       kw, bk, bn, w_ld, gcols, tile, static_cast<cudaStream_t>(stream)},
+      branch, dtype);
 }
 
 // The same with each weight block read transposed: the block at w + woffs[e]
 // is stored (bn x bk), rows w_ld apart (dx: gy in, flipped taps).
 extern "C" int tap_conv_dx(const void* gy, const void* w, const void* ptr,
                            const void* taps, const void* kblks,
-                           const void* woffs, void* dx, int M, int H, int W,
-                           int cx, int ncols, int kh, int kw, int bk, int bn,
-                           int w_ld, int dtype, void* stream) {
-  return dispatch_conv<true>(gy, w, ptr, taps, kblks, woffs, dx, M, H, W, cx,
-                             ncols * bn, ncols, kh, kw, bk, bn, w_ld, dtype,
-                             stream);
+                           const void* woffs, const void* order, void* dx,
+                           int M, int H, int W, int cx, int ncols, int kh,
+                           int kw, int bk, int bn, int w_ld, int gcols,
+                           int tile, int branch, int dtype, void* stream) {
+  return dispatch_conv<true>(
+      {gy, w, static_cast<const int*>(ptr), static_cast<const int*>(taps),
+       static_cast<const int*>(kblks), static_cast<const int*>(woffs),
+       static_cast<const int*>(order), dx, M, H, W, cx, ncols * bn, ncols, kh,
+       kw, bk, bn, w_ld, gcols, tile, static_cast<cudaStream_t>(stream)},
+      branch, dtype);
 }
 
 // dW of the active entries, in tap groups: group g holds entries ptr[g] ..

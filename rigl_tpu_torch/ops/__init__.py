@@ -37,17 +37,25 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
   3  block_sparse_packed.py:362 _dw_panel_kernel, _dw_call the same kernel (the
                                                            panel is an L2
                                                            matter on Hopper)
-  4  block_sparse_conv.py:117 _conv_kernel, _shift_matmul  csrc/tap_conv.cu
-     (the forward; dx from _tap_bwd with flipped taps and  (CUDA C++, sm_90a)
-     transposed blocks)                                    tap_conv_kernel:
-                                                           forward mode, bound
-                                                           in ops/block_sparse_
-                                                           conv.py as
+  4  block_sparse_conv.py:117 _conv_kernel, _shift_matmul  the branch of
+     (the forward; dx from _tap_bwd with flipped taps and  ops/block_sparse_
+     transposed blocks)                                    conv.py tap_branch,
+                                                           bound there as
                                                            tap_conv_cuda(mode=
-                                                           'fwd'); transposed
-                                                           (dx) mode, as
-                                                           tap_conv_cuda(mode=
-                                                           'dx')
+                                                           'fwd' / 'dx'): mm
+                                                           (1x1, dense w) on
+                                                           csrc/packed_mm.cu's
+                                                           mm kernels (row 1's
+                                                           branches); in
+                                                           csrc/tap_conv.cu
+                                                           (CUDA C++, sm_90a)
+                                                           wgmma (bf16 KxK,
+                                                           blocks of 16s):
+                                                           tap_conv_wgmma_
+                                                           kernel; fma (f32
+                                                           KxK) and wmma (bf16
+                                                           KxK, blocks of 8s):
+                                                           tap_conv_kernel
   5  block_sparse_conv.py:355 _conv_kernel_v5,             the same kernel:
      _shift_matmul_v5 (RIGL_TAP_ENGINE=v5)                 v5 is another TPU
                                                            grid for the same

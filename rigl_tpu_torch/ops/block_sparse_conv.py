@@ -9,7 +9,9 @@ leave the image are zeros, which is SAME padding.
 
 `pack_tap_active` builds JAX's entry lists from a (T, Cin/bk, Cout/bn)
 occupancy, element for element: column-major actives, one leading dummy
-entry (tap -1) per output column and one closing sentinel.
+entry (tap -1) per output column and one closing sentinel; a `TapPack`
+holds them under JAX's keys and caches the TapIndex built from them, so
+the dense-masked train step builds one per mask update, not per call.
 `block_sparse_conv_tap(x, w4d, packing, block)` is the JAX entry point as
 a torch.autograd.Function: forward y, dx (the same conv of gy with flipped
 taps and per-tap transposed blocks) and dw on the active blocks only,
@@ -28,13 +30,18 @@ for the dw kernel grouped by (input block, output block), at most
 Each of the three products has a plain PyTorch version that walks the same
 index (one shifted (pixels x bk) @ (bk x bn) product per entry, summed in
 f32; `tap_conv_reference`, `tap_dw_reference`), which CPU tensors take, and
-a hand-written Hopper kernel in csrc/tap_conv.cu, which CUDA tensors launch
-or raise: the forward and dx modes of `tap_conv_kernel` (replacing the TPU
-kernels `_conv_kernel` and `_conv_kernel_v5`) and `tap_dw_kernel`
-(replacing `_dw_kernel`), whose pixel sum `tap_dw_plan` splits over thread
-blocks, the partials added in slice order by `tap_dw_reduce_kernel`.  A
-1x1 kernel has no tap shifts, so its dw is the block dw of
-csrc/packed_mm.cu (`block_sparse_packed.dw_launch`).
+hand-written Hopper kernels, which CUDA tensors launch or raise.  The
+forward and dx (replacing the TPU kernels `_conv_kernel` and
+`_conv_kernel_v5`) run the branch `tap_branch` names: a 1x1 kernel has no
+tap shifts, so 'mm' runs the forward / dx kernels of csrc/packed_mm.cu on
+a dense-w index's lists (the products of block_sparse_v4's B7; a packed
+1x1 is refused, PackedConv1x1 serves those); a KxK kernel
+runs csrc/tap_conv.cu, 'wgmma' (`tap_conv_wgmma_kernel`) in bf16 with
+blocks of 16s, 'fma' and 'wmma' (`tap_conv_kernel`) in f32 and in bf16
+with blocks of 8s.  dw runs `tap_dw_kernel` (replacing `_dw_kernel`),
+whose pixel sum `tap_dw_plan` splits over thread blocks, the partials
+added in slice order by `tap_dw_reduce_kernel`; a 1x1 kernel's dw is the
+block dw of csrc/packed_mm.cu (`block_sparse_packed.dw_launch`).
 
 Where JAX chooses among TPU grids with environment switches (RIGL_TAP_ENGINE
 for the v5 grid, RIGL_TAP_DW for a dense dw times the mask, RIGL_TAP_BM for
@@ -52,15 +59,18 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from rigl_tpu_torch.ops import _build, dw_split
+from rigl_tpu_torch.ops import _build, block_sparse_v4, dw_split
 from rigl_tpu_torch.ops.block_sparse_packed import (DwPlan, Packing,
                                                     _on_device, dw_launch,
                                                     dw_workspace)
+from rigl_tpu_torch.ops.block_sparse_v3 import DenseLists, dense_mm_cuda
 
 # Launches of each kernel in this process.  Each wrapper adds one per
 # launch of its kernel; nothing else touches them but callers resetting them.
-tap_conv_fwd_launches = 0     # tap_conv_kernel, forward mode
-tap_conv_dx_launches = 0      # tap_conv_kernel, transposed (dx) mode
+# The forward / dx counters count calls of their entry, whatever branch
+# serves the call (tap_branch).
+tap_conv_fwd_launches = 0     # the forward kernels
+tap_conv_dx_launches = 0      # the dx kernels
 tap_dw_launches = 0           # tap_dw_kernel (one per call of the entry)
 
 # tap_dw_kernel's tiling (csrc/tap_conv.cu): DT x DT output tiles, chunks
@@ -71,6 +81,37 @@ tap_dw_launches = 0           # tap_dw_kernel (one per call of the entry)
 TAP_DW_TILE, TAP_DW_CHUNK = 16, 256
 TAP_GROUP_TAPS = {torch.bfloat16: 9, torch.float32: 4}
 TAP_SPARSE_TAPS, TAP_SPARSE_MEAN = 2, 2.5
+
+# The forward / dx branches, in the order of csrc/tap_conv.cu's TapBranch;
+# the output tiles of tap_conv_wgmma_kernel (channels: the cases of
+# launch_wgmma there) and its pixels a thread block (kWgRows).
+TAP_BRANCHES = ('mm', 'wgmma', 'fma', 'wmma')
+TAP_WGMMA_TILES = (16, 32, 48, 64, 128)
+TAP_WGMMA_TILE, TAP_WGMMA_ROWS = TAP_WGMMA_TILES[-1], 128
+# tap_wgmma_gcols: the largest share of the entries a group's unions may
+# hold for the wide groups to be taken.
+TAP_GROUP_CUT = 0.75
+
+
+def tap_branch(kh: int, kw: int, bk: int, bn: int, dtype) -> str:
+  """The branch of the forward / dx kernels for a (kh, kw) kernel at block
+  (bk, bn) in `dtype`: 'mm' for every 1x1 (no shifts: csrc/packed_mm.cu's
+  forward / dx kernels, the branch block_sparse_packed.mm_branch names);
+  KxK in float32 'fma' (tap_conv_kernel<float>); KxK in bfloat16 'wgmma'
+  (tap_conv_wgmma_kernel) where 16 divides bk and bn, else 'wmma'
+  (tap_conv_kernel<bf16>, blocks of 8s).  Raises for another dtype and for
+  a block that is not whole 16-byte copies of the dtype."""
+  if dtype not in _DTYPE_CODE:
+    raise ValueError(f'the tap kernels take float32 or bfloat16, not {dtype}')
+  vec = 16 // dtype.itemsize
+  if bk % vec or bn % vec:
+    raise ValueError(f'block {(bk, bn)} must be a multiple of {vec} for '
+                     f'{dtype}')
+  if (kh, kw) == (1, 1):
+    return 'mm'
+  if dtype == torch.float32:
+    return 'fma'
+  return 'wgmma' if bk % 16 == 0 and bn % 16 == 0 else 'wmma'
 
 
 # ----------------------------------------------------------- packing ------
@@ -95,6 +136,17 @@ def pack_tap_active(occ3: torch.Tensor, n_active: int):
   rows = torch.cat([rows[order2], torch.zeros(1, dtype=i64)])
   taps = torch.cat([taps[order2], end])
   return tuple(t.to(torch.int32) for t in (cols, rows, taps))
+
+
+class TapPack(block_sparse_v4.Packing):
+  """A pack_tap_active packing in JAX's form, {'cols', 'rows', 'taps'},
+  on which `tap_index` keeps the TapIndex of each (w_shape, block): a pack
+  is made once per mask update (SparseTraining._compute_packs), so the
+  step's convs build their index and copy its lists to the card once per
+  update, not on every call."""
+
+  def __init__(self, cols, rows, taps):
+    super().__init__(cols=cols, rows=rows, taps=taps)
 
 
 def _occupancy3(cols, rows, taps, t_dim: int, nk: int, nn_: int):
@@ -131,6 +183,68 @@ class TapLists(NamedTuple):
   taps: torch.Tensor
   kblks: torch.Tensor
   woffs: torch.Tensor
+
+
+class TapGroupLists(NamedTuple):
+  """The lists tap_conv_wgmma_kernel reads for one conv mode: the output
+  block-columns in groups of `gcols` (the last group may hold fewer);
+  group G walks entries ptr[G] .. ptr[G+1]-1, the union of its columns'
+  (tap, input block) pairs in ascending (tap, input block) order, entry u
+  reading input block kblks[u] at the shift of tap taps[u] and, for
+  column c of the group, the weight block at element offset
+  woffs[u * gcols + c] (-1 where that column has no such entry: the
+  kernel skips that column's product).  `order`: the groups, those with the most
+  entries first.  int32.  With gcols = 1 the groups are the columns and
+  the lists are TapLists'."""
+  ptr: torch.Tensor
+  taps: torch.Tensor
+  kblks: torch.Tensor
+  woffs: torch.Tensor
+  order: torch.Tensor
+  gcols: int
+
+
+def tap_wgmma_tile(gcols: int, out_w: int) -> int:
+  """The output tile (channels) of a 'wgmma' call whose groups hold gcols
+  block-columns, each out_w wide: the narrowest of TAP_WGMMA_TILES that
+  holds the group, else the widest (a column wider than it takes several
+  tiles)."""
+  width = gcols * out_w
+  return next((t for t in TAP_WGMMA_TILES if t >= width), TAP_WGMMA_TILE)
+
+
+def tap_group_cols(out_w: int, ncols: int) -> int:
+  """The most output block-columns, each out_w channels wide, that one
+  thread block of tap_conv_wgmma_kernel can cover: as many as fit in its
+  128 channels (at most ncols) where out_w <= 64, else 1."""
+  return max(1, min(ncols, TAP_WGMMA_TILE // out_w)) if out_w <= 64 else 1
+
+
+def tap_wgmma_gcols(index: 'TapIndex', mode: str, pixels: int,
+                    sm_count: int) -> int:
+  """The group width a 'wgmma' call of `mode` over `pixels` = N*H*W pixels
+  takes on a card of sm_count SMs: the widest (tap_group_cols) where its
+  groups' unions cut the x tiles each pixel tile copies by at least
+  TAP_GROUP_CUT of the entries and still give every SM a thread block
+  (groups x pixel tiles >= SMs); else one column a group.  A group copies
+  each shifted x tile once for its columns, but runs its products 16
+  columns at a time and leaves fewer, longer thread blocks: at WRN-22-2's
+  and RN50's block-16 shapes on an H100 the wide groups won where the
+  unions held 0.53-0.73 of the entries with 256 or more thread blocks,
+  and lost at 0.79-0.83, or with 64 thread blocks (measured where a group
+  multiplied its whole width for every entry)."""
+  fwd = mode == 'fwd'
+  out_w = index.bn if fwd else index.bk
+  ptr = index.fwd.ptr if fwd else index.dx.ptr
+  ncols = ptr.numel() - 1
+  wide = tap_group_cols(out_w, ncols)
+  if wide == 1 or index.n_entries == 0:
+    return 1
+  union = int(index.group_lists(mode, 'cpu', wide).ptr[-1])
+  blocks = -(-ncols // wide) * -(-pixels // TAP_WGMMA_ROWS)
+  if union <= TAP_GROUP_CUT * index.n_entries and blocks >= sm_count:
+    return wide
+  return 1
 
 
 class TapDwEntries(NamedTuple):
@@ -238,6 +352,55 @@ class TapIndex:
       self._cache[key] = TapDwGroups(*(a.to(device) for a in groups))
     return self._cache[key]
 
+  def mm_lists(self, mode: str, device) -> DenseLists:
+    """A dense-w 1x1 index's lists as the forward / dx kernels of
+    csrc/packed_mm.cu take them, on `device`, built once per (mode,
+    device): the DenseLists of w's (cin, cout) view (beg = ptr[:-1], end =
+    ptr[1:], seg = kblks, woffs), the entries in the index's order."""
+    if not self.dense_w:
+      raise ValueError('mm_lists: a packed-storage index has none')
+    device = torch.device(device)
+    key = ('mm', mode, str(device))
+    if key not in self._cache:
+      ptr, _, seg, woffs = self.fwd if mode == 'fwd' else self.dx
+      self._cache[key] = DenseLists(
+          *(a.to(device, torch.int32).contiguous()
+            for a in (ptr[:-1], ptr[1:], seg, woffs)))
+    return self._cache[key]
+
+  def group_lists(self, mode: str, device, gcols: int) -> 'TapGroupLists':
+    """The lists of the 'wgmma' branch for `mode`, on `device`, with the
+    output block-columns in groups of `gcols` (TapGroupLists); built once
+    per (mode, device, gcols)."""
+    device = torch.device(device)
+    key = ('groups', mode, str(device), gcols)
+    if key not in self._cache and device.type != 'cpu':
+      cpu = self.group_lists(mode, 'cpu', gcols)
+      self._cache[key] = TapGroupLists(*(a.to(device) for a in cpu[:5]),
+                                       gcols)
+    if key not in self._cache:
+      fwd = mode == 'fwd'
+      ptr, taps, kblks, woffs = (a.long() for a in
+                                 (self.fwd if fwd else self.dx))
+      n_in = self.cin // self.bk if fwd else self.cout // self.bn
+      ncols = ptr.numel() - 1
+      n_groups = -(-ncols // gcols)
+      col = torch.repeat_interleave(torch.arange(ncols), ptr.diff())
+      pair = taps * n_in + kblks
+      span = self.kh * self.kw * n_in
+      uniq, inv = torch.unique((col // gcols) * span + pair,
+                               return_inverse=True)
+      counts = torch.bincount(uniq // span, minlength=n_groups)
+      gptr = torch.zeros(n_groups + 1, dtype=torch.int64)
+      gptr[1:] = torch.cumsum(counts, 0)
+      gwoffs = torch.full((uniq.numel() * gcols,), -1, dtype=torch.int64)
+      gwoffs[inv * gcols + col % gcols] = woffs
+      order = torch.argsort(-counts, stable=True)
+      lists = (gptr, (uniq % span) // n_in, uniq % n_in, gwoffs, order)
+      self._cache[key] = TapGroupLists(
+          *(a.to(torch.int32).contiguous() for a in lists), gcols)
+    return self._cache[key]
+
   def to(self, device) -> 'TapIndex':
     device = torch.device(device)
     if self.fwd.ptr.device == device:
@@ -267,17 +430,25 @@ def _check_geometry(kernel_size, cin, cout, block):
 
 def tap_index(packing, w_shape, block: Tuple[int, int]) -> TapIndex:
   """The TapIndex of a pack_tap_active packing ({'cols','rows','taps'})
-  over a dense (kh, kw, Cin, Cout) kernel."""
+  over a dense (kh, kw, Cin, Cout) kernel; built once per (w_shape,
+  block) and kept on the packing where it is a TapPack."""
   kh, kw, cin, cout = (int(s) for s in w_shape)
-  _check_geometry((kh, kw), cin, cout, block)
-  bk, bn = block
-  cols, rows, taps = (torch.as_tensor(packing[k]).cpu().long()
-                      for k in ('cols', 'rows', 'taps'))
-  keep = taps >= 0
-  t, r, j = taps[keep], rows[keep], cols[keep]
-  woffs = t * cin * cout + r * bk * cout + j * bn
-  return TapIndex(t, r, j, woffs, kernel_size=(kh, kw), cin=cin, cout=cout,
-                  block=block, w_shape=w_shape, w_ld=cout, dense_w=True)
+  block = tuple(block)
+
+  def make():
+    _check_geometry((kh, kw), cin, cout, block)
+    bk, bn = block
+    cols, rows, taps = (torch.as_tensor(packing[k]).cpu().long()
+                        for k in ('cols', 'rows', 'taps'))
+    keep = taps >= 0
+    t, r, j = taps[keep], rows[keep], cols[keep]
+    woffs = t * cin * cout + r * bk * cout + j * bn
+    return TapIndex(t, r, j, woffs, kernel_size=(kh, kw), cin=cin,
+                    cout=cout, block=block, w_shape=(kh, kw, cin, cout),
+                    w_ld=cout, dense_w=True)
+  if isinstance(packing, TapPack):
+    return packing.derived(('tap', kh, kw, cin, cout, block), make)
+  return make()
 
 
 def packed_tap_index(packing: Packing, kernel_size: Tuple[int, int],
@@ -375,7 +546,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _kernel(name: str):
   """The C entry point `name` of csrc/tap_conv.cu: pointers, then ints,
   then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'tap_conv_fwd': (7, 11), 'tap_conv_dx': (7, 11),
+  n_ptrs, n_ints = {'tap_conv_fwd': (8, 14), 'tap_conv_dx': (8, 14),
                     'tap_dw': (9, 15)}[name]
   fn = getattr(_build.load('tap_conv'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
@@ -423,25 +594,52 @@ def _check_cuda(op: str, acts, w: torch.Tensor, index: TapIndex):
 
 def tap_conv_cuda(x: torch.Tensor, w: torch.Tensor, index: TapIndex,
                   mode: str = 'fwd') -> torch.Tensor:
-  """The tap conv on the card ('fwd': y from x; 'dx': dx from gy):
-  launches tap_conv_kernel in that mode on the current stream; checks what
-  the kernel takes and raises on anything else."""
+  """The tap conv on the card ('fwd': y from x; 'dx': dx from gy) on the
+  current stream, by the branch tap_branch names: 'mm' (a 1x1 kernel) on
+  csrc/packed_mm.cu's forward / dx kernels over w's (cin, cout) view, as
+  block_sparse_v4's B7 (a packed-storage 1x1 is refused: PackedConv runs
+  its 1x1s as PackedConv1x1, on packed_matmul, and never here), else
+  csrc/tap_conv.cu's kernel of that branch; counted in
+  tap_conv_fwd_launches / tap_conv_dx_launches whatever the branch.
+  Checks what the kernels take and raises on anything else; a branch that
+  cannot take the call is refused, and nothing falls back to another
+  kernel."""
   global tap_conv_fwd_launches, tap_conv_dx_launches
   fwd = mode == 'fwd'
   cx, cy = (index.cin, index.cout) if fwd else (index.cout, index.cin)
   bk, bn = (index.bk, index.bn) if fwd else (index.bn, index.bk)
   _check_cuda(f'tap_conv_{mode}', [('x' if fwd else 'gy', x, cx)], w, index)
   n, h, wd, _ = x.shape
-  y = torch.empty((n, h, wd, cy), dtype=x.dtype, device=x.device)
-  if y.numel() == 0:
-    return y
-  dev = index.to(x.device)
-  lists = dev.fwd if fwd else dev.dx
-  _launch('tap_conv_fwd' if fwd else 'tap_conv_dx', x.data_ptr(),
-          w.data_ptr(), *(a.data_ptr() for a in lists), y.data_ptr(),
-          n * h * wd, h, wd, cx, cy // bn, index.kh, index.kw, bk, bn,
-          index.w_ld, _DTYPE_CODE[x.dtype],
-          torch.cuda.current_stream(x.device).cuda_stream)
+  if n * h * wd * cy == 0:
+    return torch.empty((n, h, wd, cy), dtype=x.dtype, device=x.device)
+  branch = tap_branch(index.kh, index.kw, index.bk, index.bn, x.dtype)
+  if branch == 'mm':
+    if (index.kh, index.kw) != (1, 1):
+      raise ValueError(f"the 'mm' branch takes a 1x1 kernel, not "
+                       f'{(index.kh, index.kw)}')
+    if not index.dense_w:
+      raise ValueError("the 'mm' branch takes a dense-w 1x1 index; packed "
+                       '1x1 kernels run on packed_matmul (PackedConv1x1)')
+    y = dense_mm_cuda(x.view(-1, cx), w.view(index.cin, index.cout),
+                      index.mm_lists(mode, x.device), (index.bk, index.bn),
+                      mode).view(n, h, wd, cy)
+  else:
+    y = torch.empty((n, h, wd, cy), dtype=x.dtype, device=x.device)
+    gcols, tile = 1, 0
+    if branch == 'wgmma':
+      gcols = tap_wgmma_gcols(index, mode, n * h * wd,
+                              dw_split.sm_count(x.device))
+      tile = tap_wgmma_tile(gcols, bn)
+      *lists, _ = index.group_lists(mode, x.device, gcols)
+    else:   # the column lists; no launch order
+      dev = index.to(x.device)
+      lists = [*(dev.fwd if fwd else dev.dx), None]
+    _launch('tap_conv_fwd' if fwd else 'tap_conv_dx', x.data_ptr(),
+            w.data_ptr(), *(0 if a is None else a.data_ptr() for a in lists),
+            y.data_ptr(), n * h * wd, h, wd, cx, cy // bn, index.kh,
+            index.kw, bk, bn, index.w_ld, gcols, tile,
+            TAP_BRANCHES.index(branch), _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
   if fwd:
     tap_conv_fwd_launches += 1
   else:

@@ -267,12 +267,13 @@ class SparseTraining:
       if len(m.shape) == 4 and p in counts and choice != 'matmul':
         # Conv layers (1x1 and spatial) with a static count execute on the
         # tap kernels; a 1x1 is the one-tap case.
+        # The pack keeps the conv's TapIndex, built at its first call.
         from rigl_tpu_torch.ops.block_mask import pool_to_tap_blocks
-        from rigl_tpu_torch.ops.block_sparse_conv import pack_tap_active
+        from rigl_tpu_torch.ops.block_sparse_conv import (TapPack,
+                                                          pack_tap_active)
         occ3 = (pool_to_tap_blocks(m.to(torch.float32), self.block, 'max')
                 > 0).to(torch.int32).cpu()
-        cols, rows, taps = pack_tap_active(occ3, counts[p])
-        packs[p] = {'cols': cols, 'rows': rows, 'taps': taps}
+        packs[p] = TapPack(*pack_tap_active(occ3, counts[p]))
         continue
       if spatial:
         continue   # spatial conv routed 'matmul' / without a static count

@@ -451,17 +451,30 @@ def _tap_counts():
           tbsc.tap_dw_launches)
 
 
+# (block, cin, cout): blocks of 16s and 8s at narrow widths, then the
+# wgmma branch's other output tiles (N = 32, 64, 128 and 128 over a 192-wide
+# column) and RN50's block of 128.
+TAP_BLOCKS = ([(b, ci, co) for b in ((16, 16), (16, 32), (32, 16), (8, 8))
+               for ci, co in ((32, 32), (64, 32), (32, 96))]
+              + [((32, 32), 64, 96), ((64, 64), 128, 192),
+                 ((128, 128), 256, 256), ((128, 64), 256, 192),
+                 ((64, 192), 128, 384), ((48, 80), 96, 160)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('block', [(16, 16), (16, 32), (32, 16), (8, 8)])
-@pytest.mark.parametrize('cin,cout', [(32, 32), (64, 32), (32, 96)])
-@pytest.mark.parametrize('n,h,w', [(1, 5, 7), (3, 8, 8), (16, 4, 4)])
+@pytest.mark.parametrize('block,cin,cout', TAP_BLOCKS)
+@pytest.mark.parametrize('n,h,w', [(1, 5, 7), (3, 8, 8), (16, 4, 4),
+                                   (1, 7, 7), (1, 1, 1), (2, 17, 19)])
 @pytest.mark.parametrize('ksize', [(3, 3), (5, 5), (1, 1), (3, 5)])
-def test_tap_kernels_match_plain(cuda_device, ksize, n, h, w, cin, cout,
-                                 block, dtype):
+def test_tap_kernels_match_plain(cuda_device, ksize, n, h, w, block, cin,
+                                 cout, dtype):
   """Forward, dx and dw, each launched once, against their plain versions
-  on the same index, at ragged batches and images smaller than a tile,
-  with an empty cout-block (zero output columns) and an empty tap."""
+  on the same index, in every branch of tap_branch (1x1: mm; f32: fma;
+  bf16: wgmma with blocks of 16s, wmma with 8s), at ragged pixel counts
+  (M = 35, 49, 1, 646: not multiples of the 128-pixel tile), 7x7 and 1x1
+  images and batch 1, with an empty cout-block (zero output columns) and
+  an empty tap."""
   packing, occ = _tap_case(ksize, cin, cout, block, n * 31 + cin + h)
   gen = torch.Generator().manual_seed(n + cin)
   x = torch.randn(n, h, w, cin, generator=gen).to(cuda_device, dtype)
@@ -487,6 +500,240 @@ def test_tap_kernels_match_plain(cuda_device, ksize, n, h, w, cin, cout,
     assert err <= TAP_TOL[dtype] * scale, (name, err)
   for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
     assert not got[0][..., j * block[1]:(j + 1) * block[1]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('wide', [True, False])
+@pytest.mark.parametrize('block,cin,cout', [((16, 16), 128, 128),
+                                            ((16, 16), 48, 80),
+                                            ((32, 16), 64, 96),
+                                            ((16, 32), 96, 64),
+                                            ((48, 48), 96, 144),
+                                            ((64, 64), 128, 192)])
+@pytest.mark.parametrize('n,h,w', [(1, 7, 7), (3, 9, 11), (2, 17, 19)])
+@pytest.mark.parametrize('ksize', [(3, 3), (5, 5)])
+def test_tap_wgmma_group_widths_match_plain(cuda_device, monkeypatch,
+                                            ksize, n, h, w, block, cin,
+                                            cout, wide):
+  """The wgmma branch at both group widths tap_wgmma_gcols chooses from,
+  forced: the widest groups (several block-columns a thread block, the
+  union of their entries, each product only into the columns that hold
+  the entry; a last group of fewer columns) and one column a group;
+  forward and dx against the plain versions, an empty cout-block exactly
+  zero, and a second launch bitwise equal."""
+  packing, occ = _tap_case(ksize, cin, cout, block, n + h + cin)
+  _force_gcols(monkeypatch, wide)
+  gen = torch.Generator().manual_seed(h * cin)
+  x = torch.randn(n, h, w, cin, generator=gen).to(cuda_device,
+                                                  torch.bfloat16)
+  gy = torch.randn(n, h, w, cout, generator=gen).to(cuda_device,
+                                                    torch.bfloat16)
+  w4 = (torch.randn(*ksize, cin, cout, generator=gen) / 8).to(
+      cuda_device, torch.bfloat16)
+  index = tbsc.tap_index(packing, w4.shape, block)
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    got = tbsc.tap_conv_cuda(a, w4, index, mode)
+    again = tbsc.tap_conv_cuda(a, w4, index, mode)
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), mode
+    assert _rel(got, want) <= TAP_TOL[torch.bfloat16], (mode,
+                                                        _rel(got, want))
+  y = tbsc.tap_conv_cuda(x, w4, index)
+  for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
+    assert not y[..., j * block[1]:(j + 1) * block[1]].any()
+
+
+def _force_gcols(monkeypatch, wide):
+  """tap_conv_cuda's group width forced: the widest (tap_group_cols) or
+  one column a group."""
+  monkeypatch.setattr(
+      tbsc, 'tap_wgmma_gcols',
+      lambda index, mode, *a: tbsc.tap_group_cols(
+          index.bn if mode == 'fwd' else index.bk,
+          (index.cout // index.bn) if mode == 'fwd'
+          else (index.cin // index.bk)) if wide else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('wide', [True, False])
+@pytest.mark.parametrize('block', [(16, 16), (32, 16), (16, 32), (48, 48),
+                                   (64, 64)])
+def test_tap_wgmma_keeps_nonfinite_inputs_in_their_columns(cuda_device,
+                                                           monkeypatch,
+                                                           block, wide):
+  """A non-finite input reaches only the output columns whose entries
+  read it, as in the plain version, at both group widths: x's input block
+  3 (NaN) is read by output column 0 alone and gy's block 3 (inf) by dx
+  column 0 alone; output column 2 and dx column 2 have no entry and come
+  out zeros; every other output is finite and matches the plain
+  version."""
+  bk, bn = block
+  gen = torch.Generator().manual_seed(bk + 3 * bn)
+  occ = (torch.rand(9, 4, 4, generator=gen) < 0.5).to(torch.int32)
+  occ[:, 3, :] = 0
+  occ[4, 3, 0] = 1        # x block 3: output column 0 only
+  occ[:, :, 3] = 0
+  occ[4, 0, 3] = 1        # gy block 3: dx column 0 only
+  occ[:, :, 2] = 0        # an empty output column
+  occ[:, 2, :] = 0        # an empty dx column
+  occ[4, 1, 1] = 1
+  cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+  _force_gcols(monkeypatch, wide)
+  x = torch.randn(2, 9, 11, 4 * bk, generator=gen)
+  gy = torch.randn(2, 9, 11, 4 * bn, generator=gen)
+  x[..., 3 * bk:] = float('nan')
+  gy[..., 3 * bn:] = float('inf')
+  w4 = torch.randn(3, 3, 4 * bk, 4 * bn, generator=gen) / 8
+  x, gy, w4 = (t.to(cuda_device, torch.bfloat16) for t in (x, gy, w4))
+  index = tbsc.tap_index({'cols': cols, 'rows': rows, 'taps': taps},
+                         w4.shape, block)
+  for a, mode, out_w in ((x, 'fwd', bn), (gy, 'dx', bk)):
+    got = tbsc.tap_conv_cuda(a, w4, index, mode)
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert not finite[..., :out_w].any() and finite[..., out_w:].all()
+    assert torch.equal(torch.isfinite(got), finite), mode
+    assert not got[..., 2 * out_w:3 * out_w].any(), mode
+    assert _rel(got[..., out_w:], want[..., out_w:]) <= TAP_TOL[
+        torch.bfloat16], mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('block,cin,cout,hw', [((16, 16), 64, 64, 16),
+                                               ((32, 32), 64, 96, 9),
+                                               ((128, 128), 256, 256, 14),
+                                               ((64, 64), 128, 192, 7)])
+def test_tap_wgmma_branch_is_deterministic(cuda_device, block, cin, cout,
+                                           hw):
+  """The wgmma branch, forward and dx: a second launch gives the same bits
+  (each output tile is one thread block's, summed in a fixed order, with
+  no atomics)."""
+  packing, _ = _tap_case((3, 3), cin, cout, block, hw)
+  gen = torch.Generator().manual_seed(hw)
+  x = torch.randn(8, hw, hw, cin, generator=gen).to(cuda_device,
+                                                    torch.bfloat16)
+  gy = torch.randn(8, hw, hw, cout, generator=gen).to(cuda_device,
+                                                      torch.bfloat16)
+  w4 = (torch.randn(3, 3, cin, cout, generator=gen) / 8).to(cuda_device,
+                                                            torch.bfloat16)
+  index = tbsc.tap_index(packing, w4.shape, block)
+  assert tbsc.tap_branch(3, 3, *block, torch.bfloat16) == 'wgmma'
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    first = tbsc.tap_conv_cuda(a, w4, index, mode)
+    second = tbsc.tap_conv_cuda(a, w4, index, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second), mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('block', [(128, 128), (64, 32), (16, 16)])
+def test_tap_1x1_takes_the_mm_branch(cuda_device, dtype, block):
+  """A 1x1 call takes the 'mm' branch: its forward and dx are bitwise
+  equal to dense_mm_cuda (csrc/packed_mm.cu) on the index's DenseLists
+  over w's (cin, cout) view, and tap_conv_fwd_launches /
+  tap_conv_dx_launches still count the call.  A packed-storage 1x1 index
+  is refused, launching nothing (PackedConv runs its 1x1s on
+  packed_matmul)."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  cin, cout = 2 * block[0], 3 * block[1]
+  packing, occ = _tap_case((1, 1), cin, cout, block, block[1])
+  gen = torch.Generator().manual_seed(block[0])
+  x = torch.randn(3, 15, 17, cin, generator=gen).to(cuda_device, dtype)
+  gy = torch.randn(3, 15, 17, cout, generator=gen).to(cuda_device, dtype)
+  w4 = (torch.randn(1, 1, cin, cout, generator=gen) / 8).to(cuda_device,
+                                                            dtype)
+  index = tbsc.tap_index(packing, w4.shape, block)
+  assert tbsc.tap_branch(1, 1, *block, dtype) == 'mm'
+  for a, mode, width in ((x, 'fwd', cin), (gy, 'dx', cout)):
+    before = _tap_counts()
+    got = tbsc.tap_conv_cuda(a, w4, index, mode)
+    after = _tap_counts()
+    want = tv3.dense_mm_cuda(a.view(-1, width), w4.view(cin, cout),
+                             index.mm_lists(mode, cuda_device), block, mode)
+    torch.cuda.synchronize()
+    assert after == (before[0] + (mode == 'fwd'),
+                     before[1] + (mode == 'dx'), before[2])
+    assert torch.equal(got.view(want.shape), want), mode
+  wp = tbsp.pack_dense(w4.view(cin, cout), tbsp.make_packing(
+      occ[0], int(occ.sum())), block).contiguous()
+  pindex = tbsc.packed_tap_index(tbsp.make_packing(occ[0], int(occ.sum())),
+                                 (1, 1), cin, block)
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    before = _tap_counts()
+    with pytest.raises(ValueError, match='packed'):
+      tbsc.tap_conv_cuda(a, wp, pindex, mode)
+    assert _tap_counts() == before, mode
+
+
+# sha256 of the f32 KxK forward and dx outputs of tap_conv_kernel<float>
+# (the 'fma' branch) at the inputs of _f32_tap_outputs, as the kernel gave
+# them before the bf16 branches were redesigned, on an NVIDIA H100 80GB
+# HBM3 (torch 2.11.0+cu128): the branch keeps that kernel, so its bits
+# must not move.
+F32_TAP_SHA256 = {
+    '3x3 fwd':
+        '04ab4cef688eb8fdf4cbf4a6a2191368122956f7d327547152eea30debdb32e7',
+    '3x3 dx':
+        '651860682566b458ac7f6afa6e7c5e10e0ca1e913793ddf7a7ea9e50cbecdb40',
+    '5x5 fwd':
+        'fc4fe673213c1c3403990467b5b020e160865d35fd9b38e07db961f0fe44261d',
+    '5x5 dx':
+        '58b029d486794fa563357c1171d7e1b63b33623ef1c27bddd8b4e5107a06b651'}
+
+
+def _f32_tap_outputs(device):
+  """{name: f32 output} of the forward and dx at two shapes, from inputs
+  that numpy's seeded RandomState makes (stable across versions)."""
+  import numpy as np
+  out = {}
+  for k, n, hw, c, block in ((3, 4, 9, 32, (16, 16)),
+                             (5, 2, 7, 64, (32, 16))):
+    rs = np.random.RandomState(k * 100 + c)
+    occ = torch.from_numpy(
+        (rs.rand(k * k, c // block[0], c // block[1]) < 0.5).astype('int32'))
+    cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+    w4 = torch.from_numpy(rs.randn(k, k, c, c).astype('float32')).to(device)
+    x = torch.from_numpy(rs.randn(n, hw, hw, c).astype('float32')).to(device)
+    index = tbsc.tap_index({'cols': cols, 'rows': rows, 'taps': taps},
+                           w4.shape, block)
+    for mode in ('fwd', 'dx'):
+      out[f'{k}x{k} {mode}'] = tbsc.tap_conv_cuda(x, w4, index, mode)
+  return out
+
+
+@pytest.mark.cuda
+def test_tap_f32_kxk_is_bitwise_equal_to_the_fma_kernel(cuda_device):
+  """f32 KxK takes the 'fma' branch, tap_conv_kernel<float>, whose outputs
+  are bitwise those of the kernel before the bf16 branches changed
+  (F32_TAP_SHA256)."""
+  import hashlib
+  assert tbsc.tap_branch(3, 3, 16, 16, torch.float32) == 'fma'
+  got = {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+         for name, t in _f32_tap_outputs(cuda_device).items()}
+  assert got == F32_TAP_SHA256
+
+
+@pytest.mark.cuda
+def test_tap_branch_that_cannot_take_the_call_is_refused(cuda_device,
+                                                        monkeypatch):
+  """A branch named for what it cannot take raises and runs nothing else:
+  wgmma for a block of 8s, fma for bf16, wmma for f32, mm for a 3x3."""
+  packing, _ = _tap_case((3, 3), 32, 32, (8, 8), 3)
+  x = torch.randn(2, 6, 6, 32, device=cuda_device)
+  w4 = torch.randn(3, 3, 32, 32, device=cuda_device)
+  index = tbsc.tap_index(packing, w4.shape, (8, 8))
+  for branch, dtype, err in (('wgmma', torch.bfloat16, RuntimeError),
+                             ('fma', torch.bfloat16, RuntimeError),
+                             ('wmma', torch.float32, RuntimeError),
+                             ('mm', torch.bfloat16, ValueError)):
+    monkeypatch.setattr(tbsc, 'tap_branch', lambda *a, b=branch: b)
+    before = _tap_counts()
+    with pytest.raises(err):
+      tbsc.tap_conv_cuda(x.to(dtype), w4.to(dtype), index)
+    assert _tap_counts() == before, branch
 
 
 @pytest.mark.cuda
