@@ -57,8 +57,11 @@ package.  Phases, each fatal on failure:
      dQ kernels against their plain versions at (B, H, S, hd) = (4, 16,
      512, 128), a ragged S = 1000 and hd 64 and 32, beside torch's
      scaled_dot_product_attention (forward; its backward) and the bound;
-     in bf16 here, where a second launch of the forward and of dK/dV must
-     give the same bits, and their f32 variants after phase 20;
+     in bf16 here, where a second launch of the forward, of dK/dV and of
+     dQ must give the same bits, and their f32 variants after phase 20;
+     then, in both, a head dim the kernels do not take (48) through
+     flash_attention, zero-padded to 64, forward and gradients against
+     autograd through the plain forward;
  10. transformer train step, the main path of the flash kernels
      (scripts/bench_packed_transformer.py: 2 layers of the serving width,
      seq 512, batch 4, bf16, SGD momentum, loss mean(out^2) on
@@ -212,6 +215,8 @@ TR_LAYERS, TR_SEQ, TR_BATCH = 2, 512, 4
 FLASH_SHAPES = ((4, 16, 512, 128), (4, 16, 1000, 128), (4, 16, 512, 64),
                 (4, 16, 512, 32))
 FLASH_TOL, LSE_TOL = 2e-2, 1e-4
+# A head dim the kernels do not take, which flash_attention zero-pads.
+FLASH_PADDED_SHAPE = (4, 16, 512, 48)
 # One bf16 train step, kernel path vs plain path (dense twin, plain
 # attention): rounding points differ in every product of 2 layers; each
 # error over its own largest plain value.
@@ -1176,14 +1181,15 @@ def phase_flash(torch, device, dtype):
     check(lse_err <= LSE_TOL * max(1.0, float(want_lse.abs().max())),
           f'flash fwd {tag}: lse error {lse_err}')
     if name == 'bfloat16':
-      # The wgmma forward and dK/dV write each output once, their sums in
-      # a fixed order: a second launch gives the same bits.
+      # The wgmma kernels write each output once, their sums in a fixed
+      # order: a second launch gives the same bits.
       o2, lse2 = fa.flash_fwd_cuda(q, k, v, scale)
       dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
+      dq2 = fa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale)
       check(all(bool(torch.equal(a, b)) for a, b in
-                ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2))),
+                ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2))),
             f'flash {tag}: a second launch gave other bits')
-      del o2, lse2, dk2, dv2
+      del o2, lse2, dk2, dv2, dq2
     # SDPA, the library yardstick, timed only: its forward, and its
     # backward alone on a retained graph.
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -1232,7 +1238,45 @@ def phase_flash(torch, device, dtype):
     log(f'  sdpa fwd+bwd {lib_fwd + lib_bwd:.4f} ms; sdpa vs plain o rel '
         f'{lib_err:.3e}; lse max|err| {lse_err:.3e}')
     del ql, kl, vl, o_lib
+  records['padded'] = _flash_padded(torch, device, dtype, tol)
   return records
+
+
+def _flash_padded(torch, device, dtype, tol):
+  """flash_attention at a head dim the kernels do not take
+  (FLASH_PADDED_SHAPE's 48, zero-padded to 64 by ops/flash_attention.py
+  pad_head_dim): one launch of each kernel, and o and the gradients of q,
+  k and v against autograd through the plain forward in f32, each error
+  over its own largest plain value."""
+  from rigl_tpu_torch.ops import flash_attention as fa
+  name = dtype_name(dtype)
+  b, h, s, hd = FLASH_PADDED_SHAPE
+  gen = torch.Generator().manual_seed(SEED + 9)
+  q, k, v, do = (torch.randn(b, h, s, hd, generator=gen).to(device, dtype)
+                 for _ in range(4))
+  leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+  counts = _flash_counts(name)
+  o = fa.flash_attention(*leaves, hd ** -0.5)
+  grads = torch.autograd.grad(o, leaves, do)
+  torch.cuda.synchronize()
+  moved = tuple(a - c for a, c in zip(_flash_counts(name), counts))
+  tag = f'{name} padded (B, H, S, hd) = ({b}, {h}, {s}, {hd})'
+  check(moved == (1, 1, 1), f'flash {tag}: launches moved by {moved}')
+  plain = [t.detach().float().clone().requires_grad_() for t in (q, k, v)]
+  want_o, _ = fa.flash_attention_fwd_reference(*plain, hd ** -0.5)
+  want = torch.autograd.grad(want_o, plain, do.float())
+  errs = {}
+  for what, got, ref in zip(('o', 'dq', 'dk', 'dv'), (o.detach(), *grads),
+                            (want_o.detach(), *want)):
+    check(got.dtype == dtype and got.shape == ref.shape
+          and bool(torch.isfinite(got).all()),
+          f'flash {tag}: {what} dtype, shape or non-finite')
+    errs[what] = _rel(got, ref)
+  log(f'flash {tag} through flash_attention: rel errors '
+      + ', '.join(f'{w} {e:.3e}' for w, e in errs.items()) + f' (tol {tol})')
+  check(max(errs.values()) <= tol, f'flash {tag}: rel errors {errs}')
+  return dict(shape=[b, h, s, hd], padded_to=64, dtype=name, rel_err=errs,
+              tol=tol)
 
 
 def _since(before):
@@ -3198,9 +3242,22 @@ FLASH_DESIGN = {
             'wgmma m64n64, Pt and dSt on the fragments, rounded to bf16 as '
             'the A operands of dV += Pt dO and dK += dSt Q (wgmma RS); a '
             '3-deep ring that warp 0 fills, lse and D by cp.async'),
-    'dq': ('WMMA on a 2-deep cp.async ring, 64-row tiles, logits staged '
-           'in shared memory in f32'),
+    'dq': ('wgmma on a TMA ring: a block of two warpgroups per (128-row q '
+           'tile, b*h), Q and dO resident, heaviest tiles first, lse and D '
+           'in registers; per 64-row (K, V) tile up to the diagonal, S = Q '
+           'Kt and dP = dO Vt by wgmma m64n64, P and dS on the fragments, dS '
+           'rounded to bf16 as the A operand of dQ += dS K (wgmma RS, K '
+           'MN-major); a 4-deep ring that warp 0 fills; epilogue staged in '
+           'shared memory'),
 }
+# The f32 forward's design, named in its JSON entry.
+FLASH_F32_FWD_DESIGN = (
+    'register-tiled FFMA: a block of 128 threads per (64-row q tile, b*h), '
+    'two blocks an SM, heaviest tiles first; 8 x 4 logits and 8 rows x '
+    'hd/16 outputs a thread, operands as float4s from unpadded, '
+    'XOR-swizzled shared tiles (Q, K, V row-major; P transposed); the '
+    'online softmax in registers (expf); V and the next K by cp.async '
+    'behind the products, two barriers a tile')
 
 T0 = time.perf_counter()
 
@@ -3285,13 +3342,15 @@ def main():
   flash_tpu = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
   for name, op, line in (('flash_fwd_wgmma_kernel', 'fwd', 758),
                          ('flash_bwd_dkv_wgmma_kernel', 'dkv', 1121),
-                         ('flash_bwd_dq_kernel', 'dq', 1456)):
+                         ('flash_bwd_dq_wgmma_kernel', 'dq', 1456)):
     n = step_launches[f'flash_{op}']
     entry = _kernel_entry(name, 'rigl_tpu_torch/csrc/flash_attn.cu',
                           f'{flash_tpu}:{line}', n, {'train_step': n},
                           flash_points[op])
     entry['called_from'] = 'rigl_tpu/models/packed_transformer.py:52'
     entry['design'] = FLASH_DESIGN[op]
+    if op == 'fwd':
+      entry['padded_head_dim'] = flash_points['padded']
     if op != 'fwd':
       entry['library'] = ('scaled_dot_product_attention backward (dq, dk '
                           'and dv in one call)')
@@ -3394,6 +3453,9 @@ def main():
                           {'f32_train_step': n}, flash_f32_points[op],
                           dtype='float32')
     entry['called_from'] = 'rigl_tpu/models/packed_transformer.py:52'
+    if op == 'fwd':
+      entry.update(design=FLASH_F32_FWD_DESIGN,
+                   padded_head_dim=flash_f32_points['padded'])
     if op != 'fwd':
       entry['library'] = ('scaled_dot_product_attention backward (dq, dk '
                           'and dv in one call)')

@@ -7,7 +7,7 @@
 //       o = softmax(scale * q kᵀ + causal mask) v, and the f32 row statistic
 //       lse = m + log(l) (row max m, row sum l of exp(logit - m)).
 //   flash_bwd_dkv_wgmma_kernel  behind `flash_bwd_dkv`:  dk, dv.
-//   flash_bwd_dq_kernel         behind `flash_bwd_dq`:   dq.
+//   flash_bwd_dq_wgmma_kernel   behind `flash_bwd_dq`:   dq.
 //
 // Replace the three pallas_calls of JAX's shipped TPU kernel
 // (jax/experimental/pallas/ops/tpu/flash_attention.py), which
@@ -36,21 +36,17 @@
 // cores and moves twice the bytes, so the operations bound it (64-128 us
 // at that shape, against 20-30 us of bytes).
 //
-// The bf16 forward and dK/dV are Hopper designs (section "bf16 forward,
-// dK/dV"): wgmma fed by a TMA ring with mbarriers in blocks of two
-// warpgroups, and the logits never leave registers: the
-// accumulator's fragments take the masked softmax in place and, rounded to
-// bf16, are the register A operand of the next wgmma.  The bf16 dQ is the
-// first design: WMMA (bf16 in, f32 accumulate) on a 2-deep cp.async ring,
-// 64-row tiles, the logits staged in shared memory in f32 for the masked
-// softmax, since WMMA's accumulator layout is opaque.  A ragged S (not a
+// The three bf16 kernels are Hopper designs (section "bf16 forward, dK/dV,
+// dQ"): wgmma fed by a TMA ring with mbarriers in blocks of two
+// warpgroups, and the logits never leave registers: the accumulator's
+// fragments take the masked softmax (or P and dS) in place and, rounded to
+// bf16, are the register A operand of the next wgmma.  A ragged S (not a
 // multiple of the tile) is zero-filled in the copies and masked by
 // position, so JAX's 128-multiple requirement (MIN_BLOCK_SIZE) has no
 // counterpart.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -62,11 +58,6 @@ namespace {
 
 using namespace hopper;
 using bf16 = __nv_bfloat16;
-using Frag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                    float>;
-
-constexpr int kTile = 64;             // rows of a q tile and of a k tile
-constexpr float kMasked = -1e30f;     // finite: exp(kMasked - kMasked) = 1
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
@@ -103,7 +94,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows r0 .. r0 + kRows - 1 of a (S x HD) row-major matrix into shared
 // memory with row stride `ld`, as 16-byte cp.asyncs; rows >= S zero-filled.
-template <int HD, int NT, int kRows = kTile, typename T>
+template <int HD, int NT, int kRows, typename T>
 __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
                                           int r0, int S) {
   constexpr int kVec = 16 / sizeof(T);
@@ -116,111 +107,7 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
   }
 }
 
-__device__ __forceinline__ void zero(Frag& f) {
-  nvcuda::wmma::fill_fragment(f, 0.f);
-}
-
-// acc (FM x FN 16x16 tiles) += A @ B over DEPTH, A and B row-major.
-// Pointers are at the warp's tile origin.
-template <int FM, int FN, int DEPTH>
-__device__ __forceinline__ void mma_ab(Frag (&acc)[FM][FN], const bf16* a,
-                                       int lda, const bf16* b, int ldb) {
-  using namespace nvcuda;
-#pragma unroll
-  for (int kk = 0; kk < DEPTH; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-      wmma::load_matrix_sync(fa[i], a + i * 16 * lda + kk, lda);
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::load_matrix_sync(fb[j], b + kk * ldb + j * 16, ldb);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-// C = A @ Bᵀ over DEPTH (A (rows x DEPTH), B (cols x DEPTH), both
-// row-major), stored f32 into shared memory at `c` (row stride ldc).
-template <int FM, int FN, int DEPTH>
-__device__ __forceinline__ void mma_abt_store(const bf16* a, int lda,
-                                              const bf16* b, int ldb,
-                                              float* c, int ldc) {
-  using namespace nvcuda;
-  Frag acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) zero(acc[i][j]);
-#pragma unroll
-  for (int kk = 0; kk < DEPTH; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-      wmma::load_matrix_sync(fa[i], a + i * 16 * lda + kk, lda);
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::load_matrix_sync(fb[j], b + j * 16 * ldb + kk, ldb);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(c + i * 16 * ldc + j * 16, acc[i][j], ldc,
-                              wmma::mem_row_major);
-}
-
-template <int FM, int FN>
-__device__ __forceinline__ void store_acc(Frag (&acc)[FM][FN], float* c,
-                                          int ldc) {
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      nvcuda::wmma::store_matrix_sync(c + i * 16 * ldc + j * 16, acc[i][j],
-                                      ldc, nvcuda::wmma::mem_row_major);
-}
-
-// Writes the rows r0 .. of a (kTile x HD) f32 tile staged in shared memory
-// (row stride ld) to a (S x HD) bf16 matrix, rows >= S dropped; coalesced.
-template <int HD, int NT>
-__device__ __forceinline__ void write_rows(bf16* dst, const float* stage,
-                                           int ld, int r0, int S) {
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += NT) {
-    const int r = idx / HD, c = idx % HD;
-    if (r0 + r < S)
-      dst[static_cast<size_t>(r0 + r) * HD + c] =
-          __float2bfloat16(stage[r * ld + c]);
-  }
-}
-
-// Shared-memory plan, in bytes.  bf16 tiles (kTile x HD) have row stride
-// HD + 8 and f32 tiles kTile (+4) or HD (+4): the pads keep fragment loads
-// off a single bank and every row start 32-byte aligned, as WMMA needs.
-template <int HD>
-struct Plan {
-  static constexpr int kLd = HD + 8;          // bf16 (kTile x HD) tiles
-  static constexpr int kTileBytes = kTile * kLd * 2;
-  static constexpr int kSld = kTile + 4;      // f32 (kTile x kTile)
-  static constexpr int kSBytes = kTile * kSld * 4;
-  static constexpr int kOld = HD + 4;         // f32 (kTile x HD)
-  static constexpr int kOBytes = kTile * kOld * 4;
-  static constexpr int kPld = kTile + 8;      // bf16 (kTile x kTile)
-  static constexpr int kPBytes = kTile * kPld * 2;
-  static_assert(HD % 32 == 0 && HD <= 128, "head dim");
-};
-
-// ------------------------------------------------- bf16 forward, dK/dV ----
+// -------------------------------------------- bf16 forward, dK/dV, dQ ----
 // wgmma kernels on a TMA ring.  A thread block is two warpgroups, 64 rows
 // of the block's 128-row tile each; warp 0 also drives the ring: it fills
 // the first stages at the start and refills a stage once both warpgroups
@@ -230,17 +117,18 @@ struct Plan {
 // which caps the entry budget at 168 registers a thread; setmaxnreg lets
 // the consumers allocate 240, but ptxas budgets wgmma's pipelining by the
 // entry count and serialises the products (warning C7512) where the
-// consumers need more than 168, as both kernels do at hd 128.  Two
-// warpgroups start with 255.  q, k, v and do are read through 3-D tensor
+// consumers need more than 168, as the forward and dK/dV do at hd 128.
+// Two warpgroups start with 255.  q, k, v and do are read through 3-D tensor
 // maps (hd, S, b*h) in boxes of 64 columns (128 bytes, the swizzle's span)
 // x R rows: a tile of R rows is kDp / 64 such boxes, each R rows of 128
 // bytes.  TMA fills rows past S, and at hd 32 columns 32 .. 63, with
 // zeros, so a tile is always 64-column-aligned and full; the position mask
 // keeps those rows out of every sum, and the epilogue drops them.
 constexpr int kWgThreads = 256;    // two warpgroups
-constexpr int kBlockRows = 128;    // q rows (forward) or k rows (dK/dV)
+constexpr int kBlockRows = 128;    // q rows (forward, dQ), k rows (dK/dV)
 constexpr int kFwdKv = 128;        // k / v rows of a forward ring stage
 constexpr int kDkvQ = 64;          // q / do rows of a dK/dV ring stage
+constexpr int kDqKv = 64;          // k / v rows of a dQ ring stage
 constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kFwdKv == kBlockRows, "the forward masks its last tile only");
@@ -711,144 +599,216 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// ------------------------------------------------------------ bf16 dq ----
-// 8 warps, laid out 4 x 2 over a 64 x 64 logit tile (16 x 32 each) and
-// over a 64 x HD output tile (16 x HD/2 each).  The elementwise pass gives
-// thread t row t / 4 and columns 16 (t % 4) .. + 15.
-constexpr int kBwdThreads = 256;
-
-// dS of one (q tile, k tile) pair, from the staged logits `ss` and dP = do
-// vᵀ `dps`: P = exp(scale * s - lse) on or below the diagonal (0 elsewhere
-// and on rows >= S), dS = P * (dP - D) * scale, written as bf16 with row
-// stride pld.
-__device__ __forceinline__ void ds_tile(const float* ss, const float* dps,
-                                        int sld, bf16* dss, int pld, int q0,
-                                        int k0, int S, float lse_r,
-                                        float d_r, float scale) {
-  const int r = threadIdx.x >> 2, c0 = (threadIdx.x & 3) * 16;
-  const int qpos = q0 + r;
-#pragma unroll
-  for (int c = c0; c < c0 + 16; ++c) {
-    const int kpos = k0 + c;
-    const bool ok = kpos <= qpos && qpos < S;
-    const float p = ok ? __expf(ss[r * sld + c] * scale - lse_r) : 0.f;
-    dss[r * pld + c] = __float2bfloat16(p * (dps[r * sld + c] - d_r) * scale);
-  }
-}
-
-// dq: one thread block per (64-row q tile, b * h), q and do resident; the k
-// tiles at or below the diagonal stream through a 2-deep ring of (k, v).
+// Shared memory of dQ, in bytes from a 1024-aligned base: Q and dO (128
+// rows each, resident), a ring of (K, V) stages (64 rows each), the
+// barriers.
 template <int HD>
-struct DqPlan : Plan<HD> {
-  using P = Plan<HD>;
-  static constexpr int kQ = 0;
-  static constexpr int kDo = P::kTileBytes;
-  static constexpr int kRing = 2 * P::kTileBytes;   // stage s: k, then v
-  static constexpr int kS = kRing + 4 * P::kTileBytes;
-  static constexpr int kDp = kS + P::kSBytes;
-  static constexpr int kDs = kDp + P::kSBytes;
-  static constexpr int kBytes = kDs + P::kPBytes;
-  static_assert(P::kOBytes <= 4 * P::kTileBytes, "output staging");
+struct DqPlan {
+  static constexpr int kDp = HD < 64 ? 64 : HD;
+  static constexpr int kQBytes = kBlockRows * kDp * 2;   // one of Q, dO
+  static constexpr int kKvBytes = kDqKv * kDp * 2;       // one of K, V
+  static constexpr int kStages = 4;
+  static constexpr int kRing = 2 * kQBytes;
+  static constexpr int kBars = kRing + kStages * 2 * kKvBytes;
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 1) * 8;
+  static constexpr int kStageLd = kDp + 8;
+  static_assert(2 * 64 * kStageLd * 2 <= kRing, "staging fits");
   static_assert(kBytes <= 227 * 1024, "shared memory per block");
 };
 
+// The (K, V) tile j of head bh into ring stage j % kStages, completing the
+// stage's full barrier (issued by one thread).
 template <int HD>
-__global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dsum,
-                        bf16* __restrict__ dq, int S, float scale) {
+__device__ __forceinline__ void dq_load_kv(const CUtensorMap* tk,
+                                           const CUtensorMap* tv,
+                                           uint32_t base, uint32_t full,
+                                           int j, int bh) {
   using L = DqPlan<HD>;
-  constexpr int NT = kBwdThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L::kDo);
-  float* ss = reinterpret_cast<float*>(smem + L::kS);
-  float* dps = reinterpret_cast<float*>(smem + L::kDp);
-  bf16* dss = reinterpret_cast<bf16*>(smem + L::kDs);
-  auto k_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + L::kRing + st * 2 * L::kTileBytes);
-  };
-  auto v_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + L::kRing + st * 2 * L::kTileBytes +
-                                   L::kTileBytes);
-  };
-
-  const int qt = blockIdx.x;
-  const int q0 = qt * kTile;
-  const size_t bh = blockIdx.y;
-  const size_t base = bh * S * HD;
-  const bf16* kg = k + base;
-  const bf16* vg = v + base;
-  const int warp = threadIdx.x / 32, wr = warp / 2, wc = warp % 2;
-  const int r = threadIdx.x >> 2;
-  const float lse_r = q0 + r < S ? lse[bh * S + q0 + r] : 0.f;
-  const float d_r = q0 + r < S ? dsum[bh * S + q0 + r] : 0.f;
-  const int n_kt = qt + 1;
-
-  load_rows<HD, NT>(qs, L::kLd, q + base, q0, S);
-  load_rows<HD, NT>(dos, L::kLd, dout + base, q0, S);
-  load_rows<HD, NT>(k_tile(0), L::kLd, kg, 0, S);
-  load_rows<HD, NT>(v_tile(0), L::kLd, vg, 0, S);
-  cp_async_commit();
-
-  Frag acc[1][HD / 32];
+  const int st = j % L::kStages;
+  const uint32_t bar = full + 8 * st;
+  const uint32_t ks = base + L::kRing + st * 2 * L::kKvBytes;
+  mbar_expect_tx(bar, 2 * L::kKvBytes);
 #pragma unroll
-  for (int jj = 0; jj < HD / 32; ++jj) zero(acc[0][jj]);
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_kt) {
-      load_rows<HD, NT>(k_tile(st ^ 1), L::kLd, kg, (j + 1) * kTile, S);
-      load_rows<HD, NT>(v_tile(st ^ 1), L::kLd, vg, (j + 1) * kTile, S);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    mma_abt_store<1, 2, HD>(qs + wr * 16 * L::kLd, L::kLd,
-                            k_tile(st) + wc * 32 * L::kLd, L::kLd,
-                            ss + wr * 16 * L::kSld + wc * 32, L::kSld);
-    mma_abt_store<1, 2, HD>(dos + wr * 16 * L::kLd, L::kLd,
-                            v_tile(st) + wc * 32 * L::kLd, L::kLd,
-                            dps + wr * 16 * L::kSld + wc * 32, L::kSld);
-    __syncthreads();
-    ds_tile(ss, dps, L::kSld, dss, L::kPld, q0, j * kTile, S, lse_r, d_r,
-            scale);
-    __syncthreads();
-
-    // dq += dS k (q rows x HD).
-    mma_ab<1, HD / 32, kTile>(acc, dss + wr * 16 * L::kPld, L::kPld,
-                              k_tile(st) + wc * (HD / 2), L::kLd);
-    __syncthreads();
+  for (int b = 0; b < L::kDp / 64; ++b) {
+    tma_load_3d(ks + b * kDqKv * 128, tk, 64 * b, j * kDqKv, bh, bar);
+    tma_load_3d(ks + L::kKvBytes + b * kDqKv * 128, tv, 64 * b, j * kDqKv,
+                bh, bar);
   }
-  cp_async_wait<0>();
+}
+
+// Thread block (b*h, tile): dQ of the 128 q rows at q0 of head bh,
+// heaviest (highest) q tiles first.  Q and dO stay resident, and each
+// thread keeps its two rows' lse (in log2 units) and D in registers.
+// Consumer warpgroup wg owns q rows q0 + 64 wg ..; per (K, V) stage up to
+// its diagonal it computes S = Q Kᵀ and dP = dO Vᵀ (m64n64, K-major
+// operands in shared memory), P = 2^(scale log2e S - log2e lse) and dS =
+// P (dP - D) scale on the fragments, then dQ += dS K with dS rounded to
+// bf16 in registers as wgmma's A operand and the same K tile read
+// MN-major.  Warpgroup 0 releases the block's last stage unread where it
+// lies past its own diagonal.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dsum,
+                              bf16* __restrict__ dq, int S, float scale) {
+  using L = DqPlan<HD>;
+  constexpr int DP = L::kDp;
+  extern __shared__ unsigned char dq_smem[];
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * kBlockRows;
+  // The k tiles on or below the block's last diagonal, and below S.
+  const int n_kv = min((q0 + kBlockRows) / kDqKv, (S + kDqKv - 1) / kDqKv);
+  const int tid = threadIdx.x;
+
+  // Q and dO, then the ring's first stages; full[st] (TMA arrival),
+  // empty[st] (released by every thread) and Q and dO's barrier after the
+  // ring.
+  const uint32_t base = (smem_u32(dq_smem) + 1023) & ~1023u;
+  const uint32_t full = base + L::kBars;
+  const uint32_t empty = full + 8 * L::kStages;
+  const uint32_t qbar = empty + 8 * L::kStages;
+  if (tid == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kWgThreads);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+    mbar_expect_tx(qbar, 2 * L::kQBytes);
+#pragma unroll
+    for (int b = 0; b < DP / 64; ++b) {
+      tma_load_3d(base + b * kBlockRows * 128, &tq, 64 * b, q0, bh, qbar);
+      tma_load_3d(base + L::kQBytes + b * kBlockRows * 128, &tdo, 64 * b, q0,
+                  bh, qbar);
+    }
+    for (int j = 0; j < n_kv && j < L::kStages; ++j)
+      dq_load_kv<HD>(&tk, &tv, base, full, j, bh);
+  }
   __syncthreads();
 
-  float* stage = reinterpret_cast<float*>(smem + L::kRing);
-  store_acc<1, HD / 32>(acc, stage + wr * 16 * L::kOld + wc * (HD / 2),
-                        L::kOld);
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int row = q0 + 64 * wg + 16 * warp + lane / 4;   // and row + 8
+  const int col = 2 * (lane % 4);   // of each 8-column group
+  const float scale_log2 = scale * kLog2e;
+  // Rows >= S take 0: their P is finite and their dq row is dropped.
+  float l2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row + 8 * h < S;
+    const size_t at = static_cast<size_t>(bh) * S + row + 8 * h;
+    l2[h] = ok ? lse[at] * kLog2e : 0.f;
+    dd[h] = ok ? dsum[at] : 0.f;
+  }
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  const uint32_t qs = base + wg * 64 * 128;   // this warpgroup's Q rows
+  const uint32_t dos = qs + L::kQBytes;       // and dO rows
+  const int last = (q0 + 64 * wg) / kDqKv;    // its diagonal k tile
+  mbar_wait(qbar, 0);
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % L::kStages;
+    mbar_wait(full + 8 * st, (j / L::kStages) & 1);
+    if (j <= last) {   // the same in every thread of the warpgroup
+      const uint32_t ks = base + L::kRing + st * 2 * L::kKvBytes;
+      const uint32_t vs = ks + L::kKvBytes;
+      float s[kDqKv / 2], dp[kDqKv / 2];   // S, dP: q rows x k columns
+      wgmma_fence();
+      wgmma_abt<kDqKv, DP, kBlockRows, kDqKv>(s, qs, ks);
+      wgmma_abt<kDqKv, DP, kBlockRows, kDqKv>(dp, dos, vs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // dS in place of S.  Only the diagonal tile holds k > q; k >= S lies
+      // there too for every row < S, so the causal mask covers it.
+      const bool diag = j == last;
+#pragma unroll
+      for (int c = 0; c < kDqKv / 8; ++c)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int kpos = j * kDqKv + 8 * c + col + v;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int x = 4 * c + 2 * h + v;
+            float p = fast_exp2(s[x] * scale_log2 - l2[h]);
+            if (diag && kpos > row + 8 * h) p = 0.f;
+            s[x] = p * (dp[x] - dd[h]) * scale;
+          }
+        }
+
+      // dQ += dS K, contracting over the 64 k rows: K MN-major in its
+      // 64-column boxes, 16 rows (2048 bytes) a k-step.
+      uint32_t da[kDqKv / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDqKv / 16; ++kk) bf16_a_fragment(s, kk, da[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqKv / 16; ++kk)
+        wgmma_rs<DP, 1>(acc, da[kk], wgmma_desc(ks + kk * 2048, kDqKv * 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    mbar_arrive(empty + 8 * st);
+    if (tid < 32 && j + L::kStages < n_kv) {   // warp 0 refills the stage
+      mbar_wait(empty + 8 * st, (j / L::kStages) & 1);
+      if (tid == 0)
+        dq_load_kv<HD>(&tk, &tv, base, full, j + L::kStages, bh);
+      __syncwarp();
+    }
+  }
+
+  // dQ staged per warpgroup once both are done with Q, dO and the ring,
+  // then stored 16 bytes a thread, rows < S and columns < HD.
   __syncthreads();
-  write_rows<HD, NT>(dq + base, stage, L::kOld, q0, S);
+  bf16* stage = reinterpret_cast<bf16*>(dq_smem +
+                                        (base - smem_u32(dq_smem))) +
+                wg * 64 * L::kStageLd;
+  const int r = 16 * warp + lane / 4;
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(stage + (r + 8 * h) * L::kStageLd +
+                                   8 * c + col) =
+          pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+  bar_sync(2 + wg, 128);
+  const int w0 = q0 + 64 * wg;
+  bf16* out = dq + (static_cast<size_t>(bh) * S + w0) * HD;
+  for (int i = tid % 128; i < 64 * HD / 8; i += 128) {
+    const int rr = i / (HD / 8), cc = 8 * (i % (HD / 8));
+    if (w0 + rr < S)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(rr) * HD + cc) =
+          *reinterpret_cast<const uint4*>(stage + rr * L::kStageLd + cc);
+  }
 }
 
 // ---------------------------------------------------------------- f32 ----
 // The three kernels for f32 q, k, v: the same maths with every product and
 // P and dS in f32 (nothing rounds to bf16), on the CUDA cores (FFMA) rather
 // than on tensor cores, so the sums are full f32 as torch's f32 matmuls
-// are; single-pass TF32 keeps 10 mantissa bits and would miss 1e-4.  A
-// thread block of 128 threads owns one 32-row tile (kF32Tile) and streams
-// the other side's 32-row tiles through a 2-deep cp.async ring; at hd 128
-// the f32 tiles are twice the bf16 bytes, and 32-row tiles keep the
-// backward's resident pair, its ring and P / dS within 111 KB.  Thread t
-// holds rows (t / 16) + 8 i, i < 4, and columns (t % 16) + 16 j of each
-// (32 x 32) logit tile and (32 x HD) output tile in registers, so the
-// logits never go through shared memory: a row's max and sum are
-// shuffles across the 16 lanes that hold it.  P (forward, dK/dV) and dS
-// are staged in shared memory for the products that contract over them.
+// are; single-pass TF32 keeps 10 mantissa bits and would miss 1e-4.
+//
+// dK/dV and dQ: a thread block of 128 threads owns one 32-row tile
+// (kF32Tile) and streams the other side's 32-row tiles through a 2-deep
+// cp.async ring; at hd 128 the f32 tiles are twice the bf16 bytes, and
+// 32-row tiles keep the backward's resident pair, its ring and P / dS
+// within 111 KB (F32Plan).  Thread t holds rows (t / 16) + 8 i, i < 4, and
+// columns (t % 16) + 16 j of each (32 x 32) logit tile and (32 x HD)
+// output tile in registers, so the logits never go through shared memory:
+// a row's max and sum are shuffles across the 16 lanes that hold it.  P
+// (dK/dV) and dS are staged in shared memory for the products that
+// contract over them.
+//
+// The forward is register-tiled (section "f32 forward" below).
 constexpr int kF32Tile = 32;
 constexpr int kF32Threads = 128;
 
@@ -928,13 +888,12 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// Writes this thread's rows of a (32 x HD) f32 accumulator, times mul[i],
-// to rows r0 .. of a (S x HD) matrix, rows >= S dropped.
+// Writes this thread's rows of a (32 x HD) f32 accumulator to rows r0 ..
+// of a (S x HD) matrix, rows >= S dropped.
 template <int HD>
 __device__ __forceinline__ void f32_write(float* dst,
                                           const float (&acc)[4][HD / 16],
-                                          const float (&mul)[4], int r0,
-                                          int S) {
+                                          int r0, int S) {
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -942,100 +901,8 @@ __device__ __forceinline__ void f32_write(float* dst,
     if (r < S)
 #pragma unroll
       for (int c = 0; c < HD / 16; ++c)
-        dst[static_cast<size_t>(r) * HD + tc + 16 * c] = acc[i][c] * mul[i];
+        dst[static_cast<size_t>(r) * HD + tc + 16 * c] = acc[i][c];
   }
-}
-
-// Forward: one block per (32-row q tile, b * h); q resident, (k, v) tiles
-// on or below the diagonal through the ring; online softmax in registers.
-template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
-    flash_fwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int S, float scale) {
-  using L = F32Plan<HD>;
-  constexpr int NT = kF32Threads, T = kF32Tile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* ps = reinterpret_cast<float*>(smem + 6 * L::kTileBytes);
-  auto k_tile = [&](int st) {
-    return reinterpret_cast<float*>(smem + (2 + 2 * st) * L::kTileBytes);
-  };
-  auto v_tile = [&](int st) {
-    return reinterpret_cast<float*>(smem + (3 + 2 * st) * L::kTileBytes);
-  };
-  const int qt = blockIdx.x, q0 = qt * T;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-  const int n_kt = qt + 1;
-
-  load_rows<HD, NT, T>(qs, L::kLd, q + base, q0, S);
-  load_rows<HD, NT, T>(k_tile(0), L::kLd, k + base, 0, S);
-  load_rows<HD, NT, T>(v_tile(0), L::kLd, v + base, 0, S);
-  cp_async_commit();
-
-  float m_run[4], l_run[4], acc[4][HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = kMasked;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
-  }
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_kt) {
-      load_rows<HD, NT, T>(k_tile(st ^ 1), L::kLd, k + base, (j + 1) * T, S);
-      load_rows<HD, NT, T>(v_tile(st ^ 1), L::kLd, v + base, (j + 1) * T, S);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[4][2];
-    f32_abt<HD>(qs, k_tile(st), L::kLd, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + tr + 8 * i;
-      bool ok[2];
-      float mx = kMasked;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int kpos = j * T + tc + 16 * jj;
-        ok[jj] = kpos <= qpos && kpos < S;
-        s[i][jj] *= scale;
-        if (ok[jj]) mx = fmaxf(mx, s[i][jj]);
-      }
-      const float m_new = fmaxf(m_run[i], row_max16(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const float p = ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
-        sum += p;
-        ps[(tr + 8 * i) * L::kPld + tc + 16 * jj] = p;
-      }
-      const float corr = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * corr + row_sum16(sum);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < HD / 16; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();   // P complete
-    f32_pb<HD, false>(ps, L::kPld, v_tile(st), L::kLd, acc);
-    __syncthreads();   // stage st and P free again
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    inv[i] = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
-    const int qpos = q0 + tr + 8 * i;
-    if (tc == 0 && qpos < S)
-      lse[static_cast<size_t>(blockIdx.y) * S + qpos] =
-          m_run[i] + logf(l_run[i]);
-  }
-  f32_write<HD>(o + base, acc, inv, q0, S);
 }
 
 // This thread's P and dS of one (q tile at q0, k tile at k0) pair from the
@@ -1139,9 +1006,8 @@ __global__ void __launch_bounds__(kF32Threads)
     f32_pb<HD, true>(dss, L::kPld, q_tile(st), L::kLd, acc_dk);
     __syncthreads();
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  f32_write<HD>(dk + base, acc_dk, one, k0, S);
-  f32_write<HD>(dv + base, acc_dv, one, k0, S);
+  f32_write<HD>(dk + base, acc_dk, k0, S);
+  f32_write<HD>(dv + base, acc_dv, k0, S);
 }
 
 // dQ: one block per (32-row q tile, b * h); q and do resident, the (k, v)
@@ -1205,12 +1071,239 @@ __global__ void __launch_bounds__(kF32Threads)
     f32_pb<HD, false>(dss, L::kPld, k_tile(st), L::kLd, acc);   // dq += dS k
     __syncthreads();
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  f32_write<HD>(dq + base, acc, one, q0, S);
+  f32_write<HD>(dq + base, acc, q0, S);
+}
+
+// -------------------------------------------------------- f32 forward ----
+// A thread block of 128 threads (kF32FwdThreads) owns a 64-row q tile and
+// walks the 64-row (K, V) tiles on or below its diagonal, heaviest (highest)
+// q tiles first.  Thread (ty, tx) = (t / 16, t % 16) holds the logits of
+// q rows ty + 8 i (i < 8) and k columns tx + 16 j (j < 4) of each (64 x 64)
+// tile, and the outputs of the same rows at columns 16 VW c + VW tx + e
+// (c < NC, e < VW: HD / 16 of them): S = Q Kᵀ takes 12 float4 loads of
+// Q and K from shared memory a depth step of 4 for 128 FMAs, and O += P V
+// 4 loads (P, V) a k for 64 (at hd 128).  Q, K and V are row-major with no
+// pad, the 16-byte chunks of a row XOR-swizzled by the row's low 3 bits
+// (swz), so a quarter-warp's 8 K rows or V chunks land on 32 distinct
+// banks; the rows of a thread share their low 3 bits, so one XOR serves
+// all 8.  P goes through shared memory transposed ([k][row], the row index
+// permuted to 8 ty + i), so a thread reads its 8 rows' P at one k as two
+// float4s.  Shared memory: Q, K, V and P, 112 KB at hd 128 with one
+// buffer each, so two thread blocks fit an SM and one's loads and barriers
+// overlap the other's products: V_j is copied during S_j and its softmax,
+// K_{j+1} during P V_j (cp.async, two barriers a tile).  The online
+// softmax runs on each thread's 8 x 4 logits with full-precision expf: the
+// row max by 4 shuffles over the 16 lanes of a row, the row sum kept per
+// thread and added across the lanes once at the end.  On an H100 it runs
+// at about a third of the FFMA peak, as packed_mm_ffma_kernel does; trial
+// variants (128-row tiles with a double-buffered ring and one barrier a
+// tile, 4 x 4 logits on 16 warps an SM, loads pipelined by hand between
+// the FMAs) were each within 10% of it (PERF.md, PR 11).
+constexpr int kF32FwdRows = 64;       // q rows of a block, k rows of a tile
+constexpr int kF32FwdThreads = 128;
+
+template <int HD>
+struct F32FwdPlan {
+  static constexpr int kTileBytes = kF32FwdRows * HD * 4;   // Q, K or V
+  static constexpr int kQ = 0, kK = kTileBytes, kV = 2 * kTileBytes;
+  static constexpr int kP = 3 * kTileBytes;                 // (64 x 64) Pᵀ
+  static constexpr int kBytes = kP + kF32FwdRows * kF32FwdRows * 4;
+  static_assert(HD % 32 == 0 && HD <= 128, "head dim: 8 chunks a row");
+  static_assert(2 * (kBytes + 1024) <= 228 * 1024, "two blocks an SM");
+};
+
+// Offset in floats of element (r, c) of a row-major f32 tile W floats wide
+// whose 16-byte chunks are swizzled: chunk c / 4 of row r lies at chunk
+// (c / 4) ^ (r % 8).
+template <int W>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * W + ((((c >> 2) ^ (r & 7))) << 2) + (c & 3);
+}
+
+// Rows r0 .. r0 + 63 of a (S x HD) f32 matrix into a swizzled tile, as
+// 16-byte cp.asyncs; rows >= S zero-filled.
+template <int HD>
+__device__ __forceinline__ void f32_fwd_load(float* dst, const float* src,
+                                             int r0, int S) {
+  constexpr int kPerRow = HD / 4;
+  for (int c = threadIdx.x; c < kF32FwdRows * kPerRow; c += kF32FwdThreads) {
+    const int r = c / kPerRow, cc = (c % kPerRow) * 4;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + swz<HD>(r, cc),
+               ok ? src + static_cast<size_t>(r0 + r) * HD + cc : src, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32FwdThreads, 2)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, float scale) {
+  using L = F32FwdPlan<HD>;
+  constexpr int T = kF32FwdRows;
+  constexpr int CW = HD / 16;            // output columns a thread
+  constexpr int VW = CW < 4 ? CW : 4;    // read VW at a time
+  constexpr int NC = CW / VW;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float* qs = reinterpret_cast<float*>(f32_smem + L::kQ);
+  float* ks = reinterpret_cast<float*>(f32_smem + L::kK);
+  float* vs = reinterpret_cast<float*>(f32_smem + L::kV);
+  float* ps = reinterpret_cast<float*>(f32_smem + L::kP);
+  const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * T;
+  const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  f32_fwd_load<HD>(qs, q + base, q0, S);
+  f32_fwd_load<HD>(ks, k + base, 0, S);
+  f32_fwd_load<HD>(vs, v + base, 0, S);
+  cp_async_commit();
+
+  float m_run[8], l_run[8], acc[8][CW];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m_run[i] = -INFINITY;   // the first tile holds k = 0 for every row
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
+  }
+  for (int j = 0; j <= qt; ++j) {
+    cp_async_wait<0>();   // K_j (and V_j at j = 0)
+    __syncthreads();      // ... visible; P and V_{j-1} free
+    if (j > 0) {
+      f32_fwd_load<HD>(vs, v + base, j * T, S);
+      cp_async_commit();
+    }
+
+    // S = Q Kᵀ: rows ty + 8 i, columns tx + 16 jj.
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 b[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        b[jj] = *reinterpret_cast<const float4*>(ks + swz<HD>(tx + 16 * jj, d));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(qs + swz<HD>(ty + 8 * i, d));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float x = s[i][jj];
+          x = fmaf(a.x, b[jj].x, x);
+          x = fmaf(a.y, b[jj].y, x);
+          x = fmaf(a.z, b[jj].z, x);
+          s[i][jj] = fmaf(a.w, b[jj].w, x);
+        }
+      }
+    }
+
+    // Online softmax; only the diagonal tile (the last) holds k > q, and
+    // k >= S lies there too for every row < S.  P into shared memory as
+    // Pᵀ[k][8 ty + i].
+    const bool diag = j == qt;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qpos = q0 + ty + 8 * i;
+      float mx = m_run[i];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float x = s[i][jj] * scale;
+        if (diag && j * T + tx + 16 * jj > qpos) x = -INFINITY;
+        s[i][jj] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = row_max16(mx);
+      const float corr = expf(m_run[i] - mx);
+      m_run[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p = expf(s[i][jj] - mx);
+        s[i][jj] = p;
+        sum += p;
+      }
+      l_run[i] = l_run[i] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[i][c] *= corr;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int kr = tx + 16 * jj;
+      *reinterpret_cast<float4*>(ps + swz<T>(kr, 8 * ty)) =
+          make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+      *reinterpret_cast<float4*>(ps + swz<T>(kr, 8 * ty + 4)) =
+          make_float4(s[4][jj], s[5][jj], s[6][jj], s[7][jj]);
+    }
+    cp_async_wait<0>();   // V_j
+    __syncthreads();      // ... and P visible; K_j free
+    if (j < qt) {
+      f32_fwd_load<HD>(ks, k + base, (j + 1) * T, S);
+      cp_async_commit();
+    }
+
+    // O += P V over the tile's 64 k rows.
+#pragma unroll 4
+    for (int kk = 0; kk < T; ++kk) {
+      const float4 p0 = *reinterpret_cast<const float4*>(ps + swz<T>(kk, 8 * ty));
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(ps + swz<T>(kk, 8 * ty + 4));
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float vv[CW];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float* src = vs + swz<HD>(kk, 16 * VW * c + VW * tx);
+        if constexpr (VW == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(src);
+          vv[4 * c] = t.x;
+          vv[4 * c + 1] = t.y;
+          vv[4 * c + 2] = t.z;
+          vv[4 * c + 3] = t.w;
+        } else {
+          const float2 t = *reinterpret_cast<const float2*>(src);
+          vv[2 * c] = t.x;
+          vv[2 * c + 1] = t.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+  // o = acc / l, l summed across the row's 16 lanes; lse = m + log(l).
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qpos = q0 + ty + 8 * i;
+    const float l = row_sum16(l_run[i]);
+    if (qpos >= S) continue;
+    if (tx == 0)
+      lse[static_cast<size_t>(blockIdx.y) * S + qpos] = m_run[i] + logf(l);
+    const float inv = 1.f / l;
+    float* dst = o + base + static_cast<size_t>(qpos) * HD;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float* at = dst + 16 * VW * c + VW * tx;
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(at) =
+            make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv,
+                        acc[i][4 * c + 2] * inv, acc[i][4 * c + 3] * inv);
+      else
+        *reinterpret_cast<float2*>(at) =
+            make_float2(acc[i][2 * c] * inv, acc[i][2 * c + 1] * inv);
+    }
+  }
 }
 
 // Above 48 KB, dynamic shared memory must be allowed per kernel and device:
-// once for each (instantiation, device), not on every launch.
+// once for each (instantiation, device), not on every launch.  The largest
+// carveout of shared memory from the SM's 256 KB lets as many blocks share
+// an SM as their shared memory allows (two of the f32 forward's 112 KB).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem,
                        std::atomic<uint64_t>& allowed) {
@@ -1221,6 +1314,10 @@ cudaError_t allow_smem(Kernel kernel, int smem,
   if (!(allowed.load(std::memory_order_acquire) & bit)) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     allowed.fetch_or(bit, std::memory_order_release);
   }
@@ -1299,17 +1396,22 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dsum,
                       void* dq, int bh, int S, float scale,
                       cudaStream_t stream) {
-  constexpr int smem = DqPlan<HD>::kBytes;
-  auto kernel = flash_bwd_dq_kernel<HD>;
-  static std::atomic<uint64_t> allowed{0};
-  cudaError_t err = allow_smem(kernel, smem, allowed);
+  dim3 grid;
+  if (!wgmma_grid(bh, S, &grid)) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = head_map(&tq, q, bh, S, HD, kBlockRows);
+  if (err == cudaSuccess) err = head_map(&tdo, dout, bh, S, HD, kBlockRows);
+  if (err == cudaSuccess) err = head_map(&tk, k, bh, S, HD, kDqKv);
+  if (err == cudaSuccess) err = head_map(&tv, v, bh, S, HD, kDqKv);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kTile - 1) / kTile, bh);
-  kernel<<<grid, kBwdThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<bf16*>(dq), S, scale);
+  constexpr int smem = DqPlan<HD>::kBytes;
+  auto kernel = flash_bwd_dq_wgmma_kernel<HD>;
+  static std::atomic<uint64_t> allowed{0};
+  err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<bf16*>(dq), S, scale);
   return cudaGetLastError();
 }
 
@@ -1317,13 +1419,13 @@ template <int HD>
 cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
                            void* o, void* lse, int bh, int S, float scale,
                            cudaStream_t stream) {
-  constexpr int smem = F32Plan<HD>::kBytes;
+  constexpr int smem = F32FwdPlan<HD>::kBytes;
   auto kernel = flash_fwd_f32_kernel<HD>;
   static std::atomic<uint64_t> allowed{0};
   cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kF32Tile - 1) / kF32Tile, bh);
-  kernel<<<grid, kF32Threads, smem, stream>>>(
+  dim3 grid((S + kF32FwdRows - 1) / kF32FwdRows, bh);
+  kernel<<<grid, kF32FwdThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), S, scale);

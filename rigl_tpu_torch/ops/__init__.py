@@ -147,8 +147,9 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            dkv_wgmma_kernel as
                                                            flash_bwd_dkv_
                                                            cuda, flash_bwd_dq_
-                                                           kernel as flash_bwd_
-                                                           dq_cuda; bf16 and
+                                                           wgmma_kernel as
+                                                           flash_bwd_dq_cuda;
+                                                           bf16 and
                                                            f32 (f32 variants
                                                            of the three:
                                                            flash_*_f32_kernel)

@@ -17,17 +17,20 @@ kernels of csrc/flash_attn.cu or raise:
                               row statistic lse = m + log(l) (JAX keeps l
                               and m);
   flash_bwd_dkv_wgmma_kernel  replaces `_flash_attention_bwd_dkv`;
-  flash_bwd_dq_kernel         replaces `_flash_attention_bwd_dq`.
+  flash_bwd_dq_wgmma_kernel   replaces `_flash_attention_bwd_dq`.
 
-In bf16 the forward and dK/dV run wgmma on a TMA ring (the logits stay in
-registers), dQ WMMA on a cp.async ring.
+In bf16 all three run wgmma on a TMA ring, the logits in registers.
 
 D = rowsum(do * o) in f32 stays a plain torch op between the forward and
 the backward kernels, as JAX computes it outside its kernels.  The kernels
 take bf16 (tensor cores) and f32 (f32 variants of the three, full f32 on
-the CUDA cores, `flash_*_f32_kernel`), and head dims 32, 64 and 128; any
-other CUDA input raises NotImplementedError.  S need not be a multiple of
-the tile: the kernels mask ragged rows.
+the CUDA cores, `flash_*_f32_kernel`; the forward register-tiled), and
+head dims 32, 64 and 128.  `flash_attention` takes any head dim up to
+128, as JAX's kernel takes any below 128: on the card another one is
+zero-padded to the next of those three (`pad_head_dim`), which is exact.
+A head dim above 128 raises NotImplementedError on the card: it does not
+fit the kernels' shared-memory and register plans.  S need not be a
+multiple of the tile: the kernels mask ragged rows.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from rigl_tpu_torch.ops import _build
 # launch of its kernel; nothing else touches them but callers resetting them.
 flash_fwd_launches = 0        # flash_fwd_wgmma_kernel (bf16)
 flash_bwd_dkv_launches = 0    # flash_bwd_dkv_wgmma_kernel (bf16)
-flash_bwd_dq_launches = 0     # flash_bwd_dq_kernel (bf16)
+flash_bwd_dq_launches = 0     # flash_bwd_dq_wgmma_kernel (bf16)
 flash_fwd_f32_launches = 0        # flash_fwd_f32_kernel
 flash_bwd_dkv_f32_launches = 0    # flash_bwd_dkv_f32_kernel
 flash_bwd_dq_f32_launches = 0     # flash_bwd_dq_f32_kernel
@@ -90,7 +93,7 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, d, scale: float):
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, d, scale: float):
-  """dq, flash_bwd_dq_kernel's plain version: dS k in f32, cast once."""
+  """dq, flash_bwd_dq_wgmma_kernel's plain version: dS k in f32, cast once."""
   _, ds = _p_and_ds(q, k, v, do, lse, d, scale)
   return torch.matmul(ds, k.float()).to(q.dtype)
 
@@ -148,8 +151,10 @@ def _check_cuda(op: str, *tensors: torch.Tensor):
       raise ValueError(f'{op}: operands must be contiguous and start on a '
                        '16-byte boundary')
   if x.shape[-1] not in HEAD_DIMS:
-    raise NotImplementedError(f'{op} on the card takes head dims '
-                              f'{HEAD_DIMS}, not {x.shape[-1]}')
+    raise NotImplementedError(
+        f'{op} on the card takes head dims {HEAD_DIMS} (flash_attention '
+        f'zero-pads the others below 128), not {x.shape[-1]}: above 128 a '
+        "tile does not fit the kernels' shared-memory and register plans")
   b, h, s, _ = x.shape
   if b * h == 0 or s == 0:
     raise ValueError(f'{op}: empty operands {tuple(x.shape)}')
@@ -215,7 +220,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale: float):
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, d, scale: float):
-  """dq: launches flash_bwd_dq_kernel (bf16) or its f32 variant; d =
+  """dq: launches flash_bwd_dq_wgmma_kernel (bf16) or its f32 variant; d =
   rowsum(do * o) in f32."""
   _check_cuda('flash_bwd_dq', q, k, v, do)
   _check_stats('flash_bwd_dq', q, lse, d)
@@ -264,15 +269,39 @@ class _FlashAttention(torch.autograd.Function):
     return dq, dk, dv, None
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    sm_scale: float) -> torch.Tensor:
-  """Causal attention o (B, H, S, hd) in q's dtype; differentiable in q, k
-  and v.  A call that needs no gradient skips the autograd Function."""
-  q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-  scale = float(sm_scale)
+def _attend(q, k, v, scale: float):
+  """o for contiguous q, k, v: through the autograd Function where a
+  gradient is wanted, else the forward alone."""
   if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                   or v.requires_grad):
     return _FlashAttention.apply(q, k, v, scale)
   fn = _on_device('flash_attention', q, flash_attention_fwd_reference,
                   flash_fwd_cuda)
   return fn(q, k, v, scale)[0]
+
+
+def pad_head_dim(attend, q, k, v, scale: float):
+  """attend(q, k, v, scale) at the next head dim of HEAD_DIMS: q, k and v
+  zero-padded on their last axis, o sliced back.  Exact: the zero columns
+  add nothing to q kᵀ, so lse and P are unchanged, o's padded columns are
+  0, so D = rowsum(do o) is unchanged, and autograd through the pad and
+  the slice gives dq, dk and dv sliced back from do padded with zeros."""
+  hd = q.shape[-1]
+  to = next(d for d in HEAD_DIMS if d >= hd)
+  if to == hd:
+    return attend(q, k, v, scale)
+  pad = lambda t: torch.nn.functional.pad(t, (0, to - hd))   # noqa: E731
+  return attend(pad(q), pad(k), pad(v), scale)[..., :hd]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: float) -> torch.Tensor:
+  """Causal attention o (B, H, S, hd) in q's dtype; differentiable in q, k
+  and v.  A call that needs no gradient skips the autograd Function.  On
+  the card a head dim below 128 that the kernels do not take runs
+  zero-padded (`pad_head_dim`)."""
+  q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+  scale = float(sm_scale)
+  if q.is_cuda and q.shape[-1] <= HEAD_DIMS[-1]:
+    return pad_head_dim(_attend, q, k, v, scale)
+  return _attend(q, k, v, scale)

@@ -87,6 +87,36 @@ def test_autograd_function_matches_autograd_through_plain_forward(s, hd):
                                   o.detach().numpy())
 
 
+@pytest.mark.parametrize('hd,padded', [(16, 32), (48, 64)])
+def test_pad_head_dim_around_plain_versions_is_exact(hd, padded):
+  """pad_head_dim, which flash_attention runs on the card for a head dim
+  below 128 that the kernels do not take, around the plain versions on the
+  CPU: it hands the next head dim of HEAD_DIMS to the attention, and o,
+  dq, dk and dv equal the unpadded plain path's within 1e-6 of each
+  one's largest value (the zero columns change only how the products
+  block their sums)."""
+  q, k, v, do = (torch.tensor(a) for a in _inputs(2, 3, 70, hd, seed=hd))
+  scale = hd ** -0.5
+  seen = []
+
+  def attend(*args):
+    seen.append(args[0].shape[-1])
+    return tfa._attend(*args)
+
+  def run(fn):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fn(*leaves, scale)
+    return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+  got = run(lambda *a: tfa.pad_head_dim(attend, *a))
+  want = run(tfa._attend)
+  assert seen == [padded]
+  for name, g, w in zip(('o', 'dq', 'dk', 'dv'), got, want):
+    assert g.shape == w.shape == (2, 3, 70, hd), name
+    err = float((g - w).abs().max())
+    assert err <= 1e-6 * float(w.abs().max()), (name, err)
+
+
 KW = dict(num_layers=2, d_model=32, d_ff=64, num_heads=2, vocab_size=11)
 PACKED_KW = dict(sparsity=0.5, block=(16, 16), bm=16)
 

@@ -306,9 +306,9 @@ def test_flash_kernels_match_plain(cuda_device, b, h, s, hd):
 @pytest.mark.parametrize('b,h,s,hd', [(4, 16, 512, 128), (2, 2, 1000, 64),
                                       (1, 3, 129, 32)])
 def test_flash_wgmma_kernels_are_deterministic(cuda_device, b, h, s, hd):
-  """Two launches of the bf16 forward and of dK/dV on the same inputs give
-  the same bits: each output is one thread block's, its sums in a fixed
-  order, with no atomics."""
+  """Two launches of the bf16 forward, of dK/dV and of dQ on the same
+  inputs give the same bits: each output is one thread block's, its sums
+  in a fixed order, with no atomics."""
   q, k, v, do = _qkvo((b, h, s, hd), s + hd, cuda_device)
   scale = hd ** -0.5
   o, lse = tfa.flash_fwd_cuda(q, k, v, scale)
@@ -318,6 +318,9 @@ def test_flash_wgmma_kernels_are_deterministic(cuda_device, b, h, s, hd):
   dk, dv = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
   dk2, dv2 = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
   assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+  dq = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale)
+  dq2 = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale)
+  assert torch.equal(dq, dq2)
 
 
 @pytest.mark.cuda
@@ -350,9 +353,42 @@ def test_flash_attention_autograd_on_card(cuda_device, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('hd', [16, 48, 96])
+def test_flash_attention_pads_head_dims_below_128(cuda_device, hd, dtype):
+  """A head dim below 128 that the kernels do not take runs through
+  flash_attention zero-padded to the next of 32 / 64 / 128: one launch of
+  each kernel, and o and the gradients of q, k and v agree with autograd
+  through the plain forward (in f32) at the kernels' own tolerance."""
+  tol = FLASH_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
+  gen = torch.Generator().manual_seed(hd)
+  q, k, v, do = (torch.randn(2, 4, 200, hd, generator=gen).to(cuda_device,
+                                                              dtype)
+                 for _ in range(4))
+  q, k, v = (t.requires_grad_() for t in (q, k, v))
+  counts = _f32_counts if dtype == torch.float32 else lambda: (
+      tfa.flash_fwd_launches, tfa.flash_bwd_dkv_launches,
+      tfa.flash_bwd_dq_launches)
+  before = counts()
+  o = tfa.flash_attention(q, k, v, hd ** -0.5)
+  grads = torch.autograd.grad(o, (q, k, v), do)
+  torch.cuda.synchronize()
+  assert counts() == tuple(n + 1 for n in before)
+  assert o.shape == q.shape and o.dtype == dtype
+  qf, kf, vf = (t.detach().float().clone().requires_grad_()
+                for t in (q, k, v))
+  want_o, _ = tfa.flash_attention_fwd_reference(qf, kf, vf, hd ** -0.5)
+  want = torch.autograd.grad(want_o, (qf, kf, vf), do.float())
+  assert _rel_err(o.detach(), want_o.detach()) <= tol
+  for name, got, ref in zip(('dq', 'dk', 'dv'), grads, want):
+    assert got.dtype == dtype and got.shape == ref.shape, name
+    assert _rel_err(got, ref) <= tol, (name, _rel_err(got, ref))
+
+
+@pytest.mark.cuda
 def test_flash_attention_raises_on_what_it_does_not_take(cuda_device):
-  """float32 runs its own kernel; float16 and mixed dtypes raise, as do
-  head dims, shapes and devices the kernels do not take."""
+  """float32 runs its own kernel; float16 and mixed dtypes raise, as do a
+  head dim above 128 (256), shapes and devices the kernels do not take."""
   q = torch.randn(1, 2, 16, 64, device=cuda_device)
   before = tfa.flash_fwd_f32_launches, tfa.flash_fwd_launches
   o = tfa.flash_attention(q, q, q, 0.125)
@@ -363,9 +399,10 @@ def test_flash_attention_raises_on_what_it_does_not_take(cuda_device):
     tfa.flash_attention(q.half(), q.half(), q.half(), 0.125)
   with pytest.raises(NotImplementedError, match='one dtype'):
     tfa.flash_fwd_cuda(q, q.bfloat16(), q, 0.125)
-  q48 = torch.randn(1, 2, 16, 48, device=cuda_device, dtype=torch.bfloat16)
+  q256 = torch.randn(1, 2, 16, 256, device=cuda_device,
+                     dtype=torch.bfloat16)
   with pytest.raises(NotImplementedError, match='head dims'):
-    tfa.flash_attention(q48, q48, q48, 0.125)
+    tfa.flash_attention(q256, q256, q256, 0.0625)
   qb = q.bfloat16()
   with pytest.raises(ValueError, match='one shape'):
     tfa.flash_fwd_cuda(qb, qb[:, :, :8].contiguous(), qb, 0.125)
