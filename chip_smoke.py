@@ -19,6 +19,12 @@ package.  Phases, each fatal on failure:
      dense peak for the dtype).  Points:
      a. the forward at the serving model's four layer shapes (s = 0.8,
         block (512, 512)), m = 8 and 1024 in bf16, plus f32 at one shape;
+        each m = 8 point (the decode branch, packed_mm_decode_kernel) also
+        prints its plan (ops/mm_split.py decode_plan): S blocks a
+        cluster, the tile, the grid and the bytes in flight per SM, and
+        its time at every S (1, 2, 4, 8, forced); then the decode
+        kernel's floor at every S: fc2's shape with no active block (the
+        launch, the cluster's reduction and the zero stores, no loads);
      b. forward, dx and packed dw at the MLP training shape K = N = 4096,
         block (512, 512): s = 0.8 and 0.9 at m = 1024 in bf16 and f32, a
         ragged m = 1000, and a grid with an empty block-row and an empty
@@ -36,11 +42,13 @@ package.  Phases, each fatal on failure:
      vocab 256 bf16 PackedTransformer with seeded random occupancy and
      weights serves a greedy request (batch 8, prompt 128, 128 steps; the
      kernel launch count must grow by exactly 4 layers x 4 projections x
-     128 passes) and a left-padded mixed-length sampled request; its
+     128 passes, of which the 127 decode passes' run the decode kernel)
+     and a left-padded mixed-length sampled request; its
      logits are held against the plain path (the dense twin holding the
      unpacked kernels) and against its own full causal forward;
   6. serving speed: us/token of the packed model and the dense twin at
-     batch 8 and 1, and the device-busy share of a batch-8 request;
+     batch 8 and 1, the device-busy share of a batch-8 request, and the
+     decode kernel's device time in it and its share of the busy time;
   7. MLP training, a main path: PackedMLPTrainer on the repo's `mlp`
      model (3 hidden layers of 4096, batch 1024, block (512, 512), s =
      0.8, f32, via='kernel') trains 30 steps with mask updates at steps 0,
@@ -80,8 +88,9 @@ package.  Phases, each fatal on failure:
  12. tap kernels vs plain: the tap conv's forward, dx and dw kernels, each
      against its plain version, at the four WRN-22-2 conv shapes and RN50's
      four stride-1 3x3 shapes (batch 128, ERK-0.8 densities, block (16,
-     16)) in f32 and bf16, and in f32 at batch 100, a 5x5 kernel and an
-     empty output column; beside cuDNN on the expanded weight (F.conv2d,
+     16)) in f32 and bf16, in f32 at batch 100, a 5x5 kernel and an
+     empty output column, and in bf16 at block (8, 8) at one WRN shape
+     (the wmma branch); beside cuDNN on the expanded weight (F.conv2d,
      torch.nn.grad.conv2d_input and conv2d_weight, TF32 off) and the bound;
      then the RN50 default route's points (bf16, block (128, 128), batch
      128, ERK 0.8): the forward, dx and dw at the 29 eligible 1x1 shapes,
@@ -488,6 +497,44 @@ def sm_count(torch):
   return torch.cuda.get_device_properties(0).multi_processor_count
 
 
+def decode_sweep(torch, run):
+  """{S: device ms} of a decode call `run` with its cluster size forced
+  to each S of 1, 2, 4, 8 (ops/mm_split.py decode_plan's `slices`),
+  logged."""
+  import functools
+  from rigl_tpu_torch.ops import mm_split
+  planner = mm_split.decode_plan
+  out = {}
+  try:
+    for s in (1, 2, 4, 8):
+      mm_split.decode_plan = functools.partial(planner, slices=s)
+      out[s] = device_ms(run, 20)
+  finally:
+    mm_split.decode_plan = planner
+  log('  at S = 1 / 2 / 4 / 8: '
+      + ' / '.join(f'{ms * 1e3:.2f}' for ms in out.values()) + ' us')
+  return out
+
+
+def decode_plan(torch, m, ngroups, out_w, seg, longest, dtype):
+  """Logs a decode point's plan (ops/mm_split.py decode_plan, as the
+  wrapper makes it): S blocks a cluster, the tile, the grid, the bytes in
+  flight per SM; returns it for the point's record."""
+  from rigl_tpu_torch.ops import mm_split
+  sms = sm_count(torch)
+  plan = mm_split.decode_plan(m, out_w, ngroups, seg, longest, dtype, sms)
+  flight = plan.bytes_in_flight_per_sm(sms)
+  log(f'  decode plan: S = {plan.slices} (clusters of {plan.slices}), tile '
+      f'{plan.rows} x {mm_split.TILE}, {plan.tiles} tiles, grid '
+      f'{plan.grid}, {plan.chunks} chunks in the longest column, '
+      f'{flight} bytes in flight per SM ({plan.stage_bytes} a stage, '
+      f'{plan.smem_bytes} bytes of shared memory a block)')
+  return dict(slices=plan.slices, rows=plan.rows, tile_columns=mm_split.TILE,
+              tiles=plan.tiles, grid=list(plan.grid), chunks=plan.chunks,
+              bytes_in_flight_per_sm=flight, stage_bytes=plan.stage_bytes,
+              smem_bytes=plan.smem_bytes)
+
+
 def phase_kernel(torch, device):
   """The forward kernel vs plain at the serving model's shapes."""
   from rigl_tpu_torch.layers.packed_dense import random_occupancy
@@ -507,20 +554,39 @@ def phase_kernel(torch, device):
     w = (torch.randn(n_act, bk, bn, generator=gen) / kdim ** 0.5).to(
         device, dtype)
     wd = bsp.unpack_dense(w, packing, BLOCK)
+    branch = bsp.mm_branch(m, bk, dtype)
+    before = bsp.mm_decode_launches
     rec, got = kernel_point(
         torch, f'fwd {name:3s} m={m:4d} {dtype_name(dtype):8s}',
         'packed_mm_launches',
         lambda: bsp.packed_matmul(x, w, packing, BLOCK),
         lambda: bsp.packed_matmul_reference(x, w, packing, BLOCK),
         lambda: torch.matmul(x, wd), bound('fwd', m, packing, BLOCK, dtype),
-        branch=bsp.mm_branch(m, bk, dtype))
+        branch=branch)
+    if branch == 'decode':
+      check(bsp.mm_decode_launches > before,
+            f'{name} m={m}: the decode kernel did not run')
+      rec['decode_plan'] = decode_plan(torch, m, nn_, bn, bk,
+                                       packing.longest('fwd'), dtype)
+      rec['ms_by_slices'] = decode_sweep(
+          torch, lambda: bsp.packed_matmul(x, w, packing, BLOCK))
     empty = (packing.column_index('cpu')[0].diff() == 0).nonzero().flatten()
     check(all(not bool(got[:, int(j) * bn:(int(j) + 1) * bn].any())
               for j in empty), f'{name} m={m}: an empty column is not zero')
     rec.update(path='serving', layer=name, m=m, dtype=dtype_name(dtype),
                k=kdim, n=ndim, n_active=n_act, empty_columns=len(empty))
     records.append(rec)
-  return records
+  kdim, ndim = layer_shapes()['fc2']
+  nk, nn_ = kdim // bk, ndim // bn
+  none = bsp.make_packing(torch.zeros(nk, nn_, dtype=torch.int32), 0)
+  x = torch.randn(8, kdim, generator=gen).to(device, torch.bfloat16)
+  w = torch.zeros(0, bk, bn, dtype=torch.bfloat16, device=device)
+  y = bsp.packed_matmul(x, w, none, BLOCK)
+  torch.cuda.synchronize()
+  check(not bool(y.any()), 'decode with no active block: output not zero')
+  log(f'decode floor: fc2 {kdim} x {ndim} m=8 bfloat16, no active block:')
+  floor = decode_sweep(torch, lambda: bsp.packed_matmul(x, w, none, BLOCK))
+  return records, floor
 
 
 def _mlp_occupancy(torch, gen, sparsity, empty_row_col):
@@ -747,11 +813,16 @@ def phase_serve(torch, device, packed, dense):
   out = generate(twin, prompt, STEPS)
   torch.cuda.synchronize()
   dt = time.perf_counter() - t0
-  launches = _counts()['fwd']
+  counts = _counts()
+  launches, decode = counts['fwd'], counts['decode']
   expect = LAYERS * 4 * STEPS
   log(f'request 1 (greedy, batch {BATCH}, prompt {PROMPT}, {STEPS} steps): '
-      f'{dt:.3f} s, packed_mm launches {launches} (expected {expect})')
+      f'{dt:.3f} s, packed_mm launches {launches} (expected {expect}), of '
+      f'which packed_mm_decode_kernel {decode} (expected '
+      f'{LAYERS * 4 * (STEPS - 1)})')
   check(launches == expect, f'launches {launches} != {expect}')
+  check(decode == LAYERS * 4 * (STEPS - 1),
+        f'decode launches {decode} != {LAYERS * 4 * (STEPS - 1)}')
   check(tuple(out.shape) == (BATCH, STEPS) and out.dtype == torch.int32,
         f'request 1 output {tuple(out.shape)} {out.dtype}')
   check(int(out.min()) >= 0 and int(out.max()) < VOCAB, 'token out of range')
@@ -793,8 +864,8 @@ def phase_serve(torch, device, packed, dense):
   check(int(out2.min()) >= 0 and int(out2.max()) < VOCAB, 'request 2 range')
   log(f'request 2 (left-padded lens {lens.tolist()}, T=0.8 top_k=50 '
       f'top_p=0.9): ok, {len(set(out2.flatten().tolist()))} distinct tokens')
-  return launches, dict(prefill_rel_err=err_plain / scale,
-                        decode_vs_full_rel_err=err_full / scale)
+  return (launches, decode), dict(prefill_rel_err=err_plain / scale,
+                                  decode_vs_full_rel_err=err_full / scale)
 
 
 def phase_speed(torch, device, packed, dense):
@@ -823,6 +894,15 @@ def phase_speed(torch, device, packed, dense):
         rows[f'{label}_b{batch}_device_busy_share'] = busy_ms / ms
         log(f'  device busy {busy_ms:.1f} ms of {ms:.1f} ms '
             f'({busy_ms / ms:.3f}); top kernels:')
+        if label == 'packed' and busy_ms > 0:
+          dec = [e for e in stats if 'packed_mm_decode_kernel' in e.key]
+          dec_ms = sum(e.self_device_time_total for e in dec) / 1e3
+          rows['packed_b8_decode_kernel_ms'] = dec_ms
+          rows['packed_b8_decode_kernel_launches'] = sum(e.count for e in dec)
+          rows['packed_b8_decode_kernel_busy_share'] = dec_ms / busy_ms
+          log(f'  packed_mm_decode_kernel: {dec_ms:.2f} ms in '
+              f'{rows["packed_b8_decode_kernel_launches"]} launches, '
+              f'{dec_ms / busy_ms:.3f} of the device-busy time')
         for e in stats[:6]:
           log(f'    {e.self_device_time_total / 1e3:8.2f} ms '
               f'{e.count:6d} x {e.key[:90]}')
@@ -830,7 +910,8 @@ def phase_speed(torch, device, packed, dense):
 
 
 def _counts():
-  """{kernel: launches so far}: the wrappers' counters, packed, flash (bf16
+  """{kernel: launches so far}: the wrappers' counters, packed (and the
+  decode branch's, which the forward / dx counts include too), flash (bf16
   and f32), tap, dense-storage and history entries."""
   from rigl_tpu_torch.ops import block_sparse as v1
   from rigl_tpu_torch.ops import block_sparse_conv as bsc
@@ -841,7 +922,8 @@ def _counts():
   from rigl_tpu_torch.ops import block_sparse_v6 as v6
   from rigl_tpu_torch.ops import flash_attention as fa
   return dict(fwd=bsp.packed_mm_launches, dx=bsp.packed_mm_dx_launches,
-              dw=bsp.packed_dw_launches, flash_fwd=fa.flash_fwd_launches,
+              dw=bsp.packed_dw_launches, decode=bsp.mm_decode_launches,
+              flash_fwd=fa.flash_fwd_launches,
               flash_dkv=fa.flash_bwd_dkv_launches,
               flash_dq=fa.flash_bwd_dq_launches,
               flash_fwd_f32=fa.flash_fwd_f32_launches,
@@ -868,7 +950,7 @@ def _zero_counts():
   from rigl_tpu_torch.ops import block_sparse_v6 as v6
   from rigl_tpu_torch.ops import flash_attention as fa
   bsp.packed_mm_launches = bsp.packed_mm_dx_launches = 0
-  bsp.packed_dw_launches = 0
+  bsp.packed_dw_launches = bsp.mm_decode_launches = 0
   fa.flash_fwd_launches = fa.flash_bwd_dkv_launches = 0
   fa.flash_bwd_dq_launches = 0
   fa.flash_fwd_f32_launches = fa.flash_bwd_dkv_f32_launches = 0
@@ -1561,10 +1643,11 @@ def _wrn_spec():
 
 def tap_points(torch):
   """Phase 12's points: (label, n, hw, cin, cout, k, sparsity, dtype,
-  empty column).  The four WRN-22-2 conv shapes and RN50's four stride-1
-  3x3 shapes at batch 128 and their ERK-0.8 sparsities, in f32 and bf16;
-  then f32 at the JAX driver's batch 100, a 5x5 kernel and an empty
-  output column."""
+  empty column, block).  The four WRN-22-2 conv shapes and RN50's four
+  stride-1 3x3 shapes at batch 128 and their ERK-0.8 sparsities, in f32
+  and bf16, at block (16, 16); then f32 at the JAX driver's batch 100, a
+  5x5 kernel and an empty output column; then bf16 at block (8, 8) at one
+  WRN shape, the wmma branch."""
   from rigl_tpu_torch.models.packed_convnet import resnet_layer_shapes
   from rigl_tpu_torch.sparsity.layer_sparsity import (resolve_sparsity,
                                                       spec_for_model)
@@ -1583,15 +1666,18 @@ def tap_points(torch):
   for dtype in (torch.float32, torch.bfloat16):
     for label, hw, cin, cout, spec in shapes:
       s = resolve_sparsity(spec, label.split()[1] + '/kernel')
-      points.append((label, WRN_BATCH, hw, cin, cout, 3, s, dtype, False))
+      points.append((label, WRN_BATCH, hw, cin, cout, 3, s, dtype, False,
+                     WRN_BLOCK))
   s = resolve_sparsity(wspec, 'g0_b0/conv2/kernel')
   points.append(('wrn g0_b0/conv2', 100, 32, 32, 32, 3, s, torch.float32,
-                 False))
+                 False, WRN_BLOCK))
   points.append(('wrn g0_b0/conv2', WRN_BATCH, 32, 32, 32, 3, s,
-                 torch.float32, True))
+                 torch.float32, True, WRN_BLOCK))
   s = resolve_sparsity(wspec, 'g1_b1/conv1/kernel')
   points.append(('wrn g1_b1/conv1 5x5', WRN_BATCH, 16, 64, 64, 5, s,
-                 torch.float32, False))
+                 torch.float32, False, WRN_BLOCK))
+  points.append(('wrn g1_b1/conv1 block 8', WRN_BATCH, 16, 64, 64, 3, s,
+                 torch.bfloat16, False, (8, 8)))
   return points
 
 
@@ -1620,13 +1706,14 @@ def tap_bound(op, n, hw, index, dtype):
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def _tap_occupancy(torch, gen, k, cin, cout, sparsity, empty_column):
+def _tap_occupancy(torch, gen, k, cin, cout, sparsity, empty_column,
+                   block):
   """(T, cin/bk, cout/bn) occupancy at `sparsity` over the conv's 2D
   block grid (cin-minor rows, as PackedConv's), with cout-block 0 emptied
   on request; and its active count."""
   from rigl_tpu_torch.layers.packed_dense import random_occupancy
   from rigl_tpu_torch.sparsity.distributions import get_n_zeros
-  bk, bn = WRN_BLOCK
+  bk, bn = block
   nk, nn_ = k * k * cin // bk, cout // bn
   n_act = nk * nn_ - get_n_zeros(nk * nn_, sparsity)
   occ = random_occupancy(gen, nk, nn_, n_act).reshape(k * k, cin // bk, nn_)
@@ -1643,13 +1730,14 @@ def phase_tap_kernels(torch, device):
   from torch.nn.grad import conv2d_input, conv2d_weight
   from rigl_tpu_torch.ops import block_sparse_conv as bsc
   gen = torch.Generator().manual_seed(SEED + 11)
-  bk, bn = WRN_BLOCK
   records = {'fwd': [], 'dx': [], 'dw': []}
-  for label, n, hw, cin, cout, k, s, dtype, empty in tap_points(torch):
-    occ, n_act = _tap_occupancy(torch, gen, k, cin, cout, s, empty)
+  for (label, n, hw, cin, cout, k, s, dtype, empty,
+       block) in tap_points(torch):
+    bk, bn = block
+    occ, n_act = _tap_occupancy(torch, gen, k, cin, cout, s, empty, block)
     packing = dict(zip(('cols', 'rows', 'taps'),
                        bsc.pack_tap_active(occ, n_act)))
-    index = bsc.tap_index(packing, (k, k, cin, cout), WRN_BLOCK)
+    index = bsc.tap_index(packing, (k, k, cin, cout), block)
     mask = occ.repeat_interleave(bk, 1).repeat_interleave(bn, 2)
     w = ((torch.randn(k, k, cin, cout, generator=gen) / (k * k * cin) ** 0.5)
          * mask.reshape(k, k, cin, cout)).to(device, dtype)
@@ -1693,7 +1781,7 @@ def phase_tap_kernels(torch, device):
       rec.update(path='wrn_training', layer=label, n=n, hw=hw, k=k, cin=cin,
                  cout=cout, sparsity=s, n_active=n_act,
                  dtype=dtype_name(dtype), empty_column=empty,
-                 library=lib_name)
+                 library=lib_name, block=list(block))
       if op == 'dw':
         rec['split'] = dw_split(f'tap dw  {tag}', bsc.tap_dw_plan(
             index, n * hw * hw, dtype, sm_count(torch)))
@@ -3180,9 +3268,22 @@ MM_DESIGN = ('branches by mm_branch (ops/block_sparse_packed.py): wgmma '
              'block) boxes that one producer warp fills by TMA, W through a '
              '4-D map so boxes stop at the block, epilogue staged in shared '
              'memory; ffma (f32, m > 32): packed_mm_ffma_kernel, 64 x 128 '
-             'tiles, 8 x 8 register micro-tiles on FMA; decode (m <= 32) '
-             'and tiled (bf16, 64 does not divide the contraction): '
-             'packed_mm_kernel, WMMA / FMA on a cp.async ring')
+             'tiles, 8 x 8 register micro-tiles on FMA; decode (m <= 32): '
+             'packed_mm_decode_kernel (its own entry); tiled (bf16, 64 does '
+             'not divide the contraction): packed_mm_kernel, WMMA on a '
+             'cp.async ring')
+DECODE_DESIGN = ('packed_mm_decode_kernel: tiles of an m-tile of 8 / 16 / 32 '
+                 'rows x 64 columns of one output block-column; the tile\'s '
+                 'contraction (its column\'s actives in list order, in '
+                 '128-byte chunks, k ascending) cut into S contiguous ranges, '
+                 'one block each, the S blocks a thread-block cluster (S in '
+                 '1, 2, 4, 8 by ops/mm_split.py decode_plan: one to two '
+                 'waves); one producer thread streams W boxes (4-D map over '
+                 'W) and x boxes (3-D map over x by segment) through a 4-deep '
+                 'TMA ring; bf16 yT = WT xT by wgmma m64nNk16, f32 one fmaf '
+                 'chain an output; f32 partials added in rank order through '
+                 'distributed shared memory, one cast, one launch, no '
+                 'workspace')
 # The dw kernels' design, named in their JSON entries.
 DW_DESIGN = ('bf16: packed_dw_wgmma_kernel, 128 x 128 tiles, wgmma '
              'm64n128k16 by two consumer warpgroups on a 4-deep ring of '
@@ -3280,13 +3381,14 @@ def main():
   try:
     card = phase_device(torch)
     phase_build()
-    serve_points = phase_kernel(torch, device)
+    serve_points, decode_floor = phase_kernel(torch, device)
     train_points = phase_train_kernels(torch, device)
     step_points = phase_step_kernels(torch, device)
     tiled_points = phase_tiled_branch(torch, device)
     autograd_errs = phase_autograd(torch, device)
     packed, dense = build_models(torch, device)
-    serve_launches, logit_errs = phase_serve(torch, device, packed, dense)
+    (serve_launches, decode_launches), logit_errs = phase_serve(
+        torch, device, packed, dense)
     speed = phase_speed(torch, device, packed, dense)
     del packed, dense
     torch.cuda.empty_cache()
@@ -3339,6 +3441,14 @@ def main():
   kernels[-1].update(design=DW_DESIGN, reduction=DW_REDUCTION)
   for entry in kernels[:2]:
     entry['design'] = MM_DESIGN
+  decode = _kernel_entry(
+      'packed_mm_decode_kernel', src, f'{tpu}:178', decode_launches,
+      {'serving': decode_launches},
+      [p for p in serve_points if p['branch'] == 'decode'])
+  decode.update(design=DECODE_DESIGN, branch='decode (m <= 32)',
+                library='torch.matmul on the unpacked W (cuBLAS)',
+                floor_ms_by_slices=decode_floor)
+  kernels.insert(0, decode)
   flash_tpu = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
   for name, op, line in (('flash_fwd_wgmma_kernel', 'fwd', 758),
                          ('flash_bwd_dkv_wgmma_kernel', 'dkv', 1121),

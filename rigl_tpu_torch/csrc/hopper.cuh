@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks that the port's kernels share: shared
 // memory addresses, mbarriers, TMA copies and the tensor maps they read,
-// wgmma operand descriptors, fences and the products themselves, and named
-// barriers.  Included by packed_mm.cu, flash_attn.cu and tap_conv.cu; each
+// wgmma operand descriptors, fences and the products themselves, named
+// barriers, and the cluster barrier and stores into distributed shared
+// memory.  Included by packed_mm.cu, flash_attn.cu and tap_conv.cu; each
 // of those is built into a library of its own, and everything here is
 // inline.
 //
@@ -184,6 +185,49 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// The cluster barrier, split: every thread of every block of the cluster
+// arrives, then waits.  cluster_arrive releases this thread's writes to
+// shared memory (an mbarrier's initialisation among them), which
+// cluster_wait makes visible to the cluster's blocks.  A grid launched
+// without clusters is made of clusters of one block.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared::cluster address, in block `rank` of this cluster, of the
+// shared memory that has address `addr` in this block.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Four f32 values to a shared::cluster address (16-byte aligned) of
+// another block, completing 16 transaction bytes of the mbarrier at the
+// shared::cluster address `bar` in that block.
+__device__ __forceinline__ void st_async_f4(uint32_t addr, uint32_t bar,
+                                            float4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// Brings a tensor map (a kernel parameter) into the TMA unit's cache
+// before its first copy.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // ---- wgmma products --------------------------------------------------------
 // d (64 x 128, f32, the warpgroup's registers) += A (64 x 16) @ B (16 x
 // 128), bf16, both from shared memory: kTransA / kTransB = 1 reads the
@@ -286,6 +330,18 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
 }
 
 template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
                                                uint64_t db) {
   asm volatile(
@@ -298,12 +354,13 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-// d (64 x N) += A @ B with both operands in shared memory, for N = 16, 32,
-// 48, 64 or 128: the SS product of that width.
+// d (64 x N) += A @ B with both operands in shared memory, for N = 8, 16,
+// 32, 48, 64 or 128: the SS product of that width.
 template <int N, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db) {
-  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 128,
+  static_assert(N == 8 || N == 16 || N == 32 || N == 48 || N == 64 ||
+                    N == 128,
                 "no SS product of this width");
   if constexpr (N == 128)
     wgmma_m64n128k16<kTransA, kTransB>(d, da, db);
@@ -313,8 +370,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
     wgmma_m64n48k16<kTransA, kTransB>(d, da, db);
   else if constexpr (N == 32)
     wgmma_m64n32k16<kTransA, kTransB>(d, da, db);
-  else
+  else if constexpr (N == 16)
     wgmma_m64n16k16<kTransA, kTransB>(d, da, db);
+  else
+    wgmma_m64n8k16<kTransA, kTransB>(d, da, db);
 }
 
 // d (64 x 128, f32) += A (64 x 16) @ B (16 x 128), bf16: A from registers
@@ -430,14 +489,15 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
-// dims 1..), boxes of 64 elements (128 bytes) innermost as wgmma_desc reads
-// them, 128-byte swizzle, zeros outside the tensor.  TMA takes a
-// 16-byte-aligned base and strides: anything else is refused here.
-inline cudaError_t bf16_map_nd(CUtensorMap* map, const void* base, int rank,
-                               const cuuint64_t* dims,
-                               const cuuint64_t* strides,
-                               const cuuint32_t* box) {
+// A tensor map of `rank` dims of `type` (innermost first; strides in bytes
+// of dims 1..), boxes of 128 bytes innermost (64 bf16, 32 f32) as
+// wgmma_desc reads them, 128-byte swizzle, zeros outside the tensor.  TMA
+// takes a 16-byte-aligned base and strides: anything else is refused here.
+inline cudaError_t tensor_map_nd(CUtensorMap* map, CUtensorMapDataType type,
+                                 const void* base, int rank,
+                                 const cuuint64_t* dims,
+                                 const cuuint64_t* strides,
+                                 const cuuint32_t* box) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorInvalidValue;
@@ -445,11 +505,19 @@ inline cudaError_t bf16_map_nd(CUtensorMap* map, const void* base, int rank,
     if (strides[i] % 16) return cudaErrorInvalidValue;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same in bf16.
+inline cudaError_t bf16_map_nd(CUtensorMap* map, const void* base, int rank,
+                               const cuuint64_t* dims,
+                               const cuuint64_t* strides,
+                               const cuuint32_t* box) {
+  return tensor_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank,
+                       dims, strides, box);
 }
 
 }  // namespace hopper

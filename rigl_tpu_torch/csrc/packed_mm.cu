@@ -4,9 +4,9 @@
 //
 //   the mm kernels, kTransW = false behind `packed_mm_fwd`: y = x @ W;
 //       kTransW = true behind `packed_mm_dx`: dx = gy @ Wᵀ.  Four branches
-//       (dispatch_mm): packed_mm_wgmma_kernel (bf16), packed_mm_ffma_kernel
-//       (f32), and packed_mm_kernel at m <= 32 and for a bf16 contraction
-//       that 64 does not divide.
+//       (dispatch_mm): packed_mm_decode_kernel (m <= 32, either dtype),
+//       packed_mm_wgmma_kernel (bf16), packed_mm_ffma_kernel (f32), and
+//       packed_mm_kernel for a bf16 contraction that 64 does not divide.
 //   the dw kernels                  behind `packed_dw`:
 //       dw[s] = x[:, rows[s]*bk : +bk]ᵀ @ gy[:, cols[s]*bn : +bn]:
 //       packed_dw_wgmma_kernel (bf16) or packed_dw_ffma_kernel (f32), and
@@ -22,8 +22,9 @@
 //
 // What bounds them on an H100: at decode (m = 8 rows) each weight byte feeds
 // about 8 multiply-adds, far below the ~295 flop/byte where bf16 tensor
-// cores become the limit, so decode is weight-bandwidth-bound; at training
-// and prefill sizes (m = 1024) all three products are compute-bound.  The
+// cores become the limit, so decode is weight-bandwidth-bound: the card
+// must keep enough weight bytes in flight on every SM; at training and
+// prefill sizes (m = 1024) all three products are compute-bound.  The
 // products of a few large blocks over many rows (ResNet-50's 1x1 convs: 2-19
 // blocks of 128 x 128 over 6272-401408 rows) are bound by the bytes of x,
 // gy and y.
@@ -67,19 +68,47 @@
 //     the longest columns' thread blocks the critical path: 64-row tiles
 //     spread each column over twice as many of them.  Each output is
 //     one fmaf chain over the actives in list order and k ascending, the
-//     order of packed_mm_kernel, so the two give the same bits.
-//   decode (m <= 32, either dtype) and tiled (bf16, m > 32, a contraction
-//     that 64 does not divide): packed_mm_kernel, WMMA (bf16) or scalar FMA
-//     (f32) on tiles that stream through a 3-deep cp.async ring, with a
-//     barrier a step.  For dx the (output-subtile x contraction-chunk)
-//     region of the W block is copied row-major and read by WMMA as a
-//     col_major matrix_b.  At m <= 32 (one m-tile) the tiles are 32 x 32
-//     with contraction steps of 256 (128 in f32): few, long steps, because
-//     at decode each thread block's serial chain of steps, not the loads,
-//     bounds it (PERF.md, section 6).  The tiled branch takes 64 x 64 x 32
-//     tiles, masked to the segment: a 64-deep box of x would read x's
-//     neighbouring segment, whose products with the zero-filled rows past
-//     the W block vanish only while that segment is finite.
+//     order of packed_mm_decode_kernel at S = 1, so the two give the same
+//     bits.
+//   decode (m <= 32, either dtype): packed_mm_decode_kernel.  A tile is
+//     an m-tile of N = 8, 16 or 32 rows (by m) times 64 columns of one
+//     output block-column: 64 output columns are wgmma's M, so one
+//     warpgroup covers the tile, one 8 KB W box feeds a stage, and a
+//     512-wide block-column gives 8 tiles (16 at 128 would halve the
+//     independent tiles of serving's narrow layers and double the cluster
+//     they need).  Few tiles at decode (32 at serving's fc2) leave most
+//     SMs idle, and one block walking a column's whole contraction is a
+//     long serial chain; so the tile's contraction -- its column's actives
+//     in list order, each cut into 128-byte chunks, k ascending -- is cut
+//     into S contiguous ranges of whole chunks, one block a range, and the
+//     S blocks form a thread-block cluster (S in 1, 2, 4, 8, planned on
+//     the host by ops/mm_split.py decode_plan: up to 4 blocks an SM, all
+//     resident at once; S = 1 once the tiles fill the card).  One producer
+//     thread streams each chunk's W box (4-D tensor map over W, as the
+//     wgmma branch's) and x box (3-D map over x as (column in segment,
+//     segment, row): zeros past the segment and past m, so a non-finite
+//     value in one segment reaches only columns that read it) through a
+//     4-deep ring by TMA: 32 KB of W in flight a block.  The wrappers pass
+//     only 16-byte-aligned operands and blocks of whole 16-byte groups, so
+//     TMA takes every call and there is no other load path.  bf16
+//     multiplies yᵀ = Wᵀ xᵀ by wgmma m64nNk16 (the weights fill M; forward
+//     Wᵀ MN-major, dx the block K-major in place, no Wᵀ); f32 runs one
+//     fmaf chain an output, k ascending, with no TF32, so at S = 1 each
+//     output has packed_mm_ffma_kernel's bits.  The blocks of a cluster
+//     add their f32 partial tiles in rank order through distributed shared
+//     memory, and each output is cast once: one launch, no workspace, no
+//     atomics, the same bits on every call.  At serving's shapes the
+//     weights' bytes are the smaller part of a call: the launch, the
+//     cluster's start and its reduction take more (chip_smoke.py phase
+//     3a times the kernel with no active block: PERF.md, row 1a).
+//   tiled (bf16, m > 32, a contraction that 64 does not divide):
+//     packed_mm_kernel, WMMA on 64 x 64 x 32 tiles that stream through a
+//     3-deep cp.async ring, with a barrier a step, masked to the segment:
+//     a 64-deep box of x would read x's neighbouring segment, whose
+//     products with the zero-filled rows past the W block vanish only
+//     while that segment is finite.  For dx the (output-subtile x
+//     contraction-chunk) region of the W block is copied row-major and
+//     read by WMMA as a col_major matrix_b.
 
 // The dw kernels: one thread block per (entry s, output tile, slice of m).
 // The m-sum is split into S slices of whole chunks when the tiles alone
@@ -289,14 +318,14 @@ __device__ __forceinline__ void load_tile(T* dst, int sld, const T* src,
   }
 }
 
-// y (m, ngroups * out_w) for the forward / dx (m, ngroups * out_w) for dx.
-// Output block-column g walks actives [beg[g], end[g]); active a reads x's
-// segment seg_idx[a] (width `seg`: bk forward, bn dx) and one (bk, bn)
-// weight block, row-major with rows `w_ld` apart.  Packed storage (woffs
-// null, w_ld = bn): the block is w[slot], slot = a for the forward and
-// slots[a] for dx.  Dense storage (W (K, N) itself, w_ld = N): the block
-// starts at element woffs[a] of w.  `x_ld` / `y_ld` are the row strides of
-// x and y.
+// y (m, ngroups * out_w) for the forward / dx (m, ngroups * out_w) for dx,
+// in bf16 (the tiled branch).  Output block-column g walks actives
+// [beg[g], end[g]); active a reads x's segment seg_idx[a] (width `seg`: bk
+// forward, bn dx) and one (bk, bn) weight block, row-major with rows `w_ld`
+// apart.  Packed storage (woffs null, w_ld = bn): the block is w[slot],
+// slot = a for the forward and slots[a] for dx.  Dense storage (W (K, N)
+// itself, w_ld = N): the block starts at element woffs[a] of w.  `x_ld` /
+// `y_ld` are the row strides of x and y.
 template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
 __global__ void __launch_bounds__(kThreads)
     packed_mm_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -305,6 +334,7 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ slots,
                      const int* __restrict__ woffs, T* __restrict__ y, int m,
                      int x_ld, int y_ld, int bk, int bn, int w_ld) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "WMMA in bf16");
   using L = MmRing<T, BM, BN, BK, STAGES, kTransW>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int seg = kTransW ? bn : bk;      // contraction length per active
@@ -366,45 +396,31 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
     const T* xs = a_tile(it % STAGES);
     const T* ws = b_tile(it % STAGES);
-    if constexpr (A::kBf16) {
-      using namespace nvcuda;
-      using BLayout =
-          std::conditional_t<kTransW, wmma::col_major, wmma::row_major>;
+    using namespace nvcuda;
+    using BLayout =
+        std::conditional_t<kTransW, wmma::col_major, wmma::row_major>;
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af[A::FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout>
-            bf[A::FN];
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> af[A::FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout>
+          bf[A::FN];
 #pragma unroll
-        for (int i = 0; i < A::FM; ++i)
-          wmma::load_matrix_sync(
-              af[i], xs + (wr * (BM / 2) + i * 16) * L::kAld + kk, L::kAld);
+      for (int i = 0; i < A::FM; ++i)
+        wmma::load_matrix_sync(
+            af[i], xs + (wr * (BM / 2) + i * 16) * L::kAld + kk, L::kAld);
 #pragma unroll
-        for (int j = 0; j < A::FN; ++j) {
-          const int col = wc * (BN / 2) + j * 16;
-          const T* b = kTransW ? ws + col * L::kBld + kk
-                               : ws + kk * L::kBld + col;
-          wmma::load_matrix_sync(bf[j], b, L::kBld);
-        }
-#pragma unroll
-        for (int i = 0; i < A::FM; ++i)
-#pragma unroll
-          for (int j = 0; j < A::FN; ++j)
-            wmma::mma_sync(acc.frag[i][j], af[i], bf[j], acc.frag[i][j]);
+      for (int j = 0; j < A::FN; ++j) {
+        const int col = wc * (BN / 2) + j * 16;
+        const T* b = kTransW ? ws + col * L::kBld + kk
+                             : ws + kk * L::kBld + col;
+        wmma::load_matrix_sync(bf[j], b, L::kBld);
       }
-    } else {
-#pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
 #pragma unroll
-        for (int i = 0; i < A::kPer; ++i) {
-          const int idx = tid + i * kThreads;
-          const int r = idx / BN, c = idx % BN;
-          const float wv = static_cast<float>(
-              kTransW ? ws[c * L::kBld + k] : ws[k * L::kBld + c]);
-          acc.scalar[i] += static_cast<float>(xs[r * L::kAld + k]) * wv;
-        }
-      }
+      for (int i = 0; i < A::FM; ++i)
+#pragma unroll
+        for (int j = 0; j < A::FN; ++j)
+          wmma::mma_sync(acc.frag[i][j], af[i], bf[j], acc.frag[i][j]);
     }
   }
   cp_async_wait<0>();
@@ -959,6 +975,282 @@ __global__ void __launch_bounds__(kFfThreads, 4)
   }
 }
 
+// ---- packed_mm_decode_kernel (m <= 32, bf16 and f32) ---------------------
+constexpr int kDecTile = 64;        // output columns of a tile
+constexpr int kDecStages = 4;       // ring depth
+constexpr int kDecWBytes = 8192;    // W a stage: 64 columns x 128 bytes deep
+constexpr int kDecConsumers = 128;  // one warpgroup
+constexpr int kDecThreads = kDecConsumers + 32;   // + the producer warp
+constexpr int kDecPartLd = kDecTile + 4;          // f32 partial row stride
+
+// Shared memory of packed_mm_decode_kernel<T, N>, from a 1024-aligned
+// base: kDecStages stages of (W box(es), x box), the f32 partial tile (N x
+// kDecPartLd), the partials the cluster's blocks send this block (`recv`:
+// N x 16 groups of 4 f32 in all) and the barriers (the ring's full and
+// empty, and recv's).  A stage is 128 bytes of contraction: kChunk = 64
+// bf16 or 32 f32.
+template <typename T, int N>
+struct DecLayout {
+  static constexpr int kChunk = 128 / static_cast<int>(sizeof(T));
+  static constexpr int kStage = kDecWBytes + N * 128;   // 1024-aligned
+  static constexpr int kPart = kDecStages * kStage;
+  static constexpr int kRecv = kPart + N * kDecPartLd * 4;
+  static constexpr int kBars = kRecv + N * kDecTile * 4;
+  static constexpr int kSmem = 1024 + kBars + 2 * kDecStages * 8 + 8;
+  static_assert(kStage % 1024 == 0, "boxes stay 1024-aligned");
+};
+
+// Thread block (rank, column tile, m-tile) of a cluster of `slices`
+// blocks: the N-row m-tile at m0 of output block-column g's 64-column tile
+// at n0, over rank's contiguous range of the tile's contraction -- g's
+// actives [beg[g], end[g]) in list order, each `seg` deep (bk forward, bn
+// dx) in chunks of kChunk, k ascending, cut into `slices` ranges of whole
+// chunks.  x (tensor map tx over x as (column in segment, segment, row):
+// a box never reads past its segment or past m) and the W block of each
+// active (tensor map tw over W as (column, block-column, row, block-row),
+// as packed_mm_wgmma_kernel reads it) stream through a kDecStages ring
+// that one producer thread fills by TMA.  bf16: one warpgroup runs wgmma
+// m64nNk16 with the operands swapped, yᵀ (64 x N) += Wᵀ (64 x 16) xᵀ (16
+// x N): Wᵀ MN-major (forward, the block's rows are the contraction) or
+// K-major (dx, the block read in place), xᵀ K-major; f32 in registers.
+// f32: thread t owns column t % 64 and N / 2 rows, one fmaf chain an
+// output, k ascending, x as float4s along k.  Rank q owns a 1/S share of
+// the tile's groups of 4 columns: each block sends its f32 partial of
+// rank q's share into q's `recv` at its own rank's slot (to another block
+// by st.async, which completes bytes of q's recv barrier, sent after a
+// wait on the cluster barrier phase that every block arrived at once its
+// barriers were initialised; its own share by a plain store), and each
+// rank, once its recv barrier has the other S - 1 partials, adds the S
+// in rank order, casts once and stores, masked to rows < m and
+// columns < the block's width.  No block reads another's shared memory,
+// and each waits for what it is sent, so none waits for the others
+// before it exits.
+template <typename T, int N, bool kTransW>
+__global__ void __launch_bounds__(kDecThreads)
+    packed_mm_decode_kernel(const __grid_constant__ CUtensorMap tx,
+                            const __grid_constant__ CUtensorMap tw,
+                            const int* __restrict__ beg,
+                            const int* __restrict__ end,
+                            const int* __restrict__ seg_idx,
+                            const int* __restrict__ slots,
+                            const int* __restrict__ woffs, T* __restrict__ y,
+                            int m, int y_ld, int bk, int bn, int w_ld,
+                            int slices) {
+  using L = DecLayout<T, N>;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kChunk = L::kChunk;
+  extern __shared__ unsigned char dec_smem[];
+  const int seg = kTransW ? bn : bk;      // contraction per active
+  const int out_w = kTransW ? bk : bn;    // width of an output block-column
+  const int tiles_per_col = (out_w + kDecTile - 1) / kDecTile;
+  const int rank = blockIdx.x % slices;   // the block's rank in its cluster
+  const int tile = blockIdx.x / slices;
+  const int g = tile / tiles_per_col;
+  const int n0 = (tile % tiles_per_col) * kDecTile;
+  const int m0 = blockIdx.y * N;
+  const int a_begin = beg[g];
+  const int per_active = (seg + kChunk - 1) / kChunk;
+  const int total = (end[g] - a_begin) * per_active;
+  const int per_rank = (total + slices - 1) / slices;
+  const int first = min(total, rank * per_rank);
+  const int count = min(total, first + per_rank) - first;
+  const int tid = threadIdx.x;
+
+  constexpr int kGroups = N * kDecTile / 4;   // of 4 columns, in the tile
+  const int share = kGroups / slices;         // a rank's
+  const uint32_t base = (smem_u32(dec_smem) + 1023) & ~1023u;
+  const uint32_t full = base + L::kBars;
+  const uint32_t empty = full + 8 * kDecStages;
+  const uint32_t recv_bar = empty + 8 * kDecStages;
+  unsigned char* gbase = dec_smem + (base - smem_u32(dec_smem));
+  float* part_f = reinterpret_cast<float*>(gbase + L::kPart);
+  float4* recv = reinterpret_cast<float4*>(gbase + L::kRecv);
+  if (tid == kDecConsumers) {
+    if (count > 0) {   // tw is not encoded where W has no block
+      prefetch_tensormap(&tx);
+      prefetch_tensormap(&tw);
+    }
+    for (int st = 0; st < kDecStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kDecConsumers);
+    }
+    if (slices > 1) mbar_init(recv_bar, 1);
+    mbar_fence_init();
+    if (slices > 1) mbar_expect_tx(recv_bar, (slices - 1) * share * 16);
+  }
+  if (slices > 1) cluster_arrive();   // this block's barriers are set
+  __syncthreads();
+
+  if (tid >= kDecConsumers) {   // the producer warp; it stays for the barriers
+    if (tid == kDecConsumers) {
+      for (int it = 0; it < count; ++it) {
+        const int st = it % kDecStages;
+        if (it >= kDecStages)   // the consumers released round it/S - 1
+          mbar_wait(empty + 8 * st, ((it / kDecStages) - 1) & 1);
+        const int c = first + it;
+        const int a = a_begin + c / per_active;
+        const int k0 = (c % per_active) * kChunk;
+        int br, bc;             // the W block: (block-row, block-column)
+        if (woffs) {
+          const int o = woffs[a];
+          br = o / (bk * w_ld);
+          bc = (o % w_ld) / bn;
+        } else {
+          br = kTransW ? slots[a] : a;
+          bc = 0;
+        }
+        const uint32_t bar = full + 8 * st;
+        const uint32_t dst = base + st * L::kStage;
+        mbar_expect_tx(bar, L::kStage);
+        if (kTransW) {   // rows n0 .. n0 + 63 of the block, columns k0 ..
+          tma_load_4d(dst, &tw, k0, bc, n0, br, bar);
+        } else {         // rows k0 .., columns n0 .. in boxes of kChunk
+#pragma unroll
+          for (int b = 0; b < kDecTile / kChunk; ++b)
+            tma_load_4d(dst + b * kChunk * 128, &tw, n0 + b * kChunk, bc, k0,
+                        br, bar);
+        }
+        tma_load_3d(dst + kDecWBytes, &tx, k0, seg_idx[a], m0, bar);
+      }
+    }
+    __syncwarp();
+  } else if constexpr (kBf16) {
+    float d[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+    for (int it = 0; it < count; ++it) {
+      const int st = it % kDecStages;
+      mbar_wait(full + 8 * st, (it / kDecStages) & 1);
+      const uint32_t ws = base + st * L::kStage;
+      const uint32_t xs = ws + kDecWBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kChunk / 16; ++k) {
+        const uint64_t db = wgmma_desc(xs + 32 * k, 16);
+        if constexpr (kTransW)   // A = the block's rows: K-major
+          wgmma_ss<N, 0, 0>(d, wgmma_desc(ws + 32 * k, 16), db);
+        else                     // A = Wᵀ: 16 block rows of 128 bytes a step
+          wgmma_ss<N, 1, 0>(d, wgmma_desc(ws + 2048 * k, kDecWBytes), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % kDecStages));
+    }
+    wgmma_wait<0>();
+    // d[4j + 2h + v] is yᵀ[16 warp + lane / 4 + 8 h][8 j + 2 (lane % 4) +
+    // v]: column c, row r of the partial.
+    const int lane = tid % 32;
+    const int c = 16 * (tid / 32) + lane / 4;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+          part_f[(8 * j + 2 * (lane % 4) + v) * kDecPartLd + c + 8 * h] =
+              d[4 * j + 2 * h + v];
+  } else {
+    // Column c, rows hr .. hr + N/2 - 1.  Shared tiles are rows of 128
+    // bytes whose 16-byte groups sit at group ^ (row % 8) (the swizzle).
+    const int c = tid % kDecTile;
+    const int hr = (tid / kDecTile) * (N / 2);
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    for (int it = 0; it < count; ++it) {
+      const int st = it % kDecStages;
+      mbar_wait(full + 8 * st, (it / kDecStages) & 1);
+      const float* ws =
+          reinterpret_cast<const float*>(gbase + st * L::kStage);
+      const float* xs = ws + kDecWBytes / 4;
+#pragma unroll
+      for (int q = 0; q < kChunk / 4; ++q) {   // k = 4 q .. 4 q + 3
+        float w[4];
+        if constexpr (kTransW) {   // row c of the box, k along the row
+          const float4 v = *reinterpret_cast<const float4*>(
+              ws + c * 32 + ((q ^ (c & 7)) << 2));
+          w[0] = v.x;
+          w[1] = v.y;
+          w[2] = v.z;
+          w[3] = v.w;
+        } else {                   // rows k of box c / 32, column c % 32
+          const float* wb = ws + (c / 32) * 32 * kChunk;
+          const int cc = c % 32;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int k = 4 * q + u;
+            w[u] = wb[k * 32 + ((((cc >> 2) ^ (k & 7))) << 2) + (cc & 3)];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) {
+          const int r = hr + i;
+          const float4 xv = *reinterpret_cast<const float4*>(
+              xs + r * 32 + ((q ^ (r & 7)) << 2));
+          acc[i] = fmaf(xv.x, w[0], acc[i]);
+          acc[i] = fmaf(xv.y, w[1], acc[i]);
+          acc[i] = fmaf(xv.z, w[2], acc[i]);
+          acc[i] = fmaf(xv.w, w[3], acc[i]);
+        }
+      }
+      mbar_arrive(empty + 8 * st);
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) part_f[(hr + i) * kDecPartLd + c] = acc[i];
+  }
+
+  // Group u (row u / 16, columns 4 (u % 16) ..) of the tile belongs to
+  // rank u / share; a block's width is a multiple of 4, so a group is in
+  // the block or out.
+  __syncthreads();
+  if (slices > 1) {
+    cluster_wait();   // every block's recv barrier is set
+    const uint32_t to = base + L::kRecv + rank * share * 16;
+    for (int u = tid; u < kGroups; u += kDecThreads) {
+      const int q = u / share, i = u % share;
+      const float4 v = *reinterpret_cast<const float4*>(
+          part_f + (u / 16) * kDecPartLd + 4 * (u % 16));
+      if (q == rank)
+        recv[rank * share + i] = v;
+      else
+        st_async_f4(cluster_map(to + i * 16, q), cluster_map(recv_bar, q),
+                    v);
+    }
+    mbar_wait(recv_bar, 0);   // the other blocks' partials of this share
+    __syncthreads();          // and this block's own
+  }
+  const int rows = m - m0, cols = out_w - n0;
+  T* out = y + static_cast<size_t>(m0) * y_ld +
+           static_cast<size_t>(g) * out_w + n0;
+  for (int i = tid; i < share; i += kDecThreads) {
+    const int u = rank * share + i;
+    const int r = u / (kDecTile / 4), c = 4 * (u % (kDecTile / 4));
+    if (r >= rows || c >= cols) continue;
+    float4 sum;
+    if (slices == 1) {
+      sum = *reinterpret_cast<const float4*>(part_f + r * kDecPartLd + c);
+    } else {
+      sum = recv[i];
+      for (int p = 1; p < slices; ++p) {
+        const float4 v = recv[p * share + i];
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+    }
+    T* o = out + static_cast<size_t>(r) * y_ld + c;
+    if constexpr (kBf16) {
+      uint2 packed;
+      packed.x = pack_bf16(sum.x, sum.y);
+      packed.y = pack_bf16(sum.z, sum.w);
+      *reinterpret_cast<uint2*>(o) = packed;
+    } else {
+      *reinterpret_cast<float4*>(o) = sum;
+    }
+  }
+}
+
 // ---- packed_dw_reduce_kernel ----------------------------------------------
 // The (tm x tn) f32 partials of every (entry s, tile) in the `slices`
 // slices, ws[z][s][tile], added in slice order and cast once into entry s's
@@ -1061,8 +1353,7 @@ cudaError_t allow_smem(Kernel kernel, int smem,
   return cudaSuccess;
 }
 
-// packed_mm_kernel (the decode and tiled branches): grid (m-tiles, column
-// subtiles).
+// packed_mm_kernel (the tiled branch): grid (m-tiles, column subtiles).
 template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
 cudaError_t launch_mm(const MmArgs& a) {
   constexpr int smem = MmRing<T, BM, BN, BK, STAGES, kTransW>::kSmemBytes;
@@ -1129,6 +1420,82 @@ cudaError_t launch_mm_wgmma(const MmArgs& a) {
   return cudaGetLastError();
 }
 
+// packed_mm_decode_kernel<T, N> on the grid (slices x column tiles,
+// m-tiles) in clusters of `slices` blocks along x.
+template <typename T, int N, bool kTransW>
+cudaError_t launch_decode_n(const MmArgs& a, const CUtensorMap& tx,
+                            const CUtensorMap& tw, int slices) {
+  using L = DecLayout<T, N>;
+  const int out_w = kTransW ? a.bk : a.bn;
+  const int m_tiles = (a.m + N - 1) / N;
+  if (m_tiles > 65535) return cudaErrorInvalidValue;
+  auto kernel = packed_mm_decode_kernel<T, N, kTransW>;
+  static std::atomic<uint64_t> allowed{0};
+  cudaError_t err = allow_smem(kernel, L::kSmem, allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(slices * a.ngroups * ((out_w + kDecTile - 1) / kDecTile),
+                     m_tiles);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, a.beg, a.end, a.seg_idx,
+                           a.slots, a.woffs, static_cast<T*>(a.y), a.m,
+                           a.ngroups * out_w, a.bk, a.bn, a.w_ld, slices);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The decode branch: the tensor maps over x as (column in segment,
+// segment, row) and W as (column, block-column, row, block-row), boxes of
+// 128 bytes innermost, and the m-tile N (8, 16 or 32 rows) by m.
+template <typename T, bool kTransW>
+cudaError_t launch_decode(const MmArgs& a, int slices) {
+  constexpr int es = static_cast<int>(sizeof(T));
+  constexpr int chunk = 128 / es;
+  const CUtensorMapDataType type = es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const int seg = kTransW ? a.bn : a.bk;
+  if (!(slices == 1 || slices == 2 || slices == 4 || slices == 8) ||
+      (a.bk * es) % 16 || (a.bn * es) % 16 || a.x_ld % seg ||
+      a.w_ld % a.bn || a.w_rows % a.bk)
+    return cudaErrorInvalidValue;
+  const int n = a.m <= 8 ? 8 : a.m <= 16 ? 16 : 32;
+  CUtensorMap tx, tw{};
+  const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(seg),
+                               static_cast<cuuint64_t>(a.x_ld / seg),
+                               static_cast<cuuint64_t>(a.m)};
+  const cuuint64_t xstrides[2] = {static_cast<cuuint64_t>(seg) * es,
+                                  static_cast<cuuint64_t>(a.x_ld) * es};
+  const cuuint32_t xbox[3] = {chunk, 1, static_cast<cuuint32_t>(n)};
+  cudaError_t err = tensor_map_nd(&tx, type, a.x, 3, xdims, xstrides, xbox);
+  if (err != cudaSuccess) return err;
+  // With no block (an empty packing) no column has an active, nothing is
+  // loaded, and tw stays unencoded.
+  if (a.w_rows > 0) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.bn),
+                                static_cast<cuuint64_t>(a.w_ld / a.bn),
+                                static_cast<cuuint64_t>(a.bk),
+                                static_cast<cuuint64_t>(a.w_rows / a.bk)};
+    const cuuint64_t ld = static_cast<cuuint64_t>(a.w_ld) * es;
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(a.bn) * es, ld,
+                                   ld * a.bk};
+    const cuuint32_t box[4] = {chunk, 1, kTransW ? kDecTile : chunk, 1};
+    err = tensor_map_nd(&tw, type, a.w, 4, dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  if (n == 8) return launch_decode_n<T, 8, kTransW>(a, tx, tw, slices);
+  if (n == 16) return launch_decode_n<T, 16, kTransW>(a, tx, tw, slices);
+  return launch_decode_n<T, 32, kTransW>(a, tx, tw, slices);
+}
+
 template <bool kTransW>
 cudaError_t launch_mm_ffma(const MmArgs& a) {
   const int out_w = kTransW ? a.bk : a.bn;
@@ -1144,29 +1511,33 @@ cudaError_t launch_mm_ffma(const MmArgs& a) {
 
 // The branches, in the order of ops/block_sparse_packed.py MM_BRANCHES.
 // The caller names one by the rule of mm_branch there:
-//   decode: m <= 32, either dtype -- packed_mm_kernel, 32 x 32 tiles,
-//           contraction steps of 256 (128 in f32);
+//   decode: m <= 32, either dtype -- packed_mm_decode_kernel, each tile's
+//           contraction split over a cluster of `slices` blocks (the
+//           caller's plan, ops/mm_split.py decode_plan);
 //   tiled:  bf16, m > 32, a contraction per active (bk forward, bn dx)
 //           that 64 does not divide -- packed_mm_kernel, 64 x 64 x 32;
 //   wgmma:  bf16, m > 32, 64 divides the contraction --
 //           packed_mm_wgmma_kernel;
 //   ffma:   f32, m > 32 -- packed_mm_ffma_kernel.
 // A branch that cannot take the call (another dtype, a contraction the
-// wgmma boxes do not divide, unaligned operands, more than 65535 m-tiles)
-// is refused with cudaErrorInvalidValue; no other branch is tried.
+// wgmma boxes do not divide, unaligned operands, more than 65535 m-tiles,
+// a cluster of other than 1, 2, 4 or 8 blocks, `slices` other than 1
+// outside decode) is refused with cudaErrorInvalidValue; no other branch
+// is tried.
 enum MmBranch { kMmDecode = 0, kMmTiled = 1, kMmWgmma = 2, kMmFfma = 3 };
 
 template <bool kTransW>
-int dispatch_mm(const MmArgs& a, int branch, int dtype) {
-  if (a.m <= 0 || a.ngroups <= 0) return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_mm(const MmArgs& a, int branch, int slices, int dtype) {
+  if (a.m <= 0 || a.ngroups <= 0 || (branch != kMmDecode && slices != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   using B = __nv_bfloat16;
   cudaError_t err = cudaErrorInvalidValue;
   switch (branch) {
-    case kMmDecode:   // one m-tile at decode: narrow tiles, long steps
+    case kMmDecode:
       if (dtype == 1)
-        err = launch_mm<B, 32, 32, 256, 3, kTransW>(a);
+        err = launch_decode<B, kTransW>(a, slices);
       else if (dtype == 0)
-        err = launch_mm<float, 32, 32, 128, 3, kTransW>(a);
+        err = launch_decode<float, kTransW>(a, slices);
       break;
     case kMmTiled:
       if (dtype == 1) err = launch_mm<B, 64, 64, 32, 3, kTransW>(a);
@@ -1273,16 +1644,17 @@ int dispatch_dw(const DwArgs& a, int dtype) {
 
 // y (m, nn*bn) = x (m, nk*bk) @ W (n_act, bk, bn); column j's actives are
 // packed slots col_ptr[j] .. col_ptr[j+1]-1, block-row rows[a] each.
-// `branch`: dispatch_mm's MmBranch, named by the caller.
+// `branch`: dispatch_mm's MmBranch, named by the caller; `slices`: the
+// decode branch's cluster size (1 for the other branches).
 extern "C" int packed_mm_fwd(const void* x, const void* w, const void* col_ptr,
                              const void* rows, void* y, int m, int K, int nn,
-                             int bk, int bn, int n_act, int branch, int dtype,
-                             void* stream) {
+                             int bk, int bn, int n_act, int branch,
+                             int slices, int dtype, void* stream) {
   const int* p = static_cast<const int*>(col_ptr);
   return dispatch_mm<false>({x, w, p, p + 1, static_cast<const int*>(rows),
                              nullptr, nullptr, y, m, K, nn, bk, bn, bn,
                              n_act * bk, static_cast<cudaStream_t>(stream)},
-                            branch, dtype);
+                            branch, slices, dtype);
 }
 
 // dx (m, nk*bk) = gy (m, nn*bn) @ Wᵀ; block-row k's actives are entries
@@ -1291,14 +1663,14 @@ extern "C" int packed_mm_fwd(const void* x, const void* w, const void* col_ptr,
 extern "C" int packed_mm_dx(const void* gy, const void* w,
                             const void* row_ptr, const void* cols,
                             const void* slots, void* dx, int m, int N, int nk,
-                            int bk, int bn, int n_act, int branch, int dtype,
-                            void* stream) {
+                            int bk, int bn, int n_act, int branch, int slices,
+                            int dtype, void* stream) {
   const int* p = static_cast<const int*>(row_ptr);
   return dispatch_mm<true>({gy, w, p, p + 1, static_cast<const int*>(cols),
                             static_cast<const int*>(slots), nullptr, dx, m, N,
                             nk, bk, bn, bn, n_act * bk,
                             static_cast<cudaStream_t>(stream)},
-                           branch, dtype);
+                           branch, slices, dtype);
 }
 
 // dw (n_act, bk, bn): slot s is block (rows[s], cols[s]); x is (m, K), gy
@@ -1327,14 +1699,14 @@ extern "C" int packed_dw(const void* x, const void* gy, const void* rows,
 extern "C" int dense_mm_fwd(const void* x, const void* w, const void* beg,
                             const void* end, const void* rows,
                             const void* woffs, void* y, int m, int K, int nn,
-                            int bk, int bn, int N, int branch, int dtype,
-                            void* stream) {
+                            int bk, int bn, int N, int branch, int slices,
+                            int dtype, void* stream) {
   return dispatch_mm<false>(
       {x, w, static_cast<const int*>(beg), static_cast<const int*>(end),
        static_cast<const int*>(rows), nullptr,
        static_cast<const int*>(woffs), y, m, K, nn, bk, bn, N, K,
        static_cast<cudaStream_t>(stream)},
-      branch, dtype);
+      branch, slices, dtype);
 }
 
 // dx (m, nk*bk) = gy (m, N) @ Wᵀ over the actives: output block-column k
@@ -1344,14 +1716,14 @@ extern "C" int dense_mm_fwd(const void* x, const void* w, const void* beg,
 extern "C" int dense_mm_dx(const void* gy, const void* w, const void* beg,
                            const void* end, const void* cols,
                            const void* woffs, void* dx, int m, int N, int nk,
-                           int bk, int bn, int branch, int dtype,
+                           int bk, int bn, int branch, int slices, int dtype,
                            void* stream) {
   return dispatch_mm<true>(
       {gy, w, static_cast<const int*>(beg), static_cast<const int*>(end),
        static_cast<const int*>(cols), nullptr,
        static_cast<const int*>(woffs), dx, m, N, nk, bk, bn, N, nk * bk,
        static_cast<cudaStream_t>(stream)},
-      branch, dtype);
+      branch, slices, dtype);
 }
 
 // dw (K, N) += the active blocks of xᵀ @ gy: entry s is block (rows[s],

@@ -9,12 +9,17 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            (CUDA C++, sm_90a)
                                                            the mm kernels
                                                            (mm_branch: packed_
+                                                           mm_decode_kernel at
+                                                           m <= 32 in either
+                                                           dtype, split over a
+                                                           cluster by ops/mm_
+                                                           split.py; packed_
                                                            mm_wgmma_kernel in
                                                            bf16, packed_mm_
                                                            ffma_kernel in f32,
-                                                           packed_mm_kernel at
-                                                           m <= 32 and for a
-                                                           bf16 contraction 64
+                                                           packed_mm_kernel
+                                                           for a bf16
+                                                           contraction 64
                                                            does not divide):
                                                            forward mode, bound
                                                            in ops/block_sparse_

@@ -14,14 +14,17 @@ take (`packed_matmul_reference`, `packed_matmul_dx_reference`,
 `packed_dw_reference`), and a hand-written Hopper kernel in
 csrc/packed_mm.cu, which CUDA tensors launch or raise: the forward and dx
 modes of the mm kernels (replacing the TPU kernel `_mm_kernel`; the branch
-by `mm_branch`: `packed_mm_wgmma_kernel` in bf16, `packed_mm_ffma_kernel`
-in f32, `packed_mm_kernel` at decode and for a bf16 contraction that 64
-does not divide) and the dw kernels (replacing `_dw_kernel` / `_dw_panel_kernel`:
+by `mm_branch`: `packed_mm_decode_kernel` at decode in either dtype, its
+contraction split over a cluster by ops/mm_split.py `decode_plan`,
+`packed_mm_wgmma_kernel` in bf16, `packed_mm_ffma_kernel` in f32,
+`packed_mm_kernel` for a bf16 contraction that 64 does not divide) and the
+dw kernels (replacing `_dw_kernel` / `_dw_panel_kernel`:
 `packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel` in f32, each
 with its m-sum split over thread blocks by `dw_plan` and the partials
 added in slice order by `packed_dw_reduce_kernel`).  The kernels read CSR
 indices of the actives (`Packing.column_index`, `row_index`, `dw_index`),
-built once per Packing and device and cached on the Packing.
+built once per Packing and device and cached on the Packing, as is the
+longest column the decode plan reads (`Packing.longest`).
 """
 
 from __future__ import annotations
@@ -32,13 +35,16 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from rigl_tpu_torch.ops import _build, dw_split
+from rigl_tpu_torch.ops import _build, dw_split, mm_split
 
 # Launches of each kernel in this process.  Each wrapper adds one per
 # launch of its kernel; nothing else touches them but callers resetting them.
 packed_mm_launches = 0        # the mm kernels, forward mode
 packed_mm_dx_launches = 0     # the mm kernels, transposed (dx) mode
 packed_dw_launches = 0        # the dw kernels (one per call of the entry)
+# The mm kernels' decode branch (packed_mm_decode_kernel), in either mode
+# and storage, through any wrapper: also counted in the wrapper's own count.
+mm_decode_launches = 0
 
 
 # ----------------------------------------------------------- packing ------
@@ -124,6 +130,17 @@ class Packing:
                            torch.cumsum(counts, 0)])
       self._cache[key] = tuple(t.to(device, torch.int32).contiguous()
                                for t in (row_ptr, cols, slots))
+    return self._cache[key]
+
+  def longest(self, mode: str = 'fwd') -> int:
+    """The most actives of any output block-column: of a block-column of
+    W for the forward ('fwd'), of a block-row for dx ('dx'); 0 with none.
+    From the CPU index, once per Packing."""
+    key = ('longest', mode)
+    if key not in self._cache:
+      ptr = (self.column_index('cpu')[0] if mode == 'fwd'
+             else self.row_index('cpu')[0])
+      self._cache[key] = int(ptr.diff().max()) if ptr.numel() > 1 else 0
     return self._cache[key]
 
   def dw_index(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -284,9 +301,9 @@ MM_DECODE_ROWS, MM_WGMMA_CHUNK = 32, 64
 def mm_branch(m: int, seg: int, dtype) -> str:
   """The branch of the forward / dx kernels for m rows and a contraction
   of `seg` per active (bk forward, bn dx) in `dtype`:
-  'decode' at m <= 32 (packed_mm_kernel's 32 x 32 tiles: at serving's m =
-  8 one thread block's chain of steps, weight-bandwidth-bound); above it
-  'ffma' for float32 (packed_mm_ffma_kernel); for bfloat16 'wgmma'
+  'decode' at m <= 32 (packed_mm_decode_kernel, weight-bandwidth-bound:
+  each tile's contraction split over a cluster by `decode_slices`); above
+  it 'ffma' for float32 (packed_mm_ffma_kernel); for bfloat16 'wgmma'
   (packed_mm_wgmma_kernel) where 64 divides seg, else 'tiled'
   (packed_mm_kernel, 64 x 64 x 32): a 64-deep box of x would read x's
   neighbouring segment, whose products with the zeros past the W block
@@ -341,11 +358,22 @@ def dw_workspace(plan: DwPlan, device) -> Tuple[Optional[torch.Tensor], int]:
   return ws, ws.data_ptr()
 
 
+def decode_slices(branch: str, m: int, out_w: int, ngroups: int, seg: int,
+                  longest: int, dtype, device) -> int:
+  """The cluster size S that a forward / dx call of `branch` passes to
+  dispatch_mm: mm_split.decode_plan's for the decode branch, 1 for the
+  others (arguments as decode_plan's, the SM count read from `device`)."""
+  if branch != 'decode':
+    return 1
+  return mm_split.decode_plan(m, out_w, ngroups, seg, longest, dtype,
+                              dw_split.sm_count(device)).slices
+
+
 @functools.cache
 def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu: pointers, then ints,
   then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'packed_mm_fwd': (5, 8), 'packed_mm_dx': (6, 8),
+  n_ptrs, n_ints = {'packed_mm_fwd': (5, 9), 'packed_mm_dx': (6, 9),
                     'packed_dw': (6, 9), 'dense_dw': (7, 9)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
@@ -399,7 +427,7 @@ def packed_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
   """y = x @ W: launches the mm kernel of mm_branch (forward mode) on the
   current stream; checks what the kernel takes and raises on anything
   else."""
-  global packed_mm_launches
+  global packed_mm_launches, mm_decode_launches
   bk, bn = block
   nk, nn_ = packing.shape
   _check_cuda('packed_mm', [('x', x, nk * bk)], w_packed, packing, block)
@@ -408,12 +436,16 @@ def packed_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
   y = torch.empty((m, nn_ * bn), dtype=x.dtype, device=x.device)
   if m == 0:
     return y
+  branch = mm_branch(m, bk, x.dtype)
+  slices = decode_slices(branch, m, bn, nn_, bk, packing.longest('fwd'),
+                         x.dtype, x.device)
   _launch('packed_mm_fwd', x.data_ptr(), w_packed.data_ptr(),
           col_ptr.data_ptr(), rows.data_ptr(), y.data_ptr(), m, nk * bk, nn_,
-          bk, bn, packing.n_active,
-          MM_BRANCHES.index(mm_branch(m, bk, x.dtype)), _DTYPE_CODE[x.dtype],
+          bk, bn, packing.n_active, MM_BRANCHES.index(branch), slices,
+          _DTYPE_CODE[x.dtype],
           torch.cuda.current_stream(x.device).cuda_stream)
   packed_mm_launches += 1
+  mm_decode_launches += branch == 'decode'
   return y
 
 
@@ -421,7 +453,7 @@ def packed_matmul_dx_cuda(gy: torch.Tensor, w_packed: torch.Tensor,
                           packing: Packing, block: Tuple[int, int]):
   """dx = gy @ Wᵀ: launches the mm kernel of mm_branch (dx mode) through
   the bwd packing's CSR; checks and raises as packed_matmul_cuda does."""
-  global packed_mm_dx_launches
+  global packed_mm_dx_launches, mm_decode_launches
   bk, bn = block
   nk, nn_ = packing.shape
   _check_cuda('packed_mm_dx', [('gy', gy, nn_ * bn)], w_packed, packing,
@@ -431,13 +463,16 @@ def packed_matmul_dx_cuda(gy: torch.Tensor, w_packed: torch.Tensor,
   dx = torch.empty((m, nk * bk), dtype=gy.dtype, device=gy.device)
   if m == 0:
     return dx
+  branch = mm_branch(m, bn, gy.dtype)
+  slices = decode_slices(branch, m, bk, nk, bn, packing.longest('dx'),
+                         gy.dtype, gy.device)
   _launch('packed_mm_dx', gy.data_ptr(), w_packed.data_ptr(),
           row_ptr.data_ptr(), cols.data_ptr(), slots.data_ptr(), dx.data_ptr(),
           m, nn_ * bn, nk, bk, bn, packing.n_active,
-          MM_BRANCHES.index(mm_branch(m, bn, gy.dtype)),
-          _DTYPE_CODE[gy.dtype],
+          MM_BRANCHES.index(branch), slices, _DTYPE_CODE[gy.dtype],
           torch.cuda.current_stream(gy.device).cuda_stream)
   packed_mm_dx_launches += 1
+  mm_decode_launches += branch == 'decode'
   return dx
 
 

@@ -181,7 +181,7 @@ def dense_dw_reference(x: torch.Tensor, gy: torch.Tensor, entries: DwEntries,
 def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu's dense modes: pointers,
   then ints, then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'dense_mm_fwd': (7, 8), 'dense_mm_dx': (7, 7)}[name]
+  n_ptrs, n_ints = {'dense_mm_fwd': (7, 9), 'dense_mm_dx': (7, 8)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                  + [ctypes.c_void_p])
@@ -237,9 +237,11 @@ def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor, lists: DenseLists,
                   block: Tuple[int, int], mode: str = 'fwd'):
   """Launches the mm kernel of block_sparse_packed.mm_branch in its dense
   storage mode on the current stream: the forward (y = x @ W over the
-  entries) or dx (gy @ Wᵀ, W read transposed in place).  Counts nothing:
-  callers count their own launches.  Checks what the kernel takes and
-  raises on anything else."""
+  entries) or dx (gy @ Wᵀ, W read transposed in place).  The decode
+  branch's plan takes every input block-column as the longest column (the
+  lists lie on the device, and their lengths are not read back).  Counts
+  only block_sparse_packed.mm_decode_launches: callers count their own
+  launches.  Checks what the kernel takes and raises on anything else."""
   bk, bn = block
   kdim, n = w.shape
   width = n if mode == 'dx' else kdim
@@ -253,14 +255,18 @@ def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor, lists: DenseLists,
   ptrs = (x.data_ptr(), w.data_ptr(), lists.beg.data_ptr(),
           lists.end.data_ptr(), lists.seg.data_ptr(), lists.woffs.data_ptr(),
           y.data_ptr())
-  branch = bsp.MM_BRANCHES.index(
-      bsp.mm_branch(m, bn if mode == 'dx' else bk, x.dtype))
+  seg_w = bn if mode == 'dx' else bk
+  branch = bsp.mm_branch(m, seg_w, x.dtype)
+  slices = bsp.decode_slices(branch, m, out_w, groups, seg_w,
+                             width // seg_w, x.dtype, x.device)
+  code = bsp.MM_BRANCHES.index(branch)
   if mode == 'dx':
-    _launch('dense_mm_dx', *ptrs, m, n, groups, bk, bn, branch,
+    _launch('dense_mm_dx', *ptrs, m, n, groups, bk, bn, code, slices,
             _DTYPE_CODE[x.dtype], stream)
   else:
-    _launch('dense_mm_fwd', *ptrs, m, kdim, groups, bk, bn, n, branch,
+    _launch('dense_mm_fwd', *ptrs, m, kdim, groups, bk, bn, n, code, slices,
             _DTYPE_CODE[x.dtype], stream)
+  bsp.mm_decode_launches += branch == 'decode'
   return y
 
 

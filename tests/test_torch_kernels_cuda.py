@@ -11,6 +11,8 @@ runs it without the repo's conftest (which imports jax):
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -1648,3 +1650,176 @@ def test_mm_unaligned_operand_is_refused(cuda_device):
                                         cuda_device).items():
     with pytest.raises(ValueError, match='16-byte'):
       fwd(shifted)
+
+
+# ----------------------------- the decode branch -------------------------
+# packed_mm_decode_kernel (m <= 32, either dtype): each tile's contraction
+# split over a cluster of S blocks (ops/mm_split.py decode_plan), the f32
+# partials added in rank order.  At serving's four shapes (block 512, s =
+# 0.8): every S the plan can choose, forced.
+DECODE_SHAPES = {'qkv': (2048, 6144), 'out': (2048, 2048),
+                 'fc1': (2048, 8192), 'fc2': (8192, 2048)}
+_DECODE_CASES = {}
+
+
+def _force_slices(monkeypatch, slices):
+  """Every decode plan from here on takes `slices` (None: the planner's)."""
+  from rigl_tpu_torch.ops import mm_split
+  plan = mm_split.decode_plan
+  while isinstance(plan, functools.partial):
+    plan = plan.func
+  monkeypatch.setattr(mm_split, 'decode_plan', plan if slices is None else
+                      functools.partial(plan, slices=slices))
+
+
+def _decode_case(layer, dtype, device):
+  """The serving projection `layer` at s = 0.8, block (512, 512): packing,
+  packed w, the dense W, the v3 lists (forward, dx); cached per (layer,
+  dtype)."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  key = (layer, dtype)
+  if key not in _DECODE_CASES:
+    kdim, ndim = DECODE_SHAPES[layer]
+    nk, nn_ = kdim // 512, ndim // 512
+    n_act = nk * nn_ - get_n_zeros(nk * nn_, 0.8)
+    gen = torch.Generator().manual_seed(nk * nn_)
+    occ = random_occupancy(gen, nk, nn_, n_act)
+    packing = tbsp.make_packing(occ, n_act)
+    dgen = torch.Generator(device=device).manual_seed(nk * nn_)
+    wp = (torch.randn(n_act, 512, 512, generator=dgen, device=device)
+          / kdim ** 0.5).to(dtype)
+    wd = tbsp.unpack_dense(wp, packing, (512, 512)).contiguous()
+    occ_d = occ.to(device)
+    _DECODE_CASES[key] = (packing, wp, wd,
+                          tv3.occupancy_lists(occ_d, (512, 512), ndim),
+                          tv3.occupancy_lists(occ_d, (512, 512), ndim, 'dx'))
+  return _DECODE_CASES[key]
+
+
+def _decode_calls(case, block):
+  """(name, call, plain, mode) of the forward and dx in packed storage and
+  through the v3 lists (dense storage)."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  packing, wp, wd, fl, dl = case
+  cpu = lambda ls: type(ls)(*(t.cpu() for t in ls))  # noqa: E731
+  return (
+      ('packed fwd', lambda a: tbsp.packed_matmul_cuda(a, wp, packing, block),
+       lambda a: tbsp.packed_matmul_reference(a, wp, packing, block), 'fwd'),
+      ('packed dx',
+       lambda a: tbsp.packed_matmul_dx_cuda(a, wp, packing, block),
+       lambda a: tbsp.packed_matmul_dx_reference(a, wp, packing, block),
+       'dx'),
+      ('dense fwd', lambda a: tv3.dense_mm_cuda(a, wd, fl, block),
+       lambda a, fl=cpu(fl): tv3.dense_mm_reference(a, wd, fl, block),
+       'fwd'),
+      ('dense dx', lambda a: tv3.dense_mm_cuda(a, wd, dl, block, 'dx'),
+       lambda a, dl=cpu(dl): tv3.dense_mm_reference(a, wd, dl, block, 'dx'),
+       'dx'))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [1, 5, 8, 31])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('slices', [1, 2, 4, 8])
+@pytest.mark.parametrize('layer', sorted(DECODE_SHAPES))
+def test_mm_decode_matches_plain_at_serving_shapes(cuda_device, monkeypatch,
+                                                   layer, slices, dtype, m):
+  """The decode kernel at S forced to 1, 2, 4 and 8, forward and dx, in
+  packed and dense storage, m = 1, 5, 8, 31, against the plain versions
+  (tolerances of the other branches, relative to max(1, max |plain|));
+  each call one decode launch."""
+  kdim, ndim = DECODE_SHAPES[layer]
+  case = _decode_case(layer, dtype, cuda_device)
+  _force_slices(monkeypatch, slices)
+  gen = torch.Generator(device=cuda_device).manual_seed(m + slices)
+  acts = {'fwd': torch.randn(m, kdim, generator=gen, device=cuda_device),
+          'dx': torch.randn(m, ndim, generator=gen, device=cuda_device)}
+  for name, call, plain, mode in _decode_calls(case, (512, 512)):
+    a = acts[mode].to(dtype)
+    assert tbsp.mm_branch(m, 512, dtype) == 'decode'
+    before = tbsp.mm_decode_launches
+    got = call(a)
+    torch.cuda.synchronize()
+    assert tbsp.mm_decode_launches == before + 1, name
+    want = plain(a)
+    assert got.shape == want.shape and got.dtype == dtype, name
+    assert _rel(got, want) <= MM_TOL[dtype], (name, _rel(got, want))
+  _force_slices(monkeypatch, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('slices', [1, 2, 4, 8])
+def test_mm_decode_edges_and_a_nonfinite_segment(cuda_device, monkeypatch,
+                                                 slices, dtype):
+  """Block (64, 64), m = 5: a column with no active (exactly zero), a
+  column of one active (one chunk in bf16, two in f32: fewer than S, so
+  ranks with no work join the sum), and a NaN in one segment of x (gy for
+  dx), which reaches only the outputs of the columns that read that
+  segment, in its own row; every other output has the bits of the call
+  with that value zeroed and matches the plain version.  Forward and dx,
+  packed and dense storage."""
+  from rigl_tpu_torch.ops import block_sparse_v3 as tv3
+  block = (64, 64)
+  occ = torch.tensor([[1, 0, 1, 1], [0, 0, 1, 0], [0, 0, 1, 1],
+                      [0, 0, 1, 0]], dtype=torch.int32)
+  n_act = int(occ.sum())
+  packing = tbsp.make_packing(occ, n_act)
+  gen = torch.Generator(device=cuda_device).manual_seed(slices)
+  wp = torch.randn(n_act, *block, generator=gen,
+                   device=cuda_device).to(dtype)
+  wd = tbsp.unpack_dense(wp, packing, block).contiguous()
+  occ_d = occ.to(cuda_device)
+  case = (packing, wp, wd, tv3.occupancy_lists(occ_d, block, 256),
+          tv3.occupancy_lists(occ_d, block, 256, 'dx'))
+  _force_slices(monkeypatch, slices)
+  for name, call, plain, mode in _decode_calls(case, block):
+    clean = torch.randn(5, 256, generator=gen, device=cuda_device).to(dtype)
+    bad = clean.clone()
+    bad[3, 2 * 64 + 10] = float('nan')          # segment 2, row 3
+    zeroed = clean.clone()
+    zeroed[3, 2 * 64 + 10] = 0
+    got, ref = call(bad), call(zeroed)
+    torch.cuda.synchronize()
+    reads = (occ[:, 2] if mode == 'dx' else occ[2]).tolist()
+    empty = (occ.sum(1) if mode == 'dx' else occ.sum(0)).tolist()
+    for g in range(4):
+      cols = slice(64 * g, 64 * (g + 1))
+      if reads[g]:
+        assert bool(torch.isnan(got[3, cols]).all()), (name, g)
+      else:
+        assert torch.equal(got[3, cols], ref[3, cols]), (name, g)
+      rows = [0, 1, 2, 4]
+      assert torch.equal(got[rows, cols], ref[rows, cols]), (name, g)
+      if not empty[g]:
+        assert not ref[:, cols].any(), (name, g)
+    assert _rel(ref, plain(zeroed)) <= MM_TOL[dtype], name
+  _force_slices(monkeypatch, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('slices', [1, 2, 4, 8])
+def test_mm_decode_repeats_bitwise_with_one_allocation(cuda_device,
+                                                       monkeypatch, slices,
+                                                       dtype):
+  """At serving's fc2 (the largest S) and m = 8, forward and dx, packed
+  and dense: a second call gives the same bits, and a call allocates one
+  block, its output (no workspace)."""
+  case = _decode_case('fc2', dtype, cuda_device)
+  _force_slices(monkeypatch, slices)
+  gen = torch.Generator(device=cuda_device).manual_seed(slices)
+  acts = {'fwd': torch.randn(8, 8192, generator=gen, device=cuda_device),
+          'dx': torch.randn(8, 2048, generator=gen, device=cuda_device)}
+  for name, call, _, mode in _decode_calls(case, (512, 512)):
+    a = acts[mode].to(dtype)
+    first = call(a)
+    torch.cuda.synchronize()
+    count = torch.cuda.memory_stats(cuda_device)['allocation.all.allocated']
+    second = call(a)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(cuda_device)[
+        'allocation.all.allocated'] == count + 1, name
+    assert torch.equal(first, second), name
+  _force_slices(monkeypatch, None)
