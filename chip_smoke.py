@@ -7,9 +7,20 @@ Run from the root of a checkout.  It imports nothing of JAX or of the JAX
 package.  Phases, each fatal on failure:
 
   1. device: torch / CUDA versions, the card's name and power limit;
-  2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu, flash_attn.cu and
-     tap_conv.cu with nvcc, one process per source started together (into the
-     git-ignored rigl_tpu_torch/_build/), and prints ptxas' report;
+  2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu, flash_attn.cu,
+     tap_conv.cu and rates.cu with nvcc, one process per source started
+     together (into the git-ignored rigl_tpu_torch/_build/), and prints
+     ptxas' report;
+  2b. rates probe (csrc/rates.cu): what bounds f32-accurate products on
+     the card, each rate in TFLOP/s: (a) FFMA from registers, (b) FFMA
+     with operands from shared memory at the PR 6 f32 flash backward's
+     tiling (its q kᵀ and P v loops), (c) wgmma m64nNk8 tf32 with both
+     operands from shared memory and with A from registers, N = 16, 32,
+     64 and 128 over a depth of 128, (d) the same in three passes
+     (3xTF32), SS over split tiles and RS with the split in the loop (the
+     f32 flash backward's own loop);
+     each wgmma mode's one pass first held against A Bᵀ in f64 (which
+     checks the tf32 register fragment);
   3. packed kernels vs plain: each kernel against its plain PyTorch
      version on the same inputs, with errors, device times of both (CUDA
      events around calls queued while the device sleeps), the host time to
@@ -65,8 +76,9 @@ package.  Phases, each fatal on failure:
      dQ kernels against their plain versions at (B, H, S, hd) = (4, 16,
      512, 128), a ragged S = 1000 and hd 64 and 32, beside torch's
      scaled_dot_product_attention (forward; its backward) and the bound;
-     in bf16 here, where a second launch of the forward, of dK/dV and of
-     dQ must give the same bits, and their f32 variants after phase 20;
+     in bf16 here and their f32 variants after phase 20; in both a
+     second launch of the forward, of dK/dV and of dQ must give the same
+     bits;
      then, in both, a head dim the kernels do not take (48) through
      flash_attention, zero-padded to 64, forward and gradients against
      autograd through the plain forward;
@@ -169,7 +181,9 @@ package.  Phases, each fatal on failure:
  21. the f32 transformer train step, the main path of the f32 flash
      kernels: phase 10's model in float32, fused against unfused (output,
      loss and gradients within 1e-3), 2 launches of each f32 flash kernel
-     per fused step, us/step of both in mirrored order.
+     per fused step, us/step of both in mirrored order, and the fused
+     step's device time by kernel (torch.profiler), the flash kernels'
+     share summed.
 
 Every dw point (phases 3, 12, 15 and 19) also logs how its kernel split
 the reduction (ops/dw_split.py): S slices, the grid and the workspace's
@@ -177,8 +191,9 @@ bytes.  Each main path runs with the launch counts set to 0 just before
 it and read just after.  The line before the last is the JSON record: `kernels`
 (per kernel: the sums over its bf16 points, f32 for the f32 flash
 kernels, of ms, plain_ms, bound_ms and library_ms, its launches on the
-main paths, and every point), `serving`, `training`, `train_step`, `lm`,
-`wrn`, `rn50`, `history`, `f32_train_step` and the script's wall time.
+main paths, and every point), `rates`, `serving`, `training`,
+`train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step` and the
+script's wall time.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints
 no result.
@@ -208,11 +223,22 @@ TOL = {'bfloat16': 2e-2, 'float32': 1e-4}   # x max(1, max |plain|)
 # Whole-model logits, kernel path vs the plain path, bf16: rounding points
 # differ in every projection of 4 layers; relative to max |logit|.
 LOGIT_RTOL = 5e-2
-# H100 SXM data sheet: HBM rate, dense peak per dtype (bf16 tensor cores;
-# f32 outside them, which is what the f32 kernels use).
+# H100 SXM data sheet: HBM rate, dense peak per dtype.  bf16: the tensor
+# cores.  f32: a third of the 495 TFLOP/s TF32 rate, the rate of
+# f32-accurate products in error-compensated TF32 (three passes), which
+# the f32 flash backward runs and no f32 kernel can beat by its own
+# means (the CUDA cores' FFMA peak is 67).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
-LIBRARIES = ('packed_mm', 'flash_attn', 'tap_conv')
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 495e12 / 3}
+LIBRARIES = ('packed_mm', 'flash_attn', 'tap_conv', 'rates')
+# The rates probe (csrc/rates.cu): work per launch, each launch about a
+# millisecond on an H100, at the widths N the f32 backward's products
+# take; one pass of a tf32 product is held against f64 within RATES_TOL
+# (one pass rounds both operands to 11 significant bits; three keep about
+# 21).
+RATES_FFMA_ITERS, RATES_SMEM_REPS, RATES_WGMMA_REPS = 2048, 256, 512
+RATES_WIDTHS = (16, 32, 64, 128)
+RATES_TOL = {1: 5e-3, 3: 1e-5}
 # Transformer training (scripts/bench_packed_transformer.py): 2 layers of
 # the serving width, seq 512, batch 4, bf16, block (512, 512), s = 0.8.
 TR_LAYERS, TR_SEQ, TR_BATCH = 2, 512, 4
@@ -262,11 +288,12 @@ MLP_BSD_BLOCK = (512, 512)
 ARMS_M, ARMS_K, ARMS_N, ARMS_BM = 1024, 4096, 4096, 512
 ARMS_DENSITIES = (1.0, 0.2, 0.1)
 V1_BLOCK, V6_STEPS = (128, 128), 10
-# f32 flash kernels vs plain: both sum in f32 (the kernels on the CUDA
-# cores, no TF32), so outputs differ by summation order: 1e-4 of each
-# output's largest value.  The f32 transformer step, fused vs unfused: the
-# same sums in another order through 2 layers and their LayerNorms, each
-# error over its own largest value.
+# f32 flash kernels vs plain: both sum in f32 (the forward on the CUDA
+# cores, dK/dV and dQ in 3xTF32, whose products keep about 21 bits), so
+# outputs differ by summation order and the 2^-21 of each product: 1e-4
+# of each output's largest value.  The f32 transformer step, fused vs
+# unfused: the same sums in another order through 2 layers and their
+# LayerNorms, each error over its own largest value.
 FLASH_F32_TOL, F32_STEP_RTOL = 1e-4, 1e-3
 
 
@@ -342,13 +369,15 @@ def host_ms(fn, iters):
   return dt * 1e3 / iters
 
 
-def profiled_kernel_time(torch, step, n):
+def profiled_kernel_time(torch, step, n, match=None):
   """{'kernel_us_per_step', 'device_ms_by_kernel'}: the device time of n
   step() calls under torch.profiler (device activity only), per step, in
-  all and for the 8 largest kernels, which it logs.  torch.profiler can
-  stop recording device time within a process (on the card, after as few
-  as 5 profiling runs or as many as some tens): a run that records none
-  is tried once more, then both values are None, not measured."""
+  all and for the 8 largest kernels, which it logs; with `match`, also
+  'matched_us_per_step' and 'matched_by_kernel': the kernels whose names
+  hold that string.  torch.profiler can stop recording device time within
+  a process (on the card, after as few as 5 profiling runs or as many as
+  some tens): a run that records none is tried once more, then the values
+  are None, not measured."""
   from torch.profiler import ProfilerActivity, profile
   for _ in range(2):
     torch.cuda.synchronize()
@@ -364,11 +393,22 @@ def profiled_kernel_time(torch, step, n):
       for e in top:
         log(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms '
             f'{e.count / n:5.1f} x {e.key[:90]}')
-      return dict(kernel_us_per_step=kernel_us, device_ms_by_kernel={
+      rec = dict(kernel_us_per_step=kernel_us, device_ms_by_kernel={
           e.key[:90]: [e.self_device_time_total / 1e3 / n, e.count / n]
           for e in top})
+      if match is not None:
+        hits = [e for e in events if match in e.key]
+        rec['matched_us_per_step'] = sum(
+            e.self_device_time_total for e in hits) / n
+        rec['matched_by_kernel'] = {
+            e.key[:90]: [e.self_device_time_total / 1e3 / n, e.count / n]
+            for e in hits}
+      return rec
   log('  torch.profiler recorded no device time: kernel time not measured')
-  return dict(kernel_us_per_step=None, device_ms_by_kernel=None)
+  rec = dict(kernel_us_per_step=None, device_ms_by_kernel=None)
+  if match is not None:
+    rec.update(matched_us_per_step=None, matched_by_kernel=None)
+  return rec
 
 
 def _share(part, whole):
@@ -406,8 +446,76 @@ def phase_build():
     for line in so.with_suffix('.log').read_text().splitlines():
       if 'entry function' in line:
         log(f'  ptxas: {line.split("entry function")[1].strip()[:110]}')
-      elif 'registers' in line or 'spill' in line or 'error' in line:
+      elif any(w in line for w in ('registers', 'spill', 'error',
+                                   'serialized')):   # wgmma serialised
         log(f'    {line.strip()}')
+
+
+def phase_rates(torch, device):
+  """Phase 2b, csrc/rates.cu: (a) FFMA from registers, (b) FFMA from
+  shared memory in the PR 6 f32 flash backward's two loops (q kᵀ, P v),
+  (c) wgmma m64nNk8 tf32 SS and RS, (d) the same in 3xTF32 (SS over split
+  tiles, and the f32 flash backward's own loop: RS split in registers), at
+  N = 16, 32, 64 and 128 over a depth of 128.  Each wgmma mode's one
+  pass is first held against A Bᵀ in f64 within RATES_TOL.  Returns
+  {rate name: TFLOP/s} (f32-accurate TFLOP/s for the 3xTF32 modes, the
+  tf32 rate beside)."""
+  import ctypes
+  from rigl_tpu_torch.ops import _build
+  lib = _build.load('rates')
+  for name, ints in (('rates_ffma', 2), ('rates_ffma_smem', 3),
+                     ('rates_wgmma', 4)):
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * (3 if name == 'rates_wgmma' else 1)
+                   + [ctypes.c_int] * ints + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+  def launch(fn, *args):
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err == 0, f'{fn.__name__} launch failed: CUDA error {err}')
+
+  sms = sm_count(torch)
+  rec = {}
+  out = torch.empty(4 * sms * 256, device=device)
+  ms = device_ms(lambda: launch(lib.rates_ffma, out.data_ptr(), 4 * sms,
+                                RATES_FFMA_ITERS), 10)
+  rec['a_ffma_registers'] = 4 * sms * 256 * RATES_FFMA_ITERS * 256 / ms / 1e9
+  for pattern, label in ((0, 'b_ffma_smem_qk'), (1, 'b_ffma_smem_pv')):
+    ms = device_ms(lambda: launch(lib.rates_ffma_smem, out.data_ptr(),
+                                  2 * sms, RATES_SMEM_REPS, pattern), 10)
+    rec[label] = 2 * sms * 128 * RATES_SMEM_REPS * 2048 / ms / 1e9
+  gen = torch.Generator().manual_seed(SEED + 30)
+  a = torch.randn(64, 128, generator=gen).to(device)
+  b_all = torch.randn(128, 128, generator=gen).to(device)
+  for n in RATES_WIDTHS:
+    b = b_all[:n].contiguous()
+    want = a.double() @ b.double().T
+    for mode, label in ((0, 'c_tf32_ss'), (1, 'c_tf32_rs'),
+                        (2, 'd_3xtf32_ss'), (3, 'd_3xtf32_rs_split')):
+      passes = 3 if mode >= 2 else 1
+      d = torch.zeros(64, n, device=device)
+      launch(lib.rates_wgmma, a.data_ptr(), b.data_ptr(), d.data_ptr(), 1,
+             1, n, mode)
+      torch.cuda.synchronize()
+      err = float((d.double() - want).abs().max() / want.abs().max())
+      check(err <= RATES_TOL[passes], f'rates {label} n={n}: one pass '
+            f'against f64: rel err {err:.3e} > {RATES_TOL[passes]}')
+      reps = RATES_WGMMA_REPS * 128 // n // passes
+      ms = device_ms(lambda: launch(lib.rates_wgmma, a.data_ptr(),
+                                    b.data_ptr(), d.data_ptr(), sms, reps, n,
+                                    mode), 10)
+      tf32 = sms * 2 * reps * passes * 2 * 64 * n * 128 / ms / 1e9
+      rec[f'{label}_n{n}'] = tf32 / passes
+      if passes == 3:
+        rec[f'{label}_n{n}_tf32'] = tf32
+      log(f'rates: {label} n={n}: one pass vs f64 rel err {err:.2e}; '
+          f'{tf32 / passes:.1f} TFLOP/s'
+          + (f' f32-accurate ({tf32:.1f} tf32)' if passes == 3 else ''))
+  log('rates: (a) ffma from registers {:.1f}, (b) ffma from shared memory '
+      'q kᵀ loop {:.1f}, P v loop {:.1f} TFLOP/s'.format(
+          rec['a_ffma_registers'], rec['b_ffma_smem_qk'],
+          rec['b_ffma_smem_pv']))
+  return rec
 
 
 def layer_shapes():
@@ -1262,16 +1370,15 @@ def phase_flash(torch, device, dtype):
     lse_err = float((lse - want_lse).abs().max())
     check(lse_err <= LSE_TOL * max(1.0, float(want_lse.abs().max())),
           f'flash fwd {tag}: lse error {lse_err}')
-    if name == 'bfloat16':
-      # The wgmma kernels write each output once, their sums in a fixed
-      # order: a second launch gives the same bits.
-      o2, lse2 = fa.flash_fwd_cuda(q, k, v, scale)
-      dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
-      dq2 = fa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale)
-      check(all(bool(torch.equal(a, b)) for a, b in
-                ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2))),
-            f'flash {tag}: a second launch gave other bits')
-      del o2, lse2, dk2, dv2, dq2
+    # Every kernel writes each output once, its sums in a fixed order: a
+    # second launch gives the same bits.
+    o2, lse2 = fa.flash_fwd_cuda(q, k, v, scale)
+    dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
+    dq2 = fa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale)
+    check(all(bool(torch.equal(a, b)) for a, b in
+              ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2))),
+          f'flash {tag}: a second launch gave other bits')
+    del o2, lse2, dk2, dv2, dq2
     # SDPA, the library yardstick, timed only: its forward, and its
     # backward alone on a retained graph.
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -3210,6 +3317,12 @@ def phase_f32_train_step(torch, device):
   rec['unfused_over_fused'] = (float(np.mean(us['unfused']))
                                / float(np.mean(us['fused'])))
   log(f'  unfused/fused: {rec["unfused_over_fused"]:.3f}')
+  # The fused step's device time by kernel, the flash kernels' summed.
+  log('f32 fused step, torch.profiler over 3 steps:')
+  prof = profiled_kernel_time(torch, steps['fused'], 3, match='flash_')
+  rec['fused_kernels'] = prof
+  log(f'  kernel time {prof["kernel_us_per_step"]} us/step, of it the f32 '
+      f'flash kernels {prof["matched_us_per_step"]}')
   del models, steps
   torch.cuda.empty_cache()
   return launches, rec
@@ -3360,6 +3473,28 @@ FLASH_F32_FWD_DESIGN = (
     'online softmax in registers (expf); V and the next K by cp.async '
     'behind the products, two barriers a tile')
 
+# The f32 backward kernels' designs, named in their JSON entries.
+FLASH_F32_BWD_DESIGN = {
+    'dkv': ('3xTF32 wgmma on a TMA ring: a block of two warpgroups per (32-'
+            'row k tile at hd 128, 64 below, b*h), K and V resident and '
+            'split into tf32 hi and lo, heaviest tiles first; per 64-row (Q, '
+            'dO) tile from the diagonal, S = Q Kt (warpgroup 0) and dP = dO '
+            'Vt (warpgroup 1) by wgmma m64nNk8 tf32 in three passes, Q and dO '
+            'fragments loaded from the swizzled tile and split in registers; '
+            'P and dS on the fragments, written transposed and split as the '
+            'B operands of dVt += dOt P (warpgroup 0) and dKt += Qt dS '
+            '(warpgroup 1); a 2-4-deep ring that warp 0 fills'),
+    'dq': ('3xTF32 wgmma on a TMA ring: a block of two warpgroups per (32-'
+           'row q tile at hd 128, 64 below, b*h), Q and dO resident and split '
+           'into tf32 hi and lo, heaviest tiles first, lse and D in '
+           'registers; per 64-row (K, V) tile up to the diagonal, St = K Qt '
+           '(warpgroup 0) and dPt = V dOt (warpgroup 1) in three passes, K '
+           'and V fragments split in registers; Pt through shared memory to '
+           'warpgroup 1, dS written split as the B operand of dQt += Kt dSt, '
+           'each warpgroup half of its columns; a 2-4-deep ring that warp 0 '
+           'fills'),
+}
+
 T0 = time.perf_counter()
 
 
@@ -3381,6 +3516,7 @@ def main():
   try:
     card = phase_device(torch)
     phase_build()
+    rates = phase_rates(torch, device)
     serve_points, decode_floor = phase_kernel(torch, device)
     train_points = phase_train_kernels(torch, device)
     step_points = phase_step_kernels(torch, device)
@@ -3566,12 +3702,13 @@ def main():
     if op == 'fwd':
       entry.update(design=FLASH_F32_FWD_DESIGN,
                    padded_head_dim=flash_f32_points['padded'])
-    if op != 'fwd':
+    else:
+      entry['design'] = FLASH_F32_BWD_DESIGN[op]
       entry['library'] = ('scaled_dot_product_attention backward (dq, dk '
                           'and dv in one call)')
     kernels.append(entry)
   training['autograd_rel_err'] = autograd_errs
-  record = {'card': card, 'kernels': kernels,
+  record = {'card': card, 'kernels': kernels, 'rates': rates,
             'serving': dict(speed, **logit_errs), 'training': training,
             'train_step': train_step, 'lm': lm, 'wrn': wrn, 'rn50': rn50,
             'history': dict(v6_fwd_bwd=history_points['v6_fwd_bwd'],

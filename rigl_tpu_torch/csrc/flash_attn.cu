@@ -1,7 +1,8 @@
 // Causal flash attention, forward and backward, for q, k, v of (B, H, S, hd),
 // contiguous, hd in {32, 64, 128}: three tensor-core kernels for bf16, and
-// f32 variants of the three on the CUDA cores (section "f32" below, behind
-// the entry points with an `_f32` suffix).
+// f32 variants of the three (section "f32" below, behind the entry points
+// with an `_f32` suffix): the forward on the CUDA cores, dK/dV and dQ on
+// the tensor cores in error-compensated TF32.
 //
 //   flash_fwd_wgmma_kernel      behind `flash_fwd`:
 //       o = softmax(scale * q kᵀ + causal mask) v, and the f32 row statistic
@@ -32,9 +33,10 @@
 // or below the diagonal (causal skip).  Nothing carries across thread
 // blocks, so there are no atomics: dk/dv and dq are two kernels, as in
 // JAX, each output tile is written once, and a call's bits do not change
-// from run to run.  In f32 the same work runs at 67 TFLOP/s on the CUDA
-// cores and moves twice the bytes, so the operations bound it (64-128 us
-// at that shape, against 20-30 us of bytes).
+// from run to run.  In f32 the same work moves twice the bytes and runs at
+// 67 TFLOP/s on the CUDA cores (the forward, 64 us at that shape) or 165
+// TFLOP/s of f32-accurate tensor-core products (dK/dV and dQ, 39-52 us),
+// so the operations bound it, against 20-30 us of bytes.
 //
 // The three bf16 kernels are Hopper designs (section "bf16 forward, dK/dV,
 // dQ"): wgmma fed by a TMA ring with mbarriers in blocks of two
@@ -90,21 +92,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows r0 .. r0 + kRows - 1 of a (S x HD) row-major matrix into shared
-// memory with row stride `ld`, as 16-byte cp.asyncs; rows >= S zero-filled.
-template <int HD, int NT, int kRows, typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          int r0, int S) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = HD / kVec;   // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kRows * kPerRow; c += NT) {
-    const int r = c / kPerRow, cc = (c % kPerRow) * kVec;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + r * ld + cc,
-               ok ? src + static_cast<size_t>(r0 + r) * HD + cc : src, ok);
-  }
 }
 
 // -------------------------------------------- bf16 forward, dK/dV, dQ ----
@@ -792,286 +779,559 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------- f32 ----
-// The three kernels for f32 q, k, v: the same maths with every product and
-// P and dS in f32 (nothing rounds to bf16), on the CUDA cores (FFMA) rather
-// than on tensor cores, so the sums are full f32 as torch's f32 matmuls
-// are; single-pass TF32 keeps 10 mantissa bits and would miss 1e-4.
+// The three kernels for f32 q, k, v: the same maths with P and dS in f32,
+// never rounded.  The forward is register-tiled FFMA (section "f32
+// forward" below); dK/dV and dQ run on the tensor cores in
+// error-compensated TF32 (3xTF32): each operand x is split into hi = x,
+// which the tensor cores read truncated to tf32, and lo = x minus that
+// truncation (hopper.cuh tf32_split), and a b = a_hi b_hi + a_hi b_lo +
+// a_lo b_hi, three wgmma m64nNk8 tf32 products summed in f32, which keeps
+// about 19 bits of each product where one TF32 pass keeps 10 and would
+// miss 1e-4.
 //
-// dK/dV and dQ: a thread block of 128 threads owns one 32-row tile
-// (kF32Tile) and streams the other side's 32-row tiles through a 2-deep
-// cp.async ring; at hd 128 the f32 tiles are twice the bf16 bytes, and
-// 32-row tiles keep the backward's resident pair, its ring and P / dS
-// within 111 KB (F32Plan).  Thread t holds rows (t / 16) + 8 i, i < 4, and
-// columns (t % 16) + 16 j of each (32 x 32) logit tile and (32 x HD)
-// output tile in registers, so the logits never go through shared memory:
-// a row's max and sum are shuffles across the 16 lanes that hold it.  P
-// (dK/dV) and dS are staged in shared memory for the products that
-// contract over them.
+// What bounds them on an H100 (csrc/rates.cu measures the rates): FFMA
+// with its operands from shared memory runs at about 40-50% of the FFMA
+// peak, which held the first f32 backward kernels near 20 TFLOP/s.  Three
+// TF32 passes cap f32-accurate products at 495 / 3 = 165 TFLOP/s; at (4,
+// 16, 512, 128) that is 52 us of dK/dV and 39 of dQ against 30 and 25 us
+// of bytes, so the operations bound them.  The cap holds for products 64
+// or more columns wide; shared memory leaves the hd-128 kernels products
+// 32 wide, which the tensor cores run at about two thirds of it.
 //
-// The forward is register-tiled (section "f32 forward" below).
-constexpr int kF32Tile = 32;
-constexpr int kF32Threads = 128;
+// tf32 wgmma reads a shared-memory operand K-major only (no transpose bit
+// as bf16 has) and its register A operand's columns do not pair as an
+// accumulator's.  So the streamed tiles (TMA, 128-byte swizzle, row-major
+// as they lie in device memory) are only ever A operands, loaded by the
+// threads into the register fragment and split there: row-wise for the
+// products that contract over hd (Tf32RowFrag), column-wise for those
+// that contract over the tile's rows (ColFrag), at addresses computed
+// once a tile, and the three products of a k-step issue while the next
+// k-step's fragment is split (hopper.cuh mma_3xtf32).  B operands are
+// K-major tiles split once into hi and lo: the owned side (K, V for
+// dK/dV; Q, dO for dQ), split in place when it lands, and P / dS, written
+// by the threads from the accumulators.  The products over rows are computed
+// transposed (dVᵀ = dOᵀ P, dKᵀ = Qᵀ dS, dQᵀ = Kᵀ dSᵀ), so that P and dS
+// are B operands.  Within each k-step of 8 rows, position i holds row 2 (i
+// % 4) + i / 4 (kstep_row): the column-wise fragment loads of 4 rows x 8
+// columns then fall on 32 distinct banks of the swizzled tile.
+//
+// Shared memory binds: an f32 tile is twice bf16's bytes and each B
+// operand needs its lo part.  At hd 128 a block owns 32 rows (64 at hd 64
+// and 32) and streams 64-row tiles through a 2-deep ring (3 at hd 64, 4 at
+// hd 32), 216-225 KB.  Two consumer warpgroups split each stage's work:
+// warpgroup 0 computes S and P, warpgroup 1 dP and, from P in f32 through
+// shared memory (its hi part, P's own bits), dS; then dK/dV: warpgroup 0
+// dVᵀ, warpgroup 1 dKᵀ; dQ: each an m-tile of dQᵀ at hd 128, half its
+// columns below.  Warp 0 drives the ring as in the bf16 kernels.  No atomics, each output tile written
+// once, sums in a fixed order: a second launch gives the same bits.
+constexpr int kF32Threads = 256;   // two warpgroups
+constexpr int kF32Stream = 64;     // rows of a streamed tile
 
+// The row of its k-step that position i (0-7) holds, and its inverse.
+__device__ __forceinline__ int kstep_row(int i) {
+  return 2 * (i & 3) + (i >> 2);
+}
+
+__device__ __forceinline__ int kstep_pos(int row) {
+  return (row >> 1) + 4 * (row & 1);
+}
+
+// Where this thread's accumulator elements of a product (64 rows, columns
+// 8 j + 2 (lane % 4) + v) go in a K-major B tile of `rows` rows of 64
+// positions that holds the product transposed: element x = 4 j + 2 h + v
+// (row r = 16 w + lane / 4 + 8 h) at row 8 j + 2 (lane % 4) + v, position
+// kstep_pos(r % 8) of k-step r / 8.  It lies 1024 j bytes past at[x % 4]:
+// the rows' swizzle does not depend on j.
+__device__ __forceinline__ void transposed_at(int rows, uint32_t (&at)[4]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int r = 16 * ((threadIdx.x / 32) % 4) + lane / 4 + 8 * h;
+      at[2 * h + v] = f32_sw128(2 * (lane % 4) + v,
+                                8 * (r / 8) + kstep_pos(r % 8), rows);
+    }
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// x split into hi at `addr` and lo `lo_off` bytes past it.
+__device__ __forceinline__ void sts_split(uint32_t addr, uint32_t lo_off,
+                                          float x) {
+  uint32_t hi, lo;
+  tf32_split(x, hi, lo);
+  st_shared_u32(addr, hi);
+  st_shared_u32(addr + lo_off, lo);
+}
+
+// The shared addresses of this thread's tf32 A fragments over a 64-row
+// f32 tile at `tile` contracting over its rows (A[m][k] = tile[8 kk +
+// kstep_row(k)][m0 + m], the 64 columns at m0 as M; columns >= HD read as
+// 0): k-step kk adds kk * 1024 bytes to k-step 0's address, the rows'
+// swizzle being the same.  hopper.cuh Tf32RowFrag is its counterpart over
+// the columns.
 template <int HD>
-struct F32Plan {
-  static constexpr int kLd = HD + 4;          // floats; 16-byte row starts
-  static constexpr int kTileBytes = kF32Tile * kLd * 4;
-  static constexpr int kPld = kF32Tile + 4;   // (32 x 32) P / dS tiles
-  static constexpr int kPBytes = kF32Tile * kPld * 4;
-  // Two resident tiles, a ring of two stages of two tiles, P and dS.
-  static constexpr int kBytes = 6 * kTileBytes + 2 * kPBytes;
-  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
+struct ColFrag {
+  uint32_t at[4];
+  bool on;
+  __device__ __forceinline__ ColFrag(uint32_t tile, int m0) {
+    const int lane = threadIdx.x % 32;
+    const int m = m0 + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+    on = m < HD;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      at[i] = tile + f32_sw128(kstep_row(lane % 4 + 4 * (i >> 1)),
+                               m + 8 * (i & 1), kF32Stream);
+  }
+  // A predicated load, not a branch: fragment registers written on a
+  // divergent path make ptxas serialise the products (C7520).
+  __device__ __forceinline__ void load(int kk, float (&x)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\nmov.b32 %0, 0;\n"
+          "@p ld.shared.f32 %0, [%1];\n}\n"
+          : "=f"(x[i])
+          : "r"(at[i] + kk * 1024), "r"(static_cast<int>(on)));
+  }
+};
+
+// Splits `bytes` bytes of f32 at `hi_t`: the tile stays as it is, its own
+// hi part (tf32_split), and its lo part goes to `lo_t` (the same layout),
+// every thread a share of 16-byte chunks.
+__device__ __forceinline__ void split_tile(const unsigned char* hi_t,
+                                           unsigned char* lo_t, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += kF32Threads) {
+    const float4 x = *reinterpret_cast<const float4*>(hi_t + 16 * i);
+    uint4 h, l;
+    tf32_split(x.x, h.x, l.x);
+    tf32_split(x.y, h.y, l.y);
+    tf32_split(x.z, h.z, l.z);
+    tf32_split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(lo_t + 16 * i) = l;
+  }
+}
+
+// Shared memory of dK/dV, in bytes from a 1024-aligned base: K hi, K lo,
+// V hi, V lo (kOwn rows each, resident), a ring of (Q, dO) stages (64 rows
+// each), Pᵀ hi, Pᵀ lo, dSᵀ hi, dSᵀ lo (kOwn rows of 64 q positions), the
+// barriers.  Pᵀ hi holds P's f32 bits (hopper.cuh tf32_split), which
+// warpgroup 1 reads for dS.
+template <int HD>
+struct DkvF32Plan {
+  static constexpr int kOwn = HD == 128 ? 32 : 64;
+  static constexpr int kOwnBytes = kOwn * HD * 4;
+  static constexpr int kQBytes = kF32Stream * HD * 4;   // one of Q, dO
+  static constexpr int kStages = HD == 128 ? 2 : HD == 64 ? 3 : 4;
+  static constexpr int kPBytes = kOwn * kF32Stream * 4;
+  static constexpr int kRing = 4 * kOwnBytes;
+  static constexpr int kP = kRing + kStages * 2 * kQBytes;
+  static constexpr int kBars = kP + 4 * kPBytes;
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 1) * 8;
+  static constexpr int kStageLd = HD + 4;   // the epilogue's rows, floats
+  static_assert(HD % 32 == 0 && HD <= 128, "head dim: 32-column boxes");
+  static_assert(2 * kOwn * kStageLd * 4 <= kP - kRing, "staging fits");
   static_assert(kBytes <= 227 * 1024, "shared memory per block");
 };
 
-// c[i][j] = sum_d a[row_i][d] * b[col_j][d] over HD, rows (t / 16) + 8 i of
-// `a` and rows (t % 16) + 16 j of `b`, both f32 row-major with stride ld:
-// the (32 x 32) tile of a bᵀ this thread holds.
+// Thread block (b*h, k tile): dK and dV of the kOwn k rows at k0 of head
+// bh, heaviest (lowest) k tiles first.  Per (Q, dO) stage from the
+// diagonal down: warpgroup 0 computes S = Q Kᵀ and P = 2^(scale log2e S -
+// log2e lse) (0 above the diagonal and on rows >= S) and writes Pᵀ;
+// warpgroup 1 computes dP = dO Vᵀ and, once P is written, dS = P (dP - D)
+// scale from Pᵀ hi (P in f32), and writes dSᵀ; then warpgroup 0 adds dOᵀ P to dVᵀ and
+// warpgroup 1 Qᵀ dS to dKᵀ.  lse and D of a thread's two q rows come from
+// device memory, loaded before the stage's products.
 template <int HD>
-__device__ __forceinline__ void f32_abt(const float* a, const float* b,
-                                        int ld, float (&c)[4][2]) {
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i][0] = c[i][1] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 av[4], bv[2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (tr + 8 * i) * ld + d);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tc + 16 * j) * ld + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        c[i][j] += av[i].x * bv[j].x + av[i].y * bv[j].y +
-                   av[i].z * bv[j].z + av[i].w * bv[j].w;
-  }
-}
-
-// acc[i][c] += sum_k p(row_i, k) * b[k][(t % 16) + 16 c] over the 32 rows
-// of b (row stride ld), with p(r, k) = ps[r * pld + k] (kTrans: ps[k * pld
-// + r], a transposed read of the staged tile), rows r = (t / 16) + 8 i.
-template <int HD, bool kTrans>
-__device__ __forceinline__ void f32_pb(const float* ps, int pld,
-                                       const float* b, int ld,
-                                       float (&acc)[4][HD / 16]) {
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-#pragma unroll 4
-  for (int k = 0; k < kF32Tile; ++k) {
-    float pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = kTrans ? ps[k * pld + tr + 8 * i] : ps[(tr + 8 * i) * pld + k];
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) {
-      const float bv = b[k * ld + tc + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] += pv[i] * bv;
-    }
-  }
-}
-
-// Max and sum over the 16 lanes that hold one row.
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Writes this thread's rows of a (32 x HD) f32 accumulator to rows r0 ..
-// of a (S x HD) matrix, rows >= S dropped.
-template <int HD>
-__device__ __forceinline__ void f32_write(float* dst,
-                                          const float (&acc)[4][HD / 16],
-                                          int r0, int S) {
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + tr + 8 * i;
-    if (r < S)
-#pragma unroll
-      for (int c = 0; c < HD / 16; ++c)
-        dst[static_cast<size_t>(r) * HD + tc + 16 * c] = acc[i][c];
-  }
-}
-
-// This thread's P and dS of one (q tile at q0, k tile at k0) pair from the
-// logits s = q kᵀ and dp = do vᵀ it holds: P = exp(scale s - lse) on or
-// below the diagonal and on rows < S (0 elsewhere), dS = P (dp - D) scale;
-// both f32, staged at ps / dss (row stride pld) when non-null.
-__device__ __forceinline__ void f32_p_and_ds(const float (&s)[4][2],
-                                             const float (&dp)[4][2],
-                                             const float (&lse_r)[4],
-                                             const float (&d_r)[4], int q0,
-                                             int k0, int S, float scale,
-                                             float* ps, float* dss, int pld) {
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + tr + 8 * i;
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int kpos = k0 + tc + 16 * jj;
-      const bool ok = kpos <= qpos && qpos < S;
-      const float p = ok ? expf(s[i][jj] * scale - lse_r[i]) : 0.f;
-      const int at = (tr + 8 * i) * pld + tc + 16 * jj;
-      if (ps) ps[at] = p;
-      dss[at] = p * (dp[i][jj] - d_r[i]) * scale;
-    }
-  }
-}
-
-// This thread's rows of a row statistic (lse or D) of the tile at r0.
-__device__ __forceinline__ void f32_rows(const float* stat, int r0, int S,
-                                         float (&out)[4]) {
-  const int tr = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + tr + 8 * i;
-    out[i] = r < S ? stat[r] : 0.f;
-  }
-}
-
-// dK/dV: one block per (32-row k tile, b * h); k and v resident, the (q,
-// do) tiles at or below the diagonal through the ring.
-template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
-    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ dout,
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
                              const float* __restrict__ lse,
                              const float* __restrict__ dsum,
                              float* __restrict__ dk, float* __restrict__ dv,
                              int S, float scale) {
-  using L = F32Plan<HD>;
-  constexpr int NT = kF32Threads, T = kF32Tile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ks = reinterpret_cast<float*>(smem);
-  float* vs = reinterpret_cast<float*>(smem + L::kTileBytes);
-  float* ps = reinterpret_cast<float*>(smem + 6 * L::kTileBytes);
-  float* dss = ps + T * L::kPld;
-  auto q_tile = [&](int st) {
-    return reinterpret_cast<float*>(smem + (2 + 2 * st) * L::kTileBytes);
-  };
-  auto do_tile = [&](int st) {
-    return reinterpret_cast<float*>(smem + (3 + 2 * st) * L::kTileBytes);
-  };
-  const int kt = blockIdx.x, k0 = kt * T;
-  const size_t bh = blockIdx.y, base = bh * S * HD;
-  const int n_qt = (S + T - 1) / T;
+  using L = DkvF32Plan<HD>;
+  constexpr int NK = L::kOwn, NQ = kF32Stream, MT = (HD + 63) / 64;
+  extern __shared__ unsigned char dkv32_smem[];
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * NK;
+  const int first = k0 / NQ;                 // the q tile at the diagonal
+  const int n_q = (S + NQ - 1) / NQ;
+  const int tid = threadIdx.x;
+  const float* lse_g = lse + static_cast<size_t>(bh) * S;
+  const float* d_g = dsum + static_cast<size_t>(bh) * S;
 
-  load_rows<HD, NT, T>(ks, L::kLd, k + base, k0, S);
-  load_rows<HD, NT, T>(vs, L::kLd, v + base, k0, S);
-  load_rows<HD, NT, T>(q_tile(0), L::kLd, q + base, k0, S);
-  load_rows<HD, NT, T>(do_tile(0), L::kLd, dout + base, k0, S);
-  cp_async_commit();
-
-  float acc_dk[4][HD / 16], acc_dv[4][HD / 16];
+  const uint32_t base = (smem_u32(dkv32_smem) + 1023) & ~1023u;
+  unsigned char* sm = dkv32_smem + (base - smem_u32(dkv32_smem));
+  const uint32_t full = base + L::kBars;
+  const uint32_t empty = full + 8 * L::kStages;
+  const uint32_t kvbar = empty + 8 * L::kStages;
+  auto load_q = [&](int i) {   // (Q, dO) tile i into its stage (one thread)
+    const int st = (i - first) % L::kStages;
+    const uint32_t bar = full + 8 * st;
+    const uint32_t qs = base + L::kRing + st * 2 * L::kQBytes;
+    mbar_expect_tx(bar, 2 * L::kQBytes);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
-
-  for (int it = kt; it < n_qt; ++it) {
-    const int st = (it - kt) & 1, q0 = it * T;
-    if (it + 1 < n_qt) {
-      load_rows<HD, NT, T>(q_tile(st ^ 1), L::kLd, q + base, q0 + T, S);
-      load_rows<HD, NT, T>(do_tile(st ^ 1), L::kLd, dout + base, q0 + T, S);
+    for (int b = 0; b < HD / 32; ++b) {
+      tma_load_3d(qs + b * NQ * 128, &tq, 32 * b, i * NQ, bh, bar);
+      tma_load_3d(qs + L::kQBytes + b * NQ * 128, &tdo, 32 * b, i * NQ, bh,
+                  bar);
     }
-    cp_async_commit();
-    float lse_r[4], d_r[4];
-    f32_rows(lse + bh * S, q0, S, lse_r);
-    f32_rows(dsum + bh * S, q0, S, d_r);
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[4][2], dp[4][2];   // (q rows x k columns)
-    f32_abt<HD>(q_tile(st), ks, L::kLd, s);
-    f32_abt<HD>(do_tile(st), vs, L::kLd, dp);
-    f32_p_and_ds(s, dp, lse_r, d_r, q0, k0, S, scale, ps, dss, L::kPld);
-    __syncthreads();
-    // dv += Pᵀ do and dk += dSᵀ q (k rows x HD).
-    f32_pb<HD, true>(ps, L::kPld, do_tile(st), L::kLd, acc_dv);
-    f32_pb<HD, true>(dss, L::kPld, q_tile(st), L::kLd, acc_dk);
-    __syncthreads();
+  };
+  if (tid == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kF32Threads);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+    mbar_expect_tx(kvbar, 2 * L::kOwnBytes);
+#pragma unroll
+    for (int b = 0; b < HD / 32; ++b) {
+      tma_load_3d(base + b * NK * 128, &tk, 32 * b, k0, bh, kvbar);
+      tma_load_3d(base + 2 * L::kOwnBytes + b * NK * 128, &tv, 32 * b, k0,
+                  bh, kvbar);
+    }
+    for (int i = first; i < n_q && i < first + L::kStages; ++i) load_q(i);
   }
-  f32_write<HD>(dk + base, acc_dk, k0, S);
-  f32_write<HD>(dv + base, acc_dv, k0, S);
+  __syncthreads();
+  mbar_wait(kvbar, 0);
+  split_tile(sm, sm + L::kOwnBytes, L::kOwnBytes);                     // K
+  split_tile(sm + 2 * L::kOwnBytes, sm + 3 * L::kOwnBytes, L::kOwnBytes);
+  fence_proxy_async();
+  __syncthreads();
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int col = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  // This warpgroup's dVᵀ (0) or dKᵀ (1): hd rows x k columns, MT m-tiles.
+  float acc[MT][NK / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) acc[mt][i] = 0.f;
+  // wg 0: K, Pᵀ; wg 1: V, dSᵀ.
+  const uint32_t own_hi = base + 2 * wg * L::kOwnBytes;
+  const uint32_t pt_hi = base + L::kP + 2 * wg * L::kPBytes;
+  // Pᵀ hi, Pᵀ lo, dSᵀ hi, dSᵀ lo from base + kP: this thread's S / dP
+  // elements' places in each (transposed_at).
+  uint32_t pt_at[4];
+  transposed_at(NK, pt_at);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pt_at[i] += base + L::kP;
+
+  for (int i = first; i < n_q; ++i) {
+    const int it = i - first, st = it % L::kStages;
+    const int q0 = i * NQ;
+    const int qr = 16 * warp + lane / 4;   // this thread's q rows: qr, + 8
+    float l2[2], dd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + qr + 8 * h;
+      l2[h] = q < S ? lse_g[q] * kLog2e : 0.f;
+      dd[h] = q < S ? d_g[q] : 0.f;
+    }
+    mbar_wait(full + 8 * st, (it / L::kStages) & 1);
+    const uint32_t qs = base + L::kRing + st * 2 * L::kQBytes;
+    const uint32_t dos = qs + L::kQBytes;
+
+    // wg 0: S = Q Kᵀ; wg 1: dP = dO Vᵀ (over hd).
+    float s[NK / 2];
+#pragma unroll
+    for (int x = 0; x < NK / 2; ++x) s[x] = 0.f;
+    mma_3xtf32<NK, HD / 8>(s, Tf32RowFrag<kF32Stream>(wg ? dos : qs), own_hi,
+                           own_hi + L::kOwnBytes, NK);
+
+    // Only tiles that cross the block's diagonal or S are masked.  The
+    // accumulators are only read in the warpgroups' own branches: a write
+    // there would make ptxas serialise the products (C7520).
+    const bool masked = q0 < k0 + NK || q0 + NQ > S;
+    bar_sync(1, kF32Threads);   // warpgroup 1 has read the last stage's P
+    if (wg == 0) {
+#pragma unroll
+      for (int x = 0; x < NK / 2; ++x) {
+        const int h = (x / 2) % 2;
+        const int q = q0 + qr + 8 * h, kpos = k0 + 8 * (x / 4) + col + x % 2;
+        float p = fast_exp2(s[x] * scale_log2 - l2[h]);
+        if (masked && (kpos > q || q >= S)) p = 0.f;
+        sts_split(pt_at[x % 4] + 1024 * (x / 4), L::kPBytes, p);
+      }
+      fence_proxy_async();
+    }
+    bar_sync(2, kF32Threads);   // Pᵀ written
+    if (wg == 1) {
+#pragma unroll
+      for (int x = 0; x < NK / 2; ++x) {
+        const uint32_t at = pt_at[x % 4] + 1024 * (x / 4);
+        const float p = ld_shared_f32(at);   // Pᵀ hi: P in f32
+        const int h = (x / 2) % 2;
+        sts_split(at + 2 * L::kPBytes, L::kPBytes,
+                  p * (s[x] - dd[h]) * scale);
+      }
+      fence_proxy_async();
+      bar_sync(3, 128);   // dSᵀ written
+    }
+
+    // wg 0: dVᵀ += dOᵀ P; wg 1: dKᵀ += Qᵀ dS (over the 64 q rows).
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      mma_3xtf32<NK, NQ / 8>(acc[mt], ColFrag<HD>(wg ? qs : dos, 64 * mt),
+                             pt_hi, pt_hi + L::kPBytes, NK);
+    mbar_arrive(empty + 8 * st);
+    if (tid < 32 && i + L::kStages < n_q) {   // warp 0 refills the stage
+      mbar_wait(empty + 8 * st, (it / L::kStages) & 1);
+      if (tid == 0) load_q(i + L::kStages);
+      __syncwarp();
+    }
+  }
+
+  // dVᵀ (wg 0) and dKᵀ (wg 1) staged as rows of k once both are done with
+  // the ring, then stored 16 bytes a thread, rows < S.
+  __syncthreads();
+  float* stage = reinterpret_cast<float*>(sm + L::kRing);
+  float* mine = stage + wg * NK * L::kStageLd;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int m = 64 * mt + 16 * warp + lane / 4 + 8 * h;
+          if (m < HD)
+            mine[(8 * j + col + v) * L::kStageLd + m] =
+                acc[mt][4 * j + 2 * h + v];
+        }
+  __syncthreads();
+  const size_t out0 = (static_cast<size_t>(bh) * S + k0) * HD;
+  for (int i = tid; i < 2 * NK * HD / 4; i += kF32Threads) {
+    const int t = i / (NK * HD / 4), rem = i % (NK * HD / 4);
+    const int rr = rem / (HD / 4), cc = 4 * (rem % (HD / 4));
+    if (k0 + rr < S)
+      *reinterpret_cast<float4*>((t ? dk : dv) + out0 +
+                                 static_cast<size_t>(rr) * HD + cc) =
+          *reinterpret_cast<const float4*>(stage + t * NK * L::kStageLd +
+                                           rr * L::kStageLd + cc);
+  }
 }
 
-// dQ: one block per (32-row q tile, b * h); q and do resident, the (k, v)
-// tiles at or below the diagonal through the ring.
+// Shared memory of dQ, in bytes from a 1024-aligned base: Q hi, Q lo, dO
+// hi, dO lo (kOwn rows each, resident), a ring of (K, V) stages (64 rows
+// each), dS hi and lo (kOwn q rows of 64 k positions), Pᵀ in f32 for
+// warpgroup 1 (64 k rows of kPld), the barriers.
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
-    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
+struct DqF32Plan {
+  static constexpr int kOwn = HD == 128 ? 32 : 64;
+  static constexpr int kOwnBytes = kOwn * HD * 4;
+  static constexpr int kKvBytes = kF32Stream * HD * 4;   // one of K, V
+  static constexpr int kStages = HD == 128 ? 2 : HD == 64 ? 3 : 4;
+  static constexpr int kDsBytes = kOwn * kF32Stream * 4;
+  // Pᵀ's rows, floats: 8 more than a multiple of 32 puts a half-warp's
+  // float2s (4 rows x 4 pairs) on 32 distinct banks.
+  static constexpr int kPld = kOwn + 8;
+  static constexpr int kRing = 4 * kOwnBytes;
+  static constexpr int kDs = kRing + kStages * 2 * kKvBytes;
+  static constexpr int kP = kDs + 2 * kDsBytes;
+  static constexpr int kBars = kP + kF32Stream * kPld * 4;
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 1) * 8;
+  static constexpr int kStageLd = HD + 4;
+  static_assert(HD % 32 == 0 && HD <= 128, "head dim: 32-column boxes");
+  static_assert(kOwn * kStageLd * 4 <= kDs - kRing, "staging fits");
+  static_assert(kBytes <= 227 * 1024, "shared memory per block");
+};
+
+// Thread block (b*h, q tile): dQ of the kOwn q rows at q0 of head bh,
+// heaviest (highest) q tiles first; Q and dO resident, each thread's q
+// columns' lse (log2 units) and D in registers.  Per (K, V) stage up to
+// the diagonal: warpgroup 0 computes Sᵀ = K Qᵀ and Pᵀ (0 above the
+// diagonal) and writes it in f32; warpgroup 1 computes dPᵀ = V dOᵀ and,
+// once Pᵀ is written, dSᵀ = Pᵀ (dPᵀ - D) scale, and writes dS; then each
+// warpgroup adds Kᵀ dSᵀ to its part of dQᵀ: one of the two m-tiles of hd
+// at hd 128 (N = 32), half the columns below (N = 32).
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
                             const float* __restrict__ lse,
                             const float* __restrict__ dsum,
                             float* __restrict__ dq, int S, float scale) {
-  using L = F32Plan<HD>;
-  constexpr int NT = kF32Threads, T = kF32Tile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* dos = reinterpret_cast<float*>(smem + L::kTileBytes);
-  float* dss = reinterpret_cast<float*>(smem + 6 * L::kTileBytes);
-  auto k_tile = [&](int st) {
-    return reinterpret_cast<float*>(smem + (2 + 2 * st) * L::kTileBytes);
-  };
-  auto v_tile = [&](int st) {
-    return reinterpret_cast<float*>(smem + (3 + 2 * st) * L::kTileBytes);
-  };
-  const int qt = blockIdx.x, q0 = qt * T;
-  const size_t bh = blockIdx.y, base = bh * S * HD;
-  const int n_kt = qt + 1;
-  float lse_r[4], d_r[4];
-  f32_rows(lse + bh * S, q0, S, lse_r);
-  f32_rows(dsum + bh * S, q0, S, d_r);
+  using L = DqF32Plan<HD>;
+  constexpr int NQ = L::kOwn, NK = kF32Stream;
+  // dQᵀ (hd x NQ) between the warpgroups: an m-tile of 64 hd rows each at
+  // hd 128, else half the columns each.
+  constexpr bool kSplitM = HD == 128;
+  constexpr int NW = kSplitM ? NQ : NQ / 2;   // dQᵀ columns a warpgroup
+  extern __shared__ unsigned char dq32_smem[];
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * NQ;
+  // The k tiles on or below the block's last diagonal, and below S.
+  const int n_kv = min((q0 + NQ - 1) / NK + 1, (S + NK - 1) / NK);
+  const int tid = threadIdx.x;
 
-  load_rows<HD, NT, T>(qs, L::kLd, q + base, q0, S);
-  load_rows<HD, NT, T>(dos, L::kLd, dout + base, q0, S);
-  load_rows<HD, NT, T>(k_tile(0), L::kLd, k + base, 0, S);
-  load_rows<HD, NT, T>(v_tile(0), L::kLd, v + base, 0, S);
-  cp_async_commit();
-
-  float acc[4][HD / 16];
+  const uint32_t base = (smem_u32(dq32_smem) + 1023) & ~1023u;
+  unsigned char* sm = dq32_smem + (base - smem_u32(dq32_smem));
+  const uint32_t full = base + L::kBars;
+  const uint32_t empty = full + 8 * L::kStages;
+  const uint32_t qbar = empty + 8 * L::kStages;
+  auto load_kv = [&](int j) {   // (K, V) tile j into its stage (one thread)
+    const int st = j % L::kStages;
+    const uint32_t bar = full + 8 * st;
+    const uint32_t ks = base + L::kRing + st * 2 * L::kKvBytes;
+    mbar_expect_tx(bar, 2 * L::kKvBytes);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_kt) {
-      load_rows<HD, NT, T>(k_tile(st ^ 1), L::kLd, k + base, (j + 1) * T, S);
-      load_rows<HD, NT, T>(v_tile(st ^ 1), L::kLd, v + base, (j + 1) * T, S);
+    for (int b = 0; b < HD / 32; ++b) {
+      tma_load_3d(ks + b * NK * 128, &tk, 32 * b, j * NK, bh, bar);
+      tma_load_3d(ks + L::kKvBytes + b * NK * 128, &tv, 32 * b, j * NK, bh,
+                  bar);
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[4][2], dp[4][2];
-    f32_abt<HD>(qs, k_tile(st), L::kLd, s);
-    f32_abt<HD>(dos, v_tile(st), L::kLd, dp);
-    f32_p_and_ds(s, dp, lse_r, d_r, q0, j * T, S, scale, nullptr, dss,
-                 L::kPld);
-    __syncthreads();
-    f32_pb<HD, false>(dss, L::kPld, k_tile(st), L::kLd, acc);   // dq += dS k
-    __syncthreads();
+  };
+  if (tid == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kF32Threads);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+    mbar_expect_tx(qbar, 2 * L::kOwnBytes);
+#pragma unroll
+    for (int b = 0; b < HD / 32; ++b) {
+      tma_load_3d(base + b * NQ * 128, &tq, 32 * b, q0, bh, qbar);
+      tma_load_3d(base + 2 * L::kOwnBytes + b * NQ * 128, &tdo, 32 * b, q0,
+                  bh, qbar);
+    }
+    for (int j = 0; j < n_kv && j < L::kStages; ++j) load_kv(j);
   }
-  f32_write<HD>(dq + base, acc, q0, S);
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int col = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  // This thread's q columns q0 + 8 j + col + v; rows >= S take 0, so
+  // their P is finite (their dq rows are dropped).
+  float l2[NQ / 8][2], dd[NQ / 8][2];
+#pragma unroll
+  for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int q = q0 + 8 * j + col + v;
+      const size_t at = static_cast<size_t>(bh) * S + q;
+      l2[j][v] = q < S ? lse[at] * kLog2e : 0.f;
+      dd[j][v] = q < S ? dsum[at] : 0.f;
+    }
+  __syncthreads();
+  mbar_wait(qbar, 0);
+  split_tile(sm, sm + L::kOwnBytes, L::kOwnBytes);                     // Q
+  split_tile(sm + 2 * L::kOwnBytes, sm + 3 * L::kOwnBytes, L::kOwnBytes);
+  fence_proxy_async();
+  __syncthreads();
+
+  // This warpgroup's part of dQᵀ: hd rows m0 .., q columns c0 ...
+  const int m0 = kSplitM ? 64 * wg : 0, c0 = kSplitM ? 0 : NW * wg;
+  float acc[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+  const uint32_t own_hi = base + 2 * wg * L::kOwnBytes;   // Q (0), dO (1)
+  const uint32_t ds_hi = base + L::kDs;
+  uint32_t ds_at[4];   // this thread's dSᵀ elements' places in dS
+  transposed_at(NQ, ds_at);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ds_at[i] += ds_hi;
+  float* pt = reinterpret_cast<float*>(sm + L::kP);
+  const int kr = 16 * warp + lane / 4;   // this thread's k rows: kr, + 8
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % L::kStages;
+    mbar_wait(full + 8 * st, (j / L::kStages) & 1);
+    const uint32_t ks = base + L::kRing + st * 2 * L::kKvBytes;
+    const uint32_t vs = ks + L::kKvBytes;
+
+    // wg 0: Sᵀ = K Qᵀ; wg 1: dPᵀ = V dOᵀ (over hd).
+    float s[NQ / 2];
+#pragma unroll
+    for (int x = 0; x < NQ / 2; ++x) s[x] = 0.f;
+    mma_3xtf32<NQ, HD / 8>(s, Tf32RowFrag<kF32Stream>(wg ? vs : ks), own_hi,
+                           own_hi + L::kOwnBytes, NQ);
+
+    // Only the tiles past q0 hold k > q; k >= S lies there too for every
+    // q < S, so the causal mask covers it.
+    const int kb = j * NK;
+    const bool masked = kb + NK - 1 > q0;
+    bar_sync(1, kF32Threads);   // warpgroup 1 has read the last stage's Pᵀ
+    if (wg == 0) {   // Pᵀ, computed where it is stored (not into Sᵀ)
+#pragma unroll
+      for (int jj = 0; jj < NQ / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float p[2];
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            p[v] = fast_exp2(s[4 * jj + 2 * h + v] * scale_log2 - l2[jj][v]);
+            if (masked && kb + kr + 8 * h > q0 + 8 * jj + col + v) p[v] = 0.f;
+          }
+          *reinterpret_cast<float2*>(pt + (kr + 8 * h) * L::kPld + 8 * jj +
+                                     col) = make_float2(p[0], p[1]);
+        }
+    }
+    bar_sync(2, kF32Threads);   // Pᵀ written
+    if (wg == 1) {
+#pragma unroll
+      for (int jj = 0; jj < NQ / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 p = *reinterpret_cast<const float2*>(
+              pt + (kr + 8 * h) * L::kPld + 8 * jj + col);
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int x = 4 * jj + 2 * h + v;
+            sts_split(ds_at[x % 4] + 1024 * jj, L::kDsBytes,
+                      (v ? p.y : p.x) * (s[x] - dd[jj][v]) * scale);
+          }
+        }
+      fence_proxy_async();
+    }
+    bar_sync(3, kF32Threads);   // dS written
+
+    // This warpgroup's part of dQᵀ += Kᵀ dSᵀ (over the 64 k rows).
+    mma_3xtf32<NW, NK / 8>(acc, ColFrag<HD>(ks, m0), ds_hi + c0 * 128,
+                           ds_hi + L::kDsBytes + c0 * 128, NQ);
+    mbar_arrive(empty + 8 * st);
+    if (tid < 32 && j + L::kStages < n_kv) {   // warp 0 refills the stage
+      mbar_wait(empty + 8 * st, (j / L::kStages) & 1);
+      if (tid == 0) load_kv(j + L::kStages);
+      __syncwarp();
+    }
+  }
+
+  // dQᵀ staged as rows of q once both warpgroups are done with the ring,
+  // then stored 16 bytes a thread, rows < S.
+  __syncthreads();
+  float* stage = reinterpret_cast<float*>(sm + L::kRing);
+#pragma unroll
+  for (int jj = 0; jj < NW / 8; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int m = m0 + kr + 8 * h;
+        if (m < HD)
+          stage[(c0 + 8 * jj + col + v) * L::kStageLd + m] =
+              acc[4 * jj + 2 * h + v];
+      }
+  __syncthreads();
+  float* out = dq + (static_cast<size_t>(bh) * S + q0) * HD;
+  for (int i = tid; i < NQ * HD / 4; i += kF32Threads) {
+    const int rr = i / (HD / 4), cc = 4 * (i % (HD / 4));
+    if (q0 + rr < S)
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(rr) * HD + cc) =
+          *reinterpret_cast<const float4*>(stage + rr * L::kStageLd + cc);
+  }
 }
 
 // -------------------------------------------------------- f32 forward ----
@@ -1099,6 +1359,20 @@ __global__ void __launch_bounds__(kF32Threads)
 // variants (128-row tiles with a double-buffered ring and one barrier a
 // tile, 4 x 4 logits on 16 warps an SM, loads pipelined by hand between
 // the FMAs) were each within 10% of it (PERF.md, PR 11).
+// Max and sum over the 16 lanes that hold one row.
+__device__ __forceinline__ float row_max16(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 constexpr int kF32FwdRows = 64;       // q rows of a block, k rows of a tile
 constexpr int kF32FwdThreads = 128;
 
@@ -1432,22 +1706,58 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The 3-D tensor map of a (b*h, S, HD) f32 tensor: boxes of 32 columns x
+// `rows` rows of one head.
+cudaError_t head_map_f32(CUtensorMap* map, const void* base, int bh, int S,
+                         int hd, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 4,
+                                 static_cast<cuuint64_t>(S) * hd * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  return f32_map_nd(map, base, 3, dims, strides, box);
+}
+
+// The f32 backward kernels' launch: grid (b*h, tiles of `own` rows), the
+// owned tensors' maps in boxes of `own` rows, the streamed ones' in 64.
+template <typename Kernel>
+cudaError_t launch_bwd_f32(Kernel kernel, int smem, int own,
+                           std::atomic<uint64_t>& allowed,
+                           const void* owned0, const void* owned1,
+                           const void* streamed0, const void* streamed1,
+                           int bh, int S, int hd, dim3* grid,
+                           CUtensorMap (&maps)[4]) {
+  const int tiles = (S + own - 1) / own;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  *grid = dim3(bh, tiles);
+  cudaError_t err = head_map_f32(&maps[0], owned0, bh, S, hd, own);
+  if (err == cudaSuccess) err = head_map_f32(&maps[1], owned1, bh, S, hd, own);
+  if (err == cudaSuccess)
+    err = head_map_f32(&maps[2], streamed0, bh, S, hd, kF32Stream);
+  if (err == cudaSuccess)
+    err = head_map_f32(&maps[3], streamed1, bh, S, hd, kF32Stream);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem, allowed);
+  return err;
+}
+
 template <int HD>
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* dsum, void* dk, void* dv, int bh,
                            int S, float scale, cudaStream_t stream) {
-  constexpr int smem = F32Plan<HD>::kBytes;
+  using L = DkvF32Plan<HD>;
   auto kernel = flash_bwd_dkv_f32_kernel<HD>;
   static std::atomic<uint64_t> allowed{0};
-  cudaError_t err = allow_smem(kernel, smem, allowed);
+  dim3 grid;
+  CUtensorMap m[4];   // k, v (owned); q, do (streamed)
+  cudaError_t err = launch_bwd_f32(kernel, L::kBytes, L::kOwn, allowed, k, v,
+                                   q, dout, bh, S, HD, &grid, m);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kF32Tile - 1) / kF32Tile, bh);
-  kernel<<<grid, kF32Threads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<float*>(dk), static_cast<float*>(dv), S, scale);
+  kernel<<<grid, kF32Threads, L::kBytes, stream>>>(
+      m[2], m[0], m[1], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<float*>(dk),
+      static_cast<float*>(dv), S, scale);
   return cudaGetLastError();
 }
 
@@ -1456,17 +1766,17 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* dsum, void* dq, int bh, int S,
                           float scale, cudaStream_t stream) {
-  constexpr int smem = F32Plan<HD>::kBytes;
+  using L = DqF32Plan<HD>;
   auto kernel = flash_bwd_dq_f32_kernel<HD>;
   static std::atomic<uint64_t> allowed{0};
-  cudaError_t err = allow_smem(kernel, smem, allowed);
+  dim3 grid;
+  CUtensorMap m[4];   // q, do (owned); k, v (streamed)
+  cudaError_t err = launch_bwd_f32(kernel, L::kBytes, L::kOwn, allowed, q,
+                                   dout, k, v, bh, S, HD, &grid, m);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kF32Tile - 1) / kF32Tile, bh);
-  kernel<<<grid, kF32Threads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<float*>(dq), S, scale);
+  kernel<<<grid, kF32Threads, L::kBytes, stream>>>(
+      m[0], m[2], m[3], m[1], static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<float*>(dq), S, scale);
   return cudaGetLastError();
 }
 
@@ -1527,7 +1837,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // The same three entry points for f32 q, k, v, o, dk, dv, dq (the f32
-// kernels); lse and dsum as above.
+// kernels: flash_fwd_f32_kernel, flash_bwd_dkv_f32_kernel,
+// flash_bwd_dq_f32_kernel); lse and dsum as above.
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int S, int hd,

@@ -2,16 +2,19 @@
 // memory addresses, mbarriers, TMA copies and the tensor maps they read,
 // wgmma operand descriptors, fences and the products themselves, named
 // barriers, and the cluster barrier and stores into distributed shared
-// memory.  Included by packed_mm.cu, flash_attn.cu and tap_conv.cu; each
-// of those is built into a library of its own, and everything here is
-// inline.
+// memory.  Included by packed_mm.cu, flash_attn.cu, tap_conv.cu and
+// rates.cu; each of those is built into a library of its own, and
+// everything here is inline.
 //
 // wgmma's fragment layout, used by every kernel that reads an accumulator:
 // in an m64nNk16 product the warpgroup's 128 threads hold D (64 x N, f32)
 // as d[4j + 2h + v] = D[16 w + lane / 4 + 8 h][8 j + 2 (lane % 4) + v],
 // w the thread's warp in the warpgroup; a row's N values lie in the 4
 // lanes of a quad.  The bf16 A operand from registers (the RS form) takes
-// the same layout for its 16 columns (bf16_a_fragment).
+// the same layout for its 16 columns (bf16_a_fragment).  The tf32 A
+// operand of an m64nNk8 product (wgmma_tf32_rs) holds a[0..3] = A[16 w +
+// lane / 4 + 8 i][lane % 4 + 4 j] for (i, j) = (0, 0), (1, 0), (0, 1),
+// (1, 1): its columns do not pair as an accumulator's do.
 
 #pragma once
 
@@ -462,6 +465,192 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs_if(float (&d)[8],
         "n"(kTransB), "r"(on));
 }
 
+// ---- tf32 products, for error-compensated f32 (3xTF32) -----------------
+// The tensor cores read a tf32 operand, from a register or from shared
+// memory, as the top 19 bits of its f32 pattern: the 13 low mantissa bits
+// are ignored, so the value read is x truncated toward zero to 10 mantissa
+// bits.  tf32_split therefore passes x itself as hi, and lo = x minus
+// that truncation (exact in f32), read truncated in turn: hi + lo as read
+// is x to 2^-20 |x|, and a b = a_hi b_hi + a_hi b_lo + a_lo b_hi to about
+// 2^-19 |a b| (a_lo b_lo left out).  One LOP and one FADD, no rounding
+// instruction; hi keeps x's bits, so a NaN stays a NaN (the card's
+// 0x7FFFFFFF reads as 0x7FFFE000; one that reads as infinity gives a NaN
+// lo), and a P or dS stored as hi is P or dS in f32.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xFFFFE000u));
+}
+
+// Byte offset of element (r, c) of an f32 tile of `rows` rows stored as
+// TMA writes it with 128-byte swizzle (boxes of 32 columns, one after
+// another, each `rows` rows of 128 bytes; 16-byte chunk j of row r at j ^
+// (r % 8)), which is also the K-major layout wgmma_desc reads.
+__device__ __forceinline__ uint32_t f32_sw128(int r, int c, int rows) {
+  return static_cast<uint32_t>((c >> 5) * rows * 128 + r * 128 +
+                               ((((c >> 2) & 7) ^ (r & 7)) << 4) +
+                               ((c & 3) << 2));
+}
+
+// d (64 x N, f32) += A (64 x 8) @ B (8 x N), tf32, for N = 16, 32, 64 or
+// 128: A from registers (the tf32 fragment layout above), B from shared
+// memory K-major (tf32 products read no operand transposed); scale_d = 0
+// overwrites d.  K-major B in 128-byte-swizzled rows of 32 floats takes
+// wgmma_desc as bf16 does: a k-step of 8 is 32 bytes added inside the
+// swizzle atom.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d = 1) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "no tf32 RS product of this width");
+  if constexpr (N == 16) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else
+  if constexpr (N == 32) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else
+  if constexpr (N == 64) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else
+  if constexpr (N == 128) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// The shared addresses of this thread's tf32 A fragments over a kRows-row
+// f32 tile at `tile` (f32_sw128) contracting over its columns: A[m][k] =
+// tile[m][8 kk + k], rows 0-63 as M.  Computed once a tile: at[h][a] is
+// row r + 8 h of the warp's 16, 16-byte chunk a (before the swizzle) of
+// the first 32-column box; k-step kk reads chunk 2 (kk % 4) + i / 2 of box
+// kk / 4, so its four loads take no address arithmetic.
+template <int kRows>
+struct Tf32RowFrag {
+  uint32_t at[2][8];
+  __device__ __forceinline__ explicit Tf32RowFrag(uint32_t tile) {
+    const int lane = threadIdx.x % 32;
+    const int r = 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+        at[h][a] = tile + (r + 8 * h) * 128 + ((a ^ (lane / 4)) << 4) +
+                   (lane % 4) * 4;
+  }
+  __device__ __forceinline__ void load(int kk, float (&x)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = ld_shared_f32(at[i & 1][2 * (kk % 4) + (i >> 1)] +
+                           (kk / 4) * kRows * 128);
+  }
+};
+
+// d (64 x N) += A B over kSteps k-steps in 3xTF32: A's raw fragment of
+// k-step kk from frag.load(kk, x) (Tf32RowFrag or the like), split in
+// registers; B's hi and lo tiles (K-major, rowsB rows of 32-column boxes)
+// at b_hi, b_lo.  Pipelined so that no wait falls on a load: while
+// k-step kk's three products run, k-step kk + 1's fragment (loaded an
+// iteration earlier) is split into the buffer that kk - 1's products have
+// released, and kk + 2's is loaded.
+template <int N, int kSteps, typename Frag>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[N / 2],
+                                           const Frag& frag, uint32_t b_hi,
+                                           uint32_t b_lo, int rowsB) {
+  float raw[4];
+  uint32_t hi[2][4], lo[2][4];
+  auto split = [&](int b) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32_split(raw[i], hi[b][i], lo[b][i]);
+  };
+  frag.load(0, raw);
+  split(0);
+  if (kSteps > 1) frag.load(1, raw);
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int b = kk & 1;
+    const uint32_t off = (kk / 4) * rowsB * 128 + (kk % 4) * 32;
+    wgmma_fence();
+    wgmma_tf32_rs<N>(d, hi[b], wgmma_desc(b_hi + off, 16));
+    wgmma_tf32_rs<N>(d, hi[b], wgmma_desc(b_lo + off, 16));
+    wgmma_tf32_rs<N>(d, lo[b], wgmma_desc(b_hi + off, 16));
+    wgmma_commit();
+    if (kk + 1 < kSteps) {
+      wgmma_wait<1>();   // k-step kk - 1 is done with the other buffer
+      split(b ^ 1);
+      if (kk + 2 < kSteps) frag.load(kk + 2, raw);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+}
+
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
 // link against libcuda); null where the driver lacks it.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -509,6 +698,15 @@ inline cudaError_t tensor_map_nd(CUtensorMap* map, CUtensorMapDataType type,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same in f32: boxes of 32 columns.
+inline cudaError_t f32_map_nd(CUtensorMap* map, const void* base, int rank,
+                              const cuuint64_t* dims,
+                              const cuuint64_t* strides,
+                              const cuuint32_t* box) {
+  return tensor_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank,
+                       dims, strides, box);
 }
 
 // The same in bf16.

@@ -23,11 +23,13 @@ In bf16 all three run wgmma on a TMA ring, the logits in registers.
 
 D = rowsum(do * o) in f32 stays a plain torch op between the forward and
 the backward kernels, as JAX computes it outside its kernels.  The kernels
-take bf16 (tensor cores) and f32 (f32 variants of the three, full f32 on
-the CUDA cores, `flash_*_f32_kernel`; the forward register-tiled), and
-head dims 32, 64 and 128.  `flash_attention` takes any head dim up to
-128, as JAX's kernel takes any below 128: on the card another one is
-zero-padded to the next of those three (`pad_head_dim`), which is exact.
+take bf16 (tensor cores) and f32 (f32 variants of the three,
+`flash_*_f32_kernel`: the forward register-tiled on the CUDA cores, dK/dV
+and dQ on wgmma in error-compensated TF32, three tf32 passes whose
+products keep about 21 bits), and head dims 32, 64 and 128.
+`flash_attention` takes any head dim up to 128, as JAX's kernel takes any
+below 128: on the card another one is zero-padded to the next of those
+three (`pad_head_dim`), which is exact.
 A head dim above 128 raises NotImplementedError on the card: it does not
 fit the kernels' shared-memory and register plans.  S need not be a
 multiple of the tile: the kernels mask ragged rows.

@@ -305,13 +305,18 @@ def test_flash_kernels_match_plain(cuda_device, b, h, s, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('b,h,s,hd', [(4, 16, 512, 128), (2, 2, 1000, 64),
-                                      (1, 3, 129, 32)])
-def test_flash_wgmma_kernels_are_deterministic(cuda_device, b, h, s, hd):
-  """Two launches of the bf16 forward, of dK/dV and of dQ on the same
-  inputs give the same bits: each output is one thread block's, its sums
-  in a fixed order, with no atomics."""
-  q, k, v, do = _qkvo((b, h, s, hd), s + hd, cuda_device)
+                                      (1, 3, 129, 32), (1, 2, 130, 128),
+                                      (1, 1, 5, 64)])
+def test_flash_wgmma_kernels_are_deterministic(cuda_device, b, h, s, hd,
+                                               dtype):
+  """Two launches of the forward, of dK/dV and of dQ on the same inputs
+  give the same bits, in bf16 (wgmma) and f32 (the forward on FFMA, dK/dV
+  and dQ on 3xTF32 wgmma): each output is one thread block's, its sums in
+  a fixed order, with no atomics."""
+  q, k, v, do = (t.to(dtype) for t in
+                 _qkvo((b, h, s, hd), s + hd, cuda_device))
   scale = hd ** -0.5
   o, lse = tfa.flash_fwd_cuda(q, k, v, scale)
   o2, lse2 = tfa.flash_fwd_cuda(q, k, v, scale)
@@ -1062,6 +1067,56 @@ def test_flash_attention_f32_autograd_on_card(cuda_device, hd):
   assert _rel_err(o.detach(), want_o.detach()) <= FLASH_F32_TOL
   for got, ref in zip(grads, want):
     assert _rel_err(got, ref) <= FLASH_F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('where', ['q', 'do', 'lse'])
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('s', [130, 512])
+def test_flash_f32_backward_keeps_nan(cuda_device, s, hd, where):
+  """A NaN made on the card (0 / 0) in one element of q, dO or lse at q
+  row i0 of head 0 reaches dK / dV and dQ as in the plain versions: what
+  depends on it (dK and dV rows <= i0, only dO's column of dV for a NaN in
+  dO; dQ row i0) is NaN from both, and the kernels put NaN nowhere the
+  plain versions do not.  The
+  plain versions also take 0 x NaN over the masked half, which the
+  kernels skip, so their NaN may reach further; where both are finite
+  they agree within FLASH_F32_TOL.  The 3xTF32 split must keep NaN: a
+  rounding that carried it into the sign bit would give finite
+  gradients."""
+  gen = torch.Generator().manual_seed(s + hd)
+  q, k, v, do = (torch.randn(1, 2, s, hd, generator=gen).to(cuda_device)
+                 for _ in range(4))
+  scale = hd ** -0.5
+  o, lse = tfa.flash_fwd_cuda(q, k, v, scale)
+  d = tfa._rowsum_do_o(do, o)
+  i0 = s * 5 // 9
+  nan = torch.zeros((), device=cuda_device) / 0.
+  if where == 'lse':
+    lse[0, 0, i0] = nan
+  else:
+    {'q': q, 'do': do}[where][0, 0, i0, 3] = nan
+  before = _f32_counts()
+  dk, dv = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, d, scale)
+  dq = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, d, scale)
+  torch.cuda.synchronize()
+  assert _f32_counts()[1:] == tuple(n + 1 for n in before[1:])
+  want_dk, want_dv = tfa.flash_bwd_dkv_reference(q, k, v, do, lse, d, scale)
+  want_dq = tfa.flash_bwd_dq_reference(q, k, v, do, lse, d, scale)
+  rows = torch.arange(s, device=cuda_device)[:, None]
+  cols = torch.arange(hd, device=cuda_device)
+  dv_cols = cols == 3 if where == 'do' else cols >= 0
+  for name, got, ref, reached in (('dk', dk, want_dk, rows <= i0),
+                                  ('dv', dv, want_dv, (rows <= i0) & dv_cols),
+                                  ('dq', dq, want_dq, rows == i0)):
+    must = torch.zeros_like(got, dtype=torch.bool)
+    must[0, 0] = reached
+    assert bool(torch.isnan(ref)[must].all()), name
+    assert bool(torch.isnan(got)[must].all()), name
+    assert not bool((torch.isnan(got) & ~torch.isnan(ref)).any()), name
+    both = torch.isfinite(got) & torch.isfinite(ref)
+    assert bool(both[:, 1].all()), name   # head 1 holds no NaN
+    assert _rel_err(got[both], ref[both]) <= FLASH_F32_TOL, name
 
 
 # ------------------------------------ history entries (B9', B10-B12) ----
