@@ -11,16 +11,12 @@ package.  Phases, each fatal on failure:
      tap_conv.cu and rates.cu with nvcc, one process per source started
      together (into the git-ignored rigl_tpu_torch/_build/), and prints
      ptxas' report;
-  2b. rates probe (csrc/rates.cu): what bounds f32-accurate products on
-     the card, each rate in TFLOP/s: (a) FFMA from registers, (b) FFMA
-     with operands from shared memory at the PR 6 f32 flash backward's
-     tiling (its q kᵀ and P v loops), (c) wgmma m64nNk8 tf32 with both
-     operands from shared memory and with A from registers, N = 16, 32,
-     64 and 128 over a depth of 128, (d) the same in three passes
-     (3xTF32), SS over split tiles and RS with the split in the loop (the
-     f32 flash backward's own loop);
-     each wgmma mode's one pass first held against A Bᵀ in f64 (which
-     checks the tf32 register fragment);
+  2b. rates probe (csrc/rates.cu): the tensor-core rates of the f32
+     kernels on tf32 wgmma, in TFLOP/s: wgmma m64nNk8 tf32 with A from
+     registers, N = 16, 32, 64 and 128 over a depth of 128, in one pass
+     and in three (3xTF32, the kernels' own loop: the split in
+     registers); each mode's one pass first held against A Bᵀ in f64
+     (which checks the tf32 register fragment);
   3. packed kernels vs plain: each kernel against its plain PyTorch
      version on the same inputs, with errors, device times of both (CUDA
      events around calls queued while the device sleeps), the host time to
@@ -41,7 +37,8 @@ package.  Phases, each fatal on failure:
         ragged m = 1000, and a grid with an empty block-row and an empty
         block-column;
      c. forward, dx and packed dw at the transformer train step's four
-        layer shapes, m = 2048, bf16;
+        layer shapes, m = 2048, bf16, and the packed dw there in f32 (the
+        f32 step's calls, beside xᵀ @ gy in f32);
      d. forward and dx with a contraction per active (96) that 64 does not
         divide, m = 1024: the tiled branch.
      Each forward / dx point prints the branch it takes
@@ -126,7 +123,7 @@ package.  Phases, each fatal on failure:
      device busy share and kernel time per step by kernel;
  15. dense-storage kernels vs plain: the forward / dx kernels' dense
      modes (each point printing its branch) from the flat packing (v4,
-     B7) and from per-column index lists (v3, B8), and packed_dw_kernel's
+     B7) and from per-column index lists (v3, B8), and the dw kernels'
      dense mode (the gathered dw, B9), each against its plain version (one
      torch.matmul per active block) at ResNet-50's 29 eligible 1x1 shapes
      (batch 128, 224 px, ERK-0.8 occupancies at block (128, 128), bf16)
@@ -179,19 +176,21 @@ package.  Phases, each fatal on failure:
      mirrored order with busy shares and kernel time by kernel; then
      phase 9 in f32;
  21. the f32 transformer train step, the main path of the f32 flash
-     kernels: phase 10's model in float32, fused against unfused (output,
-     loss and gradients within 1e-3), 2 launches of each f32 flash kernel
-     per fused step, us/step of both in mirrored order, and the fused
-     step's device time by kernel (torch.profiler), the flash kernels'
-     share summed.
+     kernels and of the f32 dw: phase 10's model in float32, fused
+     against unfused (output, loss and gradients within 1e-3), 2 launches
+     of each f32 flash kernel and 8 of the forward, dx and dw per fused
+     step, us/step of both in mirrored order, and the fused step's device
+     time by kernel (torch.profiler), the flash kernels' and
+     packed_dw_3xtf32_kernel's shares summed.
 
 Every dw point (phases 3, 12, 15 and 19) also logs how its kernel split
 the reduction (ops/dw_split.py): S slices, the grid and the workspace's
 bytes.  Each main path runs with the launch counts set to 0 just before
 it and read just after.  The line before the last is the JSON record: `kernels`
 (per kernel: the sums over its bf16 points, f32 for the f32 flash
-kernels, of ms, plain_ms, bound_ms and library_ms, its launches on the
-main paths, and every point), `rates`, `serving`, `training`,
+kernels and the f32 dw, of ms, plain_ms, bound_ms and library_ms, its
+launches on the main paths, and every point), `rates`, `serving`,
+`training`,
 `train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step` and the
 script's wall time.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -232,11 +231,11 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 495e12 / 3}
 LIBRARIES = ('packed_mm', 'flash_attn', 'tap_conv', 'rates')
 # The rates probe (csrc/rates.cu): work per launch, each launch about a
-# millisecond on an H100, at the widths N the f32 backward's products
-# take; one pass of a tf32 product is held against f64 within RATES_TOL
-# (one pass rounds both operands to 11 significant bits; three keep about
-# 21).
-RATES_FFMA_ITERS, RATES_SMEM_REPS, RATES_WGMMA_REPS = 2048, 256, 512
+# millisecond on an H100, at the widths N the f32 kernels' products take;
+# one pass of a tf32 product is held against f64 within RATES_TOL (one
+# pass reads both operands truncated to 11 significant bits; three keep
+# about 19).
+RATES_WGMMA_REPS = 512
 RATES_WIDTHS = (16, 32, 64, 128)
 RATES_TOL = {1: 5e-3, 3: 1e-5}
 # Transformer training (scripts/bench_packed_transformer.py): 2 layers of
@@ -369,12 +368,13 @@ def host_ms(fn, iters):
   return dt * 1e3 / iters
 
 
-def profiled_kernel_time(torch, step, n, match=None):
+def profiled_kernel_time(torch, step, n, match=()):
   """{'kernel_us_per_step', 'device_ms_by_kernel'}: the device time of n
   step() calls under torch.profiler (device activity only), per step, in
-  all and for the 8 largest kernels, which it logs; with `match`, also
-  'matched_us_per_step' and 'matched_by_kernel': the kernels whose names
-  hold that string.  torch.profiler can stop recording device time within
+  all and for the 8 largest kernels, which it logs; for each string of
+  `match`, also 'matched_us_per_step' and 'matched_by_kernel' under that
+  string: the kernels whose names hold it.  torch.profiler can stop
+  recording device time within
   a process (on the card, after as few as 5 profiling runs or as many as
   some tens): a run that records none is tried once more, then the values
   are None, not measured."""
@@ -396,17 +396,19 @@ def profiled_kernel_time(torch, step, n, match=None):
       rec = dict(kernel_us_per_step=kernel_us, device_ms_by_kernel={
           e.key[:90]: [e.self_device_time_total / 1e3 / n, e.count / n]
           for e in top})
-      if match is not None:
-        hits = [e for e in events if match in e.key]
-        rec['matched_us_per_step'] = sum(
+      if match:
+        rec['matched_us_per_step'], rec['matched_by_kernel'] = {}, {}
+      for name in match:
+        hits = [e for e in events if name in e.key]
+        rec['matched_us_per_step'][name] = sum(
             e.self_device_time_total for e in hits) / n
-        rec['matched_by_kernel'] = {
+        rec['matched_by_kernel'][name] = {
             e.key[:90]: [e.self_device_time_total / 1e3 / n, e.count / n]
             for e in hits}
       return rec
   log('  torch.profiler recorded no device time: kernel time not measured')
   rec = dict(kernel_us_per_step=None, device_ms_by_kernel=None)
-  if match is not None:
+  if match:
     rec.update(matched_us_per_step=None, matched_by_kernel=None)
   return rec
 
@@ -452,58 +454,43 @@ def phase_build():
 
 
 def phase_rates(torch, device):
-  """Phase 2b, csrc/rates.cu: (a) FFMA from registers, (b) FFMA from
-  shared memory in the PR 6 f32 flash backward's two loops (q kᵀ, P v),
-  (c) wgmma m64nNk8 tf32 SS and RS, (d) the same in 3xTF32 (SS over split
-  tiles, and the f32 flash backward's own loop: RS split in registers), at
-  N = 16, 32, 64 and 128 over a depth of 128.  Each wgmma mode's one
-  pass is first held against A Bᵀ in f64 within RATES_TOL.  Returns
-  {rate name: TFLOP/s} (f32-accurate TFLOP/s for the 3xTF32 modes, the
-  tf32 rate beside)."""
+  """Phase 2b, csrc/rates.cu: wgmma m64nNk8 tf32 with A from registers,
+  one pass and in 3xTF32 (the f32 kernels' own loop: the split in
+  registers), at N = 16, 32, 64 and 128 over a depth of 128.  Each mode's
+  one pass is first held against A Bᵀ in f64 within RATES_TOL.  Returns
+  {rate name: TFLOP/s} (f32-accurate TFLOP/s for 3xTF32, the tf32 rate
+  beside)."""
   import ctypes
   from rigl_tpu_torch.ops import _build
   lib = _build.load('rates')
-  for name, ints in (('rates_ffma', 2), ('rates_ffma_smem', 3),
-                     ('rates_wgmma', 4)):
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * (3 if name == 'rates_wgmma' else 1)
-                   + [ctypes.c_int] * ints + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+  lib.rates_wgmma.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p])
+  lib.rates_wgmma.restype = ctypes.c_int
 
-  def launch(fn, *args):
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    check(err == 0, f'{fn.__name__} launch failed: CUDA error {err}')
+  def launch(*args):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.rates_wgmma(*args, stream)
+    check(err == 0, f'rates_wgmma launch failed: CUDA error {err}')
 
   sms = sm_count(torch)
   rec = {}
-  out = torch.empty(4 * sms * 256, device=device)
-  ms = device_ms(lambda: launch(lib.rates_ffma, out.data_ptr(), 4 * sms,
-                                RATES_FFMA_ITERS), 10)
-  rec['a_ffma_registers'] = 4 * sms * 256 * RATES_FFMA_ITERS * 256 / ms / 1e9
-  for pattern, label in ((0, 'b_ffma_smem_qk'), (1, 'b_ffma_smem_pv')):
-    ms = device_ms(lambda: launch(lib.rates_ffma_smem, out.data_ptr(),
-                                  2 * sms, RATES_SMEM_REPS, pattern), 10)
-    rec[label] = 2 * sms * 128 * RATES_SMEM_REPS * 2048 / ms / 1e9
   gen = torch.Generator().manual_seed(SEED + 30)
   a = torch.randn(64, 128, generator=gen).to(device)
   b_all = torch.randn(128, 128, generator=gen).to(device)
   for n in RATES_WIDTHS:
     b = b_all[:n].contiguous()
     want = a.double() @ b.double().T
-    for mode, label in ((0, 'c_tf32_ss'), (1, 'c_tf32_rs'),
-                        (2, 'd_3xtf32_ss'), (3, 'd_3xtf32_rs_split')):
-      passes = 3 if mode >= 2 else 1
+    for mode, label in ((0, 'tf32_rs'), (1, '3xtf32_rs_split')):
+      passes = 3 if mode else 1
       d = torch.zeros(64, n, device=device)
-      launch(lib.rates_wgmma, a.data_ptr(), b.data_ptr(), d.data_ptr(), 1,
-             1, n, mode)
+      launch(a.data_ptr(), b.data_ptr(), d.data_ptr(), 1, 1, n, mode)
       torch.cuda.synchronize()
       err = float((d.double() - want).abs().max() / want.abs().max())
       check(err <= RATES_TOL[passes], f'rates {label} n={n}: one pass '
             f'against f64: rel err {err:.3e} > {RATES_TOL[passes]}')
       reps = RATES_WGMMA_REPS * 128 // n // passes
-      ms = device_ms(lambda: launch(lib.rates_wgmma, a.data_ptr(),
-                                    b.data_ptr(), d.data_ptr(), sms, reps, n,
-                                    mode), 10)
+      ms = device_ms(lambda: launch(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                    sms, reps, n, mode), 10)
       tf32 = sms * 2 * reps * passes * 2 * 64 * n * 128 / ms / 1e9
       rec[f'{label}_n{n}'] = tf32 / passes
       if passes == 3:
@@ -511,10 +498,6 @@ def phase_rates(torch, device):
       log(f'rates: {label} n={n}: one pass vs f64 rel err {err:.2e}; '
           f'{tf32 / passes:.1f} TFLOP/s'
           + (f' f32-accurate ({tf32:.1f} tf32)' if passes == 3 else ''))
-  log('rates: (a) ffma from registers {:.1f}, (b) ffma from shared memory '
-      'q kᵀ loop {:.1f}, P v loop {:.1f} TFLOP/s'.format(
-          rec['a_ffma_registers'], rec['b_ffma_smem_qk'],
-          rec['b_ffma_smem_pv']))
   return rec
 
 
@@ -593,12 +576,17 @@ def kernel_point(torch, label, counter, run, plain, library, bound_,
 
 def dw_split(label, plan):
   """Logs a dw point's split of its reduction (ops/dw_split.py: S slices,
-  the first kernel's grid, the f32 workspace) and returns it for the
-  point's record."""
+  the first kernel's grid, the f32 workspace) and, for the block dw
+  kernels, its tile (ops/block_sparse_packed.py dw_tile), and returns
+  them for the point's record."""
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  tile = None if plan.tile is None else list(bsp.DW_TILES[plan.tile])
   log(f'  {label}: S = {plan.slices} ({plan.slice_rows} rows a slice), '
-      f'grid {plan.grid}, workspace {plan.workspace_bytes} bytes')
+      f'grid {plan.grid}, workspace {plan.workspace_bytes} bytes'
+      + ('' if tile is None else f', tile {tile[0]} x {tile[1]}'))
   return dict(slices=plan.slices, slice_rows=plan.slice_rows,
-              grid=list(plan.grid), workspace_bytes=plan.workspace_bytes)
+              grid=list(plan.grid), workspace_bytes=plan.workspace_bytes,
+              tile=tile)
 
 
 def sm_count(torch):
@@ -778,7 +766,8 @@ def phase_train_kernels(torch, device):
 def phase_step_kernels(torch, device):
   """Forward, dx and packed dw vs plain at the transformer train step's
   shapes: m = batch x seq = 2048 rows, each layer of a block (s = 0.8,
-  block (512, 512), bf16)."""
+  block (512, 512), bf16); then the packed dw in f32 at the same shapes,
+  the calls of the f32 step (phase 21)."""
   from rigl_tpu_torch.layers.packed_dense import random_occupancy
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
   from rigl_tpu_torch.sparsity.distributions import get_n_zeros
@@ -807,6 +796,17 @@ def phase_step_kernels(torch, device):
         rec['split'] = dw_split(f'dw  {name:3s} m={m}', bsp.dw_plan(
             m, n_act, BLOCK, torch.bfloat16, sm_count(torch)))
       records[op].append(rec)
+    x, gy, w = x.float(), gy.float(), w.float()
+    counter, run, plain, library = _product_ops(torch, x, gy, w,
+                                                packing)['dw']
+    rec, _ = kernel_point(
+        torch, f'dw  {name:3s} m={m} float32', counter, run, plain, library,
+        bound('dw', m, packing, BLOCK, torch.float32))
+    rec.update(path='train_step', layer=name, m=m, dtype='float32', k=kdim,
+               n=ndim, n_active=n_act)
+    rec['split'] = dw_split(f'dw  {name:3s} m={m} float32', bsp.dw_plan(
+        m, n_act, BLOCK, torch.float32, sm_count(torch)))
+    records['dw'].append(rec)
   return records
 
 
@@ -3292,13 +3292,16 @@ def phase_f32_train_step(torch, device):
   _zero_counts()
   steps['fused']()
   torch.cuda.synchronize()
-  launches = {k: v for k, v in _counts().items() if k.startswith('flash')}
-  log(f'f32 fused step: flash launches {launches} (expected {TR_LAYERS} '
-      'of each f32 kernel, none of the bf16 ones)')
+  launches = {k: v for k, v in _counts().items()
+              if k.startswith('flash') or k in ('fwd', 'dx', 'dw')}
+  log(f'f32 fused step: launches {launches} (expected {TR_LAYERS} of each '
+      f'f32 flash kernel, none of the bf16 ones; {4 * TR_LAYERS} forward, '
+      'dx and dw)')
   check(launches == dict(flash_fwd=0, flash_dkv=0, flash_dq=0,
                          flash_fwd_f32=TR_LAYERS, flash_dkv_f32=TR_LAYERS,
-                         flash_dq_f32=TR_LAYERS),
-        f'f32 fused step flash launches {launches}')
+                         flash_dq_f32=TR_LAYERS, fwd=4 * TR_LAYERS,
+                         dx=4 * TR_LAYERS, dw=4 * TR_LAYERS),
+        f'f32 fused step launches {launches}')
   for step in steps.values():
     for _ in range(2):
       step()
@@ -3317,12 +3320,18 @@ def phase_f32_train_step(torch, device):
   rec['unfused_over_fused'] = (float(np.mean(us['unfused']))
                                / float(np.mean(us['fused'])))
   log(f'  unfused/fused: {rec["unfused_over_fused"]:.3f}')
-  # The fused step's device time by kernel, the flash kernels' summed.
+  # The fused step's device time by kernel, the flash kernels' and the f32
+  # dw's summed, with their shares.
   log('f32 fused step, torch.profiler over 3 steps:')
-  prof = profiled_kernel_time(torch, steps['fused'], 3, match='flash_')
+  prof = profiled_kernel_time(torch, steps['fused'], 3,
+                              match=('flash_', 'packed_dw_3xtf32_kernel'))
   rec['fused_kernels'] = prof
-  log(f'  kernel time {prof["kernel_us_per_step"]} us/step, of it the f32 '
-      f'flash kernels {prof["matched_us_per_step"]}')
+  total, parts = prof['kernel_us_per_step'], prof['matched_us_per_step']
+  for name, label in (('flash_', 'the f32 flash kernels'),
+                      ('packed_dw_3xtf32_kernel', 'the f32 dw')):
+    part = parts and parts[name]
+    log(f'  kernel time {total} us/step, of it {label} {part} (share '
+        f'{_share(part, total)})')
   del models, steps
   torch.cuda.empty_cache()
   return launches, rec
@@ -3397,12 +3406,27 @@ DECODE_DESIGN = ('packed_mm_decode_kernel: tiles of an m-tile of 8 / 16 / 32 '
                  'chain an output; f32 partials added in rank order through '
                  'distributed shared memory, one cast, one launch, no '
                  'workspace')
-# The dw kernels' design, named in their JSON entries.
+# The dw kernels' designs, named in their JSON entries.
 DW_DESIGN = ('bf16: packed_dw_wgmma_kernel, 128 x 128 tiles, wgmma '
              'm64n128k16 by two consumer warpgroups on a 4-deep ring of '
              '64-row x and gy tiles that one producer warp fills by TMA; '
-             'f32: packed_dw_ffma_kernel, 64 x 64 tiles on FMA; the m-sum '
+             'f32: packed_dw_3xtf32_kernel (its own entry); the m-sum '
              'split into slices where the tiles leave SMs idle')
+DW_F32_DESIGN = ('packed_dw_3xtf32_kernel: f32-accurate products in 3xTF32 '
+                 '(a_hi b_hi + a_hi b_lo + a_lo b_hi on tf32 wgmma); tiles '
+                 'of 128 x 128, narrower for narrow blocks (64 rows for bk '
+                 '<= 64, columns the narrowest of 16 / 32 / 64 / 128 that '
+                 'hold bn: dw_tile); a 3-4-deep ring of 32-row m-chunks of '
+                 'x and gy (32 x 32 boxes) that a producer warp fills by '
+                 'TMA; three warps of their own transpose each gy '
+                 'chunk into K-major hi / lo B tiles; two consumer '
+                 'warpgroups (one at 64 rows) take xT as the register A '
+                 'operand, loaded column-wise from the box in k-step order '
+                 '0, 2, 4, 6, 1, 3, 5, 7 and split in registers, and run '
+                 'wgmma m64nNk8 tf32 three passes a k-step into an '
+                 'accumulator started afresh every 4 stages and added to '
+                 'the tile\'s f32 sum; one block an SM; the m-sum split '
+                 'into slices where the tiles leave SMs idle')
 DW_REDUCTION = ('packed_dw_reduce_kernel: adds the slices\' f32 partials '
                 'in slice order, one cast (only where S > 1)')
 # The tap conv's forward / dx: the kernel of each branch of tap_branch
@@ -3559,10 +3583,11 @@ def main():
   tpu = 'rigl_tpu/ops/pallas/block_sparse_packed.py'
   packed_paths = {
       'fwd': {'serving': serve_launches, 'training': train_launches[0]},
-      'dx': {'training': train_launches[1]},
-      'dw': {'training': train_launches[2]}}
+      'dx': {'training': train_launches[1]}, 'dw': {}}
   for op, by_path in packed_paths.items():
     by_path.update(train_step=step_launches[op], lm=lm_launches[op])
+  f32_dw_paths = {'training': train_launches[2],
+                  'f32_train_step': f32_launches['dw']}
   kernels = [
       _kernel_entry(name, src, f'{tpu}:{line}',
                     sum(packed_paths[op].values()), packed_paths[op], points)
@@ -3572,9 +3597,18 @@ def main():
            + tiled_points['fwd']),
           ('packed_mm_dx_kernel', 'dx', 178,
            train_points['dx'] + step_points['dx'] + tiled_points['dx']),
-          ('packed_dw_kernel', 'dw', 345,
-           train_points['dw'] + step_points['dw']))]
+          ('packed_dw_wgmma_kernel', 'dw', 345,
+           [p for p in train_points['dw'] + step_points['dw']
+            if p['dtype'] == 'bfloat16']))]
   kernels[-1].update(design=DW_DESIGN, reduction=DW_REDUCTION)
+  f32_dw = _kernel_entry(
+      'packed_dw_3xtf32_kernel', src, f'{tpu}:345',
+      sum(f32_dw_paths.values()), f32_dw_paths,
+      [p for p in train_points['dw'] + step_points['dw']
+       if p['dtype'] == 'float32'], dtype='float32')
+  f32_dw.update(design=DW_F32_DESIGN, reduction=DW_REDUCTION,
+                also_replaces=f'{tpu}:362 (_dw_panel_kernel)')
+  kernels.append(f32_dw)
   for entry in kernels[:2]:
     entry['design'] = MM_DESIGN
   decode = _kernel_entry(
@@ -3641,7 +3675,7 @@ def main():
     entry = _kernel_entry(name, src, replaces, sum(by_path.values()),
                           by_path, dense_points[key])
     entry['kernel'] = ('the mm kernels, dense storage' if key != 'dw'
-                       else 'packed_dw_kernel, dense storage')
+                       else 'the dw kernels, dense storage')
     if key != 'dw':
       entry['design'] = MM_DESIGN
     entry['library'] = 'torch.matmul on the masked dense W' if key != 'dw' \
@@ -3678,7 +3712,7 @@ def main():
        'the mm kernels, dense storage, dx mode', v1_paths['dx']),
       ('dense_dw_kernel (v1 form, B12)', 'v1_dw',
        f'{pallas}/block_sparse.py:85 (_dw_kernel)',
-       'packed_dw_kernel, dense storage', v1_paths['dw'])):
+       'the dw kernels, dense storage', v1_paths['dw'])):
     entry = _kernel_entry(name, src, replaces, sum(by_path.values()),
                           by_path, history_points[key])
     entry['kernel'] = kernel

@@ -804,7 +804,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // as they lie in device memory) are only ever A operands, loaded by the
 // threads into the register fragment and split there: row-wise for the
 // products that contract over hd (Tf32RowFrag), column-wise for those
-// that contract over the tile's rows (ColFrag), at addresses computed
+// that contract over the tile's rows (Tf32ColFrag), at addresses computed
 // once a tile, and the three products of a k-step issue while the next
 // k-step's fragment is split (hopper.cuh mma_3xtf32).  B operands are
 // K-major tiles split once into hi and lo: the owned side (K, V for
@@ -812,8 +812,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // by the threads from the accumulators.  The products over rows are computed
 // transposed (dVᵀ = dOᵀ P, dKᵀ = Qᵀ dS, dQᵀ = Kᵀ dSᵀ), so that P and dS
 // are B operands.  Within each k-step of 8 rows, position i holds row 2 (i
-// % 4) + i / 4 (kstep_row): the column-wise fragment loads of 4 rows x 8
-// columns then fall on 32 distinct banks of the swizzled tile.
+// % 4) + i / 4 (hopper.cuh kstep_row): the column-wise fragment loads of 4
+// rows x 8 columns then fall on 32 distinct banks of the swizzled tile.
 //
 // Shared memory binds: an f32 tile is twice bf16's bytes and each B
 // operand needs its lo part.  At hd 128 a block owns 32 rows (64 at hd 64
@@ -826,15 +826,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // once, sums in a fixed order: a second launch gives the same bits.
 constexpr int kF32Threads = 256;   // two warpgroups
 constexpr int kF32Stream = 64;     // rows of a streamed tile
-
-// The row of its k-step that position i (0-7) holds, and its inverse.
-__device__ __forceinline__ int kstep_row(int i) {
-  return 2 * (i & 3) + (i >> 2);
-}
-
-__device__ __forceinline__ int kstep_pos(int row) {
-  return (row >> 1) + 4 * (row & 1);
-}
 
 // Where this thread's accumulator elements of a product (64 rows, columns
 // 8 j + 2 (lane % 4) + v) go in a K-major B tile of `rows` rows of 64
@@ -866,38 +857,6 @@ __device__ __forceinline__ void sts_split(uint32_t addr, uint32_t lo_off,
   st_shared_u32(addr, hi);
   st_shared_u32(addr + lo_off, lo);
 }
-
-// The shared addresses of this thread's tf32 A fragments over a 64-row
-// f32 tile at `tile` contracting over its rows (A[m][k] = tile[8 kk +
-// kstep_row(k)][m0 + m], the 64 columns at m0 as M; columns >= HD read as
-// 0): k-step kk adds kk * 1024 bytes to k-step 0's address, the rows'
-// swizzle being the same.  hopper.cuh Tf32RowFrag is its counterpart over
-// the columns.
-template <int HD>
-struct ColFrag {
-  uint32_t at[4];
-  bool on;
-  __device__ __forceinline__ ColFrag(uint32_t tile, int m0) {
-    const int lane = threadIdx.x % 32;
-    const int m = m0 + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
-    on = m < HD;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      at[i] = tile + f32_sw128(kstep_row(lane % 4 + 4 * (i >> 1)),
-                               m + 8 * (i & 1), kF32Stream);
-  }
-  // A predicated load, not a branch: fragment registers written on a
-  // divergent path make ptxas serialise the products (C7520).
-  __device__ __forceinline__ void load(int kk, float (&x)[4]) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      asm volatile(
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\nmov.b32 %0, 0;\n"
-          "@p ld.shared.f32 %0, [%1];\n}\n"
-          : "=f"(x[i])
-          : "r"(at[i] + kk * 1024), "r"(static_cast<int>(on)));
-  }
-};
 
 // Splits `bytes` bytes of f32 at `hi_t`: the tile stays as it is, its own
 // hi part (tf32_split), and its lo part goes to `lo_t` (the same layout),
@@ -1080,8 +1039,9 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     // wg 0: dVᵀ += dOᵀ P; wg 1: dKᵀ += Qᵀ dS (over the 64 q rows).
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
-      mma_3xtf32<NK, NQ / 8>(acc[mt], ColFrag<HD>(wg ? qs : dos, 64 * mt),
-                             pt_hi, pt_hi + L::kPBytes, NK);
+      mma_3xtf32<NK, NQ / 8>(
+          acc[mt], Tf32ColFrag<kF32Stream>(wg ? qs : dos, 64 * mt, HD),
+          pt_hi, pt_hi + L::kPBytes, NK);
     mbar_arrive(empty + 8 * st);
     if (tid < 32 && i + L::kStages < n_q) {   // warp 0 refills the stage
       mbar_wait(empty + 8 * st, (it / L::kStages) & 1);
@@ -1299,8 +1259,9 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     bar_sync(3, kF32Threads);   // dS written
 
     // This warpgroup's part of dQᵀ += Kᵀ dSᵀ (over the 64 k rows).
-    mma_3xtf32<NW, NK / 8>(acc, ColFrag<HD>(ks, m0), ds_hi + c0 * 128,
-                           ds_hi + L::kDsBytes + c0 * 128, NQ);
+    mma_3xtf32<NW, NK / 8>(acc, Tf32ColFrag<kF32Stream>(ks, m0, HD),
+                           ds_hi + c0 * 128, ds_hi + L::kDsBytes + c0 * 128,
+                           NQ);
     mbar_arrive(empty + 8 * st);
     if (tid < 32 && j + L::kStages < n_kv) {   // warp 0 refills the stage
       mbar_wait(empty + 8 * st, (j / L::kStages) & 1);

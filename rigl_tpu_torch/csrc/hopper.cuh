@@ -612,17 +612,73 @@ struct Tf32RowFrag {
   }
 };
 
-// d (64 x N) += A B over kSteps k-steps in 3xTF32: A's raw fragment of
+// A k-step of 8 rows of a tile contracted over its rows, in the order the
+// column-wise fragment loads read them: position i holds row 2 (i % 4) +
+// i / 4 (kstep_row), so that a warp's loads of 4 rows x 8 columns of a
+// swizzled tile fall on 32 distinct banks; kstep_pos is its inverse.  A B
+// operand written for such an A puts row r of its k-step at position
+// kstep_pos(r).
+__device__ __forceinline__ int kstep_row(int i) {
+  return 2 * (i & 3) + (i >> 2);
+}
+
+__device__ __forceinline__ int kstep_pos(int row) {
+  return (row >> 1) + 4 * (row & 1);
+}
+
+// The shared addresses of this thread's tf32 A fragments over a kRows-row
+// f32 tile at `tile` (f32_sw128) contracting over its rows: A[m][k] =
+// tile[8 kk + kstep_row(k)][m0 + m], the 64 columns at m0 as M, columns
+// m0 + m >= `limit` read as 0.  k-step kk adds kk * 1024 bytes to k-step
+// 0's address, the rows' swizzle being the same.  Tf32RowFrag is its
+// counterpart over the columns.
+template <int kRows>
+struct Tf32ColFrag {
+  uint32_t at[4];
+  bool on;
+  __device__ __forceinline__ Tf32ColFrag(uint32_t tile, int m0, int limit) {
+    const int lane = threadIdx.x % 32;
+    const int m = m0 + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+    on = m < limit;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      at[i] = tile + f32_sw128(kstep_row(lane % 4 + 4 * (i >> 1)),
+                               m + 8 * (i & 1), kRows);
+  }
+  // The same fragments over the tile `off` bytes further on.
+  __device__ __forceinline__ Tf32ColFrag moved(uint32_t off) const {
+    Tf32ColFrag f = *this;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f.at[i] += off;
+    return f;
+  }
+  // A predicated load, not a branch: fragment registers written on a
+  // divergent path make ptxas serialise the products (C7520).
+  __device__ __forceinline__ void load(int kk, float (&x)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\nmov.b32 %0, 0;\n"
+          "@p ld.shared.f32 %0, [%1];\n}\n"
+          : "=f"(x[i])
+          : "r"(at[i] + kk * 1024), "r"(static_cast<int>(on)));
+  }
+};
+
+// d (64 x N) += A B over kSteps k-steps in 3xTF32 (d = A B where
+// scale_first is 0: the first product overwrites d): A's raw fragment of
 // k-step kk from frag.load(kk, x) (Tf32RowFrag or the like), split in
 // registers; B's hi and lo tiles (K-major, rowsB rows of 32-column boxes)
-// at b_hi, b_lo.  Pipelined so that no wait falls on a load: while
-// k-step kk's three products run, k-step kk + 1's fragment (loaded an
-// iteration earlier) is split into the buffer that kk - 1's products have
-// released, and kk + 2's is loaded.
+// at b_hi, b_lo.
+// Pipelined so that no wait falls on a load: while k-step kk's three
+// products run, k-step kk + 1's fragment (loaded an iteration earlier) is
+// split into the buffer that kk - 1's products have released, and kk + 2's
+// is loaded.
 template <int N, int kSteps, typename Frag>
 __device__ __forceinline__ void mma_3xtf32(float (&d)[N / 2],
                                            const Frag& frag, uint32_t b_hi,
-                                           uint32_t b_lo, int rowsB) {
+                                           uint32_t b_lo, int rowsB,
+                                           int scale_first = 1) {
   float raw[4];
   uint32_t hi[2][4], lo[2][4];
   auto split = [&](int b) {
@@ -637,7 +693,8 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[N / 2],
     const int b = kk & 1;
     const uint32_t off = (kk / 4) * rowsB * 128 + (kk % 4) * 32;
     wgmma_fence();
-    wgmma_tf32_rs<N>(d, hi[b], wgmma_desc(b_hi + off, 16));
+    wgmma_tf32_rs<N>(d, hi[b], wgmma_desc(b_hi + off, 16),
+                     kk == 0 ? scale_first : 1);
     wgmma_tf32_rs<N>(d, hi[b], wgmma_desc(b_lo + off, 16));
     wgmma_tf32_rs<N>(d, lo[b], wgmma_desc(b_hi + off, 16));
     wgmma_commit();

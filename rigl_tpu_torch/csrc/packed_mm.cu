@@ -9,7 +9,8 @@
 //       packed_mm_kernel for a bf16 contraction that 64 does not divide.
 //   the dw kernels                  behind `packed_dw`:
 //       dw[s] = x[:, rows[s]*bk : +bk]ᵀ @ gy[:, cols[s]*bn : +bn]:
-//       packed_dw_wgmma_kernel (bf16) or packed_dw_ffma_kernel (f32), and
+//       packed_dw_wgmma_kernel (bf16) or packed_dw_3xtf32_kernel (f32), at
+//       the tile the caller names (dispatch_dw), and
 //       packed_dw_reduce_kernel where the m-sum is split.
 //
 // Replaces the TPU kernels of rigl_tpu/ops/pallas/block_sparse_packed.py:
@@ -137,10 +138,30 @@
 // comes from cudaGetDriverEntryPoint, so the library links nothing beyond
 // the CUDA runtime.
 //
-// packed_dw_ffma_kernel (f32).  64 x 64 tiles, scalar FMA with no TF32
-// (the f32 checks hold it to summation order), m in chunks of 16 through a
-// 3-deep cp.async ring: A = the x chunk, (m-chunk x bk-tile) row-major,
-// B = the gy chunk.  It takes the same split.
+// packed_dw_3xtf32_kernel (f32): f32-accurate products on the tensor cores in
+// error-compensated TF32 (3xTF32: a b = a_hi b_hi + a_hi b_lo + a_lo b_hi,
+// hopper.cuh tf32_split), about 19 bits a product, where FMA from shared
+// memory ran at about 7 TFLOP/s and three TF32 passes cap at 165.  Tiles of TM
+// x TN, named by the caller (ops/block_sparse_packed.py dw_tile): 128 x 128
+// for blocks of 128 and up, narrower for narrow blocks (TM 64 for bk <= 64:
+// one consumer warpgroup; TN the narrowest of 16, 32, 64, 128 that holds bn).
+// tf32 wgmma reads shared memory only K-major, and both operands arrive with
+// m, the contraction, outermost: x is used as it lands, as the register A
+// operand xᵀ, loaded column-wise from the TMA box (hopper.cuh Tf32ColFrag: a
+// k-step's rows in the order 0, 2, 4, 6, 1, 3, 5, 7, so a warp's loads hit 32
+// banks) and split in registers while the previous k-step's products run
+// (mma_3xtf32); gy is transposed into K-major hi and lo B tiles of gyᵀ in each
+// ring stage, by three warps of their own (16-byte stores), so that the
+// consumer warpgroups only issue products.  A 3-4-deep ring of 32-row m-chunks
+// (32 x 32 boxes, 128-byte swizzle) is filled by TMA from one producer warp;
+// two consumer warpgroups (one at TM = 64) run wgmma m64nNk8 tf32 (N = TN),
+// three passes a k-step, 4 k-steps a stage, into an accumulator started afresh
+// every 4 stages and added to the tile's f32 sum (the tensor cores' own
+// accumulation drops low bits: over thousands of products its error would grow
+// past the f32 checks); one thread block an SM (192 KB of shared memory at 128
+// x 128).  At 128 x 128 a stage's 32 KB of x and gy feed 1 MFLOP of
+// f32-accurate products (3 of tf32).  Outputs go from the fragments to dw (or
+// the partial tile) as float2s.  It takes the same split.
 //
 // Dense storage.  The same kernels also read W in place as the (K, N)
 // matrix of a dense-masked layer, only at its active blocks (`dense_mm_fwd`,
@@ -235,69 +256,46 @@ template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
 using MmRing = Ring<T, BM, BN, BM, BK, kTransW ? BN : BK, kTransW ? BK : BN,
                     STAGES>;
 
-// dw: A = the x chunk (BK x BM), B = the gy chunk (BK x BN).
-template <typename T, int BM, int BN, int BK, int STAGES>
-using DwRing = Ring<T, BM, BN, BK, BM, BK, BN, STAGES>;
-
-// The accumulators of one thread: WMMA fragments (bf16) or BM*BN/kThreads
-// scalars (f32), and the epilogue that writes the (BM x BN) tile at `out`
-// (row stride ld), masked to rows < row_lim and columns < col_lim, cast once.
-template <typename T, int BM, int BN>
+// The WMMA accumulators of one thread (bf16 products, f32 sums), and the
+// epilogue that writes the (BM x BN) tile at `out` (row stride ld), masked
+// to rows < row_lim and columns < col_lim, cast once to bf16.
+template <int BM, int BN>
 struct Acc {
-  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int FM = BM / 32, FN = BN / 32;  // 16x16 frags per warp
-  static constexpr int kPer = BM * BN / kThreads;   // f32: outputs / thread
   using Frag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
                                       float>;
-  Frag frag[kBf16 ? FM : 1][kBf16 ? FN : 1];
-  float scalar[kBf16 ? 1 : kPer];
+  Frag frag[FM][FN];
 
   __device__ __forceinline__ void zero() {
-    if constexpr (kBf16) {
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
+    for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j)
-          nvcuda::wmma::fill_fragment(frag[i][j], 0.f);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) scalar[i] = 0.f;
-    }
+      for (int j = 0; j < FN; ++j)
+        nvcuda::wmma::fill_fragment(frag[i][j], 0.f);
   }
 
   // Call after the ring is idle and every thread has passed a barrier: the
-  // bf16 path stages its fragments through the ring's shared memory.  The
-  // f32 path may store into an f32 workspace (O = float) of any T.
-  template <typename O>
-  __device__ __forceinline__ void store(unsigned char* smem, O* out, int ld,
+  // fragments are staged through the ring's shared memory.
+  __device__ __forceinline__ void store(unsigned char* smem,
+                                        __nv_bfloat16* out, int ld,
                                         int row_lim, int col_lim) {
     const int tid = threadIdx.x;
-    if constexpr (kBf16) {
-      constexpr int kOld = BN + 8;
-      const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
-      float* os = reinterpret_cast<float*>(smem);
+    constexpr int kOld = BN + 8;
+    const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
+    float* os = reinterpret_cast<float*>(smem);
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
+    for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j)
-          nvcuda::wmma::store_matrix_sync(
-              os + (wr * (BM / 2) + i * 16) * kOld + wc * (BN / 2) + j * 16,
-              frag[i][j], kOld, nvcuda::wmma::mem_row_major);
-      __syncthreads();
-      for (int idx = tid; idx < BM * BN; idx += kThreads) {
-        const int r = idx / BN, c = idx % BN;
-        if (r < row_lim && c < col_lim)
-          out[static_cast<size_t>(r) * ld + c] =
-              __float2bfloat16(os[r * kOld + c]);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / BN, c = idx % BN;
-        if (r < row_lim && c < col_lim)
-          out[static_cast<size_t>(r) * ld + c] = static_cast<O>(scalar[i]);
-      }
+      for (int j = 0; j < FN; ++j)
+        nvcuda::wmma::store_matrix_sync(
+            os + (wr * (BM / 2) + i * 16) * kOld + wc * (BN / 2) + j * 16,
+            frag[i][j], kOld, nvcuda::wmma::mem_row_major);
+    __syncthreads();
+    for (int idx = tid; idx < BM * BN; idx += kThreads) {
+      const int r = idx / BN, c = idx % BN;
+      if (r < row_lim && c < col_lim)
+        out[static_cast<size_t>(r) * ld + c] =
+            __float2bfloat16(os[r * kOld + c]);
     }
   }
 };
@@ -378,7 +376,7 @@ __global__ void __launch_bounds__(kThreads)
                            bk - k0, bn - n0, w);
   };
 
-  using A = Acc<T, BM, BN>;
+  using A = Acc<BM, BN>;
   A acc;
   acc.zero();
   const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
@@ -453,92 +451,6 @@ __device__ __forceinline__ float* dw_partial(float* ws, int tile_elems) {
                   tile_elems;
 }
 
-// ---- packed_dw_ffma_kernel (f32) ------------------------------------------
-// Thread block (s, tile, slice) computes the (BM x BN) tile at (r0, c0) of
-// x[:, rows[s]*bk + r0 ..]ᵀ @ gy[:, cols[s]*bn + c0 ..] over the slice's
-// rows [z * slice_rows, min(m, (z + 1) * slice_rows)); x is (m, K), gy is
-// (m, N).  With ws null (one slice) it writes the block of dw_block; with
-// ws it writes the f32 partial tile.  An entry with flags[s] == 0 (flags
-// non-null) writes nothing.
-template <int BM, int BN, int BK, int STAGES>
-__global__ void __launch_bounds__(kThreads)
-    packed_dw_ffma_kernel(const float* __restrict__ x,
-                          const float* __restrict__ gy,
-                          const int* __restrict__ rows,
-                          const int* __restrict__ cols,
-                          const int* __restrict__ flags,
-                          float* __restrict__ dw, float* __restrict__ ws,
-                          int m, int K, int N, int bk, int bn, int dense,
-                          int slice_rows) {
-  using L = DwRing<float, BM, BN, BK, STAGES>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int s = blockIdx.x;
-  if (flags && flags[s] == 0) return;   // uniform: before any barrier
-  const int tiles_n = (bn + BN - 1) / BN;
-  const int r0 = (blockIdx.y / tiles_n) * BM;
-  const int c0 = (blockIdx.y % tiles_n) * BN;
-  const int m_begin = blockIdx.z * slice_rows;
-  const int m_end = min(m, m_begin + slice_rows);
-  const float* xa = x + static_cast<size_t>(rows[s]) * bk + r0;
-  const float* ga = gy + static_cast<size_t>(cols[s]) * bn + c0;
-  const int total = (m_end - m_begin + BK - 1) / BK;
-
-  auto a_tile = [&](int st) {
-    return reinterpret_cast<float*>(smem + st * L::kStageBytes);
-  };
-  auto b_tile = [&](int st) {
-    return reinterpret_cast<float*>(smem + st * L::kStageBytes + L::kABytes);
-  };
-  auto load = [&](int it, int st) {
-    const int mm0 = m_begin + it * BK;
-    load_tile<float, BK, BM>(a_tile(st), L::kAld,
-                             xa + static_cast<size_t>(mm0) * K, K,
-                             m_end - mm0, bk - r0, x);
-    load_tile<float, BK, BN>(b_tile(st), L::kBld,
-                             ga + static_cast<size_t>(mm0) * N, N,
-                             m_end - mm0, bn - c0, gy);
-  };
-
-  using A = Acc<float, BM, BN>;
-  A acc;
-  acc.zero();
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < total) load(st, st);
-    cp_async_commit();
-  }
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = it + STAGES - 1;
-    if (next < total) load(next, next % STAGES);
-    cp_async_commit();
-    const float* xs = a_tile(it % STAGES);
-    const float* gs = b_tile(it % STAGES);
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-#pragma unroll
-      for (int i = 0; i < A::kPer; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / BN, c = idx % BN;
-        acc.scalar[i] += xs[k * L::kAld + r] * gs[k * L::kBld + c];
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (ws) {
-    acc.store(smem, dw_partial(ws, BM * BN), BN, BM, BN);
-  } else {
-    int ld;
-    float* out = dw_block(dw, rows, cols, s, N, bk, bn, dense, ld);
-    acc.store(smem, out + static_cast<size_t>(r0) * ld + c0, ld, bk - r0,
-              bn - c0);
-  }
-}
-
 // ---- packed_dw_wgmma_kernel (bf16) ----------------------------------------
 constexpr int kWgTile = 128;      // output tile: 128 x 128
 constexpr int kWgChunk = 64;      // m rows per ring stage
@@ -550,9 +462,12 @@ constexpr int kWgConsumers = 256;                    // two warpgroups
 constexpr int kWgThreads = kWgConsumers + 32;        // + the producer warp
 constexpr int kWgSmem = 1024 + kWgStages * kWgStageBytes + 2 * kWgStages * 8;
 
-// Thread block (s, tile, slice): the (128 x 128) tile at (r0, c0) of entry
-// s's block, over the slice's rows, as packed_dw_ffma_kernel computes it;
-// x and gy are read through the tensor maps tx (m, K) and tg (m, N).
+// Thread block (s, tile, slice) computes the (128 x 128) tile at (r0, c0)
+// of x[:, rows[s]*bk + r0 ..]ᵀ @ gy[:, cols[s]*bn + c0 ..] over the slice's
+// rows [z * slice_rows, min(m, (z + 1) * slice_rows)), x and gy read
+// through the tensor maps tx (m, K) and tg (m, N).  With ws null (one
+// slice) it writes the block of dw_block; with ws the f32 partial tile.  An
+// entry with flags[s] == 0 (flags non-null) writes nothing.
 // Threads 0-255 are two consumer warpgroups (rows 64 wg .. 64 wg + 63 of
 // the tile), 256-287 the producer warp, of which one thread issues TMA.
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -665,6 +580,243 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                     acc[4 * j + 2 * h + 1]);
       }
   }
+}
+
+// ---- packed_dw_3xtf32_kernel (f32) ----------------------------------------
+constexpr int kDwChunk = 32;                    // m rows a ring stage
+constexpr int kDwBoxBytes = kDwChunk * 128;     // a 32-row x 32-column box
+
+// The f32 dw's tile of TM x TN outputs: TM = 64 or 128 rows (one or two
+// consumer warpgroups), TN = 16, 32, 64 or 128 columns.  Threads: the
+// consumers, three warps that transpose gy, the producer warp: 384 at 128
+// rows, a whole number of warpgroups, so that a thread may hold 168
+// registers (a block's registers are shared out by warpgroup: a fourth
+// transposing warp would cut them to 128, and spill the consumers).  Shared
+// memory, from a 1024-aligned base: kStages stages of (x boxes, gy boxes,
+// gyᵀ hi, gyᵀ lo), then the barriers full (TMA arrival), tfull (gyᵀ
+// written) and empty (released by every consumer thread).
+template <int TM, int TN>
+struct DwTf32Plan {
+  static constexpr int kConsumers = 2 * TM;   // a warpgroup a 64 rows
+  static constexpr int kTransposers = 96;
+  static constexpr int kProducer = kConsumers + kTransposers;
+  static constexpr int kThreads = kProducer + 32;
+  // Stages a fresh accumulator takes before it is added to the tile's sum
+  // (128 rows of m, 48 products).
+  static constexpr int kFlush = 4;
+  static constexpr int kGyBoxes = TN < 32 ? 1 : TN / 32;
+  static constexpr int kGy = TM / 32 * kDwBoxBytes;   // the x boxes first
+  static constexpr int kHi = kGy + kGyBoxes * kDwBoxBytes;
+  static constexpr int kLo = kHi + TN * 128;   // TN rows of 32 positions
+  static constexpr int kStage = kLo + TN * 128;
+  static constexpr int kStages = 200 * 1024 / kStage < 4 ? 200 * 1024 / kStage
+                                                        : 4;
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int kSmem = 1024 + kBars + 3 * kStages * 8;
+  static_assert(TM == 64 || TM == 128, "one or two consumer warpgroups");
+  static_assert(TN == 16 || TN == 32 || TN == 64 || TN == 128, "tile width");
+  static_assert(kStage % 1024 == 0 && kStages >= 2, "stages");
+  static_assert(kSmem <= 227 * 1024, "shared memory per block");
+};
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The transpose of a stage's gy boxes (rows m of the chunk, columns n of
+// the tile) into gyᵀ as the K-major B tiles hi and lo (tf32_split): TN
+// rows of 32 positions, gy[m][n] at row n, position 8 (m / 8) +
+// kstep_pos(m % 8).  Its units are the chunk's (column n, k-step kk)
+// pairs, u = kk TN + n; thread t of the P::kTransposers takes units t + j
+// kTransposers (j < kPer), those below kUnits.  kTransposers is a multiple
+// of 32, so a thread's columns agree mod 32 (mod 16 at TN = 16), and its
+// addresses are computed once a tile: ld[v] the offset of row v of a
+// k-step in its column's box, gy[j] that of unit j's box and k-step,
+// st[j][h] that of unit j's 16-byte chunk of positions 4 h .. 4 h + 3
+// (rows h, h + 2, h + 4, h + 6) in row n of a B tile.  A warp's loads (32
+// columns of one row) and a quarter-warp's 16-byte stores (8 rows) fall on
+// distinct banks for TN >= 32; at TN = 16 a warp's two halves read the
+// same 16 banks.
+template <class P, int TN>
+struct DwTranspose {
+  static constexpr int kUnits = 4 * TN;
+  static constexpr int kPer =
+      (kUnits + P::kTransposers - 1) / P::kTransposers;
+  uint32_t ld[8];
+  uint32_t gy[kPer];
+  uint32_t st[kPer][2];
+  int units;   // this thread's units: j < units
+  __device__ __forceinline__ explicit DwTranspose(int t) {
+#pragma unroll
+    for (int v = 0; v < 8; ++v)
+      ld[v] = f32_sw128(v, t % (TN < 32 ? TN : 32), kDwChunk);
+    units = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int u = t + j * P::kTransposers;
+      const int n = u % TN;
+      const int kk = u / TN;
+      units += u < kUnits;
+      gy[j] = f32_sw128(8 * kk, n - n % 32, kDwChunk);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) st[j][h] = f32_sw128(n, 8 * kk + 4 * h, TN);
+    }
+  }
+  // Stage `stage`: gy at + P::kGy, hi at + P::kHi, lo at + P::kLo.  A
+  // unit's 8 loads are issued before its stores (the loads and stores are
+  // kept in program order), so that they wait for shared memory once.
+  __device__ __forceinline__ void run(uint32_t stage) const {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (j >= units) break;
+      const uint32_t g = stage + P::kGy + gy[j];
+      float x[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) x[v] = ld_shared_f32(g + ld[v]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tf32_split(x[2 * i + h], hi[i], lo[i]);
+        st_shared_v4(stage + P::kHi + st[j][h],
+                     make_uint4(hi[0], hi[1], hi[2], hi[3]));
+        st_shared_v4(stage + P::kLo + st[j][h],
+                     make_uint4(lo[0], lo[1], lo[2], lo[3]));
+      }
+    }
+  }
+};
+
+// Thread block (s, tile, slice): the (TM x TN) tile at (r0, c0) of entry s's
+// block, the 3xTF32 sum over the slice's rows of x[:, rows[s] bk + r0 ..]ᵀ
+// gy[:, cols[s] bn + c0 ..], x and gy read through the tensor maps tx (m, K)
+// and tg (m, N) in 32 x 32 boxes; as packed_dw_wgmma_kernel, with ws null
+// (one slice) the block of dw_block, with ws the f32 partial tile, and
+// nothing for flags[s] == 0.  Threads: the consumer warpgroups (rows 64 wg ..
+// 64 wg + 63 of the tile), the three transposing warps, the producer warp, of
+// which one thread issues TMA.  A consumer's A fragments (xᵀ: column r of the
+// x boxes over the chunk's rows in kstep_row order) come from Tf32ColFrag and
+// are split in registers; B is gyᵀ from the transpose; m64nTNk8 tf32 products
+// in three passes (hopper.cuh mma_3xtf32), 4 k-steps a stage.  The tensor
+// cores add into their f32 accumulator without rounding to nearest (low bits
+// are dropped), an error that grows with the number of products summed into
+// it: the products of every P::kFlush stages start a fresh accumulator
+// (`part`), added to the tile's sum with an ordinary f32 add, so the long sum
+// over m rounds as the plain version's does and a split changes only the
+// order of those adds.
+template <int TM, int TN>
+__global__ void __launch_bounds__(DwTf32Plan<TM, TN>::kThreads, 1)
+    packed_dw_3xtf32_kernel(const __grid_constant__ CUtensorMap tx,
+                            const __grid_constant__ CUtensorMap tg,
+                            const int* __restrict__ rows,
+                            const int* __restrict__ cols,
+                            const int* __restrict__ flags,
+                            float* __restrict__ dw, float* __restrict__ ws,
+                            int m, int N, int bk, int bn, int dense,
+                            int slice_rows) {
+  using P = DwTf32Plan<TM, TN>;
+  extern __shared__ unsigned char dw32_smem[];
+  const int s = blockIdx.x;
+  if (flags && flags[s] == 0) return;   // uniform: before any barrier
+  const int tiles_n = (bn + TN - 1) / TN;
+  const int r0 = (blockIdx.y / tiles_n) * TM;
+  const int c0 = (blockIdx.y % tiles_n) * TN;
+  const int m_begin = blockIdx.z * slice_rows;
+  const int total = (min(m, m_begin + slice_rows) - m_begin + kDwChunk - 1) /
+                    kDwChunk;
+  const int tid = threadIdx.x;
+  const uint32_t base = (smem_u32(dw32_smem) + 1023) & ~1023u;
+  const uint32_t full = base + P::kBars;
+  const uint32_t tfull = full + 8 * P::kStages;
+  const uint32_t empty = tfull + 8 * P::kStages;
+  if (tid == 0) {
+    for (int st = 0; st < P::kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(tfull + 8 * st, P::kTransposers);
+      mbar_init(empty + 8 * st, P::kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= P::kProducer) {   // the producer
+    if (tid == P::kProducer) {
+      const int xc = rows[s] * bk + r0, gc = cols[s] * bn + c0;
+      // Boxes wholly outside the block are not loaded: their stale rows
+      // and columns feed only outputs the store masks.
+      const int xb = min(TM / 32, (bk - r0 + 31) / 32);
+      const int gb = min(P::kGyBoxes, (bn - c0 + 31) / 32);
+      for (int it = 0; it < total; ++it) {
+        const int st = it % P::kStages;
+        if (it >= P::kStages)   // the consumers released round it/S - 1
+          mbar_wait(empty + 8 * st, ((it / P::kStages) - 1) & 1);
+        const uint32_t bar = full + 8 * st;
+        const uint32_t dst = base + st * P::kStage;
+        const int mm = m_begin + it * kDwChunk;
+        mbar_expect_tx(bar, (xb + gb) * kDwBoxBytes);
+        for (int b = 0; b < xb; ++b)
+          tma_load(dst + b * kDwBoxBytes, &tx, xc + 32 * b, mm, bar);
+        for (int b = 0; b < gb; ++b)
+          tma_load(dst + P::kGy + b * kDwBoxBytes, &tg, gc + 32 * b, mm, bar);
+      }
+    }
+    return;
+  }
+  if (tid >= P::kConsumers) {   // the transposing warps
+    const DwTranspose<P, TN> tr(tid - P::kConsumers);
+    for (int it = 0; it < total; ++it) {
+      const int st = it % P::kStages;
+      mbar_wait(full + 8 * st, (it / P::kStages) & 1);
+      tr.run(base + st * P::kStage);
+      fence_proxy_async();
+      mbar_arrive(tfull + 8 * st);
+    }
+    return;
+  }
+
+  const int wg = tid / 128;   // this warpgroup's 64 rows of the tile
+  float acc[TN / 2], part[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = part[i] = 0.f;
+  const Tf32ColFrag<kDwChunk> frag(base + wg * 2 * kDwBoxBytes, 0, 64);
+  for (int it = 0; it < total; ++it) {
+    const int st = it % P::kStages, phase = (it / P::kStages) & 1;
+    const uint32_t stage = base + st * P::kStage;
+    mbar_wait(full + 8 * st, phase);
+    mbar_wait(tfull + 8 * st, phase);
+    const int age = it % P::kFlush;   // stages since `part` started
+    mma_3xtf32<TN, kDwChunk / 8>(part, frag.moved(st * P::kStage),
+                                 stage + P::kHi, stage + P::kLo, TN,
+                                 age == 0 ? 0 : 1);
+    if (age == P::kFlush - 1 || it == total - 1) {
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] += part[i];
+    }
+    mbar_arrive(empty + 8 * st);
+  }
+
+  // acc[4j + 2h + v] is row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane
+  // % 4) + v of the warpgroup's 64 x TN result.
+  const int lane = tid % 32;
+  const int row = 64 * wg + 16 * ((tid / 32) % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+  int ld = TN;
+  float* out = ws ? dw_partial(ws, TM * TN)
+                  : dw_block(dw, rows, cols, s, N, bk, bn, dense, ld);
+  if (!ws) out += static_cast<size_t>(r0) * ld + c0;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h, c = 8 * j + col;
+      // A partial tile is written whole; bn - c0 is a multiple of 4, so
+      // both columns of a pair are in the block or out.
+      if (ws || (r < bk - r0 && c < bn - c0))
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * ld + c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
 }
 
 // ---- packed_mm_wgmma_kernel (bf16) ----------------------------------------
@@ -1606,33 +1758,68 @@ cudaError_t launch_dw_bf16(const DwArgs& a) {
   return launch_reduce<__nv_bfloat16>(a, tiles, kWgTile, kWgTile);
 }
 
-template <int BM, int BN, int BK, int STAGES>
-cudaError_t launch_dw_f32(const DwArgs& a) {
-  constexpr int smem = DwRing<float, BM, BN, BK, STAGES>::kSmemBytes;
-  auto kernel = packed_dw_ffma_kernel<BM, BN, BK, STAGES>;
-  static std::atomic<uint64_t> allowed{0};
-  cudaError_t err = allow_smem(kernel, smem, allowed);
+// The f32 dw kernel at the tile (TM, TN): tensor maps over x (m, K) and
+// gy (m, N) in 32 x 32 boxes; grid (entries, tiles, slices).
+template <int TM, int TN>
+cudaError_t launch_dw_tf32(const DwArgs& a) {
+  using P = DwTf32Plan<TM, TN>;
+  if (a.slices > 1 && a.slice_rows % kDwChunk) return cudaErrorInvalidValue;
+  CUtensorMap tx, tg;
+  const cuuint32_t box[2] = {32, kDwChunk};
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(a.K),
+                               static_cast<cuuint64_t>(a.m)};
+  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(a.K) * 4};
+  cudaError_t err = f32_map_nd(&tx, a.x, 2, xdims, xstride, box);
   if (err != cudaSuccess) return err;
-  const int tiles = ((a.bk + BM - 1) / BM) * ((a.bn + BN - 1) / BN);
-  kernel<<<dim3(a.n_ent, tiles, a.slices), kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.x), static_cast<const float*>(a.gy),
-      a.rows, a.cols, a.flags, static_cast<float*>(a.dw),
-      a.slices > 1 ? a.ws : nullptr, a.m, a.K, a.N, a.bk, a.bn, a.dense,
-      a.slice_rows);
+  const cuuint64_t gdims[2] = {static_cast<cuuint64_t>(a.N),
+                               static_cast<cuuint64_t>(a.m)};
+  const cuuint64_t gstride[1] = {static_cast<cuuint64_t>(a.N) * 4};
+  err = f32_map_nd(&tg, a.gy, 2, gdims, gstride, box);
+  if (err != cudaSuccess) return err;
+  auto kernel = packed_dw_3xtf32_kernel<TM, TN>;
+  static std::atomic<uint64_t> allowed{0};
+  err = allow_smem(kernel, P::kSmem, allowed);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((a.bk + TM - 1) / TM) * ((a.bn + TN - 1) / TN);
+  kernel<<<dim3(a.n_ent, tiles, a.slices), P::kThreads, P::kSmem,
+           a.stream>>>(tx, tg, a.rows, a.cols, a.flags,
+                       static_cast<float*>(a.dw),
+                       a.slices > 1 ? a.ws : nullptr, a.m, a.N, a.bk, a.bn,
+                       a.dense, a.slice_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce<float>(a, tiles, BM, BN);
+  return launch_reduce<float>(a, tiles, TM, TN);
 }
 
-int dispatch_dw(const DwArgs& a, int dtype) {
+// The dw tiles, in the order of ops/block_sparse_packed.py DW_TILES; the
+// caller names one by the rule of dw_tile there.  bf16 takes kDwBf16 (128
+// x 128, packed_dw_wgmma_kernel); f32 the others, packed_dw_3xtf32_kernel
+// at that tile.  A tile that cannot take the dtype is refused with
+// cudaErrorInvalidValue.
+enum DwTile {
+  kDwBf16 = 0, kDw128x128 = 1, kDw128x64 = 2, kDw128x32 = 3, kDw128x16 = 4,
+  kDw64x128 = 5, kDw64x64 = 6, kDw64x32 = 7, kDw64x16 = 8
+};
+
+int dispatch_dw(const DwArgs& a, int dtype, int tile) {
   if (a.m <= 0 || a.n_ent <= 0 || a.slices <= 0 || a.slice_rows <= 0 ||
       (a.slices > 1 && !a.ws))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1)
-    err = launch_dw_bf16(a);
-  else if (dtype == 0)
-    err = launch_dw_f32<64, 64, 16, 3>(a);
+  if (dtype == 1) {
+    if (tile == kDwBf16) err = launch_dw_bf16(a);
+  } else if (dtype == 0) {
+    switch (tile) {
+      case kDw128x128: err = launch_dw_tf32<128, 128>(a); break;
+      case kDw128x64: err = launch_dw_tf32<128, 64>(a); break;
+      case kDw128x32: err = launch_dw_tf32<128, 32>(a); break;
+      case kDw128x16: err = launch_dw_tf32<128, 16>(a); break;
+      case kDw64x128: err = launch_dw_tf32<64, 128>(a); break;
+      case kDw64x64: err = launch_dw_tf32<64, 64>(a); break;
+      case kDw64x32: err = launch_dw_tf32<64, 32>(a); break;
+      case kDw64x16: err = launch_dw_tf32<64, 16>(a);
+    }
+  }
   return static_cast<int>(err);
 }
 
@@ -1682,12 +1869,12 @@ extern "C" int packed_mm_dx(const void* gy, const void* w,
 extern "C" int packed_dw(const void* x, const void* gy, const void* rows,
                          const void* cols, void* dw, void* ws, int m, int K,
                          int N, int n_act, int bk, int bn, int slices,
-                         int slice_rows, int dtype, void* stream) {
+                         int slice_rows, int tile, int dtype, void* stream) {
   return dispatch_dw({x, gy, static_cast<const int*>(rows),
                       static_cast<const int*>(cols), nullptr, dw,
                       static_cast<float*>(ws), m, K, N, n_act, bk, bn, 0,
                       slices, slice_rows, static_cast<cudaStream_t>(stream)},
-                     dtype);
+                     dtype, tile);
 }
 
 // Dense storage: W is the (K, N) matrix itself, row-major, and only its
@@ -1733,12 +1920,12 @@ extern "C" int dense_mm_dx(const void* gy, const void* w, const void* beg,
 extern "C" int dense_dw(const void* x, const void* gy, const void* rows,
                         const void* cols, const void* flags, void* dw,
                         void* ws, int m, int K, int N, int n_ent, int bk,
-                        int bn, int slices, int slice_rows, int dtype,
-                        void* stream) {
+                        int bn, int slices, int slice_rows, int tile,
+                        int dtype, void* stream) {
   return dispatch_dw({x, gy, static_cast<const int*>(rows),
                       static_cast<const int*>(cols),
                       static_cast<const int*>(flags), dw,
                       static_cast<float*>(ws), m, K, N, n_ent, bk, bn, 1,
                       slices, slice_rows, static_cast<cudaStream_t>(stream)},
-                     dtype);
+                     dtype, tile);
 }

@@ -32,8 +32,10 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            the dw kernels:
                                                            packed_dw_wgmma_
                                                            kernel (bf16),
-                                                           packed_dw_ffma_
-                                                           kernel (f32), and
+                                                           packed_dw_3xtf32_
+                                                           kernel (f32, at
+                                                           the tile dw_tile
+                                                           names), and
                                                            packed_dw_reduce_
                                                            kernel where the
                                                            m-sum is split

@@ -13,7 +13,7 @@ inactive blocks.  Here forward and dx run on the mm kernels of
 csrc/packed_mm.cu in their dense storage mode over the occupancy's entry
 lists (block_sparse_v3.occupancy_lists), which visit only the active
 blocks; dx reads W transposed in place where JAX builds w.T.  dw runs on
-the dw kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel`
+the dw kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_3xtf32_kernel`
 in f32, their m-sum split as block_sparse_packed.dw_plan says) in their
 dense mode over every block of the grid with its occupancy as the flag
 (block_sparse_v3.occupancy_dw_entries), into a zeroed (K, N).  JAX pads

@@ -19,9 +19,10 @@ contraction split over a cluster by ops/mm_split.py `decode_plan`,
 `packed_mm_wgmma_kernel` in bf16, `packed_mm_ffma_kernel` in f32,
 `packed_mm_kernel` for a bf16 contraction that 64 does not divide) and the
 dw kernels (replacing `_dw_kernel` / `_dw_panel_kernel`:
-`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel` in f32, each
-with its m-sum split over thread blocks by `dw_plan` and the partials
-added in slice order by `packed_dw_reduce_kernel`).  The kernels read CSR
+`packed_dw_wgmma_kernel` in bf16, `packed_dw_3xtf32_kernel` in f32 at the
+tile `dw_tile` names, each with its m-sum split over thread blocks by
+`dw_plan` and the partials added in slice order by
+`packed_dw_reduce_kernel`).  The kernels read CSR
 indices of the actives (`Packing.column_index`, `row_index`, `dw_index`),
 built once per Packing and device and cached on the Packing, as is the
 longest column the decode plan reads (`Packing.longest`).
@@ -314,29 +315,56 @@ def mm_branch(m: int, seg: int, dtype) -> str:
     return 'ffma'
   return 'wgmma' if seg % MM_WGMMA_CHUNK == 0 else 'tiled'
 
-# The dw kernels' (tile rows, tile columns, m chunk, thread blocks an SM):
-# bf16 runs packed_dw_wgmma_kernel (132 KB of shared memory a block), f32
-# packed_dw_ffma_kernel (168 registers of 128 threads) (csrc/packed_mm.cu).
+# The dw kernels' (largest tile rows, tile columns, m chunk, thread blocks
+# an SM) (csrc/packed_mm.cu): bf16 runs packed_dw_wgmma_kernel at 128 x
+# 128 (132 KB of shared memory a block); f32 packed_dw_3xtf32_kernel, 32
+# rows of m a ring stage, one block of 384 threads an SM (192 KB of shared
+# memory at 128 x 128), at the tile dw_tile names.
 _DW_TILING = {torch.bfloat16: (128, 128, 64, 1),
-              torch.float32: (64, 64, 16, 3)}
+              torch.float32: (128, 128, 32, 1)}
+# The dw kernels' tiles (csrc/packed_mm.cu DwTile, by their codes: the
+# position here), named by `dw_tile`: bf16's, then f32's (rows, columns).
+DW_TILES = ((128, 128), (128, 128), (128, 64), (128, 32), (128, 16),
+            (64, 128), (64, 64), (64, 32), (64, 16))
+# The f32 tile widths, narrowest first.
+DW_F32_WIDTHS = (16, 32, 64, 128)
+
+
+def dw_tile(block: Tuple[int, int], dtype) -> int:
+  """The code of the dw tile for blocks of `block` in `dtype` (its
+  position in DW_TILES): bf16 128 x 128 (code 0); f32 64 rows for a block
+  of 64 rows or fewer (one consumer warpgroup), else 128, and the
+  narrowest of DW_F32_WIDTHS that holds the block's columns, 128 for
+  blocks wider than that, so that a narrow block does not take a tile it
+  mostly masks."""
+  if dtype == torch.bfloat16:
+    return 0
+  bk, bn = block
+  tn = next((w for w in DW_F32_WIDTHS if w >= bn), DW_F32_WIDTHS[-1])
+  return DW_TILES.index((64 if bk <= 64 else 128, tn), 1)
 
 
 class DwPlan(NamedTuple):
   """How one dw call splits its m-sum (ops/dw_split.py): `slices` slices
   of `slice_rows` rows, the first kernel's grid (entries, tiles per entry,
-  slices) and the bytes of its f32 workspace (0 with one slice: no
-  workspace and no reduction kernel)."""
+  slices), the bytes of its f32 workspace (0 with one slice: no workspace
+  and no reduction kernel) and, for the block dw kernels, its tile's code
+  (DW_TILES; None for the tap dw)."""
   slices: int
   slice_rows: int
   grid: Tuple[int, int, int]
   workspace_bytes: int
+  tile: Optional[int] = None
 
 
 def dw_plan(m: int, n_entries: int, block: Tuple[int, int], dtype,
             sm_count: int) -> DwPlan:
   """The plan of the packed and dense dw kernels for m rows, n_entries
-  blocks of `block` in `dtype`, on a card of sm_count SMs."""
-  tm, tn, chunk, per_sm = _DW_TILING[dtype]
+  blocks of `block` in `dtype`, on a card of sm_count SMs, at the tile
+  dw_tile names."""
+  _, _, chunk, per_sm = _DW_TILING[dtype]
+  tile = dw_tile(block, dtype)
+  tm, tn = DW_TILES[tile]
   tiles = -(-block[0] // tm) * -(-block[1] // tn)
   # A partial tile's bytes over a chunk's: tm tn f32 over chunk (tm + tn).
   partial = tm * tn * 4 / (chunk * (tm + tn) * dtype.itemsize)
@@ -344,7 +372,8 @@ def dw_plan(m: int, n_entries: int, block: Tuple[int, int], dtype,
                                partial)
   return DwPlan(slices, dw_split.slice_rows(m, chunk, slices),
                 (n_entries, tiles, slices),
-                0 if slices == 1 else slices * n_entries * tiles * tm * tn * 4)
+                0 if slices == 1 else slices * n_entries * tiles * tm * tn * 4,
+                tile)
 
 
 def dw_workspace(plan: DwPlan, device) -> Tuple[Optional[torch.Tensor], int]:
@@ -374,7 +403,7 @@ def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu: pointers, then ints,
   then the stream; returns the CUDA error code of the launch."""
   n_ptrs, n_ints = {'packed_mm_fwd': (5, 9), 'packed_mm_dx': (6, 9),
-                    'packed_dw': (6, 9), 'dense_dw': (7, 9)}[name]
+                    'packed_dw': (6, 10), 'dense_dw': (7, 10)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                  + [ctypes.c_void_p])
@@ -479,13 +508,13 @@ def packed_matmul_dx_cuda(gy: torch.Tensor, w_packed: torch.Tensor,
 def dw_launch(x: torch.Tensor, gy: torch.Tensor, rows: torch.Tensor,
               cols: torch.Tensor, flags: Optional[torch.Tensor],
               dw: torch.Tensor, block: Tuple[int, int], dense: bool):
-  """Launches the dw kernels into `dw` on the current stream, split as
-  dw_plan says: entry s is block (rows[s], cols[s]) of xᵀ @ gy, x (m, K)
-  and gy (m, N); packed storage (dense False) writes dw[s] of (n_entries,
-  bk, bn), dense storage block (rows[s], cols[s]) of a (K, N) dw, skipping
-  the entries with flags[s] == 0 where flags is given.  The caller has
-  checked the operands (one CUDA device and dtype, contiguous, 16-byte
-  aligned, int32 indices there) and counts the call."""
+  """Launches the dw kernels into `dw` on the current stream, at the tile
+  and split dw_plan names: entry s is block (rows[s], cols[s]) of xᵀ @ gy,
+  x (m, K) and gy (m, N); packed storage (dense False) writes dw[s] of
+  (n_entries, bk, bn), dense storage block (rows[s], cols[s]) of a (K, N)
+  dw, skipping the entries with flags[s] == 0 where flags is given.  The
+  caller has checked the operands (one CUDA device and dtype, contiguous,
+  16-byte aligned, int32 indices there) and counts the call."""
   m, kdim = x.shape
   bk, bn = block
   n_ent = int(rows.shape[0])
@@ -496,7 +525,7 @@ def dw_launch(x: torch.Tensor, gy: torch.Tensor, rows: torch.Tensor,
     ptrs.append(0 if flags is None else flags.data_ptr())
   _launch('dense_dw' if dense else 'packed_dw', *ptrs, dw.data_ptr(), ws, m,
           kdim, gy.shape[1], n_ent, bk, bn, plan.slices, plan.slice_rows,
-          _DTYPE_CODE[x.dtype],
+          plan.tile, _DTYPE_CODE[x.dtype],
           torch.cuda.current_stream(x.device).cuda_stream)
 
 

@@ -15,8 +15,8 @@ matrix of a dense-masked layer; a (K/bk, N/bn) occupancy says which of its
 
 Both products run on the mm kernels of csrc/packed_mm.cu (the branch by
 block_sparse_packed.mm_branch) in their dense storage mode (replacing the TPU kernel `_v3_kernel`), and the gathered dw
-on the dw kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel`
-in f32) in their dense mode (replacing `_dw_v2_kernel`).  A
+on the dw kernels (`packed_dw_wgmma_kernel` in bf16,
+`packed_dw_3xtf32_kernel` in f32) in their dense mode (replacing `_dw_v2_kernel`).  A
 kernel reads DenseLists: for every output block-column, a run of entries,
 each an input block-column and the element offset of its W block.  Here
 the runs come from `pack_block_indices` (column j's entries are

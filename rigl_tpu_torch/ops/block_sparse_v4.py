@@ -13,8 +13,8 @@ the expanded occupancy) or 'gather' (the active blocks only), as in v3.
 Forward and dx run on the mm kernels of csrc/packed_mm.cu (the branch by
 block_sparse_packed.mm_branch) in their dense storage mode (replacing the TPU kernel `_v4_kernel`: the same sums as v3's
 `_v3_kernel`, from the flat index form); the gathered dw on the dw
-kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_ffma_kernel` in f32)
-in their dense mode over the n_active packed blocks.  The
+kernels (`packed_dw_wgmma_kernel` in bf16, `packed_dw_3xtf32_kernel` in
+f32) in their dense mode over the n_active packed blocks.  The
 per-column entry lists are a CSR built on the device from the packing
 (flat_lists), with no wait for the device: the forward groups the actives
 by column, as packed, dx by block-row (a stable sort, JAX's

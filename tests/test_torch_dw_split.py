@@ -11,6 +11,9 @@ test_torch_tap_conv.py and test_torch_dense_block_mm.py hold against JAX.
 Both sides sum the same f32 products in another order: 1e-5 of the
 largest value.  No JAX here."""
 
+import re
+from pathlib import Path
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -36,11 +39,14 @@ def _slice_bounds(length, chunk, slices):
 # --------------------------------------------------------------- the plan --
 PLAN_CASES = [
     # (tiles, length, chunk): the MLP's 13 blocks of 512 at m = 1024 in
-    # bf16 (16 tiles each) and f32 (64 each); RN50's largest 1x1 call (2
+    # bf16 (16 tiles each), in f32 on the FMA kernel of earlier designs
+    # (64 each, chunks of 16) and on the 3xTF32 kernel (16 each, chunks of
+    # 32); RN50's largest 1x1 call (2
     # blocks of 128 over 401408 rows) and its smallest (16 blocks over
     # 6272); WRN-22-2's first group on the tap kernel (4 groups of one
     # tile over 131072 pixels); and short or ragged sums.
-    (13 * 16, 1024, 64), (13 * 64, 1024, 16), (2, 401408, 64),
+    (13 * 16, 1024, 64), (13 * 64, 1024, 16), (13 * 16, 1024, 32),
+    (2, 401408, 64),
     (16, 6272, 64), (64, 6272, 16), (4, 131072, 256), (1, 100, 64),
     (3, 127, 64), (3, 128, 64), (5, 1000, 64), (1, 1, 16), (200, 5000, 64),
     (131, 10 ** 6, 64), (1, 10 ** 6, 256)]
@@ -84,6 +90,57 @@ def test_split_plan_keeps_the_grid_where_it_fills_the_card():
   assert rn50.slices > 1
   assert rn50.workspace_bytes == rn50.slices * 2 * 128 * 128 * 4
   assert rn50.grid == (2, 1, rn50.slices)
+
+
+# ------------------------------------------------------------- the tiles --
+# (block, f32 tile): the MLP's and the transformer's 512, RN50's 128, the
+# card tests' narrow and ragged blocks, WRN-22-2's 16.
+TILE_CASES = [((512, 512), (128, 128)), ((128, 128), (128, 128)),
+              ((256, 128), (128, 128)), ((192, 64), (128, 64)),
+              ((96, 96), (128, 128)), ((64, 32), (64, 32)),
+              ((32, 64), (64, 64)), ((16, 8), (64, 16)), ((16, 16), (64, 16)),
+              ((16, 48), (64, 64)), ((128, 16), (128, 16)),
+              ((1024, 256), (128, 128))]
+
+
+@pytest.mark.parametrize('block,tile', TILE_CASES)
+def test_dw_tile_rule(block, tile):
+  """f32 takes 64 rows for blocks of 64 rows or fewer, else 128, and the
+  narrowest of 16 / 32 / 64 / 128 columns that holds the block (128 past
+  it); bf16 takes its 128 x 128 tile whatever the block."""
+  code = tbsp.dw_tile(block, torch.float32)
+  assert code > 0 and tbsp.DW_TILES[code] == tile
+  assert tbsp.dw_tile(block, torch.bfloat16) == 0
+  assert tbsp.DW_TILES[0] == tbsp._DW_TILING[torch.bfloat16][:2]
+  plan = tbsp.dw_plan(6272, 5, block, torch.float32, SMS)
+  tiles = -(-block[0] // tile[0]) * -(-block[1] // tile[1])
+  assert plan.tile == code and plan.grid == (5, tiles, plan.slices)
+  assert plan.workspace_bytes == (0 if plan.slices == 1 else
+                                  plan.slices * 5 * tiles * tile[0]
+                                  * tile[1] * 4)
+  assert plan.slice_rows % tbsp._DW_TILING[torch.float32][2] == 0
+
+
+def test_dw_tile_codes_match_dispatch_dw():
+  """DW_TILES in the order of csrc/packed_mm.cu's DwTile codes: kDwBf16,
+  then kDw<rows>x<columns>."""
+  source = (Path(tbsp.__file__).resolve().parents[1] / 'csrc'
+            / 'packed_mm.cu').read_text()
+  enum = re.search(r'enum DwTile \{([^}]*)\}', source).group(1)
+  codes = dict((name, int(code))
+               for name, code in re.findall(r'kDw(\w+) = (\d+)', enum))
+  assert codes.pop('Bf16') == 0
+  assert {f'{r}x{c}': i for i, (r, c) in enumerate(tbsp.DW_TILES)
+          if i > 0} == codes
+
+
+def test_f32_tiling_is_the_3xtf32_kernels():
+  """_DW_TILING's f32 entry: the largest tile 128 x 128, 32 rows of m a
+  ring stage (kDwChunk), one thread block an SM; the MLP's 13 blocks of
+  512 give 208 tiles, which keep S = 1 (two rounds of 132 SMs)."""
+  assert tbsp._DW_TILING[torch.float32] == (128, 128, 32, 1)
+  plan = tbsp.dw_plan(1024, 13, (512, 512), torch.float32, SMS)
+  assert plan.grid == (13, 16, 1) and plan.slice_rows == 1024
 
 
 # ------------------------------------------------------------ tap groups --

@@ -1367,6 +1367,105 @@ def test_dense_dw_split_at_the_largest_rn50_shape(cuda_device, monkeypatch):
   assert _split_agree(a, one, torch.bfloat16)
 
 
+# ----------------------------------- the f32 dw's tiles (3xTF32 wgmma) --
+# (block, f32 tile of dw_tile): every tile the rule names, each at a block
+# that takes it.
+F32_DW_TILES = [((512, 512), (128, 128)), ((192, 64), (128, 64)),
+                ((128, 32), (128, 32)), ((128, 16), (128, 16)),
+                ((64, 128), (64, 128)), ((32, 64), (64, 64)),
+                ((64, 32), (64, 32)), ((16, 16), (64, 16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('block,tile', F32_DW_TILES)
+@pytest.mark.parametrize('m', [5, 200, 4099])
+def test_f32_dw_tiles_match_plain_and_repeat_bitwise(cuda_device, monkeypatch,
+                                                    m, block, tile):
+  """packed_dw_3xtf32_kernel at each tile dw_tile names, unsplit and at S
+  = 3 (or as many slices as m has chunks): within the f32 tolerance of
+  the plain version, split within SPLIT_TOL of unsplit, and each call
+  bit-identical to a second; ragged m and m below one chunk."""
+  assert tbsp.DW_TILES[tbsp.dw_tile(block, torch.float32)] == tile
+  grid = (3, 2, 4)
+  packing = _packing(grid, m + block[1])
+  gen = torch.Generator().manual_seed(m + block[0])
+  x = torch.randn(m, grid[0] * block[0], generator=gen).to(cuda_device)
+  gy = torch.randn(m, grid[1] * block[1], generator=gen).to(cuda_device)
+  w = torch.zeros(grid[2], *block, device=cuda_device)
+  want = tbsp.packed_dw_reference(x, gy, packing, block)
+  got = {}
+  for slices in (1, 3):
+    _plan_slices(monkeypatch, slices)
+    before = tbsp.packed_dw_launches
+    a = tbsp.packed_dw_cuda(x, gy, w, packing, block)
+    b = tbsp.packed_dw_cuda(x, gy, w, packing, block)
+    torch.cuda.synchronize()
+    assert tbsp.packed_dw_launches == before + 2
+    assert torch.equal(a, b), slices
+    assert _rel(a, want) <= 1e-4, (slices, _rel(a, want))
+    got[slices] = a
+  assert _split_agree(got[1], got[3], torch.float32), _rel(got[1], got[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,cin,cout', [(131072, 16, 32), (32768, 32, 64),
+                                        (8192, 64, 128)])
+def test_f32_dw_at_wrn_1x1_shapes(cuda_device, m, cin, cout):
+  """WRN-22-2's three 1x1 shortcut convs at batch 128 (32 x 32, 16 x 16
+  and 8 x 8 pixels) at block (16, 16), half the blocks active, as
+  PackedConv1x1 calls the packed dw: the 64 x 16 tile, the planned split,
+  within the f32 tolerance of the plain version, bit-identical on
+  repeat."""
+  block = (16, 16)
+  assert tbsp.DW_TILES[tbsp.dw_tile(block, torch.float32)] == (64, 16)
+  nk, nn_ = cin // 16, cout // 16
+  packing = _packing((nk, nn_, max(1, nk * nn_ // 2)), m)
+  gen = torch.Generator(device=cuda_device).manual_seed(cin)
+  x = torch.randn(m, cin, generator=gen, device=cuda_device)
+  gy = torch.randn(m, cout, generator=gen, device=cuda_device)
+  w = torch.zeros(packing.n_active, *block, device=cuda_device)
+  a = tbsp.packed_dw_cuda(x, gy, w, packing, block)
+  b = tbsp.packed_dw_cuda(x, gy, w, packing, block)
+  torch.cuda.synchronize()
+  assert torch.equal(a, b)
+  assert _rel(a, tbsp.packed_dw_reference(x, gy, packing, block)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('slices', [1, 3])
+@pytest.mark.parametrize('where', ['x', 'gy'])
+@pytest.mark.parametrize('block', [(512, 512), (192, 64), (16, 16)])
+def test_f32_dw_keeps_nan(cuda_device, monkeypatch, block, where, slices):
+  """A NaN made on the card (0 / 0) in one element of x (row i0, column
+  k0 of the last active block's block-row) or of gy (row i0, column n0 of
+  its block-column) reaches exactly the dw entries the plain version puts
+  it in (column k0 of every entry in that block-row, or column n0 of every
+  entry in that block-column), unsplit and split, and no other: a box
+  that reads the NaN's columns for a neighbouring block feeds only outputs
+  the store masks.  Elsewhere the two agree within the f32 tolerance."""
+  _plan_slices(monkeypatch, slices)
+  grid, m = (3, 2, 4), 300
+  packing = _packing(grid, block[0] + slices)
+  gen = torch.Generator().manual_seed(block[1])
+  x = torch.randn(m, grid[0] * block[0], generator=gen).to(cuda_device)
+  gy = torch.randn(m, grid[1] * block[1], generator=gen).to(cuda_device)
+  nan = torch.zeros((), device=cuda_device) / 0.
+  i0 = m * 5 // 9
+  rows, cols = (int(t[-1]) for t in packing.dw_index('cpu'))
+  if where == 'x':
+    x[i0, rows * block[0] + block[0] // 3] = nan
+  else:
+    gy[i0, cols * block[1] + block[1] // 2 + 4] = nan
+  w = torch.zeros(grid[2], *block, device=cuda_device)
+  got = tbsp.packed_dw_cuda(x, gy, w, packing, block)
+  torch.cuda.synchronize()
+  want = tbsp.packed_dw_reference(x, gy, packing, block)
+  assert bool(torch.isnan(want).any())
+  assert torch.equal(torch.isnan(got), torch.isnan(want))
+  both = ~torch.isnan(want)
+  assert _rel(got[both], want[both]) <= 1e-4
+
+
 def _tap_groups_case(ksize, cin, cout, seed):
   """A tap packing, block (16, 16), whose first (cin-block, cout-block)
   pair holds every tap (groups of 9, and 25 taps in 9 + 9 + 7 at 5x5),

@@ -1,6 +1,7 @@
 """Error-compensated TF32 (3xTF32), the products of the f32 flash backward
-(rigl_tpu_torch/csrc/flash_attn.cu, section "f32"), modelled in plain
-torch on the CPU: no JAX, no card.
+(rigl_tpu_torch/csrc/flash_attn.cu, section "f32") and of the f32 dw
+(csrc/packed_mm.cu packed_dw_3xtf32_kernel, at the end of this file),
+modelled in plain torch on the CPU: no JAX, no card.
 
 The tensor cores read a tf32 operand as the top 19 bits of its f32
 pattern (10 mantissa bits, the rest ignored: truncation toward zero).
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from rigl_tpu_torch.ops import dw_split
 from rigl_tpu_torch.ops import flash_attention as tfa
 
 FLASH_F32_TOL = 1e-4
@@ -206,8 +208,8 @@ def _struct(name: str, src: str) -> str:
 
 
 f32_sw128 = _c_function('f32_sw128', 'r, c, rows', HOPPER)
-kstep_row = _c_function('kstep_row', 'i', FLASH)
-kstep_pos = _c_function('kstep_pos', 'row', FLASH)
+kstep_row = _c_function('kstep_row', 'i', HOPPER)
+kstep_pos = _c_function('kstep_pos', 'row', HOPPER)
 
 
 def _as_uint(x):
@@ -277,16 +279,15 @@ def _row_frag():
   return address
 
 
-def _col_frag():
-  """ColFrag<HD> over a tile at 0 (flash_attn.cu): address(tid, m0, kk,
-  i), and whether the load is on (m < HD)."""
-  body = _struct('ColFrag', FLASH)
+def _col_frag(rows=64):
+  """Tf32ColFrag<rows> over a tile at 0 (hopper.cuh): address(tid, m0, kk,
+  i) of fragment register i at k-step kk."""
+  body = _struct('Tf32ColFrag', HOPPER)
   m = _c_expr(r'const int m = (.*?);', body)
-  at = compile(_c_expr(r'at\[i\] = (.*?);', body), 'flash_attn.cu', 'eval')
-  load = compile(_c_expr(r'"r"\((at\[i\] .*?)\),', body), 'flash_attn.cu',
+  at = compile(_c_expr(r'at\[i\] = (.*?);', body), 'hopper.cuh', 'eval')
+  load = compile(_c_expr(r'"r"\((at\[i\] .*?)\),', body), 'hopper.cuh',
                  'eval')
-  funcs = {'f32_sw128': f32_sw128, 'kstep_row': kstep_row,
-           'kF32Stream': 64}
+  funcs = {'f32_sw128': f32_sw128, 'kstep_row': kstep_row, 'kRows': rows}
 
   @functools.cache
   def constructed(tid, m0):
@@ -338,7 +339,7 @@ def test_kstep_order_is_a_permutation_and_its_inverse():
 
 def test_fragment_loads_fall_on_distinct_banks():
   """Tf32RowFrag (over a streamed 64-row tile's columns, hd up to 128)
-  and ColFrag (over its rows in kstep_row order, the M columns in two
+  and Tf32ColFrag (over its rows in kstep_row order, the M columns in two
   m-tiles), as the source computes them: fragment register i of lane l
   in warp w reads A's element (16 w + l / 4 + 8 (i & 1), l % 4 + 4 (i >>
   1)) of its k-step (the tf32 A layout), and at every warp, k-step and
@@ -388,7 +389,7 @@ def test_transposed_writes_fall_on_distinct_banks():
 
 
 def test_transposed_product_order_matches():
-  """dVᵀ = dOᵀ P in the kernels' order: A from ColFrag (row 8 kk +
+  """dVᵀ = dOᵀ P in the kernels' order: A from Tf32ColFrag (row 8 kk +
   kstep_row(k) of the dO tile), B = Pᵀ at position 8 kk + k holding q
   row 8 kk + kstep_row(k) (written at kstep_pos): the k-steps sum the same
   terms as dOᵀ P."""
@@ -403,3 +404,294 @@ def test_transposed_product_order_matches():
     for kpos in range(8):
       got += np.outer(do[8 * kk + kstep_row(kpos)], bt[:, 8 * kk + kpos])
   np.testing.assert_allclose(got, do.T @ p, rtol=1e-12, atol=1e-12)
+
+
+# ---- the f32 dw: csrc/packed_mm.cu packed_dw_3xtf32_kernel ---------------
+# dw = xᵀ gy, summed over m in k-steps of 8 rows, each k-step's three tf32
+# products added to an f32 accumulator (a tile's, or a slice's partial,
+# the partials added in slice order).  Its shared-memory formulas are read
+# from the source: x as it lands is the register A operand (Tf32ColFrag
+# over a chunk of kDwChunk rows), gy is transposed by DwTranspose into
+# K-major hi / lo B tiles.
+MM = (CSRC / 'packed_mm.cu').read_text()
+DW_TOL = 1e-4        # the f32 dw's card tolerance, of max(1, max |plain|)
+DW_SPLIT_TOL = 1e-5  # split against unsplit, as the card tests hold it
+
+
+def _mm_int(name):
+  """An integer constant of packed_mm.cu, `constexpr int name = ...;`."""
+  env = {}
+  for const in ('kDwChunk', 'kDwBoxBytes'):
+    env[const] = eval(_c_expr(r'constexpr int ' + const + r' = (.*?);', MM),
+                      env)
+  return env[name]
+
+
+def _c_ternary(expr):
+  """A C expression whose `a ? b : c` are each parenthesised or the whole
+  expression, none nested, as Python (|| and && too)."""
+  expr = expr.replace(' || ', ' or ').replace(' && ', ' and ')
+  inner = r'\(([^()?]*?) \? ([^()?]*?) : ([^()?]*?)\)'
+  expr = re.sub(inner, r'((\2) if (\1) else (\3))', expr)
+  found = re.fullmatch(r'([^?]*?) \? ([^?]*?) : ([^?]*)', expr)
+  if not found:
+    return expr
+  return f'({found.group(2)}) if ({found.group(1)}) else ({found.group(3)})'
+
+
+def _dw_plan(tm, tn):
+  """DwTf32Plan<tm, tn>'s constants, each evaluated from its source line
+  in order."""
+  env = {'TM': tm, 'TN': tn, 'kDwChunk': _mm_int('kDwChunk'),
+         'kDwBoxBytes': _mm_int('kDwBoxBytes')}
+  body = _struct('DwTf32Plan', MM)
+  for name, expr in re.findall(r'static constexpr int (\w+) = (.*?);', body,
+                               re.S):
+    expr = _c_expr(r'(.*)', expr.replace('std::min', 'min'))
+    env[name] = eval(_c_ternary(expr), dict(env, min=min))
+  return env
+
+
+def _dw_transpose(tm, tn):
+  """(plan, [(thread t, [(j, h, i, gy offset, (m, n), hi offset in the B
+  tile)] for each of its loads in program order), ...]): DwTranspose<P,
+  TN> from its source, each load's gy offset turned back into its (row m,
+  column n) of the gy boxes, each store's offset kept."""
+  plan = _dw_plan(tm, tn)
+  body = _struct('DwTranspose', MM)
+
+  def expr(pattern):
+    return compile(_c_ternary(_c_expr(pattern, body).replace('P::', '')),
+                   'packed_mm.cu', 'eval')
+  consts = dict(plan, f32_sw128=f32_sw128)
+  for name in ('kUnits', 'kPer'):
+    consts[name] = eval(expr(r'static constexpr int ' + name + r' =(.*?);'),
+                        consts)
+  ld_e = expr(r'ld\[v\] = (.*?);')
+  u_e, n_e, kk_e = (expr(r'const int ' + v + r' = (.*?);')
+                    for v in ('u', 'n', 'kk'))
+  on_e = expr(r'units \+= (.*?);')
+  gy_e, st_e = expr(r'gy\[j\] = (.*?);'), expr(r'st\[j\]\[h\] = (.*?);')
+  g_e = expr(r'const uint32_t g = (.*?);')
+  load_e = expr(r'x\[v\] = ld_shared_f32\((.*?)\);')
+  elem_e = expr(r'tf32_split\(x\[(.*?)\],')
+  hi_e = expr(r'st_shared_v4\((stage \+ P::kHi \+ .*?),')
+  gy_at = {f32_sw128(m, c, plan['kDwChunk']): (m, c)
+           for m in range(plan['kDwChunk'])
+           for c in range(32 * plan['kGyBoxes'])}
+  out = []
+  for t in range(plan['kTransposers']):
+    env = dict(consts, t=t)
+    env['ld'] = [eval(ld_e, dict(env, v=v)) for v in range(8)]
+    gy, st, units = [], [], 0
+    for j in range(consts['kPer']):
+      env['j'] = j
+      env['u'] = eval(u_e, env)
+      env['n'], env['kk'] = eval(n_e, env), eval(kk_e, env)
+      units += bool(eval(on_e, env))
+      gy.append(eval(gy_e, env))
+      st.append([eval(st_e, dict(env, h=h)) for h in range(2)])
+    env.update(gy=gy, st=st)
+    loads = []
+    for j in range(units):
+      for h in range(2):
+        store = eval(hi_e, dict(env, j=j, h=h, stage=0)) - plan['kHi']
+        g = eval(g_e, dict(env, j=j, stage=0)) - plan['kGy']
+        for i in range(4):
+          v = eval(elem_e, dict(env, h=h, i=i))
+          offset = eval(load_e, dict(env, j=j, v=v, g=g))
+          loads.append((j, h, i, offset, gy_at[offset], store + 4 * i))
+    out.append((t, loads))
+  return plan, out
+
+
+# (tm, tn): every tile dw_tile names.
+DW_VARIANTS = [(tm, tn) for tm in (64, 128) for tn in (16, 32, 64, 128)]
+
+
+def _rz(x64):
+  """x64 (float64) to float32 toward zero: the tensor cores' f32
+  accumulation modelled as dropping the low bits of each sum."""
+  y = x64.float()
+  over = y.double().abs() > x64.abs()
+  return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _dw3(x, gy, chunk, slices=1, fresh=True):
+  """xᵀ gy as the kernel sums it: each slice of whole chunks
+  (dw_split.slice_rows) in k-steps of 8 rows, rows past m zero; each
+  k-step's three tf32 products (a_hi b_hi, a_hi b_lo, a_lo b_hi), each an
+  exact sum of 8, added in turn to a tensor-core accumulator that drops
+  the low bits (_rz).  With `fresh`, as the kernel, that accumulator
+  starts afresh every kFlush chunks (DwTf32Plan) and is added
+  to the slice's f32 sum (rounded to nearest); without, one accumulator
+  takes the whole slice.  The slices' partials are added in slice
+  order."""
+  steps_fresh = _dw_plan(128, 128)['kFlush'] * chunk // 8
+  m = x.shape[0]
+  rows = dw_split.slice_rows(m, chunk, slices)
+  total = None
+  for b in range(0, m, rows):
+    xs, gs = x[b:b + rows], gy[b:b + rows]
+    pad = -xs.shape[0] % chunk
+    xs = torch.cat([xs, xs.new_zeros(pad, xs.shape[1])])
+    gs = torch.cat([gs, gs.new_zeros(pad, gs.shape[1])])
+    (x_hi, x_lo), (g_hi, g_lo) = split(xs), split(gs)
+    steps = xs.shape[0] // 8
+
+    def per_step(a, g):
+      return torch.bmm(a.reshape(steps, 8, -1).mT.double(),
+                       g.reshape(steps, 8, -1).double())
+    terms = (per_step(x_hi, g_hi), per_step(x_hi, g_lo),
+             per_step(x_lo, g_hi))
+    acc = torch.zeros(x.shape[1], gy.shape[1])
+    tc = torch.zeros_like(acc)
+    for k in range(steps):
+      if fresh and k and k % steps_fresh == 0:
+        acc, tc = acc + tc, torch.zeros_like(acc)
+      for term in terms:
+        tc = _rz(tc.double() + term[k])
+    acc = acc + tc if fresh else tc
+    total = acc if total is None else total + acc
+  return total
+
+
+def test_dw_chunk_is_the_kernels_and_the_plans():
+  from rigl_tpu_torch.ops import block_sparse_packed as tbsp
+  assert _mm_int('kDwChunk') == tbsp._DW_TILING[torch.float32][2] == 32
+  assert _mm_int('kDwBoxBytes') == 32 * 128
+
+
+@pytest.mark.parametrize('m', [16384, 16381])
+def test_three_pass_dw_within_tolerance_of_f64(m):
+  """A long m over narrow K and N (K = 16, N = 32: the sums, not the
+  widths, carry the error), unsplit and in 3 slices: within DW_TOL of
+  float64 with the 10x margin, and split within DW_SPLIT_TOL of unsplit
+  with the same margin, where one tf32 pass misses DW_TOL (these measure
+  1.4e-6 to 1.6e-6, 7.3e-7 to 7.6e-7, and 7.0e-4 to 7.8e-4)."""
+  rng = np.random.default_rng(m)
+  x = torch.from_numpy(rng.standard_normal((m, 16), dtype=np.float32))
+  gy = torch.from_numpy(rng.standard_normal((m, 32), dtype=np.float32))
+  want = x.double().T @ gy.double()
+  scale = max(1.0, float(want.abs().max()))
+  chunk = _mm_int('kDwChunk')
+  got = {s: _dw3(x, gy, chunk, s) for s in (1, 3)}
+  for s, g in got.items():
+    err = float((g.double() - want).abs().max()) / scale
+    assert err * MARGIN <= DW_TOL, (s, err)
+  diff = float((got[1] - got[3]).abs().max()) / scale
+  assert diff * MARGIN <= DW_SPLIT_TOL, diff
+  one = float((tf32(x).T @ tf32(gy)).double().sub(want).abs().max()) / scale
+  assert one > DW_TOL, one
+
+
+def test_one_accumulator_over_m_misses_the_split_tolerance():
+  """Why the kernel starts its tensor-core accumulator afresh every few
+  chunks:
+  with one accumulator over the whole m-sum the dropped low bits add up
+  with the products summed, and at the card tests' m = 4099 split and
+  unsplit differ by more than DW_SPLIT_TOL (3.0e-5 here; 1.9e-5 to
+  2.5e-5 measured on the card with such a kernel), where the fresh
+  accumulators keep 10x within it (7.8e-7)."""
+  rng = np.random.default_rng(4099)
+  x = torch.from_numpy(rng.standard_normal((4099, 16), dtype=np.float32))
+  gy = torch.from_numpy(rng.standard_normal((4099, 32), dtype=np.float32))
+  scale = float((x.double().T @ gy.double()).abs().max())
+  chunk = _mm_int('kDwChunk')
+  for fresh, over in ((False, True), (True, False)):
+    a, b = (_dw3(x, gy, chunk, s, fresh) for s in (1, 3))
+    diff = float((a - b).abs().max()) / scale
+    assert (diff > DW_SPLIT_TOL) == over, (fresh, diff)
+    assert over or diff * MARGIN <= DW_SPLIT_TOL, (fresh, diff)
+
+
+@pytest.mark.parametrize('tm,tn', DW_VARIANTS)
+def test_dw_transpose_writes_each_element_once_where_the_fragments_read(
+    tm, tn):
+  """DwTranspose as the source computes it: every gy element (row m,
+  column n < TN) of a chunk is loaded by one thread once, a thread's
+  columns agreeing with it mod 32, and its hi / lo land at row n, position
+  8 (m / 8) + kstep_pos(m % 8) of the K-major B tile (f32_sw128 with TN
+  rows), where Tf32ColFrag's k-step order reads row m; lo sits P::kLo -
+  P::kHi past hi."""
+  plan, threads = _dw_transpose(tm, tn)
+  b_at = {f32_sw128(n, p, tn): (n, p) for n in range(tn) for p in range(32)}
+  seen = {}
+  for t, loads in threads:
+    for _, _, _, _, (m, n), store in loads:
+      assert n % 32 == t % min(tn, 32)
+      assert b_at[store] == (n, 8 * (m // 8) + kstep_pos(m % 8))
+      assert (m, n) not in seen
+      seen[(m, n)] = t
+  assert set(seen) == {(m, n) for m in range(32) for n in range(tn)}
+  assert plan['kLo'] - plan['kHi'] == tn * 128
+
+
+@pytest.mark.parametrize('tm,tn', DW_VARIANTS)
+def test_dw_transpose_falls_on_distinct_banks(tm, tn):
+  """A warp's loads of one (j, h, i) fall on 32 distinct banks (16 at TN
+  = 16, where the warp's halves read one row's 16 columns each); each
+  quarter-warp's 16-byte stores on 8 distinct 16-byte bank groups."""
+  plan, threads = _dw_transpose(tm, tn)
+  for w in range(plan['kTransposers'] // 32):
+    warp = [threads[t] for t in range(32 * w, 32 * w + 32)]
+    counts = {len(lanes) for _, lanes in warp}
+    assert len(counts) == 1   # every lane of a warp takes as many units
+    for step in range(counts.pop()):
+      loads = [lanes[step] for _, lanes in warp]
+      assert _banks([l[3] for l in loads]) == (16 if tn == 16 else 32)
+      if loads[0][2] == 0:   # the 16-byte store of (j, h)
+        for q in range(4):
+          groups = {(l[5] // 16) % 8 for l in loads[8 * q:8 * q + 8]}
+          assert len(groups) == 8
+
+
+def test_dw_fragments_read_the_x_box_in_kstep_order():
+  """The consumers' A fragments, Tf32ColFrag<kDwChunk> at the kernel's
+  base (wg * 2 boxes, m0 0): register i of lane l in warp w of warpgroup
+  wg reads x row 8 kk + kstep_row(l % 4 + 4 (i >> 1)), column 64 wg + 16
+  w + l / 4 + 8 (i & 1) of the chunk's boxes as TMA writes them, on 32
+  distinct banks."""
+  found = re.search(r'Tf32ColFrag<kDwChunk> frag\((.*?)\);', MM, re.S)
+  assert found
+  tile_e, m0_e, limit_e = (_c_expr(r'(.*)', a)
+                           for a in found.group(1).split(', '))
+  chunk = _mm_int('kDwChunk')
+  frag = _col_frag(chunk)
+  for wg in range(2):
+    env = {'base': 0, 'wg': wg, 'kDwBoxBytes': _mm_int('kDwBoxBytes')}
+    tile, m0 = eval(tile_e, env), eval(m0_e, env)
+    assert eval(limit_e, env) == 64 and m0 == 0
+    for warp in range(4):
+      for kk in range(chunk // 8):
+        for i in range(4):
+          offs = [tile + frag(128 * wg + 32 * warp + lane, m0, kk, i)
+                  for lane in range(32)]
+          assert offs == [
+              f32_sw128(8 * kk + kstep_row(lane % 4 + 4 * (i >> 1)),
+                        64 * wg + 16 * warp + lane // 4 + 8 * (i & 1), chunk)
+              for lane in range(32)]
+          assert _banks(offs) == 32
+
+
+@pytest.mark.parametrize('tn', [16, 128])
+def test_dw_stage_products_give_xt_gy(tn):
+  """One chunk through the source's formulas: x and gy laid out as TMA
+  writes them, gy transposed by DwTranspose into the B tile, A read in
+  kstep_row order; the k-steps' sums over positions give xᵀ gy."""
+  rng = np.random.default_rng(tn)
+  x = rng.standard_normal((32, 128))
+  gy = rng.standard_normal((32, max(tn, 32)))
+  _, threads = _dw_transpose(128, tn)
+  b = np.zeros(tn * 32)
+  for _, loads in threads:
+    for _, _, _, _, (m, n), store in loads:
+      b[store // 4] = gy[m, n]
+  got = np.zeros((128, tn))
+  for kk in range(4):
+    for p in range(8):
+      a_col = x[8 * kk + kstep_row(p)]          # A[r][p] over r
+      b_row = np.array([b[f32_sw128(n, 8 * kk + p, tn) // 4]
+                        for n in range(tn)])
+      got += np.outer(a_col, b_row)
+  np.testing.assert_allclose(got, x.T @ gy[:, :tn], rtol=1e-12, atol=1e-12)
