@@ -7,16 +7,9 @@ Run from the root of a checkout.  It imports nothing of JAX or of the JAX
 package.  Phases, each fatal on failure:
 
   1. device: torch / CUDA versions, the card's name and power limit;
-  2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu, flash_attn.cu,
-     tap_conv.cu and rates.cu with nvcc, one process per source started
-     together (into the git-ignored rigl_tpu_torch/_build/), and prints
-     ptxas' report;
-  2b. rates probe (csrc/rates.cu): the tensor-core rates of the f32
-     kernels on tf32 wgmma, in TFLOP/s: wgmma m64nNk8 tf32 with A from
-     registers, N = 16, 32, 64 and 128 over a depth of 128, in one pass
-     and in three (3xTF32, the kernels' own loop: the split in
-     registers); each mode's one pass first held against A Bᵀ in f64
-     (which checks the tf32 register fragment);
+  2. build: compiles rigl_tpu_torch/csrc/packed_mm.cu, flash_attn.cu and
+     tap_conv.cu with nvcc, one process per source started together (into
+     the git-ignored rigl_tpu_torch/_build/), and prints ptxas' report;
   3. packed kernels vs plain: each kernel against its plain PyTorch
      version on the same inputs, with errors, device times of both (CUDA
      events around calls queued while the device sleeps), the host time to
@@ -189,8 +182,7 @@ bytes.  Each main path runs with the launch counts set to 0 just before
 it and read just after.  The line before the last is the JSON record: `kernels`
 (per kernel: the sums over its bf16 points, f32 for the f32 flash
 kernels and the f32 dw, of ms, plain_ms, bound_ms and library_ms, its
-launches on the main paths, and every point), `rates`, `serving`,
-`training`,
+launches on the main paths, and every point), `serving`, `training`,
 `train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step` and the
 script's wall time.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -229,15 +221,7 @@ LOGIT_RTOL = 5e-2
 # means (the CUDA cores' FFMA peak is 67).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 495e12 / 3}
-LIBRARIES = ('packed_mm', 'flash_attn', 'tap_conv', 'rates')
-# The rates probe (csrc/rates.cu): work per launch, each launch about a
-# millisecond on an H100, at the widths N the f32 kernels' products take;
-# one pass of a tf32 product is held against f64 within RATES_TOL (one
-# pass reads both operands truncated to 11 significant bits; three keep
-# about 19).
-RATES_WGMMA_REPS = 512
-RATES_WIDTHS = (16, 32, 64, 128)
-RATES_TOL = {1: 5e-3, 3: 1e-5}
+LIBRARIES = ('packed_mm', 'flash_attn', 'tap_conv')
 # Transformer training (scripts/bench_packed_transformer.py): 2 layers of
 # the serving width, seq 512, batch 4, bf16, block (512, 512), s = 0.8.
 TR_LAYERS, TR_SEQ, TR_BATCH = 2, 512, 4
@@ -453,54 +437,6 @@ def phase_build():
         log(f'    {line.strip()}')
 
 
-def phase_rates(torch, device):
-  """Phase 2b, csrc/rates.cu: wgmma m64nNk8 tf32 with A from registers,
-  one pass and in 3xTF32 (the f32 kernels' own loop: the split in
-  registers), at N = 16, 32, 64 and 128 over a depth of 128.  Each mode's
-  one pass is first held against A Bᵀ in f64 within RATES_TOL.  Returns
-  {rate name: TFLOP/s} (f32-accurate TFLOP/s for 3xTF32, the tf32 rate
-  beside)."""
-  import ctypes
-  from rigl_tpu_torch.ops import _build
-  lib = _build.load('rates')
-  lib.rates_wgmma.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                              + [ctypes.c_void_p])
-  lib.rates_wgmma.restype = ctypes.c_int
-
-  def launch(*args):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.rates_wgmma(*args, stream)
-    check(err == 0, f'rates_wgmma launch failed: CUDA error {err}')
-
-  sms = sm_count(torch)
-  rec = {}
-  gen = torch.Generator().manual_seed(SEED + 30)
-  a = torch.randn(64, 128, generator=gen).to(device)
-  b_all = torch.randn(128, 128, generator=gen).to(device)
-  for n in RATES_WIDTHS:
-    b = b_all[:n].contiguous()
-    want = a.double() @ b.double().T
-    for mode, label in ((0, 'tf32_rs'), (1, '3xtf32_rs_split')):
-      passes = 3 if mode else 1
-      d = torch.zeros(64, n, device=device)
-      launch(a.data_ptr(), b.data_ptr(), d.data_ptr(), 1, 1, n, mode)
-      torch.cuda.synchronize()
-      err = float((d.double() - want).abs().max() / want.abs().max())
-      check(err <= RATES_TOL[passes], f'rates {label} n={n}: one pass '
-            f'against f64: rel err {err:.3e} > {RATES_TOL[passes]}')
-      reps = RATES_WGMMA_REPS * 128 // n // passes
-      ms = device_ms(lambda: launch(a.data_ptr(), b.data_ptr(), d.data_ptr(),
-                                    sms, reps, n, mode), 10)
-      tf32 = sms * 2 * reps * passes * 2 * 64 * n * 128 / ms / 1e9
-      rec[f'{label}_n{n}'] = tf32 / passes
-      if passes == 3:
-        rec[f'{label}_n{n}_tf32'] = tf32
-      log(f'rates: {label} n={n}: one pass vs f64 rel err {err:.2e}; '
-          f'{tf32 / passes:.1f} TFLOP/s'
-          + (f' f32-accurate ({tf32:.1f} tf32)' if passes == 3 else ''))
-  return rec
-
-
 def layer_shapes():
   return {'qkv': (D_MODEL, 3 * D_MODEL), 'out': (D_MODEL, D_MODEL),
           'fc1': (D_MODEL, D_FF), 'fc2': (D_FF, D_MODEL)}
@@ -580,7 +516,7 @@ def dw_split(label, plan):
   kernels, its tile (ops/block_sparse_packed.py dw_tile), and returns
   them for the point's record."""
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
-  tile = None if plan.tile is None else list(bsp.DW_TILES[plan.tile])
+  tile = None if plan.tile is None else list(bsp.DW_TILES[plan.tile][:2])
   log(f'  {label}: S = {plan.slices} ({plan.slice_rows} rows a slice), '
       f'grid {plan.grid}, workspace {plan.workspace_bytes} bytes'
       + ('' if tile is None else f', tile {tile[0]} x {tile[1]}'))
@@ -3414,9 +3350,8 @@ DW_DESIGN = ('bf16: packed_dw_wgmma_kernel, 128 x 128 tiles, wgmma '
              'split into slices where the tiles leave SMs idle')
 DW_F32_DESIGN = ('packed_dw_3xtf32_kernel: f32-accurate products in 3xTF32 '
                  '(a_hi b_hi + a_hi b_lo + a_lo b_hi on tf32 wgmma); tiles '
-                 'of 128 x 128, narrower for narrow blocks (64 rows for bk '
-                 '<= 64, columns the narrowest of 16 / 32 / 64 / 128 that '
-                 'hold bn: dw_tile); a 3-4-deep ring of 32-row m-chunks of '
+                 'of 128 x 128, and of 64 x 16 for blocks at most 16 '
+                 'columns wide (dw_tile); a 3-4-deep ring of 32-row m-chunks of '
                  'x and gy (32 x 32 boxes) that a producer warp fills by '
                  'TMA; three warps of their own transpose each gy '
                  'chunk into K-major hi / lo B tiles; two consumer '
@@ -3425,7 +3360,8 @@ DW_F32_DESIGN = ('packed_dw_3xtf32_kernel: f32-accurate products in 3xTF32 '
                  '0, 2, 4, 6, 1, 3, 5, 7 and split in registers, and run '
                  'wgmma m64nNk8 tf32 three passes a k-step into an '
                  'accumulator started afresh every 4 stages and added to '
-                 'the tile\'s f32 sum; one block an SM; the m-sum split '
+                 'the tile\'s f32 sum; one block an SM at 128 x 128, three at '
+                 '64 x 16; the m-sum split '
                  'into slices where the tiles leave SMs idle')
 DW_REDUCTION = ('packed_dw_reduce_kernel: adds the slices\' f32 partials '
                 'in slice order, one cast (only where S > 1)')
@@ -3540,7 +3476,6 @@ def main():
   try:
     card = phase_device(torch)
     phase_build()
-    rates = phase_rates(torch, device)
     serve_points, decode_floor = phase_kernel(torch, device)
     train_points = phase_train_kernels(torch, device)
     step_points = phase_step_kernels(torch, device)
@@ -3607,7 +3542,10 @@ def main():
       [p for p in train_points['dw'] + step_points['dw']
        if p['dtype'] == 'float32'], dtype='float32')
   f32_dw.update(design=DW_F32_DESIGN, reduction=DW_REDUCTION,
-                also_replaces=f'{tpu}:362 (_dw_panel_kernel)')
+                also_replaces=f'{tpu}:362 (_dw_panel_kernel)',
+                not_on_paths={'wrn_training': (
+                    'no f32 block dw: WRN-22-2\'s packed convs are all 3x3 '
+                    '(tap_dw_kernel) and its 1x1 shortcuts dense convs')})
   kernels.append(f32_dw)
   for entry in kernels[:2]:
     entry['design'] = MM_DESIGN
@@ -3742,7 +3680,7 @@ def main():
                           'and dv in one call)')
     kernels.append(entry)
   training['autograd_rel_err'] = autograd_errs
-  record = {'card': card, 'kernels': kernels, 'rates': rates,
+  record = {'card': card, 'kernels': kernels,
             'serving': dict(speed, **logit_errs), 'training': training,
             'train_step': train_step, 'lm': lm, 'wrn': wrn, 'rn50': rn50,
             'history': dict(v6_fwd_bwd=history_points['v6_fwd_bwd'],

@@ -789,7 +789,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // about 19 bits of each product where one TF32 pass keeps 10 and would
 // miss 1e-4.
 //
-// What bounds them on an H100 (csrc/rates.cu measures the rates): FFMA
+// What bounds them on an H100 (rates measured on the card): FFMA
 // with its operands from shared memory runs at about 40-50% of the FFMA
 // peak, which held the first f32 backward kernels near 20 TFLOP/s.  Three
 // TF32 passes cap f32-accurate products at 495 / 3 = 165 TFLOP/s; at (4,

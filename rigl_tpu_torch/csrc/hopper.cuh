@@ -2,9 +2,9 @@
 // memory addresses, mbarriers, TMA copies and the tensor maps they read,
 // wgmma operand descriptors, fences and the products themselves, named
 // barriers, and the cluster barrier and stores into distributed shared
-// memory.  Included by packed_mm.cu, flash_attn.cu, tap_conv.cu and
-// rates.cu; each of those is built into a library of its own, and
-// everything here is inline.
+// memory.  Included by packed_mm.cu, flash_attn.cu and tap_conv.cu; each
+// of those is built into a library of its own, and everything here is
+// inline.
 //
 // wgmma's fragment layout, used by every kernel that reads an accumulator:
 // in an m64nNk16 product the warpgroup's 128 threads hold D (64 x N, f32)

@@ -141,10 +141,10 @@
 // packed_dw_3xtf32_kernel (f32): f32-accurate products on the tensor cores in
 // error-compensated TF32 (3xTF32: a b = a_hi b_hi + a_hi b_lo + a_lo b_hi,
 // hopper.cuh tf32_split), about 19 bits a product, where FMA from shared
-// memory ran at about 7 TFLOP/s and three TF32 passes cap at 165.  Tiles of TM
-// x TN, named by the caller (ops/block_sparse_packed.py dw_tile): 128 x 128
-// for blocks of 128 and up, narrower for narrow blocks (TM 64 for bk <= 64:
-// one consumer warpgroup; TN the narrowest of 16, 32, 64, 128 that holds bn).
+// memory ran at about 7 TFLOP/s and three TF32 passes cap at 165.  Two tiles,
+// named by the caller (ops/block_sparse_packed.py dw_tile): 128 x 128, and 64
+// x 16 (one consumer warpgroup) for blocks at most 16 columns wide, on which
+// a 128 x 128 tile computes 64 times the outputs it keeps.
 // tf32 wgmma reads shared memory only K-major, and both operands arrive with
 // m, the contraction, outermost: x is used as it lands, as the register A
 // operand xᵀ, loaded column-wise from the TMA box (hopper.cuh Tf32ColFrag: a
@@ -158,10 +158,11 @@
 // three passes a k-step, 4 k-steps a stage, into an accumulator started afresh
 // every 4 stages and added to the tile's f32 sum (the tensor cores' own
 // accumulation drops low bits: over thousands of products its error would grow
-// past the f32 checks); one thread block an SM (192 KB of shared memory at 128
-// x 128).  At 128 x 128 a stage's 32 KB of x and gy feed 1 MFLOP of
-// f32-accurate products (3 of tf32).  Outputs go from the fragments to dw (or
-// the partial tile) as float2s.  It takes the same split.
+// past the f32 checks); as many thread blocks an SM as shared memory holds
+// (DwTf32Plan::kPerSm: one at 128 x 128, 193 KB; three at 64 x 16, 65 KB).
+// At 128 x 128 a stage's 32 KB of x and gy feed 1 MFLOP of f32-accurate
+// products (3 of tf32).  Outputs go from the fragments to dw (or the partial
+// tile) as float2s.  It takes the same split.
 //
 // Dense storage.  The same kernels also read W in place as the (K, N)
 // matrix of a dense-masked layer, only at its active blocks (`dense_mm_fwd`,
@@ -587,7 +588,8 @@ constexpr int kDwChunk = 32;                    // m rows a ring stage
 constexpr int kDwBoxBytes = kDwChunk * 128;     // a 32-row x 32-column box
 
 // The f32 dw's tile of TM x TN outputs: TM = 64 or 128 rows (one or two
-// consumer warpgroups), TN = 16, 32, 64 or 128 columns.  Threads: the
+// consumer warpgroups), TN = 16, 32, 64 or 128 columns; dispatch_dw launches
+// 128 x 128 and 64 x 16.  Threads: the
 // consumers, three warps that transpose gy, the producer warp: 384 at 128
 // rows, a whole number of warpgroups, so that a thread may hold 168
 // registers (a block's registers are shared out by warpgroup: a fourth
@@ -613,6 +615,10 @@ struct DwTf32Plan {
                                                         : 4;
   static constexpr int kBars = kStages * kStage;
   static constexpr int kSmem = 1024 + kBars + 3 * kStages * 8;
+  // Thread blocks an SM: as many as its 228 KB of shared memory hold, 1 KB
+  // of each block's reserved by the system (ptxas gives 58 registers a
+  // thread at 64 x 16 and 166 at 128 x 128, so registers do not bind).
+  static constexpr int kPerSm = 228 * 1024 / (kSmem + 1024);
   static_assert(TM == 64 || TM == 128, "one or two consumer warpgroups");
   static_assert(TN == 16 || TN == 32 || TN == 64 || TN == 128, "tile width");
   static_assert(kStage % 1024 == 0 && kStages >= 2, "stages");
@@ -707,7 +713,8 @@ struct DwTranspose {
 // over m rounds as the plain version's does and a split changes only the
 // order of those adds.
 template <int TM, int TN>
-__global__ void __launch_bounds__(DwTf32Plan<TM, TN>::kThreads, 1)
+__global__ void __launch_bounds__(DwTf32Plan<TM, TN>::kThreads,
+                                 DwTf32Plan<TM, TN>::kPerSm)
     packed_dw_3xtf32_kernel(const __grid_constant__ CUtensorMap tx,
                             const __grid_constant__ CUtensorMap tg,
                             const int* __restrict__ rows,
@@ -1796,10 +1803,7 @@ cudaError_t launch_dw_tf32(const DwArgs& a) {
 // x 128, packed_dw_wgmma_kernel); f32 the others, packed_dw_3xtf32_kernel
 // at that tile.  A tile that cannot take the dtype is refused with
 // cudaErrorInvalidValue.
-enum DwTile {
-  kDwBf16 = 0, kDw128x128 = 1, kDw128x64 = 2, kDw128x32 = 3, kDw128x16 = 4,
-  kDw64x128 = 5, kDw64x64 = 6, kDw64x32 = 7, kDw64x16 = 8
-};
+enum DwTile { kDwBf16 = 0, kDw128x128 = 1, kDw64x16 = 2 };
 
 int dispatch_dw(const DwArgs& a, int dtype, int tile) {
   if (a.m <= 0 || a.n_ent <= 0 || a.slices <= 0 || a.slice_rows <= 0 ||
@@ -1809,16 +1813,8 @@ int dispatch_dw(const DwArgs& a, int dtype, int tile) {
   if (dtype == 1) {
     if (tile == kDwBf16) err = launch_dw_bf16(a);
   } else if (dtype == 0) {
-    switch (tile) {
-      case kDw128x128: err = launch_dw_tf32<128, 128>(a); break;
-      case kDw128x64: err = launch_dw_tf32<128, 64>(a); break;
-      case kDw128x32: err = launch_dw_tf32<128, 32>(a); break;
-      case kDw128x16: err = launch_dw_tf32<128, 16>(a); break;
-      case kDw64x128: err = launch_dw_tf32<64, 128>(a); break;
-      case kDw64x64: err = launch_dw_tf32<64, 64>(a); break;
-      case kDw64x32: err = launch_dw_tf32<64, 32>(a); break;
-      case kDw64x16: err = launch_dw_tf32<64, 16>(a);
-    }
+    if (tile == kDw128x128) err = launch_dw_tf32<128, 128>(a);
+    if (tile == kDw64x16) err = launch_dw_tf32<64, 16>(a);
   }
   return static_cast<int>(err);
 }

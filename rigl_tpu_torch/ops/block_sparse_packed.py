@@ -315,33 +315,24 @@ def mm_branch(m: int, seg: int, dtype) -> str:
     return 'ffma'
   return 'wgmma' if seg % MM_WGMMA_CHUNK == 0 else 'tiled'
 
-# The dw kernels' (largest tile rows, tile columns, m chunk, thread blocks
-# an SM) (csrc/packed_mm.cu): bf16 runs packed_dw_wgmma_kernel at 128 x
-# 128 (132 KB of shared memory a block); f32 packed_dw_3xtf32_kernel, 32
-# rows of m a ring stage, one block of 384 threads an SM (192 KB of shared
-# memory at 128 x 128), at the tile dw_tile names.
-_DW_TILING = {torch.bfloat16: (128, 128, 64, 1),
-              torch.float32: (128, 128, 32, 1)}
 # The dw kernels' tiles (csrc/packed_mm.cu DwTile, by their codes: the
-# position here), named by `dw_tile`: bf16's, then f32's (rows, columns).
-DW_TILES = ((128, 128), (128, 128), (128, 64), (128, 32), (128, 16),
-            (64, 128), (64, 64), (64, 32), (64, 16))
-# The f32 tile widths, narrowest first.
-DW_F32_WIDTHS = (16, 32, 64, 128)
+# position here), named by `dw_tile`: (tile rows, tile columns, m rows a
+# ring stage, thread blocks an SM).  bf16: packed_dw_wgmma_kernel at 128 x
+# 128 (132 KB of shared memory a block, one block an SM).  f32:
+# packed_dw_3xtf32_kernel (DwTf32Plan, kPerSm the blocks an SM) at 128 x
+# 128 (384 threads, 193 KB: one block an SM) and at 64 x 16 (256 threads,
+# 65 KB: three).
+DW_TILES = ((128, 128, 64, 1), (128, 128, 32, 1), (64, 16, 32, 3))
 
 
 def dw_tile(block: Tuple[int, int], dtype) -> int:
   """The code of the dw tile for blocks of `block` in `dtype` (its
-  position in DW_TILES): bf16 128 x 128 (code 0); f32 64 rows for a block
-  of 64 rows or fewer (one consumer warpgroup), else 128, and the
-  narrowest of DW_F32_WIDTHS that holds the block's columns, 128 for
-  blocks wider than that, so that a narrow block does not take a tile it
-  mostly masks."""
+  position in DW_TILES): bf16 128 x 128 (code 0); f32 64 x 16 (code 2)
+  for blocks at most 16 columns wide, on which a 128 x 128 tile would
+  compute 64 times the outputs it keeps, else 128 x 128 (code 1)."""
   if dtype == torch.bfloat16:
     return 0
-  bk, bn = block
-  tn = next((w for w in DW_F32_WIDTHS if w >= bn), DW_F32_WIDTHS[-1])
-  return DW_TILES.index((64 if bk <= 64 else 128, tn), 1)
+  return 2 if block[1] <= DW_TILES[2][1] else 1
 
 
 class DwPlan(NamedTuple):
@@ -362,9 +353,8 @@ def dw_plan(m: int, n_entries: int, block: Tuple[int, int], dtype,
   """The plan of the packed and dense dw kernels for m rows, n_entries
   blocks of `block` in `dtype`, on a card of sm_count SMs, at the tile
   dw_tile names."""
-  _, _, chunk, per_sm = _DW_TILING[dtype]
   tile = dw_tile(block, dtype)
-  tm, tn = DW_TILES[tile]
+  tm, tn, chunk, per_sm = DW_TILES[tile]
   tiles = -(-block[0] // tm) * -(-block[1] // tn)
   # A partial tile's bytes over a chunk's: tm tn f32 over chunk (tm + tn).
   partial = tm * tn * 4 / (chunk * (tm + tn) * dtype.itemsize)

@@ -94,31 +94,31 @@ def test_split_plan_keeps_the_grid_where_it_fills_the_card():
 
 # ------------------------------------------------------------- the tiles --
 # (block, f32 tile): the MLP's and the transformer's 512, RN50's 128, the
-# card tests' narrow and ragged blocks, WRN-22-2's 16.
+# card tests' narrow and ragged blocks, the conv nets' 16.
 TILE_CASES = [((512, 512), (128, 128)), ((128, 128), (128, 128)),
-              ((256, 128), (128, 128)), ((192, 64), (128, 64)),
-              ((96, 96), (128, 128)), ((64, 32), (64, 32)),
-              ((32, 64), (64, 64)), ((16, 8), (64, 16)), ((16, 16), (64, 16)),
-              ((16, 48), (64, 64)), ((128, 16), (128, 16)),
+              ((256, 128), (128, 128)), ((192, 64), (128, 128)),
+              ((96, 96), (128, 128)), ((64, 32), (128, 128)),
+              ((32, 64), (128, 128)), ((16, 8), (64, 16)), ((16, 16), (64, 16)),
+              ((16, 48), (128, 128)), ((128, 16), (64, 16)),
               ((1024, 256), (128, 128))]
 
 
 @pytest.mark.parametrize('block,tile', TILE_CASES)
 def test_dw_tile_rule(block, tile):
-  """f32 takes 64 rows for blocks of 64 rows or fewer, else 128, and the
-  narrowest of 16 / 32 / 64 / 128 columns that holds the block (128 past
-  it); bf16 takes its 128 x 128 tile whatever the block."""
+  """f32 takes 64 x 16 for blocks at most 16 columns wide, else 128 x 128;
+  bf16 takes its 128 x 128 tile whatever the block.  The plan's grid and
+  workspace follow the tile, its slices whole chunks of the tile's."""
   code = tbsp.dw_tile(block, torch.float32)
-  assert code > 0 and tbsp.DW_TILES[code] == tile
+  assert code > 0 and tbsp.DW_TILES[code][:2] == tile
   assert tbsp.dw_tile(block, torch.bfloat16) == 0
-  assert tbsp.DW_TILES[0] == tbsp._DW_TILING[torch.bfloat16][:2]
+  assert tbsp.DW_TILES[0] == (128, 128, 64, 1)
   plan = tbsp.dw_plan(6272, 5, block, torch.float32, SMS)
   tiles = -(-block[0] // tile[0]) * -(-block[1] // tile[1])
   assert plan.tile == code and plan.grid == (5, tiles, plan.slices)
   assert plan.workspace_bytes == (0 if plan.slices == 1 else
                                   plan.slices * 5 * tiles * tile[0]
                                   * tile[1] * 4)
-  assert plan.slice_rows % tbsp._DW_TILING[torch.float32][2] == 0
+  assert plan.slice_rows % tbsp.DW_TILES[code][2] == 0
 
 
 def test_dw_tile_codes_match_dispatch_dw():
@@ -130,17 +130,22 @@ def test_dw_tile_codes_match_dispatch_dw():
   codes = dict((name, int(code))
                for name, code in re.findall(r'kDw(\w+) = (\d+)', enum))
   assert codes.pop('Bf16') == 0
-  assert {f'{r}x{c}': i for i, (r, c) in enumerate(tbsp.DW_TILES)
+  assert {f'{r}x{c}': i for i, (r, c, _, _) in enumerate(tbsp.DW_TILES)
           if i > 0} == codes
 
 
 def test_f32_tiling_is_the_3xtf32_kernels():
-  """_DW_TILING's f32 entry: the largest tile 128 x 128, 32 rows of m a
-  ring stage (kDwChunk), one thread block an SM; the MLP's 13 blocks of
-  512 give 208 tiles, which keep S = 1 (two rounds of 132 SMs)."""
-  assert tbsp._DW_TILING[torch.float32] == (128, 128, 32, 1)
+  """DW_TILES' f32 entries: 128 x 128 and 64 x 16, 32 rows of m a ring
+  stage (kDwChunk), one and three thread blocks an SM; the MLP's 13
+  blocks of 512 give 208 tiles, which keep S = 1 (two rounds of 132 SMs);
+  the conv nets' blocks of 16 plan over three blocks an SM."""
+  assert tbsp.DW_TILES[1:] == ((128, 128, 32, 1), (64, 16, 32, 3))
   plan = tbsp.dw_plan(1024, 13, (512, 512), torch.float32, SMS)
   assert plan.grid == (13, 16, 1) and plan.slice_rows == 1024
+  narrow = tbsp.dw_plan(100352, 60, (16, 16), torch.float32, SMS)
+  assert narrow.grid == (60, 1, narrow.slices)
+  assert narrow.slices == dw_split.split_plan(
+      60, 100352, 32, 3 * SMS, 64 * 16 * 4 / (32 * 80 * 4))
 
 
 # ------------------------------------------------------------ tap groups --
@@ -305,7 +310,7 @@ def _walk_dense_dw(x, gy, entries, block, slices, chunk, out_dtype):
 def test_dense_walk_of_slices_equals_plain(m, dtype, slices):
   """The gathered dw with every block flagged by an occupancy (B12's
   entries) at ragged and whole m, in the kernels' chunk of the dtype."""
-  chunk = tbsp._DW_TILING[dtype][2]
+  chunk = tbsp.DW_TILES[tbsp.dw_tile((16, 32), dtype)][2]
   gen = torch.Generator().manual_seed(m)
   nk, nn_, block = 3, 4, (16, 32)
   occ = (torch.rand(nk, nn_, generator=gen) < 0.5).to(torch.int32)

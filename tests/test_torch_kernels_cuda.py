@@ -1368,12 +1368,13 @@ def test_dense_dw_split_at_the_largest_rn50_shape(cuda_device, monkeypatch):
 
 
 # ----------------------------------- the f32 dw's tiles (3xTF32 wgmma) --
-# (block, f32 tile of dw_tile): every tile the rule names, each at a block
-# that takes it.
-F32_DW_TILES = [((512, 512), (128, 128)), ((192, 64), (128, 64)),
-                ((128, 32), (128, 32)), ((128, 16), (128, 16)),
-                ((64, 128), (64, 128)), ((32, 64), (64, 64)),
-                ((64, 32), (64, 32)), ((16, 16), (64, 16))]
+# (block, f32 tile of dw_tile): both tiles the rule names, each at blocks
+# it covers whole, covers in part (masked rows and columns) and splits into
+# several tiles.
+F32_DW_TILES = [((512, 512), (128, 128)), ((192, 64), (128, 128)),
+                ((128, 32), (128, 128)), ((128, 16), (64, 16)),
+                ((64, 128), (128, 128)), ((32, 64), (128, 128)),
+                ((64, 32), (128, 128)), ((16, 16), (64, 16))]
 
 
 @pytest.mark.cuda
@@ -1385,7 +1386,7 @@ def test_f32_dw_tiles_match_plain_and_repeat_bitwise(cuda_device, monkeypatch,
   = 3 (or as many slices as m has chunks): within the f32 tolerance of
   the plain version, split within SPLIT_TOL of unsplit, and each call
   bit-identical to a second; ragged m and m below one chunk."""
-  assert tbsp.DW_TILES[tbsp.dw_tile(block, torch.float32)] == tile
+  assert tbsp.DW_TILES[tbsp.dw_tile(block, torch.float32)][:2] == tile
   grid = (3, 2, 4)
   packing = _packing(grid, m + block[1])
   gen = torch.Generator().manual_seed(m + block[0])
@@ -1411,13 +1412,14 @@ def test_f32_dw_tiles_match_plain_and_repeat_bitwise(cuda_device, monkeypatch,
 @pytest.mark.parametrize('m,cin,cout', [(131072, 16, 32), (32768, 32, 64),
                                         (8192, 64, 128)])
 def test_f32_dw_at_wrn_1x1_shapes(cuda_device, m, cin, cout):
-  """WRN-22-2's three 1x1 shortcut convs at batch 128 (32 x 32, 16 x 16
-  and 8 x 8 pixels) at block (16, 16), half the blocks active, as
-  PackedConv1x1 calls the packed dw: the 64 x 16 tile, the planned split,
+  """Long-m 1x1 convs at block (16, 16): WRN-22-2's widths at batch 128
+  (32 x 32, 16 x 16 and 8 x 8 pixels; its own shortcuts are dense convs,
+  but a PackedConv1x1 there calls the packed dw so), half the blocks
+  active: the 64 x 16 tile at three blocks an SM, the planned split,
   within the f32 tolerance of the plain version, bit-identical on
   repeat."""
   block = (16, 16)
-  assert tbsp.DW_TILES[tbsp.dw_tile(block, torch.float32)] == (64, 16)
+  assert tbsp.DW_TILES[tbsp.dw_tile(block, torch.float32)] == (64, 16, 32, 3)
   nk, nn_ = cin // 16, cout // 16
   packing = _packing((nk, nn_, max(1, nk * nn_ // 2)), m)
   gen = torch.Generator(device=cuda_device).manual_seed(cin)

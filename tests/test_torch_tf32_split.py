@@ -505,8 +505,8 @@ def _dw_transpose(tm, tn):
   return plan, out
 
 
-# (tm, tn): every tile dw_tile names.
-DW_VARIANTS = [(tm, tn) for tm in (64, 128) for tn in (16, 32, 64, 128)]
+# (tm, tn): every f32 tile dw_tile names.
+DW_VARIANTS = [(128, 128), (64, 16)]
 
 
 def _rz(x64):
@@ -558,8 +558,26 @@ def _dw3(x, gy, chunk, slices=1, fresh=True):
 
 def test_dw_chunk_is_the_kernels_and_the_plans():
   from rigl_tpu_torch.ops import block_sparse_packed as tbsp
-  assert _mm_int('kDwChunk') == tbsp._DW_TILING[torch.float32][2] == 32
+  assert _mm_int('kDwChunk') == tbsp.DW_TILES[1][2] == 32
   assert _mm_int('kDwBoxBytes') == 32 * 128
+
+
+@pytest.mark.parametrize('code', [1, 2])
+def test_dw_plans_blocks_an_sm_as_the_kernel_runs_them(code):
+  """DW_TILES' f32 tiles are DwTf32Plan's, and the thread blocks an SM
+  that dw_plan sizes its split for are the kernel's kPerSm (its launch
+  bounds): as many as 228 KB of shared memory hold, within 2048 threads;
+  one at 128 x 128, three at 64 x 16."""
+  from rigl_tpu_torch.ops import block_sparse_packed as tbsp
+  tm, tn, chunk, per_sm = tbsp.DW_TILES[code]
+  plan = _dw_plan(tm, tn)
+  assert (chunk, per_sm) == (plan['kDwChunk'], plan['kPerSm'])
+  assert per_sm * (plan['kSmem'] + 1024) <= 228 * 1024
+  assert (per_sm + 1) * (plan['kSmem'] + 1024) > 228 * 1024
+  assert per_sm * plan['kThreads'] <= 2048
+  assert per_sm == {(128, 128): 1, (64, 16): 3}[(tm, tn)]
+  assert re.search(r'__launch_bounds__\(DwTf32Plan<TM, TN>::kThreads,\s*'
+                   r'DwTf32Plan<TM, TN>::kPerSm\)', MM)
 
 
 @pytest.mark.parametrize('m', [16384, 16381])
