@@ -101,7 +101,7 @@ package.  Phases, each fatal on failure:
      3x3 shapes the step runs with block_conv3x3, beside cuDNN.  Each
      forward / dx point
      prints its branch (ops/block_sparse_conv.py tap_branch: mm for a
-     1x1, wgmma for bf16 KxK at blocks of 16s, fma for f32, wmma for bf16
+     1x1, wgmma for bf16 KxK at blocks of 16s, tf32 for f32, wmma for bf16
      at blocks of 8s);
  13. conv-net training, a main path: PackedClassifierTrainer on WRN-22-2
      with engine='tap' (synthetic CIFAR-10 shapes, standardized, batch
@@ -113,7 +113,8 @@ package.  Phases, each fatal on failure:
      evaluate, then SET and SNFS a few steps with one update each;
  14. WRN-22-2 step speed: us/step of the 'tap' engine, the 'xla' engine
      and the dense twin, each twice in mirrored order, with each arm's
-     device busy share and kernel time per step by kernel;
+     device busy share and kernel time per step by kernel, the tap arm's
+     also for each of the tap conv's kernels;
  15. dense-storage kernels vs plain: the forward / dx kernels' dense
      modes (each point printing its branch) from the flat packing (v4,
      B7) and from per-column index lists (v3, B8), and the dw kernels'
@@ -2130,11 +2131,18 @@ def phase_wrn(torch, device):
                             max_grad_rel_err=max(grad_errs.values())))
 
 
+# The tap conv's kernels, by name, whose time phase 14 sums per step: the
+# f32 forward / dx (W's copy, then the products) and the dw.
+WRN_TAP_KERNELS = ('tap_w_split_kernel', 'tap_conv_3xtf32_kernel',
+                   'tap_dw_kernel')
+
+
 def phase_wrn_speed(torch, device):
   """us/step of WRN-22-2 (f32, batch 128, SGD nesterov 0.9, lr 0.05) with
   the 'tap' engine, the 'xla' engine (unpack, then cuDNN) and the dense
   twin, each twice in mirrored order; each arm's device busy share and
-  kernel time per step, in all and by kernel (torch.profiler)."""
+  kernel time per step, in all and by kernel (torch.profiler), the tap
+  arm's also for each kernel of the tap conv (WRN_TAP_KERNELS)."""
   import numpy as np
   from rigl_tpu_torch import convert
   train_xy, _ = wrn_data()
@@ -2169,12 +2177,16 @@ def phase_wrn_speed(torch, device):
   rec = {}
   for name, step in steps.items():
     mean_us = float(np.mean(us[name]))
-    prof = profiled_kernel_time(torch, step, 3)
+    prof = profiled_kernel_time(torch, step, 3,
+                                WRN_TAP_KERNELS if name == 'tap' else ())
     busy = _share(prof['kernel_us_per_step'], mean_us)
     rec[name] = dict(us_per_step=us[name], device_busy_share=busy, **prof)
     log(f'wrn step: {name:5s} us/step {[round(u, 1) for u in us[name]]} '
         f'(mean {mean_us:.1f}); kernels {prof["kernel_us_per_step"]} us/step '
         f'(busy share {busy})')
+    if name == 'tap' and prof['matched_us_per_step'] is not None:
+      for kernel, t in prof['matched_us_per_step'].items():
+        log(f'  tap kernels {kernel}: {t:.1f} us/step')
   for name in ('tap', 'xla'):
     rec[f'dense_over_{name}'] = (float(np.mean(us['dense']))
                                  / float(np.mean(us[name])))
@@ -3372,7 +3384,8 @@ TAP_BRANCH_KERNELS = {
            'lists, the branch mm_branch names (bf16 m > 32: '
            'packed_mm_wgmma_kernel)'),
     'wgmma': 'bf16 KxK, blocks of 16s: tap_conv_wgmma_kernel',
-    'fma': 'f32 KxK: tap_conv_kernel<float> (unchanged, bit-identical)',
+    'tf32': ('f32 KxK: tap_w_split_kernel (the blocks\' K-major hi / lo '
+             'copy), then tap_conv_3xtf32_kernel'),
     'wmma': 'bf16 KxK, blocks of 8s: tap_conv_kernel<bf16>'}
 TAP_DESIGN = ('tap_conv_wgmma_kernel: implicit GEMM on wgmma; one block of '
               'two warpgroups per (128 pixels, output tile of up to 128 '
@@ -3391,6 +3404,25 @@ TAP_DESIGN = ('tap_conv_wgmma_kernel: implicit GEMM on wgmma; one block of '
               'place); a stage completes on its mbarrier; 3 stages (4 at N = '
               '64), 2-4 blocks an SM; epilogue staged in shared memory, '
               '16-byte stores')
+TAP_TF32_DESIGN = ('tap_conv_3xtf32_kernel: implicit GEMM on wgmma in '
+                   '3xTF32 (a_hi b_hi + a_hi b_lo + a_lo b_hi, the first '
+                   'two one product twice as wide); one block of two '
+                   'warpgroups and a copying warp per (128 pixels, output '
+                   'tile of one block-column, or at blocks of 16 a group of '
+                   'two: tap_tf32_tile), heaviest first; each group\'s '
+                   'entries in (input block, tap) order, in panels of one '
+                   'input block and 16 channels; a panel\'s x tile (128 '
+                   'pixel rows plus the span of its shifts, split by tap '
+                   'row past 512 rows) copied once by TMA and read by every '
+                   'tap of the panel at its row offset, one 16-byte '
+                   'fragment load a row and entry, pixels outside the image '
+                   'predicated to zero; W as a K-major hi / lo copy '
+                   '(tap_w_split_kernel, in x\'s channel order), a TMA box '
+                   'a column and entry, 2 entries a stage of a 4-deep ring; '
+                   'the copying warp reads a host-built stage table, a row '
+                   'a stage; a group\'s products predicated on the columns '
+                   'that hold each entry; the sum flushed into y every 32 '
+                   'stages')
 TAP_DW_DESIGN = ('entries grouped by (input block, output block), up to 9 '
                  'taps in bf16 and 4 in f32 (2, at 4 thread blocks an SM, '
                  'where the pairs hold 2.5 taps or fewer on average), from '
@@ -3575,10 +3607,10 @@ def main():
     kernels.append(entry)
   conv_tpu = 'rigl_tpu/ops/pallas/block_sparse_conv.py'
   for i, (name, op, line) in enumerate((
-      ('tap_conv_fwd: tap_conv_wgmma_kernel, tap_conv_kernel, packed_mm 1x1',
-       'fwd', 117),
-      ('tap_conv_dx: tap_conv_wgmma_kernel, tap_conv_kernel, packed_mm 1x1',
-       'dx', 117),
+      ('tap_conv_fwd: tap_conv_3xtf32_kernel, tap_conv_wgmma_kernel, '
+       'tap_conv_kernel, packed_mm 1x1', 'fwd', 117),
+      ('tap_conv_dx: tap_conv_3xtf32_kernel, tap_conv_wgmma_kernel, '
+       'tap_conv_kernel, packed_mm 1x1', 'dx', 117),
       ('tap_dw_kernel', 'dw', 473))):
     by_path = {'wrn_training': wrn_launches[i],
                'rn50_tap': rn50_tap_launches['rigl_tap'][f'tap_{op}'],
@@ -3588,8 +3620,9 @@ def main():
                        tap_points_[op] + tap_route.get(op, []))
     if op != 'dw':
       entry['also_replaces'] = f'{conv_tpu}:355 (_conv_kernel_v5, B5)'
-      entry.update(design=TAP_DESIGN, branches=TAP_BRANCH_KERNELS,
-                   branch_by_path={'wrn_training': 'fma', 'rn50_tap': 'mm',
+      entry.update(design=TAP_DESIGN, tf32_design=TAP_TF32_DESIGN,
+                   branches=TAP_BRANCH_KERNELS,
+                   branch_by_path={'wrn_training': 'tf32', 'rn50_tap': 'mm',
                                    'rn50_tap3x3': 'mm (1x1), wgmma (3x3)'},
                    rn50_route={k: v for k, v in tap_route['sums'].items()
                                if k.startswith(op)})

@@ -121,6 +121,18 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// The same for a K-major tile with 64-byte swizzle: rows of 64 bytes (16
+// tf32 of the contraction: two k-steps of 8, the second 32 bytes into the
+// row), chunk c of row r at c ^ ((r / 2) % 4) as TMA's 64-byte swizzle
+// writes it, 512 bytes between groups of 8 rows.  The tile starts 512-byte
+// aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) |
+         (static_cast<uint64_t>(2) << 62);
+}
+
 // The same for a tile with 32-byte swizzle, MN-major: 8-row groups of 32
 // bytes (16 bf16 of M or N a row, chunk c of row r at c ^ ((r / 4) % 2)),
 // 256 bytes apart; `lbo` the bytes between 16-element column blocks.  The
@@ -163,6 +175,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for registers holding operands (a tf32 A fragment): computed
+// here, before the wgmma_fence that follows, not sunk past it.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // Two f32 values as a bf16 pair, lo in the low half.
@@ -579,10 +599,57 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
   }
 }
 
+// The same, issued only where `on` is nonzero (the same value in every
+// thread of the warpgroup): a guard predicate, not a branch, for N = 16
+// or 32.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs_if(float (&d)[N / 2],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, unsigned on) {
+  static_assert(N == 16 || N == 32, "no predicated tf32 product this wide");
+  if constexpr (N == 16) {
+    asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.b32 p, %14, 0;\nsetp.ne.b32 q, %13, 0;\n"
+      "@q wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(on),
+        "r"(1));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.b32 p, %22, 0;\nsetp.ne.b32 q, %21, 0;\n"
+      "@q wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(on),
+        "r"(1));
+  }
+}
+
 __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
   return v;
+}
+
+// The 4 f32 at `addr` (16-byte aligned) where `on` is nonzero, else 0: a
+// predicated load, not a branch (a fragment register written on a
+// divergent path makes ptxas serialise the products that read it, C7520).
+__device__ __forceinline__ void ld_shared_v4_if(uint32_t addr, unsigned on,
+                                                float (&v)[4]) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "mov.b32 %0, 0;\nmov.b32 %1, 0;\nmov.b32 %2, 0;\nmov.b32 %3, 0;\n"
+      "@p ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n}\n"
+      : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+      : "r"(addr), "r"(on));
 }
 
 // The shared addresses of this thread's tf32 A fragments over a kRows-row
@@ -737,13 +804,13 @@ inline EncodeTiled tensor_map_encoder() {
 
 // A tensor map of `rank` dims of `type` (innermost first; strides in bytes
 // of dims 1..), boxes of 128 bytes innermost (64 bf16, 32 f32) as
-// wgmma_desc reads them, 128-byte swizzle, zeros outside the tensor.  TMA
-// takes a 16-byte-aligned base and strides: anything else is refused here.
-inline cudaError_t tensor_map_nd(CUtensorMap* map, CUtensorMapDataType type,
-                                 const void* base, int rank,
-                                 const cuuint64_t* dims,
-                                 const cuuint64_t* strides,
-                                 const cuuint32_t* box) {
+// wgmma_desc reads them, 128-byte swizzle (or `swizzle`, for boxes of its
+// width or none), zeros outside the tensor.  TMA takes a 16-byte-aligned
+// base and strides: anything else is refused here.
+inline cudaError_t tensor_map_nd(
+    CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorInvalidValue;
@@ -752,18 +819,19 @@ inline cudaError_t tensor_map_nd(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The same in f32: boxes of 32 columns.
-inline cudaError_t f32_map_nd(CUtensorMap* map, const void* base, int rank,
-                              const cuuint64_t* dims,
-                              const cuuint64_t* strides,
-                              const cuuint32_t* box) {
+// The same in f32: boxes of 32 columns (128-byte swizzle) unless another
+// swizzle is named.
+inline cudaError_t f32_map_nd(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   return tensor_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank,
-                       dims, strides, box);
+                       dims, strides, box, swizzle);
 }
 
 // The same in bf16.

@@ -65,20 +65,42 @@
 //     the previous products takes the next copies.  The epilogue is staged
 //     in the ring and stored in 16-byte pieces, masked to real pixels and
 //     the tile's channels.
-//   fma (f32, KxK): tap_conv_kernel<float, kTrans>, BM = 128 pixels x BN =
-//     16 channels a thread block (one per 16-channel subtile of a column),
-//     a 3-deep cp.async ring of 16-channel chunks, a 4 x 4 FMA micro-tile
-//     a thread, no TF32.
+//   tf32 (f32, KxK): tap_w_split_kernel<kTrans> copies every entry's
+//     block K-major (the forward's transposed) as hi / lo halves for
+//     error-compensated TF32, then tap_conv_3xtf32_kernel<N, kGroups>, an
+//     implicit GEMM on wgmma in 3xTF32 (a b = a_hi b_hi + a_hi b_lo + a_lo
+//     b_hi, hi = a as the tensor cores read it truncated): one thread block
+//     of two warpgroups and a copying warp per (128 output pixels, output
+//     tile of N <= 128 channels: one block-column, or at blocks of 16 a
+//     group of two, ops/block_sparse_conv.py tap_tf32_tile), heaviest
+//     first.  A group's entries run in (input block, tap) order, in
+//     panels of one input block and 16 of its channels: the panel's x
+//     tile, 128 pixel rows widened by the panel's shifts (within the halo,
+//     W (kh / 2) + kw / 2 rows a side; taps split by tap row where that is
+//     too large), is copied once by TMA and is the register A operand of
+//     every tap of the panel at its row offset, the shifted pixels outside
+//     the image predicated to zero in the fragment loads.  W's hi / lo
+//     tiles (B) come by TMA, one box a block, into a 4-deep ring of 2
+//     entries a stage; the copying warp walks a stage table the host
+//     builds once per index.
 //   wmma (bf16, KxK, a block of 8s that 16 does not divide):
-//     tap_conv_kernel<bf16, kTrans>, the same tiles on WMMA 16x16x16.
+//     tap_conv_kernel<kTrans>, BM = 128 pixels x BN = 16 channels a thread
+//     block (one per 16-channel subtile of a column), a 3-deep cp.async
+//     ring of 16-channel chunks, WMMA 16x16x16.
 //
 // What bounds them on an H100: a bf16 call is bound by bytes: x is read
 // from L2 once per entry of each output tile (its shifted copy for that
 // tap), and y written once, against a bound that reads x once; at blocks
 // of 16 an entry is a (128 x 16) @ (16 x N) product, so the copies of x,
 // about 2.4 TB/s from L2 at RN50's block-16 shapes, bound it, which the
-// column groups cut where entries overlap.  The f32 branch is bound by
-// the CUDA cores' FMA rate.  dW has few
+// column groups cut where entries overlap.  The f32 branch is bound by the
+// bytes of x and y at WRN-22-2's shapes and by the 3xTF32 rate (a third of
+// the 495 TFLOP/s tf32 peak) at RN50's first; in practice by issue: a
+// tf32 wgmma costs about as much to issue at 16 columns as at 32, and at
+// blocks of 16 an entry is a 16- or 32-column product, so the kernel
+// merges a_hi b_hi and a_hi b_lo into one product twice as wide; and by
+// the copies of x from L2, once per input block of each output tile (not
+// once per entry), which column groups share.  dW has few
 // outputs (a layer's active blocks) and one long sum each, so it is bound
 // by how many SMs the sum is spread over and, then, by the bytes of x and
 // gy it reads.
@@ -126,11 +148,11 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kThreads = 128;    // conv: 4 warps
-constexpr int kStages = 3;       // conv: cp.async ring depth
-constexpr int BM = 128;          // conv: output pixels per thread block
-constexpr int BN = 16;           // conv: output channels per thread block
-constexpr int BK = 16;           // conv: contraction chunk (input channels)
+constexpr int kThreads = 128;    // wmma conv: 4 warps
+constexpr int kStages = 3;       // wmma conv: cp.async ring depth
+constexpr int BM = 128;          // wmma conv: output pixels per thread block
+constexpr int BN = 16;           // wmma conv: output channels per block
+constexpr int BK = 16;           // wmma conv: contraction chunk
 constexpr int kDwThreads = 256;  // dw: 8 warps
 constexpr int DT = 16;           // dw: output tile is DT x DT channels
 constexpr int DP = 256;          // dw: pixels per chunk, 32 per warp
@@ -196,13 +218,14 @@ __device__ __forceinline__ T from_float(float v) {
     return v;
 }
 
-// Shared-memory plan of the conv kernel: a ring of (x tile, W tile) pairs.
-// The x tile is (BM x BK), row-major; the W tile (BK x BN) row-major, or for
-// dx the stored (BN x BK) region of the block, read as its transpose.  Each
-// row carries one 16-byte pad: rows stay 16-byte aligned for cp.async and
-// WMMA's fragment loads spread over the banks.
-template <typename T, bool kTrans>
+// Shared-memory plan of tap_conv_kernel (bf16, blocks of 8s): a ring of (x
+// tile, W tile) pairs.  The x tile is (BM x BK), row-major; the W tile (BK x
+// BN) row-major, or for dx the stored (BN x BK) region of the block, read as
+// its transpose.  Each row carries one 16-byte pad: rows stay 16-byte
+// aligned for cp.async and WMMA's fragment loads spread over the banks.
+template <bool kTrans>
 struct ConvPlan {
+  using T = __nv_bfloat16;
   static constexpr int kVec = 16 / sizeof(T);
   static constexpr int kAld = BK + kVec;
   static constexpr int kBRows = kTrans ? BN : BK;
@@ -210,28 +233,31 @@ struct ConvPlan {
   static constexpr int kABytes = align128(BM * kAld * sizeof(T));
   static constexpr int kBBytes = align128(kBRows * kBld * sizeof(T));
   static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kOld = BN + 4;   // f32 staging of the bf16 epilogue
+  static constexpr int kOld = BN + 4;   // f32 staging of the epilogue
   static constexpr int kRingBytes = kStages * kStageBytes;
   static constexpr int kBytes =
       kRingBytes > BM * kOld * 4 ? kRingBytes : BM * kOld * 4;
   static_assert(kBytes + 2 * BM * 4 <= 48 * 1024, "static shared memory");
 };
 
-// y (M, cy) from x (M, cx), M = N*H*W pixels in NHWC order.  Output block-
-// column g walks entries [ptr[g], ptr[g+1]): entry e reads input block
-// kblks[e] (width bk) at the shift of taps[e], and the weight block at
-// w + woffs[e], whose rows are `w_ld` apart: (bk x bn) row-major, or with
+// y (M, cy) from x (M, cx), M = N*H*W pixels in NHWC order, bf16.  Output
+// block-column g walks entries [ptr[g], ptr[g+1]): entry e reads input block
+// kblks[e] (width bk) at the shift of taps[e], and the weight block at w +
+// woffs[e], whose rows are `w_ld` apart: (bk x bn) row-major, or with
 // kTrans the (bn x bk) block it is the transpose of.  bn is the output
 // block width.
-template <typename T, bool kTrans>
+template <bool kTrans>
 __global__ void __launch_bounds__(kThreads)
-    tap_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    tap_conv_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ w,
                     const int* __restrict__ ptr, const int* __restrict__ taps,
                     const int* __restrict__ kblks,
-                    const int* __restrict__ woffs, T* __restrict__ y, int M,
-                    int H, int W, int cx, int cy, int kh, int kw, int bk,
-                    int bn, int w_ld) {
-  using L = ConvPlan<T, kTrans>;
+                    const int* __restrict__ woffs,
+                    __nv_bfloat16* __restrict__ y, int M, int H, int W,
+                    int cx, int cy, int kh, int kw, int bk, int bn,
+                    int w_ld) {
+  using T = __nv_bfloat16;
+  using L = ConvPlan<kTrans>;
   constexpr int kVec = L::kVec;
   __shared__ __align__(128) unsigned char smem[L::kBytes];
   __shared__ int s_h[BM], s_w[BM];
@@ -295,25 +321,14 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  // Accumulators.  bf16: warp `wid` owns rows [32 wid, +32) as two 16x16
-  // WMMA fragments.  f32: thread (tr, tc) = (tid / 4, tid % 4) owns rows
-  // tr + 32 i (i < 4) and columns 4 tc + j (j < 4).
+  // Accumulators: warp `wid` owns rows [32 wid, +32) as two 16x16 WMMA
+  // fragments.
   using namespace nvcuda;
   using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  constexpr bool kBf16 = kIsBf16<T>;
-  Frag frag[kBf16 ? 2 : 1];
-  float acc[kBf16 ? 1 : 4][kBf16 ? 1 : 4];
+  Frag frag[2];
   const int wid = tid / 32;
-  const int tr = tid / 4, tc = tid % 4;
-  if constexpr (kBf16) {
-    wmma::fill_fragment(frag[0], 0.f);
-    wmma::fill_fragment(frag[1], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
+  wmma::fill_fragment(frag[0], 0.f);
+  wmma::fill_fragment(frag[1], 0.f);
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -328,36 +343,18 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
     const T* as = a_tile(it % kStages);
     const T* bs = b_tile(it % kStages);
-    if constexpr (kBf16) {
-      using BLayout =
-          std::conditional_t<kTrans, wmma::col_major, wmma::row_major>;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
-      wmma::load_matrix_sync(bf, bs, L::kBld);
+    using BLayout =
+        std::conditional_t<kTrans, wmma::col_major, wmma::row_major>;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
+    wmma::load_matrix_sync(bf, bs, L::kBld);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            af;
-        wmma::load_matrix_sync(af, as + (32 * wid + 16 * i) * L::kAld,
-                               L::kAld);
-        wmma::mma_sync(frag[i], af, bf, frag[i]);
-      }
-    } else {
-#pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = static_cast<float>(as[(tr + 32 * i) * L::kAld + k]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] = static_cast<float>(kTrans ? bs[(4 * tc + j) * L::kBld + k]
-                                           : bs[k * L::kBld + 4 * tc + j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-      }
+    for (int i = 0; i < 2; ++i) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          af;
+      wmma::load_matrix_sync(af, as + (32 * wid + 16 * i) * L::kAld,
+                             L::kAld);
+      wmma::mma_sync(frag[i], af, bf, frag[i]);
     }
   }
   cp_async_wait<0>();
@@ -365,28 +362,17 @@ __global__ void __launch_bounds__(kThreads)
 
   const int row_lim = M - m0, col_lim = bn - n0;
   T* out = y + static_cast<size_t>(m0) * cy + static_cast<size_t>(g) * bn + n0;
-  if constexpr (kBf16) {
-    float* os = reinterpret_cast<float*>(smem);
+  float* os = reinterpret_cast<float*>(smem);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::store_matrix_sync(os + (32 * wid + 16 * i) * L::kOld, frag[i],
-                              L::kOld, wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = tid; idx < BM * BN; idx += kThreads) {
-      const int r = idx / BN, c = idx % BN;
-      if (r < row_lim && c < col_lim)
-        out[static_cast<size_t>(r) * cy + c] =
-            __float2bfloat16(os[r * L::kOld + c]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tr + 32 * i, c = 4 * tc + j;
-        if (r < row_lim && c < col_lim)
-          out[static_cast<size_t>(r) * cy + c] = from_float<T>(acc[i][j]);
-      }
+  for (int i = 0; i < 2; ++i)
+    wmma::store_matrix_sync(os + (32 * wid + 16 * i) * L::kOld, frag[i],
+                            L::kOld, wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = tid; idx < BM * BN; idx += kThreads) {
+    const int r = idx / BN, c = idx % BN;
+    if (r < row_lim && c < col_lim)
+      out[static_cast<size_t>(r) * cy + c] =
+          __float2bfloat16(os[r * L::kOld + c]);
   }
 }
 
@@ -703,6 +689,386 @@ __global__ void __launch_bounds__(kWgThreads, 2)
       *reinterpret_cast<uint4*>(out + static_cast<size_t>(rr) * cy + c) =
           *reinterpret_cast<const uint4*>(stage + rr * L::kStageLd + c);
   }
+}
+
+// ---- tap_conv_3xtf32_kernel (f32, KxK) ---------------------------------------
+constexpr int kTfRows = 128;       // output pixels per thread block
+constexpr int kTfConsumers = 256;  // two warpgroups multiply
+constexpr int kTfThreads = kTfConsumers + 32;   // and one warp copies
+constexpr int kTfStages = 4;       // W ring stages; as many x tiles
+constexpr int kTfChunk = 16;       // input channels of an x tile (64 bytes)
+constexpr int kTfEntries = 2;      // entries a stage, 2 k-steps of 8 each
+constexpr int kTfBoxRows = 64;     // pixel rows of a TMA box of an x tile
+constexpr int kTfFlush = 32;       // stages between flushes of the sum to y
+constexpr int kTfRow = 32;         // ints a stage's row: one a lane
+constexpr int kTfMaxSmem = 227 * 1024;
+
+// Shared-memory plan of tap_conv_3xtf32_kernel at an output tile N channels
+// wide, whose x tiles hold `xrows` pixel rows: kTfStages W stages, each of
+// kTfEntries entries, each entry 2 N rows of its 16 contraction values
+// (K-major, 64-byte swizzle, as TMA writes them): one column, the tile's
+// hi rows then its lo rows; a group, column c's 16 hi rows at 32 c and its
+// lo rows after them; kTfStages x tiles of xrows rows (whole boxes) of
+// kTfChunk channels, 64 bytes a row as TMA writes them (a quarter-warp's
+// 16-byte fragment loads read two consecutive rows, 32 distinct banks,
+// whatever row a shift starts at); each stage's entry records (16 bytes
+// each); a full and an empty mbarrier a stage.
+template <int N>
+struct TfPlan {
+  static constexpr int kBTile = N * 64;
+  static constexpr int kWBytes = kTfEntries * 2 * kBTile;
+  static_assert(kBTile % 1024 == 0, "B tiles start 1024-byte aligned");
+  static int x_bytes(int xrows) {
+    return (xrows + kTfBoxRows - 1) / kTfBoxRows * kTfBoxRows * 64;
+  }
+  static int smem(int xrows) {
+    return 1024 + kTfStages * (kWBytes + x_bytes(xrows) + kTfEntries * 16 +
+                               16);
+  }
+};
+
+// The f32 channel of x that k-step kk's contraction index k (0-7) of a
+// 16-channel chunk takes: thread q = lane % 4 of a quad loads channels 4 q
+// .. 4 q + 3 of its row in one 16-byte load and takes them as its tf32 A
+// fragment's values k = q and q + 4 of k-step 0 (channels 4 q, 4 q + 1)
+// and of k-step 1 (4 q + 2, 4 q + 3); W's copy puts the same channels at
+// those contraction indices.
+__host__ __device__ constexpr int tf_channel(int kk, int k) {
+  return 4 * (k % 4) + 2 * kk + k / 4;
+}
+
+// The K-major hi / lo copy of the weight blocks the tf32 branch reads: row
+// e out_w + n of wt (hi) and of wt + lo_rows segp (lo), segp floats each,
+// holds output channel n of entry e's block (woffs[e], rows w_ld apart):
+// chunk c's 16 values in contraction order, 8 kk + k the block's channel
+// 16 c + tf_channel(kk, k) (zero past seg); hi = the f32 value (the tensor
+// cores read it truncated), lo = the value less that truncation
+// (tf32_split).  The forward's block (seg x out_w, output channels along
+// its rows) is read transposed; dx's stored block (out_w x seg) as it is.
+// One thread block an entry, and one more (e = n_ent) writing a block of
+// zeros, which the kernel copies for a column without the entry.
+template <bool kTrans>
+__global__ void __launch_bounds__(256)
+    tap_w_split_kernel(const float* __restrict__ w,
+                       const int* __restrict__ woffs, float* __restrict__ wt,
+                       int n_ent, int lo_rows, int seg, int segp, int out_w,
+                       int w_ld) {
+  const int e = blockIdx.x;
+  float* hi = wt + static_cast<size_t>(e) * out_w * segp;
+  for (int i = threadIdx.x; i < out_w * segp; i += blockDim.x) {
+    const int n = i / segp, l = i % segp;
+    const int k = (l / kTfChunk) * kTfChunk +
+                  tf_channel((l % kTfChunk) / 8, l % 8);
+    float v = 0.f;
+    if (e < n_ent && k < seg)
+      v = w[woffs[e] + (kTrans ? static_cast<size_t>(n) * w_ld + k
+                               : static_cast<size_t>(k) * w_ld + n)];
+    uint32_t h, l32;
+    tf32_split(v, h, l32);
+    hi[i] = __uint_as_float(h);
+    hi[static_cast<size_t>(lo_rows) * segp + i] = __uint_as_float(l32);
+  }
+}
+
+// Thread block (tile, m-tile): output pixels m0 .. m0 + 127 and channels n0
+// .. n0 + N - 1 of the output block-columns of group G = order[blockIdx.x /
+// tiles] (columns G gcols .. G gcols + gcols - 1; ops/block_sparse_conv.py
+// TapPanelLists), in f32: y = the sum over G's entries, for each column of
+// the group that holds the entry, of the shifted x block @ the entry's W
+// block.  G's entries run in (input block, tap) order, in panels of one
+// input block and kTfChunk of its channels, kTfEntries a stage (a panel
+// starts a stage): stage rows sptr[G] .. sptr[G+1]-1 of `stab`, kTfRow
+// ints each (TapPanelLists.stab): 0-4 the panel's x channel, its smallest
+// shift lo, its x tile's TMA boxes (the panel's first stage, else 0), 0
+// and the chunk's offset k0 in the block; 8 + 4 e ..: entry e's record
+// (byte offset of its shifted row 0 in the panel's x tile, dy << 16 | dx
+// & 0xFFFF, column mask, channel quads; a slot past the panel's entries
+// reads nothing); 8 + 4 kTfEntries + e gcols + c: the row in the W copy of
+// column c's block of entry e (the zero block where the column lacks it).
+// A panel's x tile -- pixel rows m0 + lo .. of those channels, 128 plus
+// the span of its shifts -- is copied once, in TMA boxes with its first
+// stage, into x tile (its rank in G) % kTfStages, and every entry of the
+// panel reads it at row offset shift - lo: the taps of an input block
+// share one copy of x.  A shifted pixel that leaves its image (above,
+// below, or sideways into the next image row) reads as zero by a
+// predicated load of its fragment; rows outside [0, M) TMA fills with
+// zeros.
+//   Warp specialised.  The copying warp runs up to kTfStages stages ahead
+// of the products: lane l holds int l of a stage's row, loaded a stage
+// ahead; lanes 8 .. write the entry records, lane 0 sets the stage's
+// bytes on its full barrier, lanes 0 .. copy the x boxes and the W lanes
+// their block's hi and lo rows (one column: the tile's rows, the zero
+// block past the panel's entries; kGroups: each column that holds the
+// entry, the others none); it reuses a stage once both warpgroups have
+// released it.  Each warpgroup takes 64 rows: per stage, its A fragments
+// (x, one 16-byte load a row and entry: both k-steps, tf_channel) are
+// split into hi / lo in registers, and per k-step a_hi (b_hi | b_lo) --
+// the lo rows follow the hi ones, so one product twice the width, into a
+// second half of the sum -- and a_lo b_hi run into the f32 sum in
+// registers (at N = 128, one column, a_hi b_lo is a product of its own).
+// kGroups: each column's products run only where it holds the entry
+// (predicated), so a column sums its own entries only and a non-finite x
+// reaches only the columns that read it.  The roles and the predicates
+// are broadcast from lane 0, so that ptxas sees them uniform over the
+// warpgroup: it serialises a wgmma on a path it cannot (C7520).  The
+// tensor cores' f32 accumulation drops low bits, which adds up over a
+// long sum: every kTfFlush stages (beyond any layer of the repo's models
+// at blocks of 16) the sum is added into y in f32 and starts afresh.  The
+// epilogue stores the tile from registers, 8 bytes a thread, masked to
+// real pixels and the group's channels.
+template <int N, bool kGroups>
+__global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
+    tap_conv_3xtf32_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw,
+                           const int* __restrict__ sptr,
+                           const int* __restrict__ order,
+                           const int* __restrict__ stab,
+                           float* __restrict__ y, int M, int H, int W,
+                           int cy, int out_w, int gcols, int x_bytes,
+                           int lo_rows) {
+  using P = TfPlan<N>;
+  constexpr int S = kTfStages, E = kTfEntries;
+  extern __shared__ unsigned char tf_smem[];
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int tiles = (gcols * out_w + N - 1) / N;
+  const int g = order[blockIdx.x / tiles];
+  const int n0 = (blockIdx.x % tiles) * N;
+  const int m0 = blockIdx.y * kTfRows;
+  const int s_begin = sptr[g];
+  const int total = sptr[g + 1] - s_begin;           // stages
+
+  const uint32_t base = (smem_u32(tf_smem) + 1023) & ~1023u;
+  const uint32_t xs = base + S * P::kWBytes;
+  const uint32_t meta = xs + S * x_bytes;
+  const uint32_t full = meta + S * E * 16, empty = full + 8 * S;
+  unsigned char* const gbase = tf_smem + (base - smem_u32(tf_smem));
+  // B tile rows no box writes (past a narrow column's block) stay zeros;
+  // a group's column without the entry keeps a former stage's rows, its
+  // products predicated off.
+  for (int i = tid; i < S * P::kWBytes / 16; i += kTfThreads)
+    reinterpret_cast<int4*>(gbase)[i] = make_int4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kTfConsumers);
+    }
+    mbar_fence_init();
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // The roles by warp, its index broadcast so that ptxas sees them
+  // uniform: a wgmma on a path it cannot prove uniform over the warpgroup
+  // (this branch, a predicate) is serialised (C7520).
+  if (__shfl_sync(0xffffffffu, tid / 32, 0) >= kTfConsumers / 32) {
+    // The copying warp.  A stage's W boxes: per entry and hi / lo, one a
+    // column of the group (kGroups) or the tile's rows of the one column.
+    // x tile pc % S takes the group's pc-th panel.
+    const int box_rows = min(out_w, N);
+    const int w_lane = 8 + 4 * E;   // lanes w_lane + e gcols + c: W rows
+    if (lane == 0) {
+      prefetch_tensormap(&tx);
+      prefetch_tensormap(&tw);
+    }
+    int pc = -1;
+    int row = total > 0 ? stab[s_begin * kTfRow + lane] : 0;
+    for (int it = 0; it < total; ++it) {
+      const int s = it % S;
+      const int next =
+          it + 1 < total ? stab[(s_begin + it + 1) * kTfRow + lane] : 0;
+      if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
+      const int ch0 = __shfl_sync(0xffffffffu, row, 0);
+      const int lo = __shfl_sync(0xffffffffu, row, 1);
+      const int nbox = __shfl_sync(0xffffffffu, row, 2);
+      const int k0 = __shfl_sync(0xffffffffu, row, 4);
+      pc += nbox > 0;
+      const int xoff = (pc % S) * x_bytes;
+      const uint32_t fb = full + 8 * s;
+      if (lane >= 8 && lane < w_lane)
+        reinterpret_cast<int*>(gbase + (meta - base))[s * E * 4 + lane - 8] =
+            row + ((lane - 8) % 4 == 0 ? xoff : 0);
+      // W lane b: entry b / gcols, column b % gcols.  kGroups: no copy
+      // where the column lacks the entry (its products are predicated
+      // off); one column: every slot's (the zero block past the panel).
+      const int b = lane - w_lane;
+      const bool w_box = b >= 0 && b < E * gcols &&
+                         (kGroups ? row != lo_rows - out_w : b % gcols == 0);
+      const int n_w = __popc(__ballot_sync(0xffffffffu, w_box));
+      __syncwarp();   // the records, then the arrival that releases them
+      if (lane == 0)
+        mbar_expect_tx(fb, nbox * kTfBoxRows * 64 + n_w * 2 * box_rows * 64);
+      __syncwarp();
+      if (lane < nbox)
+        tma_load(xs + xoff + lane * kTfBoxRows * 64, &tx, ch0,
+                 m0 + lo + lane * kTfBoxRows, fb);
+      if (w_box) {
+        // kGroups: column c's hi rows, then its lo rows; one column: the
+        // tile's hi rows, then its lo rows.
+        const int e = b / gcols, c = b % gcols;
+        const uint32_t dst = base + s * P::kWBytes + 2 * e * P::kBTile +
+                             (kGroups ? 2 * c * out_w * 64 : 0);
+        const int r = row + (kGroups ? 0 : n0);
+        tma_load(dst, &tw, k0, r, fb);
+        tma_load(dst + (kGroups ? out_w * 64 : P::kBTile), &tw, k0,
+                 r + lo_rows, fb);
+      }
+      row = next;
+    }
+    return;
+  }
+
+  // The consumers.  This thread's rows of its warpgroup's 64 (the A
+  // fragment's and the accumulator's: 16 warp + lane / 4 + 8 h) and where
+  // its 16-byte fragment loads start in an x tile (channels 4 (lane % 4)
+  // ..).
+  const int wg = tid / 128;
+  int rb[2];
+  uint32_t at[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rb[h] = 64 * wg + 16 * ((tid / 32) % 4) + lane / 4 + 8 * h;
+    at[h] = xs + rb[h] * 64 + (lane & 3) * 16;
+  }
+  const int4* const meta_p =
+      reinterpret_cast<const int4*>(gbase + (meta - base));
+  const int g0 = g * gcols * out_w;                  // the group's channels
+  const int width = min(gcols * out_w, cy - g0);    // g0 .. g0 + width
+  // The rows' pixels (h, w); a row past M gets a row no shift brings
+  // inside.
+  int ph[2], pw[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = m0 + rb[h];
+    ph[h] = p < M ? (p / W) % H : -(1 << 20);
+    pw[h] = p < M ? p % W : 0;
+  }
+  // kWide: a_hi (b_hi | b_lo) is one product twice the width (the lo B
+  // rows follow the hi ones), its second half added to the first in f32
+  // at the end; a_lo b_hi goes into the first.  One column: the tile's,
+  // the second half at acc[N / 2 ..].  kGroups: per 16-column block-
+  // column c, acc[16 c .. 16 c + 15], the second half from 16 c + 8.
+  // Else (N = 128, one column) a_hi b_lo is a product of its own.
+  constexpr bool kWide = kGroups || N <= 64;
+  constexpr int kAcc = kWide ? N : N / 2;
+  float acc[kAcc];
+  float(&sum)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(acc);
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  bool flushed = false;
+  const int rows = M - m0, cols = width - n0;
+  float* out = y + static_cast<size_t>(m0) * cy + g0 + n0;
+  // Row rb[h], columns 8 j + 2 (lane % 4) + v of the tile: y there +=
+  // the sum, or = it before the first flush (8 bytes a store; width - n0
+  // is a multiple of 4: a pair is in or out).
+  auto add_into_y = [&]() {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 8 * j + 2 * (lane & 3);
+        if (rb[h] < rows && c < cols) {
+          float2* o = reinterpret_cast<float2*>(
+              out + static_cast<size_t>(rb[h]) * cy + c);
+          const int i = kGroups ? 16 * (j / 2) + 4 * (j % 2) + 2 * h
+                                : 4 * j + 2 * h;
+          float2 v = make_float2(acc[i], acc[i + 1]);
+          if constexpr (kWide) {
+            const int i2 = i + (kGroups ? 8 : N / 2);
+            v.x += acc[i2];
+            v.y += acc[i2 + 1];
+          }
+          if (flushed) {
+            const float2 before = *o;
+            v.x += before.x;
+            v.y += before.y;
+          }
+          *o = v;
+        }
+      }
+  };
+
+  for (int it = 0; it < total; ++it) {
+    const int s = it % S;
+    mbar_wait(full + 8 * s, (it / S) & 1);
+    // The stage's A fragments: per entry and row, 4 channels.
+    float v[E][2][4];
+    unsigned mk[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int4 m = meta_p[s * E + e];
+      // The entry's column mask, broadcast: uniform to ptxas.
+      mk[e] = __shfl_sync(0xffffffffu, static_cast<unsigned>(m.z), 0);
+      const int dy = m.y >> 16, dx = static_cast<short>(m.y & 0xFFFF);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool in =
+            static_cast<unsigned>(ph[h] + dy) < static_cast<unsigned>(H) &&
+            static_cast<unsigned>(pw[h] + dx) < static_cast<unsigned>(W) &&
+            (lane & 3) < m.w;
+        ld_shared_v4_if(at[h] + m.x, in, v[e][h]);
+      }
+    }
+    // k-step kk of entry e: a[h + 2 j] = channel 4 (lane % 4) + 2 kk + j.
+    uint32_t hi[E][2][4], lo[E][2][4];
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            tf32_split(v[e][h][2 * kk + j], hi[e][kk][h + 2 * j],
+                       lo[e][kk][h + 2 * j]);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        fence_regs(hi[e][kk]);
+        fence_regs(lo[e][kk]);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t bh = base + s * P::kWBytes + 2 * e * P::kBTile +
+                            32 * kk;
+        if constexpr (kGroups) {
+          // Column c's hi and lo rows: 2 KB from 2 c KB, its products
+          // only where it holds the entry.
+#pragma unroll
+          for (int c = 0; c < N / 16; ++c) {
+            const uint64_t d = wgmma_desc_sw64(bh + 2048 * c);
+            float(&a32)[16] = *reinterpret_cast<float(*)[16]>(acc + 16 * c);
+            float(&a16)[8] = *reinterpret_cast<float(*)[8]>(acc + 16 * c);
+            wgmma_tf32_rs_if<32>(a32, hi[e][kk], d, (mk[e] >> c) & 1);
+            wgmma_tf32_rs_if<16>(a16, lo[e][kk], d, (mk[e] >> c) & 1);
+          }
+        } else {
+          if constexpr (kWide) {
+            wgmma_tf32_rs<2 * N>(acc, hi[e][kk], wgmma_desc_sw64(bh));
+          } else {
+            wgmma_tf32_rs<N>(acc, hi[e][kk], wgmma_desc_sw64(bh));
+            wgmma_tf32_rs<N>(acc, hi[e][kk],
+                             wgmma_desc_sw64(bh + P::kBTile));
+          }
+          wgmma_tf32_rs<N>(sum, lo[e][kk], wgmma_desc_sw64(bh));
+        }
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * s);   // this thread is done with stage s
+    const bool flush = (it + 1) % kTfFlush == 0 && it + 1 < total;
+    if (flush) {
+      add_into_y();
+      flushed = true;
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = flush ? 0.f : acc[i];
+  }
+  add_into_y();
 }
 
 // Shared-memory plan of the dw kernel (dynamic), per stage of its ring:
@@ -1040,20 +1406,26 @@ struct ConvArgs {
   const int* taps;
   const int* kblks;
   const int* woffs;
-  const int* order;   // wgmma: the column groups, longest first
+  const int* order;   // wgmma, tf32: the column groups, longest first
+  const int* stab;    // tf32: the stage table (TapPanelLists.stab)
+  const int* ewoffs;  // tf32: every entry's block offset in w
+  void* wt;           // tf32: room for the blocks' K-major hi / lo copy
   void* y;
   int M, H, W, cx, cy, ncols, kh, kw, seg, out_w, w_ld;
-  int gcols;          // wgmma: the output block-columns a group holds
-  int tile;           // wgmma: the output tile's channels (its N)
+  int gcols;          // wgmma, tf32: the output block-columns a group holds
+  int tile;           // wgmma, tf32: the output tile's channels (its N)
+  int xrows;          // tf32: the pixel rows of the largest x tile
+  int n_entries;      // tf32: the entries of ewoffs
   cudaStream_t stream;
 };
 
-template <typename T, bool kTrans>
+template <bool kTrans>
 cudaError_t launch_conv(const ConvArgs& a) {
   dim3 grid((a.M + BM - 1) / BM, a.ncols * ((a.out_w + BN - 1) / BN));
-  tap_conv_kernel<T, kTrans><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w), a.ptr, a.taps,
-      a.kblks, a.woffs, static_cast<T*>(a.y), a.M, a.H, a.W, a.cx, a.cy,
+  tap_conv_kernel<kTrans><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x),
+      static_cast<const __nv_bfloat16*>(a.w), a.ptr, a.taps, a.kblks,
+      a.woffs, static_cast<__nv_bfloat16*>(a.y), a.M, a.H, a.W, a.cx, a.cy,
       a.kh, a.kw, a.seg, a.out_w, a.w_ld);
   return cudaGetLastError();
 }
@@ -1112,18 +1484,105 @@ cudaError_t launch_wgmma(const ConvArgs& a) {
   }
 }
 
+// tap_conv_3xtf32_kernel at output tile N, its dynamic shared memory
+// allowed once per (instance, device) up to kTfMaxSmem and sized for the
+// call's largest x tile.
+template <int N, bool kGroups>
+cudaError_t launch_tf32_tile(const ConvArgs& a, const CUtensorMap& tx,
+                             const CUtensorMap& tw, int m_tiles,
+                             int lo_rows) {
+  auto kernel = tap_conv_3xtf32_kernel<N, kGroups>;
+  static std::atomic<uint64_t> allowed{0};   // bit d: done on device d
+  cudaError_t err = allow_smem(kernel, kTfMaxSmem, allowed,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int smem = TfPlan<N>::smem(a.xrows);
+  if (smem > kTfMaxSmem) return cudaErrorInvalidValue;
+  const int groups = (a.ncols + a.gcols - 1) / a.gcols;
+  const dim3 grid(groups * ((a.gcols * a.out_w + N - 1) / N), m_tiles);
+  kernel<<<grid, kTfThreads, smem, a.stream>>>(
+      tx, tw, a.ptr, a.order, a.stab, static_cast<float*>(a.y), a.M, a.H,
+      a.W, a.cy, a.out_w, a.gcols, TfPlan<N>::x_bytes(a.xrows), lo_rows);
+  return cudaGetLastError();
+}
+
+// The tf32 branch: tap_w_split_kernel makes the K-major hi / lo copy of
+// every entry's block and a block of zeros (forward: transposed), then
+// tap_conv_3xtf32_kernel runs at the output tile the caller names
+// (ops/block_sparse_conv.py tap_tf32_tile; the tiles are the cases below)
+// over TapPanelLists' stages (ptr: the groups' stage rows, stab: the
+// stage table), x and the copy read by TMA.  Blocks must be multiples of
+// 4; a group of several columns, at most 8, must fit in one tile, in
+// whole 16-column blocks.  wt holds 2 (n_entries + 1) out_w segp floats,
+// segp = seg rounded up to 16.
+template <bool kTrans>
+cudaError_t launch_tf32(const ConvArgs& a) {
+  const int m_tiles = (a.M + kTfRows - 1) / kTfRows;
+  if (a.seg % 4 || a.out_w % 4 || a.seg <= 0 || a.out_w <= 0 ||
+      a.gcols <= 0 || a.gcols > 8 || m_tiles > 65535 || !a.order ||
+      !a.wt || a.xrows < kTfRows || a.n_entries < 0 ||
+      (a.gcols > 1 && (a.out_w != 16 || a.gcols * a.out_w > a.tile ||
+                       a.tile != 32)))
+    return cudaErrorInvalidValue;
+  if (a.n_entries > 0 && (!a.ewoffs || !a.stab))
+    return cudaErrorInvalidValue;
+  if (8 + 4 * kTfEntries + kTfEntries * a.gcols > kTfRow)
+    return cudaErrorInvalidValue;
+  const int segp = (a.seg + kTfChunk - 1) / kTfChunk * kTfChunk;
+  const long long lo_rows = static_cast<long long>(a.n_entries + 1) * a.out_w;
+  if (2 * lo_rows * segp >= (1LL << 31)) return cudaErrorInvalidValue;
+  tap_w_split_kernel<kTrans><<<a.n_entries + 1, 256, 0, a.stream>>>(
+      static_cast<const float*>(a.w), a.ewoffs, static_cast<float*>(a.wt),
+      a.n_entries, static_cast<int>(lo_rows), a.seg, segp, a.out_w, a.w_ld);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // x as (M rows, cx channels), boxes of 64 rows x 16 channels, no
+  // swizzle; the copy as (2 lo_rows rows, segp), boxes of a column's rows
+  // (at most the tile's) x 16, 64-byte swizzle.
+  CUtensorMap tx, tw;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(a.cx),
+                               static_cast<cuuint64_t>(a.M)};
+  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(a.cx) * 4};
+  const cuuint32_t xbox[2] = {kTfChunk, kTfBoxRows};
+  err = f32_map_nd(&tx, a.x, 2, xdims, xstride, xbox,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(segp),
+                               static_cast<cuuint64_t>(2 * lo_rows)};
+  const cuuint64_t wstride[1] = {static_cast<cuuint64_t>(segp) * 4};
+  const cuuint32_t wbox[2] = {kTfChunk, static_cast<cuuint32_t>(
+                                            std::min(a.out_w, a.tile))};
+  err = f32_map_nd(&tw, a.wt, 2, wdims, wstride, wbox,
+                   CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return err;
+  const int lo = static_cast<int>(lo_rows);
+  switch (a.tile) {
+    case 16:
+      return a.gcols > 1 ? cudaErrorInvalidValue
+                         : launch_tf32_tile<16, false>(a, tx, tw, m_tiles, lo);
+    case 32:
+      return a.gcols > 1 ? launch_tf32_tile<32, true>(a, tx, tw, m_tiles, lo)
+                         : launch_tf32_tile<32, false>(a, tx, tw, m_tiles, lo);
+    case 64:
+      return launch_tf32_tile<64, false>(a, tx, tw, m_tiles, lo);
+    case 128:
+      return launch_tf32_tile<128, false>(a, tx, tw, m_tiles, lo);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // The branches, in the order of ops/block_sparse_conv.py TAP_BRANCHES.  The
 // caller names one by the rule of tap_branch there:
 //   mm:    a 1x1 kernel -- not here: the wrapper runs packed_mm.cu's
 //          forward / dx kernels, so this library refuses it;
 //   wgmma: bf16, KxK, blocks of 16s -- tap_conv_wgmma_kernel;
-//   fma:   f32, KxK -- tap_conv_kernel<float>;
+//   tf32:  f32, KxK -- tap_w_split_kernel, then tap_conv_3xtf32_kernel;
 //   wmma:  bf16, KxK, a block of 8s that 16 does not divide --
-//          tap_conv_kernel<bf16>.
-// A branch that cannot take the call (another dtype, blocks the wgmma
-// tiles do not divide, more than 65535 m-tiles) is refused with
+//          tap_conv_kernel.
+// A branch that cannot take the call (another dtype, blocks the tiles do
+// not divide, more than 65535 m-tiles) is refused with
 // cudaErrorInvalidValue; no other branch is tried.
-enum TapBranch { kTapMm = 0, kTapWgmma = 1, kTapFma = 2, kTapWmma = 3 };
+enum TapBranch { kTapMm = 0, kTapWgmma = 1, kTapTf32 = 2, kTapWmma = 3 };
 
 template <bool kTrans>
 int dispatch_conv(const ConvArgs& a, int branch, int dtype) {
@@ -1134,11 +1593,11 @@ int dispatch_conv(const ConvArgs& a, int branch, int dtype) {
     case kTapWgmma:
       if (dtype == 1) err = launch_wgmma<kTrans>(a);
       break;
-    case kTapFma:
-      if (dtype == 0) err = launch_conv<float, kTrans>(a);
+    case kTapTf32:
+      if (dtype == 0) err = launch_tf32<kTrans>(a);
       break;
     case kTapWmma:
-      if (dtype == 1) err = launch_conv<__nv_bfloat16, kTrans>(a);
+      if (dtype == 1) err = launch_conv<kTrans>(a);
       break;
   }
   return static_cast<int>(err);
@@ -1268,19 +1727,26 @@ cudaError_t launch_dw_taps(int max_taps, const void* x, const void* gy,
 // branch reads the lists of the output block-columns in groups of gcols
 // (ops/block_sparse_conv.py TapGroupLists: ptr over the groups, woffs
 // gcols a entry, -1 where a column lacks it) and `order`, the groups
-// longest first, in output tiles of `tile` channels; the others the column
-// lists (gcols 1; order and tile unused).
+// longest first, in output tiles of `tile` channels; the tf32 branch
+// TapPanelLists' stages (ptr, order, stab; see launch_tf32) with ewoffs
+// (the n_entries blocks' offsets in w), wt (room for their copy) and the
+// largest x tile's rows; wmma the column lists (gcols 1; the rest unused).
 extern "C" int tap_conv_fwd(const void* x, const void* w, const void* ptr,
                             const void* taps, const void* kblks,
-                            const void* woffs, const void* order, void* y,
-                            int M, int H, int W, int cx, int ncols, int kh,
-                            int kw, int bk, int bn, int w_ld, int gcols,
-                            int tile, int branch, int dtype, void* stream) {
+                            const void* woffs, const void* order,
+                            const void* stab, const void* ewoffs, void* wt,
+                            void* y, int M,
+                            int H, int W, int cx, int ncols, int kh, int kw,
+                            int bk, int bn, int w_ld, int gcols, int tile,
+                            int xrows, int n_entries, int branch, int dtype,
+                            void* stream) {
   return dispatch_conv<false>(
       {x, w, static_cast<const int*>(ptr), static_cast<const int*>(taps),
        static_cast<const int*>(kblks), static_cast<const int*>(woffs),
-       static_cast<const int*>(order), y, M, H, W, cx, ncols * bn, ncols, kh,
-       kw, bk, bn, w_ld, gcols, tile, static_cast<cudaStream_t>(stream)},
+       static_cast<const int*>(order), static_cast<const int*>(stab),
+       static_cast<const int*>(ewoffs), wt,
+       y, M, H, W, cx, ncols * bn, ncols, kh, kw, bk, bn, w_ld, gcols, tile,
+       xrows, n_entries, static_cast<cudaStream_t>(stream)},
       branch, dtype);
 }
 
@@ -1288,15 +1754,20 @@ extern "C" int tap_conv_fwd(const void* x, const void* w, const void* ptr,
 // is stored (bn x bk), rows w_ld apart (dx: gy in, flipped taps).
 extern "C" int tap_conv_dx(const void* gy, const void* w, const void* ptr,
                            const void* taps, const void* kblks,
-                           const void* woffs, const void* order, void* dx,
-                           int M, int H, int W, int cx, int ncols, int kh,
-                           int kw, int bk, int bn, int w_ld, int gcols,
-                           int tile, int branch, int dtype, void* stream) {
+                           const void* woffs, const void* order,
+                           const void* stab, const void* ewoffs, void* wt,
+                           void* dx, int M,
+                           int H, int W, int cx, int ncols, int kh, int kw,
+                           int bk, int bn, int w_ld, int gcols, int tile,
+                           int xrows, int n_entries, int branch, int dtype,
+                           void* stream) {
   return dispatch_conv<true>(
       {gy, w, static_cast<const int*>(ptr), static_cast<const int*>(taps),
        static_cast<const int*>(kblks), static_cast<const int*>(woffs),
-       static_cast<const int*>(order), dx, M, H, W, cx, ncols * bn, ncols, kh,
-       kw, bk, bn, w_ld, gcols, tile, static_cast<cudaStream_t>(stream)},
+       static_cast<const int*>(order), static_cast<const int*>(stab),
+       static_cast<const int*>(ewoffs), wt,
+       dx, M, H, W, cx, ncols * bn, ncols, kh, kw, bk, bn, w_ld, gcols, tile,
+       xrows, n_entries, static_cast<cudaStream_t>(stream)},
       branch, dtype);
 }
 

@@ -59,9 +59,11 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            wgmma (bf16 KxK,
                                                            blocks of 16s):
                                                            tap_conv_wgmma_
-                                                           kernel; fma (f32
-                                                           KxK) and wmma (bf16
-                                                           KxK, blocks of 8s):
+                                                           kernel; tf32 (f32
+                                                           KxK): tap_conv_
+                                                           3xtf32_kernel;
+                                                           wmma (bf16 KxK,
+                                                           blocks of 8s):
                                                            tap_conv_kernel
   5  block_sparse_conv.py:355 _conv_kernel_v5,             the same kernel:
      _shift_matmul_v5 (RIGL_TAP_ENGINE=v5)                 v5 is another TPU

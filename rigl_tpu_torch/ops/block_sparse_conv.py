@@ -37,8 +37,10 @@ tap shifts, so 'mm' runs the forward / dx kernels of csrc/packed_mm.cu on
 a dense-w index's lists (the products of block_sparse_v4's B7; a packed
 1x1 is refused, PackedConv1x1 serves those); a KxK kernel
 runs csrc/tap_conv.cu, 'wgmma' (`tap_conv_wgmma_kernel`) in bf16 with
-blocks of 16s, 'fma' and 'wmma' (`tap_conv_kernel`) in f32 and in bf16
-with blocks of 8s.  dw runs `tap_dw_kernel` (replacing `_dw_kernel`),
+blocks of 16s, 'tf32' (`tap_conv_3xtf32_kernel`, 3xTF32 wgmma over one
+x tile a (pixel tile, input block) that every tap of the block reads, on
+`TapPanelLists`) in f32, 'wmma' (`tap_conv_kernel`) in bf16 with blocks
+of 8s.  dw runs `tap_dw_kernel` (replacing `_dw_kernel`),
 whose pixel sum `tap_dw_plan` splits over thread blocks, the partials
 added in slice order by `tap_dw_reduce_kernel`; a 1x1 kernel's dw is the
 block dw of csrc/packed_mm.cu (`block_sparse_packed.dw_launch`).
@@ -85,19 +87,32 @@ TAP_SPARSE_TAPS, TAP_SPARSE_MEAN = 2, 2.5
 # The forward / dx branches, in the order of csrc/tap_conv.cu's TapBranch;
 # the output tiles of tap_conv_wgmma_kernel (channels: the cases of
 # launch_wgmma there) and its pixels a thread block (kWgRows).
-TAP_BRANCHES = ('mm', 'wgmma', 'fma', 'wmma')
+TAP_BRANCHES = ('mm', 'wgmma', 'tf32', 'wmma')
 TAP_WGMMA_TILES = (16, 32, 48, 64, 128)
 TAP_WGMMA_TILE, TAP_WGMMA_ROWS = TAP_WGMMA_TILES[-1], 128
 # tap_wgmma_gcols: the largest share of the entries a group's unions may
 # hold for the wide groups to be taken.
 TAP_GROUP_CUT = 0.75
+# tap_conv_3xtf32_kernel (the 'tf32' branch): its output tiles (the cases
+# of launch_tf32), pixels a thread block (kTfRows), input channels an x
+# tile (kTfChunk) and entries a stage (kTfEntries, 2 k-steps of 8 each);
+# and the most pixel rows of an x tile before a panel's taps are split by
+# tap row.
+TAP_TF32_TILES = (16, 32, 64, 128)
+TAP_TF32_ROWS, TAP_TF32_CHUNK, TAP_TF32_ENTRIES = 128, 16, 2
+TAP_TF32_XROWS = 512
+# ... the pixel rows of an x tile's TMA box (kTfBoxRows) and the ints of
+# a stage's row (kTfRow).
+TAP_TF32_BOX, TAP_TF32_ROW = 64, 32
+# tap_tf32_tile: the block-columns of a group, at output blocks of 16.
+TAP_TF32_GROUP = 2
 
 
 def tap_branch(kh: int, kw: int, bk: int, bn: int, dtype) -> str:
   """The branch of the forward / dx kernels for a (kh, kw) kernel at block
   (bk, bn) in `dtype`: 'mm' for every 1x1 (no shifts: csrc/packed_mm.cu's
   forward / dx kernels, the branch block_sparse_packed.mm_branch names);
-  KxK in float32 'fma' (tap_conv_kernel<float>); KxK in bfloat16 'wgmma'
+  KxK in float32 'tf32' (tap_conv_3xtf32_kernel); KxK in bfloat16 'wgmma'
   (tap_conv_wgmma_kernel) where 16 divides bk and bn, else 'wmma'
   (tap_conv_kernel<bf16>, blocks of 8s).  Raises for another dtype and for
   a block that is not whole 16-byte copies of the dtype."""
@@ -110,7 +125,7 @@ def tap_branch(kh: int, kw: int, bk: int, bn: int, dtype) -> str:
   if (kh, kw) == (1, 1):
     return 'mm'
   if dtype == torch.float32:
-    return 'fma'
+    return 'tf32'
   return 'wgmma' if bk % 16 == 0 and bn % 16 == 0 else 'wmma'
 
 
@@ -247,6 +262,59 @@ def tap_wgmma_gcols(index: 'TapIndex', mode: str, pixels: int,
   return 1
 
 
+class TapPanelLists(NamedTuple):
+  """What tap_conv_3xtf32_kernel reads for one conv mode at one image
+  width.  The output block-columns come in groups of `gcols` (as
+  TapGroupLists); a group walks the union of its columns' (tap, input
+  block) entries in (input block, tap) order, in panels of one input
+  block and TAP_TF32_CHUNK of its channels (a block wider than that takes
+  a panel a chunk; where an x tile would pass TAP_TF32_XROWS rows, one tap
+  row too) whose x tile -- TAP_TF32_ROWS pixel rows plus the span of the
+  panel's shifts (dy W + dx), from its smallest, lo -- every entry of the
+  panel reads.  The kernel walks each group's entries in stages of
+  TAP_TF32_ENTRIES (a panel starts a stage): group G's are rows sptr[G] ..
+  sptr[G+1]-1 of `stab`, TAP_TF32_ROW ints each: the panel's x channel,
+  lo, its x tile's TMA boxes of TAP_TF32_BOX rows (at its first stage,
+  else 0), 0 and the chunk's offset k0 in the block; from int 8, per
+  entry slot, the byte offset of its shifted row 0 in the panel's x tile,
+  dy << 16 | dx & 0xFFFF, its column mask (bit c: column c of the group
+  holds the entry) and its chunk's channel quads (a slot past the panel's
+  entries: dy -2^14, mask and quads 0); from int 8 + 4 TAP_TF32_ENTRIES,
+  per slot and column, the row of the column's block in the kernel's W
+  copy (its dw entry times the output block width; the zero block, entry
+  n_entries, where the column lacks it).  `order`: the groups, most
+  stages first; `xrows`: the largest x tile's rows.  int32."""
+  sptr: torch.Tensor
+  order: torch.Tensor
+  stab: torch.Tensor
+  gcols: int
+  xrows: int
+
+
+def tap_tf32_tile(index: 'TapIndex', mode: str, pixels: int,
+                  sm_count: int) -> Tuple[int, int]:
+  """(gcols, tile) of a 'tf32' call of `mode` over `pixels` = N*H*W pixels
+  on a card of sm_count SMs: at output blocks of 16, groups of
+  TAP_TF32_GROUP block-columns (tile 32) where the layer has as many and
+  the groups' thread blocks still give every SM one (groups x pixel tiles
+  >= SMs); else one column a thread block, in the narrowest tile that
+  holds it (tiles of 128 across a wider one).  A group copies each x tile
+  once for its columns and runs each column's products only where it
+  holds the entry: on an H100 at WRN-22-2's and RN50's block-16 shapes
+  (f32) groups of 2 were faster than one column at every point, and
+  groups of 4 (tile 64: one thread block an SM, its registers) slower
+  than both."""
+  fwd = mode == 'fwd'
+  out_w = index.bn if fwd else index.bk
+  ncols = (index.cout if fwd else index.cin) // out_w
+  m_tiles = -(-pixels // TAP_TF32_ROWS)
+  if (out_w == 16 and ncols >= TAP_TF32_GROUP
+      and -(-ncols // TAP_TF32_GROUP) * m_tiles >= sm_count):
+    return TAP_TF32_GROUP, TAP_TF32_GROUP * 16
+  return 1, next((t for t in TAP_TF32_TILES if t >= out_w),
+                 TAP_TF32_TILES[-1])
+
+
 class TapDwEntries(NamedTuple):
   """The active entries for dw: tap, cin-block, cout-block and the element
   offset of the entry's block in w (and in dw, which has w's layout)."""
@@ -312,8 +380,9 @@ class TapIndex:
                     for a in (taps, rblks, cblks, woffs))
     i32 = lambda a: a.to(torch.int32).contiguous()   # noqa: E731
 
-    def grouped(col, key, tap, kblk, n_cols):
+    def grouped(mode, col, key, tap, kblk, n_cols):
       order = torch.argsort(col * (t_dim * max(nkc, nnc)) + key, stable=True)
+      self._ids[mode] = order   # the list's entries as dw entries
       ptr = torch.zeros(n_cols + 1, dtype=torch.int64)
       ptr[1:] = torch.cumsum(torch.bincount(col, minlength=n_cols), 0)
       return TapLists(i32(ptr), i32(tap[order]), i32(kblk[order]),
@@ -321,8 +390,10 @@ class TapIndex:
 
     # Forward: by cout-block, then (tap, cin-block), JAX's column-major
     # order.  dx: by cin-block, the flipped tap reading cout-block j.
-    self.fwd = grouped(j, t * nkc + r, t, r, nnc)
-    self.dx = grouped(r, (t_dim - 1 - t) * nnc + j, t_dim - 1 - t, j, nkc)
+    self._ids: Dict[str, torch.Tensor] = {}
+    self.fwd = grouped('fwd', j, t * nkc + r, t, r, nnc)
+    self.dx = grouped('dx', r, (t_dim - 1 - t) * nnc + j, t_dim - 1 - t, j,
+                      nkc)
     self.dw = TapDwEntries(i32(t), i32(r), i32(j), i32(off))
     self._cache: Dict[str, 'TapIndex'] = {}
 
@@ -400,6 +471,95 @@ class TapIndex:
       self._cache[key] = TapGroupLists(
           *(a.to(torch.int32).contiguous() for a in lists), gcols)
     return self._cache[key]
+
+  def panel_lists(self, mode: str, device, gcols: int,
+                  width: int) -> TapPanelLists:
+    """The lists of the 'tf32' branch for `mode` at image width `width`,
+    on `device`, with the output block-columns in groups of `gcols`
+    (TapPanelLists); built once per (mode, device, gcols, width)."""
+    device = torch.device(device)
+    key = ('panels', mode, str(device), gcols, width)
+    if key not in self._cache and device.type != 'cpu':
+      cpu = self.panel_lists(mode, 'cpu', gcols, width)
+      self._cache[key] = TapPanelLists(*(a.to(device) for a in cpu[:3]),
+                                       gcols, cpu.xrows)
+    if key not in self._cache:
+      self._cache[key] = self._panel_lists(mode, gcols, width)
+    return self._cache[key]
+
+  def _panel_lists(self, mode: str, gcols: int, width: int) -> TapPanelLists:
+    fwd = mode == 'fwd'
+    ptr, taps, kblks, _ = (a.long() for a in (self.fwd if fwd else self.dx))
+    ids = self._ids[mode]
+    n_in = self.cin // self.bk if fwd else self.cout // self.bn
+    seg, out_w = (self.bk, self.bn) if fwd else (self.bn, self.bk)
+    kh, kw = self.kh, self.kw
+    t_dim = kh * kw
+    ncols = ptr.numel() - 1
+    n_groups = -(-ncols // gcols)
+    col = torch.repeat_interleave(torch.arange(ncols), ptr.diff())
+    span = n_in * t_dim
+    uniq, inv = torch.unique((col // gcols) * span + kblks * t_dim + taps,
+                             return_inverse=True)
+    group, kblk, tap = uniq // span, (uniq % span) // t_dim, uniq % t_dim
+    ents = torch.full((uniq.numel() * gcols,), -1, dtype=torch.int64)
+    ents[inv * gcols + col % gcols] = ids
+    masks = torch.zeros(uniq.numel(), dtype=torch.int64).index_add_(
+        0, inv, 1 << (col % gcols))
+    dy = tap // kw - kh // 2
+    shift = dy * width + tap % kw - kw // 2
+    # Runs of one (group, input block), or of one tap row where a whole
+    # block's x tile would pass TAP_TF32_XROWS rows.
+    by_row = (TAP_TF32_ROWS + 2 * ((kh // 2) * width + kw // 2)
+              > TAP_TF32_XROWS)
+    run_key = (group * n_in + kblk) * (kh if by_row else 1) + (
+        dy + kh // 2 if by_row else 0)
+    new_run = torch.ones(uniq.numel(), dtype=torch.bool)
+    new_run[1:] = run_key[1:] != run_key[:-1]
+    starts = new_run.nonzero().flatten()
+    ends = torch.cat([starts[1:], torch.tensor([uniq.numel()])])
+    run_id = torch.cumsum(new_run.long(), 0) - 1
+    n_runs = starts.numel()
+    lo = torch.zeros(n_runs, dtype=torch.int64).scatter_reduce(
+        0, run_id, shift, 'amin', include_self=False)
+    hi = torch.zeros(n_runs, dtype=torch.int64).scatter_reduce(
+        0, run_id, shift, 'amax', include_self=False)
+    # Each run a panel a chunk of TAP_TF32_CHUNK channels, each panel
+    # stages of TAP_TF32_ENTRIES entries.
+    n_chunks = -(-seg // TAP_TF32_CHUNK)
+    run = torch.arange(n_runs).repeat_interleave(n_chunks)
+    pk0 = torch.arange(n_chunks).repeat(n_runs) * TAP_TF32_CHUNK
+    prows = TAP_TF32_ROWS + (hi - lo)[run]
+    pstages = -(-(ends - starts)[run] // TAP_TF32_ENTRIES)
+    gstages = torch.zeros(n_groups, dtype=torch.int64).index_add_(
+        0, group[starts][run], pstages)
+    order = torch.argsort(-gstages, stable=True)
+    xrows = int(prows.max()) if prows.numel() else TAP_TF32_ROWS
+    # The stage table: stage j of panel pp.
+    pp = torch.arange(run.numel()).repeat_interleave(pstages)
+    j = torch.arange(pp.numel()) - (torch.cumsum(pstages, 0) - pstages)[pp]
+    e0, e1, plo, k0 = starts[run[pp]], ends[run[pp]], lo[run[pp]], pk0[pp]
+    stab = torch.zeros(pp.numel(), TAP_TF32_ROW, dtype=torch.int64)
+    stab[:, 0], stab[:, 1], stab[:, 4] = kblk[e0] * seg + k0, plo, k0
+    stab[:, 2] = torch.where(j == 0, -(-prows[pp] // TAP_TF32_BOX), 0)
+    dx = tap % kw - kw // 2
+    for e in range(TAP_TF32_ENTRIES):
+      u = e0 + TAP_TF32_ENTRIES * j + e
+      on = u < e1
+      uc = torch.where(on, u, 0)
+      rec = [(shift[uc] - plo) * 64, dy[uc] * 65536 + (dx[uc] & 0xFFFF),
+             masks[uc], torch.clamp(seg - k0, max=TAP_TF32_CHUNK) // 4]
+      off = [0, -(1 << 14) * 65536, 0, 0]
+      for i in range(4):
+        stab[:, 8 + 4 * e + i] = torch.where(on, rec[i], off[i])
+      for c in range(gcols):
+        eid = ents[uc * gcols + c]
+        eid = torch.where(on & (eid >= 0), eid, self.n_entries)
+        stab[:, 8 + 4 * TAP_TF32_ENTRIES + e * gcols + c] = eid * out_w
+    sptr = torch.zeros(n_groups + 1, dtype=torch.int64)
+    sptr[1:] = torch.cumsum(gstages, 0)
+    i32 = lambda a: a.to(torch.int32).contiguous()   # noqa: E731
+    return TapPanelLists(i32(sptr), i32(order), i32(stab), gcols, xrows)
 
   def to(self, device) -> 'TapIndex':
     device = torch.device(device)
@@ -546,7 +706,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _kernel(name: str):
   """The C entry point `name` of csrc/tap_conv.cu: pointers, then ints,
   then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'tap_conv_fwd': (8, 14), 'tap_conv_dx': (8, 14),
+  n_ptrs, n_ints = {'tap_conv_fwd': (11, 16), 'tap_conv_dx': (11, 16),
                     'tap_dw': (9, 15)}[name]
   fn = getattr(_build.load('tap_conv'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
@@ -625,19 +785,34 @@ def tap_conv_cuda(x: torch.Tensor, w: torch.Tensor, index: TapIndex,
                       mode).view(n, h, wd, cy)
   else:
     y = torch.empty((n, h, wd, cy), dtype=x.dtype, device=x.device)
-    gcols, tile = 1, 0
+    gcols, tile, xrows, n_ent = 1, 0, 0, 0
+    extra = [None] * 3     # tf32: stage table, entry offsets, W's copy
     if branch == 'wgmma':
       gcols = tap_wgmma_gcols(index, mode, n * h * wd,
                               dw_split.sm_count(x.device))
       tile = tap_wgmma_tile(gcols, bn)
       *lists, _ = index.group_lists(mode, x.device, gcols)
+    elif branch == 'tf32':
+      gcols, tile = tap_tf32_tile(index, mode, n * h * wd,
+                                  dw_split.sm_count(x.device))
+      pl = index.panel_lists(mode, x.device, gcols, wd)
+      lists = [pl.sptr, None, None, None, pl.order]
+      n_ent, xrows = index.n_entries, pl.xrows
+      # The blocks' K-major hi / lo copy and a block of zeros
+      # (tap_w_split_kernel), each row's contraction in whole chunks: lives
+      # through the launch, on the stream's allocator.
+      segp = -(-bk // TAP_TF32_CHUNK) * TAP_TF32_CHUNK
+      wt = torch.empty(2 * (n_ent + 1) * bn * segp, dtype=torch.float32,
+                       device=x.device)
+      extra = [pl.stab, index.to(x.device).dw.woffs, wt]
     else:   # the column lists; no launch order
       dev = index.to(x.device)
       lists = [*(dev.fwd if fwd else dev.dx), None]
     _launch('tap_conv_fwd' if fwd else 'tap_conv_dx', x.data_ptr(),
-            w.data_ptr(), *(0 if a is None else a.data_ptr() for a in lists),
+            w.data_ptr(),
+            *(0 if a is None else a.data_ptr() for a in lists + extra),
             y.data_ptr(), n * h * wd, h, wd, cx, cy // bn, index.kh,
-            index.kw, bk, bn, index.w_ld, gcols, tile,
+            index.kw, bk, bn, index.w_ld, gcols, tile, xrows, n_ent,
             TAP_BRANCHES.index(branch), _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
   if fwd:

@@ -514,7 +514,7 @@ TAP_BLOCKS = ([(b, ci, co) for b in ((16, 16), (16, 32), (32, 16), (8, 8))
 def test_tap_kernels_match_plain(cuda_device, ksize, n, h, w, block, cin,
                                  cout, dtype):
   """Forward, dx and dw, each launched once, against their plain versions
-  on the same index, in every branch of tap_branch (1x1: mm; f32: fma;
+  on the same index, in every branch of tap_branch (1x1: mm; f32: tf32;
   bf16: wgmma with blocks of 16s, wmma with 8s), at ragged pixel counts
   (M = 35, 49, 1, 646: not multiples of the 128-pixel tile), 7x7 and 1x1
   images and batch 1, with an empty cout-block (zero output columns) and
@@ -712,65 +712,134 @@ def test_tap_1x1_takes_the_mm_branch(cuda_device, dtype, block):
     assert _tap_counts() == before, mode
 
 
-# sha256 of the f32 KxK forward and dx outputs of tap_conv_kernel<float>
-# (the 'fma' branch) at the inputs of _f32_tap_outputs, as the kernel gave
-# them before the bf16 branches were redesigned, on an NVIDIA H100 80GB
-# HBM3 (torch 2.11.0+cu128): the branch keeps that kernel, so its bits
-# must not move.
-F32_TAP_SHA256 = {
-    '3x3 fwd':
-        '04ab4cef688eb8fdf4cbf4a6a2191368122956f7d327547152eea30debdb32e7',
-    '3x3 dx':
-        '651860682566b458ac7f6afa6e7c5e10e0ca1e913793ddf7a7ea9e50cbecdb40',
-    '5x5 fwd':
-        'fc4fe673213c1c3403990467b5b020e160865d35fd9b38e07db961f0fe44261d',
-    '5x5 dx':
-        '58b029d486794fa563357c1171d7e1b63b33623ef1c27bddd8b4e5107a06b651'}
-
-
-def _f32_tap_outputs(device):
-  """{name: f32 output} of the forward and dx at two shapes, from inputs
-  that numpy's seeded RandomState makes (stable across versions)."""
-  import numpy as np
-  out = {}
-  for k, n, hw, c, block in ((3, 4, 9, 32, (16, 16)),
-                             (5, 2, 7, 64, (32, 16))):
-    rs = np.random.RandomState(k * 100 + c)
-    occ = torch.from_numpy(
-        (rs.rand(k * k, c // block[0], c // block[1]) < 0.5).astype('int32'))
-    cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
-    w4 = torch.from_numpy(rs.randn(k, k, c, c).astype('float32')).to(device)
-    x = torch.from_numpy(rs.randn(n, hw, hw, c).astype('float32')).to(device)
-    index = tbsc.tap_index({'cols': cols, 'rows': rows, 'taps': taps},
-                           w4.shape, block)
-    for mode in ('fwd', 'dx'):
-      out[f'{k}x{k} {mode}'] = tbsc.tap_conv_cuda(x, w4, index, mode)
-  return out
+def _force_tf32(monkeypatch, wide):
+  """tap_conv_cuda's tf32 (gcols, tile) forced: groups of TAP_TF32_GROUP
+  16-channel block-columns (tile 32) wherever blocks are 16 wide, or one
+  column a tile."""
+  def tile(index, mode, *a):
+    out_w = index.bn if mode == 'fwd' else index.bk
+    if wide and out_w == 16:
+      return tbsc.TAP_TF32_GROUP, 16 * tbsc.TAP_TF32_GROUP
+    return 1, next((t for t in tbsc.TAP_TF32_TILES if t >= out_w),
+                   tbsc.TAP_TF32_TILES[-1])
+  monkeypatch.setattr(tbsc, 'tap_tf32_tile', tile)
 
 
 @pytest.mark.cuda
-def test_tap_f32_kxk_is_bitwise_equal_to_the_fma_kernel(cuda_device):
-  """f32 KxK takes the 'fma' branch, tap_conv_kernel<float>, whose outputs
-  are bitwise those of the kernel before the bf16 branches changed
-  (F32_TAP_SHA256)."""
-  import hashlib
-  assert tbsc.tap_branch(3, 3, 16, 16, torch.float32) == 'fma'
-  got = {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
-         for name, t in _f32_tap_outputs(cuda_device).items()}
-  assert got == F32_TAP_SHA256
+@pytest.mark.parametrize('wide', [True, False])
+@pytest.mark.parametrize('ksize,block,cin,cout', [
+    ((3, 3), (16, 16), 32, 32), ((5, 5), (32, 16), 64, 48),
+    ((3, 5), (16, 32), 48, 64), ((3, 3), (128, 128), 256, 256)])
+def test_tap_f32_kxk_takes_the_tf32_branch_and_repeats_bitwise(
+    cuda_device, monkeypatch, ksize, block, cin, cout, wide):
+  """f32 KxK takes the 'tf32' branch (tap_conv_3xtf32_kernel), forward and
+  dx at both group widths: within TAP_TF32 of the plain version, and a
+  second launch gives the same bits (each output tile is one thread
+  block's, its products in a fixed order, with no atomics)."""
+  assert tbsc.tap_branch(*ksize, *block, torch.float32) == 'tf32'
+  _force_tf32(monkeypatch, wide)
+  packing, _ = _tap_case(ksize, cin, cout, block, cin + cout)
+  gen = torch.Generator().manual_seed(cout)
+  x = torch.randn(3, 9, 11, cin, generator=gen).to(cuda_device)
+  gy = torch.randn(3, 9, 11, cout, generator=gen).to(cuda_device)
+  w4 = (torch.randn(*ksize, cin, cout, generator=gen) / 8).to(cuda_device)
+  index = tbsc.tap_index(packing, w4.shape, block)
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    first = tbsc.tap_conv_cuda(a, w4, index, mode)
+    second = tbsc.tap_conv_cuda(a, w4, index, mode)
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second), mode
+    assert _rel(first, want) <= TAP_TOL[torch.float32], mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('wide', [True, False])
+@pytest.mark.parametrize('block', [(16, 16), (32, 16), (16, 32), (48, 48),
+                                   (64, 64)])
+def test_tap_tf32_keeps_nonfinite_inputs_in_their_columns(cuda_device,
+                                                          monkeypatch,
+                                                          block, wide):
+  """The f32 twin of test_tap_wgmma_keeps_nonfinite_inputs_in_their_
+  columns, at both group widths: x's input block 3 (NaN) is read by output
+  column 0 alone and gy's block 3 (inf) by dx column 0 alone; output
+  column 2 and dx column 2 have no entry and come out zeros; every other
+  output is finite and matches the plain version (a group multiplies every
+  column by every entry, so it must keep a non-finite x out of the columns
+  that do not read it)."""
+  bk, bn = block
+  gen = torch.Generator().manual_seed(bk + 3 * bn)
+  occ = (torch.rand(9, 4, 4, generator=gen) < 0.5).to(torch.int32)
+  occ[:, 3, :] = 0
+  occ[4, 3, 0] = 1        # x block 3: output column 0 only
+  occ[:, :, 3] = 0
+  occ[4, 0, 3] = 1        # gy block 3: dx column 0 only
+  occ[:, :, 2] = 0        # an empty output column
+  occ[:, 2, :] = 0        # an empty dx column
+  occ[4, 1, 1] = 1
+  cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+  _force_tf32(monkeypatch, wide)
+  x = torch.randn(2, 9, 11, 4 * bk, generator=gen)
+  gy = torch.randn(2, 9, 11, 4 * bn, generator=gen)
+  x[..., 3 * bk:] = float('nan')
+  gy[..., 3 * bn:] = float('inf')
+  w4 = torch.randn(3, 3, 4 * bk, 4 * bn, generator=gen) / 8
+  x, gy, w4 = (t.to(cuda_device) for t in (x, gy, w4))
+  index = tbsc.tap_index({'cols': cols, 'rows': rows, 'taps': taps},
+                         w4.shape, block)
+  for a, mode, out_w in ((x, 'fwd', bn), (gy, 'dx', bk)):
+    got = tbsc.tap_conv_cuda(a, w4, index, mode)
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert not finite[..., :out_w].any() and finite[..., out_w:].all()
+    assert torch.equal(torch.isfinite(got), finite), mode
+    assert not got[..., 2 * out_w:3 * out_w].any(), mode
+    assert _rel(got[..., out_w:], want[..., out_w:]) <= TAP_TOL[
+        torch.float32], mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ksize,h,w', [((5, 5), 12, 224), ((3, 3), 9, 224),
+                                       ((5, 5), 20, 56), ((3, 5), 7, 112)])
+def test_tap_tf32_halo_at_the_widest_image(cuda_device, ksize, h, w):
+  """The tf32 branch at the widest image the repo's models take (224) and
+  a 5x5 kernel, forward and dx against the plain version: where an input
+  block's x tile (128 pixel rows plus the halo, W (kh / 2) + kw / 2 a
+  side) would pass TAP_TF32_XROWS rows, its taps are split by tap row;
+  below that one tile serves every tap of the block."""
+  kh, kw = ksize
+  packing, occ = _tap_case(ksize, 32, 48, (16, 16), w + kh)
+  gen = torch.Generator().manual_seed(w)
+  x = torch.randn(2, h, w, 32, generator=gen).to(cuda_device)
+  gy = torch.randn(2, h, w, 48, generator=gen).to(cuda_device)
+  w4 = (torch.randn(kh, kw, 32, 48, generator=gen) / 8).to(cuda_device)
+  index = tbsc.tap_index(packing, w4.shape, (16, 16))
+  halo = w * (kh // 2) + kw // 2
+  split = tbsc.TAP_TF32_ROWS + 2 * halo > tbsc.TAP_TF32_XROWS
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    gcols, _ = tbsc.tap_tf32_tile(index, mode, 2 * h * w, 132)
+    xrows = index.panel_lists(mode, 'cpu', gcols, w).xrows
+    assert (xrows <= tbsc.TAP_TF32_ROWS + kw - 1) == split, (mode, xrows)
+    got = tbsc.tap_conv_cuda(a, w4, index, mode)
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TAP_TOL[torch.float32], mode
+  for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
+    assert not tbsc.tap_conv_cuda(x, w4, index)[..., 16 * j:16 * (j + 1)].any()
 
 
 @pytest.mark.cuda
 def test_tap_branch_that_cannot_take_the_call_is_refused(cuda_device,
                                                         monkeypatch):
   """A branch named for what it cannot take raises and runs nothing else:
-  wgmma for a block of 8s, fma for bf16, wmma for f32, mm for a 3x3."""
+  wgmma for a block of 8s, tf32 for bf16, wmma for f32, mm for a 3x3."""
   packing, _ = _tap_case((3, 3), 32, 32, (8, 8), 3)
   x = torch.randn(2, 6, 6, 32, device=cuda_device)
   w4 = torch.randn(3, 3, 32, 32, device=cuda_device)
   index = tbsc.tap_index(packing, w4.shape, (8, 8))
   for branch, dtype, err in (('wgmma', torch.bfloat16, RuntimeError),
-                             ('fma', torch.bfloat16, RuntimeError),
+                             ('tf32', torch.bfloat16, RuntimeError),
                              ('wmma', torch.float32, RuntimeError),
                              ('mm', torch.bfloat16, ValueError)):
     monkeypatch.setattr(tbsc, 'tap_branch', lambda *a, b=branch: b)

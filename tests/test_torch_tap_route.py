@@ -3,12 +3,14 @@
 ops/block_sparse_conv.py `tap_branch` names the branch of each forward /
 dx call: 'mm' for a 1x1 kernel (csrc/packed_mm.cu's forward / dx kernels
 over the index's lists), 'wgmma' / 'wmma' for a bf16 KxK kernel with
-blocks of 16s / 8s and 'fma' for f32 (csrc/tap_conv.cu, by the branch's
+blocks of 16s / 8s and 'tf32' for f32 (csrc/tap_conv.cu, by the branch's
 position in TAP_BRANCHES).  The kernels run only on a CUDA card
 (test_torch_kernels_cuda.py); here the rule, its codes, the 1x1 lists
 against block_sparse_v4's and v3's (both routes sum the same entries in
-the same order), and the train step's TapIndex, built once per mask
-update and kept on the layer's TapPack.  No JAX here."""
+the same order), the wgmma branch's group lists and the tf32 branch's
+panel lists walked in Python to the plain sums, and the train step's
+TapIndex, built once per mask update and kept on the layer's TapPack.  No
+JAX here."""
 
 import functools
 import re
@@ -40,10 +42,10 @@ BF16, F32 = torch.bfloat16, torch.float32
     (5, 5, 48, 80, BF16, 'wgmma'), (3, 5, 32, 64, BF16, 'wgmma'),
     (3, 3, 8, 8, BF16, 'wmma'), (3, 3, 16, 8, BF16, 'wmma'),
     (5, 5, 24, 16, BF16, 'wmma'),
-    (3, 3, 16, 16, F32, 'fma'), (3, 3, 4, 4, F32, 'fma'),
-    (5, 5, 128, 128, F32, 'fma')])
+    (3, 3, 16, 16, F32, 'tf32'), (3, 3, 4, 4, F32, 'tf32'),
+    (5, 5, 128, 128, F32, 'tf32')])
 def test_tap_branch_rule(kh, kw, bk, bn, dtype, want):
-  """mm for every 1x1; KxK: fma in f32, wgmma in bf16 where 16 divides
+  """mm for every 1x1; KxK: tf32 in f32, wgmma in bf16 where 16 divides
   both block sides, wmma for a bf16 block of 8s."""
   assert tbsc.tap_branch(kh, kw, bk, bn, dtype) == want
 
@@ -71,11 +73,11 @@ def test_tap_branch_codes_match_dispatch_conv():
 def test_rn50_route_shapes_take_mm_and_wgmma():
   """The RN50 step's default route (block (128, 128), bf16): its 1x1s
   take mm, its 3x3s (with block_conv3x3) wgmma; WRN in bf16 (block 16)
-  wgmma, in f32 fma."""
+  wgmma, in f32 tf32."""
   assert tbsc.tap_branch(1, 1, 128, 128, BF16) == 'mm'
   assert tbsc.tap_branch(3, 3, 128, 128, BF16) == 'wgmma'
   assert tbsc.tap_branch(3, 3, 16, 16, BF16) == 'wgmma'
-  assert tbsc.tap_branch(3, 3, 16, 16, F32) == 'fma'
+  assert tbsc.tap_branch(3, 3, 16, 16, F32) == 'tf32'
 
 
 def _columns(lists):
@@ -274,6 +276,191 @@ def test_wgmma_group_width_follows_the_union_and_the_grid():
     assert union > tbsc.TAP_GROUP_CUT * sparse.n_entries
     assert tbsc.tap_wgmma_gcols(sparse, mode, 128 * 14 * 14, 132) == 1
     assert tbsc.tap_wgmma_gcols(wide, mode, 128 * 28 * 28, 132) == 1
+
+
+# ------------------------------------------------ the tf32 branch (f32) --
+def _c_int(name: str) -> int:
+  """An integer constant of tap_conv.cu, `constexpr int name = <int>;`."""
+  return int(re.search(r'constexpr int ' + name + r' = (\d+);',
+                       SOURCE.read_text()).group(1))
+
+
+def _tf_channel():
+  """tap_conv.cu's tf_channel(kk, k), the one-line C function, as Python."""
+  body = re.search(r'constexpr int tf_channel\(int kk, int k\) \{\s*return '
+                   r'(.*?);', SOURCE.read_text(), re.S).group(1)
+  expr = ' '.join(body.replace(' / ', ' // ').split())
+  return lambda kk, k: eval(expr, {'kk': kk, 'k': k})
+
+
+def test_tf32_constants_match_the_kernel():
+  """TAP_TF32_TILES are the tiles launch_tf32 instantiates, and the rows a
+  thread block, channels an x tile and entries a stage are the kernel's:
+  the Python side plans the grid and the panels from them.  tf_channel is
+  a permutation of each k-step pair's 16 channels that gives thread q of a
+  quad channels 4 q .. 4 q + 3, its one 16-byte load."""
+  text = SOURCE.read_text()
+  body = re.search(r'cudaError_t launch_tf32\(const ConvArgs& a\) \{(.*?)\n\}',
+                   text, re.S).group(1)
+  assert tuple(int(n) for n in re.findall(r'case (\d+):', body)) == (
+      tbsc.TAP_TF32_TILES)
+  assert _c_int('kTfRows') == tbsc.TAP_TF32_ROWS
+  assert _c_int('kTfChunk') == tbsc.TAP_TF32_CHUNK
+  assert _c_int('kTfEntries') == tbsc.TAP_TF32_ENTRIES
+  ch = _tf_channel()
+  got = [ch(kk, k) for kk in range(2) for k in range(8)]
+  assert sorted(got) == list(range(16))
+  for q in range(4):
+    assert {ch(kk, q + 4 * j) for kk in range(2) for j in range(2)} == set(
+        range(4 * q, 4 * q + 4))
+
+
+@pytest.mark.parametrize('cin,cout,block,pixels,want', [
+    (16, 32, (16, 16), 128 * 32 * 32, (2, 32)),   # WRN g0_b0/conv1
+    (32, 16, (16, 16), 128 * 32 * 32, (1, 16)),   # one column
+    (128, 128, (16, 16), 128 * 8 * 8, (2, 32)),   # WRN g2: 4 x 64 tiles
+    (512, 512, (16, 16), 128 * 7 * 7, (2, 32)),   # RN50 g3
+    (64, 64, (16, 16), 128, (1, 16)),             # one pixel tile
+    (96, 160, (48, 80), 1024, (1, 128)),          # blocks of 80
+    (128, 384, (64, 192), 4096, (1, 128)),        # a column over 128
+    (8, 24, (4, 12), 4096, (1, 16)),              # blocks of 12
+    (64, 96, (16, 32), 128 * 256, (1, 32))])      # blocks of 32
+def test_tf32_tile_rule(cin, cout, block, pixels, want):
+  """The tf32 call's (gcols, tile) in the forward: groups of
+  TAP_TF32_GROUP block-columns where blocks are 16 wide, the layer has
+  that many columns and the groups' thread blocks still cover 132 SMs;
+  else one column a tile, the narrowest that holds it."""
+  index = _tap_index_at((3, 3), cin, cout, block, 0.5, 0)
+  assert tbsc.tap_tf32_tile(index, 'fwd', pixels, 132) == want
+
+
+def _walk_stages(a, w, index, mode, gcols, width):
+  """The tf32 branch's sums, walked in Python from its stage table as the
+  kernel walks it: for each group (in `order`), each stage row, each entry
+  slot with channels to read, the x tile of its panel (TAP_TF32_CHUNK
+  channels from the row's x channel, pixel rows from lo) read at the
+  slot's row offset, pixels outside the image zero, its channels taken in
+  contraction order (channel tf_channel(kk, k) at index 8 kk + k), times,
+  for each column of the group the slot's mask holds, the block its W row
+  names, laid out as tap_w_split_kernel copies it; in f64.  Checks on the
+  way: a group's entries run in (input block, chunk, tap) order, each
+  shift lies within its panel's x tile boxes, and a slot's W rows and
+  mask agree (the zero block where a column lacks the entry)."""
+  fwd = mode == 'fwd'
+  seg, out_w = (index.bk, index.bn) if fwd else (index.bn, index.bk)
+  pl = index.panel_lists(mode, 'cpu', gcols, width)
+  ent, zero = tbsc.TAP_TF32_ENTRIES, index.n_entries * out_w
+  n, h, wd, cx = a.shape
+  m = n * h * wd
+  xf = a.double().reshape(m, cx)
+  pix = torch.arange(m)
+  ph, pw = (pix // wd) % h, pix % wd
+  chan = _tf_channel()
+  order = [chan(kk, k) for kk in range(2) for k in range(8)]
+  wf = w.double().reshape(-1)
+  dw = index.dw
+  cy = index.cout if fwd else index.cin
+  y = torch.zeros(m, cy, dtype=torch.float64)
+  sptr, stab = pl.sptr.tolist(), pl.stab.tolist()
+  counts = [sptr[g + 1] - sptr[g] for g in range(len(sptr) - 1)]
+  assert sorted(pl.order.tolist()) == list(range(len(counts)))
+  assert [counts[g] for g in pl.order.tolist()] == sorted(counts,
+                                                          reverse=True)
+  for g in range(len(counts)):
+    seen, boxes = [], 0
+    for row in stab[sptr[g]:sptr[g + 1]]:
+      ch0, lo, nbox, _, k0 = row[:5]
+      boxes = nbox or boxes        # a panel's first stage copies its tile
+      assert boxes and k0 % tbsc.TAP_TF32_CHUNK == 0
+      cw = min(tbsc.TAP_TF32_CHUNK, seg - k0)
+      for e in range(ent):
+        off, dydx, mask, quads = row[8 + 4 * e:12 + 4 * e]
+        wrows = row[8 + 4 * ent + e * gcols:8 + 4 * ent + (e + 1) * gcols]
+        if quads == 0:   # a slot past the panel's entries reads nothing
+          assert mask == 0 and dydx >> 16 == -(1 << 14)
+          assert wrows == [zero] * gcols
+          continue
+        assert quads == cw // 4 and off % 64 == 0
+        dy, dx = dydx >> 16, ((dydx & 0xFFFF) ^ 0x8000) - 0x8000
+        tap = (dy + index.kh // 2) * index.kw + dx + index.kw // 2
+        shift = off // 64 + lo
+        assert shift == dy * width + dx
+        # Every shifted row the tile's 128 pixels read lies in its boxes.
+        assert 0 <= shift - lo <= (boxes * tbsc.TAP_TF32_BOX
+                                   - tbsc.TAP_TF32_ROWS)
+        kb = (ch0 - k0) // seg
+        seen.append((kb, k0, tap))
+        ok = ((ph + dy >= 0) & (ph + dy < h) & (pw + dx >= 0)
+              & (pw + dx < wd))
+        src = (pix + shift).clamp(0, m - 1)
+        xs = torch.zeros(m, tbsc.TAP_TF32_CHUNK, dtype=torch.float64)
+        xs[:, :4 * quads] = xf[src, ch0:ch0 + 4 * quads] * ok[:, None]
+        a_log = xs[:, order]             # contraction index 8 kk + k
+        for c in range(gcols):
+          assert wrows[c] % out_w == 0
+          assert ((mask >> c) & 1) == (wrows[c] != zero)
+          if wrows[c] == zero:
+            continue
+          eid = wrows[c] // out_w
+          t, r, j = int(dw.taps[eid]), int(dw.rblks[eid]), int(dw.cblks[eid])
+          assert (t if fwd else index.kh * index.kw - 1 - t) == tap
+          assert (r if fwd else j) == kb
+          assert (j if fwd else r) == g * gcols + c
+          blk = tbsc._block(wf, int(dw.woffs[eid]), index.bk, index.bn,
+                            index.w_ld)
+          kmaj = blk.T if fwd else blk          # out_w x seg, K-major
+          b_log = torch.zeros(tbsc.TAP_TF32_CHUNK, out_w, dtype=torch.float64)
+          for i, ch in enumerate(order):
+            if k0 + ch < seg:
+              b_log[i] = kmaj[:, k0 + ch]
+          col = (g * gcols + c) * out_w
+          y[:, col:col + out_w] += a_log @ b_log
+    assert seen == sorted(set(seen))   # (input block, chunk, tap) order
+  return y.reshape(n, h, wd, cy)
+
+
+@pytest.mark.parametrize('ksize,cin,cout,block,width', [
+    ((3, 3), 64, 64, (16, 16), 7), ((5, 5), 48, 80, (16, 16), 9),
+    ((3, 5), 32, 96, (16, 32), 6), ((3, 3), 64, 48, (32, 16), 5),
+    ((3, 3), 24, 40, (12, 20), 4), ((3, 5), 48, 32, (16, 16), 200)])
+def test_panel_lists_walk_to_the_plain_sums(ksize, cin, cout, block, width):
+  """The tf32 branch's panel lists (TapIndex.panel_lists), forward and dx
+  at both group widths: each group's stage table, walked in Python as the
+  kernel walks it with the W copy's contraction order (_walk_stages: the
+  union of the columns' entries in (input block, chunk, tap) order, each
+  shift within its panel's x tile, masks and W rows agreeing), gives
+  tap_conv_reference's sums (f32 against f64: 1e-5), an empty output
+  column and an empty tap included.  Blocks of 32 and of 12 / 20 take
+  several and partial chunks; an image 200 wide splits the panels by tap
+  row (its halo would pass TAP_TF32_XROWS)."""
+  kh, kw = ksize
+  gen = torch.Generator().manual_seed(cin + cout + width)
+  occ = (torch.rand(kh * kw, cin // block[0], cout // block[1],
+                    generator=gen) < 0.4).to(torch.int32)
+  occ[:, :, 0] = 0
+  occ[0] = 0
+  cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+  index = tbsc.tap_index(tbsc.TapPack(cols, rows, taps),
+                         (kh, kw, cin, cout), block)
+  x = torch.randn(2, 3, width, cin, generator=gen)
+  gy = torch.randn(2, 3, width, cout, generator=gen)
+  w4 = torch.randn(kh, kw, cin, cout, generator=gen)
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    out_w = block[1] if mode == 'fwd' else block[0]
+    ncols = (cout if mode == 'fwd' else cin) // out_w
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    scale = max(1.0, float(want.abs().max()))
+    widths = {1, tbsc.TAP_TF32_GROUP} if out_w == 16 and ncols > 1 else {1}
+    for gcols in sorted(widths):
+      lists = index.panel_lists(mode, 'cpu', gcols, width)
+      assert lists.gcols == gcols
+      assert all(t.dtype == torch.int32 for t in lists[:3])
+      if width == 200:
+        assert lists.xrows == tbsc.TAP_TF32_ROWS + kw - 1
+      got = _walk_stages(a, w4, index, mode, gcols, width)
+      assert float((got - want).abs().max()) <= 1e-5 * scale, (mode, gcols)
+  assert index.panel_lists('fwd', 'cpu', 1, width) is index.panel_lists(
+      'fwd', 'cpu', 1, width)
 
 
 # ---------------------------------------------- the index, once a packing --

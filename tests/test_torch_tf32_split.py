@@ -713,3 +713,113 @@ def test_dw_stage_products_give_xt_gy(tn):
                         for n in range(tn)])
       got += np.outer(a_col, b_row)
   np.testing.assert_allclose(got, x.T @ gy[:, :tn], rtol=1e-12, atol=1e-12)
+
+
+# ---- the f32 tap conv: csrc/tap_conv.cu tap_conv_3xtf32_kernel ------------
+# Each output sums its column's entries, 16 channels (two k-steps of 8) an
+# entry at blocks of 16: per k-step a_hi (b_hi | b_lo) as one product into
+# two accumulators (at output tiles of at most 64) and a_lo b_hi into the
+# first, each product an exact sum of 8 added to the tensor cores'
+# accumulator, which drops the low bits; every kTfFlush stages of
+# kTfEntries entries the sum goes into y in f32 and starts afresh.
+TAP = (CSRC / 'tap_conv.cu').read_text()
+TAP_TOL = 1e-4   # the tap conv's f32 card tolerance, of max(1, max |plain|)
+
+
+def _tap_int(name):
+  return int(re.search(r'constexpr int ' + name + r' = (\d+);',
+                       TAP).group(1))
+
+
+def _tap3(x, w, k_steps_per_flush):
+  """x (P, 8 L) @ w (8 L, 16) as the kernel sums it: k-step by k-step, the
+  a_hi b_hi and a_lo b_hi terms into one accumulator and a_hi b_lo into a
+  second (each added to its accumulator toward zero, _rz), both flushed
+  into an f32 sum (rounded to nearest) every k_steps_per_flush k-steps
+  and at the end."""
+  (x_hi, x_lo), (w_hi, w_lo) = split(x), split(w)
+  steps = x.shape[1] // 8
+  total = torch.zeros(x.shape[0], w.shape[1])
+  main, second = torch.zeros_like(total), torch.zeros_like(total)
+  for k in range(steps):
+    if k and k % k_steps_per_flush == 0:
+      total = total + main + second
+      main, second = torch.zeros_like(total), torch.zeros_like(total)
+    cut = slice(8 * k, 8 * k + 8)
+    main = _rz(main.double() + x_hi[:, cut].double() @ w_hi[cut].double())
+    second = _rz(second.double() + x_hi[:, cut].double() @ w_lo[cut].double())
+    main = _rz(main.double() + x_lo[:, cut].double() @ w_hi[cut].double())
+  return total + main + second
+
+
+def _longest_phase12_chain():
+  """The most k-steps any output column sums at chip_smoke.py phase 12's
+  f32 block-16 shapes (WRN-22-2's four 3x3 and its 5x5 point, RN50's four
+  stride-1 3x3s, ERK at 0.8, random occupancies as phase 12 draws them),
+  forward or dx: 2 k-steps an entry."""
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.models.packed_convnet import (resnet_layer_shapes,
+                                                    wrn_layer_shapes)
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  from rigl_tpu_torch.sparsity.layer_sparsity import (resolve_sparsity,
+                                                      spec_for_model)
+  wrn = spec_for_model(wrn_layer_shapes(22, 2), 'erdos_renyi_kernel', 0.8)
+  rn50 = spec_for_model(resnet_layer_shapes(50, 1.0, (16, 16)),
+                        'erdos_renyi_kernel', 0.8)
+  shapes = [(wrn, 'g0_b0/conv1', 16, 32, 3), (wrn, 'g0_b0/conv2', 32, 32, 3),
+            (wrn, 'g1_b1/conv1', 64, 64, 3), (wrn, 'g2_b1/conv1', 128, 128, 3),
+            (wrn, 'g1_b1/conv1', 64, 64, 5),
+            (rn50, 'g0_b1/conv3x3', 64, 64, 3),
+            (rn50, 'g1_b1/conv3x3', 128, 128, 3),
+            (rn50, 'g2_b1/conv3x3', 256, 256, 3),
+            (rn50, 'g3_b1/conv3x3', 512, 512, 3)]
+  gen = torch.Generator().manual_seed(0)
+  longest = 0
+  for spec, name, cin, cout, k in shapes:
+    s = resolve_sparsity(spec, name + '/kernel')
+    nk, nn_ = k * k * cin // 16, cout // 16
+    occ = random_occupancy(gen, nk, nn_, nk * nn_ - get_n_zeros(nk * nn_, s))
+    occ = occ.reshape(k * k, cin // 16, nn_)
+    longest = max(longest, int(occ.sum((0, 1)).max()),
+                  int(occ.sum((0, 2)).max()))
+  return 2 * longest
+
+
+def test_tap_chain_within_tolerance_at_the_chosen_flush():
+  """The f32 tap conv's sums over the longest column of phase 12's f32
+  shapes (x and W drawn as phase 12 draws them: N(0, 1), and N(0, 1) /
+  sqrt(9 cin) with cin = 512) stay within TAP_TOL of float64 with the 10x
+  margin (64 k-steps, 3.5e-6 here), flushing every kTfFlush stages; the
+  kernel's constants are read from its source."""
+  flush = _tap_int('kTfFlush') * _tap_int('kTfEntries') * 2
+  steps = _longest_phase12_chain()
+  assert 40 <= steps < flush   # no column of phase 12 reaches a flush
+  rng = np.random.default_rng(steps)
+  x = torch.from_numpy(rng.standard_normal((512, 8 * steps),
+                                           dtype=np.float32))
+  w = torch.from_numpy((rng.standard_normal((8 * steps, 16))
+                        / np.sqrt(9 * 512)).astype(np.float32))
+  want = x.double() @ w.double()
+  scale = max(1.0, float(want.abs().max()))
+  err = float((_tap3(x, w, flush).double() - want).abs().max()) / scale
+  assert err * MARGIN <= TAP_TOL, err
+
+
+def test_tap_flush_keeps_a_dense_5x5_chain_within_tolerance():
+  """Why the kernel flushes: a dense 5x5 conv of 512 channels at blocks of
+  16 sums 1600 k-steps a column; with one pair of accumulators over them
+  the dropped low bits come within 1.3x of TAP_TOL (7.6e-5 here, unit
+  weights), where a flush every kTfFlush stages keeps 10x inside it
+  (7.8e-6)."""
+  flush = _tap_int('kTfFlush') * _tap_int('kTfEntries') * 2
+  steps = 25 * 32 * 2
+  rng = np.random.default_rng(1600)
+  x = torch.from_numpy(rng.standard_normal((64, 8 * steps),
+                                           dtype=np.float32))
+  w = torch.from_numpy(rng.standard_normal((8 * steps, 16),
+                                           dtype=np.float32))
+  want = x.double() @ w.double()
+  scale = max(1.0, float(want.abs().max()))
+  errs = [float((_tap3(x, w, f).double() - want).abs().max()) / scale
+          for f in (flush, steps)]
+  assert errs[0] * MARGIN <= TAP_TOL < errs[1] * MARGIN, errs
