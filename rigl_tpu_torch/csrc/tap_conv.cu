@@ -140,6 +140,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -702,6 +703,9 @@ constexpr int kTfBoxRows = 64;     // pixel rows of a TMA box of an x tile
 constexpr int kTfFlush = 32;       // stages between flushes of the sum to y
 constexpr int kTfRow = 32;         // ints a stage's row: one a lane
 constexpr int kTfMaxSmem = 227 * 1024;
+// The most pixel rows of an x tile (ops/block_sparse_conv.py
+// TAP_TF32_XROWS: past it a panel's taps are split by tap row).
+constexpr int kTfMaxXRows = 512;
 
 // Shared-memory plan of tap_conv_3xtf32_kernel at an output tile N channels
 // wide, whose x tiles hold `xrows` pixel rows: kTfStages W stages, each of
@@ -718,10 +722,10 @@ struct TfPlan {
   static constexpr int kBTile = N * 64;
   static constexpr int kWBytes = kTfEntries * 2 * kBTile;
   static_assert(kBTile % 1024 == 0, "B tiles start 1024-byte aligned");
-  static int x_bytes(int xrows) {
+  static constexpr int x_bytes(int xrows) {
     return (xrows + kTfBoxRows - 1) / kTfBoxRows * kTfBoxRows * 64;
   }
-  static int smem(int xrows) {
+  static constexpr int smem(int xrows) {
     return 1024 + kTfStages * (kWBytes + x_bytes(xrows) + kTfEntries * 16 +
                                16);
   }
@@ -770,13 +774,14 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Thread block (tile, m-tile): output pixels m0 .. m0 + 127 and channels n0
-// .. n0 + N - 1 of the output block-columns of group G = order[blockIdx.x /
-// tiles] (columns G gcols .. G gcols + gcols - 1; ops/block_sparse_conv.py
-// TapPanelLists), in f32: y = the sum over G's entries, for each column of
-// the group that holds the entry, of the shifted x block @ the entry's W
-// block.  G's entries run in (input block, tap) order, in panels of one
-// input block and kTfChunk of its channels, kTfEntries a stage (a panel
+// Thread block (tile, m-tile): output pixels m0 .. m0 + 127 (m-tile
+// m_base + blockIdx.y) and channels n0 .. n0 + N - 1 of the output
+// block-columns of group G = order[blockIdx.x / tiles] (columns G gcols ..
+// G gcols + gcols - 1; ops/block_sparse_conv.py TapPanelLists), in f32:
+// y = the sum over G's entries, for each column of the group that holds
+// the entry, of the shifted x block @ the entry's W block.  G's entries
+// run in (input block, tap) order, in panels of one input block and
+// kTfChunk of its channels, kTfEntries a stage (a panel
 // starts a stage): stage rows sptr[G] .. sptr[G+1]-1 of `stab`, kTfRow
 // ints each (TapPanelLists.stab): 0-4 the panel's x channel, its smallest
 // shift lo, its x tile's TMA boxes (the panel's first stage, else 0), 0
@@ -805,7 +810,7 @@ __global__ void __launch_bounds__(256)
 // split into hi / lo in registers, and per k-step a_hi (b_hi | b_lo) --
 // the lo rows follow the hi ones, so one product twice the width, into a
 // second half of the sum -- and a_lo b_hi run into the f32 sum in
-// registers (at N = 128, one column, a_hi b_lo is a product of its own).
+// registers.
 // kGroups: each column's products run only where it holds the entry
 // (predicated), so a column sums its own entries only and a non-finite x
 // reaches only the columns that read it.  The roles and the predicates
@@ -825,7 +830,7 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
                            const int* __restrict__ stab,
                            float* __restrict__ y, int M, int H, int W,
                            int cy, int out_w, int gcols, int x_bytes,
-                           int lo_rows) {
+                           int lo_rows, int m_base) {
   using P = TfPlan<N>;
   constexpr int S = kTfStages, E = kTfEntries;
   extern __shared__ unsigned char tf_smem[];
@@ -833,7 +838,7 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
   const int tiles = (gcols * out_w + N - 1) / N;
   const int g = order[blockIdx.x / tiles];
   const int n0 = (blockIdx.x % tiles) * N;
-  const int m0 = blockIdx.y * kTfRows;
+  const int m0 = (m_base + blockIdx.y) * kTfRows;
   const int s_begin = sptr[g];
   const int total = sptr[g + 1] - s_begin;           // stages
 
@@ -942,18 +947,15 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
     ph[h] = p < M ? (p / W) % H : -(1 << 20);
     pw[h] = p < M ? p % W : 0;
   }
-  // kWide: a_hi (b_hi | b_lo) is one product twice the width (the lo B
-  // rows follow the hi ones), its second half added to the first in f32
-  // at the end; a_lo b_hi goes into the first.  One column: the tile's,
-  // the second half at acc[N / 2 ..].  kGroups: per 16-column block-
-  // column c, acc[16 c .. 16 c + 15], the second half from 16 c + 8.
-  // Else (N = 128, one column) a_hi b_lo is a product of its own.
-  constexpr bool kWide = kGroups || N <= 64;
-  constexpr int kAcc = kWide ? N : N / 2;
-  float acc[kAcc];
+  // a_hi (b_hi | b_lo) is one product twice the width (the lo B rows
+  // follow the hi ones), its second half added to the first in f32 at the
+  // end; a_lo b_hi goes into the first.  One column: the tile's, the
+  // second half at acc[N / 2 ..].  kGroups: per 16-column block-column c,
+  // acc[16 c .. 16 c + 15], the second half from 16 c + 8.
+  float acc[N];
   float(&sum)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(acc);
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
   bool flushed = false;
   const int rows = M - m0, cols = width - n0;
   float* out = y + static_cast<size_t>(m0) * cy + g0 + n0;
@@ -971,12 +973,8 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
               out + static_cast<size_t>(rb[h]) * cy + c);
           const int i = kGroups ? 16 * (j / 2) + 4 * (j % 2) + 2 * h
                                 : 4 * j + 2 * h;
-          float2 v = make_float2(acc[i], acc[i + 1]);
-          if constexpr (kWide) {
-            const int i2 = i + (kGroups ? 8 : N / 2);
-            v.x += acc[i2];
-            v.y += acc[i2 + 1];
-          }
+          const int i2 = i + (kGroups ? 8 : N / 2);
+          float2 v = make_float2(acc[i] + acc[i2], acc[i + 1] + acc[i2 + 1]);
           if (flushed) {
             const float2 before = *o;
             v.x += before.x;
@@ -1046,13 +1044,7 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
             wgmma_tf32_rs_if<16>(a16, lo[e][kk], d, (mk[e] >> c) & 1);
           }
         } else {
-          if constexpr (kWide) {
-            wgmma_tf32_rs<2 * N>(acc, hi[e][kk], wgmma_desc_sw64(bh));
-          } else {
-            wgmma_tf32_rs<N>(acc, hi[e][kk], wgmma_desc_sw64(bh));
-            wgmma_tf32_rs<N>(acc, hi[e][kk],
-                             wgmma_desc_sw64(bh + P::kBTile));
-          }
+          wgmma_tf32_rs<2 * N>(acc, hi[e][kk], wgmma_desc_sw64(bh));
           wgmma_tf32_rs<N>(sum, lo[e][kk], wgmma_desc_sw64(bh));
         }
       }
@@ -1066,7 +1058,7 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
       flushed = true;
     }
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[i] = flush ? 0.f : acc[i];
+    for (int i = 0; i < N; ++i) acc[i] = flush ? 0.f : acc[i];
   }
   add_into_y();
 }
@@ -1486,24 +1478,37 @@ cudaError_t launch_wgmma(const ConvArgs& a) {
 
 // tap_conv_3xtf32_kernel at output tile N, its dynamic shared memory
 // allowed once per (instance, device) up to kTfMaxSmem and sized for the
-// call's largest x tile.
+// call's largest x tile (at most kTfMaxXRows rows, which every tile's plan
+// fits).  The groups' tiles run along x, so that the thread blocks that
+// run together share their pixel tiles' x in L2, the m-tiles along y, in
+// launches of at most 65535.
 template <int N, bool kGroups>
 cudaError_t launch_tf32_tile(const ConvArgs& a, const CUtensorMap& tx,
                              const CUtensorMap& tw, int m_tiles,
                              int lo_rows) {
+  static_assert(TfPlan<N>::smem(kTfMaxXRows) <= kTfMaxSmem,
+                "the largest x tile fits shared memory at this tile");
+  const int groups = (a.ncols + a.gcols - 1) / a.gcols;
+  const long long gtiles =
+      static_cast<long long>(groups) * ((a.gcols * a.out_w + N - 1) / N);
+  if (gtiles > INT_MAX) return cudaErrorInvalidValue;
   auto kernel = tap_conv_3xtf32_kernel<N, kGroups>;
   static std::atomic<uint64_t> allowed{0};   // bit d: done on device d
   cudaError_t err = allow_smem(kernel, kTfMaxSmem, allowed,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const int smem = TfPlan<N>::smem(a.xrows);
-  if (smem > kTfMaxSmem) return cudaErrorInvalidValue;
-  const int groups = (a.ncols + a.gcols - 1) / a.gcols;
-  const dim3 grid(groups * ((a.gcols * a.out_w + N - 1) / N), m_tiles);
-  kernel<<<grid, kTfThreads, smem, a.stream>>>(
-      tx, tw, a.ptr, a.order, a.stab, static_cast<float*>(a.y), a.M, a.H,
-      a.W, a.cy, a.out_w, a.gcols, TfPlan<N>::x_bytes(a.xrows), lo_rows);
-  return cudaGetLastError();
+  for (int m = 0; m < m_tiles; m += 65535) {
+    const dim3 grid(static_cast<unsigned>(gtiles),
+                    static_cast<unsigned>(std::min(m_tiles - m, 65535)));
+    kernel<<<grid, kTfThreads, smem, a.stream>>>(
+        tx, tw, a.ptr, a.order, a.stab, static_cast<float*>(a.y), a.M, a.H,
+        a.W, a.cy, a.out_w, a.gcols, TfPlan<N>::x_bytes(a.xrows), lo_rows,
+        m);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The tf32 branch: tap_w_split_kernel makes the K-major hi / lo copy of
@@ -1512,21 +1517,19 @@ cudaError_t launch_tf32_tile(const ConvArgs& a, const CUtensorMap& tx,
 // (ops/block_sparse_conv.py tap_tf32_tile; the tiles are the cases below)
 // over TapPanelLists' stages (ptr: the groups' stage rows, stab: the
 // stage table), x and the copy read by TMA.  Blocks must be multiples of
-// 4; a group of several columns, at most 8, must fit in one tile, in
-// whole 16-column blocks.  wt holds 2 (n_entries + 1) out_w segp floats,
-// segp = seg rounded up to 16.
+// 4; tile 32 takes groups of two 16-wide columns, tiles 16 and 64 one
+// column (a wider one in several tiles).  wt holds 2 (n_entries + 1)
+// out_w segp floats, segp = seg rounded up to 16.
 template <bool kTrans>
 cudaError_t launch_tf32(const ConvArgs& a) {
   const int m_tiles = (a.M + kTfRows - 1) / kTfRows;
   if (a.seg % 4 || a.out_w % 4 || a.seg <= 0 || a.out_w <= 0 ||
-      a.gcols <= 0 || a.gcols > 8 || m_tiles > 65535 || !a.order ||
-      !a.wt || a.xrows < kTfRows || a.n_entries < 0 ||
+      a.gcols <= 0 || !a.order || !a.wt || a.xrows < kTfRows ||
+      a.xrows > kTfMaxXRows || a.n_entries < 0 ||
       (a.gcols > 1 && (a.out_w != 16 || a.gcols * a.out_w > a.tile ||
                        a.tile != 32)))
     return cudaErrorInvalidValue;
   if (a.n_entries > 0 && (!a.ewoffs || !a.stab))
-    return cudaErrorInvalidValue;
-  if (8 + 4 * kTfEntries + kTfEntries * a.gcols > kTfRow)
     return cudaErrorInvalidValue;
   const int segp = (a.seg + kTfChunk - 1) / kTfChunk * kTfChunk;
   const long long lo_rows = static_cast<long long>(a.n_entries + 1) * a.out_w;
@@ -1562,11 +1565,10 @@ cudaError_t launch_tf32(const ConvArgs& a) {
                          : launch_tf32_tile<16, false>(a, tx, tw, m_tiles, lo);
     case 32:
       return a.gcols > 1 ? launch_tf32_tile<32, true>(a, tx, tw, m_tiles, lo)
-                         : launch_tf32_tile<32, false>(a, tx, tw, m_tiles, lo);
+                         : cudaErrorInvalidValue;
     case 64:
-      return launch_tf32_tile<64, false>(a, tx, tw, m_tiles, lo);
-    case 128:
-      return launch_tf32_tile<128, false>(a, tx, tw, m_tiles, lo);
+      return a.gcols > 1 ? cudaErrorInvalidValue
+                         : launch_tf32_tile<64, false>(a, tx, tw, m_tiles, lo);
     default: return cudaErrorInvalidValue;
   }
 }

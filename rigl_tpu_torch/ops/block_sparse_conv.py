@@ -94,11 +94,12 @@ TAP_WGMMA_TILE, TAP_WGMMA_ROWS = TAP_WGMMA_TILES[-1], 128
 # hold for the wide groups to be taken.
 TAP_GROUP_CUT = 0.75
 # tap_conv_3xtf32_kernel (the 'tf32' branch): its output tiles (the cases
-# of launch_tf32), pixels a thread block (kTfRows), input channels an x
-# tile (kTfChunk) and entries a stage (kTfEntries, 2 k-steps of 8 each);
-# and the most pixel rows of an x tile before a panel's taps are split by
-# tap row.
-TAP_TF32_TILES = (16, 32, 64, 128)
+# of launch_tf32: 16 and 64 one column, 32 a group), pixels a thread block
+# (kTfRows), input channels an x tile (kTfChunk) and entries a stage
+# (kTfEntries, 2 k-steps of 8 each); and the most pixel rows of an x tile
+# (kTfMaxXRows, which every tile's shared memory fits) before a panel's
+# taps are split by tap row.
+TAP_TF32_TILES = (16, 32, 64)
 TAP_TF32_ROWS, TAP_TF32_CHUNK, TAP_TF32_ENTRIES = 128, 16, 2
 TAP_TF32_XROWS = 512
 # ... the pixel rows of an x tile's TMA box (kTfBoxRows) and the ints of
@@ -297,13 +298,13 @@ def tap_tf32_tile(index: 'TapIndex', mode: str, pixels: int,
   on a card of sm_count SMs: at output blocks of 16, groups of
   TAP_TF32_GROUP block-columns (tile 32) where the layer has as many and
   the groups' thread blocks still give every SM one (groups x pixel tiles
-  >= SMs); else one column a thread block, in the narrowest tile that
-  holds it (tiles of 128 across a wider one).  A group copies each x tile
-  once for its columns and runs each column's products only where it
-  holds the entry: on an H100 at WRN-22-2's and RN50's block-16 shapes
-  (f32) groups of 2 were faster than one column at every point, and
-  groups of 4 (tile 64: one thread block an SM, its registers) slower
-  than both."""
+  >= SMs); else one column a thread block, in tile 16 where it is at most
+  16 wide, else in tiles of 64 (several across a wider one).  A group
+  copies each x tile once for its columns and runs each column's products
+  only where it holds the entry: on an H100 at WRN-22-2's and RN50's
+  block-16 shapes (f32) groups of 2 were faster than one column at every
+  point, and groups of 4 (tile 64: one thread block an SM, its registers)
+  slower than both."""
   fwd = mode == 'fwd'
   out_w = index.bn if fwd else index.bk
   ncols = (index.cout if fwd else index.cin) // out_w
@@ -311,8 +312,7 @@ def tap_tf32_tile(index: 'TapIndex', mode: str, pixels: int,
   if (out_w == 16 and ncols >= TAP_TF32_GROUP
       and -(-ncols // TAP_TF32_GROUP) * m_tiles >= sm_count):
     return TAP_TF32_GROUP, TAP_TF32_GROUP * 16
-  return 1, next((t for t in TAP_TF32_TILES if t >= out_w),
-                 TAP_TF32_TILES[-1])
+  return 1, TAP_TF32_TILES[0] if out_w <= 16 else TAP_TF32_TILES[-1]
 
 
 class TapDwEntries(NamedTuple):

@@ -720,8 +720,7 @@ def _force_tf32(monkeypatch, wide):
     out_w = index.bn if mode == 'fwd' else index.bk
     if wide and out_w == 16:
       return tbsc.TAP_TF32_GROUP, 16 * tbsc.TAP_TF32_GROUP
-    return 1, next((t for t in tbsc.TAP_TF32_TILES if t >= out_w),
-                   tbsc.TAP_TF32_TILES[-1])
+    return 1, 16 if out_w <= 16 else 64
   monkeypatch.setattr(tbsc, 'tap_tf32_tile', tile)
 
 
@@ -827,6 +826,53 @@ def test_tap_tf32_halo_at_the_widest_image(cuda_device, ksize, h, w):
     assert _rel(got, want) <= TAP_TOL[torch.float32], mode
   for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
     assert not tbsc.tap_conv_cuda(x, w4, index)[..., 16 * j:16 * (j + 1)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ksize,h,w', [((3, 3), 5, 160), ((5, 5), 7, 80)])
+def test_tap_tf32_block_128_at_a_wide_image(cuda_device, ksize, h, w):
+  """The tf32 branch at block (128, 128), one column in tiles of 64, where
+  an input block's x tile (128 pixel rows plus the span of its taps'
+  shifts, up to W (kh / 2) + kw / 2 a side) holds more than 384 rows:
+  forward and dx against the plain version, an empty column zeros."""
+  kh, kw = ksize
+  block = (128, 128)
+  packing, occ = _tap_case(ksize, 256, 384, block, w + kh)
+  gen = torch.Generator().manual_seed(w)
+  x = torch.randn(2, h, w, 256, generator=gen).to(cuda_device)
+  gy = torch.randn(2, h, w, 384, generator=gen).to(cuda_device)
+  w4 = (torch.randn(kh, kw, 256, 384, generator=gen) / 16).to(cuda_device)
+  index = tbsc.tap_index(packing, w4.shape, block)
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    assert tbsc.tap_tf32_tile(index, mode, 2 * h * w, 132) == (1, 64)
+    xrows = index.panel_lists(mode, 'cpu', 1, w).xrows
+    assert 384 < xrows <= tbsc.TAP_TF32_XROWS, (mode, xrows)
+    got = tbsc.tap_conv_cuda(a, w4, index, mode)
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TAP_TOL[torch.float32], mode
+  assert not tbsc.tap_conv_cuda(x, w4, index)[..., :128].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('wide', [True, False])
+def test_tap_tf32_more_than_65535_pixel_tiles(cuda_device, monkeypatch,
+                                              wide):
+  """A call of more than 65535 x 128 pixels, which takes the tf32 branch in
+  more than one launch (a grid's y holds at most 65535 pixel tiles):
+  forward and dx against the plain version at both group widths."""
+  _force_tf32(monkeypatch, wide)
+  packing, _ = _tap_case((3, 3), 32, 32, (16, 16), 5, empty=False)
+  gen = torch.Generator(device=cuda_device).manual_seed(5)
+  x = torch.randn(1, 2900, 2900, 32, generator=gen, device=cuda_device)
+  w4 = torch.randn(3, 3, 32, 32, generator=gen, device=cuda_device) / 8
+  assert x[0, ..., 0].numel() > 65535 * tbsc.TAP_TF32_ROWS
+  index = tbsc.tap_index(packing, w4.shape, (16, 16))
+  for mode in ('fwd', 'dx'):
+    got = tbsc.tap_conv_cuda(x, w4, index, mode)
+    want = tbsc.tap_conv_reference(x, w4, index, mode)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TAP_TOL[torch.float32], mode
 
 
 @pytest.mark.cuda

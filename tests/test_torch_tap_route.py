@@ -307,6 +307,7 @@ def test_tf32_constants_match_the_kernel():
   assert _c_int('kTfRows') == tbsc.TAP_TF32_ROWS
   assert _c_int('kTfChunk') == tbsc.TAP_TF32_CHUNK
   assert _c_int('kTfEntries') == tbsc.TAP_TF32_ENTRIES
+  assert _c_int('kTfMaxXRows') == tbsc.TAP_TF32_XROWS
   ch = _tf_channel()
   got = [ch(kk, k) for kk in range(2) for k in range(8)]
   assert sorted(got) == list(range(16))
@@ -315,21 +316,49 @@ def test_tf32_constants_match_the_kernel():
         range(4 * q, 4 * q + 4))
 
 
+@pytest.mark.parametrize('ksize', [(3, 3), (5, 5), (3, 5)])
+def test_tf32_x_tiles_fit_shared_memory_at_every_tile(ksize):
+  """At every image width, every x tile of the tf32 branch's panels holds
+  at most TAP_TF32_XROWS rows, and the kernel's shared-memory plan
+  (TfPlan: kTfStages stages of kTfEntries W entries, hi and lo, 64 bytes a
+  row, and an x tile in whole boxes of kTfBoxRows rows) at that many rows
+  fits kTfMaxSmem at each of TAP_TF32_TILES, block-128 columns (tile 64)
+  included: no call the branch is routed is refused for its halo."""
+  stages, ents = _c_int('kTfStages'), _c_int('kTfEntries')
+  box = _c_int('kTfBoxRows')
+  limit = 227 * 1024
+  assert re.search(r'constexpr int kTfMaxSmem = 227 \* 1024;',
+                   SOURCE.read_text())
+  def smem(n, xrows):
+    return 1024 + stages * (ents * 2 * n * 64 + -(-xrows // box) * box * 64
+                            + ents * 16 + 16)
+  assert all(smem(n, tbsc.TAP_TF32_XROWS) <= limit
+             for n in tbsc.TAP_TF32_TILES)
+  index = _tap_index_at(ksize, 256, 256, (128, 128), 0.5, 1)
+  for width in (7, 32, 56, 64, 80, 95, 128, 160, 191, 192, 224):
+    for mode in ('fwd', 'dx'):
+      gcols, tile = tbsc.tap_tf32_tile(index, mode, 2 * width * width, 132)
+      xrows = index.panel_lists(mode, 'cpu', gcols, width).xrows
+      assert xrows <= tbsc.TAP_TF32_XROWS, (width, mode)
+      assert smem(tile, xrows) <= limit, (width, mode)
+
+
 @pytest.mark.parametrize('cin,cout,block,pixels,want', [
     (16, 32, (16, 16), 128 * 32 * 32, (2, 32)),   # WRN g0_b0/conv1
     (32, 16, (16, 16), 128 * 32 * 32, (1, 16)),   # one column
     (128, 128, (16, 16), 128 * 8 * 8, (2, 32)),   # WRN g2: 4 x 64 tiles
     (512, 512, (16, 16), 128 * 7 * 7, (2, 32)),   # RN50 g3
     (64, 64, (16, 16), 128, (1, 16)),             # one pixel tile
-    (96, 160, (48, 80), 1024, (1, 128)),          # blocks of 80
-    (128, 384, (64, 192), 4096, (1, 128)),        # a column over 128
+    (96, 160, (48, 80), 1024, (1, 64)),           # blocks of 80
+    (128, 384, (64, 192), 4096, (1, 64)),         # a column over 64
     (8, 24, (4, 12), 4096, (1, 16)),              # blocks of 12
-    (64, 96, (16, 32), 128 * 256, (1, 32))])      # blocks of 32
+    (64, 96, (16, 32), 128 * 256, (1, 64))])      # blocks of 32
 def test_tf32_tile_rule(cin, cout, block, pixels, want):
   """The tf32 call's (gcols, tile) in the forward: groups of
   TAP_TF32_GROUP block-columns where blocks are 16 wide, the layer has
   that many columns and the groups' thread blocks still cover 132 SMs;
-  else one column a tile, the narrowest that holds it."""
+  else one column a tile: 16 where it is at most 16 wide, else tiles of
+  64."""
   index = _tap_index_at((3, 3), cin, cout, block, 0.5, 0)
   assert tbsc.tap_tf32_tile(index, 'fwd', pixels, 132) == want
 
