@@ -32,11 +32,13 @@ package.  Phases, each fatal on failure:
      c. forward, dx and packed dw at the transformer train step's four
         layer shapes, m = 2048, bf16, and the packed dw there in f32 (the
         f32 step's calls, beside xᵀ @ gy in f32);
-     d. forward and dx with a contraction per active (96) that 64 does not
-        divide, m = 1024: the tiled branch.
+     d. forward and dx at the wgmma branch's narrow and ragged tiles: a
+        contraction per active (96) that 64 does not divide, m = 1024,
+        3072 wide, s = 0.8; and block (16, 16), m = 25088, 512 -> 512, s
+        = 0.8 (MobileNetV1's 14 x 14 pointwise convs at batch 128).
      Each forward / dx point prints the branch it takes
      (ops/block_sparse_packed.py mm_branch: decode at m <= 32, wgmma in
-     bf16, ffma in f32, tiled for a contraction 64 does not divide);
+     bf16, ffma in f32) and a wgmma point its tile (mm_tile);
   4. autograd on the card: torch.autograd.grad through packed_matmul
      matches the plain versions and launches dx and dw once each;
   5. serving, a main path: a 4-layer d_model 2048 / d_ff 8192 / 16-head,
@@ -92,8 +94,9 @@ package.  Phases, each fatal on failure:
      four stride-1 3x3 shapes (batch 128, ERK-0.8 densities, block (16,
      16)) in f32 and bf16, in f32 at batch 100, a 5x5 kernel and an
      empty output column, and in bf16 at block (8, 8) at one WRN shape
-     (the wmma branch); beside cuDNN on the expanded weight (F.conv2d,
-     torch.nn.grad.conv2d_input and conv2d_weight, TF32 off) and the bound;
+     (the tf32 branch's bf16 instance); beside cuDNN on the expanded
+     weight (F.conv2d, torch.nn.grad.conv2d_input and conv2d_weight, TF32
+     off) and the bound;
      then the RN50 default route's points (bf16, block (128, 128), batch
      128, ERK 0.8): the forward, dx and dw at the 29 eligible 1x1 shapes,
      forward and dx each beside B7 (dense_mm_cuda on the same lists,
@@ -101,8 +104,8 @@ package.  Phases, each fatal on failure:
      3x3 shapes the step runs with block_conv3x3, beside cuDNN.  Each
      forward / dx point
      prints its branch (ops/block_sparse_conv.py tap_branch: mm for a
-     1x1, wgmma for bf16 KxK at blocks of 16s, tf32 for f32, wmma for bf16
-     at blocks of 8s);
+     1x1, wgmma for bf16 KxK at blocks of 16s, tf32 for f32 and for bf16
+     at blocks of 8s), and a tf32 point its tile (tap_tf32_tile);
  13. conv-net training, a main path: PackedClassifierTrainer on WRN-22-2
      with engine='tap' (synthetic CIFAR-10 shapes, standardized, batch
      128, block (16, 16), ERK s = 0.8, f32, SGD 0.05 nesterov 0.9) trains
@@ -747,43 +750,52 @@ def phase_step_kernels(torch, device):
   return records
 
 
-def phase_tiled_branch(torch, device):
-  """Forward and dx vs plain where the contraction per active (96) is not
-  a multiple of 64: the tiled branch (packed_mm_kernel, 64 x 64 x 32),
-  which the wgmma branch's 64-deep boxes cannot take; m = 1024, K = N =
-  3072, block (96, 96), s = 0.8, bf16."""
+def phase_narrow_tiles(torch, device):
+  """Forward and dx vs plain on the wgmma branch's narrower and ragged
+  tiles (ops/block_sparse_packed.py mm_tile), bf16, s = 0.8: block (96,
+  96), m = 1024, K = N = 3072 (a contraction per active that 64 does not
+  divide: tile 128 x 32); and block (16, 16), m = 25088, K = N = 512
+  (MobileNetV1's 14 x 14 pointwise shape at batch 128: tile 16 x 16)."""
   from rigl_tpu_torch.layers.packed_dense import random_occupancy
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
   from rigl_tpu_torch.sparsity.distributions import get_n_zeros
   gen = torch.Generator().manual_seed(SEED + 7)
-  block, width, m, dtype = (96, 96), 3072, MLP_BATCH, torch.bfloat16
-  nb = width // block[0]
-  n_act = nb * nb - get_n_zeros(nb * nb, SPARSITY)
-  packing = bsp.make_packing(random_occupancy(gen, nb, nb, n_act), n_act)
-  x = torch.randn(m, width, generator=gen).to(device, dtype)
-  gy = torch.randn(m, width, generator=gen).to(device, dtype)
-  w = (torch.randn(n_act, *block, generator=gen) / width ** 0.5).to(
-      device, dtype)
-  wd = bsp.unpack_dense(w, packing, block)
-  ops = {'fwd': ('packed_mm_launches',
-                 lambda: bsp.packed_matmul(x, w, packing, block),
-                 lambda: bsp.packed_matmul_reference(x, w, packing, block),
-                 lambda: torch.matmul(x, wd)),
-         'dx': ('packed_mm_dx_launches',
-                lambda: bsp.packed_matmul_dx_cuda(gy, w, packing, block),
-                lambda: bsp.packed_matmul_dx_reference(gy, w, packing,
-                                                       block),
-                lambda: torch.matmul(gy, wd.T))}
-  records = {}
-  for op, (counter, run, plain, library) in ops.items():
-    branch = bsp.mm_branch(m, block[0], dtype)
-    check(branch == 'tiled', f'block {block}: branch {branch}, not tiled')
-    rec, _ = kernel_point(torch, f'{op:3s} block {block} m={m} bfloat16',
-                          counter, run, plain, library,
-                          bound(op, m, packing, block, dtype), branch=branch)
-    rec.update(path='tiled_branch', sparsity=SPARSITY, m=m, dtype='bfloat16',
-               k=width, n=width, n_active=n_act, block=list(block))
-    records[op] = [rec]
+  dtype = torch.bfloat16
+  records = {'fwd': [], 'dx': []}
+  for block, width, m in (((96, 96), 3072, MLP_BATCH),
+                          ((16, 16), 512, 25088)):
+    nb = width // block[0]
+    n_act = nb * nb - get_n_zeros(nb * nb, SPARSITY)
+    packing = bsp.make_packing(random_occupancy(gen, nb, nb, n_act), n_act)
+    x = torch.randn(m, width, generator=gen).to(device, dtype)
+    gy = torch.randn(m, width, generator=gen).to(device, dtype)
+    w = (torch.randn(n_act, *block, generator=gen) / width ** 0.5).to(
+        device, dtype)
+    wd = bsp.unpack_dense(w, packing, block)
+    ops = {'fwd': ('packed_mm_launches',
+                   lambda: bsp.packed_matmul(x, w, packing, block),
+                   lambda: bsp.packed_matmul_reference(x, w, packing, block),
+                   lambda: torch.matmul(x, wd)),
+           'dx': ('packed_mm_dx_launches',
+                  lambda: bsp.packed_matmul_dx_cuda(gy, w, packing, block),
+                  lambda: bsp.packed_matmul_dx_reference(gy, w, packing,
+                                                         block),
+                  lambda: torch.matmul(gy, wd.T))}
+    for op, (counter, run, plain, library) in ops.items():
+      branch = bsp.mm_branch(m, block[0], dtype)
+      check(branch == 'wgmma', f'block {block}: branch {branch}, not wgmma')
+      tile = list(bsp.MM_TILES[bsp.mm_tile(block[1], block[0])])
+      log(f'  wgmma tile {tile[0]} columns x {tile[1]} deep')
+      rec, _ = kernel_point(torch, f'{op:3s} block {block} m={m} bfloat16',
+                            counter, run, plain, library,
+                            bound(op, m, packing, block, dtype),
+                            branch=branch)
+      rec.update(path='narrow_tiles', sparsity=SPARSITY, m=m,
+                 dtype='bfloat16', k=width, n=width, n_active=n_act,
+                 block=list(block), tile=tile)
+      records[op].append(rec)
+    del x, gy, w, wd
+  torch.cuda.empty_cache()
   return records
 
 
@@ -1691,7 +1703,7 @@ def tap_points(torch):
   stride-1 3x3 shapes at batch 128 and their ERK-0.8 sparsities, in f32
   and bf16, at block (16, 16); then f32 at the JAX driver's batch 100, a
   5x5 kernel and an empty output column; then bf16 at block (8, 8) at one
-  WRN shape, the wmma branch."""
+  WRN shape, the tf32 branch's bf16 instance."""
   from rigl_tpu_torch.models.packed_convnet import resnet_layer_shapes
   from rigl_tpu_torch.sparsity.layer_sparsity import (resolve_sparsity,
                                                       spec_for_model)
@@ -1818,6 +1830,9 @@ def phase_tap_kernels(torch, device):
           branch=branch if op != 'dw' else None)
       if branch == 'wgmma' and op != 'dw':
         rec['gcols'] = _tap_gcols(torch, index, op, n * hw * hw)
+      if branch == 'tf32' and op != 'dw':
+        rec['gcols'], rec['tile'] = _tap_tf32_tile(torch, index, op,
+                                                   n * hw * hw, dtype)
       if op == 'fwd':
         for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
           check(not bool(got[..., j * bn:(j + 1) * bn].any()),
@@ -1842,6 +1857,15 @@ def _tap_gcols(torch, index, op, pixels):
   gcols = bsc.tap_wgmma_gcols(index, op, pixels, sm_count(torch))
   log(f'  wgmma groups of {gcols} block-column(s)')
   return gcols
+
+
+def _tap_tf32_tile(torch, index, op, pixels, dtype):
+  """The (group width, tile) a tf32 call took (ops/block_sparse_conv.py
+  tap_tf32_tile), logged."""
+  from rigl_tpu_torch.ops import block_sparse_conv as bsc
+  gcols, tile = bsc.tap_tf32_tile(index, op, pixels, sm_count(torch), dtype)
+  log(f'  tf32 tile {tile}, groups of {gcols} block-column(s)')
+  return gcols, tile
 
 
 def rn50_3x3_tap_shapes():
@@ -2133,7 +2157,7 @@ def phase_wrn(torch, device):
 
 # The tap conv's kernels, by name, whose time phase 14 sums per step: the
 # f32 forward / dx (W's copy, then the products) and the dw.
-WRN_TAP_KERNELS = ('tap_w_split_kernel', 'tap_conv_3xtf32_kernel',
+WRN_TAP_KERNELS = ('tap_w_split_kernel', 'tap_conv_tf32_kernel',
                    'tap_dw_kernel')
 
 
@@ -3332,16 +3356,18 @@ def _kernel_entry(name, source, replaces, launches, by_path, points,
 # The forward / dx kernels' design, named in their JSON entries; each
 # point names its branch.
 MM_DESIGN = ('branches by mm_branch (ops/block_sparse_packed.py): wgmma '
-             '(bf16, m > 32, 64 | contraction): packed_mm_wgmma_kernel, '
-             '128 x 128 tiles, two thread blocks an SM, wgmma m64n128k16 by '
-             'two consumer warpgroups on a 3-deep ring of (128 x 64 x, W '
-             'block) boxes that one producer warp fills by TMA, W through a '
-             '4-D map so boxes stop at the block, epilogue staged in shared '
-             'memory; ffma (f32, m > 32): packed_mm_ffma_kernel, 64 x 128 '
-             'tiles, 8 x 8 register micro-tiles on FMA; decode (m <= 32): '
-             'packed_mm_decode_kernel (its own entry); tiled (bf16, 64 does '
-             'not divide the contraction): packed_mm_kernel, WMMA on a '
-             'cp.async ring')
+             '(bf16, m > 32): packed_mm_wgmma_kernel<kTransW, TN, KC>, '
+             'tiles of 128 rows x TN (16 / 32 / 64 / 128) columns, KC (16 / '
+             '32 / 64) deep a stage, by mm_tile (128 x 128 x 64 at blocks of '
+             '128 and 512, two thread blocks an SM); wgmma m64nTNk16 by two '
+             'consumer warpgroups on a 3-4-deep ring of (128 x KC x, W '
+             'block) boxes that one producer warp fills by TMA, x through a '
+             '3-D map by segment and W through a 4-D map, so that boxes stop '
+             'at the segment and the block (a ragged last stage reads '
+             'zeros), epilogue staged in shared memory; ffma (f32, m > 32): '
+             'packed_mm_ffma_kernel, 64 x 128 tiles, 8 x 8 register '
+             'micro-tiles on FMA; decode (m <= 32): packed_mm_decode_kernel '
+             '(its own entry)')
 DECODE_DESIGN = ('packed_mm_decode_kernel: tiles of an m-tile of 8 / 16 / 32 '
                  'rows x 64 columns of one output block-column; the tile\'s '
                  'contraction (its column\'s actives in list order, in '
@@ -3384,9 +3410,10 @@ TAP_BRANCH_KERNELS = {
            'lists, the branch mm_branch names (bf16 m > 32: '
            'packed_mm_wgmma_kernel)'),
     'wgmma': 'bf16 KxK, blocks of 16s: tap_conv_wgmma_kernel',
-    'tf32': ('f32 KxK: tap_w_split_kernel (the blocks\' K-major hi / lo '
-             'copy), then tap_conv_3xtf32_kernel'),
-    'wmma': 'bf16 KxK, blocks of 8s: tap_conv_kernel<bf16>'}
+    'tf32': ('KxK in f32, and in bf16 at blocks of 8s: tap_w_split_kernel '
+             '(the blocks\' K-major f32 copy: hi / lo in f32), then '
+             'tap_conv_tf32_kernel (3xTF32 in f32, one exact tf32 product '
+             'a k-step in bf16)')}
 TAP_DESIGN = ('tap_conv_wgmma_kernel: implicit GEMM on wgmma; one block of '
               'two warpgroups per (128 pixels, output tile of up to 128 '
               'channels), heaviest first; a tile covers one block-column, '
@@ -3404,25 +3431,30 @@ TAP_DESIGN = ('tap_conv_wgmma_kernel: implicit GEMM on wgmma; one block of '
               'place); a stage completes on its mbarrier; 3 stages (4 at N = '
               '64), 2-4 blocks an SM; epilogue staged in shared memory, '
               '16-byte stores')
-TAP_TF32_DESIGN = ('tap_conv_3xtf32_kernel: implicit GEMM on wgmma in '
-                   '3xTF32 (a_hi b_hi + a_hi b_lo + a_lo b_hi, the first '
-                   'two one product twice as wide); one block of two '
+TAP_TF32_DESIGN = ('tap_conv_tf32_kernel<T, N, kGroups>: implicit GEMM on '
+                   'tf32 wgmma, in f32 3xTF32 (a_hi b_hi + a_hi b_lo + a_lo '
+                   'b_hi, the first two one product twice as wide), in '
+                   'bf16 one product a k-step (a bf16 value widened to f32 '
+                   'is exact in tf32); one block of two '
                    'warpgroups and a copying warp per (128 pixels, output '
-                   'tile of one block-column, or at blocks of 16 a group of '
-                   'two: tap_tf32_tile), heaviest first; each group\'s '
+                   'tile of one block-column, or a group of two 16-wide '
+                   'ones, in bf16 also of two 8-wide ones: tap_tf32_tile), '
+                   'heaviest first; each group\'s '
                    'entries in (input block, tap) order, in panels of one '
                    'input block and 16 channels; a panel\'s x tile (128 '
                    'pixel rows plus the span of its shifts, split by tap '
                    'row past 512 rows) copied once by TMA and read by every '
-                   'tap of the panel at its row offset, one 16-byte '
-                   'fragment load a row and entry, pixels outside the image '
-                   'predicated to zero; W as a K-major hi / lo copy '
-                   '(tap_w_split_kernel, in x\'s channel order), a TMA box '
-                   'a column and entry, 2 entries a stage of a 4-deep ring; '
-                   'the copying warp reads a host-built stage table, a row '
-                   'a stage; a group\'s products predicated on the columns '
-                   'that hold each entry; the sum flushed into y every 32 '
-                   'stages')
+                   'tap of the panel at its row offset, one fragment load a '
+                   'row and entry (16 bytes f32, 8 bf16), pixels outside '
+                   'the image predicated to zero; a bf16 chunk of 8 '
+                   'channels in one k-step (tf_half_channel); W as a '
+                   'K-major f32 copy (tap_w_split_kernel, in x\'s channel '
+                   'order), a TMA box a column and entry, 2 entries a stage '
+                   'of a 4-deep ring; the copying warp reads a host-built '
+                   'stage table, a row a stage; a group\'s products '
+                   'predicated on the columns that hold each entry; in f32 '
+                   'the sum flushed into y every 32 stages, in bf16 cast '
+                   'once')
 TAP_DW_DESIGN = ('entries grouped by (input block, output block), up to 9 '
                  'taps in bf16 and 4 in f32 (2, at 4 thread blocks an SM, '
                  'where the pairs hold 2.5 taps or fewer on average), from '
@@ -3511,7 +3543,7 @@ def main():
     serve_points, decode_floor = phase_kernel(torch, device)
     train_points = phase_train_kernels(torch, device)
     step_points = phase_step_kernels(torch, device)
-    tiled_points = phase_tiled_branch(torch, device)
+    narrow_points = phase_narrow_tiles(torch, device)
     autograd_errs = phase_autograd(torch, device)
     packed, dense = build_models(torch, device)
     (serve_launches, decode_launches), logit_errs = phase_serve(
@@ -3561,9 +3593,9 @@ def main():
       for name, op, line, points in (
           ('packed_mm_fwd_kernel', 'fwd', 178,
            serve_points + train_points['fwd'] + step_points['fwd']
-           + tiled_points['fwd']),
+           + narrow_points['fwd']),
           ('packed_mm_dx_kernel', 'dx', 178,
-           train_points['dx'] + step_points['dx'] + tiled_points['dx']),
+           train_points['dx'] + step_points['dx'] + narrow_points['dx']),
           ('packed_dw_wgmma_kernel', 'dw', 345,
            [p for p in train_points['dw'] + step_points['dw']
             if p['dtype'] == 'bfloat16']))]
@@ -3607,10 +3639,10 @@ def main():
     kernels.append(entry)
   conv_tpu = 'rigl_tpu/ops/pallas/block_sparse_conv.py'
   for i, (name, op, line) in enumerate((
-      ('tap_conv_fwd: tap_conv_3xtf32_kernel, tap_conv_wgmma_kernel, '
-       'tap_conv_kernel, packed_mm 1x1', 'fwd', 117),
-      ('tap_conv_dx: tap_conv_3xtf32_kernel, tap_conv_wgmma_kernel, '
-       'tap_conv_kernel, packed_mm 1x1', 'dx', 117),
+      ('tap_conv_fwd: tap_conv_tf32_kernel, tap_conv_wgmma_kernel, '
+       'packed_mm 1x1', 'fwd', 117),
+      ('tap_conv_dx: tap_conv_tf32_kernel, tap_conv_wgmma_kernel, '
+       'packed_mm 1x1', 'dx', 117),
       ('tap_dw_kernel', 'dw', 473))):
     by_path = {'wrn_training': wrn_launches[i],
                'rn50_tap': rn50_tap_launches['rigl_tap'][f'tap_{op}'],

@@ -122,10 +122,10 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo) {
 }
 
 // The same for a K-major tile with 64-byte swizzle: rows of 64 bytes (16
-// tf32 of the contraction: two k-steps of 8, the second 32 bytes into the
-// row), chunk c of row r at c ^ ((r / 2) % 4) as TMA's 64-byte swizzle
-// writes it, 512 bytes between groups of 8 rows.  The tile starts 512-byte
-// aligned, so the base offset is 0.
+// tf32 or 32 bf16 of the contraction: two k-steps, the second 32 bytes
+// into the row), chunk c of row r at c ^ ((r / 2) % 4) as TMA's 64-byte
+// swizzle writes it, 512 bytes between groups of 8 rows.  The tile starts
+// 512-byte aligned, so the base offset is 0.
 __device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) |
@@ -133,10 +133,11 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr) {
          (static_cast<uint64_t>(2) << 62);
 }
 
-// The same for a tile with 32-byte swizzle, MN-major: 8-row groups of 32
-// bytes (16 bf16 of M or N a row, chunk c of row r at c ^ ((r / 4) % 2)),
-// 256 bytes apart; `lbo` the bytes between 16-element column blocks.  The
-// tile starts 256-byte aligned, so the base offset is 0.
+// The same for a tile with 32-byte swizzle: 8-row groups of 32 bytes
+// (chunk c of row r at c ^ ((r / 4) % 2)), 256 bytes apart.  MN-major: 16
+// bf16 of M or N a row, `lbo` the bytes between 16-element column blocks;
+// K-major: a row is one k-step of 16 bf16, `lbo` unused (16).  The tile
+// starts 256-byte aligned, so the base offset is 0.
 __device__ __forceinline__ uint64_t wgmma_desc_sw32(uint32_t addr,
                                                     uint32_t lbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -600,14 +601,24 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
 }
 
 // The same, issued only where `on` is nonzero (the same value in every
-// thread of the warpgroup): a guard predicate, not a branch, for N = 16
-// or 32.
+// thread of the warpgroup): a guard predicate, not a branch, for N = 8,
+// 16, 32 or 64.
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs_if(float (&d)[N / 2],
                                                  const uint32_t (&a)[4],
                                                  uint64_t db, unsigned on) {
-  static_assert(N == 16 || N == 32, "no predicated tf32 product this wide");
-  if constexpr (N == 16) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64,
+                "no predicated tf32 product this wide");
+  if constexpr (N == 8) {
+    asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.b32 p, %10, 0;\nsetp.ne.b32 q, %9, 0;\n"
+      "@q wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(on),
+        "r"(1));
+  } else if constexpr (N == 16) {
     asm volatile(
       "{\n.reg .pred p, q;\nsetp.ne.b32 p, %14, 0;\nsetp.ne.b32 q, %13, 0;\n"
       "@q wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
@@ -617,7 +628,7 @@ __device__ __forceinline__ void wgmma_tf32_rs_if(float (&d)[N / 2],
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(on),
         "r"(1));
-  } else {
+  } else if constexpr (N == 32) {
     asm volatile(
       "{\n.reg .pred p, q;\nsetp.ne.b32 p, %22, 0;\nsetp.ne.b32 q, %21, 0;\n"
       "@q wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
@@ -628,6 +639,25 @@ __device__ __forceinline__ void wgmma_tf32_rs_if(float (&d)[N / 2],
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(on),
+        "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.b32 p, %38, 0;\nsetp.ne.b32 q, %37, 0;\n"
+      "@q wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(on),
         "r"(1));
   }
@@ -649,6 +679,18 @@ __device__ __forceinline__ void ld_shared_v4_if(uint32_t addr, unsigned on,
       "mov.b32 %0, 0;\nmov.b32 %1, 0;\nmov.b32 %2, 0;\nmov.b32 %3, 0;\n"
       "@p ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n}\n"
       : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+      : "r"(addr), "r"(on));
+}
+
+// The 8 bytes at `addr` (8-byte aligned) as two words where `on` is
+// nonzero, else zeros: a predicated load, as ld_shared_v4_if.
+__device__ __forceinline__ void ld_shared_v2_if(uint32_t addr, unsigned on,
+                                                uint32_t (&v)[2]) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "mov.b32 %0, 0;\nmov.b32 %1, 0;\n"
+      "@p ld.shared.v2.b32 {%0, %1}, [%2];\n}\n"
+      : "=r"(v[0]), "=r"(v[1])
       : "r"(addr), "r"(on));
 }
 

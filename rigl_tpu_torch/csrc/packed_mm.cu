@@ -3,10 +3,10 @@
 // kernels for any m, in bf16 or f32:
 //
 //   the mm kernels, kTransW = false behind `packed_mm_fwd`: y = x @ W;
-//       kTransW = true behind `packed_mm_dx`: dx = gy @ Wᵀ.  Four branches
+//       kTransW = true behind `packed_mm_dx`: dx = gy @ Wᵀ.  Three branches
 //       (dispatch_mm): packed_mm_decode_kernel (m <= 32, either dtype),
-//       packed_mm_wgmma_kernel (bf16), packed_mm_ffma_kernel (f32), and
-//       packed_mm_kernel for a bf16 contraction that 64 does not divide.
+//       packed_mm_wgmma_kernel (bf16, at the tile the caller names) and
+//       packed_mm_ffma_kernel (f32).
 //   the dw kernels                  behind `packed_dw`:
 //       dw[s] = x[:, rows[s]*bk : +bk]ᵀ @ gy[:, cols[s]*bn : +bn]:
 //       packed_dw_wgmma_kernel (bf16) or packed_dw_3xtf32_kernel (f32), at
@@ -41,25 +41,33 @@
 // names the branch by the rule of ops/block_sparse_packed.py `mm_branch`;
 // dispatch_mm refuses a branch that cannot take the call:
 //
-//   wgmma (bf16, m > 32, 64 divides the contraction per active, `seg` =
-//     bk forward, bn dx): packed_mm_wgmma_kernel.  128 x 128 output tiles,
-//     two thread blocks an SM.  One producer warp fills a 3-deep ring by
-//     TMA; each stage is one (active, 64-deep chunk): a 128 x 64 box of x
-//     at (column seg_idx[a] * seg + k0, row m0), K-major with 128-byte
-//     swizzle, and the W block's part, through a 4-D tensor map over W
-//     viewed as (block-row, row, block-column, column) -- packed storage is
-//     (n_active, bk, 1, bn) -- so that a box never reads past its block:
-//     rows and columns outside it come in as zeros.  Forward: two 64 x 64
-//     boxes (rows k0.., columns n0.. and n0 + 64..), B in MN-major layout;
-//     dx: one 128 x 64 box (rows n0.., columns k0..), B in K-major layout,
-//     so Wᵀ is never built.  Two consumer warpgroups, 64 rows each, run
-//     wgmma m64n128k16 with f32 in registers, one stage's products in
-//     flight while the next are issued; the epilogue casts the fragments
-//     to bf16 into shared memory (the ring's, once both warpgroups are
-//     done) and stores whole 16-byte groups, masked to rows < m and columns
-//     < the block's width.  Rows of x past m come in as zeros.  Two thread
-//     blocks an SM, each a 3-deep ring (6 stages in flight an SM), so one
-//     block's epilogue and first loads overlap the other's products.
+//   wgmma (bf16, m > 32, any contraction per active `seg` (bk forward, bn
+//     dx) of whole 16-byte copies): packed_mm_wgmma_kernel<kTransW, TN,
+//     KC>, output tiles of 128 rows x TN (16, 32, 64 or 128) columns and
+//     ring stages KC (16, 32 or 64) deep, the tile named by the caller
+//     (ops/block_sparse_packed.py mm_tile: the narrowest TN that holds a
+//     block-column, KC by the segment, so that a block of 16 does not
+//     compute 8 times the columns it keeps and 4 times its contraction).
+//     One producer warp fills a 3-4-deep ring by TMA; each stage is one
+//     (active, KC-deep chunk, the last one ragged): a 128 x KC box of x
+//     through a 3-D tensor map over x as (column in segment, segment, row)
+//     at (k0, seg_idx[a], m0), and the W block's part through a 4-D tensor
+//     map over W viewed as (block-row, row, block-column, column) --
+//     packed storage is (n_active, bk, 1, bn) -- so that no box reads past
+//     its segment or its block: TMA writes zeros there (and past m), and a
+//     non-finite value in one segment or block reaches only the outputs
+//     that read it.  x is K-major, swizzled by its row (2 KC bytes);
+//     forward: W's KC x TN part in boxes of 64 columns (128-byte swizzle,
+//     TN >= 64) or 16 (32-byte), B in MN-major layout; dx: one TN x KC box
+//     (rows n0.., columns k0..), B in K-major layout, so Wᵀ is never
+//     built.  Two consumer warpgroups, 64 rows each, run wgmma m64nTNk16
+//     with f32 in registers, one stage's products in flight while the next
+//     are issued; the epilogue casts the fragments to bf16 into shared
+//     memory (the ring's, once both warpgroups are done) and stores whole
+//     16-byte groups, masked to rows < m and columns < the block's width.
+//     Two thread blocks an SM at 128 x 128 x 64, each a 3-deep ring (6
+//     stages in flight an SM), so one block's epilogue and first loads
+//     overlap the other's products; more at the narrow tiles.
 //   ffma (f32, m > 32): packed_mm_ffma_kernel, on the CUDA cores with no
 //     TF32.  64 x 128 tiles on 128 threads, four thread blocks an SM, 8 x 8
 //     outputs a thread from register micro-tiles: the x chunk (transposed)
@@ -102,14 +110,6 @@
 //     weights' bytes are the smaller part of a call: the launch, the
 //     cluster's start and its reduction take more (chip_smoke.py phase
 //     3a times the kernel with no active block: PERF.md, row 1a).
-//   tiled (bf16, m > 32, a contraction that 64 does not divide):
-//     packed_mm_kernel, WMMA on 64 x 64 x 32 tiles that stream through a
-//     3-deep cp.async ring, with a barrier a step, masked to the segment:
-//     a 64-deep box of x would read x's neighbouring segment, whose
-//     products with the zero-filled rows past the W block vanish only
-//     while that segment is finite.  For dx the (output-subtile x
-//     contraction-chunk) region of the W block is copied row-major and
-//     read by WMMA as a col_major matrix_b.
 
 // The dw kernels: one thread block per (entry s, output tile, slice of m).
 // The m-sum is split into S slices of whole chunks when the tiles alone
@@ -193,7 +193,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -205,230 +204,6 @@
 namespace {
 
 using namespace hopper;
-
-constexpr int kThreads = 128;   // 4 warps, laid out 2 x 2 over the tile
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_bytes = pred ? 16 : 0;   // 0: write 16 zero bytes, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// Shared-memory plan of a ring of STAGES (A, B) tile pairs plus the f32
-// staging tile of the epilogue, which reuses the ring.  A is (a_rows x
-// a_cols), B (b_rows x b_cols), both row-major with one 16-byte pad per row:
-// the pad keeps WMMA fragment loads off a single bank and every row start
-// 16-byte aligned for cp.async.
-template <typename T, int BM, int BN, int ARows, int ACols, int BRows,
-          int BCols, int STAGES>
-struct Ring {
-  static constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte copy
-  static constexpr int kAld = ACols + kVec;
-  static constexpr int kBld = BCols + kVec;
-  static constexpr int kABytes = align128(ARows * kAld * sizeof(T));
-  static constexpr int kBBytes = align128(BRows * kBld * sizeof(T));
-  static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kOld = BN + 8;           // f32 epilogue staging
-  static constexpr int kOutBytes = BM * kOld * 4;
-  static constexpr int kSmemBytes = STAGES * kStageBytes > kOutBytes
-                                        ? STAGES * kStageBytes
-                                        : kOutBytes;
-  static_assert(BM % 32 == 0 && BN % 32 == 0, "tile shape");
-  static_assert(STAGES >= 2, "ring depth");
-  static_assert(kSmemBytes <= 227 * 1024, "shared memory per block");
-};
-
-// packed_mm: A = the x (gy for dx) tile (BM x BK); B = the W tile, (BK x BN)
-// for the forward, (BN x BK) -- Wᵀ's tile, column-major -- for dx.
-template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
-using MmRing = Ring<T, BM, BN, BM, BK, kTransW ? BN : BK, kTransW ? BK : BN,
-                    STAGES>;
-
-// The WMMA accumulators of one thread (bf16 products, f32 sums), and the
-// epilogue that writes the (BM x BN) tile at `out` (row stride ld), masked
-// to rows < row_lim and columns < col_lim, cast once to bf16.
-template <int BM, int BN>
-struct Acc {
-  static constexpr int FM = BM / 32, FN = BN / 32;  // 16x16 frags per warp
-  using Frag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                      float>;
-  Frag frag[FM][FN];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        nvcuda::wmma::fill_fragment(frag[i][j], 0.f);
-  }
-
-  // Call after the ring is idle and every thread has passed a barrier: the
-  // fragments are staged through the ring's shared memory.
-  __device__ __forceinline__ void store(unsigned char* smem,
-                                        __nv_bfloat16* out, int ld,
-                                        int row_lim, int col_lim) {
-    const int tid = threadIdx.x;
-    constexpr int kOld = BN + 8;
-    const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
-    float* os = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        nvcuda::wmma::store_matrix_sync(
-            os + (wr * (BM / 2) + i * 16) * kOld + wc * (BN / 2) + j * 16,
-            frag[i][j], kOld, nvcuda::wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = tid; idx < BM * BN; idx += kThreads) {
-      const int r = idx / BN, c = idx % BN;
-      if (r < row_lim && c < col_lim)
-        out[static_cast<size_t>(r) * ld + c] =
-            __float2bfloat16(os[r * kOld + c]);
-    }
-  }
-};
-
-// Copies a (rows x cols) tile, row-major with source row stride `ld`, into
-// shared memory with row stride `sld`, as 16-byte cp.asyncs; chunks outside
-// (row_lim, col_lim) are zero-filled.  `base` is any valid global address.
-template <typename T, int Rows, int Cols>
-__device__ __forceinline__ void load_tile(T* dst, int sld, const T* src,
-                                          size_t ld, int row_lim, int col_lim,
-                                          const T* base) {
-  constexpr int kVec = 16 / sizeof(T);
-  for (int c = threadIdx.x; c < Rows * Cols / kVec; c += kThreads) {
-    const int r = c / (Cols / kVec);
-    const int cc = (c % (Cols / kVec)) * kVec;
-    const bool ok = r < row_lim && cc < col_lim;
-    cp_async16(dst + r * sld + cc, ok ? src + r * ld + cc : base, ok);
-  }
-}
-
-// y (m, ngroups * out_w) for the forward / dx (m, ngroups * out_w) for dx,
-// in bf16 (the tiled branch).  Output block-column g walks actives
-// [beg[g], end[g]); active a reads x's segment seg_idx[a] (width `seg`: bk
-// forward, bn dx) and one (bk, bn) weight block, row-major with rows `w_ld`
-// apart.  Packed storage (woffs null, w_ld = bn): the block is w[slot],
-// slot = a for the forward and slots[a] for dx.  Dense storage (W (K, N)
-// itself, w_ld = N): the block starts at element woffs[a] of w.  `x_ld` /
-// `y_ld` are the row strides of x and y.
-template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
-__global__ void __launch_bounds__(kThreads)
-    packed_mm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const int* __restrict__ beg, const int* __restrict__ end,
-                     const int* __restrict__ seg_idx,
-                     const int* __restrict__ slots,
-                     const int* __restrict__ woffs, T* __restrict__ y, int m,
-                     int x_ld, int y_ld, int bk, int bn, int w_ld) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "WMMA in bf16");
-  using L = MmRing<T, BM, BN, BK, STAGES, kTransW>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int seg = kTransW ? bn : bk;      // contraction length per active
-  const int out_w = kTransW ? bk : bn;    // width of an output block-column
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int tiles_per_col = (out_w + BN - 1) / BN;
-  const int g = blockIdx.y / tiles_per_col;
-  const int n0 = (blockIdx.y % tiles_per_col) * BN;   // offset in the column
-  const int a_begin = beg[g];
-  const int k_chunks = (seg + BK - 1) / BK;
-  const int total = (end[g] - a_begin) * k_chunks;
-
-  auto a_tile = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * L::kStageBytes);
-  };
-  auto b_tile = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * L::kStageBytes + L::kABytes);
-  };
-
-  // Stage `s` <- the (x, w) tiles of step `it`: active a, chunk k0.
-  auto load = [&](int it, int s) {
-    const int a = a_begin + it / k_chunks;
-    const int k0 = (it % k_chunks) * BK;
-    load_tile<T, BM, BK>(
-        a_tile(s), L::kAld,
-        x + static_cast<size_t>(m0) * x_ld +
-            static_cast<size_t>(seg_idx[a]) * seg + k0,
-        x_ld, m - m0, seg - k0, x);
-    const T* wa =
-        w + (woffs ? static_cast<size_t>(woffs[a])
-                   : static_cast<size_t>(kTransW ? slots[a] : a) * bk * bn);
-    if constexpr (kTransW)   // rows: output index n0.., columns: chunk k0..
-      load_tile<T, BN, BK>(b_tile(s), L::kBld,
-                           wa + static_cast<size_t>(n0) * w_ld + k0, w_ld,
-                           bk - n0, bn - k0, w);
-    else                     // rows: chunk k0.., columns: output index n0..
-      load_tile<T, BK, BN>(b_tile(s), L::kBld,
-                           wa + static_cast<size_t>(k0) * w_ld + n0, w_ld,
-                           bk - k0, bn - n0, w);
-  };
-
-  using A = Acc<BM, BN>;
-  A acc;
-  acc.zero();
-  const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < total) load(s, s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<STAGES - 2>();    // step `it` has landed (this thread)
-    __syncthreads();                // ... for every thread; stage it-1 free
-    const int next = it + STAGES - 1;
-    if (next < total) load(next, next % STAGES);
-    cp_async_commit();
-    const T* xs = a_tile(it % STAGES);
-    const T* ws = b_tile(it % STAGES);
-    using namespace nvcuda;
-    using BLayout =
-        std::conditional_t<kTransW, wmma::col_major, wmma::row_major>;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> af[A::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout>
-          bf[A::FN];
-#pragma unroll
-      for (int i = 0; i < A::FM; ++i)
-        wmma::load_matrix_sync(
-            af[i], xs + (wr * (BM / 2) + i * 16) * L::kAld + kk, L::kAld);
-#pragma unroll
-      for (int j = 0; j < A::FN; ++j) {
-        const int col = wc * (BN / 2) + j * 16;
-        const T* b = kTransW ? ws + col * L::kBld + kk
-                             : ws + kk * L::kBld + col;
-        wmma::load_matrix_sync(bf[j], b, L::kBld);
-      }
-#pragma unroll
-      for (int i = 0; i < A::FM; ++i)
-#pragma unroll
-        for (int j = 0; j < A::FN; ++j)
-          wmma::mma_sync(acc.frag[i][j], af[i], bf[j], acc.frag[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the ring is idle: its memory becomes the staging tile
-  acc.store(smem,
-            y + static_cast<size_t>(m0) * y_ld +
-                static_cast<size_t>(g) * out_w + n0,
-            y_ld, m - m0, out_w - n0);
-}
 
 // The output block of entry s and its row stride: dw[s] of (n_active, bk,
 // bn) in packed storage (dense = 0); block (rows[s], cols[s]) of a (K, N)
@@ -827,30 +602,67 @@ __global__ void __launch_bounds__(DwTf32Plan<TM, TN>::kThreads,
 }
 
 // ---- packed_mm_wgmma_kernel (bf16) ----------------------------------------
-constexpr int kMmTile = 128;      // output tile: 128 rows x 128 columns
-constexpr int kMmChunk = 64;      // contraction per ring stage
-constexpr int kMmStages = 3;      // ring depth; two thread blocks an SM
-constexpr int kMmXBytes = kMmTile * kMmChunk * 2;   // 16 KB: 128 x 64 x
-constexpr int kMmStageBytes = 2 * kMmXBytes;        // + 16 KB of W
-constexpr int kMmSmem = 1024 + kMmStages * kMmStageBytes + 2 * kMmStages * 8;
-// The epilogue's staging row: 128 bf16 + 16 bytes, so that a warp's
-// fragment stores (8 rows x 4 pairs) fall on 32 distinct banks.
-constexpr int kMmStageLd = kMmTile + 8;
-static_assert(2 * 64 * kMmStageLd * 2 <= kMmStages * kMmStageBytes,
-              "the staging tiles fit in the ring");
+constexpr int kMmRows = 128;      // output tile rows: two warpgroups of 64
 
-// Thread block (column subtile, m-tile): the (128 x 128) tile at (m0, n0)
+// The wgmma branch's tile: 128 rows x TN columns (16, 32, 64 or 128: the
+// narrowest that holds a block-column, 128 for a wider one, which takes
+// several) and KC contraction a ring stage (16, 32 or 64: a segment of at
+// most 16, one that 64 divides, else 32), by ops/block_sparse_packed.py
+// mm_tile.  A stage is the x box (128 rows x KC, K-major, swizzled by its
+// row of 2 KC bytes: 128, 64 or 32) and the W box(es): forward KC rows x
+// TN, MN-major, in boxes of 64 columns (128-byte swizzle) at TN >= 64,
+// else of 16 (32-byte swizzle); dx the stored block's TN rows x KC,
+// K-major, swizzled as x.  Stages start 1024-aligned; 3 of them at 128 x
+// 64 (32 KB each, two thread blocks an SM), 4 below.  The epilogue's bf16
+// staging row is TN + 8 values, so that a warp's fragment stores (8 rows
+// x 4 pairs) fall on 32 distinct banks; the staging tiles reuse the ring.
+template <int TN, int KC>
+struct MmPlan {
+  static constexpr int kXBytes = kMmRows * KC * 2;
+  static constexpr int kWBytes = KC * TN * 2;
+  static constexpr int kWBox = TN >= 64 ? 64 : 16;   // forward box columns
+  static constexpr int kStage = (kXBytes + kWBytes + 1023) / 1024 * 1024;
+  static constexpr int kStages = kStage >= 32768 ? 3 : 4;
+  static constexpr int kStageLd = TN + 8;
+  static constexpr int kStaging = 2 * 64 * kStageLd * 2;
+  static constexpr int kRing = kStages * kStage > kStaging
+                                   ? kStages * kStage
+                                   : (kStaging + 1023) / 1024 * 1024;
+  static constexpr int kSmem = 1024 + kRing + 2 * kStages * 8;
+  // Thread blocks an SM the registers are planned for (launch bounds).
+  static constexpr int kBlocks = TN <= 32 ? 4 : 2;
+  static_assert(TN == 16 || TN == 32 || TN == 64 || TN == 128, "tile");
+  static_assert(KC == 16 || KC == 32 || KC == 64, "stage depth");
+  static_assert(2 * (kSmem + 1024) <= 228 * 1024, "two thread blocks an SM");
+};
+
+// The K-major descriptor of a tile whose rows are KC bf16 (2 KC bytes,
+// swizzled by that): x, and the dx W box.
+template <int KC>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  if constexpr (KC == 64)
+    return wgmma_desc(addr, 16);
+  else if constexpr (KC == 32)
+    return wgmma_desc_sw64(addr);
+  else
+    return wgmma_desc_sw32(addr, 16);
+}
+
+// Thread block (column subtile, m-tile): the (128 x TN) tile at (m0, n0)
 // of output block-column g, the f32 sum over g's actives [beg[g], end[g])
-// of x's segment seg_idx[a] (tensor map tx over x (m, x_ld), boxes of 128
-// rows x 64) times the W block of a (tensor map tw over W as (block-row,
-// row, block-column, column); boxes 64 x 64 forward, 128 x 64 dx).  The
-// block of a is (slot, 0) in packed storage (woffs null; slot = a forward,
-// slots[a] dx) and (woffs[a] / (bk w_ld), woffs[a] % w_ld / bn) in dense
-// storage.  Threads 0-255 are two consumer warpgroups (rows 64 wg .. 64 wg
-// + 63 of the tile), 256-287 the producer warp, of which one thread issues
-// TMA.
-template <bool kTransW>
-__global__ void __launch_bounds__(kWgThreads, 2)
+// of x's segment seg_idx[a] times the W block of a, each active's
+// contraction `seg` (bk forward, bn dx) walked in KC-deep stages, the last
+// ragged: x through the tensor map tx over x as (column in segment,
+// segment, row) and W through tw over W as (column, block-column, row,
+// block-row), so that a box never reads past its segment or its block:
+// TMA writes zeros there and past m, and a non-finite value in one
+// segment or block reaches only outputs that read it.  The block of a is
+// (slot, 0) in packed storage (woffs null; slot = a forward, slots[a] dx)
+// and (woffs[a] / (bk w_ld), woffs[a] % w_ld / bn) in dense storage.
+// Threads 0-255 are two consumer warpgroups (rows 64 wg .. 64 wg + 63 of
+// the tile), 256-287 the producer warp, of which one thread issues TMA.
+template <bool kTransW, int TN, int KC>
+__global__ void __launch_bounds__(kWgThreads, MmPlan<TN, KC>::kBlocks)
     packed_mm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                            const __grid_constant__ CUtensorMap tw,
                            const int* __restrict__ beg,
@@ -860,26 +672,28 @@ __global__ void __launch_bounds__(kWgThreads, 2)
                            const int* __restrict__ woffs,
                            __nv_bfloat16* __restrict__ y, int m, int y_ld,
                            int bk, int bn, int w_ld) {
+  using L = MmPlan<TN, KC>;
+  constexpr int S = L::kStages;
   extern __shared__ unsigned char mm_smem[];
   const int seg = kTransW ? bn : bk;      // contraction per active
   const int out_w = kTransW ? bk : bn;    // width of an output block-column
-  const int tiles_per_col = (out_w + kMmTile - 1) / kMmTile;
+  const int tiles_per_col = (out_w + TN - 1) / TN;
   const int g = blockIdx.x / tiles_per_col;
-  const int n0 = (blockIdx.x % tiles_per_col) * kMmTile;
-  const int m0 = blockIdx.y * kMmTile;
+  const int n0 = (blockIdx.x % tiles_per_col) * TN;
+  const int m0 = blockIdx.y * kMmRows;
   const int a_begin = beg[g];
-  const int chunks = seg / kMmChunk;
+  const int chunks = (seg + KC - 1) / KC;
   const int total = (end[g] - a_begin) * chunks;
   const int tid = threadIdx.x;
 
-  // Stage st: the x box at base + st * kMmStageBytes, the W box(es) after
-  // it; then the barriers full[st] (TMA arrival) and empty[st] (released
-  // by every consumer thread).
+  // Stage st: the x box at base + st * kStage, the W box(es) after it;
+  // then the barriers full[st] (TMA arrival) and empty[st] (released by
+  // every consumer thread).
   const uint32_t base = (smem_u32(mm_smem) + 1023) & ~1023u;
-  const uint32_t full = base + kMmStages * kMmStageBytes;
-  const uint32_t empty = full + 8 * kMmStages;
+  const uint32_t full = base + L::kRing;
+  const uint32_t empty = full + 8 * S;
   if (tid == 0) {
-    for (int st = 0; st < kMmStages; ++st) {
+    for (int st = 0; st < S; ++st) {
       mbar_init(full + 8 * st, 1);
       mbar_init(empty + 8 * st, kWgConsumers);
     }
@@ -889,17 +703,19 @@ __global__ void __launch_bounds__(kWgThreads, 2)
 
   if (tid >= kWgConsumers) {   // the producer warp
     if (tid == kWgConsumers) {
-      // Forward: W columns n0 + 64 .. are loaded only where the block has
-      // any; the stale half of the stage feeds only masked columns.
-      const bool w_hi = !kTransW && out_w - n0 > kWgBox;
-      const int bytes = kMmXBytes + (kTransW ? kMmXBytes
-                                             : (1 + w_hi) * kWgBoxBytes);
+      // Forward: W's boxes of kWBox columns are loaded only where the
+      // block has any; a stale box of the stage feeds only masked columns.
+      constexpr int kBoxBytes = KC * L::kWBox * 2;
+      const int nbox =
+          kTransW ? 1
+                  : min(TN / L::kWBox, (out_w - n0 + L::kWBox - 1) / L::kWBox);
+      const int bytes = L::kXBytes + (kTransW ? L::kWBytes : nbox * kBoxBytes);
       for (int it = 0; it < total; ++it) {
-        const int st = it % kMmStages;
-        if (it >= kMmStages)   // the consumers released round it/S - 1
-          mbar_wait(empty + 8 * st, ((it / kMmStages) - 1) & 1);
+        const int st = it % S;
+        if (it >= S)   // the consumers released round it/S - 1
+          mbar_wait(empty + 8 * st, ((it / S) - 1) & 1);
         const int a = a_begin + it / chunks;
-        const int k0 = (it % chunks) * kMmChunk;
+        const int k0 = (it % chunks) * KC;
         int br, bc;            // the W block: (block-row, block-column)
         if (woffs) {
           const int o = woffs[a];
@@ -910,16 +726,15 @@ __global__ void __launch_bounds__(kWgThreads, 2)
           bc = 0;
         }
         const uint32_t bar = full + 8 * st;
-        const uint32_t dst = base + st * kMmStageBytes;
+        const uint32_t dst = base + st * L::kStage;
         mbar_expect_tx(bar, bytes);
-        tma_load(dst, &tx, seg_idx[a] * seg + k0, m0, bar);
-        if (kTransW) {   // rows n0 .. n0 + 127 of the block, columns k0 ..
-          tma_load_4d(dst + kMmXBytes, &tw, k0, bc, n0, br, bar);
-        } else {         // rows k0 .. k0 + 63, columns n0 .. (and n0 + 64 ..)
-          tma_load_4d(dst + kMmXBytes, &tw, n0, bc, k0, br, bar);
-          if (w_hi)
-            tma_load_4d(dst + kMmXBytes + kWgBoxBytes, &tw, n0 + kWgBox, bc,
-                        k0, br, bar);
+        tma_load_3d(dst, &tx, k0, seg_idx[a], m0, bar);
+        if (kTransW) {   // rows n0 .. n0 + TN - 1 of the block, columns k0 ..
+          tma_load_4d(dst + L::kXBytes, &tw, k0, bc, n0, br, bar);
+        } else {         // rows k0 .. k0 + KC - 1, columns n0 .. in boxes
+          for (int b = 0; b < nbox; ++b)
+            tma_load_4d(dst + L::kXBytes + b * kBoxBytes, &tw,
+                        n0 + b * L::kWBox, bc, k0, br, bar);
         }
       }
     }
@@ -927,49 +742,52 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   }
 
   const int wg = tid / 128;   // this warpgroup's 64 rows of the tile
-  float acc[64];
+  float acc[TN / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
   for (int it = 0; it < total; ++it) {
-    const int st = it % kMmStages;
-    mbar_wait(full + 8 * st, (it / kMmStages) & 1);
-    // A: this warpgroup's 64 rows of the x box (8 KB); B: the W box(es).
-    const uint32_t xs = base + st * kMmStageBytes + wg * kWgBoxBytes;
-    const uint32_t ws = base + st * kMmStageBytes + kMmXBytes;
+    const int st = it % S;
+    mbar_wait(full + 8 * st, (it / S) & 1);
+    // A: this warpgroup's 64 rows of the x box; B: the W box(es).
+    const uint32_t xs = base + st * L::kStage + wg * (L::kXBytes / 2);
+    const uint32_t ws = base + st * L::kStage + L::kXBytes;
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < kMmChunk / 16; ++k) {
-      const uint64_t da = wgmma_desc(xs + 32 * k, 16);
+    for (int k = 0; k < KC / 16; ++k) {
+      const uint64_t da = kmajor_desc<KC>(xs + 32 * k);
+      uint64_t db;
       if constexpr (kTransW)   // B = Wᵀ: the W box's rows are B's columns
-        wgmma_m64n128k16<0, 0>(acc, da, wgmma_desc(ws + 32 * k, 16));
-      else                     // B = W: 16 rows of 128 bytes a step
-        wgmma_m64n128k16<0, 1>(acc, da,
-                               wgmma_desc(ws + 2048 * k, kWgBoxBytes));
+        db = kmajor_desc<KC>(ws + 32 * k);
+      else if constexpr (TN >= 64)   // B = W: 16 rows of 128 bytes a step
+        db = wgmma_desc(ws + 2048 * k, KC * 128);
+      else                           // 16 rows of 32 bytes a step
+        db = wgmma_desc_sw32(ws + 512 * k, KC * 32);
+      wgmma_ss<TN, 0, kTransW ? 0 : 1>(acc, da, db);
     }
     wgmma_commit();
     wgmma_wait<1>();
-    if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % kMmStages));
+    if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % S));
   }
   wgmma_wait<0>();
 
   // The epilogue goes through shared memory, so that each warp stores
-  // whole 256-byte row segments: every consumer has finished its products
-  // (named barrier 1) before the ring's memory becomes the staging tiles,
-  // one (64 x kMmStageLd) bf16 tile a warpgroup (barriers 2 and 3).
-  // acc[4j + 2h + v] is row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane
-  // % 4) + v of the warpgroup's 64 x 128 result.
+  // whole row segments: every consumer has finished its products (named
+  // barrier 1) before the ring's memory becomes the staging tiles, one (64
+  // x kStageLd) bf16 tile a warpgroup (barriers 2 and 3).  acc[4j + 2h +
+  // v] is row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + v of
+  // the warpgroup's 64 x TN result.
   bar_sync(1, kWgConsumers);
   const int lane = tid % 32;
   const int row = 16 * ((tid / 32) % 4) + lane / 4;
   const int col = 2 * (lane % 4);
   __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(
                              mm_smem + (base - smem_u32(mm_smem))) +
-                         wg * 64 * kMmStageLd;
+                         wg * 64 * L::kStageLd;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < TN / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(stage + (row + 8 * h) * kMmStageLd +
+      *reinterpret_cast<__nv_bfloat162*>(stage + (row + 8 * h) * L::kStageLd +
                                          8 * j + col) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   bar_sync(2 + wg, 128);
@@ -979,12 +797,12 @@ __global__ void __launch_bounds__(kWgThreads, 2)
                        static_cast<size_t>(g) * out_w + n0;
   const int rows = m - m0 - 64 * wg, cols = out_w - n0;
 #pragma unroll
-  for (int q = 0; q < 64 * kMmTile / 8 / 128; ++q) {
+  for (int q = 0; q < 64 * TN / 8 / 128; ++q) {
     const int i = tid % 128 + 128 * q;
-    const int r = i / (kMmTile / 8), c = 8 * (i % (kMmTile / 8));
+    const int r = i / (TN / 8), c = 8 * (i % (TN / 8));
     if (r < rows && c < cols)
       *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * y_ld + c) =
-          *reinterpret_cast<const uint4*>(stage + r * kMmStageLd + c);
+          *reinterpret_cast<const uint4*>(stage + r * L::kStageLd + c);
   }
 }
 
@@ -1512,23 +1330,6 @@ cudaError_t allow_smem(Kernel kernel, int smem,
   return cudaSuccess;
 }
 
-// packed_mm_kernel (the tiled branch): grid (m-tiles, column subtiles).
-template <typename T, int BM, int BN, int BK, int STAGES, bool kTransW>
-cudaError_t launch_mm(const MmArgs& a) {
-  constexpr int smem = MmRing<T, BM, BN, BK, STAGES, kTransW>::kSmemBytes;
-  auto kernel = packed_mm_kernel<T, BM, BN, BK, STAGES, kTransW>;
-  static std::atomic<uint64_t> allowed{0};   // bit d: done on device d
-  cudaError_t err = allow_smem(kernel, smem, allowed);
-  if (err != cudaSuccess) return err;
-  const int out_w = kTransW ? a.bk : a.bn;
-  dim3 grid((a.m + BM - 1) / BM, a.ngroups * ((out_w + BN - 1) / BN));
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w), a.beg, a.end,
-      a.seg_idx, a.slots, a.woffs, static_cast<T*>(a.y), a.m, a.x_ld,
-      a.ngroups * out_w, a.bk, a.bn, a.w_ld);
-  return cudaGetLastError();
-}
-
 // The column-subtile-major grid of the wgmma and ffma branches: (column
 // subtiles, m-tiles) of (rows x cols) tiles, at most 65535 m-tiles.
 cudaError_t tile_grid(const MmArgs& a, int out_w, int rows, int cols,
@@ -1539,22 +1340,35 @@ cudaError_t tile_grid(const MmArgs& a, int out_w, int rows, int cols,
   return cudaSuccess;
 }
 
-template <bool kTransW>
-cudaError_t launch_mm_wgmma(const MmArgs& a) {
+// packed_mm_wgmma_kernel at the tile (TN, KC): x through a 3-D tensor map
+// (column in segment, segment, row), boxes of KC x 128 rows; W through a
+// 4-D one (column, block-column, row, block-row), boxes of MmPlan's W
+// columns x KC rows forward, KC x TN rows dx; each box's swizzle the width
+// of its row.  With no block (an empty packing) no column has an active,
+// nothing is loaded, and tw stays unencoded.
+template <bool kTransW, int TN, int KC>
+cudaError_t launch_mm_tile(const MmArgs& a) {
+  using L = MmPlan<TN, KC>;
   const int seg = kTransW ? a.bn : a.bk;
   const int out_w = kTransW ? a.bk : a.bn;
-  if (seg % kMmChunk || a.bk % 8 || a.bn % 8 || a.w_ld % a.bn ||
-      a.w_rows % a.bk)
-    return cudaErrorInvalidValue;
   dim3 grid;
-  cudaError_t err = tile_grid(a, out_w, kMmTile, kMmTile, &grid);
+  cudaError_t err = tile_grid(a, out_w, kMmRows, TN, &grid);
   if (err != cudaSuccess) return err;
+  auto swizzle = [](int row_bytes) {
+    return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+           : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  };
   CUtensorMap tx, tw{};
-  err = bf16_map(&tx, a.x, a.m, a.x_ld, kMmTile);
+  const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(seg),
+                               static_cast<cuuint64_t>(a.x_ld / seg),
+                               static_cast<cuuint64_t>(a.m)};
+  const cuuint64_t xstrides[2] = {static_cast<cuuint64_t>(seg) * 2,
+                                  static_cast<cuuint64_t>(a.x_ld) * 2};
+  const cuuint32_t xbox[3] = {KC, 1, kMmRows};
+  err = tensor_map_nd(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, 3, xdims,
+                      xstrides, xbox, swizzle(2 * KC));
   if (err != cudaSuccess) return err;
-  // W as (block-row, row, block-column, column); with no block (an empty
-  // packing) no column has an active, nothing is loaded, and tw stays
-  // unencoded.
   if (a.w_rows > 0) {
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.bn),
                                 static_cast<cuuint64_t>(a.w_ld / a.bn),
@@ -1563,20 +1377,49 @@ cudaError_t launch_mm_wgmma(const MmArgs& a) {
     const cuuint64_t ld = static_cast<cuuint64_t>(a.w_ld) * 2;
     const cuuint64_t strides[3] = {static_cast<cuuint64_t>(a.bn) * 2, ld,
                                    ld * a.bk};
-    const cuuint32_t box[4] = {kWgBox, 1, kTransW ? kMmTile : kMmChunk, 1};
-    err = bf16_map_nd(&tw, a.w, 4, dims, strides, box);
+    const int cols = kTransW ? KC : L::kWBox;
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                               kTransW ? TN : KC, 1};
+    err = tensor_map_nd(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.w, 4, dims,
+                        strides, box, swizzle(2 * cols));
     if (err != cudaSuccess) return err;
   }
-  auto kernel = packed_mm_wgmma_kernel<kTransW>;
+  auto kernel = packed_mm_wgmma_kernel<kTransW, TN, KC>;
   static std::atomic<uint64_t> allowed{0};
-  err = allow_smem(kernel, kMmSmem, allowed,
-                   cudaSharedmemCarveoutMaxShared);
+  err = allow_smem(kernel, L::kSmem, allowed, cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kWgThreads, kMmSmem, a.stream>>>(
+  kernel<<<grid, kWgThreads, L::kSmem, a.stream>>>(
       tx, tw, a.beg, a.end, a.seg_idx, a.slots, a.woffs,
       static_cast<__nv_bfloat16*>(a.y), a.m, a.ngroups * out_w, a.bk, a.bn,
       a.w_ld);
   return cudaGetLastError();
+}
+
+// The wgmma branch at the tile the caller names, by its code (the cases
+// below, in the order of ops/block_sparse_packed.py MM_TILES, (TN, KC)):
+// any tile takes any block of whole 16-byte copies, the caller's rule
+// (mm_tile) picks the one that wastes least.
+template <bool kTransW>
+cudaError_t launch_mm_wgmma(const MmArgs& a, int tile) {
+  const int seg = kTransW ? a.bn : a.bk;
+  if (a.bk % 8 || a.bn % 8 || a.w_ld % a.bn || a.w_rows % a.bk ||
+      a.x_ld % seg)
+    return cudaErrorInvalidValue;
+  switch (tile) {
+    case 0: return launch_mm_tile<kTransW, 128, 64>(a);
+    case 1: return launch_mm_tile<kTransW, 128, 32>(a);
+    case 2: return launch_mm_tile<kTransW, 128, 16>(a);
+    case 3: return launch_mm_tile<kTransW, 64, 64>(a);
+    case 4: return launch_mm_tile<kTransW, 64, 32>(a);
+    case 5: return launch_mm_tile<kTransW, 64, 16>(a);
+    case 6: return launch_mm_tile<kTransW, 32, 64>(a);
+    case 7: return launch_mm_tile<kTransW, 32, 32>(a);
+    case 8: return launch_mm_tile<kTransW, 32, 16>(a);
+    case 9: return launch_mm_tile<kTransW, 16, 64>(a);
+    case 10: return launch_mm_tile<kTransW, 16, 32>(a);
+    case 11: return launch_mm_tile<kTransW, 16, 16>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // packed_mm_decode_kernel<T, N> on the grid (slices x column tiles,
@@ -1673,21 +1516,21 @@ cudaError_t launch_mm_ffma(const MmArgs& a) {
 //   decode: m <= 32, either dtype -- packed_mm_decode_kernel, each tile's
 //           contraction split over a cluster of `slices` blocks (the
 //           caller's plan, ops/mm_split.py decode_plan);
-//   tiled:  bf16, m > 32, a contraction per active (bk forward, bn dx)
-//           that 64 does not divide -- packed_mm_kernel, 64 x 64 x 32;
-//   wgmma:  bf16, m > 32, 64 divides the contraction --
-//           packed_mm_wgmma_kernel;
+//   wgmma:  bf16, m > 32 -- packed_mm_wgmma_kernel at the tile `tile`
+//           names (ops/block_sparse_packed.py mm_tile);
 //   ffma:   f32, m > 32 -- packed_mm_ffma_kernel.
-// A branch that cannot take the call (another dtype, a contraction the
-// wgmma boxes do not divide, unaligned operands, more than 65535 m-tiles,
-// a cluster of other than 1, 2, 4 or 8 blocks, `slices` other than 1
-// outside decode) is refused with cudaErrorInvalidValue; no other branch
-// is tried.
-enum MmBranch { kMmDecode = 0, kMmTiled = 1, kMmWgmma = 2, kMmFfma = 3 };
+// A branch that cannot take the call (another dtype, a block that is not
+// whole 16-byte copies, unaligned operands, more than 65535 m-tiles, a
+// cluster of other than 1, 2, 4 or 8 blocks, `slices` other than 1
+// outside decode, a tile other than 0 outside wgmma or one it does not
+// have) is refused with cudaErrorInvalidValue; no other branch is tried.
+enum MmBranch { kMmDecode = 0, kMmWgmma = 1, kMmFfma = 2 };
 
 template <bool kTransW>
-int dispatch_mm(const MmArgs& a, int branch, int slices, int dtype) {
-  if (a.m <= 0 || a.ngroups <= 0 || (branch != kMmDecode && slices != 1))
+int dispatch_mm(const MmArgs& a, int branch, int slices, int tile,
+                int dtype) {
+  if (a.m <= 0 || a.ngroups <= 0 || (branch != kMmDecode && slices != 1) ||
+      (branch != kMmWgmma && tile != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   using B = __nv_bfloat16;
   cudaError_t err = cudaErrorInvalidValue;
@@ -1698,11 +1541,8 @@ int dispatch_mm(const MmArgs& a, int branch, int slices, int dtype) {
       else if (dtype == 0)
         err = launch_decode<float, kTransW>(a, slices);
       break;
-    case kMmTiled:
-      if (dtype == 1) err = launch_mm<B, 64, 64, 32, 3, kTransW>(a);
-      break;
     case kMmWgmma:
-      if (dtype == 1) err = launch_mm_wgmma<kTransW>(a);
+      if (dtype == 1) err = launch_mm_wgmma<kTransW>(a, tile);
       break;
     case kMmFfma:
       if (dtype == 0) err = launch_mm_ffma<kTransW>(a);
@@ -1828,16 +1668,17 @@ int dispatch_dw(const DwArgs& a, int dtype, int tile) {
 // y (m, nn*bn) = x (m, nk*bk) @ W (n_act, bk, bn); column j's actives are
 // packed slots col_ptr[j] .. col_ptr[j+1]-1, block-row rows[a] each.
 // `branch`: dispatch_mm's MmBranch, named by the caller; `slices`: the
-// decode branch's cluster size (1 for the other branches).
+// decode branch's cluster size (1 for the other branches); `tile`: the
+// wgmma branch's tile code (0 for the other branches).
 extern "C" int packed_mm_fwd(const void* x, const void* w, const void* col_ptr,
                              const void* rows, void* y, int m, int K, int nn,
                              int bk, int bn, int n_act, int branch,
-                             int slices, int dtype, void* stream) {
+                             int slices, int tile, int dtype, void* stream) {
   const int* p = static_cast<const int*>(col_ptr);
   return dispatch_mm<false>({x, w, p, p + 1, static_cast<const int*>(rows),
                              nullptr, nullptr, y, m, K, nn, bk, bn, bn,
                              n_act * bk, static_cast<cudaStream_t>(stream)},
-                            branch, slices, dtype);
+                            branch, slices, tile, dtype);
 }
 
 // dx (m, nk*bk) = gy (m, nn*bn) @ Wᵀ; block-row k's actives are entries
@@ -1847,13 +1688,13 @@ extern "C" int packed_mm_dx(const void* gy, const void* w,
                             const void* row_ptr, const void* cols,
                             const void* slots, void* dx, int m, int N, int nk,
                             int bk, int bn, int n_act, int branch, int slices,
-                            int dtype, void* stream) {
+                            int tile, int dtype, void* stream) {
   const int* p = static_cast<const int*>(row_ptr);
   return dispatch_mm<true>({gy, w, p, p + 1, static_cast<const int*>(cols),
                             static_cast<const int*>(slots), nullptr, dx, m, N,
                             nk, bk, bn, bn, n_act * bk,
                             static_cast<cudaStream_t>(stream)},
-                           branch, slices, dtype);
+                           branch, slices, tile, dtype);
 }
 
 // dw (n_act, bk, bn): slot s is block (rows[s], cols[s]); x is (m, K), gy
@@ -1883,13 +1724,13 @@ extern "C" int dense_mm_fwd(const void* x, const void* w, const void* beg,
                             const void* end, const void* rows,
                             const void* woffs, void* y, int m, int K, int nn,
                             int bk, int bn, int N, int branch, int slices,
-                            int dtype, void* stream) {
+                            int tile, int dtype, void* stream) {
   return dispatch_mm<false>(
       {x, w, static_cast<const int*>(beg), static_cast<const int*>(end),
        static_cast<const int*>(rows), nullptr,
        static_cast<const int*>(woffs), y, m, K, nn, bk, bn, N, K,
        static_cast<cudaStream_t>(stream)},
-      branch, slices, dtype);
+      branch, slices, tile, dtype);
 }
 
 // dx (m, nk*bk) = gy (m, N) @ Wᵀ over the actives: output block-column k
@@ -1899,14 +1740,14 @@ extern "C" int dense_mm_fwd(const void* x, const void* w, const void* beg,
 extern "C" int dense_mm_dx(const void* gy, const void* w, const void* beg,
                            const void* end, const void* cols,
                            const void* woffs, void* dx, int m, int N, int nk,
-                           int bk, int bn, int branch, int slices, int dtype,
-                           void* stream) {
+                           int bk, int bn, int branch, int slices, int tile,
+                           int dtype, void* stream) {
   return dispatch_mm<true>(
       {gy, w, static_cast<const int*>(beg), static_cast<const int*>(end),
        static_cast<const int*>(cols), nullptr,
        static_cast<const int*>(woffs), dx, m, N, nk, bk, bn, N, nk * bk,
        static_cast<cudaStream_t>(stream)},
-      branch, slices, dtype);
+      branch, slices, tile, dtype);
 }
 
 // dw (K, N) += the active blocks of xᵀ @ gy: entry s is block (rows[s],

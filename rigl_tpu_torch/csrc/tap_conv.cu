@@ -65,28 +65,31 @@
 //     the previous products takes the next copies.  The epilogue is staged
 //     in the ring and stored in 16-byte pieces, masked to real pixels and
 //     the tile's channels.
-//   tf32 (f32, KxK): tap_w_split_kernel<kTrans> copies every entry's
-//     block K-major (the forward's transposed) as hi / lo halves for
-//     error-compensated TF32, then tap_conv_3xtf32_kernel<N, kGroups>, an
-//     implicit GEMM on wgmma in 3xTF32 (a b = a_hi b_hi + a_hi b_lo + a_lo
-//     b_hi, hi = a as the tensor cores read it truncated): one thread block
-//     of two warpgroups and a copying warp per (128 output pixels, output
-//     tile of N <= 128 channels: one block-column, or at blocks of 16 a
-//     group of two, ops/block_sparse_conv.py tap_tf32_tile), heaviest
-//     first.  A group's entries run in (input block, tap) order, in
-//     panels of one input block and 16 of its channels: the panel's x
-//     tile, 128 pixel rows widened by the panel's shifts (within the halo,
-//     W (kh / 2) + kw / 2 rows a side; taps split by tap row where that is
-//     too large), is copied once by TMA and is the register A operand of
-//     every tap of the panel at its row offset, the shifted pixels outside
-//     the image predicated to zero in the fragment loads.  W's hi / lo
-//     tiles (B) come by TMA, one box a block, into a 4-deep ring of 2
-//     entries a stage; the copying warp walks a stage table the host
-//     builds once per index.
-//   wmma (bf16, KxK, a block of 8s that 16 does not divide):
-//     tap_conv_kernel<kTrans>, BM = 128 pixels x BN = 16 channels a thread
-//     block (one per 16-channel subtile of a column), a 3-deep cp.async
-//     ring of 16-channel chunks, WMMA 16x16x16.
+//   tf32 (KxK: f32, and bf16 at a block of 8s that 16 does not divide):
+//     tap_w_split_kernel<T, kTrans> copies every entry's block K-major (the
+//     forward's transposed) in f32 -- as hi / lo halves for
+//     error-compensated TF32 in f32, as its values widened in bf16 -- then
+//     tap_conv_tf32_kernel<T, N, kCols, kHalf>, an implicit GEMM on tf32
+//     wgmma:
+//     in f32 3xTF32 (a b = a_hi b_hi + a_hi b_lo + a_lo b_hi, hi = a as the
+//     tensor cores read it truncated); in bf16 one product a k-step, exact
+//     (a bf16 value is a tf32 value), so the sums a bf16 product gives.
+//     One thread block of two warpgroups and a copying warp per (128
+//     output pixels, output tile of N <= 64 channels: one block-column, or
+//     a group of two 16-wide ones -- in bf16 also of two or four 8-wide
+//     ones --, ops/block_sparse_conv.py tap_tf32_tile), heaviest first.
+//     A group's entries run in (input block, tap) order, in panels of one
+//     input block and 16 of its channels: the panel's x tile, 128 pixel
+//     rows widened by the panel's shifts (within the halo, W (kh / 2) + kw
+//     / 2 rows a side; taps split by tap row where that is too large), is
+//     copied once by TMA and is the register A operand of every tap of the
+//     panel at its row offset, the shifted pixels outside the image
+//     predicated to zero in the fragment loads.  W's tiles (B) come by
+//     TMA, one box a block and part, into a 4-deep ring of 2 entries a
+//     stage; the copying warp walks a stage table the host builds once per
+//     index.  In bf16 a chunk of 8 channels (a block of 8, the tail of one
+//     of 24) fills one k-step of 8 (tf_half_channel), so a block of 8 runs
+//     one product an entry, not two.
 //
 // What bounds them on an H100: a bf16 call is bound by bytes: x is read
 // from L2 once per entry of each output tile (its shifted copy for that
@@ -100,7 +103,11 @@
 // blocks of 16 an entry is a 16- or 32-column product, so the kernel
 // merges a_hi b_hi and a_hi b_lo into one product twice as wide; and by
 // the copies of x from L2, once per input block of each output tile (not
-// once per entry), which column groups share.  dW has few
+// once per entry), which column groups share.  The bf16 tf32 instance at
+// blocks of 8 is bound the same way: at block (8, 8) an entry is an
+// 8-deep product of 8 columns for each column of its group (four in a
+// tile of 32) that holds it, so issuing products and the x copies, not
+// the tensor cores' rate, bind it.  dW has few
 // outputs (a layer's active blocks) and one long sum each, so it is bound
 // by how many SMs the sum is spread over and, then, by the bytes of x and
 // gy it reads.
@@ -135,7 +142,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -149,11 +155,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kThreads = 128;    // wmma conv: 4 warps
-constexpr int kStages = 3;       // wmma conv: cp.async ring depth
-constexpr int BM = 128;          // wmma conv: output pixels per thread block
-constexpr int BN = 16;           // wmma conv: output channels per block
-constexpr int BK = 16;           // wmma conv: contraction chunk
 constexpr int kDwThreads = 256;  // dw: 8 warps
 constexpr int DT = 16;           // dw: output tile is DT x DT channels
 constexpr int DP = 256;          // dw: pixels per chunk, 32 per warp
@@ -217,164 +218,6 @@ __device__ __forceinline__ T from_float(float v) {
     return __float2bfloat16(v);
   else
     return v;
-}
-
-// Shared-memory plan of tap_conv_kernel (bf16, blocks of 8s): a ring of (x
-// tile, W tile) pairs.  The x tile is (BM x BK), row-major; the W tile (BK x
-// BN) row-major, or for dx the stored (BN x BK) region of the block, read as
-// its transpose.  Each row carries one 16-byte pad: rows stay 16-byte
-// aligned for cp.async and WMMA's fragment loads spread over the banks.
-template <bool kTrans>
-struct ConvPlan {
-  using T = __nv_bfloat16;
-  static constexpr int kVec = 16 / sizeof(T);
-  static constexpr int kAld = BK + kVec;
-  static constexpr int kBRows = kTrans ? BN : BK;
-  static constexpr int kBld = (kTrans ? BK : BN) + kVec;
-  static constexpr int kABytes = align128(BM * kAld * sizeof(T));
-  static constexpr int kBBytes = align128(kBRows * kBld * sizeof(T));
-  static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kOld = BN + 4;   // f32 staging of the epilogue
-  static constexpr int kRingBytes = kStages * kStageBytes;
-  static constexpr int kBytes =
-      kRingBytes > BM * kOld * 4 ? kRingBytes : BM * kOld * 4;
-  static_assert(kBytes + 2 * BM * 4 <= 48 * 1024, "static shared memory");
-};
-
-// y (M, cy) from x (M, cx), M = N*H*W pixels in NHWC order, bf16.  Output
-// block-column g walks entries [ptr[g], ptr[g+1]): entry e reads input block
-// kblks[e] (width bk) at the shift of taps[e], and the weight block at w +
-// woffs[e], whose rows are `w_ld` apart: (bk x bn) row-major, or with
-// kTrans the (bn x bk) block it is the transpose of.  bn is the output
-// block width.
-template <bool kTrans>
-__global__ void __launch_bounds__(kThreads)
-    tap_conv_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w,
-                    const int* __restrict__ ptr, const int* __restrict__ taps,
-                    const int* __restrict__ kblks,
-                    const int* __restrict__ woffs,
-                    __nv_bfloat16* __restrict__ y, int M, int H, int W,
-                    int cx, int cy, int kh, int kw, int bk, int bn,
-                    int w_ld) {
-  using T = __nv_bfloat16;
-  using L = ConvPlan<kTrans>;
-  constexpr int kVec = L::kVec;
-  __shared__ __align__(128) unsigned char smem[L::kBytes];
-  __shared__ int s_h[BM], s_w[BM];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int tiles_per_col = (bn + BN - 1) / BN;
-  const int g = blockIdx.y / tiles_per_col;
-  const int n0 = (blockIdx.y % tiles_per_col) * BN;
-  const int e_begin = ptr[g];
-  const int k_chunks = (bk + BK - 1) / BK;
-  const int total = (ptr[g + 1] - e_begin) * k_chunks;
-
-  // Each pixel's (h, w); rows past M get a row no shift brings back inside.
-  for (int i = tid; i < BM; i += kThreads) {
-    const int p = m0 + i;
-    s_h[i] = p < M ? (p / W) % H : -(1 << 20);
-    s_w[i] = p < M ? p % W : 0;
-  }
-  __syncthreads();
-
-  auto a_tile = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * L::kStageBytes);
-  };
-  auto b_tile = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * L::kStageBytes + L::kABytes);
-  };
-
-  // Stage `s` <- the (x, W) tiles of step `it`: entry e, chunk k0.
-  auto load = [&](int it, int s) {
-    const int e = e_begin + it / k_chunks;
-    const int k0 = (it % k_chunks) * BK;
-    const int tap = taps[e];
-    const int dy = tap / kw - kh / 2, dx = tap % kw - kw / 2;
-    const int shift = dy * W + dx;
-    const int c0 = kblks[e] * bk + k0;
-    T* as = a_tile(s);
-    for (int c = tid; c < BM * (BK / kVec); c += kThreads) {
-      const int r = c / (BK / kVec);
-      const int cc = (c % (BK / kVec)) * kVec;
-      const int hh = s_h[r] + dy, ww = s_w[r] + dx;
-      const bool ok = hh >= 0 && hh < H && ww >= 0 && ww < W && cc < bk - k0;
-      const T* src =
-          ok ? x + static_cast<size_t>(m0 + r + shift) * cx + c0 + cc : x;
-      cp_async16(as + r * L::kAld + cc, src, ok);
-    }
-    const T* wa = w + woffs[e];
-    T* bs = b_tile(s);
-    constexpr int kCols = kTrans ? BK : BN;
-    for (int c = tid; c < L::kBRows * (kCols / kVec); c += kThreads) {
-      const int r = c / (kCols / kVec);
-      const int cc = (c % (kCols / kVec)) * kVec;
-      // rows: chunk k0.. (forward) or output index n0.. (dx).
-      const bool ok = kTrans ? (r < bn - n0 && cc < bk - k0)
-                             : (r < bk - k0 && cc < bn - n0);
-      const T* src =
-          ok ? wa + static_cast<size_t>(kTrans ? n0 + r : k0 + r) * w_ld +
-                   (kTrans ? k0 : n0) + cc
-             : w;
-      cp_async16(bs + r * L::kBld + cc, src, ok);
-    }
-  };
-
-  // Accumulators: warp `wid` owns rows [32 wid, +32) as two 16x16 WMMA
-  // fragments.
-  using namespace nvcuda;
-  using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  Frag frag[2];
-  const int wid = tid / 32;
-  wmma::fill_fragment(frag[0], 0.f);
-  wmma::fill_fragment(frag[1], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) load(s, s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kStages - 2>();   // step `it` has landed (this thread)
-    __syncthreads();                // ... for every thread; stage it-1 free
-    const int next = it + kStages - 1;
-    if (next < total) load(next, next % kStages);
-    cp_async_commit();
-    const T* as = a_tile(it % kStages);
-    const T* bs = b_tile(it % kStages);
-    using BLayout =
-        std::conditional_t<kTrans, wmma::col_major, wmma::row_major>;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
-    wmma::load_matrix_sync(bf, bs, L::kBld);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          af;
-      wmma::load_matrix_sync(af, as + (32 * wid + 16 * i) * L::kAld,
-                             L::kAld);
-      wmma::mma_sync(frag[i], af, bf, frag[i]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the ring is idle: it becomes the epilogue's staging
-
-  const int row_lim = M - m0, col_lim = bn - n0;
-  T* out = y + static_cast<size_t>(m0) * cy + static_cast<size_t>(g) * bn + n0;
-  float* os = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    wmma::store_matrix_sync(os + (32 * wid + 16 * i) * L::kOld, frag[i],
-                            L::kOld, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += kThreads) {
-    const int r = idx / BN, c = idx % BN;
-    if (r < row_lim && c < col_lim)
-      out[static_cast<size_t>(r) * cy + c] =
-          __float2bfloat16(os[r * L::kOld + c]);
-  }
 }
 
 // ---- tap_conv_wgmma_kernel (bf16, KxK, blocks of 16s) -----------------------
@@ -692,38 +535,48 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   }
 }
 
-// ---- tap_conv_3xtf32_kernel (f32, KxK) ---------------------------------------
+// ---- tap_conv_tf32_kernel (KxK: f32 in 3xTF32, bf16 in one TF32 product) --
 constexpr int kTfRows = 128;       // output pixels per thread block
 constexpr int kTfConsumers = 256;  // two warpgroups multiply
 constexpr int kTfThreads = kTfConsumers + 32;   // and one warp copies
 constexpr int kTfStages = 4;       // W ring stages; as many x tiles
-constexpr int kTfChunk = 16;       // input channels of an x tile (64 bytes)
+constexpr int kTfChunk = 16;       // input channels of an x tile
 constexpr int kTfEntries = 2;      // entries a stage, 2 k-steps of 8 each
 constexpr int kTfBoxRows = 64;     // pixel rows of a TMA box of an x tile
-constexpr int kTfFlush = 32;       // stages between flushes of the sum to y
+constexpr int kTfFlush = 32;       // f32: stages between flushes of the sum
 constexpr int kTfRow = 32;         // ints a stage's row: one a lane
 constexpr int kTfMaxSmem = 227 * 1024;
 // The most pixel rows of an x tile (ops/block_sparse_conv.py
 // TAP_TF32_XROWS: past it a panel's taps are split by tap row).
 constexpr int kTfMaxXRows = 512;
 
-// Shared-memory plan of tap_conv_3xtf32_kernel at an output tile N channels
-// wide, whose x tiles hold `xrows` pixel rows: kTfStages W stages, each of
-// kTfEntries entries, each entry 2 N rows of its 16 contraction values
-// (K-major, 64-byte swizzle, as TMA writes them): one column, the tile's
-// hi rows then its lo rows; a group, column c's 16 hi rows at 32 c and its
-// lo rows after them; kTfStages x tiles of xrows rows (whole boxes) of
-// kTfChunk channels, 64 bytes a row as TMA writes them (a quarter-warp's
-// 16-byte fragment loads read two consecutive rows, 32 distinct banks,
-// whatever row a shift starts at); each stage's entry records (16 bytes
-// each); a full and an empty mbarrier a stage.
-template <int N>
+// The W copy's parts an entry (f32: hi and lo; bf16: its values, which
+// tf32 holds exactly) and the bytes of an x tile's row (kTfChunk channels).
+template <typename T>
+constexpr int kTfParts = kIsBf16<T> ? 1 : 2;
+template <typename T>
+constexpr int kTfRowBytes = kTfChunk * static_cast<int>(sizeof(T));
+
+// Shared-memory plan of tap_conv_tf32_kernel<T, N> at an output tile N
+// channels wide, whose x tiles hold `xrows` pixel rows: kTfStages W
+// stages, each of kTfEntries entries, each entry kTfParts<T> N rows of its
+// 16 contraction values in f32 (K-major, 64-byte swizzle, as TMA writes
+// them): one column, the tile's hi rows (then its lo rows); a group of
+// columns each out_w wide, column c's hi rows at kTfParts<T> out_w c (and
+// its lo rows after them); kTfStages x tiles of xrows rows (whole
+// boxes) of kTfChunk channels, kTfRowBytes<T> a row as TMA writes them (a
+// quarter-warp's 16-byte fragment loads in f32, a half-warp's 8-byte ones
+// in bf16, read 128 consecutive bytes, 32 distinct banks, whatever row a
+// shift starts at); each stage's entry records (16 bytes each); a full
+// and an empty mbarrier a stage.
+template <typename T, int N>
 struct TfPlan {
   static constexpr int kBTile = N * 64;
-  static constexpr int kWBytes = kTfEntries * 2 * kBTile;
+  static constexpr int kWBytes = kTfEntries * kTfParts<T> * kBTile;
   static_assert(kBTile % 1024 == 0, "B tiles start 1024-byte aligned");
   static constexpr int x_bytes(int xrows) {
-    return (xrows + kTfBoxRows - 1) / kTfBoxRows * kTfBoxRows * 64;
+    return (xrows + kTfBoxRows - 1) / kTfBoxRows * kTfBoxRows *
+           kTfRowBytes<T>;
   }
   static constexpr int smem(int xrows) {
     return 1024 + kTfStages * (kWBytes + x_bytes(xrows) + kTfEntries * 16 +
@@ -731,29 +584,42 @@ struct TfPlan {
   }
 };
 
-// The f32 channel of x that k-step kk's contraction index k (0-7) of a
+// The channel of x that k-step kk's contraction index k (0-7) of a
 // 16-channel chunk takes: thread q = lane % 4 of a quad loads channels 4 q
-// .. 4 q + 3 of its row in one 16-byte load and takes them as its tf32 A
-// fragment's values k = q and q + 4 of k-step 0 (channels 4 q, 4 q + 1)
-// and of k-step 1 (4 q + 2, 4 q + 3); W's copy puts the same channels at
-// those contraction indices.
+// .. 4 q + 3 of its row in one load (16 bytes in f32, 8 in bf16) and takes
+// them as its tf32 A fragment's values k = q and q + 4 of k-step 0
+// (channels 4 q, 4 q + 1) and of k-step 1 (4 q + 2, 4 q + 3); W's copy
+// puts the same channels at those contraction indices.
 __host__ __device__ constexpr int tf_channel(int kk, int k) {
   return 4 * (k % 4) + 2 * kk + k / 4;
 }
 
-// The K-major hi / lo copy of the weight blocks the tf32 branch reads: row
-// e out_w + n of wt (hi) and of wt + lo_rows segp (lo), segp floats each,
-// holds output channel n of entry e's block (woffs[e], rows w_ld apart):
-// chunk c's 16 values in contraction order, 8 kk + k the block's channel
-// 16 c + tf_channel(kk, k) (zero past seg); hi = the f32 value (the tensor
-// cores read it truncated), lo = the value less that truncation
-// (tf32_split).  The forward's block (seg x out_w, output channels along
-// its rows) is read transposed; dx's stored block (out_w x seg) as it is.
-// One thread block an entry, and one more (e = n_ent) writing a block of
-// zeros, which the kernel copies for a column without the entry.
-template <bool kTrans>
+// bf16, a chunk of 8 channels (the last of a block whose width 16 does not
+// divide): the channel that the one k-step's index k takes.  Thread q loads
+// channels 4 (q % 2) .. 4 (q % 2) + 3 (8 bytes; lanes q and q + 2 read the
+// same) and takes the pair 2 (q / 2), 2 (q / 2) + 1 of them as k = q and
+// q + 4: the chunk's 8 channels fill k-step 0, and k-step 1, which would
+// hold only zeros, is not run.
+__host__ __device__ constexpr int tf_half_channel(int k) {
+  return 4 * (k % 2) + 2 * ((k % 4) / 2) + k / 4;
+}
+
+// The K-major copy of the weight blocks the tf32 branch reads, in f32:
+// row e out_w + n of wt (hi) and, in f32, of wt + lo_rows segp (lo), segp
+// floats each, holds output channel n of entry e's block (woffs[e], rows
+// w_ld apart): chunk c's 16 values in contraction order, 8 kk + k the
+// block's channel 16 c + tf_channel(kk, k) (bf16, a chunk of 8 channels:
+// k the channel 16 c + tf_half_channel(k), and 8 .. 15 zeros; zeros past
+// seg).  f32: hi = the value (the tensor cores read it truncated), lo = the
+// value less that truncation (tf32_split).  bf16: the value widened to f32
+// (exact, and exact in tf32).  The forward's block (seg x out_w, output
+// channels along its rows) is read transposed; dx's stored block (out_w x
+// seg) as it is.  One thread block an entry, and one more (e = n_ent)
+// writing a block of zeros, which the kernel copies for a column without
+// the entry.
+template <typename T, bool kTrans>
 __global__ void __launch_bounds__(256)
-    tap_w_split_kernel(const float* __restrict__ w,
+    tap_w_split_kernel(const T* __restrict__ w,
                        const int* __restrict__ woffs, float* __restrict__ wt,
                        int n_ent, int lo_rows, int seg, int segp, int out_w,
                        int w_ld) {
@@ -761,35 +627,47 @@ __global__ void __launch_bounds__(256)
   float* hi = wt + static_cast<size_t>(e) * out_w * segp;
   for (int i = threadIdx.x; i < out_w * segp; i += blockDim.x) {
     const int n = i / segp, l = i % segp;
-    const int k = (l / kTfChunk) * kTfChunk +
-                  tf_channel((l % kTfChunk) / 8, l % 8);
+    const int c0 = (l / kTfChunk) * kTfChunk, kl = l % kTfChunk;
+    const bool half = kIsBf16<T> && seg - c0 <= 8;
+    const int k = half ? (kl < 8 ? c0 + tf_half_channel(kl) : seg)
+                       : c0 + tf_channel(kl / 8, kl % 8);
     float v = 0.f;
-    if (e < n_ent && k < seg)
-      v = w[woffs[e] + (kTrans ? static_cast<size_t>(n) * w_ld + k
-                               : static_cast<size_t>(k) * w_ld + n)];
-    uint32_t h, l32;
-    tf32_split(v, h, l32);
-    hi[i] = __uint_as_float(h);
-    hi[static_cast<size_t>(lo_rows) * segp + i] = __uint_as_float(l32);
+    if (e < n_ent && k < seg) {
+      const T wv = w[woffs[e] + (kTrans ? static_cast<size_t>(n) * w_ld + k
+                                        : static_cast<size_t>(k) * w_ld + n)];
+      if constexpr (kIsBf16<T>)
+        v = __bfloat162float(wv);
+      else
+        v = wv;
+    }
+    if constexpr (kIsBf16<T>) {
+      hi[i] = v;
+    } else {
+      uint32_t h, l32;
+      tf32_split(v, h, l32);
+      hi[i] = __uint_as_float(h);
+      hi[static_cast<size_t>(lo_rows) * segp + i] = __uint_as_float(l32);
+    }
   }
 }
 
 // Thread block (tile, m-tile): output pixels m0 .. m0 + 127 (m-tile
 // m_base + blockIdx.y) and channels n0 .. n0 + N - 1 of the output
 // block-columns of group G = order[blockIdx.x / tiles] (columns G gcols ..
-// G gcols + gcols - 1; ops/block_sparse_conv.py TapPanelLists), in f32:
-// y = the sum over G's entries, for each column of the group that holds
-// the entry, of the shifted x block @ the entry's W block.  G's entries
-// run in (input block, tap) order, in panels of one input block and
-// kTfChunk of its channels, kTfEntries a stage (a panel
-// starts a stage): stage rows sptr[G] .. sptr[G+1]-1 of `stab`, kTfRow
-// ints each (TapPanelLists.stab): 0-4 the panel's x channel, its smallest
-// shift lo, its x tile's TMA boxes (the panel's first stage, else 0), 0
-// and the chunk's offset k0 in the block; 8 + 4 e ..: entry e's record
-// (byte offset of its shifted row 0 in the panel's x tile, dy << 16 | dx
-// & 0xFFFF, column mask, channel quads; a slot past the panel's entries
-// reads nothing); 8 + 4 kTfEntries + e gcols + c: the row in the W copy of
-// column c's block of entry e (the zero block where the column lacks it).
+// G gcols + gcols - 1; ops/block_sparse_conv.py TapPanelLists): y = the
+// sum over G's entries, for each column of the group that holds the entry,
+// of the shifted x block @ the entry's W block, in f32, cast once to T.
+// G's entries run in (input block, tap) order, in panels of one input
+// block and kTfChunk of its channels, kTfEntries a stage (a panel starts a
+// stage): stage rows sptr[G] .. sptr[G+1]-1 of `stab`, kTfRow ints each
+// (TapPanelLists.stab): 0-4 the panel's x channel, its smallest shift lo,
+// its x tile's TMA boxes (the panel's first stage, else 0), 0 and the
+// chunk's offset k0 in the block; 8 + 4 e ..: entry e's record (byte
+// offset of its shifted row 0 in the panel's x tile in f32 rows, halved
+// for bf16's rows of half the bytes; dy << 16 | dx & 0xFFFF, column mask,
+// channel quads; a slot past the panel's entries reads nothing); 8 + 4
+// kTfEntries + e gcols + c: the row in the W copy of column c's block of
+// entry e (the zero block where the column lacks it).
 // A panel's x tile -- pixel rows m0 + lo .. of those channels, 128 plus
 // the span of its shifts -- is copied once, in TMA boxes with its first
 // stage, into x tile (its rank in G) % kTfStages, and every entry of the
@@ -802,37 +680,51 @@ __global__ void __launch_bounds__(256)
 // of the products: lane l holds int l of a stage's row, loaded a stage
 // ahead; lanes 8 .. write the entry records, lane 0 sets the stage's
 // bytes on its full barrier, lanes 0 .. copy the x boxes and the W lanes
-// their block's hi and lo rows (one column: the tile's rows, the zero
-// block past the panel's entries; kGroups: each column that holds the
-// entry, the others none); it reuses a stage once both warpgroups have
-// released it.  Each warpgroup takes 64 rows: per stage, its A fragments
-// (x, one 16-byte load a row and entry: both k-steps, tf_channel) are
-// split into hi / lo in registers, and per k-step a_hi (b_hi | b_lo) --
-// the lo rows follow the hi ones, so one product twice the width, into a
-// second half of the sum -- and a_lo b_hi run into the f32 sum in
-// registers.
-// kGroups: each column's products run only where it holds the entry
-// (predicated), so a column sums its own entries only and a non-finite x
-// reaches only the columns that read it.  The roles and the predicates
-// are broadcast from lane 0, so that ptxas sees them uniform over the
-// warpgroup: it serialises a wgmma on a path it cannot (C7520).  The
-// tensor cores' f32 accumulation drops low bits, which adds up over a
-// long sum: every kTfFlush stages (beyond any layer of the repo's models
-// at blocks of 16) the sum is added into y in f32 and starts afresh.  The
-// epilogue stores the tile from registers, 8 bytes a thread, masked to
-// real pixels and the group's channels.
-template <int N, bool kGroups>
-__global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
-    tap_conv_3xtf32_kernel(const __grid_constant__ CUtensorMap tx,
-                           const __grid_constant__ CUtensorMap tw,
-                           const int* __restrict__ sptr,
-                           const int* __restrict__ order,
-                           const int* __restrict__ stab,
-                           float* __restrict__ y, int M, int H, int W,
-                           int cy, int out_w, int gcols, int x_bytes,
-                           int lo_rows, int m_base) {
-  using P = TfPlan<N>;
-  constexpr int S = kTfStages, E = kTfEntries;
+// their block's rows (one column: the tile's rows, the zero block past
+// the panel's entries; kGroups: each column that holds the entry, the
+// others none); it reuses a stage once both warpgroups have released it.
+// Each warpgroup takes 64 rows: per stage, its A fragments (x, one load a
+// row and entry: both k-steps, tf_channel) are made in registers and the
+// products run into the f32 sum in registers:
+//   f32, 3xTF32: the fragments split into hi / lo; per k-step a_hi (b_hi
+// | b_lo) -- the lo rows follow the hi ones, so one product twice the
+// width, into a second half of the sum -- and a_lo b_hi.  The tensor
+// cores' f32 accumulation drops low bits, which adds up over a long sum:
+// every kTfFlush stages (beyond any layer of the repo's models at blocks
+// of 16) the sum is added into y and starts afresh.
+//   bf16: each value widened to its f32 bits (<< 16: exact, and exact in
+// tf32, whose 10 mantissa bits hold bf16's 7), so one product a k-step,
+// a b, gives what a bf16 product gives, summed in f32; at a chunk of 8
+// channels (tf_half_channel) one k-step holds them all and the second is
+// predicated off, or, where every chunk of the call is one (kHalf: a
+// contraction of 8), not issued at all.  No flush: a bf16 output keeps 8
+// bits of the sum, as tap_conv_wgmma_kernel's, which sums on the tensor
+// cores too; the sum is cast once.
+// kCols > 1 (a group of kCols columns, each N / kCols wide): each
+// column's products run only where it holds the entry (predicated), so a
+// column sums its own entries only and a non-finite x reaches only the
+// columns that read it; at a chunk of 8 channels likewise only its
+// channels enter (a lane reads none of the next block's).  The roles and
+// the predicates are broadcast from lane 0, so that ptxas sees them
+// uniform over the warpgroup: it serialises a wgmma on a path it cannot
+// (C7520).  The epilogue stores the tile from registers, 8 bytes (f32) or
+// 4 (bf16) a thread, masked to real pixels and the group's channels.
+template <typename T, int N, int kCols, bool kHalf>
+__global__ void __launch_bounds__(kTfThreads,
+                                  (kIsBf16<T> || N <= 32) ? 2 : 1)
+    tap_conv_tf32_kernel(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tw,
+                         const int* __restrict__ sptr,
+                         const int* __restrict__ order,
+                         const int* __restrict__ stab, T* __restrict__ y,
+                         int M, int H, int W, int cy, int out_w, int gcols,
+                         int x_bytes, int lo_rows, int m_base) {
+  using P = TfPlan<T, N>;
+  constexpr bool kBf16 = kIsBf16<T>, kGroups = kCols > 1;
+  constexpr int kSteps = kHalf ? 1 : 2;   // k-steps an entry runs
+  static_assert(!kHalf || kBf16, "chunks of 8 channels are bf16's");
+  constexpr int S = kTfStages, E = kTfEntries, kParts = kTfParts<T>;
+  constexpr int kRowBytes = kTfRowBytes<T>;
   extern __shared__ unsigned char tf_smem[];
   const int tid = threadIdx.x, lane = tid % 32;
   const int tiles = (gcols * out_w + N - 1) / N;
@@ -866,7 +758,7 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
   // uniform: a wgmma on a path it cannot prove uniform over the warpgroup
   // (this branch, a predicate) is serialised (C7520).
   if (__shfl_sync(0xffffffffu, tid / 32, 0) >= kTfConsumers / 32) {
-    // The copying warp.  A stage's W boxes: per entry and hi / lo, one a
+    // The copying warp.  A stage's W boxes: per entry and part, one a
     // column of the group (kGroups) or the tile's rows of the one column.
     // x tile pc % S takes the group's pc-th panel.
     const int box_rows = min(out_w, N);
@@ -889,9 +781,11 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
       pc += nbox > 0;
       const int xoff = (pc % S) * x_bytes;
       const uint32_t fb = full + 8 * s;
-      if (lane >= 8 && lane < w_lane)
+      if (lane >= 8 && lane < w_lane) {
+        const bool at_x = (lane - 8) % 4 == 0;   // the row offset
         reinterpret_cast<int*>(gbase + (meta - base))[s * E * 4 + lane - 8] =
-            row + ((lane - 8) % 4 == 0 ? xoff : 0);
+            at_x ? (kBf16 ? row >> 1 : row) + xoff : row;
+      }
       // W lane b: entry b / gcols, column b % gcols.  kGroups: no copy
       // where the column lacks the entry (its products are predicated
       // off); one column: every slot's (the zero block past the panel).
@@ -901,21 +795,22 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
       const int n_w = __popc(__ballot_sync(0xffffffffu, w_box));
       __syncwarp();   // the records, then the arrival that releases them
       if (lane == 0)
-        mbar_expect_tx(fb, nbox * kTfBoxRows * 64 + n_w * 2 * box_rows * 64);
+        mbar_expect_tx(fb, nbox * kTfBoxRows * kRowBytes +
+                               n_w * kParts * box_rows * 64);
       __syncwarp();
       if (lane < nbox)
-        tma_load(xs + xoff + lane * kTfBoxRows * 64, &tx, ch0,
+        tma_load(xs + xoff + lane * kTfBoxRows * kRowBytes, &tx, ch0,
                  m0 + lo + lane * kTfBoxRows, fb);
       if (w_box) {
-        // kGroups: column c's hi rows, then its lo rows; one column: the
-        // tile's hi rows, then its lo rows.
+        // kGroups: column c's rows (hi, then lo); one column: the tile's.
         const int e = b / gcols, c = b % gcols;
-        const uint32_t dst = base + s * P::kWBytes + 2 * e * P::kBTile +
-                             (kGroups ? 2 * c * out_w * 64 : 0);
+        const uint32_t dst = base + s * P::kWBytes + kParts * e * P::kBTile +
+                             (kGroups ? kParts * c * out_w * 64 : 0);
         const int r = row + (kGroups ? 0 : n0);
         tma_load(dst, &tw, k0, r, fb);
-        tma_load(dst + (kGroups ? out_w * 64 : P::kBTile), &tw, k0,
-                 r + lo_rows, fb);
+        if constexpr (!kBf16)
+          tma_load(dst + (kGroups ? out_w * 64 : P::kBTile), &tw, k0,
+                   r + lo_rows, fb);
       }
       row = next;
     }
@@ -924,15 +819,15 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
 
   // The consumers.  This thread's rows of its warpgroup's 64 (the A
   // fragment's and the accumulator's: 16 warp + lane / 4 + 8 h) and where
-  // its 16-byte fragment loads start in an x tile (channels 4 (lane % 4)
-  // ..).
+  // its fragment loads start in an x tile (channels 4 (lane % 4) ..).
+  constexpr int kLoad = 4 * static_cast<int>(sizeof(T));   // bytes a load
   const int wg = tid / 128;
   int rb[2];
   uint32_t at[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rb[h] = 64 * wg + 16 * ((tid / 32) % 4) + lane / 4 + 8 * h;
-    at[h] = xs + rb[h] * 64 + (lane & 3) * 16;
+    at[h] = xs + rb[h] * kRowBytes + (lane & 3) * kLoad;
   }
   const int4* const meta_p =
       reinterpret_cast<const int4*>(gbase + (meta - base));
@@ -947,21 +842,24 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
     ph[h] = p < M ? (p / W) % H : -(1 << 20);
     pw[h] = p < M ? p % W : 0;
   }
-  // a_hi (b_hi | b_lo) is one product twice the width (the lo B rows
+  // f32: a_hi (b_hi | b_lo) is one product twice the width (the lo B rows
   // follow the hi ones), its second half added to the first in f32 at the
   // end; a_lo b_hi goes into the first.  One column: the tile's, the
   // second half at acc[N / 2 ..].  kGroups: per 16-column block-column c,
-  // acc[16 c .. 16 c + 15], the second half from 16 c + 8.
-  float acc[N];
+  // acc[16 c .. 16 c + 15], the second half from 16 c + 8.  bf16: one
+  // product, acc[0 .. N / 2); a group: column c's from acc[N / (2 kCols)
+  // c].
+  constexpr int kAcc = kBf16 ? N / 2 : N;
+  float acc[kAcc];
   float(&sum)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(acc);
 #pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   bool flushed = false;
   const int rows = M - m0, cols = width - n0;
-  float* out = y + static_cast<size_t>(m0) * cy + g0 + n0;
-  // Row rb[h], columns 8 j + 2 (lane % 4) + v of the tile: y there +=
-  // the sum, or = it before the first flush (8 bytes a store; width - n0
-  // is a multiple of 4: a pair is in or out).
+  T* out = y + static_cast<size_t>(m0) * cy + g0 + n0;
+  // Row rb[h], columns 8 j + 2 (lane % 4) + v of the tile: y there = the
+  // sum (f32: += it after a flush), one store of the pair (width - n0 is a
+  // multiple of 4: a pair is in or out).
   auto add_into_y = [&]() {
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
@@ -969,18 +867,23 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
       for (int h = 0; h < 2; ++h) {
         const int c = 8 * j + 2 * (lane & 3);
         if (rb[h] < rows && c < cols) {
-          float2* o = reinterpret_cast<float2*>(
-              out + static_cast<size_t>(rb[h]) * cy + c);
-          const int i = kGroups ? 16 * (j / 2) + 4 * (j % 2) + 2 * h
-                                : 4 * j + 2 * h;
-          const int i2 = i + (kGroups ? 8 : N / 2);
-          float2 v = make_float2(acc[i] + acc[i2], acc[i + 1] + acc[i2 + 1]);
-          if (flushed) {
-            const float2 before = *o;
-            v.x += before.x;
-            v.y += before.y;
+          T* o = out + static_cast<size_t>(rb[h]) * cy + c;
+          if constexpr (kBf16) {
+            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(
+                acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          } else {
+            const int i = kGroups ? 16 * (j / 2) + 4 * (j % 2) + 2 * h
+                                  : 4 * j + 2 * h;
+            const int i2 = i + (kGroups ? 8 : N / 2);
+            float2 v =
+                make_float2(acc[i] + acc[i2], acc[i + 1] + acc[i2 + 1]);
+            if (flushed) {
+              const float2 before = *reinterpret_cast<float2*>(o);
+              v.x += before.x;
+              v.y += before.y;
+            }
+            *reinterpret_cast<float2*>(o) = v;
           }
-          *o = v;
         }
       }
   };
@@ -988,9 +891,18 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
   for (int it = 0; it < total; ++it) {
     const int s = it % S;
     mbar_wait(full + 8 * s, (it / S) & 1);
-    // The stage's A fragments: per entry and row, 4 channels.
-    float v[E][2][4];
+    // The stage's A fragments: per entry and row, 4 channels (f32 as
+    // floats, bf16 as two words).
+    float v[kBf16 ? 1 : E][2][4];
+    uint32_t raw[E][2][2];
     unsigned mk[E];
+    // bf16: whether the stage's chunk holds 8 channels (tf_half_channel):
+    // every chunk of the call (kHalf), else the stage's, broadcast:
+    // uniform to ptxas.
+    unsigned half = kHalf;
+    if constexpr (kBf16 && !kHalf)
+      half = __shfl_sync(0xffffffffu,
+                         static_cast<unsigned>(meta_p[s * E].w == 2), 0);
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int4 m = meta_p[s * E + e];
@@ -999,40 +911,86 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
       const int dy = m.y >> 16, dx = static_cast<short>(m.y & 0xFFFF);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const bool in =
-            static_cast<unsigned>(ph[h] + dy) < static_cast<unsigned>(H) &&
-            static_cast<unsigned>(pw[h] + dx) < static_cast<unsigned>(W) &&
-            (lane & 3) < m.w;
-        ld_shared_v4_if(at[h] + m.x, in, v[e][h]);
+        // f32: quad q loads where the chunk has channels 4 q ..; bf16:
+        // every lane where it has any (a chunk of 8: lanes q, q + 2 read
+        // the same channels).  Each predicate is written as the form
+        // ptxas scheduled best (the two rows' loads issued together):
+        // on the card the other form cost 3% (f32, bf16).
+        if constexpr (kBf16) {
+          const bool in =
+              static_cast<unsigned>(ph[h] + dy) < static_cast<unsigned>(H) &&
+              static_cast<unsigned>(pw[h] + dx) < static_cast<unsigned>(W);
+          ld_shared_v2_if(at[h] + m.x - (half ? (lane & 2) * kLoad : 0),
+                          in && m.w > 0, raw[e][h]);
+        } else {
+          const bool in =
+              static_cast<unsigned>(ph[h] + dy) < static_cast<unsigned>(H) &&
+              static_cast<unsigned>(pw[h] + dx) < static_cast<unsigned>(W) &&
+              (lane & 3) < m.w;
+          ld_shared_v4_if(at[h] + m.x, in, v[e][h]);
+        }
       }
     }
-    // k-step kk of entry e: a[h + 2 j] = channel 4 (lane % 4) + 2 kk + j.
-    uint32_t hi[E][2][4], lo[E][2][4];
+    // k-step kk of entry e: a[h + 2 j] = channel 4 (lane % 4) + 2 kk + j
+    // (f32: split into hi and lo; bf16: widened, and at a chunk of 8
+    // k-step 0 takes pair lane % 4 / 2 of channels 4 (lane % 2) ..).
+    uint32_t hi[E][2][4], lo[kBf16 ? 1 : E][2][4];
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t r0 =
+              half && (lane & 2) ? raw[e][h][1] : raw[e][h][0];
+          hi[e][0][h] = r0 << 16;
+          hi[e][0][h + 2] = r0 & 0xFFFF0000u;
+          hi[e][1][h] = raw[e][h][1] << 16;
+          hi[e][1][h + 2] = raw[e][h][1] & 0xFFFF0000u;
+        }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              tf32_split(v[e][h][2 * kk + j], hi[e][kk][h + 2 * j],
+                         lo[e][kk][h + 2 * j]);
+    }
 #pragma unroll
     for (int e = 0; e < E; ++e)
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            tf32_split(v[e][h][2 * kk + j], hi[e][kk][h + 2 * j],
-                       lo[e][kk][h + 2 * j]);
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+      for (int kk = 0; kk < kSteps; ++kk) {
         fence_regs(hi[e][kk]);
-        fence_regs(lo[e][kk]);
+        if constexpr (!kBf16) fence_regs(lo[e][kk]);
       }
     wgmma_fence();
 #pragma unroll
     for (int e = 0; e < E; ++e)
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const uint32_t bh = base + s * P::kWBytes + 2 * e * P::kBTile +
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint32_t bh = base + s * P::kWBytes + kParts * e * P::kBTile +
                             32 * kk;
-        if constexpr (kGroups) {
+        if constexpr (kBf16) {
+          const unsigned run = kk == 0 || !half;
+          if constexpr (kGroups) {
+            // Column c's rows: (N / kCols) c rows on, its products only
+            // where it holds the entry.
+            constexpr int kW = N / kCols;   // a column's width
+#pragma unroll
+            for (int c = 0; c < kCols; ++c)
+              wgmma_tf32_rs_if<kW>(
+                  *reinterpret_cast<float(*)[kW / 2]>(acc + kW / 2 * c),
+                  hi[e][kk], wgmma_desc_sw64(bh + kW * 64 * c),
+                  run & (mk[e] >> c) & 1);
+          } else if (kk == 0) {
+            wgmma_tf32_rs<N>(acc, hi[e][kk], wgmma_desc_sw64(bh));
+          } else {
+            wgmma_tf32_rs_if<N>(acc, hi[e][kk], wgmma_desc_sw64(bh), run);
+          }
+        } else if constexpr (kGroups) {
           // Column c's hi and lo rows: 2 KB from 2 c KB, its products
           // only where it holds the entry.
 #pragma unroll
@@ -1052,13 +1010,15 @@ __global__ void __launch_bounds__(kTfThreads, N <= 32 ? 2 : 1)
     wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(empty + 8 * s);   // this thread is done with stage s
-    const bool flush = (it + 1) % kTfFlush == 0 && it + 1 < total;
-    if (flush) {
-      add_into_y();
-      flushed = true;
-    }
+    if constexpr (!kBf16) {
+      const bool flush = (it + 1) % kTfFlush == 0 && it + 1 < total;
+      if (flush) {
+        add_into_y();
+        flushed = true;
+      }
 #pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] = flush ? 0.f : acc[i];
+      for (int i = 0; i < N; ++i) acc[i] = flush ? 0.f : acc[i];
+    }
   }
   add_into_y();
 }
@@ -1411,17 +1371,6 @@ struct ConvArgs {
   cudaStream_t stream;
 };
 
-template <bool kTrans>
-cudaError_t launch_conv(const ConvArgs& a) {
-  dim3 grid((a.M + BM - 1) / BM, a.ncols * ((a.out_w + BN - 1) / BN));
-  tap_conv_kernel<kTrans><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.x),
-      static_cast<const __nv_bfloat16*>(a.w), a.ptr, a.taps, a.kblks,
-      a.woffs, static_cast<__nv_bfloat16*>(a.y), a.M, a.H, a.W, a.cx, a.cy,
-      a.kh, a.kw, a.seg, a.out_w, a.w_ld);
-  return cudaGetLastError();
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem,
                        std::atomic<uint64_t>& allowed, int carveout = -1);
@@ -1476,82 +1425,109 @@ cudaError_t launch_wgmma(const ConvArgs& a) {
   }
 }
 
-// tap_conv_3xtf32_kernel at output tile N, its dynamic shared memory
-// allowed once per (instance, device) up to kTfMaxSmem and sized for the
-// call's largest x tile (at most kTfMaxXRows rows, which every tile's plan
-// fits).  The groups' tiles run along x, so that the thread blocks that
-// run together share their pixel tiles' x in L2, the m-tiles along y, in
+// tap_conv_tf32_kernel<T, N, kCols, kHalf>, its dynamic shared memory allowed
+// once per (instance, device) up to kTfMaxSmem and sized for the call's
+// largest x tile (at most kTfMaxXRows rows, which every tile's plan fits).
+// The groups' tiles run along x, so that the thread blocks that run
+// together share their pixel tiles' x in L2, the m-tiles along y, in
 // launches of at most 65535.
-template <int N, bool kGroups>
-cudaError_t launch_tf32_tile(const ConvArgs& a, const CUtensorMap& tx,
+template <typename T, int N, int kCols, bool kHalf>
+cudaError_t launch_tf32_grid(const ConvArgs& a, const CUtensorMap& tx,
                              const CUtensorMap& tw, int m_tiles,
                              int lo_rows) {
-  static_assert(TfPlan<N>::smem(kTfMaxXRows) <= kTfMaxSmem,
+  static_assert(TfPlan<T, N>::smem(kTfMaxXRows) <= kTfMaxSmem,
                 "the largest x tile fits shared memory at this tile");
   const int groups = (a.ncols + a.gcols - 1) / a.gcols;
   const long long gtiles =
       static_cast<long long>(groups) * ((a.gcols * a.out_w + N - 1) / N);
   if (gtiles > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = tap_conv_3xtf32_kernel<N, kGroups>;
+  auto kernel = tap_conv_tf32_kernel<T, N, kCols, kHalf>;
   static std::atomic<uint64_t> allowed{0};   // bit d: done on device d
   cudaError_t err = allow_smem(kernel, kTfMaxSmem, allowed,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const int smem = TfPlan<N>::smem(a.xrows);
+  const int smem = TfPlan<T, N>::smem(a.xrows);
   for (int m = 0; m < m_tiles; m += 65535) {
     const dim3 grid(static_cast<unsigned>(gtiles),
                     static_cast<unsigned>(std::min(m_tiles - m, 65535)));
     kernel<<<grid, kTfThreads, smem, a.stream>>>(
-        tx, tw, a.ptr, a.order, a.stab, static_cast<float*>(a.y), a.M, a.H,
-        a.W, a.cy, a.out_w, a.gcols, TfPlan<N>::x_bytes(a.xrows), lo_rows,
-        m);
+        tx, tw, a.ptr, a.order, a.stab, static_cast<T*>(a.y), a.M, a.H,
+        a.W, a.cy, a.out_w, a.gcols, TfPlan<T, N>::x_bytes(a.xrows),
+        lo_rows, m);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// The tf32 branch: tap_w_split_kernel makes the K-major hi / lo copy of
-// every entry's block and a block of zeros (forward: transposed), then
-// tap_conv_3xtf32_kernel runs at the output tile the caller names
+// The instance of tile N and groups of kCols columns for the call: in
+// bf16, where every chunk holds 8 channels (seg = 8), the one whose
+// entries run one k-step.
+template <typename T, int N, int kCols>
+cudaError_t launch_tf32_tile(const ConvArgs& a, const CUtensorMap& tx,
+                             const CUtensorMap& tw, int m_tiles,
+                             int lo_rows) {
+  if constexpr (kIsBf16<T>)
+    if (a.seg == 8)
+      return launch_tf32_grid<T, N, kCols, true>(a, tx, tw, m_tiles, lo_rows);
+  return launch_tf32_grid<T, N, kCols, false>(a, tx, tw, m_tiles, lo_rows);
+}
+
+// The tf32 branch, in T = float (3xTF32) or bf16 (one TF32 product):
+// tap_w_split_kernel makes the K-major f32 copy (hi / lo in f32) of every
+// entry's block and a block of zeros (forward: transposed), then
+// tap_conv_tf32_kernel runs at the output tile the caller names
 // (ops/block_sparse_conv.py tap_tf32_tile; the tiles are the cases below)
 // over TapPanelLists' stages (ptr: the groups' stage rows, stab: the
-// stage table), x and the copy read by TMA.  Blocks must be multiples of
-// 4; tile 32 takes groups of two 16-wide columns, tiles 16 and 64 one
-// column (a wider one in several tiles).  wt holds 2 (n_entries + 1)
-// out_w segp floats, segp = seg rounded up to 16.
-template <bool kTrans>
+// stage table), x and the copy read by TMA.  Blocks must be whole 16-byte
+// copies (multiples of 4 in f32, 8 in bf16); a group of columns fills
+// its tile (tile 32: two 16-wide columns; in bf16 also tile 16: two 8-wide
+// ones, and four 8-wide in 32), tiles 16 and 64 take one column (a wider
+// one in several tiles).
+// wt holds kTfParts<T> (n_entries + 1) out_w segp floats, segp = seg
+// rounded up to 16.
+template <typename T, bool kTrans>
 cudaError_t launch_tf32(const ConvArgs& a) {
+  constexpr int vec = 16 / static_cast<int>(sizeof(T));
+  constexpr int parts = kTfParts<T>;
   const int m_tiles = (a.M + kTfRows - 1) / kTfRows;
-  if (a.seg % 4 || a.out_w % 4 || a.seg <= 0 || a.out_w <= 0 ||
+  // A group fills its tile: two 16-wide columns in 32 (f32, bf16); bf16
+  // also two 8-wide in 16 and four in 32.
+  const bool group_ok =
+      a.gcols * a.out_w == a.tile &&
+      (kIsBf16<T> ? (a.tile == 16 && a.gcols == 2) || a.tile == 32
+                  : a.tile == 32 && a.gcols == 2);
+  if (a.seg % vec || a.out_w % vec || a.seg <= 0 || a.out_w <= 0 ||
       a.gcols <= 0 || !a.order || !a.wt || a.xrows < kTfRows ||
       a.xrows > kTfMaxXRows || a.n_entries < 0 ||
-      (a.gcols > 1 && (a.out_w != 16 || a.gcols * a.out_w > a.tile ||
-                       a.tile != 32)))
+      (a.gcols > 1 && !group_ok))
     return cudaErrorInvalidValue;
   if (a.n_entries > 0 && (!a.ewoffs || !a.stab))
     return cudaErrorInvalidValue;
   const int segp = (a.seg + kTfChunk - 1) / kTfChunk * kTfChunk;
   const long long lo_rows = static_cast<long long>(a.n_entries + 1) * a.out_w;
-  if (2 * lo_rows * segp >= (1LL << 31)) return cudaErrorInvalidValue;
-  tap_w_split_kernel<kTrans><<<a.n_entries + 1, 256, 0, a.stream>>>(
-      static_cast<const float*>(a.w), a.ewoffs, static_cast<float*>(a.wt),
+  if (parts * lo_rows * segp >= (1LL << 31)) return cudaErrorInvalidValue;
+  tap_w_split_kernel<T, kTrans><<<a.n_entries + 1, 256, 0, a.stream>>>(
+      static_cast<const T*>(a.w), a.ewoffs, static_cast<float*>(a.wt),
       a.n_entries, static_cast<int>(lo_rows), a.seg, segp, a.out_w, a.w_ld);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // x as (M rows, cx channels), boxes of 64 rows x 16 channels, no
-  // swizzle; the copy as (2 lo_rows rows, segp), boxes of a column's rows
-  // (at most the tile's) x 16, 64-byte swizzle.
+  // swizzle; the copy as (parts lo_rows rows, segp) f32, boxes of a
+  // column's rows (at most the tile's) x 16, 64-byte swizzle.
   CUtensorMap tx, tw;
   const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(a.cx),
                                static_cast<cuuint64_t>(a.M)};
-  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(a.cx) * 4};
+  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(a.cx) * sizeof(T)};
   const cuuint32_t xbox[2] = {kTfChunk, kTfBoxRows};
-  err = f32_map_nd(&tx, a.x, 2, xdims, xstride, xbox,
-                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  err = tensor_map_nd(&tx,
+                      kIsBf16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                      a.x, 2, xdims, xstride, xbox,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return err;
   const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(segp),
-                               static_cast<cuuint64_t>(2 * lo_rows)};
+                               static_cast<cuuint64_t>(parts * lo_rows)};
   const cuuint64_t wstride[1] = {static_cast<cuuint64_t>(segp) * 4};
   const cuuint32_t wbox[2] = {kTfChunk, static_cast<cuuint32_t>(
                                             std::min(a.out_w, a.tile))};
@@ -1559,16 +1535,25 @@ cudaError_t launch_tf32(const ConvArgs& a) {
                    CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != cudaSuccess) return err;
   const int lo = static_cast<int>(lo_rows);
-  switch (a.tile) {
+  switch (a.tile) {   // the group checked above
     case 16:
-      return a.gcols > 1 ? cudaErrorInvalidValue
-                         : launch_tf32_tile<16, false>(a, tx, tw, m_tiles, lo);
+      if constexpr (kIsBf16<T>)
+        if (a.gcols == 2)
+          return launch_tf32_tile<T, 16, 2>(a, tx, tw, m_tiles, lo);
+      return a.gcols > 1
+                 ? cudaErrorInvalidValue
+                 : launch_tf32_tile<T, 16, 1>(a, tx, tw, m_tiles, lo);
     case 32:
-      return a.gcols > 1 ? launch_tf32_tile<32, true>(a, tx, tw, m_tiles, lo)
-                         : cudaErrorInvalidValue;
+      if constexpr (kIsBf16<T>)
+        if (a.gcols == 4)
+          return launch_tf32_tile<T, 32, 4>(a, tx, tw, m_tiles, lo);
+      return a.gcols == 2
+                 ? launch_tf32_tile<T, 32, 2>(a, tx, tw, m_tiles, lo)
+                 : cudaErrorInvalidValue;
     case 64:
-      return a.gcols > 1 ? cudaErrorInvalidValue
-                         : launch_tf32_tile<64, false>(a, tx, tw, m_tiles, lo);
+      return a.gcols > 1
+                 ? cudaErrorInvalidValue
+                 : launch_tf32_tile<T, 64, 1>(a, tx, tw, m_tiles, lo);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1578,13 +1563,12 @@ cudaError_t launch_tf32(const ConvArgs& a) {
 //   mm:    a 1x1 kernel -- not here: the wrapper runs packed_mm.cu's
 //          forward / dx kernels, so this library refuses it;
 //   wgmma: bf16, KxK, blocks of 16s -- tap_conv_wgmma_kernel;
-//   tf32:  f32, KxK -- tap_w_split_kernel, then tap_conv_3xtf32_kernel;
-//   wmma:  bf16, KxK, a block of 8s that 16 does not divide --
-//          tap_conv_kernel.
+//   tf32:  KxK, f32 or bf16 at a block that 16 does not divide --
+//          tap_w_split_kernel, then tap_conv_tf32_kernel.
 // A branch that cannot take the call (another dtype, blocks the tiles do
 // not divide, more than 65535 m-tiles) is refused with
 // cudaErrorInvalidValue; no other branch is tried.
-enum TapBranch { kTapMm = 0, kTapWgmma = 1, kTapTf32 = 2, kTapWmma = 3 };
+enum TapBranch { kTapMm = 0, kTapWgmma = 1, kTapTf32 = 2 };
 
 template <bool kTrans>
 int dispatch_conv(const ConvArgs& a, int branch, int dtype) {
@@ -1596,10 +1580,10 @@ int dispatch_conv(const ConvArgs& a, int branch, int dtype) {
       if (dtype == 1) err = launch_wgmma<kTrans>(a);
       break;
     case kTapTf32:
-      if (dtype == 0) err = launch_tf32<kTrans>(a);
-      break;
-    case kTapWmma:
-      if (dtype == 1) err = launch_conv<kTrans>(a);
+      if (dtype == 0)
+        err = launch_tf32<float, kTrans>(a);
+      else if (dtype == 1)
+        err = launch_tf32<__nv_bfloat16, kTrans>(a);
       break;
   }
   return static_cast<int>(err);
@@ -1732,7 +1716,7 @@ cudaError_t launch_dw_taps(int max_taps, const void* x, const void* gy,
 // longest first, in output tiles of `tile` channels; the tf32 branch
 // TapPanelLists' stages (ptr, order, stab; see launch_tf32) with ewoffs
 // (the n_entries blocks' offsets in w), wt (room for their copy) and the
-// largest x tile's rows; wmma the column lists (gcols 1; the rest unused).
+// largest x tile's rows (taps, kblks and woffs unused).
 extern "C" int tap_conv_fwd(const void* x, const void* w, const void* ptr,
                             const void* taps, const void* kblks,
                             const void* woffs, const void* order,

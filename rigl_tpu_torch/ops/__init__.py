@@ -15,12 +15,10 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            cluster by ops/mm_
                                                            split.py; packed_
                                                            mm_wgmma_kernel in
-                                                           bf16, packed_mm_
-                                                           ffma_kernel in f32,
-                                                           packed_mm_kernel
-                                                           for a bf16
-                                                           contraction 64
-                                                           does not divide):
+                                                           bf16, at the tile
+                                                           mm_tile names;
+                                                           packed_mm_ffma_
+                                                           kernel in f32):
                                                            forward mode, bound
                                                            in ops/block_sparse_
                                                            packed.py as
@@ -60,11 +58,12 @@ the left are under rigl_tpu/ops/pallas/ unless stated.
                                                            blocks of 16s):
                                                            tap_conv_wgmma_
                                                            kernel; tf32 (f32
-                                                           KxK): tap_conv_
-                                                           3xtf32_kernel;
-                                                           wmma (bf16 KxK,
-                                                           blocks of 8s):
-                                                           tap_conv_kernel
+                                                           KxK, and bf16 KxK
+                                                           at blocks of 8s):
+                                                           tap_conv_tf32_
+                                                           kernel (3xTF32 in
+                                                           f32, one tf32
+                                                           product in bf16)
   5  block_sparse_conv.py:355 _conv_kernel_v5,             the same kernel:
      _shift_matmul_v5 (RIGL_TAP_ENGINE=v5)                 v5 is another TPU
                                                            grid for the same

@@ -37,13 +37,14 @@ tap shifts, so 'mm' runs the forward / dx kernels of csrc/packed_mm.cu on
 a dense-w index's lists (the products of block_sparse_v4's B7; a packed
 1x1 is refused, PackedConv1x1 serves those); a KxK kernel
 runs csrc/tap_conv.cu, 'wgmma' (`tap_conv_wgmma_kernel`) in bf16 with
-blocks of 16s, 'tf32' (`tap_conv_3xtf32_kernel`, 3xTF32 wgmma over one
-x tile a (pixel tile, input block) that every tap of the block reads, on
-`TapPanelLists`) in f32, 'wmma' (`tap_conv_kernel`) in bf16 with blocks
-of 8s.  dw runs `tap_dw_kernel` (replacing `_dw_kernel`),
-whose pixel sum `tap_dw_plan` splits over thread blocks, the partials
-added in slice order by `tap_dw_reduce_kernel`; a 1x1 kernel's dw is the
-block dw of csrc/packed_mm.cu (`block_sparse_packed.dw_launch`).
+blocks of 16s, 'tf32' (`tap_conv_tf32_kernel`: tf32 wgmma over one x tile
+a (pixel tile, input block) that every tap of the block reads, on
+`TapPanelLists`) in f32 (3xTF32) and in bf16 with blocks of 8s (one
+product a k-step, exact for bf16).  dw runs `tap_dw_kernel` (replacing
+`_dw_kernel`), whose pixel sum `tap_dw_plan` splits over thread blocks,
+the partials added in slice order by `tap_dw_reduce_kernel`; a 1x1
+kernel's dw is the block dw of csrc/packed_mm.cu
+(`block_sparse_packed.dw_launch`).
 
 Where JAX chooses among TPU grids with environment switches (RIGL_TAP_ENGINE
 for the v5 grid, RIGL_TAP_DW for a dense dw times the mask, RIGL_TAP_BM for
@@ -87,14 +88,15 @@ TAP_SPARSE_TAPS, TAP_SPARSE_MEAN = 2, 2.5
 # The forward / dx branches, in the order of csrc/tap_conv.cu's TapBranch;
 # the output tiles of tap_conv_wgmma_kernel (channels: the cases of
 # launch_wgmma there) and its pixels a thread block (kWgRows).
-TAP_BRANCHES = ('mm', 'wgmma', 'tf32', 'wmma')
+TAP_BRANCHES = ('mm', 'wgmma', 'tf32')
 TAP_WGMMA_TILES = (16, 32, 48, 64, 128)
 TAP_WGMMA_TILE, TAP_WGMMA_ROWS = TAP_WGMMA_TILES[-1], 128
 # tap_wgmma_gcols: the largest share of the entries a group's unions may
 # hold for the wide groups to be taken.
 TAP_GROUP_CUT = 0.75
-# tap_conv_3xtf32_kernel (the 'tf32' branch): its output tiles (the cases
-# of launch_tf32: 16 and 64 one column, 32 a group), pixels a thread block
+# tap_conv_tf32_kernel (the 'tf32' branch): its output tiles (the cases of
+# launch_tf32: 16 and 64 one column, 32 a group; in bf16 16 also a group
+# of two 8-wide columns, 32 of four), pixels a thread block
 # (kTfRows), input channels an x tile (kTfChunk) and entries a stage
 # (kTfEntries, 2 k-steps of 8 each); and the most pixel rows of an x tile
 # (kTfMaxXRows, which every tile's shared memory fits) before a panel's
@@ -105,18 +107,21 @@ TAP_TF32_XROWS = 512
 # ... the pixel rows of an x tile's TMA box (kTfBoxRows) and the ints of
 # a stage's row (kTfRow).
 TAP_TF32_BOX, TAP_TF32_ROW = 64, 32
-# tap_tf32_tile: the block-columns of a group, at output blocks of 16.
+# tap_tf32_tile: the block-columns of a group at output blocks of 16, and
+# in bf16 those of a group at output blocks of 8, widest first.
 TAP_TF32_GROUP = 2
+TAP_TF32_GROUPS_8 = (4, 2)
 
 
 def tap_branch(kh: int, kw: int, bk: int, bn: int, dtype) -> str:
   """The branch of the forward / dx kernels for a (kh, kw) kernel at block
   (bk, bn) in `dtype`: 'mm' for every 1x1 (no shifts: csrc/packed_mm.cu's
   forward / dx kernels, the branch block_sparse_packed.mm_branch names);
-  KxK in float32 'tf32' (tap_conv_3xtf32_kernel); KxK in bfloat16 'wgmma'
-  (tap_conv_wgmma_kernel) where 16 divides bk and bn, else 'wmma'
-  (tap_conv_kernel<bf16>, blocks of 8s).  Raises for another dtype and for
-  a block that is not whole 16-byte copies of the dtype."""
+  KxK in bfloat16 'wgmma' (tap_conv_wgmma_kernel) where 16 divides bk and
+  bn; every other KxK 'tf32' (tap_conv_tf32_kernel: 3xTF32 in float32,
+  one exact tf32 product a k-step in bfloat16 at blocks of 8s).  Raises
+  for another dtype and for a block that is not whole 16-byte copies of
+  the dtype."""
   if dtype not in _DTYPE_CODE:
     raise ValueError(f'the tap kernels take float32 or bfloat16, not {dtype}')
   vec = 16 // dtype.itemsize
@@ -125,9 +130,9 @@ def tap_branch(kh: int, kw: int, bk: int, bn: int, dtype) -> str:
                      f'{dtype}')
   if (kh, kw) == (1, 1):
     return 'mm'
-  if dtype == torch.float32:
-    return 'tf32'
-  return 'wgmma' if bk % 16 == 0 and bn % 16 == 0 else 'wmma'
+  if dtype == torch.bfloat16 and bk % 16 == 0 and bn % 16 == 0:
+    return 'wgmma'
+  return 'tf32'
 
 
 # ----------------------------------------------------------- packing ------
@@ -264,7 +269,7 @@ def tap_wgmma_gcols(index: 'TapIndex', mode: str, pixels: int,
 
 
 class TapPanelLists(NamedTuple):
-  """What tap_conv_3xtf32_kernel reads for one conv mode at one image
+  """What tap_conv_tf32_kernel reads for one conv mode at one image
   width.  The output block-columns come in groups of `gcols` (as
   TapGroupLists); a group walks the union of its columns' (tap, input
   block) entries in (input block, tap) order, in panels of one input
@@ -293,25 +298,31 @@ class TapPanelLists(NamedTuple):
 
 
 def tap_tf32_tile(index: 'TapIndex', mode: str, pixels: int,
-                  sm_count: int) -> Tuple[int, int]:
+                  sm_count: int, dtype=torch.float32) -> Tuple[int, int]:
   """(gcols, tile) of a 'tf32' call of `mode` over `pixels` = N*H*W pixels
-  on a card of sm_count SMs: at output blocks of 16, groups of
-  TAP_TF32_GROUP block-columns (tile 32) where the layer has as many and
-  the groups' thread blocks still give every SM one (groups x pixel tiles
-  >= SMs); else one column a thread block, in tile 16 where it is at most
-  16 wide, else in tiles of 64 (several across a wider one).  A group
-  copies each x tile once for its columns and runs each column's products
-  only where it holds the entry: on an H100 at WRN-22-2's and RN50's
-  block-16 shapes (f32) groups of 2 were faster than one column at every
-  point, and groups of 4 (tile 64: one thread block an SM, its registers)
-  slower than both."""
+  in `dtype` on a card of sm_count SMs: at output blocks of 16, groups of
+  TAP_TF32_GROUP block-columns (tile 32); in bfloat16 at output blocks of
+  8, groups of the widest of TAP_TF32_GROUPS_8 (tile 32 or 16); each where
+  the layer has as many columns and the groups' thread blocks still give
+  every SM one (groups x pixel tiles >= SMs); else one column a thread
+  block, in tile 16 where it is at most 16 wide, else in tiles of 64
+  (several across a wider one).  A group copies each x tile once for its
+  columns and runs each column's products only where it holds the entry:
+  on an H100 at WRN-22-2's and RN50's block-16 shapes (f32) groups of 2
+  were faster than one column at every point, and groups of 4 (tile 64:
+  one thread block an SM, its registers) slower than both; in bf16 at
+  WRN-22-2's block-8 shapes groups of 4 8-wide columns were 1.1-1.6x
+  faster than groups of 2, and those 1.4-1.6x faster than one column."""
   fwd = mode == 'fwd'
   out_w = index.bn if fwd else index.bk
   ncols = (index.cout if fwd else index.cin) // out_w
   m_tiles = -(-pixels // TAP_TF32_ROWS)
-  if (out_w == 16 and ncols >= TAP_TF32_GROUP
-      and -(-ncols // TAP_TF32_GROUP) * m_tiles >= sm_count):
-    return TAP_TF32_GROUP, TAP_TF32_GROUP * 16
+  widths = ((TAP_TF32_GROUP,) if out_w == 16 else
+            TAP_TF32_GROUPS_8 if out_w == 8 and dtype == torch.bfloat16
+            else ())
+  for gcols in widths:
+    if ncols >= gcols and -(-ncols // gcols) * m_tiles >= sm_count:
+      return gcols, gcols * out_w
   return 1, TAP_TF32_TILES[0] if out_w <= 16 else TAP_TF32_TILES[-1]
 
 
@@ -792,22 +803,20 @@ def tap_conv_cuda(x: torch.Tensor, w: torch.Tensor, index: TapIndex,
                               dw_split.sm_count(x.device))
       tile = tap_wgmma_tile(gcols, bn)
       *lists, _ = index.group_lists(mode, x.device, gcols)
-    elif branch == 'tf32':
+    else:   # 'tf32'
       gcols, tile = tap_tf32_tile(index, mode, n * h * wd,
-                                  dw_split.sm_count(x.device))
+                                  dw_split.sm_count(x.device), x.dtype)
       pl = index.panel_lists(mode, x.device, gcols, wd)
       lists = [pl.sptr, None, None, None, pl.order]
       n_ent, xrows = index.n_entries, pl.xrows
-      # The blocks' K-major hi / lo copy and a block of zeros
+      # The blocks' K-major f32 copy (hi / lo in f32) and a block of zeros
       # (tap_w_split_kernel), each row's contraction in whole chunks: lives
       # through the launch, on the stream's allocator.
       segp = -(-bk // TAP_TF32_CHUNK) * TAP_TF32_CHUNK
-      wt = torch.empty(2 * (n_ent + 1) * bn * segp, dtype=torch.float32,
+      parts = 2 if x.dtype == torch.float32 else 1
+      wt = torch.empty(parts * (n_ent + 1) * bn * segp, dtype=torch.float32,
                        device=x.device)
       extra = [pl.stab, index.to(x.device).dw.woffs, wt]
-    else:   # the column lists; no launch order
-      dev = index.to(x.device)
-      lists = [*(dev.fwd if fwd else dev.dx), None]
     _launch('tap_conv_fwd' if fwd else 'tap_conv_dx', x.data_ptr(),
             w.data_ptr(),
             *(0 if a is None else a.data_ptr() for a in lists + extra),

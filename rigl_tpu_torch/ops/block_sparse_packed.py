@@ -16,8 +16,8 @@ csrc/packed_mm.cu, which CUDA tensors launch or raise: the forward and dx
 modes of the mm kernels (replacing the TPU kernel `_mm_kernel`; the branch
 by `mm_branch`: `packed_mm_decode_kernel` at decode in either dtype, its
 contraction split over a cluster by ops/mm_split.py `decode_plan`,
-`packed_mm_wgmma_kernel` in bf16, `packed_mm_ffma_kernel` in f32,
-`packed_mm_kernel` for a bf16 contraction that 64 does not divide) and the
+`packed_mm_wgmma_kernel` in bf16 at the tile `mm_tile` names,
+`packed_mm_ffma_kernel` in f32) and the
 dw kernels (replacing `_dw_kernel` / `_dw_panel_kernel`:
 `packed_dw_wgmma_kernel` in bf16, `packed_dw_3xtf32_kernel` in f32 at the
 tile `dw_tile` names, each with its m-sum split over thread blocks by
@@ -293,10 +293,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # The mm kernels' branches (csrc/packed_mm.cu dispatch_mm, by their codes:
 # the position here), chosen by `mm_branch`.
-MM_BRANCHES = ('decode', 'tiled', 'wgmma', 'ffma')
-# The rows up to which the decode branch runs (one m-tile of 32), and the
-# contraction chunk of the wgmma branch's TMA boxes.
-MM_DECODE_ROWS, MM_WGMMA_CHUNK = 32, 64
+MM_BRANCHES = ('decode', 'wgmma', 'ffma')
+# The rows up to which the decode branch runs (one m-tile of 32).
+MM_DECODE_ROWS = 32
+# The wgmma branch's tiles (csrc/packed_mm.cu launch_mm_wgmma, by their
+# codes: the position here), named by `mm_tile`: (output tile columns TN,
+# contraction a ring stage KC), each tile 128 rows.
+MM_TILES = tuple((tn, kc) for tn in (128, 64, 32, 16) for kc in (64, 32, 16))
+MM_TILE_ROWS = 128
 
 
 def mm_branch(m: int, seg: int, dtype) -> str:
@@ -304,16 +308,33 @@ def mm_branch(m: int, seg: int, dtype) -> str:
   of `seg` per active (bk forward, bn dx) in `dtype`:
   'decode' at m <= 32 (packed_mm_decode_kernel, weight-bandwidth-bound:
   each tile's contraction split over a cluster by `decode_slices`); above
-  it 'ffma' for float32 (packed_mm_ffma_kernel); for bfloat16 'wgmma'
-  (packed_mm_wgmma_kernel) where 64 divides seg, else 'tiled'
-  (packed_mm_kernel, 64 x 64 x 32): a 64-deep box of x would read x's
-  neighbouring segment, whose products with the zeros past the W block
-  vanish only while that segment is finite."""
+  it 'ffma' for float32 (packed_mm_ffma_kernel) and 'wgmma' for bfloat16
+  (packed_mm_wgmma_kernel at the tile `mm_tile` names: its boxes of x stop
+  at the segment, so any contraction of whole 16-byte copies)."""
+  del seg
   if m <= MM_DECODE_ROWS:
     return 'decode'
-  if dtype == torch.float32:
-    return 'ffma'
-  return 'wgmma' if seg % MM_WGMMA_CHUNK == 0 else 'tiled'
+  return 'ffma' if dtype == torch.float32 else 'wgmma'
+
+
+def mm_tile(out_w: int, seg: int) -> int:
+  """The code (position in MM_TILES) of the wgmma branch's tile for output
+  block-columns out_w wide and a contraction of `seg` per active: TN the
+  narrowest of 16, 32, 64 that holds out_w, else 128 (a wider column takes
+  several tiles); KC 16 for a segment of at most 16, 64 where 64 divides
+  it, else 32 (the last stage of a segment is ragged: its zeros cost a
+  product, never a wrong sum).  A block of 16 at 128 x 128 x 64 would
+  compute 8 times the columns it keeps and 4 times its contraction."""
+  tn = next((t for t in (16, 32, 64) if out_w <= t), 128)
+  kc = 16 if seg <= 16 else 64 if seg % 64 == 0 else 32
+  return MM_TILES.index((tn, kc))
+
+
+def mm_plan(branch: str, out_w: int, seg: int) -> int:
+  """The `tile` a forward / dx call of `branch` passes to dispatch_mm:
+  mm_tile's code for the wgmma branch, 0 for the others."""
+  return mm_tile(out_w, seg) if branch == 'wgmma' else 0
+
 
 # The dw kernels' tiles (csrc/packed_mm.cu DwTile, by their codes: the
 # position here), named by `dw_tile`: (tile rows, tile columns, m rows a
@@ -392,7 +413,7 @@ def decode_slices(branch: str, m: int, out_w: int, ngroups: int, seg: int,
 def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu: pointers, then ints,
   then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'packed_mm_fwd': (5, 9), 'packed_mm_dx': (6, 9),
+  n_ptrs, n_ints = {'packed_mm_fwd': (5, 10), 'packed_mm_dx': (6, 10),
                     'packed_dw': (6, 10), 'dense_dw': (7, 10)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
@@ -461,7 +482,7 @@ def packed_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
   _launch('packed_mm_fwd', x.data_ptr(), w_packed.data_ptr(),
           col_ptr.data_ptr(), rows.data_ptr(), y.data_ptr(), m, nk * bk, nn_,
           bk, bn, packing.n_active, MM_BRANCHES.index(branch), slices,
-          _DTYPE_CODE[x.dtype],
+          mm_plan(branch, bn, bk), _DTYPE_CODE[x.dtype],
           torch.cuda.current_stream(x.device).cuda_stream)
   packed_mm_launches += 1
   mm_decode_launches += branch == 'decode'
@@ -488,7 +509,8 @@ def packed_matmul_dx_cuda(gy: torch.Tensor, w_packed: torch.Tensor,
   _launch('packed_mm_dx', gy.data_ptr(), w_packed.data_ptr(),
           row_ptr.data_ptr(), cols.data_ptr(), slots.data_ptr(), dx.data_ptr(),
           m, nn_ * bn, nk, bk, bn, packing.n_active,
-          MM_BRANCHES.index(branch), slices, _DTYPE_CODE[gy.dtype],
+          MM_BRANCHES.index(branch), slices, mm_plan(branch, bk, bn),
+          _DTYPE_CODE[gy.dtype],
           torch.cuda.current_stream(gy.device).cuda_stream)
   packed_mm_dx_launches += 1
   mm_decode_launches += branch == 'decode'

@@ -181,7 +181,7 @@ def dense_dw_reference(x: torch.Tensor, gy: torch.Tensor, entries: DwEntries,
 def _kernel(name: str):
   """The C entry point `name` of csrc/packed_mm.cu's dense modes: pointers,
   then ints, then the stream; returns the CUDA error code of the launch."""
-  n_ptrs, n_ints = {'dense_mm_fwd': (7, 9), 'dense_mm_dx': (7, 8)}[name]
+  n_ptrs, n_ints = {'dense_mm_fwd': (7, 10), 'dense_mm_dx': (7, 9)}[name]
   fn = getattr(_build.load('packed_mm'), name)
   fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                  + [ctypes.c_void_p])
@@ -260,12 +260,13 @@ def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor, lists: DenseLists,
   slices = bsp.decode_slices(branch, m, out_w, groups, seg_w,
                              width // seg_w, x.dtype, x.device)
   code = bsp.MM_BRANCHES.index(branch)
+  tile = bsp.mm_plan(branch, out_w, seg_w)
   if mode == 'dx':
-    _launch('dense_mm_dx', *ptrs, m, n, groups, bk, bn, code, slices,
+    _launch('dense_mm_dx', *ptrs, m, n, groups, bk, bn, code, slices, tile,
             _DTYPE_CODE[x.dtype], stream)
   else:
     _launch('dense_mm_fwd', *ptrs, m, kdim, groups, bk, bn, n, code, slices,
-            _DTYPE_CODE[x.dtype], stream)
+            tile, _DTYPE_CODE[x.dtype], stream)
   bsp.mm_decode_launches += branch == 'decode'
   return y
 

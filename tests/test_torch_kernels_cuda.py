@@ -515,7 +515,7 @@ def test_tap_kernels_match_plain(cuda_device, ksize, n, h, w, block, cin,
                                  cout, dtype):
   """Forward, dx and dw, each launched once, against their plain versions
   on the same index, in every branch of tap_branch (1x1: mm; f32: tf32;
-  bf16: wgmma with blocks of 16s, wmma with 8s), at ragged pixel counts
+  bf16: wgmma with blocks of 16s, tf32 with 8s), at ragged pixel counts
   (M = 35, 49, 1, 646: not multiples of the 128-pixel tile), 7x7 and 1x1
   images and batch 1, with an empty cout-block (zero output columns) and
   an empty tap."""
@@ -716,11 +716,21 @@ def _force_tf32(monkeypatch, wide):
   """tap_conv_cuda's tf32 (gcols, tile) forced: groups of TAP_TF32_GROUP
   16-channel block-columns (tile 32) wherever blocks are 16 wide, or one
   column a tile."""
-  def tile(index, mode, *a):
+  _force_tf32_groups(monkeypatch, tbsc.TAP_TF32_GROUP if wide else 1)
+
+
+def _force_tf32_groups(monkeypatch, gcols):
+  """tap_conv_cuda's tf32 (gcols, tile) forced: groups of `gcols` (halved
+  down to what the kernel has: two 16-wide columns in tile 32; in bf16 two
+  or four 8-wide ones in tile 16 or 32) where blocks are 16 (bf16: 8 or
+  16) wide, else one column a tile."""
+  def tile(index, mode, pixels, sms, dtype=torch.float32):
     out_w = index.bn if mode == 'fwd' else index.bk
-    if wide and out_w == 16:
-      return tbsc.TAP_TF32_GROUP, 16 * tbsc.TAP_TF32_GROUP
-    return 1, 16 if out_w <= 16 else 64
+    widths = (8, 16) if dtype == torch.bfloat16 else (16,)
+    g = gcols if out_w in widths else 1
+    while g > 1 and g * out_w > 32:
+      g //= 2
+    return (g, g * out_w) if g > 1 else (1, 16 if out_w <= 16 else 64)
   monkeypatch.setattr(tbsc, 'tap_tf32_tile', tile)
 
 
@@ -796,6 +806,102 @@ def test_tap_tf32_keeps_nonfinite_inputs_in_their_columns(cuda_device,
     assert not got[..., 2 * out_w:3 * out_w].any(), mode
     assert _rel(got[..., out_w:], want[..., out_w:]) <= TAP_TOL[
         torch.float32], mode
+
+
+# The bf16 instance of the tf32 branch: blocks of 8s (a chunk of 8
+# channels at (8, 8); at (16, 8) a full chunk forward, a chunk of 8 dx; at
+# (24, 16) a full chunk and one of 8).
+TAP_BF16_BLOCKS = [((8, 8), 32, 40), ((16, 8), 48, 32), ((24, 16), 48, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('gcols', [1, 2, 4])
+@pytest.mark.parametrize('ksize', [(3, 3), (5, 5)])
+@pytest.mark.parametrize('block,cin,cout', TAP_BF16_BLOCKS)
+def test_tap_bf16_blocks_of_8_match_plain(cuda_device, monkeypatch, block,
+                                          cin, cout, ksize, gcols):
+  """bf16 KxK at blocks of 8s takes the 'tf32' branch (tap_conv_tf32_
+  kernel's bf16 instance, one tf32 product a k-step), forward and dx at
+  every group width (one column a tile; groups of two 8- or 16-wide
+  columns; of four 8-wide ones, a last group of fewer): within TAP_TOL of
+  the plain version, a second launch bitwise equal, an empty output
+  column exactly zero; and with x and gy scaled
+  into bf16's subnormals (2^-130: every input below the smallest normal,
+  2^-126), within the same tolerance of the plain version's own largest
+  value or two of bf16's subnormal steps (2^-133), whichever is larger (a
+  tf32 product that flushed subnormal inputs would give zeros, about 32
+  steps off)."""
+  assert tbsc.tap_branch(*ksize, *block, torch.bfloat16) == 'tf32'
+  _force_tf32_groups(monkeypatch, gcols)
+  packing, occ = _tap_case(ksize, cin, cout, block, cin + 3 * cout)
+  gen = torch.Generator().manual_seed(cin * cout)
+  x = torch.randn(3, 9, 11, cin, generator=gen)
+  gy = torch.randn(3, 9, 11, cout, generator=gen)
+  w4 = (torch.randn(*ksize, cin, cout, generator=gen) / 8).to(
+      cuda_device, torch.bfloat16)
+  index = tbsc.tap_index(packing, w4.shape, block)
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    for scale in (1.0, 2.0 ** -130):
+      ab = (a * scale).to(cuda_device, torch.bfloat16)
+      if scale < 1:
+        assert bool((ab.float().abs() < 2.0 ** -126).all())
+      first = tbsc.tap_conv_cuda(ab, w4, index, mode)
+      second = tbsc.tap_conv_cuda(ab, w4, index, mode)
+      want = tbsc.tap_conv_reference(ab, w4, index, mode)
+      torch.cuda.synchronize()
+      assert torch.equal(first, second), (mode, scale)
+      top = float(want.float().abs().max())
+      err = float((first.float() - want.float()).abs().max())
+      floor = 1.0 if scale == 1 else 2.0 ** -132 / TAP_TOL[torch.bfloat16]
+      assert top > 0 and err <= TAP_TOL[torch.bfloat16] * max(
+          top, floor), (mode, scale, err, top)
+  y = tbsc.tap_conv_cuda(x.to(cuda_device, torch.bfloat16), w4, index)
+  for j in (occ.sum((0, 1)) == 0).nonzero().flatten().tolist():
+    assert not y[..., j * block[1]:(j + 1) * block[1]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('gcols', [1, 2, 4])
+@pytest.mark.parametrize('block', [b for b, _, _ in TAP_BF16_BLOCKS])
+def test_tap_bf16_tf32_keeps_nonfinite_inputs_in_their_columns(
+    cuda_device, monkeypatch, block, gcols):
+  """The bf16 twin of test_tap_tf32_keeps_nonfinite_inputs_in_their_
+  columns at blocks of 8s, every group width: x's input block 3 (NaN) is
+  read by output column 0 alone and gy's block 3 (inf) by dx column 0
+  alone -- at a block of 8 its channels share a 16-channel x tile with
+  block 2's, which column 0's neighbours read; output column 2 and dx
+  column 2 have no entry and come out zeros; every other output is finite
+  and matches the plain version."""
+  bk, bn = block
+  gen = torch.Generator().manual_seed(bk + 3 * bn)
+  occ = (torch.rand(9, 4, 4, generator=gen) < 0.5).to(torch.int32)
+  occ[:, 3, :] = 0
+  occ[4, 3, 0] = 1        # x block 3: output column 0 only
+  occ[:, :, 3] = 0
+  occ[4, 0, 3] = 1        # gy block 3: dx column 0 only
+  occ[:, :, 2] = 0        # an empty output column
+  occ[:, 2, :] = 0        # an empty dx column
+  occ[4, 1, 1] = 1
+  cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+  _force_tf32_groups(monkeypatch, gcols)
+  x = torch.randn(2, 9, 11, 4 * bk, generator=gen)
+  gy = torch.randn(2, 9, 11, 4 * bn, generator=gen)
+  x[..., 3 * bk:] = float('nan')
+  gy[..., 3 * bn:] = float('inf')
+  w4 = torch.randn(3, 3, 4 * bk, 4 * bn, generator=gen) / 8
+  x, gy, w4 = (t.to(cuda_device, torch.bfloat16) for t in (x, gy, w4))
+  index = tbsc.tap_index({'cols': cols, 'rows': rows, 'taps': taps},
+                         w4.shape, block)
+  for a, mode, out_w in ((x, 'fwd', bn), (gy, 'dx', bk)):
+    got = tbsc.tap_conv_cuda(a, w4, index, mode)
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert not finite[..., :out_w].any() and finite[..., out_w:].all()
+    assert torch.equal(torch.isfinite(got), finite), mode
+    assert not got[..., 2 * out_w:3 * out_w].any(), mode
+    assert _rel(got[..., out_w:], want[..., out_w:]) <= TAP_TOL[
+        torch.bfloat16], mode
 
 
 @pytest.mark.cuda
@@ -879,16 +985,20 @@ def test_tap_tf32_more_than_65535_pixel_tiles(cuda_device, monkeypatch,
 def test_tap_branch_that_cannot_take_the_call_is_refused(cuda_device,
                                                         monkeypatch):
   """A branch named for what it cannot take raises and runs nothing else:
-  wgmma for a block of 8s, tf32 for bf16, wmma for f32, mm for a 3x3."""
+  wgmma for a block of 8s and for f32, mm for a 3x3, and tf32 for a group
+  of two 8-wide columns in f32 (only its bf16 instance has that tile).
+  tf32 takes a bf16 block of 8s (test_tap_bf16_blocks_of_8_match_plain)."""
   packing, _ = _tap_case((3, 3), 32, 32, (8, 8), 3)
   x = torch.randn(2, 6, 6, 32, device=cuda_device)
   w4 = torch.randn(3, 3, 32, 32, device=cuda_device)
   index = tbsc.tap_index(packing, w4.shape, (8, 8))
   for branch, dtype, err in (('wgmma', torch.bfloat16, RuntimeError),
-                             ('tf32', torch.bfloat16, RuntimeError),
-                             ('wmma', torch.float32, RuntimeError),
+                             ('wgmma', torch.float32, RuntimeError),
+                             ('tf32', torch.float32, RuntimeError),
                              ('mm', torch.bfloat16, ValueError)):
     monkeypatch.setattr(tbsc, 'tap_branch', lambda *a, b=branch: b)
+    if branch == 'tf32':   # two 8-wide columns a tile of 16
+      monkeypatch.setattr(tbsc, 'tap_tf32_tile', lambda *a: (2, 16))
     before = _tap_counts()
     with pytest.raises(err):
       tbsc.tap_conv_cuda(x.to(dtype), w4.to(dtype), index)
@@ -1726,7 +1836,7 @@ def test_tap_dw_packed_storage_split_matches_plain(cuda_device, monkeypatch):
 # ----------------------------- the forward / dx kernels' branches --------
 # block_sparse_packed.mm_branch names the branch of each forward / dx call
 # (csrc/packed_mm.cu dispatch_mm): decode at m <= 32, ffma in f32, wgmma in
-# bf16 where 64 divides the contraction per active, tiled otherwise.
+# bf16 at the tile mm_tile names (any contraction of whole 16-byte copies).
 MM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
@@ -1805,39 +1915,127 @@ def test_mm_branches_match_plain(cuda_device, m, block, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('block', [(96, 96), (32, 64), (64, 32)])
-def test_mm_ragged_contraction_takes_the_tiled_branch(cuda_device,
+def test_mm_ragged_contraction_takes_the_wgmma_branch(cuda_device,
                                                      monkeypatch, block):
   """A bf16 contraction per active that 64 does not divide takes the
-  tiled branch (packed_mm_kernel) and matches the plain versions; the
-  wgmma branch, named for it, is refused (a 64-deep box of x would read
-  its neighbouring segment): the wrapper raises, nothing falls back."""
+  wgmma branch, at its tile, and matches the plain versions; a tile code
+  the kernel does not have, named for it, is refused: the wrapper raises,
+  nothing falls back."""
   bk, bn = block
   m = 1000
   occ, _, _, x, w, gy = _dense_case(3, 4, block, m, torch.bfloat16,
                                     cuda_device, bk, 'edges')
   for seg in (bk, bn):
-    assert tbsp.mm_branch(m, seg, torch.bfloat16) == (
-        'wgmma' if seg % 64 == 0 else 'tiled')
+    assert tbsp.mm_branch(m, seg, torch.bfloat16) == 'wgmma'
   for name, (fwd, dx, pfwd, pdx) in _mm_forms(occ, block, w,
                                               cuda_device).items():
     assert _rel(fwd(x), pfwd(x)) <= 2e-2, name
     assert _rel(dx(gy), pdx(gy)) <= 2e-2, name
-  monkeypatch.setattr(tbsp, 'mm_branch', lambda *a: 'wgmma')
+  monkeypatch.setattr(tbsp, 'mm_tile', lambda *a: len(tbsp.MM_TILES))
   for name, (fwd, dx, _, _) in _mm_forms(occ, block, w,
                                          cuda_device).items():
-    call, a = (fwd, x) if bk % 64 else (dx, gy)
-    with pytest.raises(RuntimeError, match='launch failed'):
-      call(a)
+    for call, a in ((fwd, x), (dx, gy)):
+      with pytest.raises(RuntimeError, match='launch failed'):
+        call(a)
+
+
+# Ragged segments of whole 16-byte copies (8-200 bf16), each with a
+# column width of another remainder, at every tile of the wgmma branch.
+MM_RAGGED_BLOCKS = [(8, 24), (16, 40), (24, 8), (40, 16), (96, 200),
+                    (200, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tile', range(len(tbsp.MM_TILES)))
+@pytest.mark.parametrize('block', MM_RAGGED_BLOCKS)
+def test_mm_wgmma_tiles_match_plain_and_repeat_bitwise(cuda_device,
+                                                      monkeypatch, block,
+                                                      tile):
+  """Every tile of the wgmma branch (TN x KC, forced), forward and dx, in
+  packed storage and through the v4, v3, v6 and B12 lists, at ragged
+  segments: against the plain versions, a second call bitwise equal, an
+  empty block-row and column exactly zero."""
+  bk, bn = block
+  monkeypatch.setattr(tbsp, 'mm_tile', lambda *a: tile)
+  occ, _, _, x, w, gy = _dense_case(3, 4, block, 200, torch.bfloat16,
+                                    cuda_device, bk + bn, 'edges')
+  occ_c = occ.cpu()
+  for name, (fwd, dx, pfwd, pdx) in _mm_forms(occ, block, w,
+                                              cuda_device).items():
+    y, g = fwd(x), dx(gy)
+    y2, g2 = fwd(x), dx(gy)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(g, g2), name
+    assert _rel(y, pfwd(x)) <= MM_TOL[torch.bfloat16], name
+    assert _rel(g, pdx(gy)) <= MM_TOL[torch.bfloat16], name
+    for j in (occ_c.sum(0) == 0).nonzero().flatten().tolist():
+      assert not y[:, j * bn:(j + 1) * bn].any(), name
+    for k in (occ_c.sum(1) == 0).nonzero().flatten().tolist():
+      assert not g[:, k * bk:(k + 1) * bk].any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tile', range(len(tbsp.MM_TILES)))
+@pytest.mark.parametrize('block', [(8, 24), (40, 16), (96, 200)])
+def test_mm_wgmma_keeps_nonfinite_in_its_segment_and_block(cuda_device,
+                                                          monkeypatch,
+                                                          block, tile):
+  """At every tile, forced: a NaN segment of x (inf of gy for dx) reaches
+  only the output block-columns whose actives read it, and an inf in one
+  W block only the outputs that read that block; every other output has
+  the bits of the call with those values zeroed, which matches the plain
+  version: no box reads past its segment or its block, so nothing
+  multiplies a neighbour's non-finite value, even by zeros."""
+  bk, bn = block
+  monkeypatch.setattr(tbsp, 'mm_tile', lambda *a: tile)
+  occ = torch.tensor([[1, 1, 0], [0, 1, 1], [1, 0, 1]], dtype=torch.int32)
+  n_act = int(occ.sum())
+  packing = tbsp.make_packing(occ, n_act)
+  gen = torch.Generator().manual_seed(bk + tile)
+  w = (torch.randn(n_act, bk, bn, generator=gen) / 8).to(cuda_device,
+                                                         torch.bfloat16)
+  calls = {'fwd': (tbsp.packed_matmul_cuda, tbsp.packed_matmul_reference,
+                   3 * bk, bn, occ[1]),     # x segment 1: block-row 1
+           'dx': (tbsp.packed_matmul_dx_cuda,
+                  tbsp.packed_matmul_dx_reference, 3 * bn, bk,
+                  occ[:, 2])}               # gy segment 2: block-column 2
+  for mode, (call, plain, width, out_w, reads) in calls.items():
+    seg = 1 if mode == 'fwd' else 2
+    seg_w = width // 3
+    clean = torch.randn(150, width, generator=gen).to(cuda_device,
+                                                      torch.bfloat16)
+    bad, zeroed = clean.clone(), clean.clone()
+    bad[:, seg * seg_w:(seg + 1) * seg_w] = float(
+        'nan' if mode == 'fwd' else 'inf')
+    zeroed[:, seg * seg_w:(seg + 1) * seg_w] = 0
+    got, ref = call(bad, w, packing, block), call(zeroed, w, packing, block)
+    torch.cuda.synchronize()
+    for j in range(3):
+      span = slice(j * out_w, (j + 1) * out_w)
+      if reads[j]:
+        assert not bool(torch.isfinite(got[:, span]).any()), (mode, j)
+      else:
+        assert torch.equal(got[:, span], ref[:, span]), (mode, j)
+    assert _rel(ref, plain(zeroed, w, packing, block)) <= MM_TOL[
+        torch.bfloat16], mode
+    # An inf in W's slot 0, block (0, 0): only the outputs that read it,
+    # output block-column 0 (dx: block-row 0).
+    w_inf = w.clone()
+    w_inf[0] = float('inf')
+    got = call(clean, w_inf, packing, block)
+    ref = call(clean, w, packing, block)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(got[:, :out_w]).any()), mode
+    assert torch.equal(got[:, out_w:], ref[:, out_w:]), mode
 
 
 @pytest.mark.cuda
 def test_mm_branch_of_another_dtype_is_refused(cuda_device, monkeypatch):
-  """A branch named for another dtype (wgmma or tiled for f32, ffma for
-  bf16) is refused, not run."""
+  """A branch named for another dtype (wgmma for f32, ffma for bf16) is
+  refused, not run."""
   occ, _, _, x, w, _ = _dense_case(2, 2, (64, 64), 64, torch.float32,
                                    cuda_device, 0, 'edges')
-  for branch, dtype in (('wgmma', torch.float32), ('tiled', torch.float32),
-                        ('ffma', torch.bfloat16)):
+  for branch, dtype in (('wgmma', torch.float32), ('ffma', torch.bfloat16)):
     fwd = _mm_forms(occ, (64, 64), w.to(dtype), cuda_device)['v3'][0]
     monkeypatch.setattr(tbsp, 'mm_branch', lambda *a, b=branch: b)
     with pytest.raises(RuntimeError, match='launch failed'):
@@ -1879,15 +2077,14 @@ def test_mm_repeated_calls_are_bitwise_equal(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_mm_ffma_is_bitwise_equal_to_the_tiled_f32_kernel(cuda_device,
-                                                         monkeypatch):
+def test_mm_ffma_is_bitwise_equal_to_the_decode_kernel(cuda_device,
+                                                      monkeypatch):
   """f32 at the MLP training shape (m = 1024, 4096 x 4096, block (512,
   512), s = 0.8): packed_mm_ffma_kernel gives the same bits as
-  packed_mm_kernel's f32 instance (the decode branch, forced: the same
-  kernel as the one that took m > 32 before the ffma branch, with
-  contraction steps of 128 instead of 16), forward and dx, packed and
-  dense: each output is one fmaf chain over the actives in list order and
-  k ascending in both."""
+  packed_mm_decode_kernel's f32 instance, forced onto m = 1024 (its
+  tiles of 32 rows, its contraction in 128-byte chunks, S = 1 there),
+  forward and dx, packed and dense: each output is one fmaf chain over
+  the actives in list order and k ascending in both."""
   from rigl_tpu_torch.sparsity.distributions import get_n_zeros
   gen = torch.Generator().manual_seed(4)
   nb, block = 8, (512, 512)

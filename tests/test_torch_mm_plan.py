@@ -2,14 +2,17 @@
 
 ops/block_sparse_packed.py `mm_branch` names the branch of
 csrc/packed_mm.cu that each forward / dx call launches (dispatch_mm, by
-the branch's position in MM_BRANCHES).  The wgmma branch addresses a W
-block by its (block-row, block-column) in a 4-D tensor map over W, which
-it derives from the entry's element offset woffs (dense storage) or its
-packed slot; boxes of 128 rows x 64 of x and 64 x 64 (forward) or 128 x
-64 (dx) of the block, zeros outside x and outside the block.  The kernels
-run only on a CUDA card (test_torch_kernels_cuda.py); here the rule, the
-codes, the block coordinates of every list form, and a plain walk of the
-wgmma branch's tiles and boxes -- held against the plain versions that
+the branch's position in MM_BRANCHES), and `mm_tile` the wgmma branch's
+tile (TN columns, KC contraction a stage; its position in MM_TILES).  The
+wgmma branch addresses a W block by its (block-row, block-column) in a
+4-D tensor map over W, which it derives from the entry's element offset
+woffs (dense storage) or its packed slot, and x by (column in segment,
+segment, row) in a 3-D one; boxes of 128 rows x KC of x (zeros past the
+segment and past m), KC x TN (forward) or TN x KC (dx) of the block
+(zeros outside it).  The kernels run only on a CUDA card
+(test_torch_kernels_cuda.py); here the rules, the codes, the block
+coordinates of every list form, and a plain walk of the wgmma branch's
+tiles and boxes -- held against the plain versions that
 test_torch_dense_block_mm.py and test_torch_packed_mm.py hold against JAX
 -- are checked.  Both sides sum the same f32 products in another order:
 1e-5 of the largest value.  No JAX here."""
@@ -27,7 +30,7 @@ from rigl_tpu_torch.ops import block_sparse_v4 as tv4
 from rigl_tpu_torch.ops import block_sparse_v6 as tv6
 
 RTOL = 1e-5
-TILE, CHUNK = 128, 64   # packed_mm_wgmma_kernel's output tile and box depth
+ROWS = 128   # packed_mm_wgmma_kernel's output tile rows (MM_TILE_ROWS)
 SOURCE = Path(tbsp.__file__).resolve().parent.parent / 'csrc' / 'packed_mm.cu'
 
 
@@ -35,12 +38,13 @@ SOURCE = Path(tbsp.__file__).resolve().parent.parent / 'csrc' / 'packed_mm.cu'
     (1, 512, torch.bfloat16, 'decode'), (8, 512, torch.bfloat16, 'decode'),
     (32, 128, torch.float32, 'decode'), (32, 96, torch.bfloat16, 'decode'),
     (33, 512, torch.bfloat16, 'wgmma'), (1024, 128, torch.bfloat16, 'wgmma'),
-    (33, 64, torch.bfloat16, 'wgmma'), (1000, 32, torch.bfloat16, 'tiled'),
-    (1024, 96, torch.bfloat16, 'tiled'), (64, 8, torch.bfloat16, 'tiled'),
+    (33, 64, torch.bfloat16, 'wgmma'), (1000, 32, torch.bfloat16, 'wgmma'),
+    (1024, 96, torch.bfloat16, 'wgmma'), (64, 8, torch.bfloat16, 'wgmma'),
     (33, 512, torch.float32, 'ffma'), (1024, 12, torch.float32, 'ffma')])
 def test_mm_branch_rule(m, seg, dtype, want):
-  """decode at m <= 32 in either dtype; above it ffma in f32, wgmma in
-  bf16 where 64 divides the contraction per active, tiled otherwise."""
+  """decode at m <= 32 in either dtype; above it ffma in f32 and wgmma in
+  bf16, whatever the contraction per active (its boxes stop at the
+  segment)."""
   assert tbsp.mm_branch(m, seg, dtype) == want
 
 
@@ -50,6 +54,39 @@ def test_mm_branch_codes_match_dispatch_mm():
   codes = {name.lower(): int(v) for name, v in
            re.findall(r'kMm(\w+) = (\d+)', enum)}
   assert codes == {b: i for i, b in enumerate(tbsp.MM_BRANCHES)}
+
+
+@pytest.mark.parametrize('out_w,seg,want', [
+    (8, 8, (16, 16)), (16, 16, (16, 16)), (24, 24, (32, 32)),
+    (40, 40, (64, 32)), (96, 96, (128, 32)), (8, 16, (16, 16)),
+    (16, 8, (16, 16)), (16, 24, (16, 32)), (24, 16, (32, 16)),
+    (40, 96, (64, 32)), (96, 40, (128, 32)), (128, 128, (128, 64)),
+    (512, 512, (128, 64)), (64, 192, (64, 64)), (192, 64, (128, 64)),
+    (16, 200, (16, 32)), (200, 16, (128, 16))])
+def test_mm_tile_rule(out_w, seg, want):
+  """The wgmma call's tile at blocks of 8, 16, 24, 40 and 96 (and the
+  main paths' 128 and 512): TN the narrowest of 16 / 32 / 64 that holds
+  the block-column, else 128; KC 16 for a segment of at most 16, 64 where
+  64 divides it, else 32."""
+  assert tbsp.MM_TILES[tbsp.mm_tile(out_w, seg)] == want
+  assert tbsp.mm_plan('wgmma', out_w, seg) == tbsp.mm_tile(out_w, seg)
+  for branch in ('decode', 'ffma'):
+    assert tbsp.mm_plan(branch, out_w, seg) == 0
+
+
+def test_mm_tiles_match_the_kernel():
+  """MM_TILES' positions are the codes of launch_mm_wgmma's cases, each
+  instantiating packed_mm_wgmma_kernel at that (TN, KC); the tile's rows
+  are kMmRows; the main paths' tile, 128 x 64, is code 0."""
+  text = SOURCE.read_text()
+  body = re.search(r'cudaError_t launch_mm_wgmma\(const MmArgs& a, int tile\) '
+                   r'\{(.*?)\n\}', text, re.S).group(1)
+  cases = {int(c): (int(tn), int(kc)) for c, tn, kc in re.findall(
+      r'case (\d+): return launch_mm_tile<kTransW, (\d+), (\d+)>', body)}
+  assert cases == dict(enumerate(tbsp.MM_TILES))
+  assert tbsp.MM_TILES[0] == (128, 64)
+  rows = re.search(r'constexpr int kMmRows = (\d+);', text).group(1)
+  assert int(rows) == tbsp.MM_TILE_ROWS == ROWS
 
 
 def test_main_path_shapes_take_the_new_kernels():
@@ -156,38 +193,54 @@ def _box(t, r0, c0, rows, cols):
   return out
 
 
-def _wgmma_walk(x, w4, lists, block, mode, slot_of=None):
-  """packed_mm_wgmma_kernel's walk in plain f32: for each (column
-  subtile, m-tile) and each (active, 64-deep chunk), x's box at (seg_idx
-  * seg + k0, m0) and the W box(es) of the active's block -- w4 is W as
+def _seg_x_box(x, m0, s, k0, kc, seg_w):
+  """x[m0 : m0 + 128, segment s from k0, kc wide] with zeros past m and
+  past the segment: the x box of the kernel's 3-D tensor map."""
+  out = torch.zeros(ROWS, kc, dtype=x.dtype)
+  width = max(0, min(kc, seg_w - k0))
+  part = x[m0:m0 + ROWS, s * seg_w + k0:s * seg_w + k0 + width]
+  out[:part.shape[0], :part.shape[1]] = part
+  return out
+
+
+def _wgmma_walk(x, w4, lists, block, mode, slot_of=None, tile=None):
+  """packed_mm_wgmma_kernel's walk in plain f32 at the tile (TN, KC) that
+  mm_tile names (or `tile`): for each (column subtile, m-tile) and each
+  (active, KC-deep chunk, the last ragged), x's box of its segment at
+  (k0, seg_idx, m0) and the W box(es) of the active's block -- w4 is W as
   (block-row, bk, block-column, bn); the block (slot_of(a), 0) in packed
-  storage, else from woffs -- summed into a 128 x 128 tile, stored masked
-  to rows < m and columns < the block's width."""
+  storage, else from woffs -- summed into a 128 x TN tile, stored masked
+  to rows < m and columns < the block's width.  Forward boxes of W
+  columns (64 at TN >= 64, else 16) that start past the block are not
+  loaded: stale, NaN here, feeding only masked columns."""
   bk, bn = block
   seg_w, out_w = (bn, bk) if mode == 'dx' else (bk, bn)
+  tn, kc = tile or tbsp.MM_TILES[tbsp.mm_tile(out_w, seg_w)]
+  wbox = 64 if tn >= 64 else 16
   n = w4.shape[2] * bn
   m = x.shape[0]
   beg, end, seg, woffs = (None if t is None else t.tolist() for t in lists)
   y = torch.full((m, len(beg) * out_w), float('nan'))
   for g in range(len(beg)):
-    for n0 in range(0, out_w, TILE):
-      for m0 in range(0, m, TILE):
-        acc = torch.zeros(TILE, TILE)
+    for n0 in range(0, out_w, tn):
+      for m0 in range(0, m, ROWS):
+        acc = torch.zeros(ROWS, tn)
         for a in range(beg[g], end[g]):
           br, bc = ((slot_of(a), 0) if slot_of else
                     _block_of(woffs[a], block, n))
           blk = w4[br, :, bc, :]
-          for k0 in range(0, seg_w, CHUNK):
-            xb = _box(x, m0, seg[a] * seg_w + k0, TILE, CHUNK)
+          for k0 in range(0, seg_w, kc):
+            xb = _seg_x_box(x, m0, seg[a], k0, kc, seg_w)
             if mode == 'dx':
-              acc += xb @ _box(blk, n0, k0, TILE, CHUNK).T
+              acc += xb @ _box(blk, n0, k0, tn, kc).T
             else:
-              wb = _box(blk, k0, n0, CHUNK, TILE)
-              if out_w - n0 <= CHUNK:   # the second box is not loaded:
-                wb[:, CHUNK:] = float('nan')   # stale, masked columns
+              wb = _box(blk, k0, n0, kc, tn)
+              for b in range(0, tn, wbox):
+                if b >= out_w - n0:   # not loaded: stale, masked columns
+                  wb[:, b:b + wbox] = float('nan')
               acc += xb @ wb
-        rows = min(TILE, m - m0)
-        cols = min(TILE, out_w - n0)
+        rows = min(ROWS, m - m0)
+        cols = min(tn, out_w - n0)
         y[m0:m0 + rows, g * out_w + n0:g * out_w + n0 + cols] = (
             acc[:rows, :cols])
   return y
@@ -245,3 +298,46 @@ def test_wgmma_walk_matches_plain_packed(block):
     got = _wgmma_walk(a, w4, lists, block, mode, slot_of)
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= RTOL * scale, mode
+
+
+@pytest.mark.parametrize('tile', range(len(tbsp.MM_TILES)))
+def test_wgmma_walk_at_every_tile_keeps_nan_in_its_segment(tile):
+  """Every tile of the wgmma branch, forced, walked over packed storage at
+  a ragged block (24, 40) -- a segment that no KC divides, columns no TN
+  divides -- gives the plain versions' sums; with x's last segment and
+  gy's last segment NaN, only the outputs that read them (the block-rows
+  / block-columns of their actives) come out NaN: a box stops at its
+  segment."""
+  block = (24, 40)
+  bk, bn = block
+  occ = torch.tensor([[1, 0, 1], [1, 1, 0], [0, 1, 0]], dtype=torch.int32)
+  nk, nn_ = occ.shape
+  n_act = int(occ.sum())
+  packing = tbsp.make_packing(occ, n_act)
+  gen = torch.Generator().manual_seed(tile)
+  w = torch.randn(n_act, bk, bn, generator=gen)
+  w4 = w.view(n_act, bk, 1, bn)
+  x = torch.randn(150, nk * bk, generator=gen)
+  gy = torch.randn(150, nn_ * bn, generator=gen)
+  col_ptr, rows = packing.column_index('cpu')
+  row_ptr, cols, slots = packing.row_index('cpu')
+  fwd = (col_ptr[:-1], col_ptr[1:], rows, None)
+  dx = (row_ptr[:-1], row_ptr[1:], cols, None)
+  forced = tbsp.MM_TILES[tile]
+  for a, lists, mode, slot_of, plain in (
+      (x, fwd, 'fwd', lambda e: e, tbsp.packed_matmul_reference),
+      (gy, dx, 'dx', lambda e: int(slots[e]),
+       tbsp.packed_matmul_dx_reference)):
+    want = plain(a, w, packing, block)
+    got = _wgmma_walk(a, w4, lists, block, mode, slot_of, forced)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= RTOL * scale, mode
+    seg_w, out_w = (bk, bn) if mode == 'fwd' else (bn, bk)
+    a = a.clone()
+    a[:, -seg_w:] = float('nan')
+    got = _wgmma_walk(a, w4, lists, block, mode, slot_of, forced)
+    reads = occ[-1] if mode == 'fwd' else occ[:, -1]   # the last segment's
+    for j in range(got.shape[1] // out_w):
+      span = got[:, j * out_w:(j + 1) * out_w]
+      assert bool(span.isnan().all() if reads[j] else
+                  torch.isfinite(span).all()), (mode, j)

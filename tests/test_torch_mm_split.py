@@ -8,7 +8,9 @@ shapes and at the MLP's, its edges (an empty packing, empty columns,
 columns shorter than S chunks), its constants against the kernel's
 source, and a plain walk of the kernel's ranges, boxes and rank-order
 reduction -- held against the plain versions that test_torch_packed_mm.py
-holds against JAX -- are checked.  Both sides sum the same f32 products
+holds against JAX -- are checked; and, with the same segment boxes, the
+wgmma branch's ragged walk of a contraction in KC-deep stages (m > 32,
+bf16).  Both sides sum the same f32 products
 in another order: 1e-5 of the largest value.  No JAX here."""
 
 import math
@@ -171,7 +173,7 @@ def test_decode_slices_passes_the_plan(monkeypatch):
   nk, nn_ = packing.shape
   args = (8, 512, nn_, 512, packing.longest('fwd'), torch.bfloat16, 'cuda')
   assert tbsp.decode_slices('decode', *args) == 8
-  for branch in ('tiled', 'wgmma', 'ffma'):
+  for branch in ('wgmma', 'ffma'):
     assert tbsp.decode_slices(branch, *args) == 1
 
 
@@ -295,6 +297,58 @@ def test_decode_walk_keeps_a_nonfinite_segment_in_its_columns(mode):
     assert bool(torch.isfinite(cols[[0, 1, 3, 4]]).all()), g
     if not reads[g]:
       assert bool(torch.isfinite(cols).all()), g
+
+
+@pytest.mark.parametrize('seg', [8, 16, 24, 40, 96, 200])
+@pytest.mark.parametrize('mode', ['fwd', 'dx'])
+def test_wgmma_ragged_chunks_match_plain(seg, mode):
+  """packed_mm_wgmma_kernel's contraction walk at a segment of `seg`: each
+  active's segment in KC-deep stages (KC from mm_tile: 16, 32 or 64; the
+  last stage ragged), x's box through the 3-D map (_seg_box: zeros past
+  the segment) times the W block's KC rows (zeros past the block), gives
+  the plain product; with every other segment of x NaN, the sum is the
+  same, finite: no box reads past its segment."""
+  out_w = 24
+  block = (seg, out_w) if mode == 'fwd' else (out_w, seg)
+  _, kc = tbsp.MM_TILES[tbsp.mm_tile(out_w, seg)]
+  assert kc == (16 if seg <= 16 else 64 if seg % 64 == 0 else 32)
+  gen = torch.Generator().manual_seed(seg)
+  occ = torch.tensor([[1, 1], [0, 1], [1, 1]], dtype=torch.int32)
+  if mode == 'dx':
+    occ = occ.T.contiguous()
+  n_act = int(occ.sum())
+  packing = tbsp.make_packing(occ, n_act)
+  w = torch.randn(n_act, *block, generator=gen)
+  n_seg = occ.shape[0] if mode == 'fwd' else occ.shape[1]
+  a = torch.randn(200, n_seg * seg, generator=gen)
+  if mode == 'fwd':
+    ptr, seg_idx = (t.tolist() for t in packing.column_index('cpu'))
+    slots = list(range(n_act))
+    want = tbsp.packed_matmul_reference(a, w, packing, block)
+  else:
+    ptr, seg_idx, slots = (t.tolist() for t in packing.row_index('cpu'))
+    want = tbsp.packed_matmul_dx_reference(a, w, packing, block)
+  scale = max(1.0, float(want.abs().max()))
+  for g in range(len(ptr) - 1):
+    total = torch.zeros(a.shape[0], out_w)
+    for s_keep in range(n_seg):   # the segment left finite
+      a_nan = a.clone()
+      for s in range(n_seg):
+        if s != s_keep:
+          a_nan[:, s * seg:(s + 1) * seg] = float('nan')
+      acc = torch.zeros(a.shape[0], out_w)
+      for e in range(ptr[g], ptr[g + 1]):
+        if seg_idx[e] != s_keep:
+          continue
+        blk = w[slots[e]] if mode == 'fwd' else w[slots[e]].T
+        for k0 in range(0, seg, kc):
+          xb = _seg_box(a_nan, 0, a.shape[0], seg_idx[e], k0, kc, seg)
+          acc += xb @ _box(blk, k0, 0, kc, out_w)
+      assert bool(torch.isfinite(acc).all()), (g, s_keep)
+      total += acc
+    got = total.to(want.dtype)
+    assert float((got - want[:, g * out_w:(g + 1) * out_w]).abs().max()) <= (
+        RTOL * scale), g
 
 
 def test_bytes_in_flight_per_sm():

@@ -2,15 +2,16 @@
 
 ops/block_sparse_conv.py `tap_branch` names the branch of each forward /
 dx call: 'mm' for a 1x1 kernel (csrc/packed_mm.cu's forward / dx kernels
-over the index's lists), 'wgmma' / 'wmma' for a bf16 KxK kernel with
-blocks of 16s / 8s and 'tf32' for f32 (csrc/tap_conv.cu, by the branch's
-position in TAP_BRANCHES).  The kernels run only on a CUDA card
-(test_torch_kernels_cuda.py); here the rule, its codes, the 1x1 lists
-against block_sparse_v4's and v3's (both routes sum the same entries in
-the same order), the wgmma branch's group lists and the tf32 branch's
-panel lists walked in Python to the plain sums, and the train step's
-TapIndex, built once per mask update and kept on the layer's TapPack.  No
-JAX here."""
+over the index's lists), 'wgmma' for a bf16 KxK kernel with blocks of
+16s and 'tf32' for every other KxK one, f32 and bf16 at blocks of 8s
+(csrc/tap_conv.cu, by the branch's position in TAP_BRANCHES).  The
+kernels run only on a CUDA card (test_torch_kernels_cuda.py); here the
+rule, its codes, the 1x1 lists against block_sparse_v4's and v3's (both
+routes sum the same entries in the same order), the wgmma branch's group
+lists and the tf32 branch's panel lists walked in Python to the plain
+sums (in bf16 with its own fragment order at blocks of 8s), and the train
+step's TapIndex, built once per mask update and kept on the layer's
+TapPack.  No JAX here."""
 
 import functools
 import re
@@ -40,13 +41,13 @@ BF16, F32 = torch.bfloat16, torch.float32
     (1, 1, 8, 8, BF16, 'mm'), (1, 1, 4, 12, F32, 'mm'),
     (3, 3, 16, 16, BF16, 'wgmma'), (3, 3, 128, 128, BF16, 'wgmma'),
     (5, 5, 48, 80, BF16, 'wgmma'), (3, 5, 32, 64, BF16, 'wgmma'),
-    (3, 3, 8, 8, BF16, 'wmma'), (3, 3, 16, 8, BF16, 'wmma'),
-    (5, 5, 24, 16, BF16, 'wmma'),
+    (3, 3, 8, 8, BF16, 'tf32'), (3, 3, 16, 8, BF16, 'tf32'),
+    (5, 5, 24, 16, BF16, 'tf32'),
     (3, 3, 16, 16, F32, 'tf32'), (3, 3, 4, 4, F32, 'tf32'),
     (5, 5, 128, 128, F32, 'tf32')])
 def test_tap_branch_rule(kh, kw, bk, bn, dtype, want):
-  """mm for every 1x1; KxK: tf32 in f32, wgmma in bf16 where 16 divides
-  both block sides, wmma for a bf16 block of 8s."""
+  """mm for every 1x1; KxK: wgmma in bf16 where 16 divides both block
+  sides, tf32 otherwise (f32, and a bf16 block of 8s)."""
   assert tbsc.tap_branch(kh, kw, bk, bn, dtype) == want
 
 
@@ -293,12 +294,37 @@ def _tf_channel():
   return lambda kk, k: eval(expr, {'kk': kk, 'k': k})
 
 
+def _tf_half_channel():
+  """tap_conv.cu's tf_half_channel(k), the one-line C function, as
+  Python."""
+  body = re.search(r'constexpr int tf_half_channel\(int k\) \{\s*return '
+                   r'(.*?);', SOURCE.read_text(), re.S).group(1)
+  expr = ' '.join(body.replace(' / ', ' // ').split())
+  return lambda k: eval(expr, {'k': k})
+
+
+def _lane_channel(kk, k, half):
+  """The channel of its chunk that the kernel's fragment loads put at
+  index k of k-step kk (thread q = k % 4 of a quad, its value j = k // 4):
+  thread q loads channels 4 q .. 4 q + 3 and takes 2 kk + j of them; bf16
+  at a chunk of 8 channels (`half`), channels 4 (q % 2) .. (lanes q and
+  q + 2 read the same 8 bytes) of which it takes 2 (q // 2) + j, k-step 0
+  only (None: k-step 1 is not run)."""
+  q, j = k % 4, k // 4
+  if half:
+    return None if kk else 4 * (q % 2) + 2 * (q // 2) + j
+  return 4 * q + 2 * kk + j
+
+
 def test_tf32_constants_match_the_kernel():
   """TAP_TF32_TILES are the tiles launch_tf32 instantiates, and the rows a
   thread block, channels an x tile and entries a stage are the kernel's:
   the Python side plans the grid and the panels from them.  tf_channel is
   a permutation of each k-step pair's 16 channels that gives thread q of a
-  quad channels 4 q .. 4 q + 3, its one 16-byte load."""
+  quad channels 4 q .. 4 q + 3, its one load (16 bytes in f32, 8 in
+  bf16); tf_half_channel a permutation of a bf16 chunk of 8 channels into
+  k-step 0; both are the channels the fragment loads take
+  (_lane_channel)."""
   text = SOURCE.read_text()
   body = re.search(r'cudaError_t launch_tf32\(const ConvArgs& a\) \{(.*?)\n\}',
                    text, re.S).group(1)
@@ -314,6 +340,12 @@ def test_tf32_constants_match_the_kernel():
   for q in range(4):
     assert {ch(kk, q + 4 * j) for kk in range(2) for j in range(2)} == set(
         range(4 * q, 4 * q + 4))
+  half = _tf_half_channel()
+  assert sorted(half(k) for k in range(8)) == list(range(8))
+  for kk in range(2):
+    for k in range(8):
+      assert _lane_channel(kk, k, False) == ch(kk, k)
+      assert _lane_channel(kk, k, True) == (None if kk else half(k))
 
 
 @pytest.mark.parametrize('ksize', [(3, 3), (5, 5), (3, 5)])
@@ -363,15 +395,42 @@ def test_tf32_tile_rule(cin, cout, block, pixels, want):
   assert tbsc.tap_tf32_tile(index, 'fwd', pixels, 132) == want
 
 
-def _walk_stages(a, w, index, mode, gcols, width):
+@pytest.mark.parametrize('cin,cout,block,pixels,want', [
+    (64, 64, (8, 8), 128 * 16 * 16, (4, 32)),     # WRN g1_b1/conv1, block 8
+    (64, 64, (8, 8), 128 * 8, (1, 16)),           # too few pixel tiles
+    (64, 64, (8, 8), 128 * 40, (2, 16)),          # room for groups of 2
+    (8, 64, (8, 8), 128 * 16 * 16, (4, 32)),      # one input block
+    (64, 16, (8, 8), 128 * 16 * 16, (2, 16)),     # two columns
+    (64, 8, (8, 8), 128 * 16 * 16, (1, 16)),      # one column
+    (64, 64, (16, 8), 128 * 16 * 16, (4, 32)),    # forward out_w 8
+    (96, 64, (24, 16), 128 * 16 * 16, (2, 32)),   # forward out_w 16
+    (48, 80, (24, 40), 128 * 16 * 16, (1, 64))])  # a column over 16
+def test_tf32_tile_rule_bf16(cin, cout, block, pixels, want):
+  """The tf32 call's (gcols, tile) in bf16 (blocks of 8s): groups of the
+  widest of TAP_TF32_GROUPS_8 block-columns 8 wide (tile 32 or 16), or
+  TAP_TF32_GROUP 16 wide (tile 32), where the layer has that many and the
+  groups' thread blocks cover 132 SMs; else one column a tile, 16 where
+  it is at most 16 wide, else tiles of 64.  f32 keeps its groups to
+  columns 16 wide."""
+  index = _tap_index_at((3, 3), cin, cout, block, 0.5, 0)
+  assert tbsc.tap_tf32_tile(index, 'fwd', pixels, 132, BF16) == want
+  if block[1] == 8:
+    assert tbsc.tap_tf32_tile(index, 'fwd', pixels, 132, F32)[0] == 1
+
+
+def _walk_stages(a, w, index, mode, gcols, width, dtype=F32):
   """The tf32 branch's sums, walked in Python from its stage table as the
   kernel walks it: for each group (in `order`), each stage row, each entry
   slot with channels to read, the x tile of its panel (TAP_TF32_CHUNK
-  channels from the row's x channel, pixel rows from lo) read at the
-  slot's row offset, pixels outside the image zero, its channels taken in
-  contraction order (channel tf_channel(kk, k) at index 8 kk + k), times,
-  for each column of the group the slot's mask holds, the block its W row
-  names, laid out as tap_w_split_kernel copies it; in f64.  Checks on the
+  channels from the row's x channel, pixel rows from lo; its channels past
+  the chunk's width -- the next input block's -- NaN) read at the slot's
+  row offset, pixels outside the image zero, its channels taken as the
+  fragment loads take them (_lane_channel: in f32 a lane past the chunk's
+  quads loads none; a bf16 chunk of 8 fills k-step 0 and runs no k-step
+  1), times, for each column of the group the slot's mask holds, the
+  block its W row names, laid out as tap_w_split_kernel copies it (channel
+  tf_channel(kk, k) at index 8 kk + k; a bf16 chunk of 8
+  tf_half_channel(k) at k); in f64.  Checks on the
   way: a group's entries run in (input block, chunk, tap) order, each
   shift lies within its panel's x tile boxes, and a slot's W rows and
   mask agree (the zero block where a column lacks the entry)."""
@@ -384,8 +443,7 @@ def _walk_stages(a, w, index, mode, gcols, width):
   xf = a.double().reshape(m, cx)
   pix = torch.arange(m)
   ph, pw = (pix // wd) % h, pix % wd
-  chan = _tf_channel()
-  order = [chan(kk, k) for kk in range(2) for k in range(8)]
+  chan, half_chan = _tf_channel(), _tf_half_channel()
   wf = w.double().reshape(-1)
   dw = index.dw
   cy = index.cout if fwd else index.cin
@@ -422,9 +480,21 @@ def _walk_stages(a, w, index, mode, gcols, width):
         ok = ((ph + dy >= 0) & (ph + dy < h) & (pw + dx >= 0)
               & (pw + dx < wd))
         src = (pix + shift).clamp(0, m - 1)
-        xs = torch.zeros(m, tbsc.TAP_TF32_CHUNK, dtype=torch.float64)
-        xs[:, :4 * quads] = xf[src, ch0:ch0 + 4 * quads] * ok[:, None]
-        a_log = xs[:, order]             # contraction index 8 kk + k
+        xs = torch.full((m, tbsc.TAP_TF32_CHUNK), float('nan'),
+                        dtype=torch.float64)
+        xs[:, :cw] = xf[src, ch0:ch0 + cw] * ok[:, None]
+        half = dtype == BF16 and cw <= 8
+        a_log = torch.zeros(m, tbsc.TAP_TF32_CHUNK, dtype=torch.float64)
+        w_order = [None] * tbsc.TAP_TF32_CHUNK   # W copy: index -> channel
+        for kk in range(2):
+          for k in range(8):
+            ch = _lane_channel(kk, k, half)
+            if ch is not None and (dtype == BF16 or k % 4 < quads):
+              a_log[:, 8 * kk + k] = xs[:, ch]   # contraction index 8 kk + k
+            if not half:
+              w_order[8 * kk + k] = chan(kk, k)
+            elif kk == 0:
+              w_order[k] = half_chan(k)
         for c in range(gcols):
           assert wrows[c] % out_w == 0
           assert ((mask >> c) & 1) == (wrows[c] != zero)
@@ -439,8 +509,8 @@ def _walk_stages(a, w, index, mode, gcols, width):
                             index.w_ld)
           kmaj = blk.T if fwd else blk          # out_w x seg, K-major
           b_log = torch.zeros(tbsc.TAP_TF32_CHUNK, out_w, dtype=torch.float64)
-          for i, ch in enumerate(order):
-            if k0 + ch < seg:
+          for i, ch in enumerate(w_order):
+            if ch is not None and k0 + ch < seg:
               b_log[i] = kmaj[:, k0 + ch]
           col = (g * gcols + c) * out_w
           y[:, col:col + out_w] += a_log @ b_log
@@ -490,6 +560,46 @@ def test_panel_lists_walk_to_the_plain_sums(ksize, cin, cout, block, width):
       assert float((got - want).abs().max()) <= 1e-5 * scale, (mode, gcols)
   assert index.panel_lists('fwd', 'cpu', 1, width) is index.panel_lists(
       'fwd', 'cpu', 1, width)
+
+
+@pytest.mark.parametrize('ksize,cin,cout,block,width', [
+    ((3, 3), 32, 32, (8, 8), 7), ((3, 3), 48, 40, (16, 8), 6),
+    ((5, 5), 72, 48, (24, 16), 5), ((3, 5), 16, 24, (8, 8), 200)])
+def test_bf16_panel_walk_keeps_the_next_block_out(ksize, cin, cout, block,
+                                                  width):
+  """The bf16 instance of the tf32 branch at blocks of 8s, forward and dx
+  at every group width (one column; two 8- or 16-wide columns; four
+  8-wide ones): the stage
+  table walked with bf16's fragment loads and W copy (_walk_stages: a
+  chunk of 8 channels -- a block of 8, the tail of a block of 24 -- in one
+  k-step by tf_half_channel, a full chunk by tf_channel), the x tile's
+  channels past the chunk (the next input block's) NaN, gives
+  tap_conv_reference's sums, finite: no lane reads past its block."""
+  kh, kw = ksize
+  gen = torch.Generator().manual_seed(cin + cout + width)
+  occ = (torch.rand(kh * kw, cin // block[0], cout // block[1],
+                    generator=gen) < 0.4).to(torch.int32)
+  occ[:, :, 0] = 0
+  occ[0] = 0
+  cols, rows, taps = tbsc.pack_tap_active(occ, int(occ.sum()))
+  index = tbsc.tap_index(tbsc.TapPack(cols, rows, taps),
+                         (kh, kw, cin, cout), block)
+  assert tbsc.tap_branch(kh, kw, *block, BF16) == 'tf32'
+  x = torch.randn(2, 3, width, cin, generator=gen)
+  gy = torch.randn(2, 3, width, cout, generator=gen)
+  w4 = torch.randn(kh, kw, cin, cout, generator=gen)
+  for a, mode in ((x, 'fwd'), (gy, 'dx')):
+    out_w = block[1] if mode == 'fwd' else block[0]
+    ncols = (cout if mode == 'fwd' else cin) // out_w
+    want = tbsc.tap_conv_reference(a, w4, index, mode)
+    scale = max(1.0, float(want.abs().max()))
+    widths = {1} | {g for g in (tbsc.TAP_TF32_GROUP,
+                                *tbsc.TAP_TF32_GROUPS_8)
+                    if g * out_w <= 32 and out_w in (8, 16) and ncols > 1}
+    for gcols in sorted(widths):
+      got = _walk_stages(a, w4, index, mode, gcols, width, BF16)
+      assert bool(torch.isfinite(got).all()), (mode, gcols)
+      assert float((got - want).abs().max()) <= 1e-5 * scale, (mode, gcols)
 
 
 # ---------------------------------------------- the index, once a packing --

@@ -19,7 +19,9 @@ of float64 with a margin held at 10x: these inputs measure 6.5e-7 to
 kernels' shared-memory addressing (f32_sw128, the fragment loads, the
 k-step order), each formula evaluated from its C source, checks that the
 fragments read the elements the tf32 fragment layout names and that each
-warp-wide access falls on 32 distinct banks.
+warp-wide access falls on 32 distinct banks; and it checks that a bf16
+value widened to f32 is its own tf32 read, the premise of the tap conv's
+bf16 instance (one tf32 product a k-step).
 """
 
 import functools
@@ -250,6 +252,50 @@ def test_split_model_is_the_kernels_split():
     g_nan, w_nan = np.isnan(_as_float(g)), np.isnan(_as_float(w))
     assert np.array_equal(g_nan, w_nan)
     assert np.array_equal(g[~g_nan], w[~w_nan])
+
+
+def test_bf16_widened_is_its_own_tf32_hi():
+  """Every one of the 65536 bf16 patterns, widened to f32 as the bf16
+  instance of tap_conv_tf32_kernel widens it (the 16 bits shifted up: the
+  value torch's bf16-to-f32 conversion gives), is read by the tensor cores
+  as itself: tf32 keeps 10 mantissa bits, bf16 has 7.  tf32_split (its
+  expressions from hopper.cuh) gives hi == the value for every pattern,
+  NaN and infinities included, and lo == +0 for every finite one, so on
+  finite inputs the one product a_hi b_hi that the bf16 instance runs is
+  the three of 3xTF32.  An infinity's lo is NaN (inf - inf): 3xTF32 would
+  turn an infinite input into NaN, where one product keeps it infinite, as
+  a bf16 product does; a NaN's lo is NaN too."""
+  body = re.search(r'void tf32_split\(.*?\{(.*?)\n\}', HOPPER, re.S)
+  hi_e = _c_expr(r'hi = (.*?);', body.group(1))
+  lo_e = _c_expr(r'lo = (.*?);', body.group(1))
+  bits = np.arange(1 << 16, dtype=np.uint64)
+  wide = bits << 16
+  x = _as_float(wide)
+  conv = torch.from_numpy(bits.astype(np.uint16).view(np.int16)).view(
+      torch.bfloat16).float().numpy()
+  nan = np.isnan(x)
+  assert np.array_equal(np.isnan(conv), nan)
+  assert np.array_equal(_as_uint(conv)[~nan], wide[~nan])
+  env = {'x': x, '__float_as_uint': _as_uint, '__uint_as_float': _as_float}
+  with np.errstate(invalid='ignore'):
+    env['hi'] = eval(hi_e, env)
+    lo = _as_float(eval(lo_e, env))
+  assert np.array_equal(env['hi'], wide)
+  read = tf32(torch.from_numpy(x.copy())).numpy()
+  assert np.array_equal(_as_uint(read)[~nan], wide[~nan])
+  assert bool(np.isnan(read[nan]).all())
+  finite = np.isfinite(x)
+  assert not _as_uint(lo[finite]).any()   # +0: every bit clear
+  assert bool(np.isnan(lo[~finite]).all())
+  assert int((~finite & ~nan).sum()) == 2   # the two infinities
+  rng = np.random.default_rng(7)
+  pick = rng.choice(np.flatnonzero(finite), (2, 64, 96))
+  # Finite bf16 patterns, scaled into range and rounded back to bf16.
+  a = torch.from_numpy(x[pick[0]][:, :32].copy())
+  b = torch.from_numpy(x[pick[1]][:32, :].copy())
+  a = (a / a.abs().max()).bfloat16().float()
+  b = (b / b.abs().max()).bfloat16().float()
+  assert torch.equal(tf32(a) @ tf32(b), mm3(a, b))
 
 
 def _banks(offsets):
