@@ -1330,45 +1330,27 @@ cudaError_t allow_smem(Kernel kernel, int smem,
   return cudaSuccess;
 }
 
-// The column-subtile-major grid of the wgmma and ffma branches: (column
-// subtiles, m-tiles) of (rows x cols) tiles, at most 65535 m-tiles.
-cudaError_t tile_grid(const MmArgs& a, int out_w, int rows, int cols,
-                      dim3* grid) {
-  const int m_tiles = (a.m + rows - 1) / rows;
-  if (m_tiles > 65535) return cudaErrorInvalidValue;
-  *grid = dim3(a.ngroups * ((out_w + cols - 1) / cols), m_tiles);
-  return cudaSuccess;
-}
-
 // packed_mm_wgmma_kernel at the tile (TN, KC): x through a 3-D tensor map
 // (column in segment, segment, row), boxes of KC x 128 rows; W through a
 // 4-D one (column, block-column, row, block-row), boxes of MmPlan's W
 // columns x KC rows forward, KC x TN rows dx; each box's swizzle the width
 // of its row.  With no block (an empty packing) no column has an active,
-// nothing is loaded, and tw stays unencoded.
+// nothing is loaded, and tw stays unencoded.  A grid's y holds at most
+// 65535 m-tiles: more rows run in several launches, each over its own
+// rows of x and y (x's map over those rows only).
 template <bool kTransW, int TN, int KC>
 cudaError_t launch_mm_tile(const MmArgs& a) {
   using L = MmPlan<TN, KC>;
   const int seg = kTransW ? a.bn : a.bk;
   const int out_w = kTransW ? a.bk : a.bn;
-  dim3 grid;
-  cudaError_t err = tile_grid(a, out_w, kMmRows, TN, &grid);
-  if (err != cudaSuccess) return err;
+  const int y_ld = a.ngroups * out_w;
   auto swizzle = [](int row_bytes) {
     return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
            : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                              : CU_TENSOR_MAP_SWIZZLE_32B;
   };
-  CUtensorMap tx, tw{};
-  const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(seg),
-                               static_cast<cuuint64_t>(a.x_ld / seg),
-                               static_cast<cuuint64_t>(a.m)};
-  const cuuint64_t xstrides[2] = {static_cast<cuuint64_t>(seg) * 2,
-                                  static_cast<cuuint64_t>(a.x_ld) * 2};
-  const cuuint32_t xbox[3] = {KC, 1, kMmRows};
-  err = tensor_map_nd(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, 3, xdims,
-                      xstrides, xbox, swizzle(2 * KC));
-  if (err != cudaSuccess) return err;
+  CUtensorMap tw{};
+  cudaError_t err = cudaSuccess;
   if (a.w_rows > 0) {
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.bn),
                                 static_cast<cuuint64_t>(a.w_ld / a.bn),
@@ -1388,11 +1370,30 @@ cudaError_t launch_mm_tile(const MmArgs& a) {
   static std::atomic<uint64_t> allowed{0};
   err = allow_smem(kernel, L::kSmem, allowed, cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kWgThreads, L::kSmem, a.stream>>>(
-      tx, tw, a.beg, a.end, a.seg_idx, a.slots, a.woffs,
-      static_cast<__nv_bfloat16*>(a.y), a.m, a.ngroups * out_w, a.bk, a.bn,
-      a.w_ld);
-  return cudaGetLastError();
+  const long long chunk = 65535LL * kMmRows;   // rows a launch
+  for (long long r0 = 0; r0 < a.m; r0 += chunk) {
+    const int m = static_cast<int>(std::min<long long>(a.m - r0, chunk));
+    CUtensorMap tx;
+    const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(seg),
+                                 static_cast<cuuint64_t>(a.x_ld / seg),
+                                 static_cast<cuuint64_t>(m)};
+    const cuuint64_t xstrides[2] = {static_cast<cuuint64_t>(seg) * 2,
+                                    static_cast<cuuint64_t>(a.x_ld) * 2};
+    const cuuint32_t xbox[3] = {KC, 1, kMmRows};
+    err = tensor_map_nd(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        static_cast<const __nv_bfloat16*>(a.x) + r0 * a.x_ld,
+                        3, xdims, xstrides, xbox, swizzle(2 * KC));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.ngroups * ((out_w + TN - 1) / TN),
+                    (m + kMmRows - 1) / kMmRows);
+    kernel<<<grid, kWgThreads, L::kSmem, a.stream>>>(
+        tx, tw, a.beg, a.end, a.seg_idx, a.slots, a.woffs,
+        static_cast<__nv_bfloat16*>(a.y) + r0 * y_ld, m, y_ld, a.bk, a.bn,
+        a.w_ld);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The wgmma branch at the tile the caller names, by its code (the cases
@@ -1498,12 +1499,14 @@ cudaError_t launch_decode(const MmArgs& a, int slices) {
   return launch_decode_n<T, 32, kTransW>(a, tx, tw, slices);
 }
 
+// packed_mm_ffma_kernel on the column-subtile-major grid (column
+// subtiles, m-tiles), at most 65535 m-tiles.
 template <bool kTransW>
 cudaError_t launch_mm_ffma(const MmArgs& a) {
   const int out_w = kTransW ? a.bk : a.bn;
-  dim3 grid;
-  const cudaError_t err = tile_grid(a, out_w, kFfRows, kFfCols, &grid);
-  if (err != cudaSuccess) return err;
+  const int m_tiles = (a.m + kFfRows - 1) / kFfRows;
+  if (m_tiles > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(a.ngroups * ((out_w + kFfCols - 1) / kFfCols), m_tiles);
   packed_mm_ffma_kernel<kTransW><<<grid, kFfThreads, 0, a.stream>>>(
       static_cast<const float*>(a.x), static_cast<const float*>(a.w), a.beg,
       a.end, a.seg_idx, a.slots, a.woffs, static_cast<float*>(a.y), a.m,
@@ -1520,8 +1523,8 @@ cudaError_t launch_mm_ffma(const MmArgs& a) {
 //           names (ops/block_sparse_packed.py mm_tile);
 //   ffma:   f32, m > 32 -- packed_mm_ffma_kernel.
 // A branch that cannot take the call (another dtype, a block that is not
-// whole 16-byte copies, unaligned operands, more than 65535 m-tiles, a
-// cluster of other than 1, 2, 4 or 8 blocks, `slices` other than 1
+// whole 16-byte copies, unaligned operands, more than 65535 m-tiles in
+// ffma or decode, a cluster of other than 1, 2, 4 or 8 blocks, `slices` other than 1
 // outside decode, a tile other than 0 outside wgmma or one it does not
 // have) is refused with cudaErrorInvalidValue; no other branch is tried.
 enum MmBranch { kMmDecode = 0, kMmWgmma = 1, kMmFfma = 2 };

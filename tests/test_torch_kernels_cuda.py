@@ -2030,6 +2030,33 @@ def test_mm_wgmma_keeps_nonfinite_in_its_segment_and_block(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('block', [(8, 24), (64, 64)])
+def test_mm_wgmma_more_than_65535_m_tiles(cuda_device, block):
+  """A bf16 call of more than 65535 x 128 rows runs the wgmma branch in
+  more than one launch (a grid's y holds at most 65535 m-tiles), each
+  over its own rows: forward and dx against the plain versions."""
+  bk, bn = block
+  m = 65535 * tbsp.MM_TILE_ROWS + 300
+  occ = torch.tensor([[1, 0], [1, 1]], dtype=torch.int32)
+  packing = tbsp.make_packing(occ, int(occ.sum()))
+  gen = torch.Generator(device=cuda_device).manual_seed(bk)
+  w = (torch.randn(3, bk, bn, generator=gen, device=cuda_device) / 8).to(
+      torch.bfloat16)
+  for call, plain, width in (
+      (tbsp.packed_matmul_cuda, tbsp.packed_matmul_reference, 2 * bk),
+      (tbsp.packed_matmul_dx_cuda, tbsp.packed_matmul_dx_reference,
+       2 * bn)):
+    a = torch.randn(m, width, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    assert tbsp.mm_branch(m, width // 2, torch.bfloat16) == 'wgmma'
+    got = call(a, w, packing, block)
+    want = plain(a, w, packing, block)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= MM_TOL[torch.bfloat16], call.__name__
+    del a, got, want
+
+
+@pytest.mark.cuda
 def test_mm_branch_of_another_dtype_is_refused(cuda_device, monkeypatch):
   """A branch named for another dtype (wgmma for f32, ffma for bf16) is
   refused, not run."""
