@@ -178,7 +178,24 @@ package.  Phases, each fatal on failure:
      of each f32 flash kernel and 8 of the forward, dx and dw per fused
      step, us/step of both in mirrored order, and the fused step's device
      time by kernel (torch.profiler), the flash kernels' and
-     packed_dw_3xtf32_kernel's shares summed.
+     packed_dw_3xtf32_kernel's shares summed;
+ 22. the dense-masked model zoo, a main path of models/registry.py,
+     data/pipeline.py and the structured mask generators (constants
+     ZOO_*): make_train_step with SparseTraining (RigL, ERK 0.8, masks
+     from the per_neuron generator, SGD 0.1 nesterov 0.9, weight decay
+     1e-4, label smoothing 0.1) on batches from the port's synthetic
+     datasets through ArrayDataset (pad_crop_flip(4) and per-image
+     standardization for CIFAR shapes) and prefetch_to_device to the
+     card; WRN-22-2 (batch 128, 32 px, f32) 12 steps with updates at
+     steps 0, 5 and 10, MobileNetV1 width 1.0 (batch 32, 224 px, 1000
+     classes, f32, its 13 depthwise kernels unmasked by the mask rule)
+     6 steps with an update at step 0.  Checked: every output neuron's
+     fan-in equal at init, every layer's active count after each update
+     equal to its count at init, finite losses, the schedule followed, no
+     mask and no zero on a depthwise kernel, and the first step's loss and
+     gradients in float64 on the card against the same step in float64
+     on the CPU (ZOO_F64_RTOL); printed: step ms (CUDA events), the
+     device-busy share (torch.profiler) and each step's loss.
 
 Every dw point (phases 3, 12, 15 and 19) also logs how its kernel split
 the reduction (ops/dw_split.py): S slices, the grid and the workspace's
@@ -187,8 +204,8 @@ it and read just after.  The line before the last is the JSON record: `kernels`
 (per kernel: the sums over its bf16 points, f32 for the f32 flash
 kernels and the f32 dw, of ms, plain_ms, bound_ms and library_ms, its
 launches on the main paths, and every point), `serving`, `training`,
-`train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step` and the
-script's wall time.
+`train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step`, `zoo`
+and the script's wall time.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints
 no result.
@@ -282,6 +299,24 @@ V1_BLOCK, V6_STEPS = (128, 128), 10
 # unfused: the same sums in another order through 2 layers and their
 # LayerNorms, each error over its own largest value.
 FLASH_F32_TOL, F32_STEP_RTOL = 1e-4, 1e-3
+
+# The dense-masked zoo (phase 22): name, registry kwargs, batch, the
+# port's dataset, steps, mask-update frequency.  WRN-22-2 is the RigL
+# paper's CIFAR-10 model at its published width; MobileNetV1 at width 1.0
+# its ImageNet one, depthwise kernels dense by convention.
+ZOO = (
+    ('wrn_22_2', {}, 128, 'cifar10', 12, 5),
+    ('mobilenet_v1', dict(num_classes=1000), 32, 'imagenet', 6, 100),
+)
+ZOO_SPARSITY = 0.8
+# The first step against the CPU runs in float64 on both: at random init,
+# these models' float32 gradients differ from their float64 ones by up to
+# 2e-2 (WRN-22-2) and 7e-2 (MobileNetV1) of a tensor's largest value on
+# the CPU alone (BatchNorm's E[x^2] - E[x]^2 in float32 through 21 and 27
+# layers), so float32 cannot hold two devices together.  In float64 both
+# take the loss from float32 logits, as the package does; a 6e-8 change
+# of that float32 loss moves the float64 gradients by at most 8e-8 (CPU).
+ZOO_F64_RTOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -3519,6 +3554,186 @@ FLASH_F32_BWD_DESIGN = {
            'fills'),
 }
 
+# ------------------------------------------------------- the zoo (22) -----
+def _zoo_setup(torch, name, kw, device, dtype):
+  """(model, SparseTraining, depthwise paths) of phase 22: the registry
+  model with seeded weights, RigL at ERK ZOO_SPARSITY over the per_neuron
+  generator's masks, depthwise kernels excluded by the mask rule."""
+  import functools
+  from rigl_tpu_torch.models import registry
+  from rigl_tpu_torch.sparsity import masks as masks_lib
+  from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
+  from rigl_tpu_torch.transforms import algorithms
+  from rigl_tpu_torch.transforms.sparse_training import SparseTraining
+  model = registry.create_model(
+      name, dtype=dtype, generator=torch.Generator().manual_seed(SEED + 22),
+      device=device, **kw).to(dtype)
+  dense = set(getattr(model, 'dense_layer_paths', list)())
+
+  def rule(path, leaf):
+    return path not in dense and masks_lib.default_mask_rule(path, leaf)
+  freq = next(z[5] for z in ZOO if z[0] == name)
+  st = SparseTraining(
+      functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9,
+                        nesterov=True),
+      algorithms.RigL(schedule=UpdateSchedule(
+          begin_step=0, end_step=25000, frequency=freq, drop_fraction=0.3,
+          drop_fraction_anneal='cosine')),
+      distribution='erdos_renyi_kernel', default_sparsity=ZOO_SPARSITY,
+      mask_rule=rule, mask_generator='per_neuron')
+  return model, st, dense
+
+
+def _zoo_f64_step(torch, name, kw, device, masks, batch):
+  """(loss, {path: dense gradient on the CPU}) of the first step's loss in
+  float64 on `device`, from the seeded initial weights, `masks` and
+  `batch`, BatchNorm statistics frozen."""
+  from rigl_tpu_torch.models.common import frozen_batch_stats
+  from rigl_tpu_torch.sparsity import masks as masks_lib
+  from rigl_tpu_torch.train import steps
+  model, _, _ = _zoo_setup(torch, name, kw, device, torch.float64)
+  params = masks_lib.param_dict(model)
+  eff = {p: ((t.detach() * masks[p].to(device, torch.float64))
+             .requires_grad_() if p in masks else t)
+         for p, t in params.items()}
+  loss_fn = steps.make_loss_fn(model, 1e-4, 0.1)
+  b = {'image': batch['image'].to(device, torch.float64),
+       'label': batch['label'].to(device)}
+  with frozen_batch_stats(model):
+    loss, _ = loss_fn(eff, b)
+  grads = torch.autograd.grad(loss, list(eff.values()))
+  return float(loss.detach()), {p: g.detach().cpu()
+                                for p, g in zip(eff, grads)}
+
+
+def _zoo_model_run(torch, device, card, name, kw, batch_size, dataset,
+                   n_steps, freq):
+  """Phase 22 for one model (module docstring); returns its record."""
+  import numpy as np
+  from rigl_tpu_torch.data import datasets, pipeline
+  from rigl_tpu_torch.train import steps
+  t_start = time.perf_counter()
+  model, st, dense = _zoo_setup(torch, name, kw, device, torch.float32)
+  state = steps.init_train_state(SEED, model, st)
+  masks = state.sparse.masks
+  check(not dense & set(masks), f'zoo {name}: a depthwise kernel is masked')
+  init_counts = {p: int(m.sum()) for p, m in masks.items()}
+  fan_ins = {p: sorted(set(m.reshape(-1, m.shape[-1]).sum(0).tolist()))
+             for p, m in masks.items()}
+  uneven = [p for p, f in fan_ins.items() if len(f) != 1]
+  check(not uneven, f'zoo {name}: per_neuron fan-ins differ at {uneven}')
+  n_updates = len(range(0, n_steps, freq))
+  hints = st.predict_update_iters(n_steps + n_updates)
+  train, _, info = datasets.create_dataset(
+      dataset, batch_size, n_synthetic=batch_size * (len(hints) + 2),
+      seed=SEED)
+  check(info['source'] == 'synthetic', f'zoo {name}: data {info}')
+  it = pipeline.prefetch_to_device(train.repeat(), 2, device)
+  first = next(it)
+  check(first['image'].device == device,
+        f'zoo {name}: prefetch gave {first["image"].device}')
+  # The first step in float64 on the card and on the CPU, from the same
+  # weights, masks and batch (ZOO_F64_RTOL).
+  cpu_batch = {k: v.cpu() for k, v in first.items()}
+  loss_g, grads_g = _zoo_f64_step(torch, name, kw, device, masks, cpu_batch)
+  loss_c, grads_c = _zoo_f64_step(torch, name, kw, 'cpu', masks, cpu_batch)
+  loss_err = abs(loss_g - loss_c) / abs(loss_c)
+  grad_errs = {p: float((g - grads_c[p]).abs().max()
+                        / grads_c[p].abs().max().clamp(min=1e-30))
+               for p, g in grads_g.items()}
+  worst = max(grad_errs, key=grad_errs.get)
+  hot = steps.make_train_step(model, st, weight_decay=1e-4,
+                              label_smoothing=0.1, update_hint=False)
+  upd = steps.make_train_step(model, st, weight_decay=1e-4,
+                              label_smoothing=0.1, update_hint=True)
+  events, progress, counts_after, batch = [], [], [], first
+  torch.cuda.synchronize()
+  for i, hint in enumerate(hints):
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    state, m = (upd if hint else hot)(state, batch)
+    ev[1].record()
+    events.append(ev)
+    progress.append(dict(step=int(m['step']),
+                         updated=bool(m['mask_updated']),
+                         hint_ok=bool(m.get('update_hint_ok', True)),
+                         loss=float(m['loss'])))
+    if progress[-1]['updated']:
+      counts = {p: int(mk.sum()) for p, mk in state.sparse.masks.items()}
+      counts_after.append(counts)
+      moved = [p for p in counts if counts[p] != init_counts[p]]
+      check(not moved, f'zoo {name}: active counts moved at {moved[:3]}')
+    if i + 1 < len(hints):
+      batch = next(it)
+  torch.cuda.synchronize()
+  step_ms = [a.elapsed_time(b) for (a, b), p in zip(events, progress)
+             if not p['updated']]
+  losses = [p['loss'] for p in progress]
+  upd_steps = [p['step'] for p in progress if p['updated']]
+  # The device-busy share: two more hot steps on the last batch under the
+  # profiler, against two timed on the host clock.
+  prof = profiled_kernel_time(torch, lambda: hot(state, batch), 2)
+  t0 = time.perf_counter()
+  for _ in range(2):
+    hot(state, batch)
+  torch.cuda.synchronize()
+  wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+  busy = (None if prof['kernel_us_per_step'] is None
+          else prof['kernel_us_per_step'] / 1e3 / wall_ms)
+  zeroed = [p for p in dense if not bool((state.params[p] != 0).all())]
+  log(f'zoo {name} ({card}): {n_steps} steps in {len(progress)} '
+      f'iterations, updates at steps {upd_steps}; step '
+      f'{float(np.median(step_ms)):.2f} ms (median, CUDA events), busy '
+      f'{busy if busy is None else round(busy, 3)}; losses '
+      f'{[round(x, 4) for x in losses]}; {len(masks)} masked layers at '
+      f'their init counts after each update, fan-ins equal at init; '
+      f'{len(dense)} depthwise kernels unmasked, {len(zeroed)} zeroed')
+  by_layer = [(p, init_counts[p], int(fan_ins[p][0])) for p in init_counts]
+  log(f'  (layer, active count, fan-in) at init: {by_layer}; active counts '
+      f'after each update: {[list(c.values()) for c in counts_after]}')
+  log(f'  first step, float64 card vs CPU: loss {loss_g:.9f} vs '
+      f'{loss_c:.9f} (rel {loss_err:.2e}); max rel grad err '
+      f'{grad_errs[worst]:.2e} at {worst} (tol {ZOO_F64_RTOL})')
+  check(loss_err <= ZOO_F64_RTOL, f'zoo {name}: f64 loss rel {loss_err}')
+  check(grad_errs[worst] <= ZOO_F64_RTOL,
+        f'zoo {name}: f64 grad {worst} rel {grad_errs[worst]}')
+  check(all(p['hint_ok'] for p in progress), f'zoo {name}: a hint missed')
+  check(progress[-1]['step'] == n_steps,
+        f'zoo {name}: ended at step {progress[-1]["step"]}')
+  check(upd_steps == list(range(0, n_steps, freq)),
+        f'zoo {name}: updates at {upd_steps}')
+  check(all(np.isfinite(losses)), f'zoo {name}: non-finite loss {losses}')
+  check(not zeroed, f'zoo {name}: depthwise weights zeroed at {zeroed[:3]}')
+  rec = dict(card=card, batch=batch_size, image=list(info['shape']),
+             steps=n_steps, iterations=len(progress),
+             update_steps=upd_steps, losses=losses,
+             step_ms=float(np.median(step_ms)), step_ms_all=step_ms,
+             busy=busy, profiled_step_wall_ms=wall_ms,
+             kernel_us_per_step=prof['kernel_us_per_step'],
+             masked_layers=len(masks), active=sum(init_counts.values()),
+             active_by_layer=init_counts, counts_after_updates=counts_after,
+             fan_in_by_layer={p: int(f[0]) for p, f in fan_ins.items()},
+             depthwise_unmasked=len(dense),
+             first_step_f64=dict(loss_card=loss_g, loss_cpu=loss_c,
+                                 loss_rel_err=loss_err,
+                                 max_grad_rel_err=grad_errs[worst],
+                                 worst=worst, tol=ZOO_F64_RTOL),
+             phase_s=time.perf_counter() - t_start)
+  del model, st, state, hot, upd, it
+  torch.cuda.empty_cache()
+  return rec
+
+
+def phase_zoo(torch, device, card):
+  """Phase 22: the dense-masked zoo (module docstring, constants ZOO_*).
+  Returns its record; every figure stands beside the card's name and
+  power limit."""
+  return {name: _zoo_model_run(torch, device, card, name, kw, batch, data,
+                               n, freq)
+          for name, kw, batch, data, n, freq in ZOO}
+
+
 T0 = time.perf_counter()
 
 
@@ -3569,6 +3784,7 @@ def main():
     mlp_launches, block_mlp = phase_block_mlp(torch, device)
     flash_f32_points = phase_flash(torch, device, torch.float32)
     f32_launches, f32_step = phase_f32_train_step(torch, device)
+    zoo = phase_zoo(torch, device, card)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -3751,7 +3967,7 @@ def main():
             'history': dict(v6_fwd_bwd=history_points['v6_fwd_bwd'],
                             arms_launches=arms_launches,
                             mlp_launches=mlp_launches, block_mlp=block_mlp),
-            'f32_train_step': f32_step,
+            'f32_train_step': f32_step, 'zoo': zoo,
             'wall_s': time.perf_counter() - T0}
   log(f'chip_smoke wall time: {record["wall_s"]:.1f} s')
   print(json.dumps(record), flush=True)

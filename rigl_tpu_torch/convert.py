@@ -22,6 +22,10 @@ occupancy grids, Adam's slots and counts, counters, SNFS's EMA grids), and
 `packed_classifier_trainer_from_jax` for PackedClassifierTrainer (params,
 occupancy grids, momentum traces, counters, SNFS's EMA grids).
 
+`load_jax_variables(model, variables)` copies the variables of a model of
+the JAX zoo (models/registry.py: params, batch_stats and the masked
+layers' masks, as numpy) into the port's model of the same name, by path.
+
 `train_state_from_jax(model, st, state)` turns a JAX dense-masked
 TrainState (rigl_tpu/train/train_state.py: params, batch_stats, the optax
 momentum trace and the SparseState with its block_packs, as numpy) into
@@ -219,6 +223,33 @@ def _pack_entry(entry, device):
   return torch.from_numpy(np.array(entry, np.int32)).to(device)
 
 
+def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
+  """Copies a flax model's variables into the port's `model`, by path:
+  'params' into its parameters, 'batch_stats' into its BatchNorm buffers
+  and 'masks' (the masked layers of layers/masked.py) into its
+  `kernel_mask` buffers.  `variables`: {'params': tree, 'batch_stats':
+  tree, 'masks': tree} of numpy arrays (jax.tree.map(np.asarray, ...));
+  a missing collection counts as empty.  Every path must match."""
+  from rigl_tpu_torch.sparsity import masks as masks_lib
+  params = {masks_lib.path_str(n): t for n, t in model.named_parameters()}
+  buffers = {masks_lib.path_str(n): t for n, t in model.named_buffers()}
+  src_params = _paths(variables.get('params') or {})
+  src_buffers = _paths(variables.get('batch_stats') or {})
+  src_buffers.update({p + '_mask': v for p, v in
+                      _paths(variables.get('masks') or {}).items()})
+  if set(src_params) != set(params) or set(src_buffers) != set(buffers):
+    raise ValueError(
+        f'JAX paths do not match the model: params '
+        f'{sorted(set(src_params) ^ set(params))[:6]}, buffers '
+        f'{sorted(set(src_buffers) ^ set(buffers))[:6]}')
+  with torch.no_grad():
+    for p, t in params.items():
+      t.copy_(torch.from_numpy(np.array(src_params[p])))
+    for p, t in buffers.items():
+      t.copy_(torch.from_numpy(np.array(src_buffers[p])))
+  return model
+
+
 def train_state_from_jax(model: torch.nn.Module, st, state):
   """The port's dense-masked TrainState (train/train_state.py) for `model`
   under `st` (transforms/sparse_training.py), holding a JAX TrainState's
@@ -240,20 +271,10 @@ def train_state_from_jax(model: torch.nn.Module, st, state):
   from rigl_tpu_torch.sparsity import masks as masks_lib
   from rigl_tpu_torch.train.train_state import TrainState
   device = next(model.parameters()).device
+  load_jax_variables(model, {'params': state['params'],
+                             'batch_stats': state.get('batch_stats')})
   params = masks_lib.param_dict(model)
   stats = {masks_lib.path_str(n): b for n, b in model.named_buffers()}
-  src = _paths(state['params'])
-  src_stats = _paths(state.get('batch_stats') or {})
-  if set(src) != set(params) or set(src_stats) != set(stats):
-    raise ValueError(
-        f'JAX paths do not match the model: params '
-        f'{sorted(set(src) ^ set(params))[:6]}, batch_stats '
-        f'{sorted(set(src_stats) ^ set(stats))[:6]}')
-  with torch.no_grad():
-    for p, t in params.items():
-      t.copy_(torch.from_numpy(np.array(src[p])))
-    for p, t in stats.items():
-      t.copy_(torch.from_numpy(np.array(src_stats[p])))
   optimizer, sstate = st.init(0, params)
   if state.get('momentum') is not None:
     trace = _paths(state['momentum'])

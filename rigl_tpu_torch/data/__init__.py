@@ -1,1 +1,2 @@
-"""Dataset loaders of the port (numpy only)."""
+"""Input pipelines of the port: dataset loaders, batching, augmentation
+and device prefetch."""

@@ -1,24 +1,22 @@
-"""Dataset loaders for the packed drivers: MNIST from raw idx files,
-CIFAR-10 from its binary or python-pickle batches, with the learnable
-synthetic fallback of identical shapes.
+"""Dataset loaders: MNIST and CIFAR-10 from raw files, ImageNet from
+TFRecords, with the learnable synthetic fallback of identical shapes.
 
-Counterpart of the part of rigl_tpu/data/datasets.py that
-drivers/packed_mlp.py and drivers/packed_conv.py use, in numpy only: the
-same parsers, the same synthetic task from the same seeds (so both
-packages see the same arrays), MNIST's normalization x/255 - 0.5 and
-CIFAR's per-image standardization (rigl_tpu/data/pipeline.py).
+Counterpart of rigl_tpu/data/datasets.py, in numpy only: the same parsers,
+the same synthetic task from the same seeds (so both packages see the
+same arrays) and the same normalizations: MNIST x/255 - 0.5, CIFAR per-image
+standardization (pipeline.py), ImageNet (x - MEAN_RGB) / STDDEV_RGB.
 
-For CIFAR-10 the train split's images stay RAW uint8, as in JAX: there the
-pad-crop-flip augmentation and the standardization run only in the
-pipeline's epoch iterators, which the packed trainers never use (they
-sample from the arrays), so the JAX packed-conv driver trains on raw
-pixels; the eval split is standardized.  The iterators, the augmentation
-and ImageNet are not ported yet and raise.
+`create_dataset` returns pipeline.ArrayDatasets, as JAX's does.  For
+CIFAR-10 the train split's images stay RAW uint8 and its epoch iterators
+apply pad-crop-flip, then the standardization; the packed trainers sample
+from the arrays and never run those iterators, so the packed-conv driver
+trains on raw pixels, as JAX's does.  ImageNet reads TFRecords when
+`data_dir` holds them (data/imagenet_tfrecord.py, which needs TensorFlow)
+and is synthetic otherwise.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import gzip
 import os
 import pickle
@@ -26,6 +24,12 @@ import struct
 from typing import Optional, Tuple
 
 import numpy as np
+
+from rigl_tpu_torch.data import pipeline
+from rigl_tpu_torch.data.pipeline import ArrayDataset, standardize_per_image
+
+MEAN_RGB = np.array([0.485 * 255, 0.456 * 255, 0.406 * 255], np.float32)
+STDDEV_RGB = np.array([0.229 * 255, 0.224 * 255, 0.225 * 255], np.float32)
 
 
 # ---------------------------------------------------------------- parsers --
@@ -102,17 +106,6 @@ def load_cifar10_arrays(data_dir: str) -> Optional[Tuple]:
   return tx, ty, vx, vy
 
 
-def standardize_per_image(images: np.ndarray) -> np.ndarray:
-  """tf.image.per_image_standardization: each image to zero mean and unit
-  variance, the std floored at 1/sqrt(pixels)."""
-  images = images.astype(np.float32)
-  axes = tuple(range(1, images.ndim))
-  mean = images.mean(axis=axes, keepdims=True)
-  std = images.std(axis=axes, keepdims=True)
-  n = np.prod(images.shape[1:])
-  return (images - mean) / np.maximum(std, 1.0 / np.sqrt(n))
-
-
 # --------------------------------------------------------------- synthetic --
 def synthetic_arrays(num_classes: int, shape: Tuple[int, ...],
                      n_train: int = 4096, n_test: int = 1024,
@@ -134,43 +127,65 @@ def synthetic_arrays(num_classes: int, shape: Tuple[int, ...],
 
 
 # ---------------------------------------------------------------- factory --
-_SHAPES = {'mnist': ((28, 28, 1), 10), 'cifar10': ((32, 32, 3), 10)}
+_SHAPES = {
+    'mnist': ((28, 28, 1), 10),
+    'cifar10': ((32, 32, 3), 10),
+    'imagenet': ((224, 224, 3), 1000),
+}
 _LOADERS = {'mnist': load_mnist_arrays, 'cifar10': load_cifar10_arrays}
 
 
-def _not_ported(name: str):
-  if name not in _SHAPES:
-    raise NotImplementedError(f'dataset {name!r} is not ported yet '
-                              '(only mnist and cifar10)')
-
-
 def normalize(name: str, images: np.ndarray) -> np.ndarray:
-  _not_ported(name)
+  x = images.astype(np.float32)
+  if name == 'mnist':
+    return x / 255.0 - 0.5
   if name == 'cifar10':
-    return standardize_per_image(images)
-  return images.astype(np.float32) / 255.0 - 0.5
+    return standardize_per_image(x)
+  if name == 'imagenet':
+    return (x - MEAN_RGB) / STDDEV_RGB
+  return x / 255.0
 
 
-@dataclasses.dataclass
-class ArrayDataset:
-  """In-memory arrays of one split (the JAX pipeline's ArrayDataset
-  without its epoch iterators, which the packed trainer does not use)."""
-  images: np.ndarray
-  labels: np.ndarray
-  batch_size: int
+def _imagenet_tfrecords(data_dir, batch_size, eval_batch_size, seed,
+                        num_classes, shape):
+  """(train, eval, info) over the TFRecords in `data_dir`, or None where it
+  holds no train records."""
+  from rigl_tpu_torch.data import imagenet_tfrecord as itfr
+  if not itfr.has_tfrecords(data_dir, 'train'):
+    return None
+  itfr.require_tensorflow()
+  train = itfr.TFRecordImageNet(data_dir, 'train', batch_size,
+                                is_training=True, seed=seed)
+  eval_split = ('validation' if itfr.has_tfrecords(data_dir, 'validation')
+                else 'train')
+  test = itfr.TFRecordImageNet(data_dir, eval_split, eval_batch_size,
+                               is_training=False)
+  info = {'num_classes': num_classes, 'shape': shape,
+          'num_train': itfr.NUM_TRAIN, 'num_test': itfr.NUM_EVAL,
+          'source': 'tfrecords'}
+  return train, test, info
 
 
 def create_dataset(name: str, batch_size: int, eval_batch_size: int = 0,
                    data_dir: Optional[str] = None, seed: int = 0,
                    synthetic_ok: bool = True, n_synthetic: int = 4096):
-  """Returns (train ArrayDataset, eval ArrayDataset, info dict): the
-  synthetic task when `data_dir` holds no files of the dataset.  Eval
-  images are normalized; train images too, except CIFAR-10's, which stay
-  raw uint8 as JAX's train ArrayDataset holds them (module docstring)."""
-  _not_ported(name)
+  """Returns (train ArrayDataset, eval ArrayDataset, info dict): the files
+  or TFRecords under `data_dir`, else the synthetic task.  The CIFAR-10
+  train set augments (pad-crop-flip, then per-image standardization) in
+  its epoch iterators; the other sets hold normalized images."""
+  if name not in _SHAPES:
+    raise ValueError(f'Unknown dataset {name!r}')
   shape, num_classes = _SHAPES[name]
   eval_batch_size = eval_batch_size or batch_size
-  arrays = _LOADERS[name](data_dir) if data_dir else None
+  arrays = None
+  if data_dir:
+    if name == 'imagenet':
+      records = _imagenet_tfrecords(data_dir, batch_size, eval_batch_size,
+                                    seed, num_classes, shape)
+      if records is not None:
+        return records
+    else:
+      arrays = _LOADERS[name](data_dir)
   source = 'files' if arrays is not None else 'synthetic'
   if arrays is None:
     if not synthetic_ok:
@@ -181,9 +196,20 @@ def create_dataset(name: str, batch_size: int, eval_batch_size: int = 0,
                               n_test=max(n_synthetic // 4, eval_batch_size),
                               seed=seed)
   tx, ty, vx, vy = arrays
-  train = ArrayDataset(tx if name == 'cifar10' else normalize(name, tx), ty,
-                       batch_size)
-  test = ArrayDataset(normalize(name, vx), vy, eval_batch_size)
+  if name == 'cifar10':
+    raw_augment = pipeline.pad_crop_flip(4)
+
+    def augment(batch, rng):
+      batch = raw_augment({'image': batch['image'].astype(np.float32),
+                           'label': batch['label']}, rng)
+      batch['image'] = standardize_per_image(batch['image'])
+      return batch
+
+    train = ArrayDataset(tx, ty, batch_size, seed=seed, augment=augment)
+  else:
+    train = ArrayDataset(normalize(name, tx), ty, batch_size, seed=seed)
+  test = ArrayDataset(normalize(name, vx), vy, eval_batch_size,
+                      shuffle=False)
   info = {'num_classes': num_classes, 'shape': shape, 'num_train': len(tx),
           'num_test': len(vx), 'source': source}
   return train, test, info

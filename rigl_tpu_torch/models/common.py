@@ -9,10 +9,11 @@ parameter's torch name read with '/' for '.' is its flax path
 ('group2_block0/conv1/conv/kernel').
 
 BatchNorm is flax's, not torch's: momentum 0.9 on the running average
-(ra = 0.9 ra + 0.1 batch), epsilon 1e-5, statistics in float32 even under
-a bfloat16 dtype (var = E[x²] - E[x]², clipped at 0: the BIASED batch
-variance, also in the running average, where torch's BatchNorm keeps the
-unbiased one), and buffers named 'mean' and 'var' as flax's batch_stats.
+(ra = 0.9 ra + 0.1 batch), epsilon 1e-5, statistics in at least float32
+(float32 under a bfloat16 dtype; var = E[x²] - E[x]², clipped at 0: the
+BIASED batch variance, also in the running average, where torch's
+BatchNorm keeps the unbiased one), and buffers named 'mean' and 'var' as
+flax's batch_stats.
 `frozen_batch_stats(model)` stops the running averages from moving (the
 grow-score recomputation of a RigL update step runs the model a second
 time, and JAX discards that pass's statistics).
@@ -58,8 +59,9 @@ class BatchNorm(nn.Module):
 
   def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
     axes = tuple(range(x.dim() - 1))
+    stat_dtype = torch.promote_types(x.dtype, torch.float32)
     if train:
-      xf = x.to(torch.float32)
+      xf = x.to(stat_dtype)
       mean = xf.mean(axes)
       var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
       if self.update_stats:
@@ -71,7 +73,7 @@ class BatchNorm(nn.Module):
     else:
       mean, var = self.mean, self.var
     mul = torch.rsqrt(var + BATCH_NORM_EPSILON) * self.scale
-    y = (x.to(torch.float32) - mean) * mul + self.bias
+    y = (x.to(stat_dtype) - mean) * mul + self.bias
     return y.to(self.dtype)
 
 
@@ -110,15 +112,71 @@ def fixed_padding(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
 
 
 def conv_nhwc(x: torch.Tensor, w4d: torch.Tensor, stride: int,
-              padding: str) -> torch.Tensor:
-  """lax.conv_general_dilated(x, w4d, (stride, stride), padding) with NHWC
-  x and an HWIO kernel, by torch's conv on the channels-last view."""
+              padding: str, groups: int = 1) -> torch.Tensor:
+  """lax.conv_general_dilated(x, w4d, (stride, stride), padding,
+  feature_group_count=groups) with NHWC x and an HWIO kernel
+  (kh, kw, Cin / groups, Cout), by torch's conv on the channels-last
+  view."""
   if padding == 'SAME':
-    return conv2d_same(x, w4d, (stride, stride))
+    return conv2d_same(x, w4d, (stride, stride), groups=groups)
   if padding != 'VALID':
     raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
-  y = F.conv2d(x.permute(0, 3, 1, 2), w4d.permute(3, 2, 0, 1), stride=stride)
+  y = F.conv2d(x.permute(0, 3, 1, 2), w4d.permute(3, 2, 0, 1), stride=stride,
+               groups=groups)
   return y.permute(0, 2, 3, 1)
+
+
+def lecun_normal_init(shape, generator=None):
+  """N(0, 1 / fan_in) for a kernel whose last axis is its output
+  (flax's lecun_normal scale; flax truncates the normal at 2 sigma, and
+  tests carry JAX's values over with convert.py)."""
+  fan_in = math.prod(shape[:-1])
+  gdev = generator.device if generator is not None else None
+  return (torch.randn(tuple(shape), generator=generator, device=gdev)
+          / math.sqrt(fan_in))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+  """jnp.mean(x, axis=(1, 2)) of NHWC x: summed in at least float32,
+  returned in x's dtype."""
+  return x.to(torch.promote_types(x.dtype, torch.float32)).mean(
+      dim=(1, 2)).to(x.dtype)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+  """flax nn.max_pool(x, (window, window), strides=(stride, stride)) on
+  NHWC x, VALID (no padding)."""
+  y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+  return y.permute(0, 2, 3, 1)
+
+
+class Dropout(nn.Module):
+  """flax nn.Dropout(rate): in train mode, each value kept with probability
+  1 - rate and scaled by 1 / (1 - rate), the rest zeroed; identity in eval
+  mode.  The keep draws come from `generator`, which must live on the
+  activations' device."""
+
+  def __init__(self, rate: float, generator: Optional[torch.Generator]):
+    super().__init__()
+    self.rate, self.generator = rate, generator
+
+  def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    if not train or self.rate == 0.0:
+      return x
+    if self.rate == 1.0:
+      return torch.zeros_like(x)
+    keep_prob = 1.0 - self.rate
+    keep = torch.rand(x.shape, generator=self.generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def dropout_generator(generator: Optional[torch.Generator], device):
+  """The generator a model's Dropout draws from: `generator` as given, or
+  one seeded 0 on `device`."""
+  if generator is not None:
+    return generator
+  return torch.Generator(device=device).manual_seed(0)
 
 
 class _BlockConv(MasterWeight, nn.Module):

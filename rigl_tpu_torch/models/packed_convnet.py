@@ -50,24 +50,41 @@ def _normal(shape, fan_in, generator, device, dtype=torch.float32):
 
 
 class Conv(MasterWeight, nn.Module):
-  """flax nn.Conv(features, kernel_size, strides, padding='SAME',
-  feature_group_count=groups, use_bias=False): an HWIO float32 kernel
-  (kh, kw, Cin/groups, features), computed in `dtype`."""
+  """flax nn.Conv(features, kernel_size, strides, padding,
+  feature_group_count=groups, use_bias): an HWIO float32 kernel
+  (kh, kw, Cin/groups, features), from `kernel_init(shape, generator)`
+  if given, and with `use_bias` a zero-initialised bias; 'SAME' (XLA's
+  padding) or 'VALID', computed in `dtype`."""
 
   def __init__(self, in_features: int, features: int,
                kernel_size: Tuple[int, int], strides=(1, 1), groups: int = 1,
-               dtype: torch.dtype = torch.float32,
+               dtype: torch.dtype = torch.float32, padding: str = 'SAME',
+               use_bias: bool = False, kernel_init=None,
                generator: Optional[torch.Generator] = None, device='cuda'):
     super().__init__()
+    if padding not in ('SAME', 'VALID'):
+      raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
     kh, kw = kernel_size
     self.strides, self.groups, self.dtype = tuple(strides), groups, dtype
-    fan_in = kh * kw * in_features // groups
-    self.kernel = _normal((kh, kw, in_features // groups, features), fan_in,
-                          generator, device)
+    self.padding = padding
+    shape = (kh, kw, in_features // groups, features)
+    if kernel_init is None:
+      self.kernel = _normal(shape, kh * kw * in_features // groups,
+                            generator, device)
+    else:
+      self.kernel = nn.Parameter(kernel_init(shape, generator).to(device))
+    self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                 if use_bias else None)
 
   def forward(self, x):
-    return conv2d_same(x, self.compute_weight(), self.strides, self.dtype,
-                       self.groups)
+    w = self.compute_weight()
+    if self.padding == 'SAME':
+      y = conv2d_same(x, w, self.strides, self.dtype, self.groups)
+    else:
+      y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                   w.permute(3, 2, 0, 1), stride=self.strides,
+                   groups=self.groups).permute(0, 2, 3, 1)
+    return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Dense(MasterWeight, nn.Module):

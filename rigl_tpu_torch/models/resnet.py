@@ -146,7 +146,7 @@ class ResNet(nn.Module):
     x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
     for name in self.block_names:
       x = getattr(self, name)(x, train, block_masks)
-    x = x.to(torch.float32).mean(dim=(1, 2)).to(self.dtype)
+    x = common.global_avg_pool(x)
     return self.final_dense(x)
 
   def first_last_layer_map(self, prune_first_layer: bool,

@@ -1,9 +1,9 @@
-"""Per-layer sparsity distributions: uniform and Erdos-Renyi(-Kernel).
+"""Per-layer sparsity distributions: uniform, Erdos-Renyi(-Kernel) and the
+published STR tables.
 
 Counterpart of rigl_tpu/sparsity/distributions.py, which is numpy-only:
 the maths runs once on the host at setup time, so the port keeps it in
-numpy and the results are identical.  The STR tables are not ported yet
-(`get_sparsities(..., 'str', ...)` raises NotImplementedError).
+numpy and the results are identical.
 """
 
 from __future__ import annotations
@@ -123,6 +123,22 @@ def sparsities_erdos_renyi(
   return sparsities
 
 
+def sparsities_str(shapes: ShapeDict,
+                   default_sparsity: float) -> Dict[str, float]:
+  """The published STR per-layer ResNet-50 sparsities (str_sparsities.py)
+  at the operating point `default_sparsity`, keyed by the table's layer
+  names, which `shapes` must use."""
+  from rigl_tpu_torch.sparsity import str_sparsities
+  tables = str_sparsities.read_all()
+  if default_sparsity not in tables:
+    raise ValueError('sparsity: %f is not defined' % default_sparsity)
+  table = tables[default_sparsity]
+  try:
+    return {name: table[name] for name in shapes}
+  except KeyError as e:
+    raise ValueError(f'Layer {e} not present in STR table') from e
+
+
 def get_sparsities(
     shapes: ShapeDict,
     method: str,
@@ -130,7 +146,8 @@ def get_sparsities(
     custom_sparsity_map: Optional[Mapping[str, float]] = None,
     erk_power_scale: float = DEFAULT_ERK_SCALE,
 ) -> Dict[str, float]:
-  """method: 'random' / 'uniform', 'erdos_renyi' or 'erdos_renyi_kernel'."""
+  """method: 'random' / 'uniform', 'erdos_renyi', 'erdos_renyi_kernel'
+  or 'str'."""
   custom_sparsity_map = custom_sparsity_map or {}
   if method in ('erdos_renyi', 'erdos_renyi_kernel'):
     return sparsities_erdos_renyi(
@@ -142,7 +159,7 @@ def get_sparsities(
   elif method in ('random', 'uniform'):
     return sparsities_uniform(shapes, default_sparsity, custom_sparsity_map)
   elif method == 'str':
-    raise NotImplementedError('the STR sparsity tables are not ported yet')
+    return sparsities_str(shapes, default_sparsity)
   raise ValueError(
       'Method: %s is not a valid mask initialization method' % method)
 

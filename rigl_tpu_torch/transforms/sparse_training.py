@@ -32,8 +32,9 @@ What changes in PyTorch:
     `_grow_score` are the seams through which a replay injects recorded
     draws (tests/test_torch_golden_trajectories.py).
 
-`mask_generator` (structured init, sparsity/generators.py in JAX) is not
-ported yet and raises NotImplementedError.
+`mask_generator` names a structured initial mask (sparsity/generators.py:
+'per_neuron', 'symmetric', 'nm_2_4', ...), drawn per layer at the
+distribution's sparsity from the layer's generator.
 """
 
 from __future__ import annotations
@@ -145,11 +146,7 @@ class SparseTraining:
     # matmul view (tap cells for spatial convs); layers the block does not
     # divide stay element-granular.
     self.block = None if block is None else tuple(block)
-    if mask_generator is not None:
-      raise NotImplementedError(
-          'mask_generator (structured mask init, rigl_tpu/sparsity/'
-          'generators.py) is not ported yet: Slice 6 of the port')
-    self.mask_generator = None
+    self.mask_generator = mask_generator
     # Measured per-layer routing {mask path: 'dense' | 'tap' | 'matmul'}
     # overriding _compute_packs' default for the listed layers.
     self.block_routing = dict(block_routing or {})
@@ -225,6 +222,11 @@ class SparseTraining:
         elif algo.name == 'prune':
           mask_dict[p] = masks_lib.random_mask(
               gen, s, algo.initial_sparsity, self.mask_dtype, dev)
+        elif self.mask_generator is not None:
+          from rigl_tpu_torch.sparsity import generators
+          mask_dict[p] = generators.generate_mask(
+              self.mask_generator, gen, {p: s}, self.sparsities[p],
+              self.mask_dtype, dev)[p]
         elif self._layer_block(s) is not None:
           from rigl_tpu_torch.ops.block_mask import random_block_mask
           mask_dict[p] = random_block_mask(gen, s, self.sparsities[p],

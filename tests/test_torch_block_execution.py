@@ -40,6 +40,8 @@ from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
 from rigl_tpu_torch.train import steps
 from rigl_tpu_torch.transforms import algorithms
 from rigl_tpu_torch.transforms.sparse_training import SparseTraining
+from torch_threads import one_thread  # noqa: F401
+
 
 BLOCK = (8, 8)
 BM = 8

@@ -26,6 +26,8 @@ from rigl_tpu_torch.layers.block_sparse_dense import BlockSparseDense
 from rigl_tpu_torch.ops import block_sparse_v3 as tv3
 from rigl_tpu_torch.ops import block_sparse_v4 as tv4
 from rigl_tpu_torch.ops import conv as tconv
+from torch_threads import one_thread  # noqa: F401
+
 
 BLOCK = (8, 16)
 TOL = {'float32': 1e-5, 'bfloat16': 2e-2}

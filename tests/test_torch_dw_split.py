@@ -22,6 +22,8 @@ from rigl_tpu_torch.ops import block_sparse_conv as tbsc
 from rigl_tpu_torch.ops import block_sparse_packed as tbsp
 from rigl_tpu_torch.ops import block_sparse_v3 as tv3
 from rigl_tpu_torch.ops import dw_split
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 SMS = 132   # an H100's SM count; the kernels read the card's own

@@ -22,6 +22,8 @@ from rigl_tpu.models import packed_transformer as jpt
 from rigl_tpu_torch import convert
 from rigl_tpu_torch.models import packed_transformer as tpt
 from rigl_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 

@@ -29,6 +29,8 @@ from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
 from rigl_tpu_torch.transforms import algorithms
 from rigl_tpu_torch.transforms.sparse_training import (SparseState,
                                                        SparseTraining)
+from torch_threads import one_thread  # noqa: F401
+
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), 'golden')
 NPZ = os.path.join(GOLDEN_DIR, 'trajectory_traces.npz')

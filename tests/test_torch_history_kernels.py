@@ -31,6 +31,8 @@ from rigl_tpu_torch.ops import block_sparse as tv1
 from rigl_tpu_torch.ops import block_sparse_v2 as tv2
 from rigl_tpu_torch.ops import block_sparse_v3 as tv3
 from rigl_tpu_torch.ops import block_sparse_v6 as tv6
+from torch_threads import one_thread  # noqa: F401
+
 
 TOL = {'float32': 1e-5, 'bfloat16': 2e-2}
 DTYPES = {'float32': (jnp.float32, torch.float32),

@@ -28,6 +28,8 @@ from rigl_tpu_torch.ops import block_sparse_packed as tbsp
 from rigl_tpu_torch.ops import block_sparse_v3 as tv3
 from rigl_tpu_torch.ops import block_sparse_v4 as tv4
 from rigl_tpu_torch.ops import block_sparse_v6 as tv6
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 ROWS = 128   # packed_mm_wgmma_kernel's output tile rows (MM_TILE_ROWS)

@@ -25,6 +25,8 @@ from rigl_tpu_torch.ops import block_sparse_packed as tbsp
 from rigl_tpu_torch.ops import dw_split
 from rigl_tpu_torch.ops import mm_split
 from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 SMS = 132   # an H100's SMs

@@ -36,6 +36,8 @@ from rigl_tpu_torch.drivers import packed_conv as tdriver
 from rigl_tpu_torch.models import packed_convnet as tm
 from rigl_tpu_torch.train import packed_classifier as tpc
 from rigl_tpu_torch.transforms import packed_training as tpt
+from torch_threads import one_thread  # noqa: F401
+
 
 CFG = dict(sparsity=0.5, block=(16, 16), learning_rate=0.05, momentum=0.9,
            batch_size=8, maskupdate_begin_step=0, maskupdate_end_step=6,

@@ -22,6 +22,8 @@ from rigl_tpu.models import packed_convnet as jm
 from rigl_tpu_torch import convert
 from rigl_tpu_torch.layers import packed_conv as tpc
 from rigl_tpu_torch.models import packed_convnet as tm
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 

@@ -34,6 +34,8 @@ from rigl_tpu_torch import convert
 from rigl_tpu_torch.drivers import packed_lm as tdriver
 from rigl_tpu_torch.train import packed_lm as tlm
 from rigl_tpu_torch.transforms import packed_training as tpt
+from torch_threads import one_thread  # noqa: F401
+
 
 CFG = dict(vocab_size=64, num_layers=1, d_model=64, d_ff=128, num_heads=4,
            seq_len=32, sparsity=0.5, block=(16, 16), bm=32,

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from rigl_tpu.layers.packed_dense import _pad_rows
 from rigl_tpu.ops.pallas import block_sparse_packed as jbsp
 from rigl_tpu_torch.ops import block_sparse_packed as tbsp
+from torch_threads import one_thread  # noqa: F401
 
 
 def _occupancies():

@@ -32,6 +32,8 @@ from rigl_tpu_torch.layers.packed_dense import PackedDense
 from rigl_tpu_torch.ops import block_sparse_packed as tbsp
 from rigl_tpu_torch.train import packed_loop as tloop
 from rigl_tpu_torch.transforms import packed_training as tpt
+from torch_threads import one_thread  # noqa: F401
+
 
 BLK = (128, 128)
 K = N = 512
@@ -512,8 +514,14 @@ def test_datasets_match_jax():
   np.testing.assert_array_equal(ttr.images, jtr.images)
   np.testing.assert_allclose(tte.images, jte.images, rtol=1e-6, atol=1e-6)
   assert tinfo == jinfo
-  with pytest.raises(NotImplementedError, match='not ported'):
-    tdata.create_dataset('imagenet', 16)
+  # ImageNet without TFRecords: the synthetic task, normalized by
+  # MEAN_RGB / STDDEV_RGB, as in JAX.
+  ttr, tte, tinfo = tdata.create_dataset('imagenet', 4, n_synthetic=8)
+  jtr, jte, jinfo = jdata.create_dataset('imagenet', 4, n_synthetic=8)
+  for t, j in ((ttr, jtr), (tte, jte)):
+    np.testing.assert_array_equal(t.images, j.images)
+    np.testing.assert_array_equal(t.labels, j.labels)
+  assert tinfo == jinfo
 
 
 def test_driver_trains_resumes_and_refuses_other_methods(tmp_path, capsys):

@@ -24,6 +24,8 @@ from rigl_tpu.serve import decode as jdec
 from rigl_tpu_torch import convert
 from rigl_tpu_torch.models import packed_transformer as tpt
 from rigl_tpu_torch.serve import decode as tdec
+from torch_threads import one_thread  # noqa: F401
+
 
 B, T, P, V, L = 2, 10, 4, 11, 16
 KW = dict(num_layers=2, d_model=32, d_ff=64, num_heads=2, vocab_size=V)

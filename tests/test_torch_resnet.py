@@ -49,6 +49,8 @@ from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
 from rigl_tpu_torch.train import steps
 from rigl_tpu_torch.transforms import algorithms
 from rigl_tpu_torch.transforms.sparse_training import SparseTraining
+from torch_threads import one_thread  # noqa: F401
+
 
 WIDTH, BLOCK, BATCH, PX = 0.125, (16, 16), 2, 32
 SCHED = dict(begin_step=1, end_step=100, frequency=5, drop_fraction=0.3)

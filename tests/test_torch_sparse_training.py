@@ -29,6 +29,8 @@ from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
 from rigl_tpu_torch.transforms import algorithms
 from rigl_tpu_torch.transforms.sparse_training import (SparseState,
                                                        SparseTraining)
+from torch_threads import one_thread  # noqa: F401
+
 
 SHAPES = {'a/kernel': (12, 16), 'b/kernel': (16, 8)}
 RTOL, ATOL = 1e-6, 1e-7
@@ -228,8 +230,26 @@ def test_premask_rejections_and_mask_generator():
   with pytest.raises(ValueError, match='random_normal'):
     SparseTraining(None, algorithms.SET(grow_init='random_normal'),
                    premask_params=True)
-  with pytest.raises(NotImplementedError, match='Slice 6'):
-    SparseTraining(None, algorithms.SET(), mask_generator='per_neuron')
+  # A structured mask generator initialises each layer at the
+  # distribution's sparsity, as JAX's does (tests/test_sparse_training.py
+  # test_structured_mask_generator_init): per_neuron gives every output
+  # neuron JAX's fan-in.
+  jst = JST(optax.sgd(0.1), jalgorithms.SCRATCH, distribution='uniform',
+            default_sparsity=0.5, mask_generator='per_neuron')
+  tst = SparseTraining(functools.partial(torch.optim.SGD, lr=0.1),
+                       algorithms.get_algorithm('scratch'),
+                       distribution='uniform', default_sparsity=0.5,
+                       mask_generator='per_neuron')
+  _, jstate = jst.init(jax.random.key(0), _tree(
+      {p: jnp.zeros(s) for p, s in SHAPES.items()}))
+  _, tstate = tst.init(0, {p: torch.zeros(s) for p, s in SHAPES.items()})
+  assert tst.sparsities == jst.sparsities
+  assert tst.static_block_counts() == jst.static_block_counts() == {}
+  for p in SHAPES:
+    fan_ins = tstate.masks[p].sum(0).numpy()
+    assert len(set(fan_ins.tolist())) == 1
+    np.testing.assert_array_equal(fan_ins,
+                                  np.asarray(jstate.masks[p]).sum(0))
 
 
 def test_eval_step_matches_jax():

@@ -58,8 +58,9 @@ def test_bad_inputs_raise_like_jax():
       mod.get_sparsities(shapes, 'bogus', 0.5)
     with pytest.raises(ValueError, match='default_sparsity'):
       mod.get_sparsities(shapes, 'uniform', 1.5)
-  with pytest.raises(NotImplementedError):
-    td.get_sparsities(shapes, 'str', 0.8)
+    # STR: 0.8 is not one of the table's operating points.
+    with pytest.raises(ValueError, match='is not defined'):
+      mod.get_sparsities(shapes, 'str', 0.8)
 
 
 @pytest.mark.parametrize('path', [

@@ -18,6 +18,8 @@ import torch
 
 from rigl_tpu.ops.pallas import block_sparse_conv as jbsc
 from rigl_tpu_torch.ops import block_sparse_conv as tbsc
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 

@@ -31,6 +31,8 @@ from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
 from rigl_tpu_torch.train import steps
 from rigl_tpu_torch.transforms import algorithms
 from rigl_tpu_torch.transforms.sparse_training import SparseTraining
+from torch_threads import one_thread  # noqa: F401
+
 
 SOURCE = Path(tbsc.__file__).resolve().parent.parent / 'csrc' / 'tap_conv.cu'
 BF16, F32 = torch.bfloat16, torch.float32

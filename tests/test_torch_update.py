@@ -25,6 +25,8 @@ from rigl_tpu.sparsity import update as jup
 from rigl_tpu_torch.ops import block_mask as tbm
 from rigl_tpu_torch.sparsity import schedules as tsch
 from rigl_tpu_torch.sparsity import update as tup
+from torch_threads import one_thread  # noqa: F401
+
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           'golden')
