@@ -195,7 +195,29 @@ package.  Phases, each fatal on failure:
      mask and no zero on a depthwise kernel, and the first step's loss and
      gradients in float64 on the card against the same step in float64
      on the CPU (ZOO_F64_RTOL); printed: step ms (CUDA events), the
-     device-busy share (torch.profiler) and each step's loss.
+     device-busy share (torch.profiler) and each step's loss;
+ 23. the config-driven Trainer, a main path of train/trainer.py, its
+     checkpoints, eval loop and export and of drivers/train.py and
+     drivers/cifar.py (constants TRAINER_*): the repo's ResNet-50 preset
+     (configs/imagenet_resnet50_rigl_erk80.json: ERK 0.8, RigL,
+     premask_params, static_update_steps; float32) through
+     drivers.train, batch 128, 12 steps with updates at 0, 5 and 10,
+     block (128, 128) executed on its 29 1x1s (the tap conv's mm branch
+     and the dense-storage dw) and the 3x3s that block divides (the tf32
+     branch and tap_dw_kernel).  Checked: the batches against
+     simulate_step_sequence and the final step, every block layer's count
+     after each update, global sparsity within 0.01 of ERK's at init,
+     the hints and the premask invariant, one tap launch of each kind
+     per routed conv on every iteration and no other kernel, one step's
+     loss and gradients against dense-times-mask (TRAINER_*_RTOL),
+     the checkpoints, a second trainer that auto-resumes (params, masks
+     and momentum equal to the first's final state) and runs on to step
+     14, the eval loop against evaluate(), and export_model ->
+     load_for_inference on the card against the trained model's logits;
+     printed: step ms (CUDA events) of the plain and the update steps,
+     the device-busy share, peak memory, launches per iteration and the
+     losses.  Then WRN-22-2 through drivers.cifar at its defaults, 10
+     steps (finite losses, the batch count, sparsity 0.9).
 
 Every dw point (phases 3, 12, 15 and 19) also logs how its kernel split
 the reduction (ops/dw_split.py): S slices, the grid and the workspace's
@@ -204,8 +226,8 @@ it and read just after.  The line before the last is the JSON record: `kernels`
 (per kernel: the sums over its bf16 points, f32 for the f32 flash
 kernels and the f32 dw, of ms, plain_ms, bound_ms and library_ms, its
 launches on the main paths, and every point), `serving`, `training`,
-`train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step`, `zoo`
-and the script's wall time.
+`train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step`, `zoo`,
+`trainer` and the script's wall time.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints
 no result.
@@ -317,6 +339,55 @@ ZOO_SPARSITY = 0.8
 # take the loss from float32 logits, as the package does; a 6e-8 change
 # of that float32 loss moves the float64 gradients by at most 8e-8 (CPU).
 ZOO_F64_RTOL = 1e-5
+
+# The trainer (phase 23): the repo's ResNet-50 preset (ERK 0.8, RigL,
+# premask_params, static_update_steps; float32, as in JAX) through
+# drivers.train, cut as TRAINER_REDUCED says, with block execution of its
+# 1x1s and of the 3x3s that block (128, 128) divides.
+TRAINER_CONFIG = 'configs/imagenet_resnet50_rigl_erk80.json'
+TRAINER_OVERRIDES = (
+    'batch_size=128', 'train_steps=12', 'maskupdate_frequency=5',
+    'log_every=4', 'checkpoint_every=6', 'n_synthetic=256',
+    'block_width=128', 'block_height=128', 'block_execution=True',
+    'block_conv3x3=True')
+TRAINER_REDUCED = {
+    'batch_size': '1024 -> 128: 1024 images of activations at 224 px in '
+                  'float32 do not fit 80 GB',
+    'train_steps': '112590 -> 12 (resumed to 14)',
+    'maskupdate_frequency': '100 -> 5, so that 12 steps hold updates',
+    'n_synthetic': 'synthetic ImageNet (no ImageNet in the repo), 256 '
+                   'images'}
+TRAINER_RESUME_STEPS = 14
+# The port's kernels on the trainer's path, whose device time a plain step
+# is summed by name.
+TRAINER_KERNELS = ('tap_conv_tf32_kernel', 'tap_w_split_kernel',
+                   'tap_dw_kernel', 'tap_dw_reduce_kernel',
+                   'packed_mm_ffma_kernel', 'packed_dw_3xtf32_kernel',
+                   'packed_dw_reduce_kernel')
+# One float32 step on the trained state, the tap kernels (3xTF32 3x3s,
+# FFMA 1x1s) against dense-times-mask on cuDNN with TF32 off: the same
+# sums in another order through 53 convs and BatchNorms, each error over
+# its own largest plain value; a wrong tap or block would be of order 1.
+# Measured (H100, four runs): the loss's relative error 0, so
+# TRAINER_LOSS_RTOL; the routed convs' kernel gradients 3.9e-4 to 8.4e-4,
+# every conv and dense kernel's the same in the two runs that read them,
+# so TRAINER_KERNEL_RTOL on all of them, which plain TF32 products
+# exceed: cuDNN in TF32 against the kernels, as the phase also prints,
+# gave 6.3e-2 and 8.1e-2 on the routed convs' gradients (the loss 4.6e-7
+# and 6.8e-7); the BatchNorm scales' and biases' gradients 9.4e-3 to
+# 1.96e-2, largest at group 2-3's biases (sums of the whole batch's gy, E[x^2] -
+# E[x]^2 in float32: two evaluation orders of one float32 model differ by
+# up to 2e-2 and 7e-2 on the CPU alone, ZOO_F64_RTOL's note), so
+# TRAINER_BN_RTOL.
+TRAINER_LOSS_RTOL, TRAINER_KERNEL_RTOL, TRAINER_BN_RTOL = 1e-5, 5e-3, 5e-2
+# The exported model's logits against the trained model's eval-mode ones
+# (the same dense convs on the same w * m), and the eval loop's metrics
+# against evaluate() on the state.
+TRAINER_EXPORT_RTOL = 1e-5
+# WRN-22-2 through drivers.cifar at its defaults (RigL, s = 0.9, batch
+# 128, the cifar schedule) on synthetic CIFAR-10.
+TRAINER_WRN = ('--train_steps=10', '--maskupdate_frequency=5',
+               '--log_every=5')
 
 
 class SmokeFailure(Exception):
@@ -1023,6 +1094,9 @@ def _counts():
               flash_dq_f32=fa.flash_bwd_dq_f32_launches,
               tap_fwd=bsc.tap_conv_fwd_launches,
               tap_dx=bsc.tap_conv_dx_launches, tap_dw=bsc.tap_dw_launches,
+              tap_mm_fwd=bsc.tap_mm_fwd_launches,
+              tap_mm_dx=bsc.tap_mm_dx_launches,
+              tap_mm_dw=bsc.tap_mm_dw_launches,
               v4_fwd=v4.v4_fwd_launches, v4_dx=v4.v4_dx_launches,
               v3_fwd=v3.v3_fwd_launches, v3_dx=v3.v3_dx_launches,
               dw_gather=v3.dw_gather_launches, gather=v2.gather_launches,
@@ -1049,6 +1123,8 @@ def _zero_counts():
   fa.flash_bwd_dq_f32_launches = 0
   bsc.tap_conv_fwd_launches = bsc.tap_conv_dx_launches = 0
   bsc.tap_dw_launches = 0
+  bsc.tap_mm_fwd_launches = bsc.tap_mm_dx_launches = 0
+  bsc.tap_mm_dw_launches = 0
   v4.v4_fwd_launches = v4.v4_dx_launches = 0
   v3.v3_fwd_launches = v3.v3_dx_launches = v3.dw_gather_launches = 0
   v3.dense_control_launches = v2.gather_launches = 0
@@ -2481,13 +2557,14 @@ def _rn50_counts_ok(st, state):
   return len(counts)
 
 
-def _rn50_step_vs_plain(torch, model, st, state, batch, routing):
+def _rn50_step_vs_plain(torch, model, st, state, batch, routing,
+                        plain_tf32=False):
   """One step's loss and per-tensor gradients through the kernels (the
   block packs of the paths in `routing`: the 'matmul' route's flat
   packings or the tap route's TapPacks) against the plain path
-  (dense-times-mask execution on cuDNN), from the same state, statistics
-  frozen; the gradients of masked tensors compared on their active
-  entries."""
+  (dense-times-mask execution on cuDNN, in TF32 with `plain_tf32`), from
+  the same state, statistics frozen; the gradients of masked tensors
+  compared on their active entries."""
   from rigl_tpu_torch.models.common import frozen_batch_stats
   from rigl_tpu_torch.train import steps
   loss_fn = steps.make_loss_fn(model, 1e-4, 0.1)
@@ -2495,9 +2572,11 @@ def _rn50_step_vs_plain(torch, model, st, state, batch, routing):
   out = {}
   with frozen_batch_stats(model):
     for name, e in (('kernel', entries), ('plain', None)):
+      torch.backends.cudnn.allow_tf32 = plain_tf32 and e is None
       loss, _ = loss_fn(state.params, batch, e)
       grads = torch.autograd.grad(loss, list(state.params.values()))
       out[name] = (float(loss.detach()), dict(zip(state.params, grads)))
+  torch.backends.cudnn.allow_tf32 = False
   loss_err = abs(out['kernel'][0] - out['plain'][0]) / abs(out['plain'][0])
   errs = {}
   for p, g in out['kernel'][1].items():
@@ -3734,6 +3813,371 @@ def phase_zoo(torch, device, card):
           for name, kw, batch, data, n, freq in ZOO}
 
 
+
+# ---------------------------------------------------------- the trainer (23) --
+def _trainer_snapshot(state):
+  """Copies of a TrainState's params, masks and momentum buffers."""
+  from rigl_tpu_torch.train.checkpoint import optimizer_slots
+  slots = optimizer_slots(state.optimizer, list(state.params))
+  return dict(
+      params={p: t.detach().clone() for p, t in state.params.items()},
+      masks={p: m.clone() for p, m in state.sparse.masks.items()},
+      momentum={p: s['momentum_buffer'].clone() for p, s in slots.items()
+                if 'momentum_buffer' in s})
+
+
+def _trainer_instrument(torch, trainer, rec):
+  """Wraps the trainer's train steps (its _make_step, which train() calls
+  for the plain and the update step): each iteration's CUDA events, launch
+  counts by counter, hint, loss and step go into rec['iters']; after an
+  update, every block layer's active count is checked against its static
+  count; with rec['capture_first'] the state the first iteration starts
+  from is copied into rec['first_state']."""
+  make = trainer._make_step
+
+  def wrapped_make(update_hint=None):
+    step = make(update_hint)
+
+    def run(state, batch):
+      if rec.get('capture_first') and 'first_state' not in rec:
+        rec['first_state'] = _trainer_snapshot(state)
+      before = _counts()
+      ev = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+      ev[0].record()
+      new, m = step(state, batch)
+      ev[1].record()
+      after = _counts()
+      rec['iters'].append(dict(
+          hint=update_hint, events=ev, loss=m['loss'], step=int(m['step']),
+          updated=bool(m['mask_updated']),
+          hint_ok=bool(m.get('update_hint_ok', True)),
+          launches={k: after[k] - before[k] for k in after}))
+      if m['mask_updated']:
+        _rn50_counts_ok(trainer.sparse_training, new)
+      rec['last'] = (step, batch)
+      return new, m
+    return run
+
+  trainer._make_step = wrapped_make
+
+
+def _trainer_rn50(torch, device, card, root, tmp):
+  """Phase 23's ResNet-50 run (module docstring, constants TRAINER_*):
+  returns (launches of the main path's run, record)."""
+  import numpy as np
+  from rigl_tpu_torch.drivers import common
+  from rigl_tpu_torch.drivers import train as train_driver
+  from rigl_tpu_torch.ops import block_mask as bm_lib
+  from rigl_tpu_torch.sparsity import masks as masks_lib
+  from rigl_tpu_torch.train import trainer as trainer_lib
+  from rigl_tpu_torch.train.checkpoint import CheckpointManager
+  from rigl_tpu_torch.train.eval_loop import evaluate_checkpoints
+  from rigl_tpu_torch.train.export import export_model, load_for_inference
+  from torch.func import functional_call
+  out = str(Path(tmp) / 'rn50')
+  argv = [f'--config={root / TRAINER_CONFIG}', f'--output_dir={out}',
+          '--device=cuda'] + [f'--override={o}' for o in TRAINER_OVERRIDES]
+  t_start = time.perf_counter()
+  t1, out_dir = train_driver.build_trainer(argv)
+  cfg, st = t1.config, t1.sparse_training
+  check(out_dir == out and cfg.checkpoint_dir == out,
+        f'trainer: output dir {out_dir}, checkpoints {cfg.checkpoint_dir}')
+  check(next(t1.model.parameters()).device == device
+        and next(t1.model.parameters()).dtype == torch.float32,
+        'trainer: the model is not float32 on the card')
+  rec1 = {'iters': []}
+  _trainer_instrument(torch, t1, rec1)
+  logs = []
+  orig_train = t1.train
+  t1.train = lambda progress_fn=None, **kw: orig_train(
+      progress_fn=lambda m: (logs.append(m), (progress_fn or print)(m)),
+      **kw)
+  state0 = t1.init_state()
+  paths = [p for p in bm_lib.block_executable_layers(
+      state0.sparse.masks, st.block, conv3x3=cfg.block_conv3x3)
+           if p in (state0.sparse.block_packs or {})]
+  n_1x1 = sum(tuple(state0.sparse.masks[p].shape[:2]) == (1, 1)
+              for p in paths)
+  n_3x3 = len(paths) - n_1x1
+  sizes = {p: m.numel() for p, m in state0.sparse.masks.items()}
+  # ERK's sparsity as the initial masks realise it (at block 128 a
+  # layer's zeros are whole blocks, floor(s * blocks) of them), beside
+  # its nominal figure.
+  erk = float(masks_lib.calculate_sparsity(state0.sparse.masks))
+  erk_nominal = (sum(st.sparsities[p] * n for p, n in sizes.items())
+                 / sum(sizes.values()))
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _zero_counts()
+  result = common.run_and_report(t1, out_dir)
+  torch.cuda.synchronize()
+  launches = _counts()
+  peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+  state = t1.state
+  iters = rec1['iters']
+  n_batches = trainer_lib.simulate_step_sequence(t1.algo, cfg.train_steps)
+  upd_steps = [it['step'] for it in iters if it['updated']]
+  # Each iteration's tap entry calls (fwd, dx, dw), and of them the 1x1s
+  # on packed_mm.cu's kernels (the mm branch).
+  per_iter = [tuple(it['launches'][f'tap{mm}_{op}']
+                    for mm in ('', '_mm') for op in ('fwd', 'dx', 'dw'))
+              for it in iters]
+  want_iter = (len(paths),) * 3 + (n_1x1,) * 3
+  bad = [(i, got) for i, got in enumerate(per_iter) if got != want_iter]
+  others = {k: v for k, v in launches.items()
+            if not k.startswith('tap_') and v}
+  losses = [float(it['loss']) for it in iters]
+  log_losses = [float(m['loss']) for m in logs if 'loss' in m]
+  ms = [it['events'][0].elapsed_time(it['events'][1]) for it in iters]
+  plain_ms = [t for t, it in zip(ms, iters) if not it['hint']][1:]
+  upd_ms = [t for t, it in zip(ms, iters) if it['hint']]
+  # The checkpoint steps: the step at each checkpoint_every-th batch, and
+  # the final one.
+  ckpt_want = sorted({it['step'] for i, it in enumerate(iters)
+                      if (i + 1) % cfg.checkpoint_every == 0}
+                     | {cfg.train_steps})
+  ckpt_steps = CheckpointManager(out).all_steps()
+  premask_ok = all(bool((state.params[p][m == 0] == 0).all())
+                   for p, m in state.sparse.masks.items())
+  log(f'trainer rn50 ({card}): {cfg.model} depth '
+      f'{cfg.model_kwargs.get("depth")} float32, batch {cfg.batch_size}, '
+      f'block {st.block}, {len(paths)} convs on the tap route ({n_1x1} 1x1 '
+      f'on the mm branch, {n_3x3} 3x3 on the tf32 branch); {len(iters)} '
+      f'iterations to step {state.sparse.step} (simulate_step_sequence: '
+      f'{n_batches}), updates at steps {upd_steps}; checkpoints at '
+      f'{ckpt_steps} (want {ckpt_want})')
+  log(f'  step ms (CUDA events): plain {[round(t, 2) for t in plain_ms]} '
+      f'(median {float(np.median(plain_ms)):.2f}), update '
+      f'{[round(t, 2) for t in upd_ms]}; peak memory {peak_gb:.2f} GiB; '
+      f'losses {[round(x, 4) for x in losses]}; at the logs '
+      f'{[round(x, 4) for x in log_losses]}')
+  log(f'  launches per iteration (tap fwd / dx / dw, of them mm fwd / dx '
+      f'/ dw): {sorted(set(per_iter))} (want {want_iter}: {n_1x1} mm + '
+      f'{n_3x3} tf32); other '
+      f'counters {others}; global sparsity {result["global_sparsity"]:.5f} '
+      f'(ERK at init {erk:.5f}, nominal {erk_nominal:.5f})')
+  check(result['batches'] == n_batches == len(iters),
+        f'trainer: {result["batches"]} batches, {len(iters)} iterations, '
+        f'simulate_step_sequence {n_batches}')
+  check(state.sparse.step == cfg.train_steps,
+        f'trainer: ended at step {state.sparse.step}')
+  check(n_1x1 == RN50_1X1 and n_3x3 > 0,
+        f'trainer: {n_1x1} 1x1 and {n_3x3} 3x3 convs routed')
+  check(not bad, f'trainer: iterations whose tap launches are not '
+        f'{want_iter}: {bad[:3]}')
+  check(not others, f'trainer: other kernels ran: {others}')
+  check(all(it['hint_ok'] for it in iters), 'trainer: a hint missed')
+  check(premask_ok, 'trainer: params not zero at inactive positions')
+  check(abs(result['global_sparsity'] - erk) <= 0.01,
+        f'trainer: global sparsity {result["global_sparsity"]} vs ERK {erk}')
+  check(all(np.isfinite(losses)), f'trainer: non-finite loss {losses}')
+  check(set(ckpt_want) <= set(ckpt_steps),
+        f'trainer: checkpoints {ckpt_steps}, want {ckpt_want}')
+  _rn50_counts_ok(st, state)
+
+  # One step's loss and gradients, kernels against dense-times-mask; then
+  # against cuDNN in TF32, the error that plain TF32 products give here.
+  loss_k, loss_p, loss_err, errs = _rn50_step_vs_plain(
+      torch, t1.model, st, state, rec1['last'][1], paths)
+  _, _, tf32_loss_err, tf32_errs = _rn50_step_vs_plain(
+      torch, t1.model, st, state, rec1['last'][1], paths, plain_tf32=True)
+  kernel_paths = [p for p in errs if p.endswith('kernel')]
+  tols = {p: TRAINER_KERNEL_RTOL if p in kernel_paths else TRAINER_BN_RTOL
+          for p in errs}
+  worst = sorted(errs, key=errs.get)[-3:]
+  step_errs = dict(
+      loss=loss_err, routed=max(errs[p] for p in paths),
+      kernels=max(errs[p] for p in kernel_paths),
+      other=max(errs[p] for p in errs if p not in kernel_paths),
+      tf32_loss=tf32_loss_err, tf32_routed=max(tf32_errs[p] for p in paths),
+      tf32_kernels=max(tf32_errs[p] for p in kernel_paths))
+  log(f'  one step on the trained state, kernels vs dense-times-mask '
+      f'(cuDNN, TF32 off): loss {loss_k:.7f} vs {loss_p:.7f} (rel '
+      f'{loss_err:.2e}, tol {TRAINER_LOSS_RTOL}); max rel grad err of the '
+      f'routed convs {step_errs["routed"]:.2e}, of every kernel '
+      f'{step_errs["kernels"]:.2e} (tol {TRAINER_KERNEL_RTOL}), of the '
+      f'BatchNorm tensors {step_errs["other"]:.2e} (tol {TRAINER_BN_RTOL});'
+      f' largest at {[(n, float(f"{errs[n]:.2e}")) for n in worst]}; '
+      f'cuDNN in TF32 against the kernels: loss {tf32_loss_err:.2e}, routed '
+      f'{step_errs["tf32_routed"]:.2e}, every kernel '
+      f'{step_errs["tf32_kernels"]:.2e}')
+  check(loss_err <= TRAINER_LOSS_RTOL,
+        f'trainer step loss: rel error {loss_err}')
+  for p, err in errs.items():
+    check(err <= tols[p], f'trainer step grad {p}: rel error {err} (tol '
+          f'{tols[p]})')
+
+  # The eval loop on the checkpoints against evaluate() on the state.
+  direct = t1.evaluate(state)
+  polled = evaluate_checkpoints(t1, out, eval_once=True)
+  eval_err = max(abs(polled[0][k] - direct[k]) for k in direct)
+  log(f'  eval loop (eval_once) at step {polled[0]["step"]}: {polled[0]}; '
+      f'evaluate on the state: {direct} (max abs diff {eval_err:.2e})')
+  check(polled[0]['step'] == cfg.train_steps,
+        f'trainer: eval loop took step {polled[0]["step"]}')
+  check(eval_err <= TRAINER_EXPORT_RTOL * max(abs(v) for v in direct.values()),
+        f'trainer: eval loop metrics differ by {eval_err}')
+
+  # Export and reload for inference against the trained model's eval-mode
+  # logits on one batch.
+  image = rec1['last'][1]['image']
+  export_dir = export_model(str(Path(tmp) / 'export'), cfg.model,
+                            t1.model_kwargs, state.params,
+                            state.sparse.masks, state.batch_stats)
+  apply_fn, manifest = load_for_inference(export_dir, device='cuda')
+  got = apply_fn(image)
+  with torch.no_grad():
+    eff = masks_lib.apply_masks(state.params, state.sparse.masks)
+    want = functional_call(t1.model, {masks_lib.torch_name(p): t for p, t in
+                                      {**state.batch_stats, **eff}.items()},
+                           (image,), {'train': False})
+  export_err = _rel(got, want)
+  log(f'  export -> load_for_inference: logits {tuple(got.shape)} on '
+      f'{got.device}, rel err {export_err:.2e} against the trained model '
+      f'(tol {TRAINER_EXPORT_RTOL}); manifest global sparsity '
+      f'{manifest["global_sparsity"]:.5f}')
+  check(got.device == device and got.shape == want.shape,
+        f'trainer export: logits {got.shape} on {got.device}')
+  check(export_err <= TRAINER_EXPORT_RTOL,
+        f'trainer export: logits rel error {export_err}')
+  check(abs(manifest['global_sparsity'] - result['global_sparsity']) < 1e-6,
+        'trainer export: manifest sparsity')
+  final = _trainer_snapshot(state)
+  del t1, state, state0, apply_fn, got, want, eff, rec1, image
+  torch.cuda.empty_cache()
+
+  # A second trainer from the same config, train_steps 14: auto-resume
+  # from step 12.
+  argv2 = [a for a in argv if 'train_steps=' not in a] + [
+      f'--override=train_steps={TRAINER_RESUME_STEPS}']
+  t2, _ = train_driver.build_trainer(argv2)
+  rec2 = {'iters': [], 'capture_first': True}
+  _trainer_instrument(torch, t2, rec2)
+  result2 = t2.train(progress_fn=lambda m: None)
+  first = rec2['first_state']
+  differ = [f'{kind}/{p}' for kind in ('params', 'masks', 'momentum')
+            for p, t in final[kind].items()
+            if not torch.equal(t, first[kind][p])]
+  want2 = trainer_lib.simulate_step_sequence(
+      t2.algo, TRAINER_RESUME_STEPS, start_step=cfg.train_steps,
+      start_last_update=max(upd_steps))
+  log(f'  resume: a second trainer (train_steps {TRAINER_RESUME_STEPS}) '
+      f'restored step {cfg.train_steps}: params, masks and momentum '
+      f'{"equal" if not differ else "DIFFER"} ({len(final["params"])} '
+      f'params, {len(final["masks"])} masks, {len(final["momentum"])} '
+      f'momentum buffers); {result2["batches"]} batches (want {want2}) to '
+      f'step {t2.state.sparse.step}')
+  check(len(final['momentum']) == len(final['params']),
+        'trainer: momentum buffers missing')
+  check(not differ, f'trainer resume: differs at {differ[:4]}')
+  check(result2['batches'] == want2,
+        f'trainer resume: {result2["batches"]} batches, want {want2}')
+  check(t2.state.sparse.step == TRAINER_RESUME_STEPS,
+        f'trainer resume: ended at step {t2.state.sparse.step}')
+
+  # The device-busy share of two plain steps on the resumed state.
+  step, batch = rec2['last']
+  holder = {'state': t2.state}
+
+  def hot():
+    holder['state'], _ = step(holder['state'], batch)
+  prof = profiled_kernel_time(torch, hot, 2, match=TRAINER_KERNELS)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(2):
+    hot()
+  torch.cuda.synchronize()
+  wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+  busy = (None if prof['kernel_us_per_step'] is None
+          else prof['kernel_us_per_step'] / 1e3 / wall_ms)
+  log(f'  busy share of a plain step: {busy} (kernels '
+      f'{prof["kernel_us_per_step"]} us against {wall_ms:.2f} ms on the '
+      f'host clock); the port\'s kernels, us a step: '
+      f'{prof.get("matched_us_per_step")}')
+  del t2, holder, step, batch, rec2, first, final
+  torch.cuda.empty_cache()
+  return launches, dict(
+      card=card, config=TRAINER_CONFIG, overrides=list(TRAINER_OVERRIDES),
+      reduced=TRAINER_REDUCED, dtype='float32', block=list(st.block),
+      routed=dict(total=len(paths), mm_1x1=n_1x1, tf32_3x3=n_3x3),
+      iterations=len(iters), steps=cfg.train_steps,
+      update_steps=upd_steps, losses=losses, log_losses=log_losses,
+      step_ms_plain=float(np.median(plain_ms)), step_ms_plain_all=plain_ms,
+      step_ms_update=upd_ms, busy=busy, busy_wall_ms=wall_ms,
+      kernel_us_per_step=prof['kernel_us_per_step'],
+      device_ms_by_kernel=prof['device_ms_by_kernel'],
+      port_kernels_us_per_step=prof['matched_us_per_step'],
+      port_kernels_by_kernel=prof['matched_by_kernel'],
+      peak_memory_gib=peak_gb,
+      launches_per_iteration=dict(
+          tap_fwd=len(paths), tap_dx=len(paths), tap_dw=len(paths),
+          by_kernel={
+              'mm 1x1 (packed_mm_ffma_kernel / packed_dw_3xtf32_kernel, '
+              'dense storage)': n_1x1,
+              'tf32 3x3 (tap_conv_tf32_kernel / tap_dw_kernel)': n_3x3}),
+      global_sparsity=result['global_sparsity'], erk_sparsity=erk,
+      erk_nominal=erk_nominal,
+      checkpoints=ckpt_steps, result=result,
+      step_vs_plain=dict(rel_err=step_errs, tol=dict(
+          loss=TRAINER_LOSS_RTOL, kernels=TRAINER_KERNEL_RTOL,
+          other=TRAINER_BN_RTOL)),
+      eval_loop=dict(polled=polled[0], direct=direct, max_abs_diff=eval_err),
+      export=dict(logits_rel_err=export_err, tol=TRAINER_EXPORT_RTOL),
+      resume=dict(steps=TRAINER_RESUME_STEPS, batches=result2['batches'],
+                  equal=not differ),
+      phase_s=time.perf_counter() - t_start)
+
+
+def _trainer_wrn(torch, card):
+  """Phase 23's WRN-22-2 run through drivers.cifar (its defaults, on
+  synthetic CIFAR-10); returns its record."""
+  import numpy as np
+  from rigl_tpu_torch.drivers import cifar
+  from rigl_tpu_torch.drivers import common
+  from rigl_tpu_torch.train import trainer as trainer_lib
+  t_start = time.perf_counter()
+  trainer, out = cifar.build_trainer(['--device=cuda'] + list(TRAINER_WRN))
+  result = common.run_and_report(trainer, out)
+  cfg = trainer.config
+  want = trainer_lib.simulate_step_sequence(trainer.algo, cfg.train_steps)
+  losses = [m['loss'] for m in trainer.metrics_history if 'loss' in m]
+  log(f'trainer wrn ({card}): {cfg.model} {cfg.model_kwargs} through '
+      f'drivers.cifar, {result["batches"]} batches (want {want}) to step '
+      f'{trainer.state.sparse.step}; losses {losses}; global sparsity '
+      f'{result["global_sparsity"]:.5f} (want {cfg.sparsity})')
+  check(result['batches'] == want, f'trainer wrn: {result["batches"]} '
+        f'batches, want {want}')
+  check(trainer.state.sparse.step == cfg.train_steps,
+        f'trainer wrn: ended at step {trainer.state.sparse.step}')
+  check(losses and all(np.isfinite(losses + [result['eval_loss']])),
+        f'trainer wrn: losses {losses}, eval {result["eval_loss"]}')
+  check(abs(result['global_sparsity'] - cfg.sparsity) <= 0.01,
+        f'trainer wrn: global sparsity {result["global_sparsity"]}')
+  rec = dict(card=card, argv=list(TRAINER_WRN), batches=result['batches'],
+             losses=losses, result=result,
+             phase_s=time.perf_counter() - t_start)
+  del trainer
+  torch.cuda.empty_cache()
+  return rec
+
+
+def phase_trainer(torch, device, card, root):
+  """Phase 23: the config-driven Trainer through its drivers (module
+  docstring).  Returns (the ResNet-50 run's launches, record)."""
+  import shutil
+  import tempfile
+  t_start = time.perf_counter()
+  tmp = tempfile.mkdtemp(prefix='chip_smoke_trainer_')
+  try:
+    launches, rn50 = _trainer_rn50(torch, device, card, root, tmp)
+    wrn = _trainer_wrn(torch, card)
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  wall = time.perf_counter() - t_start
+  log(f'phase 23 wall time: {wall:.1f} s ({card})')
+  return launches, dict(rn50=rn50, wrn=wrn, wall_s=wall, card=card)
+
 T0 = time.perf_counter()
 
 
@@ -3785,6 +4229,7 @@ def main():
     flash_f32_points = phase_flash(torch, device, torch.float32)
     f32_launches, f32_step = phase_f32_train_step(torch, device)
     zoo = phase_zoo(torch, device, card)
+    trainer_launches, trainer = phase_trainer(torch, device, card, root)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -3801,8 +4246,14 @@ def main():
       'dx': {'training': train_launches[1]}, 'dw': {}}
   for op, by_path in packed_paths.items():
     by_path.update(train_step=step_launches[op], lm=lm_launches[op])
+  # The Trainer's ResNet-50: its 1x1s on the tap route's mm branch run the
+  # f32 forward / dx (packed_mm_ffma_kernel) and dw of packed_mm.cu in
+  # dense storage; the tap entries below count its 3x3s.
+  for op in ('fwd', 'dx'):
+    packed_paths[op]['trainer_rn50'] = trainer_launches[f'tap_mm_{op}']
   f32_dw_paths = {'training': train_launches[2],
-                  'f32_train_step': f32_launches['dw']}
+                  'f32_train_step': f32_launches['dw'],
+                  'trainer_rn50': trainer_launches['tap_mm_dw']}
   kernels = [
       _kernel_entry(name, src, f'{tpu}:{line}',
                     sum(packed_paths[op].values()), packed_paths[op], points)
@@ -3862,7 +4313,9 @@ def main():
       ('tap_dw_kernel', 'dw', 473))):
     by_path = {'wrn_training': wrn_launches[i],
                'rn50_tap': rn50_tap_launches['rigl_tap'][f'tap_{op}'],
-               'rn50_tap3x3': rn50_tap_launches['rigl_tap3x3'][f'tap_{op}']}
+               'rn50_tap3x3': rn50_tap_launches['rigl_tap3x3'][f'tap_{op}'],
+               'trainer_rn50': (trainer_launches[f'tap_{op}']
+                                - trainer_launches[f'tap_mm_{op}'])}
     entry = _tap_entry(name, 'rigl_tpu_torch/csrc/tap_conv.cu',
                        f'{conv_tpu}:{line}', by_path,
                        tap_points_[op] + tap_route.get(op, []))
@@ -3871,7 +4324,9 @@ def main():
       entry.update(design=TAP_DESIGN, tf32_design=TAP_TF32_DESIGN,
                    branches=TAP_BRANCH_KERNELS,
                    branch_by_path={'wrn_training': 'tf32', 'rn50_tap': 'mm',
-                                   'rn50_tap3x3': 'mm (1x1), wgmma (3x3)'},
+                                   'rn50_tap3x3': 'mm (1x1), wgmma (3x3)',
+                                   'trainer_rn50': 'tf32 (3x3; its 1x1s '
+                                                   'in packed_mm_*_kernel)'},
                    rn50_route={k: v for k, v in tap_route['sums'].items()
                                if k.startswith(op)})
     else:
@@ -3967,7 +4422,7 @@ def main():
             'history': dict(v6_fwd_bwd=history_points['v6_fwd_bwd'],
                             arms_launches=arms_launches,
                             mlp_launches=mlp_launches, block_mlp=block_mlp),
-            'f32_train_step': f32_step, 'zoo': zoo,
+            'f32_train_step': f32_step, 'zoo': zoo, 'trainer': trainer,
             'wall_s': time.perf_counter() - T0}
   log(f'chip_smoke wall time: {record["wall_s"]:.1f} s')
   print(json.dumps(record), flush=True)

@@ -30,5 +30,12 @@ Ported so far:
     (models/resnet.py, models/common.py), BlockSparseDense, and block
     execution of eligible layers on the dense storage modes of
     csrc/packed_mm.cu (ops/block_sparse_v3.py, block_sparse_v4.py,
-    conv.py).
+    conv.py);
+  * the dense-masked model zoo, the structured mask generators, STR and
+    the input pipeline (models/registry.py, sparsity/generators.py,
+    data/);
+  * the config-driven Trainer with its learning-rate schedules,
+    checkpoints, eval loop, export and metrics (train/trainer.py,
+    lr_schedules.py, checkpoint.py, eval_loop.py, export.py,
+    utils/metrics.py) and the mnist / cifar / imagenet / train drivers.
 """

@@ -28,8 +28,10 @@ layers' masks, as numpy) into the port's model of the same name, by path.
 
 `train_state_from_jax(model, st, state)` turns a JAX dense-masked
 TrainState (rigl_tpu/train/train_state.py: params, batch_stats, the optax
-momentum trace and the SparseState with its block_packs, as numpy) into
-the port's, so both packages can run from one state.
+momentum trace or Adam's slots and the SparseState with its block_packs,
+as numpy) into the port's, so both packages can run from one state;
+`trainer_state_from_jax(trainer, state)` loads a JAX Trainer's TrainState
+into the port's Trainer (train/trainer.py).
 """
 
 from __future__ import annotations
@@ -259,7 +261,12 @@ def train_state_from_jax(model: torch.nn.Module, st, state):
     'params'          the flax params tree ({'params': ...} or its inside);
     'batch_stats'     the batch_stats tree ({} without BatchNorm);
     'momentum'        optax's momentum trace, a tree like 'params'
-                      (opt_state[0].trace), or None before any step;
+                      (opt_state[0].trace), or None (SGD without
+                      momentum has no slot in either package);
+    'mu', 'nu', 'count'  Adam's slots, trees like 'params'
+                      (opt_state[0].mu / nu), and its count, for an
+                      optimizer built as torch.optim.Adam (absent
+                      otherwise);
     'masks'           {path: array};
     'step', 'last_update_step', 'is_snipped';
     'ema_grads', 'initial_weights'   {path: array} or None;
@@ -281,6 +288,16 @@ def train_state_from_jax(model: torch.nn.Module, st, state):
     for p, t in params.items():
       optimizer.state[t]['momentum_buffer'] = torch.from_numpy(
           np.array(trace[p])).to(device, t.dtype)
+  if state.get('mu') is not None:
+    from rigl_tpu_torch.transforms.sparse_training import _adam_state
+    mu, nu = _paths(state['mu']), _paths(state['nu'])
+    group = optimizer.param_groups[0]
+    for p, t in params.items():
+      slots = _adam_state(t, group)
+      slots['step'].fill_(float(state['count']))
+      slots['exp_avg'].copy_(torch.from_numpy(np.array(mu[p])))
+      slots['exp_avg_sq'].copy_(torch.from_numpy(np.array(nu[p])))
+      optimizer.state[t] = slots
 
   def dev_dict(d, dtype=None):
     if d is None:
@@ -300,3 +317,50 @@ def train_state_from_jax(model: torch.nn.Module, st, state):
                    {p: _pack_entry(e, device) for p, e in packs.items()}))
   return TrainState(params=params, batch_stats=stats, optimizer=optimizer,
                     sparse=sstate)
+
+
+def _jax_state_arrays(state) -> Dict:
+  """The arrays of a JAX dense-masked TrainState (as numpy) in
+  train_state_from_jax's form.  `state` is the flax struct itself
+  (jax.tree.map(np.asarray, trainer.state)), read by attribute: the
+  optimizer slots by the optax states that hold them (a trace, Adam's
+  mu / nu / count)."""
+  sp = state.sparse
+  out = {'params': state.params, 'batch_stats': state.batch_stats,
+         'masks': dict(sp.masks), 'step': int(sp.step),
+         'last_update_step': int(sp.last_update_step),
+         'is_snipped': bool(sp.is_snipped),
+         'ema_grads': None if sp.ema_grads is None else dict(sp.ema_grads),
+         'initial_weights': (None if sp.initial_weights is None
+                             else dict(sp.initial_weights))}
+
+  def walk(node):
+    fields = getattr(node, '_fields', ())
+    if 'trace' in fields:
+      out['momentum'] = node.trace
+    elif 'mu' in fields and 'nu' in fields:
+      out.update(mu=node.mu, nu=node.nu, count=int(node.count))
+    elif isinstance(node, (tuple, list)):
+      for child in node:
+        walk(child)
+  walk(state.opt_state)
+  return out
+
+
+def trainer_state_from_jax(trainer, state):
+  """Loads a JAX Trainer's TrainState (rigl_tpu/train/trainer.py, as
+  numpy: jax.tree.map(np.asarray, jax_trainer.state)) into the port's
+  Trainer `trainer` (train/trainer.py), which then continues from it:
+  params and batch_stats into its model's tensors, the masks, the step
+  counters, SNFS's EMA and the initial weights into its SparseState, the
+  optimizer's slots (SGD's momentum trace, Adam's mu, nu and count) into
+  its optimizer, and the block packs rebuilt from the masks.  Returns the
+  trainer's new state."""
+  if trainer.state is None:
+    trainer.init_state()
+  arrays = _jax_state_arrays(state)
+  st = trainer.sparse_training
+  new = train_state_from_jax(trainer.model, st, arrays)
+  trainer.state = new.replace(sparse=new.sparse.replace(
+      block_packs=st._compute_packs(new.sparse.masks)))
+  return trainer.state

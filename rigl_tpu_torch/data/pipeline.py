@@ -79,6 +79,10 @@ def prefetch_to_device(it: Iterator[Batch], size: int = 2,
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError(f'prefetch_to_device: {device} requested but CUDA is '
                        'not available')
+  if device.type == 'cuda' and device.index is None:
+    # 'cuda' names the caller's current card, which the producer thread
+    # must select by index.
+    device = torch.device('cuda', torch.cuda.current_device())
   q: queue.Queue = queue.Queue(maxsize=size)
   sentinel = object()
 

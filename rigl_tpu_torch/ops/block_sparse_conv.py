@@ -75,6 +75,9 @@ from rigl_tpu_torch.ops.block_sparse_v3 import DenseLists, dense_mm_cuda
 tap_conv_fwd_launches = 0     # the forward kernels
 tap_conv_dx_launches = 0      # the dx kernels
 tap_dw_launches = 0           # tap_dw_kernel (one per call of the entry)
+# Of the counts above, the 1x1 calls that csrc/packed_mm.cu's kernels serve
+# (the 'mm' branch; its dw on the block dw).
+tap_mm_fwd_launches = tap_mm_dx_launches = tap_mm_dw_launches = 0
 
 # tap_dw_kernel's tiling (csrc/tap_conv.cu): DT x DT output tiles, chunks
 # of DP pixels, at most TAP_GROUP_TAPS[dtype] taps a group (kDenseTaps)
@@ -776,6 +779,7 @@ def tap_conv_cuda(x: torch.Tensor, w: torch.Tensor, index: TapIndex,
   cannot take the call is refused, and nothing falls back to another
   kernel."""
   global tap_conv_fwd_launches, tap_conv_dx_launches
+  global tap_mm_fwd_launches, tap_mm_dx_launches
   fwd = mode == 'fwd'
   cx, cy = (index.cin, index.cout) if fwd else (index.cout, index.cin)
   bk, bn = (index.bk, index.bn) if fwd else (index.bn, index.bk)
@@ -794,6 +798,10 @@ def tap_conv_cuda(x: torch.Tensor, w: torch.Tensor, index: TapIndex,
     y = dense_mm_cuda(x.view(-1, cx), w.view(index.cin, index.cout),
                       index.mm_lists(mode, x.device), (index.bk, index.bn),
                       mode).view(n, h, wd, cy)
+    if fwd:
+      tap_mm_fwd_launches += 1
+    else:
+      tap_mm_dx_launches += 1
   else:
     y = torch.empty((n, h, wd, cy), dtype=x.dtype, device=x.device)
     gcols, tile, xrows, n_ent = 1, 0, 0, 0
@@ -868,7 +876,7 @@ def tap_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
   it splits; a 1x1 kernel's dw runs the block dw of packed_mm.cu instead.
   A dense w's other elements are zeros.  Checks and raises as
   tap_conv_cuda does (x, gy and w of one dtype)."""
-  global tap_dw_launches
+  global tap_dw_launches, tap_mm_dw_launches
   _check_cuda('tap_dw', [('x', x, index.cin), ('gy', gy, index.cout)], w,
               index)
   n, h, wd, _ = x.shape
@@ -884,6 +892,7 @@ def tap_dw_cuda(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
     dw_launch(x.view(-1, index.cin), gy.view(-1, index.cout), ent.rblks,
               ent.cblks, None, dw, (index.bk, index.bn), index.dense_w)
     tap_dw_launches += 1
+    tap_mm_dw_launches += 1
     return dw
   taps = tap_dw_taps(index, x.dtype)
   groups = index.dw_groups(taps, x.device)

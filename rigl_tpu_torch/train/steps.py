@@ -185,14 +185,40 @@ def make_train_step(
   return train_step
 
 
+def make_grad_norm_fn(model, weight_decay: float = 0.0,
+                      label_smoothing: float = 0.0):
+  """grad_norm(state, batch) -> the global L2 norm of the *masked*
+  training gradients on a batch, in train mode with the statistics left
+  as they were; logs the gradient-norm change a mask update produced
+  (rigl_tf2/train.py:433-438)."""
+  loss_fn = make_loss_fn(model, weight_decay, label_smoothing)
+
+  def grad_norm(state: TrainState, batch):
+    masks = state.sparse.masks
+    eff = _effective(state.params, masks, False)
+    keys = list(eff)
+    with frozen_batch_stats(model):
+      loss, _ = loss_fn(eff, batch)
+    grads = torch.autograd.grad(loss, [eff[p] for p in keys],
+                                allow_unused=True)
+    grads = masks_lib.mask_grads(
+        {p: (torch.zeros_like(eff[p]) if g is None else g)
+         for p, g in zip(keys, grads)}, masks)
+    sq = sum(g.to(torch.float32).square().sum() for g in grads.values())
+    return torch.sqrt(sq).detach()
+
+  return grad_norm
+
+
 def make_eval_step(model, has_batch_stats: bool = True):
-  """Top-1 / top-5 eval step on the masked parameters
-  (imagenet_train_eval.py:596-615)."""
+  """Top-1 / top-5 eval step on the masked parameters and the state's
+  BatchNorm statistics (imagenet_train_eval.py:596-615)."""
   del has_batch_stats
 
   def eval_step(state: TrainState, batch):
     eff = masks_lib.apply_masks(state.params, state.sparse.masks)
-    named = {masks_lib.torch_name(p): t for p, t in eff.items()}
+    named = {masks_lib.torch_name(p): t
+             for p, t in {**state.batch_stats, **eff}.items()}
     with torch.no_grad():
       logits = functional_call(model, named, (batch['image'],),
                                {'train': False}).to(torch.float32)
