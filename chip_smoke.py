@@ -217,9 +217,32 @@ package.  Phases, each fatal on failure:
      printed: step ms (CUDA events) of the plain and the update steps,
      the device-busy share, peak memory, launches per iteration and the
      losses.  Then WRN-22-2 through drivers.cifar at its defaults, 10
-     steps (finite losses, the batch count, sparsity 0.9).
+     steps (finite losses, the batch count, sparsity 0.9);
+ 24. the MoE LM, a main path of models/packed_moe.py, parallel/packed_ep.py
+     and the MoE PackedLMTrainer (constants MOE_*: the `moe` arm's width,
+     2 layers of d_model 1024 / d_ff 4096 / 16 heads, 8 experts at
+     capacity factor 2.0, seq 512, batch 4, block (256, 256), s = 0.8,
+     bf16 over f32): each expert's forward, dx and dw against their plain
+     versions at m = 512 (1024 -> 4096 and 4096 -> 1024) and the forward
+     and dx at m = 4 (the decode branch); one train step's launches (fwd,
+     dx and dw 2 x (2 + 2 x 8) = 36 each) and its loss (aux included) and
+     gradients against the plain path (the dense MoE twin) with the kernel
+     path's routing replayed there, the smallest top-1 / top-2 router
+     margin and the tokens the plain path alone would route elsewhere
+     printed; RigL 30 steps with updates at 0, 10 and 20 (every expert's
+     count kept, grown slots' weights and Adam slots zero, an expert's
+     mask changed, the aux loss finite, the loss falling), SET and SNFS
+     6 steps with one update each; 16 greedy tokens at batch 4 from
+     64-token prompts with kv_chunk 0 and 128 (L = 1024) equal, and
+     teacher-forced decoding against the full causal forward at capacity
+     factor 8 (no drop) in f32; a save / restore round trip whose next
+     step's loss is equal; drivers/packed_lm.py --n_experts=8 at its
+     defaults, 6 steps and 4 generated tokens, on the card without
+     --device; printed: step ms (CUDA events and host clock), update ms,
+     the device-busy share and a step's device time by kernel
+     (torch.profiler), the dense twin's step, peak memory.
 
-Every dw point (phases 3, 12, 15 and 19) also logs how its kernel split
+Every dw point (phases 3, 12, 15, 19 and 24) also logs how its kernel split
 the reduction (ops/dw_split.py): S slices, the grid and the workspace's
 bytes.  Each main path runs with the launch counts set to 0 just before
 it and read just after.  The line before the last is the JSON record: `kernels`
@@ -227,12 +250,15 @@ it and read just after.  The line before the last is the JSON record: `kernels`
 kernels and the f32 dw, of ms, plain_ms, bound_ms and library_ms, its
 launches on the main paths, and every point), `serving`, `training`,
 `train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step`, `zoo`,
-`trainer` and the script's wall time.
+`trainer`, `moe_lm` and the script's wall time; the packed kernels'
+entries count the MoE path's launches under `moe_lm` and list its points
+as `moe_lm_points`.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints
 no result.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -388,6 +414,24 @@ TRAINER_EXPORT_RTOL = 1e-5
 # 128, the cifar schedule) on synthetic CIFAR-10.
 TRAINER_WRN = ('--train_steps=10', '--maskupdate_frequency=5',
                '--log_every=5')
+# The MoE LM (phase 24): the width of the repo's `moe` arm
+# (scripts/bench_packed_moe.py:31-42, bench.py's BENCH_WORKLOAD=moe), 2
+# layers of d_model 1024 / d_ff 4096 / 16 heads, seq 512, batch 4, 8
+# experts at capacity factor 2.0, block (256, 256), bm 512, s = 0.8, bf16
+# over f32 master weights, through PackedLMTrainer; vocab 64 on the
+# synthetic stream, as phase 11.  An expert runs 2048 / 8 x 2 = 512 rows a
+# training step, 256 at the prefill of 4 prompts of 64 tokens and 4 a
+# decode step (the decode branch).
+MOE_LAYERS, MOE_D_MODEL, MOE_D_FF, MOE_HEADS = 2, 1024, 4096, 16
+MOE_EXPERTS, MOE_CAPACITY, MOE_BLOCK, MOE_BM = 8, 2.0, (256, 256), 512
+MOE_PROMPT, MOE_GENERATE = 64, 16
+# Decode against the full causal forward at capacity factor E runs in f32
+# (the f32 forward's FFMA branch, the decode branch at m = 4): bf16 would
+# round the router's input differently in the two passes, and a token
+# whose two top router probabilities lie within that rounding could pick
+# another expert, an order-1 difference for that token.  Both passes sum
+# in f32 in another order through 2 layers: 1e-3 of the largest logit.
+MOE_DECODE_RTOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -745,23 +789,23 @@ def _mlp_occupancy(torch, gen, sparsity, empty_row_col):
   return occ, n_act
 
 
-def _product_ops(torch, x, gy, w, packing):
+def _product_ops(torch, x, gy, w, packing, block=BLOCK):
   """{op: (counter, kernel call, plain call, torch.matmul call)} for the
   forward, dx and packed dw of one packed layer on the same inputs."""
   from rigl_tpu_torch.ops import block_sparse_packed as bsp
-  wd = bsp.unpack_dense(w, packing, BLOCK)
+  wd = bsp.unpack_dense(w, packing, block)
   return {
       'fwd': ('packed_mm_launches',
-              lambda: bsp.packed_matmul(x, w, packing, BLOCK),
-              lambda: bsp.packed_matmul_reference(x, w, packing, BLOCK),
+              lambda: bsp.packed_matmul(x, w, packing, block),
+              lambda: bsp.packed_matmul_reference(x, w, packing, block),
               lambda: torch.matmul(x, wd)),
       'dx': ('packed_mm_dx_launches',
-             lambda: bsp.packed_matmul_dx_cuda(gy, w, packing, BLOCK),
-             lambda: bsp.packed_matmul_dx_reference(gy, w, packing, BLOCK),
+             lambda: bsp.packed_matmul_dx_cuda(gy, w, packing, block),
+             lambda: bsp.packed_matmul_dx_reference(gy, w, packing, block),
              lambda: torch.matmul(gy, wd.T)),
       'dw': ('packed_dw_launches',
-             lambda: bsp.packed_dw_cuda(x, gy, w, packing, BLOCK),
-             lambda: bsp.packed_dw_reference(x, gy, packing, BLOCK, w.dtype),
+             lambda: bsp.packed_dw_cuda(x, gy, w, packing, block),
+             lambda: bsp.packed_dw_reference(x, gy, packing, block, w.dtype),
              lambda: torch.matmul(x.T, gy))}
 
 
@@ -1536,13 +1580,16 @@ def _grad_errors(torch, packed_model, grads, plain):
   """{name: error over the largest plain value}: the packed kernels' grads
   unpacked to dense against the plain dense grads at active blocks."""
   from rigl_tpu_torch.ops.block_sparse_packed import unpack_dense
+  from rigl_tpu_torch.parallel import packed_ep as ep
   errs = {}
   for name, g in grads.items():
     layer = name.rsplit('.', 1)[0]
     sub = packed_model.get_submodule(layer)
     if hasattr(sub, 'packing'):
-      got = unpack_dense(g, sub.packing, sub.block)
-      want = plain[f'{layer}.d.kernel'] * unpack_dense(
+      unpack = (ep.unpack_dense_experts if ep.is_expert_stacked(sub.packing)
+                else unpack_dense)
+      got = unpack(g, sub.packing, sub.block)
+      want = plain[f'{layer}.d.kernel'] * unpack(
           torch.ones_like(g), sub.packing, sub.block)
     else:
       got, want = g, plain[name]
@@ -1689,6 +1736,81 @@ def phase_train_step(torch, device):
   return launches, rec
 
 
+def _lm_run(torch, device, tokens, base, tag, algo, steps, frequency, end):
+  """Trains a PackedLMTrainer of the config `base` with `algo` for `steps`
+  steps, mask updates every `frequency` up to `end`, each update checked:
+  every packed kernel's count kept (an expert stack's, per expert), grown
+  blocks' weights and Adam slots zero.  Returns (trainer, record: update
+  steps, update ms, blocks grown, losses, median step ms on the host
+  clock, wall s)."""
+  import numpy as np
+  from rigl_tpu_torch.parallel import packed_ep as ep
+  from rigl_tpu_torch.train.packed_lm import PackedLMConfig, PackedLMTrainer
+  from rigl_tpu_torch.transforms.packed_training import repack_permutation
+  cfg = PackedLMConfig(algo=algo, train_steps=steps,
+                       maskupdate_begin_step=0, maskupdate_end_step=end,
+                       maskupdate_frequency=frequency, **base)
+  tr = PackedLMTrainer(cfg, device=device)
+  tr.init_state()
+  updates, progress = [], []
+  mask_update = tr.mask_update
+
+  def grown_slots(old, new):
+    if ep.is_expert_stacked(new):
+      return torch.stack([repack_permutation(o, n) < 0
+                          for o, n in zip(old.experts, new.experts)])
+    return repack_permutation(old, new) < 0
+
+  def checked_update(x, y):
+    old = tr.packings
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    occ = mask_update(x, y)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    mu, nu = tr.adam_slots()
+    grown = {}
+    for name, pk in tr.packings.items():
+      lead = int(ep.is_expert_stacked(pk)) + 1
+      counts = occ[name].reshape(occ[name].shape[:lead - 1] + (-1,)).sum(-1)
+      check(bool((counts == tr.params[name].shape[lead - 1]).all()),
+            f'{tag} {algo} update: {name} count changed')
+      new = grown_slots(old[name], pk).to(device)
+      grown[name] = int(new.sum())
+      for t in (tr.params[name].detach(), mu[name], nu[name]):
+        check(not bool(t[new].any()), f'{tag} {algo} update: grown slot '
+              f'of {name} not zero')
+    updates.append(dict(step=tr.step, ms=ms, grown=sum(grown.values()),
+                        grown_by_kernel=grown))
+    return occ
+
+  tr.mask_update = checked_update
+  t0 = time.perf_counter()
+  res = tr.train(tokens, progress_fn=lambda m: progress.append(
+      dict(m, t=time.perf_counter())), log_every=1)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  del tr.mask_update
+  losses = [p['loss'] for p in progress]
+  after = {u['step'] + (1 if algo == 'rigl' else 0) for u in updates}
+  gaps = [b_['t'] - a['t'] for a, b_ in zip(progress, progress[1:])
+          if b_['step'] not in after]
+  rec = dict(algo=algo, steps=res['train_steps'],
+             update_steps=[u['step'] for u in updates],
+             update_ms=[u['ms'] for u in updates],
+             blocks_grown=[u['grown'] for u in updates],
+             blocks_grown_by_kernel=[u['grown_by_kernel'] for u in updates],
+             losses=losses,
+             step_ms=float(np.median(gaps)) * 1e3 if gaps else None,
+             wall_s=wall)
+  log(f'{tag} {algo}: {res["train_steps"]} steps in {wall:.2f} s, updates '
+      f'at {rec["update_steps"]} ({[round(m, 1) for m in rec["update_ms"]]}'
+      f' ms, grown {rec["blocks_grown"]}); step {rec["step_ms"]:.2f} ms '
+      f'(median, host clock); loss {losses[0]:.4f} -> {losses[-1]:.4f}')
+  check(all(np.isfinite(losses)), f'{tag} {algo}: non-finite loss')
+  return tr, rec
+
+
 def phase_lm(torch, device):
   """The LM trainer main path: PackedLMTrainer at the train step's width,
   vocab 64 (the synthetic stream), seq 512, batch 4, bf16, block (512,
@@ -1699,8 +1821,6 @@ def phase_lm(torch, device):
   (launches of the RigL run, record)."""
   import numpy as np
   from rigl_tpu_torch.drivers.packed_lm import synthetic_stream
-  from rigl_tpu_torch.train.packed_lm import PackedLMConfig, PackedLMTrainer
-  from rigl_tpu_torch.transforms.packed_training import repack_permutation
   tokens = synthetic_stream(200_000, seed=SEED)
   base = dict(vocab_size=LM_VOCAB, num_layers=TR_LAYERS, d_model=D_MODEL,
               d_ff=D_FF, num_heads=HEADS, seq_len=TR_SEQ, sparsity=SPARSITY,
@@ -1709,57 +1829,8 @@ def phase_lm(torch, device):
               drop_fraction_anneal='cosine', seed=SEED)
 
   def run(algo, steps, frequency, end):
-    cfg = PackedLMConfig(algo=algo, train_steps=steps,
-                         maskupdate_begin_step=0, maskupdate_end_step=end,
-                         maskupdate_frequency=frequency, **base)
-    tr = PackedLMTrainer(cfg, device=device)
-    tr.init_state()
-    updates, progress = [], []
-    mask_update = tr.mask_update
-
-    def checked_update(x, y):
-      old = tr.packings
-      torch.cuda.synchronize()
-      t0 = time.perf_counter()
-      occ = mask_update(x, y)
-      torch.cuda.synchronize()
-      ms = (time.perf_counter() - t0) * 1e3
-      mu, nu = tr.adam_slots()
-      grown = 0
-      for name, pk in tr.packings.items():
-        check(int(occ[name].sum()) == tr.params[name].shape[0],
-              f'{algo} update: {name} count changed')
-        new = (repack_permutation(old[name], pk) < 0).to(device)
-        grown += int(new.sum())
-        for t in (tr.params[name].detach(), mu[name], nu[name]):
-          check(not bool(t[new].any()), f'{algo} update: grown slot of '
-                f'{name} not zero')
-      updates.append(dict(step=tr.step, ms=ms, grown=grown))
-      return occ
-
-    tr.mask_update = checked_update
-    t0 = time.perf_counter()
-    res = tr.train(tokens, progress_fn=lambda m: progress.append(
-        dict(m, t=time.perf_counter())), log_every=1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    del tr.mask_update
-    losses = [p['loss'] for p in progress]
-    after = {u['step'] + (1 if algo == 'rigl' else 0) for u in updates}
-    gaps = [b_['t'] - a['t'] for a, b_ in zip(progress, progress[1:])
-            if b_['step'] not in after]
-    rec = dict(algo=algo, steps=res['train_steps'],
-               update_steps=[u['step'] for u in updates],
-               update_ms=[u['ms'] for u in updates],
-               blocks_grown=[u['grown'] for u in updates], losses=losses,
-               step_ms=float(np.median(gaps)) * 1e3 if gaps else None,
-               wall_s=wall)
-    log(f'lm {algo}: {res["train_steps"]} steps in {wall:.2f} s, updates '
-        f'at {rec["update_steps"]} ({[round(m, 1) for m in rec["update_ms"]]}'
-        f' ms, grown {rec["blocks_grown"]}); step {rec["step_ms"]:.2f} ms '
-        f'(median, host clock); loss {losses[0]:.4f} -> {losses[-1]:.4f}')
-    check(all(np.isfinite(losses)), f'{algo}: non-finite loss')
-    return tr, rec
+    return _lm_run(torch, device, tokens, base, 'lm', algo, steps,
+                   frequency, end)
 
   _zero_counts()
   tr, rigl = run('rigl', LM_STEPS, 10, 20)
@@ -4181,6 +4252,347 @@ def phase_trainer(torch, device, card, root):
 T0 = time.perf_counter()
 
 
+def phase_moe_kernels(torch, device):
+  """Phase 24's kernel points: each expert's forward, dx and packed dw vs
+  plain at the MoE arm's expert shapes, 1024 -> 4096 (fc1) and 4096 ->
+  1024 (fc2), m = 512 rows (block (256, 256), s = 0.8, bf16), and the
+  forward and dx at m = 4, a batch-4 decode step (the decode branch)."""
+  from rigl_tpu_torch.layers.packed_dense import random_occupancy
+  from rigl_tpu_torch.ops import block_sparse_packed as bsp
+  from rigl_tpu_torch.sparsity.distributions import get_n_zeros
+  gen = torch.Generator().manual_seed(SEED + 24)
+  bk, bn = MOE_BLOCK
+  bf16 = torch.bfloat16
+  m_train = int(TR_BATCH * TR_SEQ / MOE_EXPERTS * MOE_CAPACITY)
+  records = {'fwd': [], 'dx': [], 'dw': []}
+  for name, kdim, ndim in (('fc1', MOE_D_MODEL, MOE_D_FF),
+                           ('fc2', MOE_D_FF, MOE_D_MODEL)):
+    nk, nn_ = kdim // bk, ndim // bn
+    n_act = nk * nn_ - get_n_zeros(nk * nn_, SPARSITY)
+    packing = bsp.make_packing(random_occupancy(gen, nk, nn_, n_act), n_act)
+    w = (torch.randn(n_act, bk, bn, generator=gen) / kdim ** 0.5).to(
+        device, bf16)
+    for m in (m_train, TR_BATCH):
+      x = torch.randn(m, kdim, generator=gen).to(device, bf16)
+      gy = torch.randn(m, ndim, generator=gen).to(device, bf16)
+      ops = _product_ops(torch, x, gy, w, packing, MOE_BLOCK)
+      for op, (counter, run, plain, library) in ops.items():
+        if op == 'dw' and m == TR_BATCH:
+          continue                     # no dw at a decode step
+        branch = None if op == 'dw' else bsp.mm_branch(
+            m, bk if op == 'fwd' else bn, bf16)
+        before = bsp.mm_decode_launches
+        rec, _ = kernel_point(
+            torch, f'moe {op:3s} {name} m={m:3d} bfloat16', counter, run,
+            plain, library, bound(op, m, packing, MOE_BLOCK, bf16),
+            branch=branch)
+        check(branch != 'decode' or bsp.mm_decode_launches > before,
+              f'moe {op} {name} m={m}: the decode kernel did not run')
+        rec.update(path='moe_lm', layer=name, m=m, dtype='bfloat16',
+                   k=kdim, n=ndim, n_active=n_act)
+        if op == 'dw':
+          rec['split'] = dw_split(f'moe dw  {name} m={m}', bsp.dw_plan(
+              m, n_act, MOE_BLOCK, bf16, sm_count(torch)))
+        records[op].append(rec)
+  return records
+
+
+class _SharedRouting:
+  """The kernel path's routing, replayed in the plain path.  Recording,
+  every top1_gather_dispatch call keeps its (src, flat_ec, kept) and the
+  smallest top-1 / top-2 router-probability margin is noted; replaying,
+  each call takes the recorded slots, computes the gate and the aux loss
+  from its own logits at the recorded choices (so the gradient reaches
+  the router as on the kernel path), and counts the tokens whose own
+  argmax would have picked another expert."""
+
+  def __init__(self, torch, ep):
+    self.torch, self.ep, self.real = torch, ep, ep.top1_gather_dispatch
+    self.calls, self.margin, self.flips, self.replayed = [], 1.0, 0, 0
+
+  @contextlib.contextmanager
+  def patched(self, fn):
+    self.ep.top1_gather_dispatch = fn
+    try:
+      yield
+    finally:
+      self.ep.top1_gather_dispatch = self.real
+
+  def record(self, logits, capacity, token_axes=()):
+    out = self.real(logits, capacity, token_axes)
+    top2 = self.torch.softmax(logits.detach().float(), -1).topk(2).values
+    self.margin = min(self.margin, float((top2[:, 0] - top2[:, 1]).min()))
+    self.calls.append(out[:3])
+    return out
+
+  def replay(self, logits, capacity, token_axes=()):
+    del token_axes
+    torch = self.torch
+    src, flat_ec, kept = self.calls[self.replayed]
+    self.replayed += 1
+    n_experts = logits.shape[1]
+    choice = flat_ec // capacity
+    probs = torch.softmax(logits.float(), -1)
+    self.flips += int((probs.argmax(-1) != choice).sum())
+    frac = torch.nn.functional.one_hot(choice, n_experts).float().mean(0)
+    aux = n_experts * torch.sum(frac * probs.mean(0))
+    return src, flat_ec, kept, probs.gather(1, choice[:, None])[:, 0], aux
+
+
+def _moe_step_vs_plain(torch, device, tr, batch):
+  """One MoE train step's loss (aux included) and gradients, kernel path
+  against the plain path (the dense MoE twin holding the unpacked
+  kernels) from the same state and batch, the kernel path's routing
+  replayed in the plain path; and the step's launches."""
+  from torch.func import functional_call
+  from rigl_tpu_torch.parallel import packed_ep as ep
+  from rigl_tpu_torch.train import packed_lm as tlm
+  x, y = batch
+  params = tr.params
+  routing = _SharedRouting(torch, ep)
+  before = _counts()
+  with routing.patched(routing.record):
+    loss = tr._loss(x, y)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+  torch.cuda.synchronize()
+  per_step = _since(before)
+  views = {n: v.detach().clone().requires_grad_() for n, v in
+           tlm.dense_twin_params({n: p.detach() for n, p in params.items()},
+                                 tr.packings, tr.cfg.block).items()}
+  with routing.patched(routing.replay):
+    logits, aux = functional_call(tr.dense_twin, views, (x,),
+                                  {'with_aux': True})
+    plain_loss = tlm._lm_loss(logits, y) + tr.cfg.aux_loss_weight * aux
+    plain = dict(zip(views, torch.autograd.grad(plain_loss,
+                                                list(views.values()))))
+  loss, plain_loss = float(loss.detach()), float(plain_loss.detach())
+  loss_err = abs(loss - plain_loss) / abs(plain_loss)
+  grad_errs = _grad_errors(torch, tr.model, grads, plain)
+  return per_step, dict(loss=loss, plain_loss=plain_loss, loss_err=loss_err,
+                        max_grad_rel_err=max(grad_errs.values()),
+                        grad_rel_err=grad_errs,
+                        router_calls=len(routing.calls),
+                        min_top2_margin=routing.margin,
+                        plain_flips_kept_out=routing.flips)
+
+
+def _moe_decode_vs_full(torch, device, tr, tokens):
+  """Teacher-forced KV-cache decoding (MOE_PROMPT prefill tokens, then
+  MOE_GENERATE single tokens, batch TR_BATCH) against the full causal
+  forward at capacity factor E, which drops no token, on a float32 copy
+  of the trained model.  Returns (rel error, decode launches)."""
+  import numpy as np
+  from rigl_tpu_torch.models.packed_moe import PackedMoETransformer
+  from rigl_tpu_torch.serve import decode as dec
+  cfg = tr.cfg
+  kw = dict(cfg.model_kwargs(), dtype=torch.float32,
+            capacity_factor=float(MOE_EXPERTS))
+  model = PackedMoETransformer(sparsity=tr.sparsity_spec, block=cfg.block,
+                               bm=cfg.bm, device=device, **kw)
+  for name, mod in model.named_modules():
+    if hasattr(mod, 'set_packing'):
+      mod.set_packing(tr.model.get_submodule(name).packing)
+  model.load_state_dict(tr.model.state_dict())
+  n = MOE_PROMPT + MOE_GENERATE
+  seqs = torch.as_tensor(np.asarray(tokens[:TR_BATCH * n], np.int64)
+                         .reshape(TR_BATCH, n)).to(device)
+  twin = dec.decode_twin(model, n)
+  cache = dec.init_cache(twin, TR_BATCH)
+  before = _counts()
+  with torch.inference_mode():
+    got = torch.cat([twin(seqs[:, :MOE_PROMPT], cache)] + [
+        twin(seqs[:, t:t + 1], cache) for t in range(MOE_PROMPT, n)], 1)
+    torch.cuda.synchronize()
+    launches = _since(before)
+    full = model(seqs)
+  del model, twin, cache
+  return _rel(got, full), launches
+
+
+def phase_moe_lm(torch, device, card):
+  """The MoE LM main path (constants MOE_*): kernel points at its shapes
+  (phase_moe_kernels), then one train step against the plain path with
+  the routing shared; RigL for 30 steps with updates at 0, 10 and 20
+  (each update checked: every expert's count kept, grown slots' weights
+  and Adam slots zero; at least one expert's mask changed, the aux loss
+  finite, the loss falling); SET and SNFS 6 steps with one update each;
+  16 greedy tokens at batch 4 from 64-token prompts with kv_chunk 0 and
+  128 (L = 1024), which must agree, and decode against the full causal
+  forward at capacity factor E (MOE_DECODE_RTOL); a save / restore round
+  trip whose next step's loss is equal; and the figures: step ms (host
+  clock and CUDA events), update ms, the device-busy share, a step's
+  device time by kernel, the dense twin's step and the peak memory.
+  Returns (kernel points, launches of the RigL run, serving launches,
+  record)."""
+  import tempfile
+  import numpy as np
+  from rigl_tpu_torch.drivers.packed_lm import synthetic_stream
+  from rigl_tpu_torch.models.packed_moe import DenseMoETransformer
+  from rigl_tpu_torch.parallel import packed_ep as ep
+  from rigl_tpu_torch.train import packed_lm as tlm
+  t_phase = time.perf_counter()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  points = phase_moe_kernels(torch, device)
+  tokens = synthetic_stream(200_000, seed=SEED)
+  base = dict(vocab_size=LM_VOCAB, num_layers=MOE_LAYERS,
+              d_model=MOE_D_MODEL, d_ff=MOE_D_FF, num_heads=MOE_HEADS,
+              seq_len=TR_SEQ, sparsity=SPARSITY, block=MOE_BLOCK, bm=MOE_BM,
+              dtype='bfloat16', learning_rate=1e-3, warmup_steps=5,
+              batch_size=TR_BATCH, drop_fraction=0.3,
+              drop_fraction_anneal='cosine', seed=SEED,
+              n_experts=MOE_EXPERTS, capacity_factor=MOE_CAPACITY)
+  per_kind = MOE_LAYERS * (2 + 2 * MOE_EXPERTS)
+
+  tr = tlm.PackedLMTrainer(tlm.PackedLMConfig(**base), device=device)
+  tr.init_state()
+  per_step, vs_plain = _moe_step_vs_plain(torch, device, tr,
+                                          tr.sample_batch(tokens))
+  log(f'moe ({card}): step vs plain: launches {per_step} (expected fwd, '
+      f'dx and dw {per_kind} each, no decode); loss {vs_plain["loss"]:.6f} '
+      f'vs plain {vs_plain["plain_loss"]:.6f} (rel {vs_plain["loss_err"]:.3e}'
+      f'), max rel grad err {vs_plain["max_grad_rel_err"]:.3e} (tol '
+      f'{STEP_RTOL}); routing of {vs_plain["router_calls"]} router calls '
+      f'shared: smallest top-1 / top-2 margin '
+      f'{vs_plain["min_top2_margin"]:.3e}, {vs_plain["plain_flips_kept_out"]}'
+      f' tokens the plain path alone would have routed elsewhere')
+  check(all(per_step[k] == per_kind for k in ('fwd', 'dx', 'dw'))
+        and per_step['decode'] == 0, f'moe step launches {per_step}')
+  check(vs_plain['loss_err'] <= STEP_RTOL,
+        f'moe step loss error {vs_plain["loss_err"]}')
+  for name, err in vs_plain['grad_rel_err'].items():
+    check(err <= STEP_RTOL, f'moe step grad {name}: rel error {err}')
+  del tr
+
+  _zero_counts()
+  tr, rigl = _lm_run(torch, device, tokens, base, 'moe', 'rigl', LM_STEPS,
+                     10, 20)
+  launches = _since({k: 0 for k in _counts()})
+  experts = [n for n, pk in tr.packings.items() if ep.is_expert_stacked(pk)]
+  grown_experts = sum(g[n] for g in rigl['blocks_grown_by_kernel']
+                      for n in experts)
+  check(rigl['update_steps'] == [0, 10, 20],
+        f'moe rigl updates at {rigl["update_steps"]}, not [0, 10, 20]')
+  check(grown_experts > 0, 'moe rigl: no expert mask changed')
+  check(np.mean(rigl['losses'][-5:]) < np.mean(rigl['losses'][:5]),
+        f'moe rigl loss did not fall: {rigl["losses"]}')
+  check(all(launches[k] > 0 for k in ('fwd', 'dx', 'dw')),
+        f'moe: a packed kernel was not launched: {launches}')
+  x, y = tr.sample_batch(tokens)
+  with torch.no_grad():
+    _, aux = tr.model(x, with_aux=True)
+  aux = float(aux)
+  check(math.isfinite(aux), f'moe: aux loss {aux}')
+  log(f'  moe rigl launches {launches}; blocks grown in the experts '
+      f'{grown_experts}; aux loss after training {aux:.4f} (summed over '
+      f'{MOE_LAYERS} layers)')
+
+  # The figures, on the trained trainer: a step by CUDA events, its
+  # kernels by torch.profiler, the dense twin's step beside it.
+  step_ms = time_ms(lambda: tr.train_step(x, y), 10)
+  prof = profiled_kernel_time(torch, lambda: tr.train_step(x, y), 3,
+                              match=('packed_mm', 'packed_dw'))
+  busy = _share(prof['kernel_us_per_step'], step_ms * 1e3)
+  gen = torch.Generator().manual_seed(SEED + 25)
+  dense = DenseMoETransformer(generator=gen, device=device,
+                              **tr.cfg.model_kwargs())
+  opt = torch.optim.Adam(dense.parameters(), lr=1e-3)
+
+  def dense_step():
+    opt.zero_grad(set_to_none=True)
+    logits, aux_ = dense(x, with_aux=True)
+    loss = tlm._lm_loss(logits, y) + tr.cfg.aux_loss_weight * aux_
+    loss.backward()
+    opt.step()
+    return float(loss.detach())
+
+  dense_ms = time_ms(dense_step, 10)
+  del dense, opt
+  log(f'  moe step: {step_ms:.3f} ms (CUDA events, the loss read each step), '
+      f'{rigl["step_ms"]:.3f} ms (median, host clock); kernels '
+      f'{prof["kernel_us_per_step"]} us a step (busy share {busy}); dense '
+      f'twin step {dense_ms:.3f} ms; updates {rigl["update_ms"]} ms')
+
+  out = {}
+  prompt = np.asarray(tokens[:TR_BATCH * MOE_PROMPT], np.int32).reshape(
+      TR_BATCH, MOE_PROMPT)
+  _zero_counts()
+  for kv_chunk in (0, 128):
+    t0 = time.perf_counter()
+    out[kv_chunk] = tr.generate(prompt, MOE_GENERATE, max_len=1024,
+                                kv_chunk=kv_chunk)
+    log(f'  moe generate {MOE_GENERATE} greedy tokens, batch {TR_BATCH}, '
+        f'L = 1024, kv_chunk {kv_chunk}: '
+        f'{(time.perf_counter() - t0) * 1e3:.1f} ms')
+  serve_launches = _since({k: 0 for k in _counts()})
+  check(out[0].shape == (TR_BATCH, MOE_GENERATE),
+        f'moe generate shape {out[0].shape}')
+  check((out[0] == out[128]).all(), 'moe: kv_chunk=128 tokens differ: '
+        f'{out[0].tolist()} vs {out[128].tolist()}')
+  check(serve_launches['decode'] > 0, 'moe: no decode-branch launch')
+  decode_err, decode_launches = _moe_decode_vs_full(torch, device, tr,
+                                                    tokens[1000:])
+  log(f'  moe serving launches {serve_launches}; decode vs full causal '
+      f'forward at capacity factor {MOE_EXPERTS} (f32): rel err '
+      f'{decode_err:.3e} (tol {MOE_DECODE_RTOL}), launches {decode_launches}')
+  check(decode_err <= MOE_DECODE_RTOL, f'moe decode error {decode_err}')
+  check(decode_launches['decode'] > 0, 'moe f32 decode: no decode launch')
+
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_moe_') as tmp:
+    tr.save(tmp)
+    back = tlm.PackedLMTrainer(tr.cfg, device=device)
+    check(back.restore(tmp), 'moe: no checkpoint to restore')
+  batch = tr.sample_batch(tokens)
+  again = back.sample_batch(tokens)
+  check(all(bool(torch.equal(a, b)) for a, b in zip(batch, again)),
+        'moe restore: batches differ')
+  resumed = (tr.train_step(*batch), back.train_step(*again))
+  log(f'  moe save / restore: the next step loss {resumed[0]!r} and '
+      f'{resumed[1]!r}')
+  check(resumed[0] == resumed[1], f'moe restore: losses {resumed}')
+  del back, tr
+
+  others = {}
+  for algo in ('set', 'snfs'):
+    t, others[algo] = _lm_run(torch, device, tokens, base, 'moe', algo, 6,
+                              5, 5)
+    check(len(others[algo]['update_steps']) == 1,
+          f'moe {algo} updates at {others[algo]["update_steps"]}')
+    del t
+  # The driver at its defaults (d_model 256, block (16, 16), RigL) with 8
+  # experts, on the card as it runs without --device.
+  import io
+  from rigl_tpu_torch.drivers import packed_lm as driver
+  with contextlib.redirect_stdout(io.StringIO()):
+    res = driver.main(['--n_experts=8', '--train_steps=6',
+                       '--maskupdate_frequency=3', '--log_every=3',
+                       '--lm_dtype=bfloat16', '--generate_steps=4'])
+  log(f'  moe driver --n_experts=8: {res["train_steps"]} steps, '
+      f'{res["mask_updates"]} updates, loss {res["final_loss"]:.4f}, eval '
+      f'{res["eval_ce_nats"]:.4f} nats, generated {res["generated_tokens"]}'
+      f' on {res["device"]}')
+  check(res['device'] == 'cuda' and res['mask_updates'] == 2
+        and math.isfinite(res['final_loss'])
+        and len(res['generated_tokens']) == 4, f'moe driver: {res}')
+  peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+  wall = time.perf_counter() - t_phase
+  log(f'  moe phase: peak memory {peak_gb:.2f} GiB, {wall:.1f} s ({card})')
+  torch.cuda.empty_cache()
+  rec = dict(card=card, step_vs_plain=vs_plain,
+             launches_per_step=per_step, rigl=rigl, **others,
+             aux_after_training=aux, step_ms_cuda_events=step_ms,
+             device_busy_share=busy, dense_twin_step_ms=dense_ms,
+             generated=out[0].tolist(), kv_chunk_equal=True,
+             serving_launches=serve_launches,
+             decode_vs_full_rel_err=decode_err, restored_losses=resumed,
+             driver={k: res[k] for k in ('train_steps', 'mask_updates',
+                                         'final_loss', 'eval_ce_nats',
+                                         'device')},
+             peak_memory_gib=peak_gb, wall_s=wall, **prof)
+  return points, launches, serve_launches, rec
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -4230,6 +4642,8 @@ def main():
     f32_launches, f32_step = phase_f32_train_step(torch, device)
     zoo = phase_zoo(torch, device, card)
     trainer_launches, trainer = phase_trainer(torch, device, card, root)
+    moe_points, moe_launches, moe_serve_launches, moe = phase_moe_lm(
+        torch, device, card)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -4245,7 +4659,8 @@ def main():
       'fwd': {'serving': serve_launches, 'training': train_launches[0]},
       'dx': {'training': train_launches[1]}, 'dw': {}}
   for op, by_path in packed_paths.items():
-    by_path.update(train_step=step_launches[op], lm=lm_launches[op])
+    by_path.update(train_step=step_launches[op], lm=lm_launches[op],
+                   moe_lm=moe_launches[op])
   # The Trainer's ResNet-50: its 1x1s on the tap route's mm branch run the
   # f32 forward / dx (packed_mm_ffma_kernel) and dw of packed_mm.cu in
   # dense storage; the tap entries below count its 3x3s.
@@ -4267,6 +4682,10 @@ def main():
            [p for p in train_points['dw'] + step_points['dw']
             if p['dtype'] == 'bfloat16']))]
   kernels[-1].update(design=DW_DESIGN, reduction=DW_REDUCTION)
+  for entry, op in zip(kernels, ('fwd', 'dx', 'dw')):
+    # The MoE arm's expert shapes (phase 24), apart from the sums above.
+    entry['moe_lm_points'] = [p for p in moe_points[op]
+                              if p.get('branch') != 'decode']
   f32_dw = _kernel_entry(
       'packed_dw_3xtf32_kernel', src, f'{tpu}:345',
       sum(f32_dw_paths.values()), f32_dw_paths,
@@ -4280,13 +4699,18 @@ def main():
   kernels.append(f32_dw)
   for entry in kernels[:2]:
     entry['design'] = MM_DESIGN
+  decode_paths = {'serving': decode_launches,
+                  'moe_lm': moe_serve_launches['decode']}
   decode = _kernel_entry(
-      'packed_mm_decode_kernel', src, f'{tpu}:178', decode_launches,
-      {'serving': decode_launches},
+      'packed_mm_decode_kernel', src, f'{tpu}:178',
+      sum(decode_paths.values()), decode_paths,
       [p for p in serve_points if p['branch'] == 'decode'])
   decode.update(design=DECODE_DESIGN, branch='decode (m <= 32)',
                 library='torch.matmul on the unpacked W (cuBLAS)',
-                floor_ms_by_slices=decode_floor)
+                floor_ms_by_slices=decode_floor,
+                moe_lm_points=[p for op in ('fwd', 'dx')
+                               for p in moe_points[op]
+                               if p.get('branch') == 'decode'])
   kernels.insert(0, decode)
   flash_tpu = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
   for name, op, line in (('flash_fwd_wgmma_kernel', 'fwd', 758),
@@ -4423,7 +4847,7 @@ def main():
                             arms_launches=arms_launches,
                             mlp_launches=mlp_launches, block_mlp=block_mlp),
             'f32_train_step': f32_step, 'zoo': zoo, 'trainer': trainer,
-            'wall_s': time.perf_counter() - T0}
+            'moe_lm': moe, 'wall_s': time.perf_counter() - T0}
   log(f'chip_smoke wall time: {record["wall_s"]:.1f} s')
   print(json.dumps(record), flush=True)
   print(json.dumps({'ok': True, 'device': {

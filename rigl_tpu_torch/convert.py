@@ -1,7 +1,8 @@
 """From the JAX package's variables to the port's modules.
 
 `from_jax_variables(tree)` takes the flax variable tree of a model of
-models/packed_transformer.py or models/packed_convnet.py ({'params': ...,
+models/packed_transformer.py, models/packed_moe.py or
+models/packed_convnet.py ({'params': ...,
 'packing': ...}, with its arrays mapped to numpy) and returns the port's
 state dict plus its packings.  Module names in the port follow the flax
 paths, so a parameter's key is its flax path joined with dots.  The port
@@ -12,13 +13,16 @@ to torch's OIHW on each call.  Packed kernels are taken as they are: both
 packages store (n_active, bk, bn) in the same column-major slot order.
 
 Packing leaves are duck-typed through p['fwd'], p['bwd'] and p['shape'],
-so this module needs nothing from the JAX package.
+so this module needs nothing from the JAX package.  Lists with a leading
+axis are an MoE layer's expert stack (JAX's ExpertPacking; its tensor-
+parallel stacking is not ported) and become the port's ExpertPacking.
 
 `packed_mlp_trainer_from_jax(config, state)` builds the port's
 PackedMLPTrainer from a JAX PackedMLPTrainer's state passed as numpy
 arrays (params, occupancy grids, momentum traces, counters);
 `packed_lm_trainer_from_jax` does the same for PackedLMTrainer (params,
-occupancy grids, Adam's slots and counts, counters, SNFS's EMA grids), and
+occupancy grids, (E, nk, nn) for the MoE's expert stacks, Adam's slots and
+counts, counters, SNFS's EMA grids), and
 `packed_classifier_trainer_from_jax` for PackedClassifierTrainer (params,
 occupancy grids, momentum traces, counters, SNFS's EMA grids).
 
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from rigl_tpu_torch.ops.block_sparse_packed import Packing, unpack_dense
+from rigl_tpu_torch.parallel import packed_ep as ep
 
 
 def _packing_leaf(node):
@@ -55,7 +60,10 @@ def _packing_leaf(node):
     return None
   as_t = lambda lists: tuple(torch.tensor(np.asarray(a, np.int32))
                              for a in lists)
-  return Packing(as_t(fwd), as_t(bwd), tuple(int(s) for s in shape))
+  fwd, bwd, shape = as_t(fwd), as_t(bwd), tuple(int(s) for s in shape)
+  if fwd[0].dim() == 2:                  # an expert stack
+    return ep.ExpertPacking(fwd, bwd, shape)
+  return Packing(fwd, bwd, shape)
 
 
 def _flatten(node, prefix, out, leaf):
@@ -95,15 +103,21 @@ def load_converted(model: torch.nn.Module, state: Dict[str, np.ndarray],
 
 
 def dense_twin_state(model) -> Dict[str, torch.Tensor]:
-  """State dict of the DenseTransformer that computes exactly what the
-  PackedTransformer `model` does: each packed kernel unpacked to its
-  dense (in, out) matrix (zeros at inactive blocks), at '<layer>.d.kernel',
-  in the layer's compute dtype (the twin stores its projections so)."""
+  """State dict of the dense twin that computes exactly what the packed
+  transformer `model` (PackedTransformer, PackedMoETransformer) does: each
+  packed kernel unpacked to its dense (in, out) matrix (zeros at inactive
+  blocks), at '<layer>.d.kernel', in the layer's compute dtype (the twin
+  stores its projections so); an expert stack to its (E, in, out) float32
+  matrices (the twin's expert kernels are float32 master weights)."""
   out = {}
   for key, value in model.state_dict().items():
     layer = key.rsplit('.', 1)[0]
     sub = model.get_submodule(layer) if key.endswith('.kernel') else None
-    if sub is not None and hasattr(sub, 'packing'):
+    if sub is not None and ep.is_expert_stacked(getattr(sub, 'packing',
+                                                        None)):
+      out[f'{layer}.d.kernel'] = ep.unpack_dense_experts(value, sub.packing,
+                                                         sub.block)
+    elif sub is not None and hasattr(sub, 'packing'):
       out[f'{layer}.d.kernel'] = unpack_dense(value, sub.packing,
                                               sub.block).to(sub.dtype)
     else:
@@ -142,14 +156,17 @@ def packed_lm_trainer_from_jax(config, state, device='cuda'):
   `config`: the port's PackedLMConfig, or a mapping of the JAX config's
   fields (dataclasses.asdict of it).  `state`: numpy arrays and ints, keyed
   by dotted parameter names ('block0.attn.qkv.kernel'),
-    'params'            {name: array}    every parameter, packed or dense;
-    'occupancy'         {name: (nk, nn)} each packed kernel's grid;
+    'params'            {name: array}    every parameter, packed or dense
+                                         (an expert stack (E, cap, bk, bn));
+    'occupancy'         {name: (nk, nn)} each packed kernel's grid ((E, nk,
+                                         nn) for an expert stack);
     'mu', 'nu'          {name: array}    Adam's slots (opt_state[0].mu / nu);
     'count'             int              Adam's count (opt_state[0].count);
     'schedule_count'    int              the schedule's (opt_state[1].count),
                                          which JAX advances with Adam's;
     'step', 'last_update_step', 'batches_seen';
-    'ema'               {name: (nk, nn)} SNFS's EMA grids (algo 'snfs').
+    'ema'               {name: (nk, nn)} SNFS's EMA grids (algo 'snfs';
+                                         (E, nk, nn) for an expert stack).
   """
   from rigl_tpu_torch.train.packed_lm import PackedLMConfig, PackedLMTrainer
   if isinstance(config, Mapping):

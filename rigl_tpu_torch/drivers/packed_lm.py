@@ -4,12 +4,15 @@ where every parameter matmul's weights, gradients and Adam slots live as
 SNFS drop/grow ON packed storage.
 
 Counterpart of rigl_tpu/drivers/packed_lm.py, with the flags its `main`
-reads and their defaults, on argparse, plus --device (default cuda).  The
-parallel flags (n_data, n_model, n_pipe, n_seq, n_experts, n_expert) are
-accepted at their single-device values only.
+reads and their defaults, on argparse, plus --device (default cuda).
+--n_experts=E > 0 trains the packed Switch-MoE transformer (E experts a
+block, --capacity_factor, --aux_loss_weight).  The parallel flags
+(n_data, n_model, n_pipe, n_seq, n_expert) are accepted at their
+single-device values only.
 
   python -m rigl_tpu_torch.drivers.packed_lm --train_steps=2000 \\
       --end_sparsity=0.8 --data_file=/path/to/corpus.txt --lm_dtype=bfloat16
+  python -m rigl_tpu_torch.drivers.packed_lm --n_experts=8 --lm_dtype=bfloat16
   # a deterministic synthetic byte stream when --data_file is unset;
   # --device=cpu runs the plain versions of the kernels
 
@@ -94,7 +97,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help='single-device value only')
   p.add_argument('--n_micro', type=int, default=0)
   p.add_argument('--n_experts', type=int, default=0,
-                 help='0 only (MoE is not ported yet)')
+                 help='>0: Switch top-1 MoE FFN with this many experts')
   p.add_argument('--capacity_factor', type=float, default=2.0)
   p.add_argument('--aux_loss_weight', type=float, default=0.01)
   p.add_argument('--generate_steps', type=int, default=0,

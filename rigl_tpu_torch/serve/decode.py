@@ -17,7 +17,11 @@ logits' device) where JAX took a key.  A request reads each float32
 master weight cast to the compute dtype once (layers/packed_dense.
 cached_casts), not once per step.  `kv_chunk` > 0 (decode_twin) visits
 the cache in kv_chunk pieces and never reads the pieces past the live
-prefix.  MoE decoding is not ported yet.
+prefix.  The MoE family (models/packed_moe.py) decodes DROP-FREE: its
+stack runs every MoE FFN in decode mode whenever it is given a cache
+(capacity = the step's token count, B * P at prefill and B a step), so
+with no drops each token's output is its own and incremental decoding
+equals the full causal forward at a capacity that drops nothing.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ _NEG = torch.finfo(torch.float32).min
 
 def decode_twin(model, max_decode_len: int, kv_chunk: int = 0):
   """The decode-mode twin of a train-mode PackedTransformer /
-  DenseTransformer: a shallow copy that shares every submodule and
+  DenseTransformer / PackedMoETransformer / DenseMoETransformer: a
+  shallow copy that shares every submodule and
   parameter, with an L-token KV cache.  kv_chunk > 0: chunked cache
   attention, with per-step KV reads that scale with the live prefix (it
   must divide L; models/packed_transformer._chunked_cache_attend)."""

@@ -22,12 +22,20 @@ The semantics are the JAX trainer's:
     % 2**31), so both packages see the same batches.
   * Checkpoints use JAX's packed_lm_state.npz layout (`save`, `restore`).
 
+With n_experts > 0 every block's FFN is a Switch top-1 MoE whose expert
+kernels are expert-stacked packed storage (models/packed_moe.py): the loss
+adds aux_loss_weight times the sum of every layer's load-balance aux, the
+drop/grow runs per expert, checkpoints hold (E, nk, nn) occupancy grids,
+and generation routes drop-free.  As in JAX, the dense-twin grads that
+score RigL's and SNFS's growth are those of the cross-entropy alone.
+
 Random initialisation draws from a torch generator, not JAX's keys: to
 start from a JAX trainer's state use convert.packed_lm_trainer_from_jax.
 SET's grow scores come from a torch generator seeded with (seed, step), not
 JAX's fold_in bits.  Parallel fields of the config (n_data, n_model,
-n_pipe, n_seq, n_experts, n_expert) raise unless at their single-device
-values.
+n_pipe, n_seq, n_expert) raise NotImplementedError unless at their
+single-device values; n_experts > 0 with n_model, n_pipe or n_seq above 1
+raises ValueError, as in JAX.
 
 Used by drivers/packed_lm.py and chip_smoke.py.
 """
@@ -43,10 +51,15 @@ import torch
 from torch.func import functional_call
 
 from rigl_tpu_torch.layers.packed_dense import PackedDense
+from rigl_tpu_torch.models.packed_moe import (DenseMoETransformer,
+                                              PackedMoETransformer,
+                                              _PackedExperts,
+                                              moe_layer_shapes)
 from rigl_tpu_torch.models.packed_transformer import (DenseTransformer,
                                                       PackedTransformer,
                                                       transformer_layer_shapes)
 from rigl_tpu_torch.ops.block_sparse_packed import make_packing, unpack_dense
+from rigl_tpu_torch.parallel import packed_ep as ep
 from rigl_tpu_torch.serve.decode import decode_twin, make_generate_fn
 from rigl_tpu_torch.sparsity.layer_sparsity import spec_for_model
 from rigl_tpu_torch.sparsity.schedules import UpdateSchedule
@@ -82,6 +95,7 @@ class PackedLMConfig:
   algo: str = 'rigl'                     # rigl | set | snfs
   snfs_momentum: float = 0.9
   # Parallel layouts of the JAX trainer: single-device values only here.
+  # n_experts > 0: every block's FFN is a top-1 MoE of that many experts.
   n_data: int = 1
   n_model: int = 1
   n_pipe: int = 1
@@ -93,21 +107,28 @@ class PackedLMConfig:
   n_expert: int = 1
 
   def model_kwargs(self) -> Dict[str, Any]:
-    return dict(num_layers=self.num_layers, d_model=self.d_model,
-                d_ff=self.d_ff, num_heads=self.num_heads,
-                vocab_size=self.vocab_size, dtype=_DTYPES[self.dtype])
+    kw = dict(num_layers=self.num_layers, d_model=self.d_model,
+              d_ff=self.d_ff, num_heads=self.num_heads,
+              vocab_size=self.vocab_size, dtype=_DTYPES[self.dtype])
+    if self.n_experts > 0:
+      kw.update(num_experts=self.n_experts,
+                capacity_factor=self.capacity_factor)
+    return kw
 
 
 def dense_twin_params(params: Dict[str, torch.Tensor], packings,
                       block: Tuple[int, int]) -> Dict[str, torch.Tensor]:
-  """Packed state {name: tensor} -> the DenseTransformer's state: each
-  packed kernel '<layer>.kernel' unpacked to its dense (in, out) matrix
-  (zeros at inactive blocks) at '<layer>.d.kernel'; other entries shared."""
+  """Packed state {name: tensor} -> the dense twin's state: each packed
+  kernel '<layer>.kernel' unpacked to its dense (in, out) matrix, or an
+  expert stack to its (E, in, out) matrices (zeros at inactive blocks), at
+  '<layer>.d.kernel'; other entries shared."""
   out = {}
   for name, value in params.items():
     if name in packings:
       layer = name.rsplit('.', 1)[0]
-      out[f'{layer}.d.kernel'] = unpack_dense(value, packings[name], block)
+      unpack = (ep.unpack_dense_experts
+                if ep.is_expert_stacked(packings[name]) else unpack_dense)
+      out[f'{layer}.d.kernel'] = unpack(value, packings[name], block)
     else:
       out[name] = value
   return out
@@ -133,16 +154,20 @@ class PackedLMTrainer:
       raise ValueError(f'algo must be rigl/set/snfs, got {cfg.algo!r}')
     if cfg.dtype not in _DTYPES:
       raise ValueError(f'dtype must be float32 or bfloat16: {cfg.dtype!r}')
-    for name, single in (('n_data', 1), ('n_model', 1), ('n_pipe', 1),
-                         ('n_seq', 1), ('n_experts', 0), ('n_expert', 1)):
-      if getattr(cfg, name) != single:
+    if cfg.n_experts > 0 and (cfg.n_model > 1 or cfg.n_pipe > 1
+                              or cfg.n_seq > 1):
+      raise ValueError('n_experts>0 composes with n_data/n_expert only')
+    for name in ('n_data', 'n_model', 'n_pipe', 'n_seq', 'n_expert'):
+      if getattr(cfg, name) != 1:
         raise NotImplementedError(f'{name}={getattr(cfg, name)}: only the '
-                                  f'single-device value {single} is ported')
+                                  'single-device value 1 is ported')
     self.cfg = cfg
     self.device = torch.device(device)
+    shapes = (moe_layer_shapes(cfg.d_model, cfg.d_ff, cfg.n_experts)
+              if cfg.n_experts > 0
+              else transformer_layer_shapes(cfg.d_model, cfg.d_ff))
     self.sparsity_spec = spec_for_model(
-        transformer_layer_shapes(cfg.d_model, cfg.d_ff),
-        cfg.sparsity_distribution, cfg.sparsity,
+        shapes, cfg.sparsity_distribution, cfg.sparsity,
         erk_power_scale=cfg.erk_power_scale)
     self.schedule = UpdateSchedule(
         cfg.maskupdate_begin_step, cfg.maskupdate_end_step,
@@ -163,12 +188,15 @@ class PackedLMTrainer:
     with cfg.seed), zero Adam slots at count 0, counters at 0."""
     cfg = self.cfg
     gen = torch.Generator().manual_seed(cfg.seed)
-    self.model = PackedTransformer(sparsity=self.sparsity_spec,
-                                   block=cfg.block, bm=cfg.bm, generator=gen,
-                                   device=self.device, **cfg.model_kwargs())
+    moe = cfg.n_experts > 0
+    packed = PackedMoETransformer if moe else PackedTransformer
+    self.model = packed(sparsity=self.sparsity_spec, block=cfg.block,
+                        bm=cfg.bm, generator=gen, device=self.device,
+                        **cfg.model_kwargs())
     # Only its structure is used: the dense-view grads run it through
     # functional_call on dense views of the packed state.
-    self.dense_twin = DenseTransformer(device='meta', **cfg.model_kwargs())
+    dense = DenseMoETransformer if moe else DenseTransformer
+    self.dense_twin = dense(device='meta', **cfg.model_kwargs())
     names = sorted(self.params, key=pt.path_key)
     self.optimizer = torch.optim.Adam([self.params[n] for n in names],
                                       lr=0.0, betas=(0.9, 0.999), eps=1e-8)
@@ -190,11 +218,12 @@ class PackedLMTrainer:
 
   def _packed_layers(self) -> Dict[str, PackedDense]:
     return {f'{name}.kernel': mod for name, mod in self.model.named_modules()
-            if isinstance(mod, PackedDense)}
+            if isinstance(mod, (PackedDense, _PackedExperts))}
 
   @property
   def packings(self):
-    """{name of a packed kernel: its Packing}."""
+    """{name of a packed kernel: its Packing (an ExpertPacking for an
+    expert stack)}."""
     return {name: mod.packing for name, mod in self._packed_layers().items()}
 
   def _set_packings(self, packings):
@@ -212,19 +241,25 @@ class PackedLMTrainer:
   def load_arrays(self, step: int, last_update_step: int, batches_seen: int,
                   occupancy, params, mu, nu, count: int, ema=None):
     """Sets the whole training state from numpy arrays keyed by dotted
-    names: counters, each packed kernel's (nk, nn) occupancy (rebuilt as a
-    packing), every parameter, Adam's mu / nu and count, and (SNFS) the EMA
-    grids.  Parameters and slots are copied in place."""
+    names: counters, each packed kernel's (nk, nn) occupancy, or an expert
+    stack's (E, nk, nn) (rebuilt as a packing), every parameter, Adam's
+    mu / nu and count, and (SNFS) the EMA grids.  Parameters and slots are
+    copied in place."""
     if self.optimizer is None:
       self.init_state()
     self.step, self.batches_seen = int(step), int(batches_seen)
     self.last_update_step = int(last_update_step)
     self.opt_count = int(count)
     cur = self.params
-    self._set_packings({
-        name: make_packing(torch.as_tensor(np.array(occupancy[name])),
-                           int(cur[name].shape[0]))
-        for name in self.packings})
+
+    def packing(name, old):
+      occ = torch.as_tensor(np.array(occupancy[name]))
+      if ep.is_expert_stacked(old):
+        return ep.expert_packing_from_occ(occ, int(cur[name].shape[1]))
+      return make_packing(occ, int(cur[name].shape[0]))
+
+    self._set_packings({name: packing(name, old)
+                        for name, old in self.packings.items()})
     with torch.no_grad():
       for name, p in cur.items():
         p.copy_(torch.as_tensor(np.array(params[name])))
@@ -247,6 +282,11 @@ class PackedLMTrainer:
     return float(np.float32(-lr) * frac + lr)
 
   def _loss(self, x, y) -> torch.Tensor:
+    """Mean cross-entropy, plus aux_loss_weight times the summed
+    load-balance aux of the MoE layers."""
+    if self.cfg.n_experts > 0:
+      logits, aux = self.model(x, with_aux=True)
+      return _lm_loss(logits, y) + self.cfg.aux_loss_weight * aux
     return _lm_loss(self.model(x), y)
 
   def train_step(self, x, y) -> float:
@@ -276,7 +316,8 @@ class PackedLMTrainer:
   def _dense_twin_grads(self, x, y) -> Dict[str, torch.Tensor]:
     """Dense gradients (inactive blocks included) of every packed kernel,
     through the dense twin holding dense views of the packed state: the
-    grow-score input of RigL and SNFS."""
+    grow-score input of RigL and SNFS.  The loss is the cross-entropy
+    alone, without the MoE aux, as JAX's _dense_twin_grads takes it."""
     params = {n: p.detach() for n, p in self.params.items()}
     packings = self.packings
     views = dense_twin_params(params, packings, self.cfg.block)
@@ -441,15 +482,18 @@ class PackedLMTrainer:
             + [count]), names
 
   def save(self, path: str):
-    """JAX's packed_lm_state.npz: counters, occupancy grids (packings
-    rebuild from them), params, SNFS EMA grids, optimizer leaves."""
+    """JAX's packed_lm_state.npz: counters, occupancy grids ((E, nk, nn)
+    for an expert stack; packings rebuild from them), params, SNFS EMA
+    grids, optimizer leaves."""
     os.makedirs(path, exist_ok=True)
     flat = {'step': np.asarray(self.step),
             'last_update': np.asarray(self.last_update_step),
             'batches_seen': np.asarray(self.batches_seen)}
     slash = lambda name: name.replace('.', '/')   # noqa: E731
     for name, pk in self.packings.items():
-      flat['occ_' + slash(name)] = pt.occupancy_grid(pk).numpy()
+      occ = (ep.expert_occupancy_grid(pk) if ep.is_expert_stacked(pk)
+             else pt.occupancy_grid(pk))
+      flat['occ_' + slash(name)] = occ.numpy()
     for name, p in self.params.items():
       flat['param_' + slash(name)] = p.detach().cpu().numpy()
     if self.ema_grids is not None:

@@ -20,9 +20,11 @@ The JAX module's nested-tree (`flax_*`) functions work on flax trees keyed
 by path tuples; here they take flat `{name: tensor}` dicts keyed by the
 port's dotted parameter names ('block0.attn.qkv.kernel'), and the
 optimizer is a torch.optim.Optimizer (Adam's exp_avg / exp_avg_sq are
-carried or reset, its step passes through as optax's count does).  They
-are for one device: the TP and EP (tensor- and expert-stacked) variants
-are not ported yet.
+carried or reset, its step passes through as optax's count does).  An
+expert-stacked kernel (an ExpertPacking, parallel/packed_ep.py) has
+(E, nk, nn) grids and drops and grows per expert; its optimizer slots are
+carried within each expert.  They are for one device: the TP
+(tensor-stacked) variant is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from rigl_tpu_torch.ops.block_mask import pool_to_blocks
 from rigl_tpu_torch.ops.block_sparse_packed import (Packing, make_packing,
                                                     repack_permutation,
                                                     unpack_dense)
+from rigl_tpu_torch.parallel import packed_ep as ep
 from rigl_tpu_torch.sparsity import update as update_lib
 
 
@@ -112,21 +115,27 @@ def rigl_grow_grids(dense_grads: Dict[str, torch.Tensor],
 
 def _carry_slots(tree, perm: torch.Tensor, grown: torch.Tensor):
   """Gathers the survivors of every tensor in `tree` (nested dicts, lists
-  and tuples) whose leading axis is the packed axis into their new slots
-  and zeroes the grown ones; scalars and counters pass through.  Returns a
-  new tree."""
+  and tuples) whose leading axes are the packed axes of `grown` into their
+  new slots and zeroes the grown ones; scalars and counters pass through.
+  `grown` is (n_active,), or (E, cap) for an expert stack, whose slots are
+  gathered within each expert (along axis 1).  Returns a new tree."""
   if isinstance(tree, dict):
     return {k: _carry_slots(v, perm, grown) for k, v in tree.items()}
   if isinstance(tree, (list, tuple)):
     items = [_carry_slots(v, perm, grown) for v in tree]
     return type(tree)(*items) if hasattr(tree, '_fields') else type(tree)(
         items)
-  if not (torch.is_tensor(tree) and tree.dim() >= 1
-          and tree.shape[0] == grown.shape[0]):
+  lead = grown.dim()
+  if not (torch.is_tensor(tree) and tree.dim() >= lead
+          and tree.shape[:lead] == grown.shape):
     return tree
-  src = tree[perm.clamp(min=0).to(tree.device, torch.long)]
-  pad = (1,) * (tree.dim() - 1)
-  return torch.where(grown.to(tree.device).reshape((-1,) + pad),
+  pad = (1,) * (tree.dim() - lead)
+  index = perm.clamp(min=0).to(tree.device, torch.long)
+  if lead == 1:
+    src = tree[index]
+  else:
+    src = torch.take_along_dim(tree, index.reshape(grown.shape + pad), 1)
+  return torch.where(grown.to(tree.device).reshape(grown.shape + pad),
                      torch.zeros_like(src), src)
 
 
@@ -146,11 +155,13 @@ def packed_rigl_update(params: Dict[str, torch.Tensor],
 
   For each packed layer: drop by packed block |w| sums, grow by the
   caller's pooled grids (rigl_grow_grids), copy the repacked weights into
-  the parameter (grown blocks zeroed), and in every per-parameter state
-  tensor of `optimizer` whose leading axis is the packed axis
-  (momentum_buffer, exp_avg, exp_avg_sq) gather the survivors and zero the
-  grown slots (sparse_optimizers_base.py:336-343; JAX's `fix` at
-  rigl_tpu/transforms/packed_training.py:153-160).  Entries of `params`
+  the parameter (grown blocks zeroed; an expert stack per expert, by
+  packed_ep.expert_drop_grow), and in every per-parameter state tensor of
+  `optimizer` whose leading axis is the packed axis, or whose leading two
+  are an expert stack's (momentum_buffer, exp_avg, exp_avg_sq), gather the
+  survivors and zero the grown slots (sparse_optimizers_base.py:336-343;
+  JAX's `fix` at rigl_tpu/transforms/packed_training.py:350-368).  An
+  expert stack's n_active entry is unused.  Entries of `params`
   without a packing (a dense head) pass through.  State the optimizer has
   not created yet (torch makes momentum_buffer at the first step) needs no
   permuting: it equals optax's zero trace.
@@ -159,8 +170,12 @@ def packed_rigl_update(params: Dict[str, torch.Tensor],
   for name, param in params.items():
     if name not in packings:
       continue
-    out = packed_drop_grow(param.detach(), packings[name], grow_grids[name],
-                           drop_fraction, n_active[name])
+    if ep.is_expert_stacked(packings[name]):
+      out = ep.expert_drop_grow(param.detach(), packings[name],
+                                grow_grids[name], drop_fraction)
+    else:
+      out = packed_drop_grow(param.detach(), packings[name],
+                             grow_grids[name], drop_fraction, n_active[name])
     with torch.no_grad():
       param.copy_(out.packed)
       if param in optimizer.state:
@@ -191,11 +206,17 @@ def _pooled_grids(dense_grads: Dict[str, torch.Tensor],
                   packings: Dict[str, Packing], block: Tuple[int, int],
                   absolute: bool) -> Dict[str, torch.Tensor]:
   """{name: (nk, nn)} block-pooled grids of the dense grads of each packed
-  kernel: pooled |grad| (RigL) or the SIGNED grads (SNFS's EMA input)."""
+  kernel ((E, nk, nn) stacks for an expert stack): pooled |grad| (RigL) or
+  the SIGNED grads (SNFS's EMA input)."""
+  def pool(g):
+    g = g.to(torch.float32)
+    return pool_to_blocks(g.abs() if absolute else g, block, 'sum')
+
   grids = {}
-  for name in packings:
-    g = dense_grads[name].to(torch.float32)
-    grids[name] = pool_to_blocks(g.abs() if absolute else g, block, 'sum')
+  for name, pk in packings.items():
+    g = dense_grads[name]
+    grids[name] = (torch.stack([pool(ge) for ge in g])
+                   if ep.is_expert_stacked(pk) else pool(g))
   return grids
 
 
@@ -211,9 +232,10 @@ def flax_snfs_inst_grids(dense_grads, packings, block: Tuple[int, int]):
 
 
 def grow_grid_shapes(packings: Dict[str, Packing]) -> Dict[str, tuple]:
-  """{name: (nk, nn)} for each packed kernel: the shapes of its grow grid
-  and of its SNFS EMA state."""
-  return {name: tuple(pk.shape) for name, pk in packings.items()}
+  """{name: (nk, nn)} for each packed kernel, (E, nk, nn) for an expert
+  stack: the shapes of its grow grid and of its SNFS EMA state."""
+  return {name: ((ep.n_experts_of(pk),) if ep.is_expert_stacked(pk) else ())
+          + tuple(pk.shape) for name, pk in packings.items()}
 
 
 def flax_set_grow_grids(packings: Dict[str, Packing],
@@ -248,9 +270,11 @@ def flax_packed_drop_grow(params: Dict[str, torch.Tensor],
                           drop_fraction) -> PackedRigLResult:
   """Score-agnostic drop/grow over every packed kernel of `params` (RigL,
   SET and SNFS differ only in grow_grids); each kernel's active count is
-  its packed leading dim.  Entries without a packing pass through.  In
-  place, as packed_rigl_update."""
-  n_active = {name: int(params[name].shape[0]) for name in packings}
+  its packed leading dim (an expert stack's, the axis after the experts).
+  Entries without a packing pass through.  In place, as
+  packed_rigl_update."""
+  n_active = {name: int(params[name].shape[int(ep.is_expert_stacked(pk))])
+              for name, pk in packings.items()}
   return packed_rigl_update(params, packings, optimizer, grow_grids,
                             drop_fraction, n_active)
 

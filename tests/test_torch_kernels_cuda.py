@@ -2,7 +2,8 @@
 their dense storage modes under the v3 / v4 entries and the history
 entries B9'-B12; the causal flash-attention forward, dK/dV and dQ in bf16
 and f32; the tap conv's forward, dx and dw) against their plain PyTorch
-versions, on a CUDA card, and the paths that run them.
+versions, on a CUDA card, and the paths that run them (the MoE's experts
+and its trainer step among them).
 
 Every test here needs the card (marker `cuda`) and skips without one.
 The file imports neither jax nor the JAX package, so the card's machine
@@ -462,6 +463,127 @@ def test_lm_trainer_bf16_step_on_card_matches_plain(cuda_device):
       want = plain[f'{name.rsplit(".", 1)[0]}.d.kernel']
       occ = tbsp.unpack_dense(torch.ones_like(g), packings[name], cfg.block)
       want = want * occ            # the plain dense grad at active blocks
+    else:
+      got, want = g, plain[name]
+    assert torch.isfinite(got).all(), name
+    assert _rel_err(got, want) <= 5e-2, name
+
+
+# -------------------------------------------------------------------- MoE --
+# The MoE arm's experts (scripts/bench_packed_moe.py): 8 a layer, block
+# (256, 256), s = 0.8, bf16; m = 512 rows an expert in training, 4 at a
+# batch-4 decode step, and a ragged 200.
+MOE_EXPERTS, MOE_BLOCK = 8, (256, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [4, 200, 512])
+@pytest.mark.parametrize('k,n', [(1024, 4096), (4096, 1024)])
+def test_moe_experts_match_plain(cuda_device, k, n, m):
+  """_PackedExperts forward and backward at the MoE arm's shapes: one
+  forward, dx and dw launch an expert (the decode branch at m = 4, in
+  the forward and dx), and each expert's output, dx and dw against the
+  plain versions on its own packing (bf16 rounding: 2e-2 of
+  max(1, max |plain|))."""
+  from rigl_tpu_torch.models import packed_moe as tmoe
+  gen = torch.Generator().manual_seed(m + k)
+  ex = tmoe._PackedExperts(k, n, MOE_EXPERTS, sparsity=0.8, block=MOE_BLOCK,
+                           bm=512, dtype=torch.bfloat16, generator=gen,
+                           device=cuda_device)
+  xe = torch.randn(MOE_EXPERTS, m, k, generator=gen).to(
+      cuda_device, torch.bfloat16).requires_grad_()
+  gy = torch.randn(MOE_EXPERTS, m, n, generator=gen).to(cuda_device,
+                                                         torch.bfloat16)
+  counters = ('packed_mm_launches', 'packed_mm_dx_launches',
+              'packed_dw_launches', 'mm_decode_launches')
+  before = [getattr(tbsp, c) for c in counters]
+  y = ex(xe)
+  dx, dw = torch.autograd.grad(y, [xe, ex.kernel], gy)
+  torch.cuda.synchronize()
+  moved = [getattr(tbsp, c) - b for c, b in zip(counters, before)]
+  assert moved == [MOE_EXPERTS] * 3 + [2 * MOE_EXPERTS * (m <= 32)]
+  assert dw.dtype == torch.float32              # the master weights' grad
+  w = ex.kernel.detach().to(torch.bfloat16)
+  x = xe.detach()
+  for e, pk in enumerate(ex.packing.experts):
+    for name, got, want in (
+        ('y', y[e].detach(), tbsp.packed_matmul_reference(x[e], w[e], pk,
+                                                          MOE_BLOCK)),
+        ('dx', dx[e], tbsp.packed_matmul_dx_reference(gy[e], w[e], pk,
+                                                      MOE_BLOCK)),
+        ('dw', dw[e], tbsp.packed_dw_reference(x[e], gy[e], pk, MOE_BLOCK,
+                                               torch.bfloat16))):
+      assert _rel(got, want) <= MM_TOL[torch.bfloat16], (name, e)
+
+
+@pytest.mark.cuda
+def test_moe_lm_step_on_card_matches_plain(cuda_device, monkeypatch):
+  """One bf16 MoE PackedLMTrainer step on the card: per layer the two
+  attention projections and the 2 x E expert matmuls launch forward, dx
+  and dw once each; the loss (aux included) and every gradient agree with
+  the plain path (the dense MoE twin holding the unpacked kernels) on the
+  same state, batch and routing (the kernel path's expert choices replayed
+  in the plain path, which bf16 rounding could otherwise flip)."""
+  from torch.func import functional_call
+  from rigl_tpu_torch.drivers.packed_lm import synthetic_stream
+  from rigl_tpu_torch.models import packed_moe as tmoe
+  from rigl_tpu_torch.parallel import packed_ep as tep
+  from rigl_tpu_torch.train import packed_lm as tlm
+  cfg = tlm.PackedLMConfig(vocab_size=64, num_layers=2, d_model=256,
+                           d_ff=512, num_heads=2, seq_len=128,
+                           sparsity=0.5, block=(128, 128), bm=128,
+                           dtype='bfloat16', batch_size=2, seed=3,
+                           n_experts=4)
+  tr = tlm.PackedLMTrainer(cfg, device=cuda_device)
+  tr.init_state()
+  x, y = tr.sample_batch(synthetic_stream(5000, seed=3))
+  params = tr.params
+  real, routes = tep.top1_gather_dispatch, []
+
+  def record(logits, capacity, token_axes=()):
+    out = real(logits, capacity, token_axes)
+    routes.append(out[:3])
+    return out
+
+  monkeypatch.setattr(tep, 'top1_gather_dispatch', record)
+  before = (tbsp.packed_mm_launches, tbsp.packed_mm_dx_launches,
+            tbsp.packed_dw_launches)
+  loss = tr._loss(x, y)
+  grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+  torch.cuda.synchronize()
+  moved = tuple(a - b for a, b in zip(
+      (tbsp.packed_mm_launches, tbsp.packed_mm_dx_launches,
+       tbsp.packed_dw_launches), before))
+  assert moved == (2 * (2 + 2 * 4),) * 3
+  replay = iter(routes)
+
+  def replayed(logits, capacity, token_axes=()):
+    src, flat_ec, kept = next(replay)
+    choice = flat_ec // capacity
+    probs = torch.softmax(logits.float(), -1)
+    aux = logits.shape[1] * torch.sum(torch.nn.functional.one_hot(
+        choice, logits.shape[1]).float().mean(0) * probs.mean(0))
+    return src, flat_ec, kept, probs.gather(1, choice[:, None])[:, 0], aux
+
+  monkeypatch.setattr(tep, 'top1_gather_dispatch', replayed)
+  views = {n: v.detach().clone().requires_grad_() for n, v in
+           tlm.dense_twin_params({n: p.detach() for n, p in params.items()},
+                                 tr.packings, cfg.block).items()}
+  twin = tmoe.DenseMoETransformer(device=cuda_device, **cfg.model_kwargs())
+  logits, aux = functional_call(twin, views, (x,), {'with_aux': True})
+  plain_loss = tlm._lm_loss(logits, y) + cfg.aux_loss_weight * aux
+  plain = dict(zip(views, torch.autograd.grad(plain_loss,
+                                              list(views.values()))))
+  loss, plain_loss = float(loss.detach()), float(plain_loss.detach())
+  assert abs(loss - plain_loss) <= 2e-2 * abs(plain_loss)
+  for name, g in grads.items():
+    pk = tr.packings.get(name)
+    if pk is not None:
+      unpack = (tep.unpack_dense_experts if tep.is_expert_stacked(pk)
+                else tbsp.unpack_dense)
+      got = unpack(g, pk, cfg.block)
+      want = plain[f'{name.rsplit(".", 1)[0]}.d.kernel'] * unpack(
+          torch.ones_like(g), pk, cfg.block)
     else:
       got, want = g, plain[name]
     assert torch.isfinite(got).all(), name

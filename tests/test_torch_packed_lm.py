@@ -244,7 +244,8 @@ def test_config_checks_and_dense_twin_params():
                     (dict(block=(24, 16)), ValueError),
                     (dict(dtype='float16'), ValueError),
                     (dict(n_model=2), NotImplementedError),
-                    (dict(n_experts=4), NotImplementedError),
+                    (dict(n_expert=2), NotImplementedError),
+                    (dict(n_experts=4, n_model=2), ValueError),
                     (dict(n_seq=2), NotImplementedError)):
     with pytest.raises(err):
       tlm.PackedLMTrainer(dataclasses.replace(cfg, **over), device='cpu')
