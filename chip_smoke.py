@@ -240,7 +240,38 @@ package.  Phases, each fatal on failure:
      defaults, 6 steps and 4 generated tokens, on the card without
      --device; printed: step ms (CUDA events and host clock), update ms,
      the device-busy share and a step's device time by kernel
-     (torch.profiler), the dense twin's step, peak memory.
+     (torch.profiler), the dense twin's step, peak memory;
+ 25. sparse RL, a main path of rl/ (envs, replay, networks, DQN, PPO,
+     SAC) and drivers/rl.py (constants RL_*): (a) the two Atari RigL
+     presets (configs/rl_dqn_atari_rigl.json, NatureDQN, and its
+     impala_net twin, width 1.0, batch 32, learn_every 4, lr 2.5e-4, ERK
+     0.9) through drivers.rl.run on Breakout, cut only in
+     total_env_steps and maskupdate_frequency: the env-step and learn
+     counts, four RigL updates with every layer at its init count and a
+     mask changed, the global sparsity within 0.01 of ERK's, the target
+     masks and params equal to the online ones after each sync (and not
+     aliased), a finite return, and one plain learn step on the card
+     against the same step on the CPU, both in float64 (RL_F64_*); (b)
+     tests/test_rl.py's three slow learning checks at their settings on
+     the card: DQN on CartPole above 35, PPO above 40, SAC on Pendulum
+     above -900; (c) rl_dqn_gym_sparse, rl_ppo_mujoco_sparse and
+     rl_sac_mujoco_sparse at their widths for a few hundred env steps;
+     printed: env steps a second, the learn step's ms (CUDA events), the
+     device-busy share (torch.profiler), host syncs per env step (0, by
+     torch.cuda.set_sync_debug_mode), per learn step and per
+     collect_and_learn, and peak memory;
+ 26. the analysis harness and the flop count (constants ANALYSIS_*):
+     configs/lenet_rigl.json (LeNet-5, RigL, ERK 0.9) through
+     drivers.train on the card for 300 steps with checkpoints, then
+     drivers.analysis on its run directory: the exact Hessian of the last
+     checkpoint at lenet_hessian.json's batch of 60000 (the eval batch
+     repeated) and Lanczos at order 32 on every checkpoint, its extreme
+     Ritz values inside the exact spectrum (ANALYSIS_RITZ_SLACK);
+     lenet_interpolate.json's 29 points, finite, their ends equal to the
+     two checkpoints' losses; MetaInit 10 steps with the gradient
+     quotient falling; utils.flops.count_model of ResNet-50 on the card
+     equal to its count on the CPU; printed: n_active, the Hessian's
+     seconds and peak memory.
 
 Every dw point (phases 3, 12, 15, 19 and 24) also logs how its kernel split
 the reduction (ops/dw_split.py): S slices, the grid and the workspace's
@@ -250,7 +281,8 @@ it and read just after.  The line before the last is the JSON record: `kernels`
 kernels and the f32 dw, of ms, plain_ms, bound_ms and library_ms, its
 launches on the main paths, and every point), `serving`, `training`,
 `train_step`, `lm`, `wrn`, `rn50`, `history`, `f32_train_step`, `zoo`,
-`trainer`, `moe_lm` and the script's wall time; the packed kernels'
+`trainer`, `moe_lm`, `rl`, `analysis` and the script's wall time; the
+packed kernels'
 entries count the MoE path's launches under `moe_lm` and list its points
 as `moe_lm_points`.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -4593,6 +4625,592 @@ def phase_moe_lm(torch, device, card):
   return points, launches, serve_launches, rec
 
 
+# ------------------------------------------------------ sparse RL (25) -----
+RL_ATARI = ('configs/rl_dqn_atari_rigl.json',
+            'configs/rl_dqn_atari_rigl_impala_net.json')
+# The Atari presets' cuts, every other value the preset's (NatureDQN /
+# Impala at width 1.0, batch 32, learn_every 4, lr 2.5e-4, RigL, ERK 0.9,
+# min_replay 500, target_update_period 100): total_env_steps 1e7 -> 1120
+# (156 learn iterations after the 500-transition warm-up) and
+# maskupdate_frequency 5000 -> 50, so RigL updates at steps 0, 50, 100
+# and 150, the target syncs at steps 0 and 100 (after a plain step and
+# after the update), and 48 plain steps are left before the next update
+# for the measurements that follow.
+RL_ATARI_ENV_STEPS = 1120
+RL_ATARI_FREQUENCY = 50
+# One learn step on the card against the same step on the CPU, both in
+# float64 from the card's float32 state, as phase 22 does: in float32 a
+# ReLU or Huber boundary that the two devices' sums put on either side
+# moves a gradient entry by 2e-3 of its value (a conv bias's, on the
+# H100), while in float64 the devices differ by the order of their sums
+# alone, 1e-15 of the largest values, far inside RL_F64_RTOL; after Adam
+# a weight whose gradient is near 0 moves by lr * m / (sqrt(v) + eps),
+# so the params within RL_F64_RTOL of the layer's largest plus
+# RL_F64_ATOL.  Masks equal.
+RL_F64_RTOL, RL_F64_ATOL = 1e-9, 1e-9
+# Windows of the measurements, all of plain learn steps.
+RL_LEARN_TIMED = 10
+RL_CHUNKS_TIMED = 15
+RL_SYNC_CHUNKS = 5
+RL_BUSY_CHUNKS = 5
+# tests/test_rl.py's slow learning checks at their own settings:
+# (agent, config, hidden, env, total env steps, the bound on the final
+# average return).
+RL_LEARN = (
+    ('dqn', dict(training_method='rigl', sparsity=0.5, buffer_capacity=5000,
+                 min_replay=200, batch_size=64, learn_every=2,
+                 target_update_period=50, epsilon_decay_steps=2000,
+                 maskupdate_frequency=200, maskupdate_begin_step=100,
+                 learning_rate=3e-3), (64, 64), 'cartpole', 6000, 35.0),
+    ('ppo', dict(training_method='rigl', sparsity=0.5, rollout_length=256,
+                 num_epochs=4, num_minibatches=4, learning_rate=1e-3,
+                 maskupdate_frequency=100, maskupdate_begin_step=50),
+     (64, 64), 'cartpole', 256 * 60, 40.0),
+    ('sac', dict(training_method='rigl', sparsity=0.5,
+                 buffer_capacity=20000, min_replay=500, batch_size=128,
+                 learn_every=1, learning_rate=3e-3,
+                 maskupdate_frequency=1000, maskupdate_begin_step=500),
+     (64, 64), 'pendulum', 12000, -900.0),
+)
+# The other presets, a few hundred env steps each at their widths (only
+# total_env_steps cut): the DQN past its min_replay of 500, PPO two
+# rollouts of 256 (80 update steps at num_epochs 10), SAC past its
+# min_replay of 1000.
+RL_PRESETS = (('configs/rl_dqn_gym_sparse.json', 800),
+              ('configs/rl_ppo_mujoco_sparse.json', 512),
+              ('configs/rl_sac_mujoco_sparse.json', 1200))
+
+
+def _erk_sparsity(st):
+  """The global sparsity of ERK's per-layer zero counts at init."""
+  from rigl_tpu_torch.sparsity import distributions
+  total = sum(math.prod(s) for s in st.layer_shapes.values())
+  zeros = sum(distributions.get_n_zeros(math.prod(s), st.sparsities[p])
+              for p, s in st.layer_shapes.items())
+  return zeros / total
+
+
+@contextlib.contextmanager
+def _dqn_recorder(torch, rec):
+  """Wraps SparseDQN._learn while the block runs: the first call's agent,
+  masks and counts; each mask update's counts (against init) and whether
+  a mask changed; each target sync's masks and params against the
+  online ones, and whether they alias them."""
+  from rigl_tpu_torch.rl import dqn
+  orig = dqn.SparseDQN._learn
+
+  def learn(self, state, idx=None):
+    if 'agent' not in rec:
+      rec.update(agent=self, updates=[], syncs=[], learns=0,
+                 init_counts={p: int(m.sum())
+                              for p, m in state.sparse.masks.items()},
+                 init_sparsity=float(
+                     dqn.masks_lib.calculate_sparsity(state.sparse.masks)))
+    new = orig(self, state, idx)
+    rec['learns'] += 1
+    if new.sparse.masks is not state.sparse.masks:
+      counts = {p: int(m.sum()) for p, m in new.sparse.masks.items()}
+      rec['updates'].append(dict(
+          step=new.sparse.step, counts_kept=counts == rec['init_counts'],
+          changed=[p for p, m in new.sparse.masks.items()
+                   if not torch.equal(m, state.sparse.masks[p])]))
+    if new.target_masks is not state.target_masks:
+      rec['syncs'].append(dict(
+          step=new.sparse.step,
+          masks_equal=all(torch.equal(new.target_masks[p], m)
+                          for p, m in new.sparse.masks.items()),
+          params_equal=all(torch.equal(new.target_params[p], t)
+                           for p, t in new.params.items()),
+          aliased=any(new.target_params[p].data_ptr() == t.data_ptr()
+                      for p, t in new.params.items())))
+    return new
+
+  dqn.SparseDQN._learn = learn
+  try:
+    yield rec
+  finally:
+    dqn.SparseDQN._learn = orig
+
+
+def _rl_f64_copy(torch, agent, state, device):
+  """(agent, state) on `device` in float64 holding `state` (a DQNState on
+  the card): the network, optimizer slots, masks, targets and replay
+  copied, float tensors of the parameters' shapes widened."""
+  import copy
+  from rigl_tpu_torch.rl import dqn, replay
+  from rigl_tpu_torch.rl.envs import EnvState
+  from rigl_tpu_torch.train.checkpoint import optimizer_slots
+  net = copy.deepcopy(agent.net).to(device=device, dtype=torch.float64)
+  for m in net.modules():
+    if hasattr(m, 'dtype'):
+      m.dtype = torch.float64
+  out = dqn.SparseDQN(net, type(agent.env)(device=device), agent.config)
+  base = out.init(agent.config.seed)
+  move = lambda t: t.detach().to(device).clone()  # noqa: E731
+  wide = lambda t: t.detach().to(device, torch.float64).clone()  # noqa: E731
+  with torch.no_grad():
+    for p, t in base.params.items():
+      t.copy_(state.params[p])
+  slots = optimizer_slots(state.optimizer, list(state.params))
+  for p, t in base.params.items():
+    base.optimizer.state[t] = {
+        k: (wide(v) if torch.is_tensor(v) and v.shape == t.shape else
+            v.clone() if torch.is_tensor(v) else v)
+        for k, v in slots[p].items()}
+  b = state.buffer
+  return out, base.replace(
+      target_params={p: wide(t) for p, t in state.target_params.items()},
+      target_masks={p: move(t) for p, t in state.target_masks.items()},
+      sparse=state.sparse.replace(
+          masks={p: move(m) for p, m in state.sparse.masks.items()}),
+      buffer=replay.ReplayBuffer(obs=move(b.obs), action=move(b.action),
+                                 reward=move(b.reward),
+                                 next_obs=move(b.next_obs),
+                                 done=move(b.done), ptr=b.ptr, size=b.size),
+      env_state=EnvState(obs=move(state.env_state.obs),
+                         done=move(state.env_state.done),
+                         t=move(state.env_state.t),
+                         gen=torch.Generator(device=device)),
+      env_steps=state.env_steps)
+
+
+def _rl_learn_vs_cpu(torch, agent, state):
+  """One plain learn step in float64 on the card against the same step in
+  float64 on the CPU, from the card's state (module constants RL_F64_*);
+  returns its record.  The card's own state does not move."""
+  from rigl_tpu_torch.rl import dqn, replay
+  idx = replay.sample_indices(state.buffer, state.gen,
+                              agent.config.batch_size)
+  out = {}
+  for name, dev in (('card', agent.device), ('cpu', torch.device('cpu'))):
+    a, s = _rl_f64_copy(torch, agent, state, dev)
+    i = idx.to(dev)
+    eff = dqn.effective(s.params, s.sparse.masks, a.config.premask_params,
+                        grad=True)
+    loss = a._loss(eff, s.target_params, s.target_masks,
+                   replay.gather(s.buffer, i))
+    grads = dqn.grads_of(loss, eff)
+    new = a._learn(s, idx=i)
+    out[name] = dict(loss=float(loss.detach()),
+                     grads={p: g.detach().cpu() for p, g in grads.items()},
+                     params={p: t.detach().cpu().clone()
+                             for p, t in new.params.items()},
+                     masks={p: m.cpu() for p, m in new.sparse.masks.items()},
+                     step=new.sparse.step)
+  card, host = out['card'], out['cpu']
+  check(card['step'] == host['step'], 'rl: card and CPU steps differ')
+  def rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+  grad_err = max(rel(g, host['grads'][p]) for p, g in card['grads'].items())
+  step_err = max(float((t - host['params'][p]).abs().max()
+                       - RL_F64_RTOL * host['params'][p].abs().max())
+                 for p, t in card['params'].items())
+  loss_err = abs(card['loss'] - host['loss']) / abs(host['loss'])
+  masks_equal = all(torch.equal(m, host['masks'][p])
+                    for p, m in card['masks'].items())
+  log(f'  learn step in float64, card vs CPU: loss {card["loss"]:.12f} vs '
+      f'{host["loss"]:.12f} (rel {loss_err:.2e}), max rel grad err '
+      f'{grad_err:.2e} (tol {RL_F64_RTOL}), params past {RL_F64_RTOL} x '
+      f'max |w| by {step_err:.2e} (atol {RL_F64_ATOL}), masks equal '
+      f'{masks_equal}')
+  check(loss_err <= RL_F64_RTOL, f'rl: loss rel {loss_err}')
+  check(grad_err <= RL_F64_RTOL, f'rl: grad rel {grad_err}')
+  check(step_err <= RL_F64_ATOL, f'rl: params off by {step_err}')
+  check(masks_equal, 'rl: card and CPU masks differ')
+  return dict(dtype='float64', loss_card=card['loss'], loss_cpu=host['loss'],
+              loss_rel_err=loss_err, max_grad_rel_err=grad_err,
+              rtol=RL_F64_RTOL, params_excess=step_err, atol=RL_F64_ATOL,
+              masks_equal=masks_equal)
+
+
+def _count_syncs(torch, fn):
+  """Host syncs of one fn() call, by torch.cuda.set_sync_debug_mode's
+  warnings."""
+  import warnings
+  torch.cuda.synchronize()
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter('always')
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+      fn()
+    finally:
+      torch.cuda.set_sync_debug_mode('default')
+  return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def _rl_measure(torch, agent, holder, learn=True):
+  """Env steps a second of collect_and_learn (host clock), the learn
+  step's ms (CUDA events), host syncs per env step and per learn step
+  (set_sync_debug_mode), the device-busy share (torch.profiler), on the
+  state in `holder`, which advances."""
+  def chunk():
+    holder['s'], _ = agent.collect_and_learn(holder['s'])
+
+  def env_step():
+    holder['s'] = agent._env_step(holder['s'])
+
+  rec = {}
+  if learn:
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True))
+          for _ in range(RL_LEARN_TIMED)]
+    for a, b in ev:
+      a.record()
+      holder['s'] = agent._learn(holder['s'])
+      b.record()
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in ev)
+    rec['learn_ms'] = ms[len(ms) // 2]
+    rec['learn_syncs'] = _count_syncs(
+        torch, lambda: holder.update(s=agent._learn(holder['s'])))
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(RL_CHUNKS_TIMED):
+    chunk()
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  steps = RL_CHUNKS_TIMED * agent.config.learn_every
+  rec['env_steps_per_s'] = steps / wall
+  rec['chunk_ms'] = wall * 1e3 / RL_CHUNKS_TIMED
+  rec['env_step_syncs'] = _count_syncs(torch, env_step)
+  rec['chunk_syncs'] = (sum(_count_syncs(torch, chunk)
+                            for _ in range(RL_SYNC_CHUNKS)) / RL_SYNC_CHUNKS)
+  prof = profiled_kernel_time(torch, chunk, RL_BUSY_CHUNKS)
+  t0 = time.perf_counter()
+  for _ in range(RL_BUSY_CHUNKS):
+    chunk()
+  torch.cuda.synchronize()
+  wall_ms = (time.perf_counter() - t0) * 1e3 / RL_BUSY_CHUNKS
+  rec['busy'] = (None if prof['kernel_us_per_step'] is None
+                 else prof['kernel_us_per_step'] / 1e3 / wall_ms)
+  rec['kernel_us_per_chunk'] = prof['kernel_us_per_step']
+  return rec
+
+
+def _rl_atari(torch, device, card, path):
+  """Phase 25(a) for one Atari preset (module constants RL_ATARI_*)."""
+  import numpy as np
+  from rigl_tpu_torch.drivers import rl as rl_driver
+  t0 = time.perf_counter()
+  preset, agent_kwargs = rl_driver.load_preset(path)
+  preset.update(total_env_steps=RL_ATARI_ENV_STEPS,
+                maskupdate_frequency=RL_ATARI_FREQUENCY, log_every=0)
+  rec = {}
+  torch.cuda.reset_peak_memory_stats()
+  with _dqn_recorder(torch, rec):
+    result = rl_driver.run(agent_kwargs=agent_kwargs, progress_fn=None,
+                           device='cuda', **preset)
+  train_s = time.perf_counter() - t0
+  agent, state = rec['agent'], rec['agent'].state
+  st, cfg = agent.st, agent.config
+  n_chunks = RL_ATARI_ENV_STEPS // cfg.learn_every
+  n_learn = n_chunks - (-(-cfg.min_replay // cfg.learn_every)) + 1
+  plan = st.predict_update_iters(n_learn)
+  erk = _erk_sparsity(st)
+  final_sparsity = float(result['global_sparsity'])
+  upd_steps = [u['step'] for u in rec['updates']]
+  kept = all(u['counts_kept'] for u in rec['updates'])
+  log(f'rl {path} ({card}): {type(agent.net).__name__} width '
+      f'{preset.get("width", 1.0)}, {result["env_steps"]:.0f} env steps, '
+      f'{rec["learns"]} learn iterations (want {n_learn}) to step '
+      f'{result["learn_steps"]:.0f}; updates at steps {upd_steps}, every '
+      f'layer at its init count: {kept}; '
+      f'layers changed {[len(u["changed"]) for u in rec["updates"]]}; '
+      f'syncs at {[s["step"] for s in rec["syncs"]]}; sparsity init '
+      f'{rec["init_sparsity"]:.5f} final {final_sparsity:.5f} (ERK '
+      f'{erk:.5f}); avg return {result["avg_return"]:.3f} over '
+      f'{result["episodes"]:.0f} episodes; {train_s:.1f} s')
+  check(result['env_steps'] == RL_ATARI_ENV_STEPS, f'rl {path}: env steps')
+  check(rec['learns'] == n_learn, f'rl {path}: {rec["learns"]} learns')
+  check(result['learn_steps'] == n_learn - sum(plan),
+        f'rl {path}: learn steps {result["learn_steps"]}')
+  check(len(upd_steps) == sum(plan) >= 3, f'rl {path}: updates {upd_steps}')
+  check(all(u['counts_kept'] for u in rec['updates']),
+        f'rl {path}: a layer\'s active count moved')
+  check(any(u['changed'] for u in rec['updates']),
+        f'rl {path}: no mask changed')
+  check(abs(rec['init_sparsity'] - erk) <= 0.01
+        and abs(final_sparsity - erk) <= 0.01,
+        f'rl {path}: sparsity {rec["init_sparsity"]} / {final_sparsity} '
+        f'against ERK {erk}')
+  check(len(rec['syncs']) >= 2 and all(
+      s['masks_equal'] and s['params_equal'] and not s['aliased']
+      for s in rec['syncs']), f'rl {path}: target syncs {rec["syncs"]}')
+  check(np.isfinite(result['avg_return']), f'rl {path}: return')
+  check(not st.predict_update_iters(
+      RL_LEARN_TIMED + 1 + RL_CHUNKS_TIMED + 1 + RL_SYNC_CHUNKS
+      + 2 * RL_BUSY_CHUNKS, state.sparse.step,
+      state.sparse.last_update_step).count(True),
+        f'rl {path}: a mask update would land in the measurements')
+  vs_cpu = _rl_learn_vs_cpu(torch, agent, state)
+  holder = {'s': state}
+  measured = _rl_measure(torch, agent, holder)
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  busy = measured['busy']
+  log(f'  {measured["env_steps_per_s"]:.1f} env steps/s in '
+      f'collect_and_learn ({measured["chunk_ms"]:.2f} ms a chunk of '
+      f'{cfg.learn_every} env steps + a learn), learn step '
+      f'{measured["learn_ms"]:.3f} ms (median, CUDA events), busy '
+      f'{busy if busy is None else round(busy, 3)}; '
+      f'host syncs: {measured["env_step_syncs"]} an env step, '
+      f'{measured["learn_syncs"]} a learn step, '
+      f'{measured["chunk_syncs"]:.1f} a collect_and_learn; peak '
+      f'{peak:.3f} GiB ({card})')
+  check(measured['env_step_syncs'] == 0,
+        f'rl {path}: {measured["env_step_syncs"]} syncs in an env step')
+  out = dict(card=card, preset=path, cuts=dict(
+      total_env_steps=RL_ATARI_ENV_STEPS,
+      maskupdate_frequency=RL_ATARI_FREQUENCY),
+      network=type(agent.net).__name__,
+      result=result, learn_iterations=rec['learns'], update_steps=upd_steps,
+      sync_steps=[s['step'] for s in rec['syncs']],
+      init_sparsity=rec['init_sparsity'], erk_sparsity=erk,
+      active_by_layer=rec['init_counts'], learn_vs_cpu=vs_cpu,
+      peak_gib=peak, train_s=train_s, **measured,
+      phase_s=time.perf_counter() - t0)
+  del agent, state, holder, rec
+  torch.cuda.empty_cache()
+  return out
+
+
+def _rl_learning(torch, card, agent_kind, kw, hidden, env_name, steps,
+                 bound):
+  """Phase 25(b): one of test_rl.py's slow learning checks on the card."""
+  import numpy as np
+  from rigl_tpu_torch.rl import dqn, envs, networks, ppo, sac
+  t0 = time.perf_counter()
+  env = envs.ENVS[env_name](device='cuda')
+  if agent_kind == 'dqn':
+    agent = dqn.SparseDQN(networks.MLPQNetwork(
+        env.num_actions, hidden, obs_shape=env.obs_shape, device=env.device),
+        env, dqn.DQNConfig(**kw))
+    result = agent.train(total_env_steps=steps, log_every=0)
+  elif agent_kind == 'ppo':
+    agent = ppo.SparsePPO(env, ppo.PPOConfig(**kw), hidden=hidden)
+    result = agent.train(total_env_steps=steps)
+  else:
+    agent = sac.SparseSAC(env, sac.SACConfig(**kw), hidden=hidden)
+    result = agent.train(total_env_steps=steps, log_every=0)
+  wall = time.perf_counter() - t0
+  log(f'rl learning {agent_kind} on {env_name} ({card}): avg return '
+      f'{result["avg_return"]:.2f} over {result["episodes"]:.0f} episodes '
+      f'(bound {bound}), {result["env_steps"]:.0f} env steps in {wall:.1f} s '
+      f'({result["env_steps"] / wall:.1f} env steps/s), sparsity '
+      f'{result.get("global_sparsity")}')
+  check(np.isfinite(result['avg_return']) and result['avg_return'] > bound,
+        f'rl learning {agent_kind}: avg return {result["avg_return"]}')
+  check(result['episodes'] > (10 if agent_kind == 'sac' else 5),
+        f'rl learning {agent_kind}: {result["episodes"]} episodes')
+  return dict(agent=agent_kind, env=env_name, config=kw, hidden=hidden,
+              total_env_steps=steps, bound=bound, result=result, wall_s=wall,
+              env_steps_per_s=result['env_steps'] / wall)
+
+
+def _rl_preset(torch, card, path, steps):
+  """Phase 25(c): a preset at its widths, `steps` env steps, through
+  drivers.rl.run; its throughput, host syncs a chunk and peak memory on
+  the agent's final state."""
+  import numpy as np
+  from rigl_tpu_torch.drivers import rl as rl_driver
+  from rigl_tpu_torch.rl import dqn, ppo, sac
+  preset, agent_kwargs = rl_driver.load_preset(path)
+  preset.update(total_env_steps=steps, log_every=0)
+  built = []
+  classes = (dqn.SparseDQN, ppo.SparsePPO, sac.SparseSAC)
+  origs = [c.train for c in classes]
+
+  def keep(orig):
+    def train(self, *a, **k):
+      built.append(self)
+      return orig(self, *a, **k)
+    return train
+
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  for c, o in zip(classes, origs):
+    c.train = keep(o)
+  try:
+    result = rl_driver.run(agent_kwargs=agent_kwargs, progress_fn=None,
+                           device='cuda', **preset)
+  finally:
+    for c, o in zip(classes, origs):
+      c.train = o
+  wall = time.perf_counter() - t0
+  agent = built[0]
+  holder = {'s': agent.state}
+  if preset['agent'] == 'ppo':
+    def rollout():
+      holder['s'] = agent._rollout(holder['s'])[0]
+    syncs = _count_syncs(torch, rollout) / agent.config.rollout_length
+    measured = dict(rollout_syncs_per_env_step=syncs)
+  else:
+    measured = _rl_measure(torch, agent, holder, learn=False)
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  log(f'rl {path} ({card}): {result["env_steps"]:.0f} env steps in '
+      f'{wall:.1f} s ({result["env_steps"] / wall:.1f} env steps/s with '
+      f'learning), avg return {result["avg_return"]:.2f}, sparsity '
+      f'{result.get("global_sparsity")}; {measured}; peak {peak:.3f} GiB')
+  check(result['env_steps'] == steps, f'rl {path}: env steps')
+  check(np.isfinite(result['avg_return']), f'rl {path}: return')
+  check(abs(result['global_sparsity'] - preset['end_sparsity']) <= 0.01,
+        f'rl {path}: sparsity {result["global_sparsity"]}')
+  check(measured.get('env_step_syncs', measured.get(
+      'rollout_syncs_per_env_step')) == 0, f'rl {path}: syncs {measured}')
+  return dict(card=card, preset=path, total_env_steps=steps, result=result,
+              wall_s=wall, run_env_steps_per_s=result['env_steps'] / wall,
+              peak_gib=peak, **measured)
+
+
+def phase_rl(torch, device, card):
+  """Phase 25: sparse RL through drivers.rl and the agents (module
+  docstring, constants RL_*).  Returns its record."""
+  t0 = time.perf_counter()
+  atari = {Path(p).stem: _rl_atari(torch, device, card, p) for p in RL_ATARI}
+  learning = [_rl_learning(torch, card, *spec) for spec in RL_LEARN]
+  presets = {Path(p).stem: _rl_preset(torch, card, p, n)
+             for p, n in RL_PRESETS}
+  wall = time.perf_counter() - t0
+  log(f'phase 25 wall time: {wall:.1f} s ({card})')
+  return dict(card=card, atari=atari, learning=learning, presets=presets,
+              wall_s=wall)
+
+
+# ------------------------------------------ analysis and flop count (26) --
+ANALYSIS_CONFIG = 'configs/lenet_rigl.json'
+# The LeNet-5 run's cuts (the preset otherwise: batch 128, momentum 0.05,
+# RigL every 100 steps, ERK 0.9, premask, static update steps, synthetic
+# MNIST): 11719 steps -> 300, checkpoints every 100 batches and at the
+# end (RigL's update batches leave the step behind: steps 99, 198, 297,
+# 300).
+ANALYSIS_OVERRIDES = ('train_steps=300', 'checkpoint_every=100',
+                      'log_every=100')
+ANALYSIS_LANCZOS = 32
+ANALYSIS_METAINIT = 10
+# Lanczos's extreme Ritz values lie inside the exact spectrum in exact
+# arithmetic; both are float32 products of the same operator, so the
+# slack is 1e-3 of the spectrum's largest magnitude.
+ANALYSIS_RITZ_SLACK = 1e-3
+# Interpolation at t = 0 / 1 against the checkpoint's own loss: (1 - t) a
+# + t b at t = -2.8e-17 (linspace's 0) and 1.0 is a and b in float32.
+ANALYSIS_END_RTOL = 1e-6
+FLOPS_RN50 = ('resnet', dict(depth=50, num_classes=1000), (1, 224, 224, 3))
+
+
+def phase_analysis(torch, device, card):
+  """Phase 26: the analysis harness on a checkpointed Trainer run and the
+  flop count (module docstring, constants ANALYSIS_*).  Returns its
+  record."""
+  import shutil
+  import tempfile
+  import numpy as np
+  from rigl_tpu_torch.drivers import analysis as adriver
+  from rigl_tpu_torch.drivers import train as train_driver
+  from rigl_tpu_torch.models import registry
+  from rigl_tpu_torch.sparsity import masks as masks_lib
+  from rigl_tpu_torch.utils import flops
+  t0 = time.perf_counter()
+  tmp = tempfile.mkdtemp(prefix='chip_smoke_analysis_')
+  rec = dict(card=card)
+  try:
+    run_dir = str(Path(tmp) / 'lenet')
+    train = train_driver.main(
+        ['--device=cuda', f'--config={ANALYSIS_CONFIG}',
+         f'--output_dir={run_dir}']
+        + [f'--override={o}' for o in ANALYSIS_OVERRIDES])
+    trainer = adriver._load_trainer(run_dir, device='cuda')
+    steps = adriver._manager(trainer).all_steps()
+    log(f'analysis ({card}): {ANALYSIS_CONFIG} through drivers.train, '
+        f'{train["batches"]} batches, checkpoints {steps}, eval loss '
+        f'{train["eval_loss"]:.4f}, sparsity {train["global_sparsity"]:.4f}')
+    check(len(steps) >= 3 and steps[-1] == 300,
+          f'analysis: checkpoints {steps}')
+
+    def timed(argv):
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      t = time.perf_counter()
+      res = adriver.main(['--device=cuda', f'--run_dir={run_dir}'] + argv)
+      torch.cuda.synchronize()
+      return res, time.perf_counter() - t, \
+          torch.cuda.max_memory_allocated() / 2 ** 30
+
+    exact, exact_s, exact_gib = timed(
+        ['--config=configs/lenet_hessian.json', f'--ckpt_steps={steps[-1]}'])
+    lanczos, lanczos_s, lanczos_gib = timed(
+        ['--config=configs/lenet_hessian.json',
+         f'--lanczos_order={ANALYSIS_LANCZOS}'])
+    e = exact['results'][0]
+    lz = {r['step']: r for r in lanczos['results']}[steps[-1]]
+    slack = ANALYSIS_RITZ_SLACK * max(abs(e['max_eig']), abs(e['min_eig']))
+    log(f'  hessian exact at batch 60000, step {e["step"]}: n_active '
+        f'{e["n_active"]}, eigenvalues [{e["min_eig"]:.6g}, '
+        f'{e["max_eig"]:.6g}], trace {e["trace"]:.6g}; {exact_s:.1f} s, '
+        f'peak {exact_gib:.2f} GiB ({card})')
+    log(f'  lanczos order {ANALYSIS_LANCZOS} on {len(lanczos["results"])} '
+        f'checkpoints: Ritz [{lz["min_eig"]:.6g}, {lz["max_eig"]:.6g}] at '
+        f'step {steps[-1]} (slack {slack:.3g}); {lanczos_s:.1f} s, peak '
+        f'{lanczos_gib:.2f} GiB')
+    check(e['min_eig'] - slack <= lz['min_eig'] and
+          lz['max_eig'] <= e['max_eig'] + slack,
+          f'analysis: Ritz values {lz["min_eig"]}, {lz["max_eig"]} outside '
+          f'[{e["min_eig"]}, {e["max_eig"]}]')
+    check(len(lanczos['results']) == len(steps), 'analysis: lanczos steps')
+    interp, interp_s, _ = timed(['--config=configs/lenet_interpolate.json'])
+    pts = interp['points']
+    batch = adriver._analysis_batch(trainer, 0)
+    loss = adriver._loss_fn(trainer, batch)
+    mgr = adriver._manager(trainer)
+    ends = {}
+    for t, step in ((0.0, interp['step_a']), (1.0, interp['step_b'])):
+      state = mgr.restore(trainer.state, step=step)
+      eff = masks_lib.apply_masks(state.params, state.sparse.masks)
+      with torch.no_grad():
+        want = float(loss(eff, state.batch_stats))
+      got = min(pts, key=lambda p: abs(p['t'] - t))['loss']
+      ends[t] = dict(step=step, loss=got, checkpoint_loss=want)
+      check(abs(got - want) <= ANALYSIS_END_RTOL * abs(want),
+            f'analysis: interpolation at t={t}: {got} vs {want}')
+    log(f'  interpolate {interp["step_a"]} -> {interp["step_b"]}: '
+        f'{len(pts)} points, losses '
+        f'{[round(p["loss"], 4) for p in pts[::4]]} (every 4th), ends '
+        f'equal to the checkpoints\' {ends}; {interp_s:.1f} s')
+    check(len(pts) == 29 and all(np.isfinite(p['loss']) for p in pts),
+          'analysis: interpolation points')
+    meta, meta_s, meta_gib = timed(
+        ['--mode=metainit', f'--metainit_steps={ANALYSIS_METAINIT}'])
+    log(f'  metainit {meta["n_steps"]} steps: GQ {meta["gq_first"]:.5f} -> '
+        f'{meta["gq_last"]:.5f}; {meta_s:.1f} s, peak {meta_gib:.2f} GiB')
+    check(meta['n_steps'] == ANALYSIS_METAINIT and np.isfinite(
+        meta['gq_last']) and meta['gq_last'] < meta['gq_first'],
+          f'analysis: metainit {meta}')
+    name, kw, shape = FLOPS_RN50
+    counts = {}
+    for dev in ('cuda', 'cpu'):
+      model = registry.create_model(name, data_shape=shape[1:], device=dev,
+                                    **kw)
+      counts[dev] = flops.count_model(model, shape)
+    log(f'  count_model RN50: dense flops {counts["cuda"]["dense_flops"]} '
+        f'on the card, {counts["cpu"]["dense_flops"]} on the CPU; params '
+        f'{counts["cuda"]["total_params"]}')
+    check(counts['cuda'] == counts['cpu'], 'analysis: flop counts differ')
+    rec.update(train=train, checkpoints=steps,
+               hessian=dict(exact=e, exact_s=exact_s, exact_peak_gib=exact_gib,
+                            lanczos=lanczos['results'], lanczos_s=lanczos_s,
+                            lanczos_peak_gib=lanczos_gib, slack=slack,
+                            batch=60000),
+               interpolate=dict(points=pts, ends=ends, seconds=interp_s),
+               metainit=dict(meta, seconds=meta_s, peak_gib=meta_gib),
+               rn50_flops=dict(dense_flops=counts['cuda']['dense_flops'],
+                               total_params=counts['cuda']['total_params']))
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  rec['wall_s'] = time.perf_counter() - t0
+  log(f'phase 26 wall time: {rec["wall_s"]:.1f} s ({card})')
+  torch.cuda.empty_cache()
+  return rec
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -4644,6 +5262,8 @@ def main():
     trainer_launches, trainer = phase_trainer(torch, device, card, root)
     moe_points, moe_launches, moe_serve_launches, moe = phase_moe_lm(
         torch, device, card)
+    rl = phase_rl(torch, device, card)
+    analysis = phase_analysis(torch, device, card)
   except SmokeFailure as e:
     print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
     return 1
@@ -4847,7 +5467,8 @@ def main():
                             arms_launches=arms_launches,
                             mlp_launches=mlp_launches, block_mlp=block_mlp),
             'f32_train_step': f32_step, 'zoo': zoo, 'trainer': trainer,
-            'moe_lm': moe, 'wall_s': time.perf_counter() - T0}
+            'moe_lm': moe, 'rl': rl, 'analysis': analysis,
+            'wall_s': time.perf_counter() - T0}
   log(f'chip_smoke wall time: {record["wall_s"]:.1f} s')
   print(json.dumps(record), flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -36,6 +36,12 @@ momentum trace or Adam's slots and the SparseState with its block_packs,
 as numpy) into the port's, so both packages can run from one state;
 `trainer_state_from_jax(trainer, state)` loads a JAX Trainer's TrainState
 into the port's Trainer (train/trainer.py).
+
+`dqn_state_from_jax(agent, state)`, `ppo_state_from_jax` and
+`sac_state_from_jax` carry a JAX RL agent's state (rigl_tpu/rl: params,
+target params and masks, Adam's slots, the SparseState, the replay's
+contents, cursor and size, the env's obs, done and t, the counters) into
+the port's agent of the same config (rigl_tpu_torch/rl).
 """
 
 from __future__ import annotations
@@ -381,3 +387,137 @@ def trainer_state_from_jax(trainer, state):
   trainer.state = new.replace(sparse=new.sparse.replace(
       block_packs=st._compute_packs(new.sparse.masks)))
   return trainer.state
+
+
+# ------------------------------------------------------------- RL agents --
+def _sparse_arrays(params, opt_state, sparse) -> Dict:
+  """train_state_from_jax's arrays of one network of a JAX agent: its
+  params tree, Adam's slots found in `opt_state` and its SparseState."""
+  out = {'params': params, 'batch_stats': None, 'masks': dict(sparse.masks),
+         'step': int(sparse.step),
+         'last_update_step': int(sparse.last_update_step),
+         'is_snipped': bool(sparse.is_snipped),
+         'ema_grads': (None if sparse.ema_grads is None
+                       else dict(sparse.ema_grads)),
+         'initial_weights': (None if sparse.initial_weights is None
+                             else dict(sparse.initial_weights))}
+  _adam_slots(opt_state, out)
+  return out
+
+
+def _adam_slots(opt_state, out):
+  """Adam's mu, nu and count from an optax state, into `out`."""
+  fields = getattr(opt_state, '_fields', ())
+  if 'mu' in fields and 'nu' in fields:
+    out.update(mu=opt_state.mu, nu=opt_state.nu, count=int(opt_state.count))
+  elif isinstance(opt_state, (tuple, list)):
+    for child in opt_state:
+      _adam_slots(child, out)
+  return out
+
+
+def _network(model, st, params, opt_state, sparse):
+  """(params, optimizer, SparseState) of one network: the JAX values in
+  `model`'s own tensors, under `st`."""
+  ts = train_state_from_jax(model, st, _sparse_arrays(params, opt_state,
+                                                       sparse))
+  return ts.params, ts.optimizer, ts.sparse
+
+
+def _tensors(tree, device, dtype=None) -> Dict[str, torch.Tensor]:
+  """{path: tensor} of a params tree or a flat {path: array} dict, in
+  JAX's path order."""
+  from rigl_tpu_torch.sparsity import masks as masks_lib
+  flat = _paths(tree)
+  return {p: torch.from_numpy(np.array(flat[p])).to(device, dtype)
+          for p in masks_lib.path_sorted(flat)}
+
+
+def _scalar(value, device, dtype):
+  return torch.tensor(np.asarray(value), dtype=dtype, device=device)
+
+
+def _common_rl(agent, state, base):
+  """The fields every agent state shares: the env's obs, done and t, the
+  env-step count and the returns bookkeeping."""
+  from rigl_tpu_torch.rl.envs import EnvState
+  dev = agent.device
+  env = state.env_state
+  out = dict(
+      env_state=EnvState(obs=torch.from_numpy(np.array(env.obs)).to(dev),
+                         done=_scalar(env.done, dev, torch.bool),
+                         t=_scalar(env.t, dev, torch.int32),
+                         gen=base.env_state.gen),
+      env_steps=int(state.env_steps),
+      episode_return=_scalar(state.episode_return, dev, torch.float32),
+      completed_returns_sum=_scalar(state.completed_returns_sum, dev,
+                                    torch.float32),
+      completed_episodes=_scalar(state.completed_episodes, dev, torch.int32))
+  if hasattr(state, 'buffer'):
+    from rigl_tpu_torch.rl.replay import ReplayBuffer
+    b = state.buffer
+    t = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
+    out['buffer'] = ReplayBuffer(obs=t(b.obs), action=t(b.action),
+                                 reward=t(b.reward), next_obs=t(b.next_obs),
+                                 done=t(b.done), ptr=int(b.ptr),
+                                 size=int(b.size))
+  return out
+
+
+def dqn_state_from_jax(agent, state, seed: int = 0):
+  """The port's DQNState for `agent` (rl/dqn.py SparseDQN, the JAX
+  agent's config), holding a JAX DQNState's values, on the agent's device.
+  `state`: the JAX struct with its arrays as numpy (its key left out:
+  the port's generators come from agent.init(seed))."""
+  base = agent.init(seed)
+  params, optimizer, sparse = _network(agent.net, agent.st, state.params,
+                                       state.opt_state, state.sparse)
+  dev = agent.device
+  return base.replace(
+      params=params, optimizer=optimizer, sparse=sparse,
+      target_params=_tensors(state.target_params, dev),
+      target_masks=_tensors(state.target_masks, dev, agent.st.mask_dtype),
+      **_common_rl(agent, state, base))
+
+
+def ppo_state_from_jax(agent, state, seed: int = 0):
+  """The port's PPOTrainState for `agent` (rl/ppo.py SparsePPO), holding a
+  JAX PPOTrainState's values (numpy, key left out)."""
+  base = agent.init(seed)
+  params, optimizer, sparse = _network(agent.net, agent.st, state.params,
+                                       state.opt_state, state.sparse)
+  return base.replace(params=params, optimizer=optimizer, sparse=sparse,
+                      **_common_rl(agent, state, base))
+
+
+def sac_state_from_jax(agent, state, seed: int = 0):
+  """The port's SACState for `agent` (rl/sac.py SparseSAC), holding a JAX
+  SACState's values (numpy, key left out): both networks, the target
+  critic, log alpha and its Adam."""
+  from rigl_tpu_torch.transforms.sparse_training import _adam_state
+  base = agent.init(seed)
+  a_params, a_opt, a_sparse = _network(agent.actor, agent.actor_st,
+                                       state.actor_params, state.actor_opt,
+                                       state.actor_sparse)
+  c_params, c_opt, c_sparse = _network(agent.critic, agent.critic_st,
+                                       state.critic_params, state.critic_opt,
+                                       state.critic_sparse)
+  dev = agent.device
+  log_alpha = base.log_alpha
+  with torch.no_grad():
+    log_alpha.fill_(float(np.asarray(state.log_alpha)))
+  slots = _adam_slots(state.alpha_opt, {})
+  alpha_opt = agent.alpha_tx([log_alpha])
+  adam = _adam_state(log_alpha, alpha_opt.param_groups[0])
+  adam['step'].fill_(float(slots['count']))
+  adam['exp_avg'].fill_(float(np.asarray(slots['mu'])))
+  adam['exp_avg_sq'].fill_(float(np.asarray(slots['nu'])))
+  alpha_opt.state[log_alpha] = adam
+  return base.replace(
+      actor_params=a_params, actor_opt=a_opt, actor_sparse=a_sparse,
+      critic_params=c_params, critic_opt=c_opt, critic_sparse=c_sparse,
+      target_critic_params=_tensors(state.target_critic_params, dev),
+      target_critic_masks=_tensors(state.target_critic_masks, dev,
+                                   agent.critic_st.mask_dtype),
+      log_alpha=log_alpha, alpha_opt=alpha_opt,
+      **_common_rl(agent, state, base))

@@ -2440,3 +2440,216 @@ def test_mm_decode_repeats_bitwise_with_one_allocation(cuda_device,
         'allocation.all.allocated'] == count + 1, name
     assert torch.equal(first, second), name
   _force_slices(monkeypatch, None)
+
+
+# ------------------------------------------------------------- sparse RL --
+# The RL path (rigl_tpu_torch/rl) runs no hand-written kernel; these hold
+# its device code against the CPU: env transitions (grid envs bit for
+# bit, CartPole / Pendulum within RL_ENV_TOL: the card's cos / sin /
+# atan2 differ from the CPU's in the last place), a DQN and a SAC learn
+# step from one state in float64 (in float32 a ReLU or Huber boundary
+# that the devices' sums put on either side moves a gradient entry by
+# 2e-3 of its value; in float64 the devices differ by the order of their
+# sums, 1e-15: RL_F64_RTOL on the loss and gradients, and after Adam,
+# which moves a weight whose gradient is near 0 by lr * m / (sqrt(v) +
+# eps), the params within RL_F64_RTOL of the layer's largest plus
+# RL_F64_ATOL), host syncs, and the learning checks of tests/test_rl.py's
+# slow tests.
+RL_ENV_TOL = 1e-5
+RL_F64_RTOL, RL_F64_ATOL = 1e-9, 1e-9
+
+
+def _rl_envs():
+  from rigl_tpu_torch.rl import envs
+  return envs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['Breakout', 'Freeway', 'Asterix',
+                                  'SpaceInvaders', 'CartPole', 'Pendulum'])
+def test_rl_env_transition_card_vs_cpu(cuda_device, name):
+  envs = _rl_envs()
+  cpu, card = getattr(envs, name)(device='cpu'), getattr(envs, name)(
+      device=cuda_device)
+  gen = torch.Generator().manual_seed(3)
+  state = cpu.reset(gen)
+  continuous = name in ('CartPole', 'Pendulum')
+  for i in range(300):
+    if hasattr(cpu, 'num_actions'):
+      action = torch.randint(0, cpu.num_actions, (), generator=gen)
+    else:
+      action = torch.rand((1,), generator=gen) * 5 - 2.5
+    draws = cpu.step_draws(gen)
+    want = cpu.transition(state.obs, state.t, action, draws)
+    got = card.transition(state.obs.to(cuda_device), state.t.to(cuda_device),
+                          action.to(cuda_device),
+                          {k: v.to(cuda_device) for k, v in draws.items()})
+    for g, w in zip(got, want):
+      g = g.cpu()
+      if continuous and g.is_floating_point():
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= RL_ENV_TOL * scale, (name, i)
+      else:
+        assert torch.equal(g, w), (name, i)
+    state = envs.EnvState(obs=want[0], done=want[3], t=want[1], gen=gen)
+
+
+def _as_f64(*nets):
+  for net in nets:
+    net.to(torch.float64)
+    for m in net.modules():
+      if hasattr(m, 'dtype'):
+        m.dtype = torch.float64
+
+
+def _rl_pair(kind, cuda_device):
+  """(CPU agent and state, card agent and state) from one seed, in
+  float64: equal weights and masks (drawn on the CPU), the CPU's replay
+  copied to the card."""
+  from rigl_tpu_torch.rl import dqn, networks, sac
+  envs = _rl_envs()
+  out = []
+  for dev in ('cpu', cuda_device):
+    if kind == 'dqn':
+      env = envs.Breakout(device=dev)
+      agent = dqn.SparseDQN(
+          networks.NatureDQN(3, width=0.5, device=dev), env,
+          dqn.DQNConfig(training_method='rigl', sparsity=0.9, batch_size=32,
+                        buffer_capacity=256, min_replay=64,
+                        maskupdate_begin_step=1000, learning_rate=2.5e-4))
+    else:
+      env = envs.Pendulum(device=dev)
+      agent = sac.SparseSAC(env, sac.SACConfig(
+          training_method='rigl', sparsity=0.8, batch_size=64,
+          buffer_capacity=256, min_replay=64, maskupdate_begin_step=1000))
+    _as_f64(*([agent.net] if kind == 'dqn' else [agent.actor, agent.critic]))
+    out.append((agent, agent.init(0)))
+  (ca, cs), (ga, gs) = out
+  for _ in range(96):
+    cs = ca._env_step(cs)
+  for f in ('obs', 'action', 'reward', 'next_obs', 'done'):
+    getattr(gs.buffer, f).copy_(getattr(cs.buffer, f))
+  gs.buffer.ptr, gs.buffer.size = cs.buffer.ptr, cs.buffer.size
+  return (ca, cs), (ga, gs)
+
+
+def _rl_close(got, want, what):
+  for p, w in want.items():
+    g = got[p].detach().cpu()
+    excess = float((g - w).abs().max() - RL_F64_RTOL * w.abs().max())
+    assert excess <= RL_F64_ATOL, (what, p, excess)
+
+
+@pytest.mark.cuda
+def test_rl_dqn_learn_step_card_vs_cpu(cuda_device):
+  from rigl_tpu_torch.rl import dqn, replay
+  (ca, cs), (ga, gs) = _rl_pair('dqn', cuda_device)
+  gen = torch.Generator().manual_seed(1)
+  for i in range(2):
+    idx = replay.sample_indices(cs.buffer, gen, ca.config.batch_size)
+    grads = []
+    for a, s, ix in ((ca, cs, idx), (ga, gs, idx.to(cuda_device))):
+      eff = dqn.effective(s.params, s.sparse.masks, False, grad=True)
+      loss = a._loss(eff, s.target_params, s.target_masks,
+                     replay.gather(s.buffer, ix))
+      grads.append((float(loss.detach()), dqn.grads_of(loss, eff)))
+    (lc, gc), (lg, gg) = grads
+    assert abs(lg - lc) <= RL_F64_RTOL * abs(lc), (i, lg, lc)
+    for p, g in gg.items():
+      w = gc[p]
+      assert float((g.cpu() - w).abs().max()) <= RL_F64_RTOL * max(
+          float(w.abs().max()), 1e-300), (i, p)
+    cs = ca._learn(cs, idx=idx)
+    gs = ga._learn(gs, idx=idx.to(cuda_device))
+    assert gs.sparse.step == cs.sparse.step
+    _rl_close(gs.params, {p: t.detach() for p, t in cs.params.items()},
+              f'dqn learn {i}')
+    for p, m in cs.sparse.masks.items():
+      assert torch.equal(gs.sparse.masks[p].cpu(), m)
+
+
+@pytest.mark.cuda
+def test_rl_sac_learn_step_card_vs_cpu(cuda_device):
+  (ca, cs), (ga, gs) = _rl_pair('sac', cuda_device)
+  gen = torch.Generator().manual_seed(2)
+  shape = (ca.config.batch_size, 1)
+  for i in range(2):
+    draws = {'idx': torch.randint(0, cs.buffer.size, (shape[0],),
+                                  generator=gen),
+             'eps_next': torch.randn(shape, generator=gen),
+             'eps_pi': torch.randn(shape, generator=gen)}
+    cs = ca._learn(cs, draws)
+    gs = ga._learn(gs, {k: v.to(cuda_device) for k, v in draws.items()})
+    for net in ('actor', 'critic'):
+      _rl_close(getattr(gs, f'{net}_params'),
+                {p: t.detach() for p, t in getattr(cs,
+                                                   f'{net}_params').items()},
+                f'sac {net} learn {i}')
+    _rl_close(gs.target_critic_params, cs.target_critic_params,
+              f'sac target learn {i}')
+    assert abs(float(gs.log_alpha.detach()) - float(cs.log_alpha.detach())
+               ) <= RL_F64_ATOL
+
+
+@pytest.mark.cuda
+def test_rl_env_and_learn_steps_make_no_host_sync(cuda_device):
+  """An env step of each agent, DQN's learn step and PPO's rollout run
+  under torch.cuda.set_sync_debug_mode('error')."""
+  from rigl_tpu_torch.rl import ppo
+  envs = _rl_envs()
+  (_, _), (ga, gs) = _rl_pair('dqn', cuda_device)
+  (_, _), (sa, ss) = _rl_pair('sac', cuda_device)
+  pa = ppo.SparsePPO(envs.CartPole(device=cuda_device),
+                     ppo.PPOConfig(rollout_length=16))
+  ps = pa.init(0)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    for _ in range(8):
+      gs = ga._env_step(gs)
+      ss = sa._env_step(ss)
+    gs = ga._learn(gs)
+    pa._rollout(ps)
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('agent', ['dqn', 'ppo', 'sac'])
+def test_rl_learns_on_card(cuda_device, agent):
+  """tests/test_rl.py's slow learning checks at their settings, on the
+  card: sparse DQN on CartPole above 35 (random play about 20), PPO
+  above 40, SAC on Pendulum above -900 (random about -1200)."""
+  from rigl_tpu_torch.rl import dqn, networks, ppo, sac
+  envs = _rl_envs()
+  if agent == 'dqn':
+    env = envs.CartPole(device=cuda_device)
+    cfg = dqn.DQNConfig(training_method='rigl', sparsity=0.5,
+                        buffer_capacity=5000, min_replay=200, batch_size=64,
+                        learn_every=2, target_update_period=50,
+                        epsilon_decay_steps=2000, maskupdate_frequency=200,
+                        maskupdate_begin_step=100, learning_rate=3e-3)
+    result = dqn.SparseDQN(networks.MLPQNetwork(
+        env.num_actions, hidden=(64, 64), device=cuda_device), env,
+        cfg).train(total_env_steps=6000, log_every=0)
+    assert result['episodes'] > 5
+    assert result['avg_return'] > 35.0
+  elif agent == 'ppo':
+    cfg = ppo.PPOConfig(training_method='rigl', sparsity=0.5,
+                        rollout_length=256, num_epochs=4, num_minibatches=4,
+                        learning_rate=1e-3, maskupdate_frequency=100,
+                        maskupdate_begin_step=50)
+    result = ppo.SparsePPO(envs.CartPole(device=cuda_device), cfg,
+                           hidden=(64, 64)).train(total_env_steps=256 * 60)
+    assert result['episodes'] > 5
+    assert result['avg_return'] > 40.0
+  else:
+    cfg = sac.SACConfig(training_method='rigl', sparsity=0.5,
+                        buffer_capacity=20000, min_replay=500,
+                        batch_size=128, learn_every=1, learning_rate=3e-3,
+                        maskupdate_frequency=1000, maskupdate_begin_step=500)
+    result = sac.SparseSAC(envs.Pendulum(device=cuda_device), cfg,
+                           hidden=(64, 64)).train(total_env_steps=12000,
+                                                  log_every=0)
+    assert result['episodes'] > 10
+    assert result['avg_return'] > -900.0
